@@ -1,0 +1,155 @@
+"""Quantized collectives of QSDP (paper Section 5) — the gather half.
+
+* **Quantized all-gather** ships packed u8 codes + per-bucket (scale, zero)
+  metadata; the receiver dequantizes after the gather.
+* **Coalesced wire format**: every tensor of a layer — packed codes and
+  metadata for quantized tensors, bitcast fp payloads for filtered ones —
+  is serialized into ONE contiguous u8 buffer (``quant.wire_pack``) and
+  gathered with one collective; :class:`WireLayout` describes the buffer.
+
+This slice runs on one rank: the gather of a buffer is the buffer itself,
+as on the JAX package's (1, 1) mesh, while encode and decode still run the
+quantize and dequantize kernels.  A process group of more than one rank
+raises ``NotImplementedError`` (ROADMAP A3).  The reduce-scatter half comes
+with the training slice.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Sequence
+
+import torch
+
+from .quant import (QuantConfig, Quantized, dequantize, fp_pack, fp_segment_bytes,
+                    fp_unpack, quantize, wire_pack, wire_segment_bytes, wire_unpack)
+
+
+def group_size(group) -> int:
+    if group is None:
+        return 1
+    import torch.distributed as dist
+    return dist.get_world_size(group)
+
+
+def require_one_rank(group) -> None:
+    if group_size(group) > 1:
+        raise NotImplementedError(
+            "multi-rank QSDP collectives are not ported yet (ROADMAP A3): "
+            "this slice serves on one rank")
+
+
+# ---------------------------------------------------------------------------
+# Per-tensor gathers
+# ---------------------------------------------------------------------------
+
+
+def all_gather_fp(x: torch.Tensor, group=None,
+                  dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Plain all-gather, optionally through a narrower wire dtype."""
+    require_one_rank(group)
+    if dtype is not None and x.dtype != dtype:
+        return x.to(dtype).to(x.dtype)
+    return x
+
+
+def all_gather_quantized(x: torch.Tensor, cfg: QuantConfig, rand: tuple,
+                         group=None, out_dtype=None) -> torch.Tensor:
+    """Gather a flat (n_local,) shard into the full flat tensor, shipping
+    quantized codes (3 collectives: codes, scale, zero).  `rand`: the
+    shard's rounding randomness from ``quant.draw_rands``."""
+    q = quantize(x, cfg, rand=rand)
+    require_one_rank(group)
+    md = cfg.meta_torch_dtype
+    wire = Quantized(q.codes, q.scale.to(md).to(torch.float32),
+                     q.zero.to(md).to(torch.float32), (x.shape[0],), x.shape[0], cfg)
+    return dequantize(wire).to(out_dtype or x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Coalesced wire collectives: one launch per layer
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class WireSegment:
+    """One tensor inside a coalesced buffer: `n` elements per rank, quantized
+    with `cfg`, or a raw fp payload in `fp_dtype` when cfg is None."""
+
+    n: int
+    cfg: Optional[QuantConfig]
+    fp_dtype: str = "float32"
+
+    @property
+    def nbytes(self) -> int:
+        if self.cfg is None:
+            return fp_segment_bytes(self.n, self.fp_dtype)
+        return wire_segment_bytes(self.n, self.cfg)
+
+
+@dataclasses.dataclass(frozen=True)
+class WireLayout:
+    """Ordered segments of a coalesced buffer."""
+
+    segments: tuple[WireSegment, ...]
+
+    @property
+    def nbytes(self) -> int:
+        return sum(s.nbytes for s in self.segments)
+
+    def offsets(self) -> list[int]:
+        out, off = [], 0
+        for s in self.segments:
+            out.append(off)
+            off += s.nbytes
+        return out
+
+
+def encode_wire(xs: Sequence[torch.Tensor], layout: WireLayout,
+                rands: Sequence[Optional[tuple]]) -> torch.Tensor:
+    """Quantize + serialize every tensor into one (layout.nbytes,) u8
+    buffer.  `rands`: one entry per segment, the rounding randomness of a
+    quantized segment drawn from its own key (``quant.draw_rands``), None
+    for an fp segment; so the bytes equal what per-tensor collectives
+    would ship."""
+    parts = []
+    for i, (x, seg) in enumerate(zip(xs, layout.segments)):
+        flat = x.reshape(-1)
+        if seg.cfg is None:
+            parts.append(fp_pack(flat, seg.fp_dtype))
+        else:
+            parts.append(wire_pack(quantize(flat, seg.cfg, rand=rands[i])))
+    return torch.cat(parts)
+
+
+def gather_wire(buf: torch.Tensor, group=None) -> torch.Tensor:
+    """All-gather a coalesced buffer: (B,) u8 -> (P*B,) u8 in shard order."""
+    require_one_rank(group)
+    return buf
+
+
+def decode_gathered_wire(gbuf: torch.Tensor, layout: WireLayout, p: int,
+                         out_dtypes: Sequence) -> list[torch.Tensor]:
+    """Decode a gathered (P * layout.nbytes,) buffer into full flat tensors
+    [(P * seg.n,) in out_dtype], each shard decoded with its own padding."""
+    rows = gbuf.reshape(p, layout.nbytes)
+    outs = []
+    for seg, off, dt in zip(layout.segments, layout.offsets(), out_dtypes):
+        vals = []
+        for r in range(p):
+            sb = rows[r, off:off + seg.nbytes]
+            if seg.cfg is None:
+                vals.append(fp_unpack(sb, seg.n, seg.fp_dtype))
+            else:
+                vals.append(dequantize(wire_unpack(sb, seg.n, seg.cfg)))
+        full = vals[0] if p == 1 else torch.cat(vals)
+        outs.append(full.to(dt))
+    return outs
+
+
+def all_gather_coalesced(xs: Sequence[torch.Tensor], layout: WireLayout,
+                         rands: Sequence[Optional[tuple]], out_dtypes: Sequence,
+                         group=None) -> list[torch.Tensor]:
+    """One-launch layer gather: encode -> 1 all-gather -> decode."""
+    gbuf = gather_wire(encode_wire(xs, layout, rands), group)
+    return decode_gathered_wire(gbuf, layout, group_size(group), out_dtypes)
+

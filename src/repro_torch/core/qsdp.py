@@ -1,0 +1,332 @@
+"""The QSDP engine — the forward (gather) half, for serving.
+
+Every logical parameter is stored at rest in the JAX package's distributed
+layout
+
+    (stack?, MODEL, FSDP, n_local)
+
+with ``n_local = ceil(prod(tp_local_shape) / FSDP)``, flat and zero-padded,
+so the port's gathered wire bytes compare with the reference's byte for
+byte.  :meth:`QSDPEngine.gather_layer` rebuilds the TP-local tensors of one
+layer: quantize every shard (shift rounding, Def. 1) -> serialize into one
+coalesced u8 buffer -> all-gather -> decode.  Per-tensor keys are
+``fold_in(key, stable_hash(name))``, exactly as in the JAX package, so the
+quantization randomness is the reference's.
+
+Inference only: the autograd Functions (``qsdp_gather`` with the quantized
+reduce-scatter backward) come with the training slice (ROADMAP A4).  This
+slice runs on the (1, 1) mesh.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional
+
+import torch
+
+from ..kernels.ops import RowQuantWeight
+from . import collectives as coll
+from . import prng
+from .quant import QuantConfig, draw_rands, quantize, quantized_shapes, unpack_codes
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "float16": torch.float16}
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshSpec:
+    """Static view of the mesh: axes ("data", "model") or ("pod", "data",
+    "model") and their sizes."""
+
+    axes: tuple[str, ...]
+    shape: tuple[int, ...]
+
+    @property
+    def fsdp_size(self) -> int:
+        s = dict(zip(self.axes, self.shape))
+        return s["data"] * s.get("pod", 1)
+
+    @property
+    def model_size(self) -> int:
+        return dict(zip(self.axes, self.shape))["model"]
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamSpec:
+    """One logical parameter of the model."""
+
+    shape: tuple[int, ...]            # logical (TP-global) shape, no stack dim
+    tp_axis: Optional[int] = None     # axis sharded over "model"
+    stack: Optional[int] = None       # layers stacked on a leading axis
+    init: str = "normal"              # normal | scaled_normal | zeros | ones | constant
+    init_scale: float = 0.02
+    quantize: bool = True             # False: always full-precision comm
+
+    def tp_local_shape(self, model_size: int) -> tuple[int, ...]:
+        if self.tp_axis is None:
+            return self.shape
+        if self.shape[self.tp_axis] % model_size:
+            raise ValueError(f"{self.shape} axis {self.tp_axis} does not split "
+                             f"over {model_size} ranks")
+        s = list(self.shape)
+        s[self.tp_axis] //= model_size
+        return tuple(s)
+
+    def n_logical_local(self, model_size: int) -> int:
+        return math.prod(self.tp_local_shape(model_size))
+
+    def n_local(self, ms: MeshSpec) -> int:
+        return -(-self.n_logical_local(ms.model_size) // ms.fsdp_size)
+
+    def rest_shape(self, ms: MeshSpec) -> tuple[int, ...]:
+        base = (ms.model_size, ms.fsdp_size, self.n_local(ms))
+        return (self.stack, *base) if self.stack is not None else base
+
+
+def to_rest(full: torch.Tensor, spec: ParamSpec, ms: MeshSpec) -> torch.Tensor:
+    """Logical layout -> rest layout (stack?, MODEL, FSDP, n_local)."""
+    lead = 1 if spec.stack is not None else 0
+    x = full
+    if spec.tp_axis is not None:
+        ax = spec.tp_axis + lead
+        s = list(x.shape)
+        x = x.reshape(*s[:ax], ms.model_size, s[ax] // ms.model_size, *s[ax + 1:])
+        x = torch.movedim(x, ax, lead)
+    else:
+        x = x.unsqueeze(lead)
+        x = x.expand(*x.shape[:lead], ms.model_size, *x.shape[lead + 1:])
+    batch_dims = x.shape[: lead + 1]
+    flat = x.reshape(*batch_dims, -1)
+    n = flat.shape[-1]
+    n_local = -(-n // ms.fsdp_size)
+    pad = n_local * ms.fsdp_size - n
+    if pad:
+        flat = torch.nn.functional.pad(flat, (0, pad))
+    return flat.reshape(*batch_dims, ms.fsdp_size, n_local).contiguous()
+
+
+def from_rest(rest: torch.Tensor, spec: ParamSpec, ms: MeshSpec) -> torch.Tensor:
+    """Rest layout -> logical layout."""
+    lead = 1 if spec.stack is not None else 0
+    batch_dims = rest.shape[: lead + 1]
+    local = spec.tp_local_shape(ms.model_size)
+    x = rest.reshape(*batch_dims, -1)[..., : math.prod(local)]
+    x = x.reshape(*batch_dims, *local)
+    if spec.tp_axis is None:
+        return x[:, 0] if lead else x[0]
+    ax = spec.tp_axis + lead
+    x = torch.movedim(x, lead, ax)
+    s = list(x.shape)
+    return x.reshape(*s[:ax], s[ax] * s[ax + 1], *s[ax + 2:])
+
+
+def init_param(gen: torch.Generator, spec: ParamSpec, ms: MeshSpec,
+               device) -> torch.Tensor:
+    """Random init from an explicit generator (not bit-equal to the JAX
+    package's ``jax.random.normal`` init: load its weights with
+    ``weights.params_from_jax`` to compare the two)."""
+    shape = ((spec.stack,) if spec.stack is not None else ()) + spec.shape
+    f32 = dict(dtype=torch.float32, device=device)
+    if spec.init == "zeros":
+        full = torch.zeros(shape, **f32)
+    elif spec.init == "ones":
+        full = torch.ones(shape, **f32)
+    elif spec.init == "constant":
+        full = torch.full(shape, spec.init_scale, **f32)
+    elif spec.init == "normal":
+        full = torch.randn(shape, generator=gen, **f32) * spec.init_scale
+    elif spec.init == "scaled_normal":
+        fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
+        full = torch.randn(shape, generator=gen, **f32) * (spec.init_scale / math.sqrt(fan_in))
+    else:
+        raise ValueError(spec.init)
+    return to_rest(full, spec, ms)
+
+
+@dataclasses.dataclass(frozen=True)
+class QSDPConfig:
+    """Weight-gather policy; the paper's QSDP default is W8, bucket 1024.
+    The gradient half of the JAX package's config comes with the training
+    slice, together with the code that reads it."""
+
+    quantize_weights: bool = True
+    weight_bits: int = 8
+    bucket_size: int = 1024
+    weight_mode: str = "shift"
+    min_quant_size: int = 2048
+    weight_wire_dtype: str = "float32"
+    compute_dtype: str = "bfloat16"
+    attn_bf16: bool = False
+    dequant_to_compute: bool = False
+    rand_bits: int = 32
+    coalesce: bool = True
+    coalesce_max_bytes: Optional[int] = None
+    meta_wire_dtype: str = "float32"
+
+    @classmethod
+    def baseline(cls) -> "QSDPConfig":
+        """The paper's FSDP baseline: fp32 weights, per-tensor collectives."""
+        return cls(quantize_weights=False, coalesce=False)
+
+    def wcfg(self) -> QuantConfig:
+        return QuantConfig(bits=self.weight_bits, bucket_size=self.bucket_size,
+                           mode=self.weight_mode, rand_bits=self.rand_bits,
+                           meta_dtype=self.meta_wire_dtype)
+
+
+class QSDPEngine:
+    """Binds a MeshSpec + QSDPConfig + parameter specs into gather calls."""
+
+    def __init__(self, ms: MeshSpec, cfg: QSDPConfig, specs: dict[str, ParamSpec],
+                 group=None):
+        if ms.fsdp_size * ms.model_size > 1:
+            raise NotImplementedError(
+                f"mesh {dict(zip(ms.axes, ms.shape))}: multi-rank QSDP is not "
+                "ported yet (ROADMAP A3/A4); this slice serves on the (1, 1) mesh")
+        self.ms = ms
+        self.cfg = cfg
+        self.specs = specs
+        self.group = group
+        self.compute_dtype = _DTYPES[cfg.compute_dtype]
+
+    # -- static policy --------------------------------------------------------
+
+    def _is_quantized(self, spec: ParamSpec) -> bool:
+        return (spec.quantize and self.cfg.quantize_weights
+                and spec.n_logical_local(self.ms.model_size) >= self.cfg.min_quant_size)
+
+    def layout(self, names: tuple[str, ...]) -> coll.WireLayout:
+        """Coalesced wire layout of one gather of `names` (in that order)."""
+        wcfg = self.cfg.wcfg()
+        return coll.WireLayout(tuple(
+            coll.WireSegment(self.specs[n].n_local(self.ms),
+                             wcfg if self._is_quantized(self.specs[n]) else None,
+                             self.cfg.weight_wire_dtype)
+            for n in names))
+
+    def layer_wire_bytes(self, names: tuple[str, ...]) -> int:
+        return self.ms.fsdp_size * self.layout(tuple(names)).nbytes
+
+    def layer_coalesced(self, names: tuple[str, ...]) -> bool:
+        """Ship these params as ONE wire buffer iff ``cfg.coalesce`` and the
+        gathered buffer stays under ``cfg.coalesce_max_bytes``."""
+        if not self.cfg.coalesce:
+            return False
+        if self.cfg.coalesce_max_bytes is None:
+            return True
+        return self.layer_wire_bytes(names) <= self.cfg.coalesce_max_bytes
+
+    # -- gathers ----------------------------------------------------------------
+
+    def draw_rands(self, gathers, device) -> dict:
+        """The rounding randomness of several gathers, drawn in ONE pass.
+
+        gathers: [(full param names, gather key)] — one entry per gather a
+        step will make.  Returns {(full name, gather key): (rand,
+        rand_scale)} for every quantized tensor among them: the same bits
+        each gather would draw for itself from fold_in(key,
+        stable_hash(name)).  A decode step passes the result to its gathers
+        so the threefry work is one pass per step, not one per layer."""
+        wcfg = self.cfg.wcfg()
+        entries = [(n, k) for names, k in gathers for n in names
+                   if self._is_quantized(self.specs[n])]
+        keys = [prng.fold_in(k, prng.stable_hash(n)) for n, k in entries]
+        nbs = [quantized_shapes(self.specs[n].n_local(self.ms), wcfg)["scale"][0]
+               for n, _ in entries]
+        return dict(zip(entries, draw_rands([wcfg] * len(entries), keys, nbs, device)))
+
+    def _reshape_full(self, name: str, full: torch.Tensor) -> torch.Tensor:
+        spec = self.specs[name]
+        n = spec.n_logical_local(self.ms.model_size)
+        w = full[:n].reshape(spec.tp_local_shape(self.ms.model_size))
+        return w.to(self.compute_dtype)
+
+    def _gather_per_tensor(self, name: str, flat: torch.Tensor, key: prng.Key,
+                           rands: dict) -> torch.Tensor:
+        """Per-tensor gather: 3 collectives for a quantized param, 1 for an
+        fp payload."""
+        if self._is_quantized(self.specs[name]):
+            out_dt = self.compute_dtype if self.cfg.dequant_to_compute else None
+            full = coll.all_gather_quantized(flat, self.cfg.wcfg(), rands[(name, key)],
+                                             self.group, out_dtype=out_dt)
+        else:
+            full = coll.all_gather_fp(flat, self.group,
+                                      _DTYPES[self.cfg.weight_wire_dtype])
+        return self._reshape_full(name, full)
+
+    def gather(self, name: str, local: torch.Tensor, key: prng.Key,
+               rands: dict) -> torch.Tensor:
+        """The TP-local tensor of parameter `name` from its flat shard."""
+        return self.gather_layer("", {name: local}, key, rands)[name]
+
+    def gather_layer(self, prefix: str, leaves: dict[str, torch.Tensor],
+                     key: prng.Key, rands: dict) -> dict[str, torch.Tensor]:
+        """Gather every parameter of one layer dict — ONE collective for the
+        whole layer under ``cfg.coalesce``, per-tensor otherwise.  `rands`:
+        the randomness drawn by :meth:`draw_rands` for (name, key)."""
+        if not leaves:
+            return {}
+        names = tuple(sorted(leaves))
+        full_names = tuple(f"{prefix}{k}" for k in names)
+        if not self.layer_coalesced(full_names):
+            return {k: self._gather_per_tensor(f"{prefix}{k}", v.reshape(-1), key, rands)
+                    for k, v in leaves.items()}
+        out_dt = self.compute_dtype if self.cfg.dequant_to_compute else torch.float32
+        layout = self.layout(full_names)
+        fulls = coll.all_gather_coalesced(
+            [leaves[k].reshape(-1) for k in names], layout,
+            [rands[(n, key)] if s.cfg is not None else None
+             for n, s in zip(full_names, layout.segments)],
+            [out_dt if s.cfg is not None else torch.float32 for s in layout.segments],
+            self.group)
+        return {k: self._reshape_full(n, f) for k, n, f in zip(names, full_names, fulls)}
+
+    # -- code-form gather (serve/decode) -----------------------------------------
+
+    def _rowquant_tiling_ok(self, spec: ParamSpec, cfg: QuantConfig) -> bool:
+        """Do `cfg`'s buckets tile this weight's rows exactly?  2-D shape, N
+        a multiple of the bucket and FSDP shards of whole buckets."""
+        shape = spec.tp_local_shape(self.ms.model_size)
+        n = spec.n_logical_local(self.ms.model_size)
+        p = self.ms.fsdp_size
+        return (cfg.bucket_size % cfg.codes_per_byte == 0
+                and len(shape) == 2
+                and shape[1] % cfg.bucket_size == 0
+                and n % p == 0
+                and (n // p) % cfg.bucket_size == 0)
+
+    def _assemble_rowquant(self, spec: ParamSpec, cfg: QuantConfig, q) -> RowQuantWeight:
+        """Gather a shard's (codes, scale, zero) and reshape into the
+        (K, N) / (K, N / bucket) RowQuantWeight layout."""
+        coll.require_one_rank(self.group)
+        codes = q.codes
+        if cfg.codes_per_byte > 1:
+            codes = unpack_codes(codes, cfg.bits)
+        k_dim, n_dim = spec.tp_local_shape(self.ms.model_size)
+        n_seg = n_dim // cfg.bucket_size
+        return RowQuantWeight(codes=codes.reshape(k_dim, n_dim),
+                              scale=q.scale.reshape(k_dim, n_seg),
+                              zero=q.zero.reshape(k_dim, n_seg))
+
+    def rowquant_eligible(self, name: str) -> bool:
+        spec = self.specs[name]
+        return self._is_quantized(spec) and self._rowquant_tiling_ok(spec, self.cfg.wcfg())
+
+    def gather_rowquant(self, name: str, local: torch.Tensor, key: prng.Key,
+                        rands: dict):
+        """Gather `name` as a :class:`RowQuantWeight` (wire codes + per-bucket
+        affine) for ``ops.rowquant_matmul``; the dense :meth:`gather` when
+        the buckets do not tile its rows."""
+        if not self.rowquant_eligible(name):
+            return self.gather(name, local, key, rands)
+        wcfg = self.cfg.wcfg()
+        return self._assemble_rowquant(self.specs[name], wcfg,
+                                       quantize(local.reshape(-1), wcfg, rand=rands[(name, key)]))
+
+    # -- host-side helpers ----------------------------------------------------------
+
+    def init_params(self, seed: int, device) -> dict[str, torch.Tensor]:
+        gen = torch.Generator(device=device).manual_seed(seed)
+        return {name: init_param(gen, spec, self.ms, device)
+                for name, spec in sorted(self.specs.items())}

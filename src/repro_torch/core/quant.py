@@ -1,0 +1,228 @@
+"""Wire quantizers of QSDP (Markov et al., ICML 2023, Section 5) in PyTorch.
+
+The bucketed min-max scheme: a tensor is flattened, zero-padded and split
+into equal buckets (default 1024); each bucket is scaled to ``[0, levels]``
+with its own (scale, zero) pair and rounded with one of three modes —
+"shift" (Def. 1, weights), "stochastic" (Def. 12, gradients) or "nearest".
+A :class:`Quantized` holds packed u8 codes: exactly what QSDP puts on the
+wire, byte for byte the same as the JAX package's ``core.quant``.
+
+Randomness is drawn from the threefry twin (``core.prng``) exactly as the
+JAX package draws it, so shift- and stochastic-mode bytes are comparable
+bit for bit.  The quantize and dequantize work runs in ``kernels.ops``: the
+CUDA kernels for tensors on the card, the plain versions on the CPU.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional, Sequence
+
+import torch
+
+from ..kernels import ops
+from ..kernels.ref import codes_per_byte, pack_codes, unpack_codes  # noqa: F401
+from . import prng
+
+_MODES = ("shift", "stochastic", "nearest")
+_META_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+_FP_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+              "float16": torch.float16}
+
+
+@dataclasses.dataclass(frozen=True)
+class QuantConfig:
+    """Static configuration of the wire quantizer.
+
+    bits:        code width (1..8); 8 % bits == 0 widths are bit-packed, the
+                 others take one byte per code.
+    bucket_size: independent scaling granularity (paper default 1024).
+    mode:        "shift" | "stochastic" | "nearest".
+    rand_bits:   stochastic thresholds as f32 uniforms (32) or u16 raw bits
+                 compared against frac * 65536 (16).
+    meta_dtype:  on-wire dtype of scale/zero: "float32" or "bfloat16".
+    """
+
+    bits: int = 8
+    bucket_size: int = 1024
+    mode: str = "shift"
+    rand_bits: int = 32
+    meta_dtype: str = "float32"
+
+    def __post_init__(self):
+        if not 1 <= self.bits <= 8:
+            raise ValueError(f"bits must be in 1..8, got {self.bits}")
+        if self.mode not in _MODES:
+            raise ValueError(f"mode must be one of {_MODES}, got {self.mode!r}")
+        if self.rand_bits not in (16, 32):
+            raise ValueError(f"rand_bits must be 16 or 32, got {self.rand_bits}")
+        if self.meta_dtype not in _META_DTYPES:
+            raise ValueError(f"meta_dtype must be float32 or bfloat16, got "
+                             f"{self.meta_dtype!r}")
+
+    @property
+    def levels(self) -> int:
+        return (1 << self.bits) - 1
+
+    @property
+    def codes_per_byte(self) -> int:
+        return codes_per_byte(self.bits)
+
+    @property
+    def meta_bytes(self) -> int:
+        return 2 if self.meta_dtype == "bfloat16" else 4
+
+    @property
+    def meta_torch_dtype(self) -> torch.dtype:
+        return _META_DTYPES[self.meta_dtype]
+
+
+@dataclasses.dataclass
+class Quantized:
+    """A quantized tensor as transmitted by QSDP.
+
+    codes: u8 (n_buckets, bucket_size // codes_per_byte)
+    scale: f32 (n_buckets,);  zero: f32 (n_buckets,)
+    shape / size: original shape and element count (before padding)
+    """
+
+    codes: torch.Tensor
+    scale: torch.Tensor
+    zero: torch.Tensor
+    shape: tuple
+    size: int
+    cfg: QuantConfig
+
+    @property
+    def wire_bytes(self) -> int:
+        mb = self.cfg.meta_bytes
+        return self.codes.numel() + mb * (self.scale.numel() + self.zero.numel())
+
+
+def _to_buckets(x: torch.Tensor, bucket_size: int) -> tuple[torch.Tensor, int]:
+    flat = x.reshape(-1).to(torch.float32)
+    size = flat.numel()
+    pad = (-size) % bucket_size
+    if pad:
+        flat = torch.cat([flat, flat.new_zeros(pad)])
+    return flat.reshape(-1, bucket_size).contiguous(), size
+
+
+def draw_rand(cfg: QuantConfig, key: Optional[prng.Key], nb: int,
+              device) -> tuple[torch.Tensor, float]:
+    """The rounding randomness of one quantize call, drawn as the JAX
+    package draws it (``core/quant.py:241-254``): (rand, rand_scale)."""
+    if cfg.mode in ("shift", "stochastic") and key is None:
+        raise ValueError(f"mode={cfg.mode!r} requires a PRNG key")
+    if cfg.mode == "stochastic":
+        shape = (nb, cfg.bucket_size)
+        if cfg.rand_bits == 16:
+            return prng.bits(key, shape, device, width=16).to(torch.float32), 65536.0
+        return prng.uniform(key, shape, device), 1.0
+    if cfg.mode == "shift":
+        return prng.uniform(key, (nb, 1), device, -0.5, 0.5), 1.0
+    return torch.zeros((nb, 1), dtype=torch.float32, device=device), 1.0
+
+
+def draw_rands(cfgs: Sequence[QuantConfig], keys: Sequence[prng.Key],
+               nbs: Sequence[int], device) -> list[tuple[torch.Tensor, float]]:
+    """:func:`draw_rand` for several tensors.  All shift-mode draws are made
+    in one pass (``prng.uniform_segments``) — the same bits as one draw per
+    tensor, with a launch count that does not grow with the tensor count."""
+    shift = [i for i, c in enumerate(cfgs) if c.mode == "shift"]
+    out: list = [None] * len(cfgs)
+    if shift:
+        if any(keys[i] is None for i in shift):
+            raise ValueError("mode='shift' requires a PRNG key")
+        flat = prng.uniform_segments([keys[i] for i in shift],
+                                     [nbs[i] for i in shift], device, -0.5, 0.5)
+        for i, r in zip(shift, torch.split(flat, [nbs[i] for i in shift])):
+            out[i] = (r.reshape(-1, 1), 1.0)
+    for i, c in enumerate(cfgs):
+        if out[i] is None:
+            out[i] = draw_rand(c, keys[i], nbs[i], device)
+    return out
+
+
+def quantize(x: torch.Tensor, cfg: QuantConfig, key: Optional[prng.Key] = None,
+             rand: Optional[tuple[torch.Tensor, float]] = None) -> Quantized:
+    """Bucketed min-max quantization with packed codes (K1).
+
+    `rand` (optional) is a pre-drawn ``(rand, rand_scale)`` pair from
+    :func:`draw_rands`; by default it is drawn here from `key`."""
+    buckets, size = _to_buckets(x, cfg.bucket_size)
+    nb = buckets.shape[0]
+    r, rand_scale = rand if rand is not None else draw_rand(cfg, key, nb, x.device)
+    codes, scale, zero = ops.quantize_pack(buckets, r, cfg.levels, cfg.bits,
+                                           cfg.mode, rand_scale)
+    return Quantized(codes=codes, scale=scale[:, 0], zero=zero[:, 0],
+                     shape=tuple(x.shape), size=size, cfg=cfg)
+
+
+def dequantize(q: Quantized, dtype=torch.float32) -> torch.Tensor:
+    """Affine decode back to the original shape (K2)."""
+    x = ops.unpack_dequantize(q.codes, q.scale[:, None], q.zero[:, None],
+                              q.cfg.bits, dtype)
+    return x.reshape(-1)[: q.size].reshape(q.shape)
+
+
+# ---------------------------------------------------------------------------
+# Byte formulas and the serialized wire segment
+#
+#     [ codes : nb * bucket/cpb bytes | scale : nb * mb | zero : nb * mb ]
+#
+# with mb = cfg.meta_bytes; a raw fp segment is the bitcast of the tensor in
+# its wire dtype.  Same layout as the JAX package (``core/quant.py:365``).
+# ---------------------------------------------------------------------------
+
+
+def quantized_shapes(n: int, cfg: QuantConfig) -> dict:
+    nb = -(-n // cfg.bucket_size)
+    return dict(codes=(nb, cfg.bucket_size // cfg.codes_per_byte),
+                scale=(nb,), zero=(nb,))
+
+
+def wire_segment_bytes(n: int, cfg: QuantConfig) -> int:
+    """Byte length of the wire segment of an n-element tensor."""
+    s = quantized_shapes(n, cfg)
+    return math.prod(s["codes"]) + 2 * cfg.meta_bytes * s["scale"][0]
+
+
+def fp_segment_bytes(n: int, dtype_str: str) -> int:
+    return n * _FP_DTYPES[dtype_str].itemsize
+
+
+def _f2b(x: torch.Tensor) -> torch.Tensor:
+    return x.contiguous().view(torch.uint8).reshape(-1)
+
+
+def _b2f(buf: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    # clone: a slice of a coalesced buffer need not be aligned for the view
+    return buf.clone().view(dtype)
+
+
+def wire_pack(q: Quantized) -> torch.Tensor:
+    md = q.cfg.meta_torch_dtype
+    return torch.cat([q.codes.reshape(-1), _f2b(q.scale.to(md)), _f2b(q.zero.to(md))])
+
+
+def wire_unpack(buf: torch.Tensor, n: int, cfg: QuantConfig,
+                shape: Optional[tuple] = None) -> Quantized:
+    s = quantized_shapes(n, cfg)
+    nb = s["scale"][0]
+    cb = math.prod(s["codes"])
+    mb = cfg.meta_bytes
+    md = cfg.meta_torch_dtype
+    codes = buf[:cb].reshape(s["codes"])
+    scale = _b2f(buf[cb:cb + nb * mb], md).to(torch.float32)
+    zero = _b2f(buf[cb + nb * mb:cb + 2 * nb * mb], md).to(torch.float32)
+    return Quantized(codes, scale, zero, shape or (n,), n, cfg)
+
+
+def fp_pack(x: torch.Tensor, dtype_str: str) -> torch.Tensor:
+    return _f2b(x.reshape(-1).to(_FP_DTYPES[dtype_str]))
+
+
+def fp_unpack(buf: torch.Tensor, n: int, dtype_str: str) -> torch.Tensor:
+    return _b2f(buf[: n * _FP_DTYPES[dtype_str].itemsize],
+                _FP_DTYPES[dtype_str]).to(torch.float32)

@@ -1,0 +1,152 @@
+"""Checked wrappers around the CUDA kernels, with one launch counter each.
+
+A tensor on the CPU goes to the plain version in ``kernels.ref``; a tensor
+on the card launches the kernel (built from ``csrc/`` at first use) on
+``torch.cuda.current_stream()``, or raises.  There is no fallback: a CUDA
+tensor never takes the plain path.
+
+``LAUNCHES[name]`` counts kernel launches and nothing else, so a run can
+show which kernels its main path went through (``reset_launches()`` zeroes
+the counts).
+"""
+from __future__ import annotations
+
+from collections import Counter
+from typing import NamedTuple
+
+import torch
+
+from . import build, ref
+
+KERNELS = ("quantize_pack", "unpack_dequantize", "rowquant_matmul")
+LAUNCHES: Counter = Counter({k: 0 for k in KERNELS})
+
+_MODE_IDS = {"nearest": 0, "stochastic": 1, "shift": 2}
+
+
+def reset_launches() -> None:
+    for k in KERNELS:
+        LAUNCHES[k] = 0
+
+
+def _on_cpu(*ts: torch.Tensor) -> bool:
+    devs = {t.device.type for t in ts}
+    if devs == {"cpu"}:
+        return True
+    if devs == {"cuda"} and len({t.device for t in ts}) == 1:
+        return False
+    raise ValueError(f"tensors must all be on the CPU or on one CUDA device, "
+                     f"got {[str(t.device) for t in ts]}")
+
+
+def _check(name: str, t: torch.Tensor, dtype, shape: tuple) -> None:
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+
+
+def _stream() -> int:
+    return torch.cuda.current_stream().cuda_stream
+
+
+def _raise_on(rc: int, kernel: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{kernel}: CUDA error {rc} at launch")
+
+
+def quantize_pack(x: torch.Tensor, rand: torch.Tensor, levels: int, bits: int,
+                  mode: str = "nearest", rand_scale: float = 1.0):
+    """K1: fused bucketed quantize + bit-pack of (nb, bucket) f32 rows.
+    Returns (codes u8 (nb, bucket*bits/8 or bucket), scale (nb, 1),
+    zero (nb, 1)); `rand` as in ``ref.quantize_pack_ref``."""
+    if _on_cpu(x, rand):
+        return ref.quantize_pack_ref(x, rand, levels, bits, mode, rand_scale)
+    nb, bucket = x.shape
+    k = ref.codes_per_byte(bits)
+    if mode not in _MODE_IDS or bucket % k or not 1 <= bits <= 8:
+        raise ValueError(f"unsupported mode={mode!r} bits={bits} bucket={bucket}")
+    rand_cols = bucket if mode == "stochastic" else 1
+    _check("x", x, torch.float32, (nb, bucket))
+    _check("rand", rand, torch.float32, (nb, rand_cols))
+    codes = torch.empty((nb, bucket // k), dtype=torch.uint8, device=x.device)
+    scale = torch.empty((nb, 1), dtype=torch.float32, device=x.device)
+    zero = torch.empty((nb, 1), dtype=torch.float32, device=x.device)
+    rc = build.load("quantize").qsdp_quantize_pack(
+        x.data_ptr(), rand.data_ptr(), rand_cols, codes.data_ptr(),
+        scale.data_ptr(), zero.data_ptr(), nb, bucket, bits, levels,
+        1.0 / levels, _MODE_IDS[mode], rand_scale, _stream())
+    _raise_on(rc, "quantize_pack")
+    LAUNCHES["quantize_pack"] += 1
+    return codes, scale, zero
+
+
+def unpack_dequantize(codes: torch.Tensor, scale: torch.Tensor,
+                      zero: torch.Tensor, bits: int,
+                      dtype=torch.float32) -> torch.Tensor:
+    """K2: fused bit-unpack + affine decode: (nb, bucket*bits/8) packed u8 +
+    (nb, 1) scale/zero -> (nb, bucket) in `dtype` (f32 or bf16)."""
+    if _on_cpu(codes, scale, zero):
+        return ref.unpack_dequantize_ref(codes, scale, zero, bits, dtype)
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"unpack_dequantize writes f32 or bf16, not {dtype}")
+    nb, nbytes = codes.shape
+    bucket = nbytes * ref.codes_per_byte(bits)
+    _check("codes", codes, torch.uint8, (nb, nbytes))
+    _check("scale", scale, torch.float32, (nb, 1))
+    _check("zero", zero, torch.float32, (nb, 1))
+    out = torch.empty((nb, bucket), dtype=dtype, device=codes.device)
+    rc = build.load("quantize").qsdp_unpack_dequantize(
+        codes.data_ptr(), scale.data_ptr(), zero.data_ptr(), out.data_ptr(),
+        int(dtype == torch.bfloat16), nb, bucket, bits, _stream())
+    _raise_on(rc, "unpack_dequantize")
+    LAUNCHES["unpack_dequantize"] += 1
+    return out
+
+
+class RowQuantWeight(NamedTuple):
+    """A (K, N) matmul weight kept in quantized code form: codes (K, N) u8,
+    scale/zero (K, n_seg) f32, the affine constant over N-segments of
+    N / n_seg columns (n_seg == N / bucket is the QSDP wire layout)."""
+
+    codes: torch.Tensor
+    scale: torch.Tensor
+    zero: torch.Tensor
+
+
+def rowquant_split(m: int, k: int, n: int) -> int:
+    """Split-K factor of the rowquant kernel for these shapes, as the kernel
+    source defines it (its tiling lives only in ``dequant_matmul.cu``)."""
+    return build.load("dequant_matmul").qsdp_rowquant_split(m, k, n)
+
+
+def rowquant_matmul(x: torch.Tensor, codes: torch.Tensor, scale: torch.Tensor,
+                    zero: torch.Tensor) -> torch.Tensor:
+    """K3: y = x @ dequant(W) consuming u8 codes directly.  x (M, K) f32 or
+    bf16; codes (K, N) u8; scale/zero (K, n_seg) f32, N % n_seg == 0.
+    f32 accumulation, y in x.dtype."""
+    if _on_cpu(x, codes, scale, zero):
+        return ref.rowquant_matmul_ref(x, codes, scale, zero)
+    m, k = x.shape
+    n = codes.shape[1]
+    n_seg = scale.shape[1]
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"x must be f32 or bf16, got {x.dtype}")
+    if min(m, k, n, n_seg) < 1 or n % n_seg:
+        raise ValueError(f"bad rowquant shapes M={m} K={k} N={n} n_seg={n_seg}")
+    _check("x", x, x.dtype, (m, k))
+    _check("codes", codes, torch.uint8, (k, n))
+    _check("scale", scale, torch.float32, (k, n_seg))
+    _check("zero", zero, torch.float32, (k, n_seg))
+    split = rowquant_split(m, k, n)
+    partial = torch.empty((split, m, n), dtype=torch.float32, device=x.device)
+    y = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    rc = build.load("dequant_matmul").qsdp_rowquant_matmul(
+        x.data_ptr(), int(x.dtype == torch.bfloat16), codes.data_ptr(),
+        scale.data_ptr(), zero.data_ptr(), n_seg, partial.data_ptr(),
+        y.data_ptr(), m, k, n, split, _stream())
+    _raise_on(rc, "rowquant_matmul")
+    LAUNCHES["rowquant_matmul"] += 1
+    return y

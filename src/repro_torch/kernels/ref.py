@@ -1,0 +1,120 @@
+"""Plain PyTorch versions of the CUDA kernels (K1-K3).
+
+Each function computes exactly what its kernel computes; ``kernels.ops``
+runs it for tensors on the CPU, the tests hold it against the JAX package,
+and ``chip_smoke.py`` holds each kernel against it on the card.
+
+Two expressions of the reference are fused multiply-adds under XLA (the
+shift-mode ``zero = lo + r*scale`` and the decode ``c*scale + zero``); the
+kernels use ``__fmaf_rn`` there and :func:`fma_f32` reproduces a correctly
+rounded f32 fma here.
+"""
+from __future__ import annotations
+
+import torch
+
+_MODES = ("nearest", "stochastic", "shift")
+
+
+def codes_per_byte(bits: int) -> int:
+    return 8 // bits if 8 % bits == 0 else 1
+
+
+def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """round_f32(a*b + c) with ONE rounding, as ``fmaf`` computes it.
+
+    a*b of two f32 values is exact in f64; the f64 sum is made exact by
+    TwoSum and rounded to odd, after which the rounding to f32 is correct
+    (53 >= 2*24 + 2 bits, so round-to-odd is innocuous)."""
+    p = a.double() * b.double()
+    c = c.double()
+    s = p + c
+    bb = s - p
+    err = (p - (s - bb)) + (c - bb)
+    bits = s.view(torch.int64)
+    # inexact with an even last bit: step one ulp toward the exact value
+    step = torch.where((err > 0) == (s > 0), 1, -1)
+    fix = (err != 0) & ((bits & 1) == 0)
+    s = torch.where(fix, bits + step, bits).view(torch.float64)
+    return s.float()
+
+
+def pack_codes(codes: torch.Tensor, bits: int) -> torch.Tensor:
+    """Pack (..., n) u8 codes of width `bits` into (..., n*bits/8) bytes
+    when 8 % bits == 0; otherwise pass through (one code per byte)."""
+    k = codes_per_byte(bits)
+    if k == 1:
+        return codes
+    *lead, n = codes.shape
+    if n % k:
+        raise ValueError(f"{n} codes do not pack {k} per byte")
+    c = codes.reshape(*lead, n // k, k).to(torch.int32)
+    shifts = torch.arange(k, dtype=torch.int32, device=codes.device) * bits
+    return torch.sum(c << shifts, dim=-1).to(torch.uint8)
+
+
+def unpack_codes(packed: torch.Tensor, bits: int) -> torch.Tensor:
+    """Inverse of :func:`pack_codes`."""
+    k = codes_per_byte(bits)
+    if k == 1:
+        return packed
+    shifts = torch.arange(k, dtype=torch.int32, device=packed.device) * bits
+    c = (packed.to(torch.int32)[..., None] >> shifts) & ((1 << bits) - 1)
+    *lead, n, _ = c.shape
+    return c.reshape(*lead, n * k).to(torch.uint8)
+
+
+def quantize_pack_ref(x: torch.Tensor, rand: torch.Tensor, levels: int,
+                      bits: int, mode: str = "nearest",
+                      rand_scale: float = 1.0):
+    """K1: bucketed min-max quantize of (nb, bucket) f32 rows + bit-pack.
+
+    rand: (nb, bucket) thresholds for "stochastic" (``up = rand < frac *
+    rand_scale``), (nb, 1) shifts in [-0.5, 0.5) for "shift", ignored for
+    "nearest".  Returns (packed u8 (nb, bucket*bits/8), scale (nb, 1),
+    zero (nb, 1))."""
+    if mode not in _MODES:
+        raise ValueError(mode)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    lo = torch.amin(x, dim=1, keepdim=True)
+    hi = torch.amax(x, dim=1, keepdim=True)
+    scale = torch.maximum((hi - lo) * torch.tensor(1.0 / levels, **f32),
+                          torch.tensor(1e-12, **f32))
+    v = (x - lo) / scale
+    if mode == "stochastic":
+        f = torch.floor(v)
+        up = rand < (v - f) * torch.tensor(rand_scale, **f32)
+        codes = f + up.to(torch.float32)
+        zero = lo
+    elif mode == "shift":
+        codes = torch.round(v - rand)
+        zero = fma_f32(rand, scale, lo)
+    else:
+        codes = torch.round(v)
+        zero = lo
+    codes = torch.clamp(codes, 0, levels).to(torch.uint8)
+    return pack_codes(codes, bits), scale, zero
+
+
+def unpack_dequantize_ref(codes: torch.Tensor, scale: torch.Tensor,
+                          zero: torch.Tensor, bits: int,
+                          dtype=torch.float32) -> torch.Tensor:
+    """K2: (nb, bucket*bits/8) packed u8 + (nb, 1) affine -> (nb, bucket)."""
+    c = unpack_codes(codes, bits).to(torch.float32)
+    return fma_f32(c, scale, zero).to(dtype)
+
+
+def rowquant_matmul_ref(x: torch.Tensor, codes: torch.Tensor,
+                        scale: torch.Tensor, zero: torch.Tensor) -> torch.Tensor:
+    """K3: y = x @ dequant(W) with per-(K-row, N-segment) affine.
+
+    x (M, K) f32/bf16; codes (K, N) u8; scale/zero (K, n_seg) f32 with
+    N % n_seg == 0.  f32 math, output in x.dtype."""
+    n = codes.shape[1]
+    n_seg = scale.shape[1]
+    if n % n_seg:
+        raise ValueError(f"N={n} is not a multiple of n_seg={n_seg}")
+    s = torch.repeat_interleave(scale, n // n_seg, dim=1)
+    z = torch.repeat_interleave(zero, n // n_seg, dim=1)
+    w = fma_f32(codes.to(torch.float32), s, z)
+    return (x.to(torch.float32) @ w).to(x.dtype)
