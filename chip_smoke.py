@@ -7,18 +7,31 @@ Phases, each of which makes the script exit non-zero when it fails:
 
 1. build   -- nvcc builds every kernel source of the port, in parallel.
 2. kernels -- each CUDA kernel (K1 quantize->pack, K2 unpack->dequantize,
-              K3 rowquant matmul) against its plain PyTorch version on the
-              card at the gpt-1.3b serve shapes: K1/K2 byte-equal, K3 within
-              tolerance; times by CUDA events on cold L2.
-3. small   -- the gpt-1.3b smoke config served on the card and on the CPU
-              (plain versions, which the CPU tests hold to the JAX package):
-              gathered wire bytes equal, f32-compute logits within tolerance.
+              K3 rowquant matmul, K4 unpacked quantize, K5 unpacked
+              dequantize) against its plain PyTorch version on the card at
+              the gpt-1.3b shapes of its path: K1/K2/K4/K5 byte-equal, K3
+              within tolerance; times by CUDA events on cold L2.  Then the
+              K4/K5 entry points' own path (``quantize_buckets`` ->
+              ``dequantize_buckets`` of an embedding-sized gradient).
+3. small   -- the gpt-1.3b smoke config on the card and on the CPU (plain
+              versions, which the CPU tests hold to the JAX package): served
+              (gathered wire bytes equal, f32 logits within tolerance) and
+              trained for 2 steps from the same state (gathered weights
+              byte-equal, losses within tolerance).
 4. serve   -- gpt-1.3b at full width and depth, batch 4, prompt 128, gen 16,
               greedy, seed 0, through ``build_serve_setup`` ->
               ``ServeEngine.generate``: dense, then rowquant MLP.  Launch
               counts per kernel are checked against the counts the code's
               structure predicts, and the two runs' first decode-step
               logits must agree.
+5. train   -- gpt-1.3b at full width and depth, default QSDPConfig (W8
+              shift weights, G8 stochastic gradients, bucket 1024,
+              coalesced, bf16 compute, full remat), AdamW + cosine, batch 4
+              x seq 2048, 2 microbatches, SyntheticLM seed 0, through
+              ``build_train_step``: one warm-up step, 3 timed steps (launch
+              counts checked against the code's structure), one step with
+              the stochastic draws timed; then quantized_state vs
+              quantize_master (8-bit moments) for 2 steps, losses equal.
 
 Prints the kernel table as one JSON line, the card's name and power limit,
 and, last, ``{"ok": true, "device": {...}}``.
@@ -167,8 +180,85 @@ def kernel_phase(torch, log):
     for r in k2:
         log(f"K2 {r['shape']:26s} nb={r['nb']:6d}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, "
             f"bound {r['bound'][0]:.4f} by {r['bound'][1]})")
+    # the gradient path's modes at the embedding shape: K1 stochastic with
+    # full-size thresholds (Def. 12), K2 decoding to f32 (the dequant-sum)
+    nb = GPT13_NB["embed"]
+    n = nb * 1024
+    x = torch.randn((nb, 1024), generator=gen, device=dev) * 1e-3
+    rand = key_uniform(nb, 1024, 0.0, 1.0, 12)
+    q = ops.quantize_pack(x, rand, 255, 8, "stochastic")
+    qr = ref.quantize_pack_ref(x, rand, 255, 8, "stochastic")
+    check(all(torch.equal(a, b) for a, b in zip(q, qr)), "K1 stochastic embed: differs")
+    d = ops.unpack_dequantize(*q, 8, torch.float32)
+    dr = ref.unpack_dequantize_ref(*q, 8, torch.float32)
+    check(torch.equal(d, dr), "K2 f32 embed: differs")
+    k1.append(dict(
+        shape="embed grad, stochastic", nb=nb,
+        ms=cuda_ms(torch, lambda: ops.quantize_pack(x, rand, 255, 8, "stochastic"), flush=flush),
+        plain_ms=cuda_ms(torch, lambda: ref.quantize_pack_ref(x, rand, 255, 8, "stochastic"),
+                         reps=3, flush=flush),
+        bound=bound(4 * n + 4 * n + n + 8 * nb, flops=6 * n),
+        max_abs_err=max((a.float() - b.float()).abs().max().item() for a, b in zip(q, qr))))
+    k2.append(dict(
+        shape="embed grad, f32 out", nb=nb,
+        ms=cuda_ms(torch, lambda: ops.unpack_dequantize(*q, 8, torch.float32), flush=flush),
+        plain_ms=cuda_ms(torch, lambda: ref.unpack_dequantize_ref(*q, 8, torch.float32),
+                         reps=3, flush=flush),
+        bound=bound(n + 8 * nb + 4 * n, flops=2 * n),
+        max_abs_err=(d - dr).abs().max().item()))
+    log(f"K1 stochastic / K2 f32 at the embedding gradient (nb={nb}): byte-equal to plain; "
+        f"{k1[-1]['ms']:.4f} / {k2[-1]['ms']:.4f} ms (bounds {k1[-1]['bound'][0]:.4f} / "
+        f"{k2[-1]['bound'][0]:.4f})")
+    del x, rand, q, qr, d, dr
     rows["quantize_pack"] = k1
     rows["unpack_dequantize"] = k2
+
+    # K4/K5: the unpacked forms, byte-equal for levels x modes, f32 and bf16
+    nb = GPT13_NB["mlp (w_gate/w_up/w_down)"]
+    x = torch.randn((nb, 1024), generator=gen, device=dev) * 0.02
+    rand = key_uniform(nb, 1024, 0.0, 1.0, 13)
+    for levels in (3, 15, 63, 255):
+        for stochastic in (False, True):
+            got = ops.quantize_buckets(x, rand, levels, stochastic)
+            want = ref.quantize_buckets_ref(x, rand, levels, stochastic)
+            for g, w, what in zip(got, want, ("codes", "scale", "zero")):
+                check(torch.equal(g, w), f"K4 levels={levels} stochastic={stochastic}: "
+                      f"{what} differ in {(g != w).sum().item()} places")
+            for dt in (torch.float32, torch.bfloat16):
+                dd = ops.dequantize_buckets(*got, dt)
+                dw = ref.dequantize_buckets_ref(*got, dt)
+                check(torch.equal(dd.view(torch.uint8), dw.view(torch.uint8)),
+                      f"K5 levels={levels} {dt}: values differ")
+    log("K4 quantize_buckets: byte-equal to plain, levels {3,15,63,255} x {nearest,stochastic}, "
+        f"nb={nb} x 1024; K5 dequantize_buckets byte-equal (tolerance 0), f32 and bf16 out")
+    nb = GPT13_NB["embed"]
+    n = nb * 1024
+    x = torch.randn((nb, 1024), generator=gen, device=dev) * 1e-3
+    rand = key_uniform(nb, 1024, 0.0, 1.0, 14)
+    q = ops.quantize_buckets(x, rand, 255, True)
+    qr = ref.quantize_buckets_ref(x, rand, 255, True)
+    check(all(torch.equal(a, b) for a, b in zip(q, qr)), "K4 embed: differs")
+    d = ops.dequantize_buckets(*q)
+    dr = ref.dequantize_buckets_ref(*q)
+    check(torch.equal(d, dr), "K5 embed: differs")
+    rows["quantize_buckets"] = [dict(
+        shape="embed, stochastic", nb=nb,
+        ms=cuda_ms(torch, lambda: ops.quantize_buckets(x, rand, 255, True), flush=flush),
+        plain_ms=cuda_ms(torch, lambda: ref.quantize_buckets_ref(x, rand, 255, True), reps=3,
+                         flush=flush),
+        bound=bound(4 * n + 4 * n + n + 8 * nb, flops=6 * n),
+        max_abs_err=max((a.float() - b.float()).abs().max().item() for a, b in zip(q, qr)))]
+    rows["dequantize_buckets"] = [dict(
+        shape="embed, f32 out", nb=nb,
+        ms=cuda_ms(torch, lambda: ops.dequantize_buckets(*q), flush=flush),
+        plain_ms=cuda_ms(torch, lambda: ref.dequantize_buckets_ref(*q), reps=3, flush=flush),
+        bound=bound(n + 8 * nb + 4 * n, flops=2 * n),
+        max_abs_err=(d - dr).abs().max().item())]
+    for name in ("quantize_buckets", "dequantize_buckets"):
+        r = rows[name][0]
+        log(f"{name} {r['shape']} nb={nb}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, "
+            f"bound {r['bound'][0]:.4f} by {r['bound'][1]})")
+    del x, rand, q, qr, d, dr
 
     # K3: tolerance against plain, both x dtypes; times in bf16 (main path)
     k3 = []
@@ -214,14 +304,44 @@ def kernel_phase(torch, log):
 # main
 # ---------------------------------------------------------------------------
 
-KERNEL_META = {
+KERNEL_META = {  # name: (source, the TPU kernel's pl.pallas_call)
     "quantize_pack": ("src/repro_torch/kernels/csrc/quantize.cu",
-                      "src/repro/kernels/quantize.py:164"),
+                      "src/repro/kernels/quantize.py:194"),
     "unpack_dequantize": ("src/repro_torch/kernels/csrc/quantize.cu",
-                          "src/repro/kernels/quantize.py:231"),
+                          "src/repro/kernels/quantize.py:248"),
     "rowquant_matmul": ("src/repro_torch/kernels/csrc/dequant_matmul.cu",
-                        "src/repro/kernels/dequant_matmul.py:50"),
+                        "src/repro/kernels/dequant_matmul.py:80"),
+    "quantize_buckets": ("src/repro_torch/kernels/csrc/quantize.cu",
+                         "src/repro/kernels/quantize.py:88"),
+    "dequantize_buckets": ("src/repro_torch/kernels/csrc/quantize.cu",
+                           "src/repro/kernels/quantize.py:280"),
 }
+
+
+def buckets_path(torch, log):
+    """The K4/K5 entry points' own path, as a caller uses them: stochastic
+    8-bit quantize of an embedding-sized (100,608 x 1024) gradient with
+    ``quantize_buckets``, decoded by ``dequantize_buckets``; counts zeroed
+    just before and read just after."""
+    from repro_torch.core import prng
+    from repro_torch.kernels import ops
+    nb = GPT13_NB["embed"]
+    x = torch.randn((nb, 1024), generator=torch.Generator(device="cuda").manual_seed(5),
+                    device="cuda") * 1e-3
+    rand = prng.uniform(prng.PRNGKey(15), (nb, 1024), "cuda")
+    ops.reset_launches()
+    codes, scale, zero = ops.quantize_buckets(x, rand, 255, True)
+    y = ops.dequantize_buckets(codes, scale, zero)
+    torch.cuda.synchronize()
+    counts = dict(ops.LAUNCHES)
+    check(counts["quantize_buckets"] == 1 and counts["dequantize_buckets"] == 1
+          and sum(counts.values()) == 2, f"buckets path launches {counts}")
+    # stochastic rounding moves each value by less than one step of its bucket
+    err = ((y - x).abs() / scale).max().item()
+    check(math.isfinite(err) and err <= 1.0 + 1e-5, f"buckets path: error {err:.3f} steps")
+    log(f"buckets path: quantize_buckets -> dequantize_buckets of {nb} x 1024, max error "
+        f"{err:.4f} bucket steps; launches {counts}")
+    return counts
 
 
 def kernel_line(rows, launches):
@@ -253,11 +373,11 @@ def smi_line():
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="build,kernels,small,serve",
-                    help="comma-separated subset of build,kernels,small,serve")
+    ap.add_argument("--phases", default="build,kernels,small,serve,train",
+                    help="comma-separated subset of build,kernels,small,serve,train")
     ap.add_argument("--profile", action="store_true",
                     help="serve phase: also profile one decode step of each run "
-                         "(chrome traces under chiprun_out/)")
+                         "(chrome traces kept); train phase: one step (summary only)")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
 
@@ -289,12 +409,18 @@ def main(argv=None) -> int:
                     if "registers" in line or "error" in line.lower():
                         log(f"nvcc {name}: {line.strip()}")
             log(f"build: {time.time() - tb:.1f} s")
-        rows = kernel_phase(torch, log) if "kernels" in phases else None
-        launches = {}
+        rows, paths = None, []
+        if "kernels" in phases:
+            rows = kernel_phase(torch, log)
+            paths.append(buckets_path(torch, log))
         if "small" in phases:
             small_phase(torch, log)
+            small_train_phase(torch, log)
         if "serve" in phases:
-            launches = serve_phase(torch, log, profile=args.profile)
+            paths.append(serve_phase(torch, log, profile=args.profile))
+        if "train" in phases:
+            paths.append(train_phase(torch, log, profile=args.profile))
+        launches = {k: sum(p.get(k, 0) for p in paths) for k in KERNEL_META}
         if rows is not None:
             print(json.dumps(kernel_line(rows, launches)))
         print(card)
@@ -333,7 +459,7 @@ def capture_gathers(model, store):
     def wrap(orig):
         def f(name, full):
             n = model.specs[name].n_logical_local(model.ms.model_size)
-            raw = full[:n].contiguous().cpu().numpy().tobytes()
+            raw = full[:n].detach().contiguous().cpu().numpy().tobytes()
             store.setdefault(name, []).append(hashlib.sha256(raw).hexdigest())
             return orig(name, full)
         return f
@@ -452,8 +578,8 @@ def serve_phase(torch, log, profile=False):
         check(all(bool(torch.isfinite(t).all()) for t in logits), f"{tag}: non-finite logits")
         check(len(logits) == gen, f"{tag}: {len(logits)} logit sets for {gen} tokens")
         for k in ops.KERNELS:
-            check(counts[k] == want[k], f"{tag}: {k} launched {counts[k]} times, "
-                  f"the code's structure predicts {want[k]}")
+            check(counts[k] == want.get(k, 0), f"{tag}: {k} launched {counts[k]} times, "
+                  f"the code's structure predicts {want.get(k, 0)}")
             totals[k] += counts[k]
         check(counts["quantize_pack"] > 0 and counts["unpack_dequantize"] > 0
               and (counts["rowquant_matmul"] > 0) == rowquant,
@@ -507,16 +633,8 @@ def profile_step(torch, setup, prompt, log, tag):
     prof.export_chrome_trace(str(path))
     trace = json.loads(path.read_text())
     events = trace["traceEvents"] if isinstance(trace, dict) else trace
-    kernels = [e for e in events if e.get("cat") == "kernel"]
+    busy, kernels = busy_share(events)
     check(kernels, f"profile {tag}: the trace holds no kernel events")
-    busy, end = 0.0, None
-    for t0, t1 in sorted((e["ts"], e["ts"] + e["dur"]) for e in kernels):
-        if end is None or t0 > end:
-            busy += t1 - t0
-            end = t1
-        elif t1 > end:
-            busy += t1 - end
-            end = t1
     by_name = {}
     for e in kernels:
         d = by_name.setdefault(e["name"], [0.0, 0])
@@ -527,6 +645,255 @@ def profile_step(torch, setup, prompt, log, tag):
         f"({100 * busy / 1e3 / wall_ms:.1f}% of wall, idle {100 - 100 * busy / 1e3 / wall_ms:.1f}%)")
     for name, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]:
         log(f"profile {tag}:   {us / 1e3:8.3f} ms  x{n:5d}  {name[:80]}")
+
+
+# ---------------------------------------------------------------------------
+# phase 3b: small training input, card against CPU
+# ---------------------------------------------------------------------------
+
+SMALL_TRAIN = dict(batch=4, seq=32, n_micro=2, steps=2, seed=0)
+# f32 compute from the same state: step 1's loss differs by summation order
+# only (~1e-7 relative); step 2 also carries the few gradient codes that
+# flip where cuBLAS and the CPU round a cotangent to the other side of a
+# stochastic-rounding threshold (between the JAX package and the port on
+# the CPU the second loss agrees to ~1e-5 relative)
+SMALL_LOSS_RTOL = 1e-4
+
+
+def small_train_phase(torch, log):
+    """2 train steps of the gpt-1.3b smoke config (f32 compute) on the card
+    and on the CPU from the same state: every gathered weight of step 1
+    (forward and backward replay) byte-equal, losses within
+    SMALL_LOSS_RTOL.  The gradient codes themselves may differ (see
+    SMALL_LOSS_RTOL), so step 2's gathers are not compared."""
+    from repro_torch import configs
+    from repro_torch.core import prng
+    from repro_torch.core.qsdp import MeshSpec, QSDPConfig
+    from repro_torch.data import SyntheticLM, make_batch
+    from repro_torch.models.transformer import Model
+    from repro_torch.optim import AdamWConfig, make_adamw
+    from repro_torch.train.checkpoint import state_from_flat, state_to_flat
+    from repro_torch.train.step import build_train_step, init_train_state
+
+    cfg = configs.get_smoke("gpt-1.3b")
+    model = Model(cfg, MeshSpec(("data", "model"), (1, 1)), QSDPConfig(compute_dtype="float32"))
+    opt = make_adamw(AdamWConfig(lr=1e-3))
+    flat = state_to_flat(init_train_state(model, opt, SMALL_TRAIN["seed"], "cpu"))
+    data = SyntheticLM(cfg.vocab_size, SMALL_TRAIN["seq"], SMALL_TRAIN["batch"],
+                       seed=SMALL_TRAIN["seed"])
+    res = {}
+    for dev in ("cuda", "cpu"):
+        state = state_from_flat(*flat, device=dev)
+        step = build_train_step(model, opt, n_micro=SMALL_TRAIN["n_micro"], device=dev)
+        gathers, losses = {}, []
+        for i in range(SMALL_TRAIN["steps"]):
+            hook = capture_gathers(model, gathers) if i == 0 else (lambda orig: orig)
+            with hooked(model.engine, "_reshape_full", hook):
+                state, m = step(state, make_batch(data, i, dev), prng.fold_in(prng.PRNGKey(1), i))
+            losses.append(float(m["loss"]))
+        res[dev] = (losses, gathers)
+    (lc, gc), (lp, gp) = res["cuda"], res["cpu"]
+    check(gc == gp, "small train: gathered weight bytes differ between card and CPU")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(lc, lp))
+    check(all(map(math.isfinite, lc)) and rel <= SMALL_LOSS_RTOL,
+          f"small train: losses {lc} (card) vs {lp} (CPU), rel diff {rel:.2e}")
+    log(f"small train: gpt-1.3b smoke, 2 steps on card == CPU: "
+        f"{sum(map(len, gc.values()))} step-1 gathers byte-equal, losses {lc} vs {lp} "
+        f"(max rel diff {rel:.2e}, tol {SMALL_LOSS_RTOL})")
+
+
+# ---------------------------------------------------------------------------
+# phase 5: gpt-1.3b training
+# ---------------------------------------------------------------------------
+
+TRAIN = dict(batch=4, seq=2048, n_micro=2, seed=0, lr=6e-4, warmup=10, total=100)
+TRAIN_TIMED = 3   # timed steps after one warm-up step
+QSTATE_STEPS = 2  # quantized_state vs quantize_master
+# random init at 0.02: the first loss is close to ln(vocab)
+FIRST_LOSS_ATOL = 0.5
+
+
+def expected_train_launches(model, n_micro: int) -> dict:
+    """K1/K2 launches of one train step by the code's structure.  Per
+    microbatch: the forward gathers every quantized tensor once (embed at
+    the top, each layer inside its checkpoint), the backward re-gathers
+    every layer's quantized tensors once more (the checkpoint replays the
+    gather), and every gradient-quantized tensor is reduce-scattered once.
+    Each gather encodes with K1 and decodes with K2; each reduce-scatter
+    quantizes with K1 and dequant-sums with K2."""
+    eng = model.engine
+    fwd = sum(s.stack or 1 for s in eng.specs.values() if eng._is_quantized(s))
+    replay = sum(s.stack for n, s in eng.specs.items()
+                 if n.startswith("layers/") and eng._is_quantized(s))
+    grads = sum(s.stack or 1 for s in eng.specs.values() if eng._is_grad_quantized(s))
+    per_step = n_micro * (fwd + replay + grads)
+    return {"quantize_pack": per_step, "unpack_dequantize": per_step,
+            "per_micro": (fwd, replay, grads)}
+
+
+def train_phase(torch, log, profile=False, dev="cuda"):
+    from repro_torch import configs
+    from repro_torch.core import prng, quant
+    from repro_torch.core.qsdp import MeshSpec, QSDPConfig
+    from repro_torch.data import SyntheticLM, make_batch
+    from repro_torch.kernels import ops
+    from repro_torch.models.transformer import Model
+    from repro_torch.optim import AdamWConfig, cosine_schedule, make_adamw
+    from repro_torch.train.step import (build_train_step, dequantize_train_state,
+                                        init_train_state, quantize_train_state)
+
+    cfg = configs.get_config("gpt-1.3b")
+    model = Model(cfg, MeshSpec(("data", "model"), (1, 1)), QSDPConfig())
+    sched = cosine_schedule(TRAIN["lr"], TRAIN["warmup"], TRAIN["total"])
+    opt = make_adamw(AdamWConfig(lr=TRAIN["lr"], schedule=sched))
+    data = SyntheticLM(cfg.vocab_size, TRAIN["seq"], TRAIN["batch"], seed=TRAIN["seed"])
+    n_steps = 1 + TRAIN_TIMED + 1 + int(profile)
+    batches = [make_batch(data, i, dev) for i in range(n_steps)]
+
+    def key(i):
+        return prng.fold_in(prng.PRNGKey(TRAIN["seed"] + 1), i)
+
+    n_params = sum(math.prod(s.shape) * (s.stack or 1) for s in model.specs.values())
+    state = init_train_state(model, opt, TRAIN["seed"], dev)
+    step = build_train_step(model, opt, n_micro=TRAIN["n_micro"], device=dev)
+
+    def run(i, st):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        st, m = step(st, batches[i], key(i))
+        loss, gnorm = float(m["loss"]), float(m["grad_norm"])  # synchronizes
+        torch.cuda.synchronize()
+        return st, loss, gnorm, time.perf_counter() - t
+
+    state, loss0, gnorm0, t_warm = run(0, state)
+    losses, gnorms, times = [loss0], [gnorm0], []
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    for i in range(1, 1 + TRAIN_TIMED):
+        state, loss, gnorm, dt = run(i, state)
+        losses.append(loss)
+        gnorms.append(gnorm)
+        times.append(dt)
+    counts = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    want = expected_train_launches(model, TRAIN["n_micro"])
+    for k in ops.KERNELS:
+        n_want = TRAIN_TIMED * want.get(k, 0)
+        check(counts[k] == n_want, f"train: {k} launched {counts[k]} times in "
+              f"{TRAIN_TIMED} steps, the code's structure predicts {n_want}")
+    check(all(map(math.isfinite, losses + gnorms)), f"train: losses {losses}, norms {gnorms}")
+    check(abs(losses[0] - math.log(cfg.vocab_size)) <= FIRST_LOSS_ATOL,
+          f"train: first loss {losses[0]:.4f}, ln(vocab) = {math.log(cfg.vocab_size):.4f}")
+    tok = TRAIN["batch"] * TRAIN["seq"]
+    med = statistics.median(times)
+    log(f"train: gpt-1.3b ({n_params / 1e9:.3f} G params), batch {TRAIN['batch']} x seq "
+        f"{TRAIN['seq']}, n_micro {TRAIN['n_micro']}: warm-up step {t_warm * 1e3:.1f} ms; "
+        f"{TRAIN_TIMED} timed steps median {med * 1e3:.1f} ms (min {min(times) * 1e3:.1f}, "
+        f"max {max(times) * 1e3:.1f}), {tok / med:.1f} tokens/s; peak memory "
+        f"{peak / 2**30:.2f} GiB")
+    log(f"train: losses {[round(x, 4) for x in losses]}, grad norms "
+        f"{[round(x, 4) for x in gnorms]} (first loss vs ln {cfg.vocab_size} = "
+        f"{math.log(cfg.vocab_size):.4f})")
+    log(f"train: launches in {TRAIN_TIMED} steps {counts}; per step K1 = K2 = "
+        f"{want['quantize_pack']} = {TRAIN['n_micro']} microbatches x (forward, replay, "
+        f"gradient) {want['per_micro']}")
+
+    # one more step with every stochastic-rounding draw timed on the host
+    # clock between two synchronizations (the draws run as plain threefry
+    # tensor ops: core/prng.py)
+    drawn = [0.0, 0]
+    orig_draw = quant.draw_rand
+
+    def timed_draw(qc, k, nb, device):
+        if qc.mode != "stochastic":
+            return orig_draw(qc, k, nb, device)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = orig_draw(qc, k, nb, device)
+        torch.cuda.synchronize()
+        drawn[0] += time.perf_counter() - t
+        drawn[1] += 1
+        return out
+
+    i = 1 + TRAIN_TIMED
+    with hooked(quant, "draw_rand", lambda orig: timed_draw):
+        state, loss, _, t_instr = run(i, state)
+    check(math.isfinite(loss), f"train: instrumented step loss {loss}")
+    log(f"train: stochastic-rounding draws, host clock with a sync around each: "
+        f"{drawn[0] * 1e3:.1f} ms in {drawn[1]} draws, {100 * drawn[0] / t_instr:.1f} % of "
+        f"that step's {t_instr * 1e3:.1f} ms (unsynchronized median {med * 1e3:.1f} ms)")
+    if profile:
+        profile_train_step(torch, lambda st: step(st, batches[i + 1], key(i + 1)), state, log)
+    del state, step
+    torch.cuda.empty_cache()
+
+    # quantized-domain state vs the QDQ master, 8-bit moments (Theorem 2)
+    opt8 = make_adamw(AdamWConfig(lr=TRAIN["lr"], schedule=sched, moment_bits=8))
+    qs = quantize_train_state(init_train_state(model, opt8, TRAIN["seed"], dev), model,
+                              prng.PRNGKey(TRAIN["seed"] + 2))
+    fs = dequantize_train_state(qs)
+    step_q = build_train_step(model, opt8, n_micro=TRAIN["n_micro"], quantized_state=True,
+                              device=dev)
+    step_f = build_train_step(model, opt8, n_micro=TRAIN["n_micro"], quantize_master=True,
+                              device=dev)
+    lq, lf = [], []
+    for i in range(QSTATE_STEPS):
+        qs, mq = step_q(qs, batches[i], key(i))
+        lq.append(float(mq["loss"]))
+        fs, mf = step_f(fs, batches[i], key(i))
+        lf.append(float(mf["loss"]))
+    check(lq == lf and all(map(math.isfinite, lq)),
+          f"train: quantized_state losses {lq} != quantize_master losses {lf}")
+    log(f"train: quantized_state == quantize_master (8-bit moments), losses {lq} over "
+        f"{QSTATE_STEPS} steps")
+    del qs, fs, step_q, step_f
+    torch.cuda.empty_cache()
+    return counts
+
+
+def busy_share(events):
+    """(device busy us, kernel events) of a chrome trace's kernel events,
+    overlapping kernels counted once."""
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    busy, end = 0.0, None
+    for t0, t1 in sorted((e["ts"], e["ts"] + e["dur"]) for e in kernels):
+        if end is None or t0 > end:
+            busy += t1 - t0
+            end = t1
+        elif t1 > end:
+            busy += t1 - end
+            end = t1
+    return busy, kernels
+
+
+def profile_train_step(torch, run_step, state, log):
+    """torch.profiler over one train step: device busy share and kernel time
+    by name (the trace is read from a temporary file and not kept: a step
+    holds ~10^5 kernels)."""
+    import tempfile
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        run_step(state)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    with tempfile.TemporaryDirectory() as d:
+        path = Path(d) / "trace.json"
+        prof.export_chrome_trace(str(path))
+        trace = json.loads(path.read_text())
+    events = trace["traceEvents"] if isinstance(trace, dict) else trace
+    busy, kernels = busy_share(events)
+    check(kernels, "profile train: the trace holds no kernel events")
+    by_name = {}
+    for e in kernels:
+        d = by_name.setdefault(e["name"], [0.0, 0])
+        d[0] += e["dur"]
+        d[1] += 1
+    log(f"profile train (one step, profiler on): wall {wall_ms:.1f} ms, {len(kernels)} "
+        f"kernels, device busy {busy / 1e3:.1f} ms ({100 * busy / 1e3 / wall_ms:.1f}% of wall)")
+    for name, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]:
+        log(f"profile train:   {us / 1e3:9.3f} ms  x{n:6d}  {name[:80]}")
 
 
 if __name__ == "__main__":

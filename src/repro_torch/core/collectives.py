@@ -1,17 +1,21 @@
-"""Quantized collectives of QSDP (paper Section 5) — the gather half.
+"""Quantized collectives of QSDP (paper Section 5).
 
 * **Quantized all-gather** ships packed u8 codes + per-bucket (scale, zero)
   metadata; the receiver dequantizes after the gather.
+* **Quantized reduce-scatter** (sum): each of the P destination chunks is
+  quantized with its own key (``split(key, P)``, stochastic rounding for
+  gradients), the chunks ride one all-to-all, and each rank dequantizes and
+  sums what it received.
 * **Coalesced wire format**: every tensor of a layer — packed codes and
   metadata for quantized tensors, bitcast fp payloads for filtered ones —
   is serialized into ONE contiguous u8 buffer (``quant.wire_pack``) and
-  gathered with one collective; :class:`WireLayout` describes the buffer.
+  gathered (or all-to-all'd) with one collective; :class:`WireLayout`
+  describes the buffer.
 
-This slice runs on one rank: the gather of a buffer is the buffer itself,
-as on the JAX package's (1, 1) mesh, while encode and decode still run the
-quantize and dequantize kernels.  A process group of more than one rank
-raises ``NotImplementedError`` (ROADMAP A3).  The reduce-scatter half comes
-with the training slice.
+The port runs on one rank: the gather and the all-to-all of a buffer are
+the buffer itself, as on the JAX package's (1, 1) mesh, while encode and
+decode still run the quantize and dequantize kernels.  A process group of
+more than one rank raises ``NotImplementedError`` (ROADMAP A3b).
 """
 from __future__ import annotations
 
@@ -20,6 +24,7 @@ from typing import Optional, Sequence
 
 import torch
 
+from . import prng
 from .quant import (QuantConfig, Quantized, dequantize, fp_pack, fp_segment_bytes,
                     fp_unpack, quantize, wire_pack, wire_segment_bytes, wire_unpack)
 
@@ -34,8 +39,8 @@ def group_size(group) -> int:
 def require_one_rank(group) -> None:
     if group_size(group) > 1:
         raise NotImplementedError(
-            "multi-rank QSDP collectives are not ported yet (ROADMAP A3): "
-            "this slice serves on one rank")
+            "multi-rank QSDP collectives are not ported yet (ROADMAP A3b): "
+            "the port runs on one rank")
 
 
 # ---------------------------------------------------------------------------
@@ -63,6 +68,40 @@ def all_gather_quantized(x: torch.Tensor, cfg: QuantConfig, rand: tuple,
     wire = Quantized(q.codes, q.scale.to(md).to(torch.float32),
                      q.zero.to(md).to(torch.float32), (x.shape[0],), x.shape[0], cfg)
     return dequantize(wire).to(out_dtype or x.dtype)
+
+
+def reduce_scatter_fp(x: torch.Tensor, group=None,
+                      dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Plain reduce-scatter (sum), optionally through a narrower wire dtype."""
+    require_one_rank(group)
+    if dtype is not None and x.dtype != dtype:
+        return x.to(dtype).to(x.dtype)
+    return x
+
+
+def _all_to_all_rows(rows: torch.Tensor, group=None) -> torch.Tensor:
+    """Row i of (P, ...) goes to rank i; returns the P rows received."""
+    require_one_rank(group)
+    return rows
+
+
+def reduce_scatter_quantized(g: torch.Tensor, cfg: QuantConfig, key: prng.Key,
+                             group=None) -> torch.Tensor:
+    """Sum the flat (n,) `g` over the group, leaving this rank its (n/P,)
+    chunk in f32: chunk i is quantized with ``split(key, P)[i]`` (so even at
+    P = 1 the randomness comes from the split key), shipped, decoded and
+    summed."""
+    p = group_size(group)
+    chunks = g.reshape(p, -1)
+    n = chunks.shape[1]
+    qs = [quantize(c, cfg, k) for c, k in zip(chunks, prng.split(key, p))]
+    md = cfg.meta_torch_dtype
+    codes = _all_to_all_rows(torch.stack([q.codes for q in qs]), group)
+    scale = _all_to_all_rows(torch.stack([q.scale.to(md) for q in qs]), group)
+    zero = _all_to_all_rows(torch.stack([q.zero.to(md) for q in qs]), group)
+    deq = [dequantize(Quantized(c, s.float(), z.float(), (n,), n, cfg))
+           for c, s, z in zip(codes, scale, zero)]
+    return deq[0] if p == 1 else torch.stack(deq).sum(0)
 
 
 # ---------------------------------------------------------------------------
@@ -127,23 +166,29 @@ def gather_wire(buf: torch.Tensor, group=None) -> torch.Tensor:
     return buf
 
 
+def _decode_segments(rows: torch.Tensor, layout: WireLayout) -> list[list[torch.Tensor]]:
+    """(P, layout.nbytes) u8 rows -> per segment, the P (seg.n,) f32 decodes
+    (shared by the gather decode and the reduce-scatter dequant-sum)."""
+    outs = []
+    for seg, off in zip(layout.segments, layout.offsets()):
+        vals = []
+        for row in rows:
+            sb = row[off:off + seg.nbytes]
+            if seg.cfg is None:
+                vals.append(fp_unpack(sb, seg.n, seg.fp_dtype))
+            else:
+                vals.append(dequantize(wire_unpack(sb, seg.n, seg.cfg)))
+        outs.append(vals)
+    return outs
+
+
 def decode_gathered_wire(gbuf: torch.Tensor, layout: WireLayout, p: int,
                          out_dtypes: Sequence) -> list[torch.Tensor]:
     """Decode a gathered (P * layout.nbytes,) buffer into full flat tensors
     [(P * seg.n,) in out_dtype], each shard decoded with its own padding."""
     rows = gbuf.reshape(p, layout.nbytes)
-    outs = []
-    for seg, off, dt in zip(layout.segments, layout.offsets(), out_dtypes):
-        vals = []
-        for r in range(p):
-            sb = rows[r, off:off + seg.nbytes]
-            if seg.cfg is None:
-                vals.append(fp_unpack(sb, seg.n, seg.fp_dtype))
-            else:
-                vals.append(dequantize(wire_unpack(sb, seg.n, seg.cfg)))
-        full = vals[0] if p == 1 else torch.cat(vals)
-        outs.append(full.to(dt))
-    return outs
+    return [(vals[0] if p == 1 else torch.cat(vals)).to(dt)
+            for vals, dt in zip(_decode_segments(rows, layout), out_dtypes)]
 
 
 def all_gather_coalesced(xs: Sequence[torch.Tensor], layout: WireLayout,
@@ -153,3 +198,25 @@ def all_gather_coalesced(xs: Sequence[torch.Tensor], layout: WireLayout,
     gbuf = gather_wire(encode_wire(xs, layout, rands), group)
     return decode_gathered_wire(gbuf, layout, group_size(group), out_dtypes)
 
+
+def reduce_scatter_coalesced(gs: Sequence[torch.Tensor], layout: WireLayout,
+                             keys: Sequence[Optional[prng.Key]],
+                             group=None) -> list[torch.Tensor]:
+    """One-launch layer reduce-scatter (sum): each tensor's P destination
+    chunks are quantized (chunk i with ``split(key, P)[i]``) or bitcast to
+    the fp segment's wire dtype, all tensors' rows ride ONE (P,
+    layout.nbytes) u8 all-to-all, and each rank dequant-sums its P rows in
+    f32.  layout.segments[i].n == gs[i].numel() // P; keys[i] is None for
+    an fp segment."""
+    p = group_size(group)
+    rows = []
+    for g, seg, key in zip(gs, layout.segments, keys):
+        chunks = g.reshape(p, seg.n)
+        if seg.cfg is None:
+            rows.append(torch.stack([fp_pack(c, seg.fp_dtype) for c in chunks]))
+        else:
+            rows.append(torch.stack([wire_pack(quantize(c, seg.cfg, k))
+                                     for c, k in zip(chunks, prng.split(key, p))]))
+    rbuf = _all_to_all_rows(torch.cat(rows, dim=1), group)
+    return [vals[0] if p == 1 else torch.stack(vals).sum(0)
+            for vals in _decode_segments(rbuf, layout)]

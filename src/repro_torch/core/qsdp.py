@@ -1,4 +1,4 @@
-"""The QSDP engine — the forward (gather) half, for serving.
+"""The QSDP engine: FSDP parameters with quantized communication.
 
 Every logical parameter is stored at rest in the JAX package's distributed
 layout
@@ -6,16 +6,23 @@ layout
     (stack?, MODEL, FSDP, n_local)
 
 with ``n_local = ceil(prod(tp_local_shape) / FSDP)``, flat and zero-padded,
-so the port's gathered wire bytes compare with the reference's byte for
-byte.  :meth:`QSDPEngine.gather_layer` rebuilds the TP-local tensors of one
-layer: quantize every shard (shift rounding, Def. 1) -> serialize into one
-coalesced u8 buffer -> all-gather -> decode.  Per-tensor keys are
-``fold_in(key, stable_hash(name))``, exactly as in the JAX package, so the
-quantization randomness is the reference's.
+so the port's wire bytes compare with the reference's byte for byte.
+:meth:`QSDPEngine.gather_layer` rebuilds the TP-local tensors of one layer
+as a ``torch.autograd.Function`` (the reference's ``custom_vjp``):
 
-Inference only: the autograd Functions (``qsdp_gather`` with the quantized
-reduce-scatter backward) come with the training slice (ROADMAP A4).  This
-slice runs on the (1, 1) mesh.
+    forward :  quantize every shard (shift rounding, Def. 1) -> serialize
+               into one coalesced u8 buffer -> all-gather -> decode
+    backward:  quantize the cotangent's chunks (stochastic rounding,
+               Def. 12) -> all-to-all -> dequant-sum (the quantized
+               reduce-scatter), divided by the FSDP size
+
+Per-tensor keys are ``fold_in(key, stable_hash(name))`` and the backward's
+``fold_in(that, 0x5D)``, exactly as in the JAX package, so the quantization
+randomness is the reference's.  Under ``torch.utils.checkpoint`` the
+backward re-gathers each layer from the same key (byte-identical weights),
+and each gather's backward runs once: the paper's 2x AllGather + 1x
+ReduceScatter per layer per step.  This port runs on the (1, 1) mesh
+(ROADMAP A3b/A4b bring more ranks).
 """
 from __future__ import annotations
 
@@ -146,17 +153,22 @@ def init_param(gen: torch.Generator, spec: ParamSpec, ms: MeshSpec,
 
 @dataclasses.dataclass(frozen=True)
 class QSDPConfig:
-    """Weight-gather policy; the paper's QSDP default is W8, bucket 1024.
-    The gradient half of the JAX package's config comes with the training
-    slice, together with the code that reads it."""
+    """Communication policy; the paper's QSDP default is W8G8, bucket 1024.
+    ``baseline()`` is the paper's FSDP baseline (fp32 weights, bf16
+    gradients, per-tensor collectives)."""
 
     quantize_weights: bool = True
+    quantize_grads: bool = True
     weight_bits: int = 8
+    grad_bits: int = 8
     bucket_size: int = 1024
-    weight_mode: str = "shift"
+    weight_mode: str = "shift"        # Definition 1
+    grad_mode: str = "stochastic"     # Definition 12
     min_quant_size: int = 2048
     weight_wire_dtype: str = "float32"
+    grad_wire_dtype: str = "bfloat16"
     compute_dtype: str = "bfloat16"
+    remat_policy: str = "full"        # recompute each layer in the backward
     attn_bf16: bool = False
     dequant_to_compute: bool = False
     rand_bits: int = 32
@@ -166,13 +178,73 @@ class QSDPConfig:
 
     @classmethod
     def baseline(cls) -> "QSDPConfig":
-        """The paper's FSDP baseline: fp32 weights, per-tensor collectives."""
-        return cls(quantize_weights=False, coalesce=False)
+        """The paper's FSDP baseline: fp32 weights / bf16 grads, per-tensor
+        collectives."""
+        return cls(quantize_weights=False, quantize_grads=False, coalesce=False)
 
     def wcfg(self) -> QuantConfig:
         return QuantConfig(bits=self.weight_bits, bucket_size=self.bucket_size,
                            mode=self.weight_mode, rand_bits=self.rand_bits,
                            meta_dtype=self.meta_wire_dtype)
+
+    def gcfg(self) -> QuantConfig:
+        return QuantConfig(bits=self.grad_bits, bucket_size=self.bucket_size,
+                           mode=self.grad_mode, rand_bits=self.rand_bits,
+                           meta_dtype=self.meta_wire_dtype)
+
+
+_GRAD_SALT = 0x5D  # fold_in(gather key, _GRAD_SALT) keys the gradient RS
+
+
+class _GatherLayer(torch.autograd.Function):
+    """Coalesced layer gather (forward) / coalesced quantized reduce-scatter
+    of the cotangents (backward): the reference's ``qsdp_gather_layer``."""
+
+    @staticmethod
+    def forward(ctx, eng, names, key, rands, *shards):
+        ctx.eng, ctx.names, ctx.key = eng, names, key
+        layout = eng.layout(names)
+        out_dt = eng.compute_dtype if eng.cfg.dequant_to_compute else torch.float32
+        return tuple(coll.all_gather_coalesced(
+            shards, layout,
+            [rands[(n, key)] if s.cfg is not None else None
+             for n, s in zip(names, layout.segments)],
+            [out_dt if s.cfg is not None else torch.float32 for s in layout.segments],
+            eng.group))
+
+    @staticmethod
+    def backward(ctx, *cts):
+        eng, p = ctx.eng, ctx.eng.ms.fsdp_size
+        layout = eng.rs_layout(ctx.names)
+        keys = [prng.fold_in(prng.fold_in(ctx.key, prng.stable_hash(n)), _GRAD_SALT)
+                if s.cfg is not None else None for n, s in zip(ctx.names, layout.segments)]
+        gs = coll.reduce_scatter_coalesced([c.float() for c in cts], layout, keys, eng.group)
+        return (None, None, None, None, *(g / p for g in gs))
+
+
+class _GatherOne(torch.autograd.Function):
+    """Per-tensor gather (3 collectives for a quantized tensor, 1 for an fp
+    payload) / per-tensor reduce-scatter: the reference's ``qsdp_gather``."""
+
+    @staticmethod
+    def forward(ctx, eng, name, key, rands, flat):
+        ctx.eng, ctx.name, ctx.key = eng, name, key
+        if eng._is_quantized(eng.specs[name]):
+            out_dt = eng.compute_dtype if eng.cfg.dequant_to_compute else None
+            return coll.all_gather_quantized(flat, eng.cfg.wcfg(), rands[(name, key)],
+                                             eng.group, out_dtype=out_dt)
+        return coll.all_gather_fp(flat, eng.group, _DTYPES[eng.cfg.weight_wire_dtype])
+
+    @staticmethod
+    def backward(ctx, ct):
+        eng, name = ctx.eng, ctx.name
+        ct = ct.float()
+        if eng._is_grad_quantized(eng.specs[name]):
+            bkey = prng.fold_in(prng.fold_in(ctx.key, prng.stable_hash(name)), _GRAD_SALT)
+            g = coll.reduce_scatter_quantized(ct, eng.cfg.gcfg(), bkey, eng.group)
+        else:
+            g = coll.reduce_scatter_fp(ct, eng.group, _DTYPES[eng.cfg.grad_wire_dtype])
+        return None, None, None, None, g / eng.ms.fsdp_size
 
 
 class QSDPEngine:
@@ -183,7 +255,7 @@ class QSDPEngine:
         if ms.fsdp_size * ms.model_size > 1:
             raise NotImplementedError(
                 f"mesh {dict(zip(ms.axes, ms.shape))}: multi-rank QSDP is not "
-                "ported yet (ROADMAP A3/A4); this slice serves on the (1, 1) mesh")
+                "ported yet (ROADMAP A3b/A4b); the port runs on the (1, 1) mesh")
         self.ms = ms
         self.cfg = cfg
         self.specs = specs
@@ -195,6 +267,19 @@ class QSDPEngine:
     def _is_quantized(self, spec: ParamSpec) -> bool:
         return (spec.quantize and self.cfg.quantize_weights
                 and spec.n_logical_local(self.ms.model_size) >= self.cfg.min_quant_size)
+
+    def _is_grad_quantized(self, spec: ParamSpec) -> bool:
+        return (spec.quantize and self.cfg.quantize_grads
+                and spec.n_logical_local(self.ms.model_size) >= self.cfg.min_quant_size)
+
+    def rs_layout(self, names: tuple[str, ...]) -> coll.WireLayout:
+        """Wire layout of the gradient reduce-scatter rows of `names`."""
+        gcfg = self.cfg.gcfg()
+        return coll.WireLayout(tuple(
+            coll.WireSegment(self.specs[n].n_local(self.ms),
+                             gcfg if self._is_grad_quantized(self.specs[n]) else None,
+                             self.cfg.grad_wire_dtype)
+            for n in names))
 
     def layout(self, names: tuple[str, ...]) -> coll.WireLayout:
         """Coalesced wire layout of one gather of `names` (in that order)."""
@@ -242,19 +327,6 @@ class QSDPEngine:
         w = full[:n].reshape(spec.tp_local_shape(self.ms.model_size))
         return w.to(self.compute_dtype)
 
-    def _gather_per_tensor(self, name: str, flat: torch.Tensor, key: prng.Key,
-                           rands: dict) -> torch.Tensor:
-        """Per-tensor gather: 3 collectives for a quantized param, 1 for an
-        fp payload."""
-        if self._is_quantized(self.specs[name]):
-            out_dt = self.compute_dtype if self.cfg.dequant_to_compute else None
-            full = coll.all_gather_quantized(flat, self.cfg.wcfg(), rands[(name, key)],
-                                             self.group, out_dtype=out_dt)
-        else:
-            full = coll.all_gather_fp(flat, self.group,
-                                      _DTYPES[self.cfg.weight_wire_dtype])
-        return self._reshape_full(name, full)
-
     def gather(self, name: str, local: torch.Tensor, key: prng.Key,
                rands: dict) -> torch.Tensor:
         """The TP-local tensor of parameter `name` from its flat shard."""
@@ -263,23 +335,19 @@ class QSDPEngine:
     def gather_layer(self, prefix: str, leaves: dict[str, torch.Tensor],
                      key: prng.Key, rands: dict) -> dict[str, torch.Tensor]:
         """Gather every parameter of one layer dict — ONE collective for the
-        whole layer under ``cfg.coalesce``, per-tensor otherwise.  `rands`:
-        the randomness drawn by :meth:`draw_rands` for (name, key)."""
+        whole layer under ``cfg.coalesce``, per-tensor otherwise — with the
+        quantized reduce-scatter as its backward.  `rands`: the randomness
+        drawn by :meth:`draw_rands` for (name, key)."""
         if not leaves:
             return {}
         names = tuple(sorted(leaves))
         full_names = tuple(f"{prefix}{k}" for k in names)
         if not self.layer_coalesced(full_names):
-            return {k: self._gather_per_tensor(f"{prefix}{k}", v.reshape(-1), key, rands)
-                    for k, v in leaves.items()}
-        out_dt = self.compute_dtype if self.cfg.dequant_to_compute else torch.float32
-        layout = self.layout(full_names)
-        fulls = coll.all_gather_coalesced(
-            [leaves[k].reshape(-1) for k in names], layout,
-            [rands[(n, key)] if s.cfg is not None else None
-             for n, s in zip(full_names, layout.segments)],
-            [out_dt if s.cfg is not None else torch.float32 for s in layout.segments],
-            self.group)
+            return {k: self._reshape_full(
+                        n, _GatherOne.apply(self, n, key, rands, leaves[k].reshape(-1)))
+                    for k, n in zip(names, full_names)}
+        fulls = _GatherLayer.apply(self, full_names, key, rands,
+                                   *[leaves[k].reshape(-1) for k in names])
         return {k: self._reshape_full(n, f) for k, n, f in zip(names, full_names, fulls)}
 
     # -- code-form gather (serve/decode) -----------------------------------------

@@ -5,7 +5,8 @@ into equal buckets (default 1024); each bucket is scaled to ``[0, levels]``
 with its own (scale, zero) pair and rounded with one of three modes —
 "shift" (Def. 1, weights), "stochastic" (Def. 12, gradients) or "nearest".
 A :class:`Quantized` holds packed u8 codes: exactly what QSDP puts on the
-wire, byte for byte the same as the JAX package's ``core.quant``.
+wire, byte for byte the same as the JAX package's ``core.quant``.  A
+:class:`QuantizedParam` is a train-state leaf kept in that wire form.
 
 Randomness is drawn from the threefry twin (``core.prng``) exactly as the
 JAX package draws it, so shift- and stochastic-mode bytes are comparable
@@ -166,6 +167,12 @@ def dequantize(q: Quantized, dtype=torch.float32) -> torch.Tensor:
     return x.reshape(-1)[: q.size].reshape(q.shape)
 
 
+def quantize_dequantize(x: torch.Tensor, cfg: QuantConfig,
+                        key: Optional[prng.Key] = None) -> torch.Tensor:
+    """Fake-quant: quantize then decode to x's dtype."""
+    return dequantize(quantize(x, cfg, key), x.dtype)
+
+
 # ---------------------------------------------------------------------------
 # Byte formulas and the serialized wire segment
 #
@@ -226,3 +233,73 @@ def fp_pack(x: torch.Tensor, dtype_str: str) -> torch.Tensor:
 def fp_unpack(buf: torch.Tensor, n: int, dtype_str: str) -> torch.Tensor:
     return _b2f(buf[: n * _FP_DTYPES[dtype_str].itemsize],
                 _FP_DTYPES[dtype_str]).to(torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# QuantizedParam: a rest-layout train-state leaf kept as packed wire codes
+# (the paper's "maintain only quantized weights", Theorem 2).  A leaf of
+# shape (stack?, MODEL, FSDP, n_local) holds, per (model, fsdp) cell, the
+# wire_pack serialization of that cell flattened in (stack, n_local) order
+# -- the array the in-step master quantization feeds to quantize -- so its
+# decode is bit-identical to the QDQ master value.  Same layout as the JAX
+# package (``core/quant.py:465-582``).
+#
+#     wire : u8 (MODEL, FSDP, nbytes),  nbytes = wire_segment_bytes(n, cfg)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class QuantizedParam:
+    """A parameter (or optimizer-moment) leaf stored as packed wire codes.
+
+    wire:       u8 (*lead, nbytes), one wire_pack segment per lead cell
+    cell_shape: decoded shape per cell, (n_local,) or (stack, n_local)
+    cfg:        the QuantConfig the codes were produced with
+    """
+
+    wire: torch.Tensor
+    cell_shape: tuple
+    cfg: QuantConfig
+
+    @property
+    def n(self) -> int:
+        """Decoded f32 elements per cell."""
+        return math.prod(self.cell_shape)
+
+    @property
+    def stacked(self) -> bool:
+        return len(self.cell_shape) == 2
+
+
+def qparam_encode(x: torch.Tensor, cfg: QuantConfig,
+                  key: Optional[prng.Key] = None) -> QuantizedParam:
+    """Rest-layout f32 leaf (stack?, A, B, n_local) -> QuantizedParam; every
+    (A, B) cell is flattened in (stack, n_local) order and quantized with the
+    same `key`, as each device of the reference does with its own view."""
+    if x.dim() == 4:
+        cell_shape = (x.shape[0], x.shape[-1])
+        xc = torch.movedim(x, 0, 2)  # (A, B, stack, n_local)
+    elif x.dim() == 3:
+        cell_shape = (x.shape[-1],)
+        xc = x
+    else:
+        raise ValueError(f"rest-layout leaf must be rank 3 or 4, got {tuple(x.shape)}")
+    lead = tuple(xc.shape[:2])
+    cells = xc.reshape(lead[0] * lead[1], math.prod(cell_shape))
+    wire = torch.stack([wire_pack(quantize(c, cfg, key)) for c in cells])
+    return QuantizedParam(wire.reshape(*lead, -1), cell_shape, cfg)
+
+
+def qparam_decode(qp: QuantizedParam, dtype=torch.float32) -> torch.Tensor:
+    """QuantizedParam -> rest-layout dense leaf (stack?, A, B, n_local), the
+    exact inverse of :func:`qparam_encode`'s layout (deterministic)."""
+    lead = tuple(qp.wire.shape[:-1])
+    flat = qp.wire.reshape(-1, qp.wire.shape[-1])
+    out = torch.stack([dequantize(wire_unpack(b, qp.n, qp.cfg), dtype) for b in flat])
+    out = out.reshape(*lead, *qp.cell_shape)
+    return torch.movedim(out, -2, 0).contiguous() if qp.stacked else out
+
+
+def qparam_wire_nbytes(cell_shape: tuple, cfg: QuantConfig) -> int:
+    """Per-cell wire length of a QuantizedParam."""
+    return wire_segment_bytes(math.prod(cell_shape), cfg)

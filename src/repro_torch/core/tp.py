@@ -1,12 +1,12 @@
-"""Tensor-parallel collectives (Megatron's f/g) — the forward of the JAX
-package's ``core/tp.py``:
+"""Tensor-parallel collectives (Megatron's f/g), the JAX package's
+``core/tp.py``:
 
-    tp_copy   : identity forward (psum backward, with the training slice)
-    tp_reduce : psum over the model axis forward
+    tp_copy   : identity forward, psum over the model axis backward
+    tp_reduce : psum over the model axis forward, identity backward
 
-This slice serves at tensor-parallel size 1, where both are the identity;
-a model group of more than one rank raises ``NotImplementedError``
-(ROADMAP A4).
+The port runs at tensor-parallel size 1, where both directions of both are
+the identity, so returning `x` gives autograd the right backward; a model
+group of more than one rank raises ``NotImplementedError`` (ROADMAP A4b).
 """
 from __future__ import annotations
 

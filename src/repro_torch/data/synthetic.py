@@ -1,7 +1,8 @@
 """Deterministic synthetic LM data (the JAX package's ``data/synthetic.py``):
 an order-1 Markov chain over the vocabulary with a sparse successor table
 fixed by the seed.  Draws go through the threefry twin, so the same seed
-and step give the same tokens as the JAX package.
+and step give the same tokens as the JAX package.  ``make_batch`` puts one
+global batch on one device.
 """
 from __future__ import annotations
 
@@ -44,3 +45,20 @@ class SyntheticLM:
             seq_toks[:, t] = tok
         tokens = torch.cat([x0[:, None], seq_toks[:, :-1]], dim=1)
         return tokens.to(device), seq_toks.to(device)
+
+    def bigram_entropy(self) -> float:
+        """Bayes cross-entropy floor (nats/token) of the generating chain,
+        averaged over the first 1024 rows of the table."""
+        rows = self._table()[: min(1024, self.vocab_size)]
+        ent = 0.0
+        for row in rows:
+            _, counts = np.unique(row, return_counts=True)
+            p = counts / counts.sum()
+            ent += float(-(p * np.log(p)).sum())
+        return ent / len(rows)
+
+
+def make_batch(data: SyntheticLM, step: int, device="cpu") -> dict:
+    """One global batch {"tokens", "labels"} (B, S) int64 on `device`."""
+    tokens, labels = data.sample(step, device=device)
+    return {"tokens": tokens, "labels": labels}

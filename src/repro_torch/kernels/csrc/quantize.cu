@@ -1,9 +1,14 @@
 // Fused bucketed quantize -> bit-pack (K1) and bit-unpack -> dequantize (K2)
-// for Hopper (sm_90a).
+// for Hopper (sm_90a), and their unpacked one-byte-per-code forms (K4, K5).
 //
 // Replaces the Pallas TPU kernels of the JAX package:
 //   K1  src/repro/kernels/quantize.py  quantize_pack_pallas      (body _quantize_pack_kernel)
 //   K2  src/repro/kernels/quantize.py  unpack_dequantize_pallas  (body _unpack_dequantize_kernel)
+//   K4  src/repro/kernels/quantize.py  quantize_pallas           (body _quantize_kernel)
+//   K5  src/repro/kernels/quantize.py  dequantize_pallas         (body _dequantize_kernel)
+// K4 and K5 compute K1's and K2's functions at 8 bits -- one code per byte,
+// any levels in 1..255, nearest or stochastic rounding -- so they launch the
+// same device code with k = 1 through entry points of their own.
 //
 // Wire format (identical to the JAX package, byte for byte):
 //   codes u8 (nb, bucket*bits/8) when 8 % bits == 0, else one byte per code;
@@ -196,4 +201,21 @@ extern "C" int qsdp_unpack_dequantize(const uint8_t* codes, const float* scale,
     return (int)launch_dequant<__nv_bfloat16>(codes, scale, zero,
                                               (__nv_bfloat16*)out, nb, bucket, bits, st);
   return (int)launch_dequant<float>(codes, scale, zero, (float*)out, nb, bucket, bits, st);
+}
+
+// K4: unpacked quantize, one u8 code per value: (nb, bucket) f32 x and
+// thresholds `rand` (stochastic: up = rand < frac; nearest: rand unused).
+extern "C" int qsdp_quantize_buckets(const float* x, const float* rand,
+                                     uint8_t* codes, float* scale, float* zero,
+                                     long long nb, int bucket, int levels,
+                                     float inv_levels, int stochastic, void* stream) {
+  return qsdp_quantize_pack(x, rand, bucket, codes, scale, zero, nb, bucket, 8, levels,
+                            inv_levels, stochastic ? kStochastic : kNearest, 1.f, stream);
+}
+
+// K5: unpacked dequantize, codes u8 (nb, bucket) -> codes * scale + zero.
+extern "C" int qsdp_dequantize_buckets(const uint8_t* codes, const float* scale,
+                                       const float* zero, void* out, int out_bf16,
+                                       long long nb, int bucket, void* stream) {
+  return qsdp_unpack_dequantize(codes, scale, zero, out, out_bf16, nb, bucket, 8, stream);
 }

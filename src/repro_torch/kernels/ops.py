@@ -18,7 +18,8 @@ import torch
 
 from . import build, ref
 
-KERNELS = ("quantize_pack", "unpack_dequantize", "rowquant_matmul")
+KERNELS = ("quantize_pack", "unpack_dequantize", "rowquant_matmul", "quantize_buckets",
+           "dequantize_buckets")
 LAUNCHES: Counter = Counter({k: 0 for k in KERNELS})
 
 _MODE_IDS = {"nearest": 0, "stochastic": 1, "shift": 2}
@@ -103,6 +104,51 @@ def unpack_dequantize(codes: torch.Tensor, scale: torch.Tensor,
         int(dtype == torch.bfloat16), nb, bucket, bits, _stream())
     _raise_on(rc, "unpack_dequantize")
     LAUNCHES["unpack_dequantize"] += 1
+    return out
+
+
+def quantize_buckets(x: torch.Tensor, rand: torch.Tensor, levels: int = 255,
+                     stochastic: bool = True):
+    """K4: unpacked bucketed quantize of (nb, bucket) f32 rows, one u8 code
+    per value, `levels` in 1..255; rand (nb, bucket) f32 thresholds (read
+    only when `stochastic`).  Returns (codes u8 (nb, bucket), scale (nb, 1),
+    zero (nb, 1))."""
+    if _on_cpu(x, rand):
+        return ref.quantize_buckets_ref(x, rand, levels, stochastic)
+    nb, bucket = x.shape
+    if not 1 <= levels <= 255:
+        raise ValueError(f"levels must be in 1..255, got {levels}")
+    _check("x", x, torch.float32, (nb, bucket))
+    _check("rand", rand, torch.float32, (nb, bucket))
+    codes = torch.empty((nb, bucket), dtype=torch.uint8, device=x.device)
+    scale = torch.empty((nb, 1), dtype=torch.float32, device=x.device)
+    zero = torch.empty((nb, 1), dtype=torch.float32, device=x.device)
+    rc = build.load("quantize").qsdp_quantize_buckets(
+        x.data_ptr(), rand.data_ptr(), codes.data_ptr(), scale.data_ptr(),
+        zero.data_ptr(), nb, bucket, levels, 1.0 / levels, int(stochastic), _stream())
+    _raise_on(rc, "quantize_buckets")
+    LAUNCHES["quantize_buckets"] += 1
+    return codes, scale, zero
+
+
+def dequantize_buckets(codes: torch.Tensor, scale: torch.Tensor, zero: torch.Tensor,
+                       dtype=torch.float32) -> torch.Tensor:
+    """K5: unpacked decode, (nb, bucket) u8 codes + (nb, 1) scale/zero ->
+    codes*scale + zero in `dtype` (f32 or bf16)."""
+    if _on_cpu(codes, scale, zero):
+        return ref.dequantize_buckets_ref(codes, scale, zero, dtype)
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"dequantize_buckets writes f32 or bf16, not {dtype}")
+    nb, bucket = codes.shape
+    _check("codes", codes, torch.uint8, (nb, bucket))
+    _check("scale", scale, torch.float32, (nb, 1))
+    _check("zero", zero, torch.float32, (nb, 1))
+    out = torch.empty((nb, bucket), dtype=dtype, device=codes.device)
+    rc = build.load("quantize").qsdp_dequantize_buckets(
+        codes.data_ptr(), scale.data_ptr(), zero.data_ptr(), out.data_ptr(),
+        int(dtype == torch.bfloat16), nb, bucket, _stream())
+    _raise_on(rc, "dequantize_buckets")
+    LAUNCHES["dequantize_buckets"] += 1
     return out
 
 

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the CUDA kernels (K1-K3).
+"""Plain PyTorch versions of the CUDA kernels (K1-K5).
 
 Each function computes exactly what its kernel computes; ``kernels.ops``
 runs it for tensors on the CPU, the tests hold it against the JAX package,
@@ -102,6 +102,21 @@ def unpack_dequantize_ref(codes: torch.Tensor, scale: torch.Tensor,
     """K2: (nb, bucket*bits/8) packed u8 + (nb, 1) affine -> (nb, bucket)."""
     c = unpack_codes(codes, bits).to(torch.float32)
     return fma_f32(c, scale, zero).to(dtype)
+
+
+def quantize_buckets_ref(x: torch.Tensor, rand: torch.Tensor, levels: int = 255,
+                         stochastic: bool = True):
+    """K4: unpacked bucketed quantize of (nb, bucket) f32 rows, one u8 code
+    per value in [0, levels]: K1 at 8 bits, nearest or stochastic (``up =
+    rand < frac``, rand (nb, bucket)).  Returns (codes, scale (nb, 1),
+    zero (nb, 1))."""
+    return quantize_pack_ref(x, rand, levels, 8, "stochastic" if stochastic else "nearest")
+
+
+def dequantize_buckets_ref(codes: torch.Tensor, scale: torch.Tensor,
+                           zero: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
+    """K5: (nb, bucket) u8 codes + (nb, 1) affine -> codes*scale + zero."""
+    return unpack_dequantize_ref(codes, scale, zero, 8, dtype)
 
 
 def rowquant_matmul_ref(x: torch.Tensor, codes: torch.Tensor,

@@ -1,6 +1,6 @@
-"""Attention for serving: GQA with the JAX package's tensor-parallel layout,
-whole-prompt prefill attention and ring-cache decode (dense family; the
-serve subset of ``models/attention.py``).
+"""Attention: GQA with the JAX package's tensor-parallel layout, chunked
+(flash) attention for training and prefill, and ring-cache decode (dense
+family; ``models/attention.py`` of the JAX package).
 
 These are plain PyTorch tensor ops: the JAX package has no Pallas
 attention kernel.  Query heads are padded to a multiple of the model-axis
@@ -66,34 +66,50 @@ def _expand_kv_local(k: torch.Tensor, cfg: AttnConfig, rank: int = 0) -> torch.T
     return k[..., (gidx // cfg.group).clamp(0, cfg.n_kv - 1), :]
 
 
-def prefill_attention(q, k, v, q_pos, kv_pos, causal: bool, window: int = 0,
-                      q_chunk: int = 1024, mxu_bf16: bool = False) -> torch.Tensor:
-    """Softmax attention of q (B, Sq, H, D) over k/v (B, Skv, H, D) with
-    f32 scores, chunked over queries to bound memory.  For Skv <= 1024 this
-    is the JAX package's flash_attention math exactly (one kv chunk); beyond
-    that it differs from the online softmax by rounding only."""
+def flash_attention(q, k, v, q_pos, kv_pos, causal: bool, window: int = 0,
+                    q_chunk: int = 1024, kv_chunk: int = 1024,
+                    mxu_bf16: bool = False) -> torch.Tensor:
+    """Softmax attention of q (B, Sq, H, D) over k/v (B, Skv, H, D) in the
+    reference's order (``attention.py:114-191``): q chunks of `q_chunk`, and
+    within each an online softmax over kv chunks of `kv_chunk` with running
+    (max, sum-exp, out) in f32.  Differentiable by autograd; memory is
+    bounded by one layer at a time under the per-layer checkpoint."""
     b, sq, h, d = q.shape
+    skv = k.shape[1]
+    cq, ckv = min(q_chunk, sq), min(kv_chunk, skv)
+    if sq % cq or skv % ckv:
+        raise ValueError(f"sequence lengths ({sq}, {skv}) must be multiples of the "
+                         f"chunks ({cq}, {ckv})")
     scale = 1.0 / math.sqrt(d)
     outs = []
-    for q0 in range(0, sq, q_chunk):
-        qi = q[:, q0:q0 + q_chunk]
-        qp = q_pos[q0:q0 + q_chunk]
-        s = torch.einsum("bqhd,bkhd->bhqk", qi.float(), k.float()) * scale
-        msk = torch.ones((qi.shape[1], k.shape[1]), dtype=torch.bool, device=q.device)
-        if causal:
-            msk &= qp[:, None] >= kv_pos[None, :]
-        if window:
-            msk &= kv_pos[None, :] > qp[:, None] - window
-        s = s.masked_fill(~msk, float("-inf"))
-        m = torch.amax(s, dim=-1)
-        m_safe = torch.where(torch.isinf(m), torch.zeros_like(m), m)
-        p = torch.exp(s - m_safe[..., None]).masked_fill(~msk, 0.0)
-        l_ = p.sum(-1)
-        if mxu_bf16:  # the reference feeds bf16 probabilities to the PV dot
-            p = p.to(q.dtype).float()
-        o = torch.einsum("bhqk,bkhd->bhqd", p, v.float())
-        o = o / torch.clamp(l_, min=1e-30)[..., None]
-        outs.append(o.transpose(1, 2))
+    for q0 in range(0, sq, cq):
+        qi = q[:, q0:q0 + cq].float()
+        qp = q_pos[q0:q0 + cq]
+        m = torch.full((b, h, cq), float("-inf"), device=q.device)
+        l_ = torch.zeros((b, h, cq), device=q.device)
+        o = torch.zeros((b, h, cq, d), device=q.device)
+        for k0 in range(0, skv, ckv):
+            kp = kv_pos[k0:k0 + ckv]
+            s = torch.einsum("bqhd,bkhd->bhqk", qi, k[:, k0:k0 + ckv].float()) * scale
+            msk = torch.ones((cq, ckv), dtype=torch.bool, device=q.device)
+            if causal:
+                msk &= qp[:, None] >= kp[None, :]
+            if window:
+                msk &= kp[None, :] > qp[:, None] - window
+            s = s.masked_fill(~msk, float("-inf"))
+            m_new = torch.maximum(m, torch.amax(s, dim=-1))
+            m_safe = torch.where(torch.isinf(m_new), torch.zeros_like(m_new), m_new)
+            p = torch.exp(s - m_safe[..., None]).masked_fill(~msk, 0.0)
+            m_fin = torch.where(torch.isinf(m), torch.zeros_like(m), m)
+            corr = torch.exp(m_fin - m_safe) * (~torch.isinf(m)).float()
+            l_ = l_ * corr + p.sum(-1)
+            if mxu_bf16:  # the reference feeds bf16 probabilities to the PV dot
+                p = p.to(q.dtype).float()
+            pv = torch.einsum("bhqk,bkhd->bhqd", p, v[:, k0:k0 + ckv].float())
+            o = o * corr[..., None] + pv
+            m = m_new
+        out = o / torch.clamp(l_, min=1e-30)[..., None]
+        outs.append(out.transpose(1, 2))
     return torch.cat(outs, dim=1).to(q.dtype)
 
 
@@ -105,8 +121,8 @@ def _proj(x, w: dict, name: str):
 
 def self_attention(x, w: dict, cfg: AttnConfig, cos, sin, positions,
                    cache_slice: bool = False):
-    """Prefill self-attention.  Returns (out (B, S, d), (k_full, v_full) if
-    cache_slice else None), k/v (B, S, n_kv, hd) rope-applied."""
+    """Training / prefill self-attention.  Returns (out (B, S, d), (k_full,
+    v_full) if cache_slice else None), k/v (B, S, n_kv, hd) rope-applied."""
     b, s, _ = x.shape
     hd = cfg.head_dim
     xi = tp_copy(x)
@@ -114,9 +130,9 @@ def self_attention(x, w: dict, cfg: AttnConfig, cos, sin, positions,
     q = apply_rope(q.reshape(b, s, cfg.heads_local, hd), cos, sin)
     k = apply_rope(k.reshape(b, s, cfg.kv_local, hd), cos, sin)
     v = v.reshape(b, s, cfg.kv_local, hd)
-    o = prefill_attention(q, _expand_kv_local(k, cfg), _expand_kv_local(v, cfg),
-                          positions, positions, cfg.causal, cfg.sliding_window,
-                          cfg.q_chunk, cfg.mxu_bf16)
+    o = flash_attention(q, _expand_kv_local(k, cfg), _expand_kv_local(v, cfg),
+                        positions, positions, cfg.causal, cfg.sliding_window,
+                        cfg.q_chunk, cfg.kv_chunk, cfg.mxu_bf16)
     o = o * _local_head_mask(cfg, x.device)[None, None, :, None].to(o.dtype)
     out = tp_reduce(o.reshape(b, s, cfg.heads_local * hd) @ w["wo"])
     if not cache_slice:

@@ -55,6 +55,55 @@ def embed_vocab_parallel(tokens: torch.Tensor, emb_local: torch.Tensor,
     return tp_reduce(out)
 
 
+class _VocabParallelXent(torch.autograd.Function):
+    """Mean token cross-entropy over f32 logits of the (T, V_local) vocab
+    shard, with the reference's own backward (``layers.py:112-176``): the
+    backward recomputes the logits instead of keeping them.  On one model
+    rank the reference's pmax/psum over the model axis are the identity."""
+
+    @staticmethod
+    def forward(ctx, h, w_local, labels):
+        logits = vocab_parallel_logits(h, w_local)
+        m = torch.amax(logits, dim=-1)
+        se = torch.sum(torch.exp(logits - m[:, None]), dim=-1)
+        ids, in_range, mask = _label_parts(w_local, labels)
+        n = torch.clamp(mask.sum(), min=1.0)
+        tgt = torch.where(in_range, logits.gather(1, ids[:, None])[:, 0],
+                          logits.new_zeros(()))
+        loss = torch.sum((torch.log(se) + m - tgt) * mask) / n
+        ctx.save_for_backward(h, w_local, labels, m, se, n)
+        return loss
+
+    @staticmethod
+    def backward(ctx, ct):
+        h, w_local, labels, m, se, n = ctx.saved_tensors
+        hf, wf = h.float(), w_local.float()
+        p = torch.exp(hf @ wf.T - m[:, None]) / se[:, None]  # logits recomputed
+        ids, in_range, mask = _label_parts(w_local, labels)
+        onehot = torch.zeros_like(p).scatter_(1, ids[:, None], in_range[:, None].float())
+        dlogits = (p - onehot) * (mask * ct / n)[:, None]
+        dh = (dlogits @ wf).to(h.dtype)
+        dw = (dlogits.T @ hf).to(w_local.dtype)
+        return dh, dw, None
+
+
+def _label_parts(w_local, labels, rank: int = 0):
+    """(label ids clipped into this rank's vocab shard, in-shard mask,
+    f32 label mask (negative labels are masked out))."""
+    v_local = w_local.shape[0]
+    ids = labels.long() - rank * v_local
+    in_range = (ids >= 0) & (ids < v_local)
+    return ids.clamp(0, v_local - 1), in_range, (labels >= 0).float()
+
+
+def vocab_parallel_xent(h: torch.Tensor, w_local: torch.Tensor,
+                        labels: torch.Tensor) -> torch.Tensor:
+    """Mean token cross-entropy with vocab-parallel logits.  h (T, d),
+    w_local (V_local, d), labels (T,) global ids (negative = masked).
+    Logits are f32 at full f32 matmul precision."""
+    return _VocabParallelXent.apply(h, w_local, labels)
+
+
 def vocab_parallel_logits(h: torch.Tensor, w_local: torch.Tensor) -> torch.Tensor:
     """(T, d) -> (T, V_local) local logit shard, f32."""
     return h.float() @ w_local.float().T

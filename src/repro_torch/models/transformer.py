@@ -1,10 +1,13 @@
-"""Model composition: parameter specs of the dense family and the bound
-QSDP engine (the serve subset of the JAX package's ``models/transformer.py``;
-the training forward comes with ROADMAP A5, the other families with A11).
+"""Model composition: parameter specs of the dense family, the bound QSDP
+engine and the training forward (the dense subset of the JAX package's
+``models/transformer.py``; the other families come with ROADMAP A11).
 
 Parameters live in the engine's rest layout, ``(stack?, 1, 1, n_local)`` on
 the one-rank mesh, and are gathered per layer — quantized — inside every
-prefill and decode step.
+train, prefill and decode step.  Training checkpoints each layer with its
+gather inside (``torch.utils.checkpoint``): the backward re-gathers the
+layer from the same key, then reduce-scatters its gradient once — FSDP's
+gather -> compute -> discard -> re-gather schedule.
 """
 from __future__ import annotations
 
@@ -12,8 +15,12 @@ import math
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
+from ..core import prng
 from ..core.qsdp import MeshSpec, ParamSpec, QSDPConfig, QSDPEngine
+from . import attention as attn_mod
+from . import layers as L
 from .attention import AttnConfig
 from .config import ModelConfig
 
@@ -64,7 +71,11 @@ class Model:
         if cfg.arch_type != "dense":
             raise NotImplementedError(
                 f"arch_type {cfg.arch_type!r} is not ported yet (ROADMAP A11); "
-                "this slice serves the dense family")
+                "the port runs the dense family")
+        if qcfg.remat_policy != "full":
+            raise NotImplementedError(
+                f"remat_policy={qcfg.remat_policy!r} is not ported yet (ROADMAP A5c); "
+                "the port recomputes each whole layer ('full')")
         self.cfg = cfg
         self.ms = ms
         self.qcfg = qcfg
@@ -97,3 +108,60 @@ class Model:
     def _group(self, params: Params, prefix: str) -> Params:
         pl = len(prefix) + 1
         return {k[pl:]: v for k, v in params.items() if k.startswith(prefix + "/")}
+
+    # -- training --------------------------------------------------------------
+
+    def loss_fn(self, params: Params, batch: dict, key: prng.Key) -> torch.Tensor:
+        """Mean token cross-entropy of one microbatch, {"tokens", "labels"}
+        (B, S); every weight gathered quantized under `key`."""
+        cfg, eng = self.cfg, self.engine
+        tokens = batch["tokens"]
+        b, s = tokens.shape
+        top = tuple(n for n in ("embed", "final_norm", "lm_head") if n in params)
+        rands = eng.draw_rands([(top, key)], tokens.device)
+        emb = eng.gather("embed", params["embed"], key, rands)
+        x = L.embed_vocab_parallel(tokens, emb)
+        positions = torch.arange(s, device=tokens.device)
+        cos, sin = L.rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
+        x = self._run_stack(params, x, key, cos, sin, positions)
+        fn = eng.gather("final_norm", params["final_norm"], key, rands)
+        x = L.rms_norm(x, fn, cfg.norm_eps)
+        head = emb if cfg.tie_embeddings else eng.gather("lm_head", params["lm_head"],
+                                                         key, rands)
+        return L.vocab_parallel_xent(x.reshape(b * s, -1), head,
+                                     batch["labels"].reshape(b * s))
+
+    def _run_stack(self, params, x, key, cos, sin, positions):
+        return self._scan_layers(params, "layers", x, key, cos, sin, positions,
+                                 self._dense_layer)
+
+    def _scan_layers(self, params, prefix, x, key, cos, sin, positions, layer_fn):
+        """Run a stacked layer group, gathering layer i's weights under
+        ``fold_in(key, i)`` inside its checkpointed body (the reference's
+        rematerialized scan, non-prefetch branch)."""
+        eng = self.engine
+        grp = self._group(params, prefix)
+        names = sorted(grp)
+        full = tuple(f"{prefix}/{n}" for n in names)
+        # one UnbindBackward per stack: a layer's gradient lands in its own
+        # slice instead of a zero-padded copy of the whole stack
+        slices = [grp[n].unbind(0) for n in names]
+
+        def body(x, idx, *lw):
+            lkey = prng.fold_in(key, idx)
+            rands = eng.draw_rands([(full, lkey)], x.device)
+            w = eng.gather_layer(f"{prefix}/", dict(zip(names, lw)), lkey, rands)
+            return layer_fn(x, w, cos, sin, positions)
+
+        for idx in range(len(slices[0])):
+            x = checkpoint(body, x, idx, *[sl[idx] for sl in slices], use_reentrant=False,
+                           preserve_rng_state=False)
+        return x
+
+    def _dense_layer(self, x, w, cos, sin, positions):
+        cfg = self.cfg
+        h = L.rms_norm(x, w["attn_norm"], cfg.norm_eps)
+        a, _ = attn_mod.self_attention(h, w, self.acfg, cos, sin, positions)
+        x = x + a
+        h = L.rms_norm(x, w["mlp_norm"], cfg.norm_eps)
+        return x + L.swiglu_mlp(h, w["w_gate"], w["w_up"], w["w_down"])

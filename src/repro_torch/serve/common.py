@@ -14,21 +14,11 @@ import torch
 
 from .. import configs
 from ..core.qsdp import MeshSpec, QSDPConfig
+from ..device import resolve_device
 from ..models.config import ModelConfig
 from ..models.decode import DecodeSpec
 from ..models.transformer import Model
 from .engine import ServeEngine
-
-
-def resolve_device(device=None) -> torch.device:
-    """`device` as given, else the first CUDA device; raises when no CUDA
-    device exists and none was asked for."""
-    if device is not None:
-        return torch.device(device)
-    if not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: the port serves on the card; pass "
-                           "device='cpu' to run the plain versions of its kernels")
-    return torch.device("cuda")
 
 
 def decode_cache_len(cfg: ModelConfig, prompt_len: int, gen: int, tp: int) -> int:

@@ -64,3 +64,46 @@ def test_multi_rank_mesh_names_roadmap():
 def test_wrappers_reject_mixed_devices():
     with pytest.raises(ValueError, match="CPU or on one CUDA device"):
         ops.quantize_pack(torch.zeros(1, 4), torch.zeros(1, 1, device="meta"), 255, 8)
+
+
+def test_train_entry_points_raise_without_cuda(monkeypatch):
+    from repro_torch.launch import train as launch_train
+    from repro_torch.optim import AdamWConfig, make_adamw
+    from repro_torch.train.step import build_train_step
+    from repro_torch.models.transformer import Model
+    from repro_torch import configs
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    model = Model(configs.get_smoke("gpt-1.3b"), MeshSpec(("data", "model"), (1, 1)),
+                  QSDPConfig())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_train_step(model, make_adamw(AdamWConfig()))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        launch_train.main(["--arch", "gpt-1.3b", "--smoke", "--steps", "1"])
+
+
+@pytest.mark.parametrize("flags,item", [
+    (["--data-par", "2"], "A3b"), (["--model-par", "2"], "A3b"),
+    (["--hierarchical"], "A3b"), (["--prefetch"], "A4b"),
+    (["--coalesce-max-bytes", "1024"], "A12"), (["--plan", "plan.json"], "A12")])
+def test_train_launcher_names_roadmap_for_unported_flags(flags, item, capsys):
+    from repro_torch.launch import train as launch_train
+    with pytest.raises(SystemExit):
+        launch_train.parse_args(flags)
+    assert f"ROADMAP {item}" in capsys.readouterr().err
+
+
+def test_unported_training_options_raise():
+    from repro_torch import configs
+    from repro_torch.models.transformer import Model
+    with pytest.raises(NotImplementedError, match="ROADMAP A5c"):
+        Model(configs.get_smoke("gpt-1.3b"), MeshSpec(("data", "model"), (1, 1)),
+              QSDPConfig(remat_policy="dots"))
+
+
+def test_bucket_wrappers_reject_mixed_devices():
+    with pytest.raises(ValueError, match="CPU or on one CUDA device"):
+        ops.quantize_buckets(torch.zeros(1, 4), torch.zeros(1, 4, device="meta"))
+    with pytest.raises(ValueError, match="CPU or on one CUDA device"):
+        ops.dequantize_buckets(torch.zeros(1, 4, dtype=torch.uint8),
+                               torch.zeros(1, 1, device="meta"), torch.zeros(1, 1))

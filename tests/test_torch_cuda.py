@@ -74,3 +74,45 @@ def test_rowquant_split_covers_k(cuda, m, k, n):
     split = ops.rowquant_split(m, k, n)
     chunk = -(-k // split)
     assert chunk <= 1024 and (split - 1) * chunk < k
+
+
+@pytest.mark.parametrize("stochastic", [False, True])
+@pytest.mark.parametrize("levels", [3, 15, 63, 255])
+@pytest.mark.parametrize("nb,bucket", [(37, 1024), (5, 256), (3, 100)])
+def test_quantize_dequantize_buckets_byte_equal(cuda, levels, stochastic, nb, bucket):
+    """K4/K5: the unpacked forms, one code per byte, against their plain
+    versions (codes, scale, zero and the decode byte-equal)."""
+    x = torch.randn((nb, bucket), generator=torch.Generator().manual_seed(levels)).to(cuda)
+    rand = prng.uniform(prng.PRNGKey(levels), (nb, bucket), cuda)
+    before = dict(ops.LAUNCHES)
+    got = ops.quantize_buckets(x, rand, levels, stochastic)
+    for g, w in zip(got, ref.quantize_buckets_ref(x, rand, levels, stochastic)):
+        assert torch.equal(g, w)
+    assert int(got[0].max()) <= levels
+    for dt in (torch.float32, torch.bfloat16):
+        d = ops.dequantize_buckets(*got, dt)
+        w = ref.dequantize_buckets_ref(*got, dt)
+        assert torch.equal(d.view(torch.uint8), w.view(torch.uint8))
+    assert ops.LAUNCHES["quantize_buckets"] == before["quantize_buckets"] + 1
+    assert ops.LAUNCHES["dequantize_buckets"] == before["dequantize_buckets"] + 2
+
+
+@pytest.mark.parametrize("nb", [1, 33, 4096])
+def test_gradient_modes_byte_equal(cuda, nb):
+    """The gradient path's modes: K1 stochastic with full-size (nb, 1024)
+    thresholds (Def. 12) and K2 decoding to f32 (the dequant-sum)."""
+    x = (torch.randn((nb, 1024), generator=torch.Generator().manual_seed(nb)) * 1e-3).to(cuda)
+    rand = prng.uniform(prng.PRNGKey(nb), (nb, 1024), cuda)
+    got = ops.quantize_pack(x, rand, 255, 8, "stochastic")
+    for g, w in zip(got, ref.quantize_pack_ref(x, rand, 255, 8, "stochastic")):
+        assert torch.equal(g, w)
+    d = ops.unpack_dequantize(*got, 8, torch.float32)
+    assert torch.equal(d, ref.unpack_dequantize_ref(*got, 8, torch.float32))
+
+
+def test_buckets_wrappers_check_inputs_on_the_card(cuda):
+    with pytest.raises(ValueError, match="rand"):
+        ops.quantize_buckets(torch.zeros((2, 8), device=cuda), torch.zeros((2, 1), device=cuda))
+    with pytest.raises(ValueError, match="levels"):
+        ops.quantize_buckets(torch.zeros((2, 8), device=cuda), torch.zeros((2, 8), device=cuda),
+                             256)
