@@ -10,7 +10,10 @@ Phases, each of which makes the script exit non-zero when it fails:
               K3 rowquant matmul, K4 unpacked quantize, K5 unpacked
               dequantize) against its plain PyTorch version on the card at
               the gpt-1.3b shapes of its path: K1/K2/K4/K5 byte-equal, K3
-              within tolerance; times by CUDA events on cold L2.  Then the
+              within tolerance; times by CUDA events on cold L2, beside
+              the one library call that computes the same function where
+              there is one (K2/K5: ``torch.addcmul``; K3: ``torch.matmul``
+              on the dequantized weight).  Then the
               K4/K5 entry points' own path (``quantize_buckets`` ->
               ``dequantize_buckets`` of an embedding-sized gradient).
 3. small   -- the gpt-1.3b smoke config on the card and on the CPU (plain
@@ -120,6 +123,15 @@ def kernel_phase(torch, log):
     def key_uniform(nb, cols, lo, hi, seed):
         return prng.uniform(prng.PRNGKey(seed), (nb, cols), dev, lo, hi)
 
+    def addcmul_ms(codes, scale, zero, want):
+        """The library's one call for codes * scale + zero at one code per
+        byte, f32 out (``addcmul`` promotes u8 codes): its time, after a
+        check that it computes the kernel's function (within rounding)."""
+        lib = torch.addcmul(zero, codes, scale)
+        err = (lib - want).abs().max().item()
+        check(err <= 1e-6 * want.abs().max().item(), f"torch.addcmul differs by {err:.3e}")
+        return cuda_ms(torch, lambda: torch.addcmul(zero, codes, scale), flush=flush)
+
     # K1 + K2 correctness: bits x modes at the MLP shape, byte-equal
     nb = GPT13_NB["mlp (w_gate/w_up/w_down)"]
     x = torch.randn((nb, 1024), generator=gen, device=dev) * 0.02
@@ -171,6 +183,7 @@ def kernel_phase(torch, log):
             ms=cuda_ms(torch, lambda: ops.unpack_dequantize(*q, 8), flush=flush),
             plain_ms=cuda_ms(torch, lambda: ref.unpack_dequantize_ref(*q, 8), reps=3,
                              flush=flush),
+            library_ms=addcmul_ms(*q, dr),
             bound=bound(n + 8 * nb + 4 * n, flops=2 * n),
             max_abs_err=(d - dr).abs().max().item()))
         del x, rand, q, qr, d, dr
@@ -179,7 +192,7 @@ def kernel_phase(torch, log):
             f"bound {r['bound'][0]:.4f} by {r['bound'][1]})")
     for r in k2:
         log(f"K2 {r['shape']:26s} nb={r['nb']:6d}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, "
-            f"bound {r['bound'][0]:.4f} by {r['bound'][1]})")
+            f"torch.addcmul {r['library_ms']:.4f}, bound {r['bound'][0]:.4f} by {r['bound'][1]})")
     # the gradient path's modes at the embedding shape: K1 stochastic with
     # full-size thresholds (Def. 12), K2 decoding to f32 (the dequant-sum)
     nb = GPT13_NB["embed"]
@@ -204,11 +217,12 @@ def kernel_phase(torch, log):
         ms=cuda_ms(torch, lambda: ops.unpack_dequantize(*q, 8, torch.float32), flush=flush),
         plain_ms=cuda_ms(torch, lambda: ref.unpack_dequantize_ref(*q, 8, torch.float32),
                          reps=3, flush=flush),
+        library_ms=addcmul_ms(*q, dr),
         bound=bound(n + 8 * nb + 4 * n, flops=2 * n),
         max_abs_err=(d - dr).abs().max().item()))
     log(f"K1 stochastic / K2 f32 at the embedding gradient (nb={nb}): byte-equal to plain; "
         f"{k1[-1]['ms']:.4f} / {k2[-1]['ms']:.4f} ms (bounds {k1[-1]['bound'][0]:.4f} / "
-        f"{k2[-1]['bound'][0]:.4f})")
+        f"{k2[-1]['bound'][0]:.4f}; K2's torch.addcmul {k2[-1]['library_ms']:.4f})")
     del x, rand, q, qr, d, dr
     rows["quantize_pack"] = k1
     rows["unpack_dequantize"] = k2
@@ -252,11 +266,13 @@ def kernel_phase(torch, log):
         shape="embed, f32 out", nb=nb,
         ms=cuda_ms(torch, lambda: ops.dequantize_buckets(*q), flush=flush),
         plain_ms=cuda_ms(torch, lambda: ref.dequantize_buckets_ref(*q), reps=3, flush=flush),
+        library_ms=addcmul_ms(*q, dr),
         bound=bound(n + 8 * nb + 4 * n, flops=2 * n),
         max_abs_err=(d - dr).abs().max().item())]
     for name in ("quantize_buckets", "dequantize_buckets"):
         r = rows[name][0]
-        log(f"{name} {r['shape']} nb={nb}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, "
+        lib = f", torch.addcmul {r['library_ms']:.4f}" if "library_ms" in r else ""
+        log(f"{name} {r['shape']} nb={nb}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}{lib}, "
             f"bound {r['bound'][0]:.4f} by {r['bound'][1]})")
     del x, rand, q, qr, d, dr
 

@@ -176,6 +176,12 @@ class QSDPConfig:
     coalesce_max_bytes: Optional[int] = None
     meta_wire_dtype: str = "float32"
 
+    def __post_init__(self):
+        if self.remat_policy != "full":
+            raise NotImplementedError(
+                f"remat_policy={self.remat_policy!r} is not ported yet (ROADMAP A5c); "
+                "the port recomputes each whole layer ('full')")
+
     @classmethod
     def baseline(cls) -> "QSDPConfig":
         """The paper's FSDP baseline: fp32 weights / bf16 grads, per-tensor

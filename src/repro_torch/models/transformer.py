@@ -72,10 +72,6 @@ class Model:
             raise NotImplementedError(
                 f"arch_type {cfg.arch_type!r} is not ported yet (ROADMAP A11); "
                 "the port runs the dense family")
-        if qcfg.remat_policy != "full":
-            raise NotImplementedError(
-                f"remat_policy={qcfg.remat_policy!r} is not ported yet (ROADMAP A5c); "
-                "the port recomputes each whole layer ('full')")
         self.cfg = cfg
         self.ms = ms
         self.qcfg = qcfg

@@ -69,11 +69,13 @@ class AdamWConfig:
     schedule: Optional[Callable[[int], torch.Tensor]] = None
     # store mu/nu as wire codes of this width (nearest rounding); None = f32
     moment_bits: Optional[int] = None
-    moment_bucket_size: int = 1024
+
+
+MOMENT_BUCKET_SIZE = 1024  # the JAX AdamWConfig's default moment bucket
 
 
 def make_adamw(cfg: AdamWConfig) -> Optimizer:
-    mq = (QuantConfig(bits=cfg.moment_bits, bucket_size=cfg.moment_bucket_size,
+    mq = (QuantConfig(bits=cfg.moment_bits, bucket_size=MOMENT_BUCKET_SIZE,
                       mode="nearest") if cfg.moment_bits else None)
 
     def init(params: Params) -> OptState:

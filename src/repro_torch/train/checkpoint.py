@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from ..core.quant import QuantConfig, QuantizedParam
+from ..device import resolve_device
 from ..optim import OptState
 from .step import TrainState
 
@@ -51,9 +52,12 @@ def state_to_flat(state: TrainState) -> tuple[dict[str, np.ndarray], dict[str, d
 
 
 def state_from_flat(flat: dict[str, np.ndarray], leaves: dict[str, dict],
-                    device="cpu") -> TrainState:
-    """Inverse of :func:`state_to_flat`: tensors on `device`, quantized
-    leaves as QuantizedParam with their bytes unchanged."""
+                    device=None) -> TrainState:
+    """Inverse of :func:`state_to_flat`: tensors on `device` (the card
+    unless given), quantized leaves as QuantizedParam with their bytes
+    unchanged."""
+    device = resolve_device(device)
+
     def leaf(key):
         e, arr = leaves.get(key, {"kind": "dense"}), np.asarray(flat[key])
         t = torch.from_numpy(np.array(arr)).to(device)
@@ -94,9 +98,9 @@ def save_checkpoint(path: str, state: TrainState, meta: Optional[dict[str, Any]]
         json.dump(manifest, f, indent=1)
 
 
-def load_checkpoint(path: str, device="cpu", mesh_sizes: tuple[int, int] = (1, 1)) -> TrainState:
+def load_checkpoint(path: str, device=None, mesh_sizes: tuple[int, int] = (1, 1)) -> TrainState:
     """Load a v1 or v2 checkpoint saved on the (model, fsdp) layout
-    `mesh_sizes` onto `device`; raises on an unknown format, a manifest that
+    `mesh_sizes` onto `device` (the card unless given); raises on an unknown format, a manifest that
     does not match the payload, or another layout."""
     mpath = os.path.join(path, "manifest.json")
     if not os.path.exists(mpath):

@@ -11,9 +11,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .device import resolve_device
 
-def params_from_jax(np_params: dict, device="cpu", model=None) -> dict[str, torch.Tensor]:
-    """{name: numpy rest-layout array} -> {name: f32 tensor on `device`}.
+
+def params_from_jax(np_params: dict, device=None, model=None) -> dict[str, torch.Tensor]:
+    """{name: numpy rest-layout array} -> {name: f32 tensor on `device`}
+    (the card unless given).
 
     With `model` (a ``models.transformer.Model``), the names and rest shapes
     are checked against the port's parameter specs."""
@@ -25,6 +28,7 @@ def params_from_jax(np_params: dict, device="cpu", model=None) -> dict[str, torc
                              f"{sorted(set(want) - set(got))}, extra "
                              f"{sorted(set(got) - set(want))}, shape mismatch "
                              f"{sorted(n for n in set(want) & set(got) if want[n] != got[n])}")
+    device = resolve_device(device)
     out = {}
     for name, v in np_params.items():
         a = np.asarray(v)
@@ -34,11 +38,12 @@ def params_from_jax(np_params: dict, device="cpu", model=None) -> dict[str, torc
     return out
 
 
-def train_state_from_jax(flat: dict, leaves: dict, device="cpu", model=None):
+def train_state_from_jax(flat: dict, leaves: dict, device=None, model=None):
     """A train state of the JAX package in its checkpoint form -- ``{npz key:
     numpy array}`` and ``{npz key: manifest entry}`` (``params/<name>``,
     ``opt/step``, ``opt/mu/<name>``, ``opt/nu/<name>``; QuantizedParam
-    leaves as their wire bytes) -> the port's ``TrainState`` on `device`.
+    leaves as their wire bytes) -> the port's ``TrainState`` on `device`
+    (the card unless given).
     With `model`, the dense param leaves are checked against its specs."""
     from .train.checkpoint import state_from_flat
     state = state_from_flat(flat, leaves, device)

@@ -94,11 +94,32 @@ def test_train_launcher_names_roadmap_for_unported_flags(flags, item, capsys):
 
 
 def test_unported_training_options_raise():
+    with pytest.raises(NotImplementedError, match="ROADMAP A5c"):
+        QSDPConfig(remat_policy="dots")
+    assert QSDPConfig().remat_policy == "full"
+
+
+def test_state_loaders_raise_without_cuda(monkeypatch, tmp_path):
+    """A resumed state lands on the card unless the caller asks for the CPU."""
     from repro_torch import configs
     from repro_torch.models.transformer import Model
-    with pytest.raises(NotImplementedError, match="ROADMAP A5c"):
-        Model(configs.get_smoke("gpt-1.3b"), MeshSpec(("data", "model"), (1, 1)),
-              QSDPConfig(remat_policy="dots"))
+    from repro_torch.optim import AdamWConfig, make_adamw
+    from repro_torch.train.checkpoint import load_checkpoint, save_checkpoint, state_to_flat
+    from repro_torch.train.step import init_train_state
+    from repro_torch.weights import params_from_jax, train_state_from_jax
+
+    model = Model(configs.get_smoke("gpt-1.3b"), MeshSpec(("data", "model"), (1, 1)),
+                  QSDPConfig())
+    state = init_train_state(model, make_adamw(AdamWConfig()), 0, "cpu")
+    save_checkpoint(str(tmp_path), state)
+    flat = state_to_flat(state)
+    params = {k: v.numpy() for k, v in state.params.items()}
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for load in (lambda: load_checkpoint(str(tmp_path)), lambda: train_state_from_jax(*flat),
+                 lambda: params_from_jax(params)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            load()
+    assert load_checkpoint(str(tmp_path), device="cpu").params["embed"].device.type == "cpu"
 
 
 def test_bucket_wrappers_reject_mixed_devices():

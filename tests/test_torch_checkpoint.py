@@ -65,7 +65,7 @@ def _jax_quantized_state():
 def test_jax_checkpoint_loads_in_port(tmp_path):
     _, _, js = _jax_quantized_state()
     jsave(str(tmp_path), js)
-    ts = load_checkpoint(str(tmp_path))
+    ts = load_checkpoint(str(tmp_path), device="cpu")
     assert any(isinstance(v, QuantizedParam) for v in ts.params.values())
     assert all(isinstance(v, QuantizedParam) for v in ts.opt.mu.values())
     _assert_states_equal(js, ts)
@@ -95,7 +95,7 @@ def test_dense_checkpoint_roundtrip_and_resume(tmp_path):
     b = [{k: torch.from_numpy(v).long() for k, v in x.items()} for x in batches(2)]
     s, _ = step(init_train_state(tm, opt, 0, "cpu"), b[0], prng.PRNGKey(3))
     save_checkpoint(str(tmp_path), s)
-    loaded = load_checkpoint(str(tmp_path))
+    loaded = load_checkpoint(str(tmp_path), device="cpu")
     _assert_states_equal(s, loaded)
     s, m1 = step(s, b[1], prng.PRNGKey(4))
     loaded, m2 = step(loaded, b[1], prng.PRNGKey(4))
@@ -110,7 +110,7 @@ def test_bad_checkpoints_raise(tmp_path):
     with open(mpath) as f:
         man = json.load(f)
     with pytest.raises(NotImplementedError, match="ROADMAP A3b"):
-        load_checkpoint(str(tmp_path), mesh_sizes=(1, 2))
+        load_checkpoint(str(tmp_path), device="cpu", mesh_sizes=(1, 2))
     for edit, err in ((lambda m: m.update(format="qsdp-ckpt-v9"), "unknown checkpoint format"),
                       (lambda m: m["leaves"].pop("opt/step"), "leaf set mismatch"),
                       (lambda m: m["leaves"]["params/embed"].update(shape=[1]), "corrupted")):
@@ -119,7 +119,7 @@ def test_bad_checkpoints_raise(tmp_path):
         with open(mpath, "w") as f:
             json.dump(bad, f)
         with pytest.raises(ValueError, match=err):
-            load_checkpoint(str(tmp_path))
+            load_checkpoint(str(tmp_path), device="cpu")
 
 
 @pytest.mark.parametrize("shape,bits", [((1, 1, 3000), 8), ((3, 1, 1, 2048), 4), ((1, 1, 700), 2)])
@@ -145,4 +145,4 @@ def test_v1_checkpoint_loads_in_port(tmp_path):
     jm, _ = models()
     js = jinit(jm, jmake_adamw(JAdamWConfig()), jax.random.PRNGKey(0))
     jsave(str(tmp_path), js, format_version=1)
-    _assert_states_equal(js, load_checkpoint(str(tmp_path)))
+    _assert_states_equal(js, load_checkpoint(str(tmp_path), device="cpu"))

@@ -219,7 +219,7 @@ def test_generate_matches_teacher_forced_run(runs):
     model = Model(cfg, MeshSpec(("data", "model"), (1, 1)), QSDPConfig(compute_dtype="float32"))
     spec = DecodeSpec(cache_len=S + GEN, batch_global=B, batch_sharded=True)
     out = ServeEngine(model, spec, "cpu").generate(
-        params_from_jax(r["params"]), {"tokens": torch.from_numpy(_prompt())}, GEN,
+        params_from_jax(r["params"], "cpu"), {"tokens": torch.from_numpy(_prompt())}, GEN,
         key=prng.PRNGKey(KEY))
     assert out.shape == (B, GEN)
     np.testing.assert_array_equal(out.numpy(), r["tokens"])
