@@ -6,14 +6,16 @@
 Phases, each of which makes the script exit non-zero when it fails:
 
 1. build   -- nvcc builds every kernel source of the port, in parallel.
-2. kernels -- each CUDA kernel (K1 quantize->pack, K2 unpack->dequantize,
-              K3 rowquant matmul, K4 unpacked quantize, K5 unpacked
-              dequantize) against its plain PyTorch version on the card at
-              the gpt-1.3b shapes of its path: K1/K2/K4/K5 byte-equal, K3
-              within tolerance; times by CUDA events on cold L2, beside
-              the one library call that computes the same function where
-              there is one (K2/K5: ``torch.addcmul``; K3: ``torch.matmul``
-              on the dequantized weight).  Then the
+2. kernels -- each CUDA kernel (K1 quantize->pack drawing its threefry
+              bits from the key, K2 unpack->dequantize, K3 rowquant matmul,
+              K4 unpacked quantize, K5 unpacked dequantize) against its
+              plain PyTorch version on the card at the gpt-1.3b shapes of
+              its path: K1/K2/K4/K5 byte-equal, K3 within tolerance; times
+              by CUDA events on cold L2 beside the bound (bytes, f32 and
+              INT32 operations), and beside the one library call that
+              computes the same function where there is one (K2/K5:
+              ``torch.addcmul``; K3: ``torch.matmul`` on the dequantized
+              bf16 weight).  Then the
               K4/K5 entry points' own path (``quantize_buckets`` ->
               ``dequantize_buckets`` of an embedding-sized gradient).
 3. small   -- the gpt-1.3b smoke config on the card and on the CPU (plain
@@ -32,9 +34,10 @@ Phases, each of which makes the script exit non-zero when it fails:
               coalesced, bf16 compute, full remat), AdamW + cosine, batch 4
               x seq 2048, 2 microbatches, SyntheticLM seed 0, through
               ``build_train_step``: one warm-up step, 3 timed steps (launch
-              counts checked against the code's structure), one step with
-              the stochastic draws timed; then quantized_state vs
-              quantize_master (8-bit moments) for 2 steps, losses equal.
+              counts checked against the code's structure), one step under
+              torch.profiler (K1's device time, no threefry int64 kernels
+              left); then quantized_state vs quantize_master (8-bit
+              moments) for 2 steps, losses equal.
 
 Prints the kernel table as one JSON line, the card's name and power limit,
 and, last, ``{"ok": true, "device": {...}}``.
@@ -55,6 +58,14 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (NVIDIA data sheet)
 F32_FLOP_PER_S = 67e12      # H100 SXM f32 outside the tensor cores
+# 32-bit integer operations: 64 INT32 lanes per SM (Hopper architecture white
+# paper) x 132 SMs x 1.98 GHz, the clock at which the data sheet's f32 rate
+# (128 lanes x 2 flop) is 67 TFLOP/s
+INT32_OP_PER_S = 16.7e12
+# 32-bit integer operations K1 spends per value on its stochastic draw: the
+# threefry-2x32 block (20 rounds of add, rotate, xor; 5 key injections of 2
+# adds) plus the counter, the final xor and the mantissa fill
+K1_DRAW_INT_OPS = 75
 
 K3_TOL = {"float32": 2e-4, "bfloat16": 2e-2}   # tests/test_kernels.py:61-96
 # dense vs rowquant first decode step, max |diff| / max |logit|: the dense
@@ -80,13 +91,16 @@ def check(cond, msg):
 
 def cuda_ms(torch, fn, reps=10, flush=None):
     """Mean device time of fn() over `reps` launches, each after an
-    (untimed) L2 flush, by CUDA events; one warm-up launch first."""
+    (untimed) L2 flush, by CUDA events; one warm-up launch first.  A short
+    spin on the card after the flush keeps it busy while the host enqueues
+    fn, so the host's own time between the two events is not counted."""
     fn()
     torch.cuda.synchronize()
     total = 0.0
     for _ in range(reps):
         if flush is not None:
             flush.zero_()
+        torch.cuda._sleep(200_000)  # ~0.1 ms at the H100's 1.98 GHz
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -97,9 +111,35 @@ def cuda_ms(torch, fn, reps=10, flush=None):
     return total / reps
 
 
-def bound(nbytes, flops=0.0, flop_rate=F32_FLOP_PER_S):
-    t_b, t_f = nbytes / HBM_BYTES_PER_S * 1e3, flops / flop_rate * 1e3
-    return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
+def kernel_ms(torch, fn, reps=10, flush=None):
+    """Mean device time of the kernels fn() launches, read from
+    torch.profiler (cold L2 as in cuda_ms): unlike CUDA events around one
+    launch it leaves out the launch latency and any host gap."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):  # a session can come back without kernel events; ask again
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                if flush is not None:
+                    flush.zero_()
+                fn()
+            torch.cuda.synchronize()
+        total = sum(e.device_time_total for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA
+                    and "fill" not in e.name.lower() and "elementwise" not in e.name)
+        if total > 0:
+            return total / reps / 1e3
+    raise PhaseError("torch.profiler recorded no kernel of the timed call")
+
+
+def bound(nbytes, flops=0.0, flop_rate=F32_FLOP_PER_S, int_ops=0.0):
+    """(least ms, what bounds it): the larger of the bytes over the memory
+    rate and the operations over their peak rates (f32 and INT32 run on
+    separate lanes, so the larger of those two counts)."""
+    t_b = nbytes / HBM_BYTES_PER_S * 1e3
+    t_o = max(flops / flop_rate, int_ops / INT32_OP_PER_S) * 1e3
+    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
 
 # ---------------------------------------------------------------------------
@@ -132,52 +172,62 @@ def kernel_phase(torch, log):
         check(err <= 1e-6 * want.abs().max().item(), f"torch.addcmul differs by {err:.3e}")
         return cuda_ms(torch, lambda: torch.addcmul(zero, codes, scale), flush=flush)
 
-    # K1 + K2 correctness: bits x modes at the MLP shape, byte-equal
+    def k1_row(what, x, key, mode, rand_bits=32):
+        """K1 in its key form against its plain version (threefry twin +
+        quantize_pack_ref) at one shape, W8: byte-equal, then timed."""
+        nb, n = x.shape[0], x.numel()
+        q = ops.quantize_pack(x, key, 255, 8, mode, rand_bits)
+        qr = ref.quantize_pack_key_ref(x, key, 255, 8, mode, rand_bits)
+        for g, w, part in zip(q, qr, ("codes", "scale", "zero")):
+            check(torch.equal(g, w), f"K1 {what} {mode}: {part} differ in "
+                  f"{(g != w).sum().item()} places")
+        return q, dict(
+            shape=what, nb=nb, mode=mode,
+            ms=cuda_ms(torch, lambda: ops.quantize_pack(x, key, 255, 8, mode, rand_bits),
+                       flush=flush),
+            kernel_ms=kernel_ms(torch, lambda: ops.quantize_pack(x, key, 255, 8, mode, rand_bits),
+                                flush=flush),
+            plain_ms=cuda_ms(torch, lambda: ref.quantize_pack_key_ref(x, key, 255, 8, mode,
+                                                                      rand_bits),
+                             reps=3, flush=flush),
+            bound=bound(4 * n + n + 8 * nb, flops=5 * n,
+                        int_ops=K1_DRAW_INT_OPS * n if mode == "stochastic" else 0),
+            max_abs_err=max((a.float() - b.float()).abs().max().item() for a, b in zip(q, qr)))
+
+    # K1 (key form) + K2 correctness: bits x modes x rand_bits at the MLP
+    # shape, byte-equal
     nb = GPT13_NB["mlp (w_gate/w_up/w_down)"]
     x = torch.randn((nb, 1024), generator=gen, device=dev) * 0.02
     for bits in (2, 4, 8):
         for mode in ("nearest", "stochastic", "shift"):
-            if mode == "stochastic":
-                rand = key_uniform(nb, 1024, 0.0, 1.0, bits)
-            elif mode == "shift":
-                rand = key_uniform(nb, 1, -0.5, 0.5, bits)
-            else:
-                rand = torch.zeros((nb, 1), device=dev)
-            levels = (1 << bits) - 1
-            got = ops.quantize_pack(x, rand, levels, bits, mode)
-            want = ref.quantize_pack_ref(x, rand, levels, bits, mode)
-            for g, w, what in zip(got, want, ("codes", "scale", "zero")):
-                check(torch.equal(g, w), f"K1 bits={bits} mode={mode}: {what} differ "
-                      f"in {(g != w).sum().item()} places")
-            for dt in (torch.float32, torch.bfloat16):
-                d = ops.unpack_dequantize(*got, bits, dt)
-                dw = ref.unpack_dequantize_ref(*got, bits, dt)
-                check(torch.equal(d.view(torch.uint8), dw.view(torch.uint8)),
-                      f"K2 bits={bits} mode={mode} {dt}: values differ")
-    log("K1 quantize_pack: byte-equal to plain, bits {2,4,8} x {nearest,stochastic,shift}, "
-        f"nb={nb} x 1024")
+            for rand_bits in (16, 32):
+                key = prng.fold_in(prng.PRNGKey(bits), rand_bits)
+                levels = (1 << bits) - 1
+                got = ops.quantize_pack(x, key, levels, bits, mode, rand_bits)
+                want = ref.quantize_pack_key_ref(x, key, levels, bits, mode, rand_bits)
+                for g, w, what in zip(got, want, ("codes", "scale", "zero")):
+                    check(torch.equal(g, w), f"K1 bits={bits} mode={mode} rand_bits="
+                          f"{rand_bits}: {what} differ in {(g != w).sum().item()} places")
+                for dt in (torch.float32, torch.bfloat16):
+                    d = ops.unpack_dequantize(*got, bits, dt)
+                    dw = ref.unpack_dequantize_ref(*got, bits, dt)
+                    check(torch.equal(d.view(torch.uint8), dw.view(torch.uint8)),
+                          f"K2 bits={bits} mode={mode} {dt}: values differ")
+    log("K1 quantize_pack (key form, in-kernel threefry): byte-equal to plain, bits {2,4,8} x "
+        f"{{nearest,stochastic,shift}} x rand_bits {{16,32}}, nb={nb} x 1024")
     log("K2 unpack_dequantize: byte-equal to plain, same cases, f32 and bf16 out")
 
-    # K1/K2 times at every main-path shape (W8, shift, f32 out)
+    # K1/K2 at every main-path gather shape (W8, shift, f32 out), byte-equal
+    # and timed
     k1, k2 = [], []
     for what, nb in GPT13_NB.items():
         x = torch.randn((nb, 1024), generator=gen, device=dev) * 0.02
-        rand = key_uniform(nb, 1, -0.5, 0.5, nb)
-        q = ops.quantize_pack(x, rand, 255, 8, "shift")
-        qr = ref.quantize_pack_ref(x, rand, 255, 8, "shift")
-        check(all(torch.equal(a, b) for a, b in zip(q, qr)), f"K1 {what}: differs")
+        q, row = k1_row(what, x, prng.PRNGKey(nb), "shift")
+        k1.append(row)
         d = ops.unpack_dequantize(*q, 8)
         dr = ref.unpack_dequantize_ref(*q, 8)
         check(torch.equal(d, dr), f"K2 {what}: differs")
         n = nb * 1024
-        k1.append(dict(
-            shape=what, nb=nb,
-            ms=cuda_ms(torch, lambda: ops.quantize_pack(x, rand, 255, 8, "shift"), flush=flush),
-            plain_ms=cuda_ms(torch, lambda: ref.quantize_pack_ref(x, rand, 255, 8, "shift"),
-                             reps=3, flush=flush),
-            bound=bound(4 * n + 4 * nb + n + 8 * nb, flops=5 * n),
-            max_abs_err=max((a.float() - b.float()).abs().max().item()
-                            for a, b in zip(q, qr))))
         k2.append(dict(
             shape=what, nb=nb,
             ms=cuda_ms(torch, lambda: ops.unpack_dequantize(*q, 8), flush=flush),
@@ -186,32 +236,17 @@ def kernel_phase(torch, log):
             library_ms=addcmul_ms(*q, dr),
             bound=bound(n + 8 * nb + 4 * n, flops=2 * n),
             max_abs_err=(d - dr).abs().max().item()))
-        del x, rand, q, qr, d, dr
-    for r in k1:
-        log(f"K1 {r['shape']:26s} nb={r['nb']:6d}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, "
-            f"bound {r['bound'][0]:.4f} by {r['bound'][1]})")
-    for r in k2:
-        log(f"K2 {r['shape']:26s} nb={r['nb']:6d}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, "
-            f"torch.addcmul {r['library_ms']:.4f}, bound {r['bound'][0]:.4f} by {r['bound'][1]})")
-    # the gradient path's modes at the embedding shape: K1 stochastic with
-    # full-size thresholds (Def. 12), K2 decoding to f32 (the dequant-sum)
+        del x, q, d, dr
+    # the gradient path's modes at the embedding shape: K1 stochastic, one
+    # threefry draw per value (Def. 12), K2 decoding to f32 (the dequant-sum)
     nb = GPT13_NB["embed"]
     n = nb * 1024
     x = torch.randn((nb, 1024), generator=gen, device=dev) * 1e-3
-    rand = key_uniform(nb, 1024, 0.0, 1.0, 12)
-    q = ops.quantize_pack(x, rand, 255, 8, "stochastic")
-    qr = ref.quantize_pack_ref(x, rand, 255, 8, "stochastic")
-    check(all(torch.equal(a, b) for a, b in zip(q, qr)), "K1 stochastic embed: differs")
+    q, row = k1_row("embed grad", x, prng.fold_in(prng.PRNGKey(12), 0x5D), "stochastic")
+    k1.append(row)
     d = ops.unpack_dequantize(*q, 8, torch.float32)
     dr = ref.unpack_dequantize_ref(*q, 8, torch.float32)
     check(torch.equal(d, dr), "K2 f32 embed: differs")
-    k1.append(dict(
-        shape="embed grad, stochastic", nb=nb,
-        ms=cuda_ms(torch, lambda: ops.quantize_pack(x, rand, 255, 8, "stochastic"), flush=flush),
-        plain_ms=cuda_ms(torch, lambda: ref.quantize_pack_ref(x, rand, 255, 8, "stochastic"),
-                         reps=3, flush=flush),
-        bound=bound(4 * n + 4 * n + n + 8 * nb, flops=6 * n),
-        max_abs_err=max((a.float() - b.float()).abs().max().item() for a, b in zip(q, qr))))
     k2.append(dict(
         shape="embed grad, f32 out", nb=nb,
         ms=cuda_ms(torch, lambda: ops.unpack_dequantize(*q, 8, torch.float32), flush=flush),
@@ -220,10 +255,16 @@ def kernel_phase(torch, log):
         library_ms=addcmul_ms(*q, dr),
         bound=bound(n + 8 * nb + 4 * n, flops=2 * n),
         max_abs_err=(d - dr).abs().max().item()))
-    log(f"K1 stochastic / K2 f32 at the embedding gradient (nb={nb}): byte-equal to plain; "
-        f"{k1[-1]['ms']:.4f} / {k2[-1]['ms']:.4f} ms (bounds {k1[-1]['bound'][0]:.4f} / "
-        f"{k2[-1]['bound'][0]:.4f}; K2's torch.addcmul {k2[-1]['library_ms']:.4f})")
-    del x, rand, q, qr, d, dr
+    del x, q, d, dr
+    for r in k1:
+        b_ms, b_by = r["bound"]
+        log(f"K1 {r['shape']:26s} {r['mode']:10s} nb={r['nb']:6d}: {r['ms']:.4f} ms (plain "
+            f"{r['plain_ms']:.4f}, bound {b_ms:.4f} by {b_by}, {100 * b_ms / r['ms']:.0f}% "
+            f"of bound); kernel time alone (profiler) {r['kernel_ms']:.4f} ms, "
+            f"{100 * b_ms / r['kernel_ms']:.0f}% of bound")
+    for r in k2:
+        log(f"K2 {r['shape']:26s} nb={r['nb']:6d}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, "
+            f"torch.addcmul {r['library_ms']:.4f}, bound {r['bound'][0]:.4f} by {r['bound'][1]})")
     rows["quantize_pack"] = k1
     rows["unpack_dequantize"] = k2
 
@@ -277,12 +318,12 @@ def kernel_phase(torch, log):
     del x, rand, q, qr, d, dr
 
     # K3: tolerance against plain, both x dtypes; times in bf16 (main path)
+    # beside torch.matmul on the dense bf16 weight
     k3 = []
     for what, (m, k, n, n_seg) in K3_SHAPES.items():
         w = torch.randn((k, n), generator=gen, device=dev) * 0.02
         nb = k * n // 1024
-        rand = key_uniform(nb, 1, -0.5, 0.5, k)
-        codes, s, z = ops.quantize_pack(w.reshape(nb, 1024), rand, 255, 8, "shift")
+        codes, s, z = ops.quantize_pack(w.reshape(nb, 1024), prng.PRNGKey(k), 255, 8, "shift")
         codes, s, z = codes.reshape(k, n), s.reshape(k, n_seg), z.reshape(k, n_seg)
         for dt in (torch.float32, torch.bfloat16):
             xx = torch.randn((m, k), generator=gen, device=dev).to(dt)
@@ -305,13 +346,19 @@ def kernel_phase(torch, log):
             plain_ms=cuda_ms(torch, lambda: ref.rowquant_matmul_ref(xb, codes, s, z),
                              reps=3, flush=flush),
             library_ms=cuda_ms(torch, lambda: torch.matmul(xb, wd), flush=flush),
+            kernel_ms=kernel_ms(torch, lambda: ops.rowquant_matmul(xb, codes, s, z), flush=flush),
+            library_kernel_ms=kernel_ms(torch, lambda: torch.matmul(xb, wd), flush=flush),
             bound=bound(nbytes, flops=2 * m * k * n + 4 * m * k * n_seg),
             max_abs_err=err))
         del w, codes, s, z, wd
     for r in k3:
         log(f"K3 {r['shape']:12s} M={r['m']} K={r['k']} N={r['n']}: {r['ms']:.4f} ms "
             f"(plain {r['plain_ms']:.4f}, torch.matmul bf16 {r['library_ms']:.4f}, "
-            f"bound {r['bound'][0]:.4f} by {r['bound'][1]})")
+            f"bound {r['bound'][0]:.4f} by {r['bound'][1]}, "
+            f"{100 * r['bound'][0] / r['ms']:.0f}% of bound); kernel time alone (profiler) "
+            f"{r['kernel_ms']:.4f} ms vs torch.matmul's {r['library_kernel_ms']:.4f} ms: "
+            f"{'faster' if r['kernel_ms'] < r['library_kernel_ms'] else 'SLOWER'}, "
+            f"{100 * r['bound'][0] / r['kernel_ms']:.0f}% of bound")
     rows["rowquant_matmul"] = k3
     return rows
 
@@ -393,7 +440,7 @@ def main(argv=None) -> int:
                     help="comma-separated subset of build,kernels,small,serve,train")
     ap.add_argument("--profile", action="store_true",
                     help="serve phase: also profile one decode step of each run "
-                         "(chrome traces kept); train phase: one step (summary only)")
+                         "(chrome traces kept)")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
 
@@ -422,7 +469,8 @@ def main(argv=None) -> int:
             logs = build.build_all()
             for name, text in logs.items():
                 for line in text.splitlines():
-                    if "registers" in line or "error" in line.lower():
+                    if ("registers" in line or "error" in line.lower()
+                            or ("spill" in line and " 0 bytes spill stores" not in line)):
                         log(f"nvcc {name}: {line.strip()}")
             log(f"build: {time.time() - tb:.1f} s")
         rows, paths = None, []
@@ -435,7 +483,7 @@ def main(argv=None) -> int:
         if "serve" in phases:
             paths.append(serve_phase(torch, log, profile=args.profile))
         if "train" in phases:
-            paths.append(train_phase(torch, log, profile=args.profile))
+            paths.append(train_phase(torch, log))
         launches = {k: sum(p.get(k, 0) for p in paths) for k in KERNEL_META}
         if rows is not None:
             print(json.dumps(kernel_line(rows, launches)))
@@ -747,9 +795,9 @@ def expected_train_launches(model, n_micro: int) -> dict:
             "per_micro": (fwd, replay, grads)}
 
 
-def train_phase(torch, log, profile=False, dev="cuda"):
+def train_phase(torch, log, dev="cuda"):
     from repro_torch import configs
-    from repro_torch.core import prng, quant
+    from repro_torch.core import prng
     from repro_torch.core.qsdp import MeshSpec, QSDPConfig
     from repro_torch.data import SyntheticLM, make_batch
     from repro_torch.kernels import ops
@@ -763,7 +811,7 @@ def train_phase(torch, log, profile=False, dev="cuda"):
     sched = cosine_schedule(TRAIN["lr"], TRAIN["warmup"], TRAIN["total"])
     opt = make_adamw(AdamWConfig(lr=TRAIN["lr"], schedule=sched))
     data = SyntheticLM(cfg.vocab_size, TRAIN["seq"], TRAIN["batch"], seed=TRAIN["seed"])
-    n_steps = 1 + TRAIN_TIMED + 1 + int(profile)
+    n_steps = 1 + TRAIN_TIMED + 1
     batches = [make_batch(data, i, dev) for i in range(n_steps)]
 
     def key(i):
@@ -814,32 +862,18 @@ def train_phase(torch, log, profile=False, dev="cuda"):
         f"{want['quantize_pack']} = {TRAIN['n_micro']} microbatches x (forward, replay, "
         f"gradient) {want['per_micro']}")
 
-    # one more step with every stochastic-rounding draw timed on the host
-    # clock between two synchronizations (the draws run as plain threefry
-    # tensor ops: core/prng.py)
-    drawn = [0.0, 0]
-    orig_draw = quant.draw_rand
-
-    def timed_draw(qc, k, nb, device):
-        if qc.mode != "stochastic":
-            return orig_draw(qc, k, nb, device)
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        out = orig_draw(qc, k, nb, device)
-        torch.cuda.synchronize()
-        drawn[0] += time.perf_counter() - t
-        drawn[1] += 1
-        return out
-
+    # one more step under torch.profiler: K1's device time per step and
+    # the int64 elementwise kernels left (the threefry draws of core/prng.py
+    # ran as such kernels; K1 now draws in its own threads)
     i = 1 + TRAIN_TIMED
-    with hooked(quant, "draw_rand", lambda orig: timed_draw):
-        state, loss, _, t_instr = run(i, state)
-    check(math.isfinite(loss), f"train: instrumented step loss {loss}")
-    log(f"train: stochastic-rounding draws, host clock with a sync around each: "
-        f"{drawn[0] * 1e3:.1f} ms in {drawn[1]} draws, {100 * drawn[0] / t_instr:.1f} % of "
-        f"that step's {t_instr * 1e3:.1f} ms (unsynchronized median {med * 1e3:.1f} ms)")
-    if profile:
-        profile_train_step(torch, lambda st: step(st, batches[i + 1], key(i + 1)), state, log)
+    prof = profile_train_step(torch, lambda st: step(st, batches[i], key(i)), state, log)
+    check(prof["threefry_int64"] == 0,
+          f"train: {prof['threefry_int64']} int64 bitwise/shift kernels in the profiled step "
+          "(a threefry draw outside K1)")
+    log(f"train: profiled step: K1 {prof['k1_ms']:.1f} ms in {prof['k1_n']} launches, K2 "
+        f"{prof['k2_ms']:.1f} ms in {prof['k2_n']}; int64 elementwise kernels "
+        f"{prof['int64_n']} ({prof['int64_ms']:.1f} ms), of which int64 bitwise/shift "
+        f"(threefry) {prof['threefry_int64']}")
     del state, step
     torch.cuda.empty_cache()
 
@@ -885,7 +919,8 @@ def busy_share(events):
 def profile_train_step(torch, run_step, state, log):
     """torch.profiler over one train step: device busy share and kernel time
     by name (the trace is read from a temporary file and not kept: a step
-    holds ~10^5 kernels)."""
+    holds ~10^4-10^5 kernels).  Returns K1's and K2's device time and
+    launches and the int64 elementwise kernels of the step."""
     import tempfile
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -910,6 +945,25 @@ def profile_train_step(torch, run_step, state, log):
         f"kernels, device busy {busy / 1e3:.1f} ms ({100 * busy / 1e3 / wall_ms:.1f}% of wall)")
     for name, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]:
         log(f"profile train:   {us / 1e3:9.3f} ms  x{n:6d}  {name[:80]}")
+
+    def total(pred):
+        hits = [v for k, v in by_name.items() if pred(k)]
+        return sum(v[0] for v in hits) / 1e3, sum(v[1] for v in hits)
+
+    def int64_elementwise(k):
+        return "elementwise" in k and "long" in k
+
+    def bitwise(k):
+        k = k.lower()
+        return "bitwise" in k or "shift" in k
+
+    k1_ms, k1_n = total(lambda k: "quantize_pack" in k)
+    k2_ms, k2_n = total(lambda k: "unpack_dequantize" in k)
+    int64_ms, int64_n = total(int64_elementwise)
+    _, threefry = total(lambda k: int64_elementwise(k) and bitwise(k))
+    return dict(wall_ms=wall_ms, busy_ms=busy / 1e3, kernels=len(kernels), k1_ms=k1_ms,
+                k1_n=k1_n, k2_ms=k2_ms, k2_n=k2_n, int64_ms=int64_ms, int64_n=int64_n,
+                threefry_int64=threefry)
 
 
 if __name__ == "__main__":

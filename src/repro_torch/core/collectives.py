@@ -57,12 +57,12 @@ def all_gather_fp(x: torch.Tensor, group=None,
     return x
 
 
-def all_gather_quantized(x: torch.Tensor, cfg: QuantConfig, rand: tuple,
+def all_gather_quantized(x: torch.Tensor, cfg: QuantConfig, key: prng.Key,
                          group=None, out_dtype=None) -> torch.Tensor:
     """Gather a flat (n_local,) shard into the full flat tensor, shipping
-    quantized codes (3 collectives: codes, scale, zero).  `rand`: the
-    shard's rounding randomness from ``quant.draw_rands``."""
-    q = quantize(x, cfg, rand=rand)
+    quantized codes (3 collectives: codes, scale, zero) rounded under
+    `key`."""
+    q = quantize(x, cfg, key)
     require_one_rank(group)
     md = cfg.meta_torch_dtype
     wire = Quantized(q.codes, q.scale.to(md).to(torch.float32),
@@ -144,19 +144,18 @@ class WireLayout:
 
 
 def encode_wire(xs: Sequence[torch.Tensor], layout: WireLayout,
-                rands: Sequence[Optional[tuple]]) -> torch.Tensor:
+                keys: Sequence[Optional[prng.Key]]) -> torch.Tensor:
     """Quantize + serialize every tensor into one (layout.nbytes,) u8
-    buffer.  `rands`: one entry per segment, the rounding randomness of a
-    quantized segment drawn from its own key (``quant.draw_rands``), None
-    for an fp segment; so the bytes equal what per-tensor collectives
+    buffer.  `keys`: one per segment, each quantized tensor's own key (None
+    for an fp segment), so the bytes equal what per-tensor collectives
     would ship."""
     parts = []
-    for i, (x, seg) in enumerate(zip(xs, layout.segments)):
+    for x, seg, key in zip(xs, layout.segments, keys):
         flat = x.reshape(-1)
         if seg.cfg is None:
             parts.append(fp_pack(flat, seg.fp_dtype))
         else:
-            parts.append(wire_pack(quantize(flat, seg.cfg, rand=rands[i])))
+            parts.append(wire_pack(quantize(flat, seg.cfg, key)))
     return torch.cat(parts)
 
 
@@ -192,10 +191,10 @@ def decode_gathered_wire(gbuf: torch.Tensor, layout: WireLayout, p: int,
 
 
 def all_gather_coalesced(xs: Sequence[torch.Tensor], layout: WireLayout,
-                         rands: Sequence[Optional[tuple]], out_dtypes: Sequence,
+                         keys: Sequence[Optional[prng.Key]], out_dtypes: Sequence,
                          group=None) -> list[torch.Tensor]:
     """One-launch layer gather: encode -> 1 all-gather -> decode."""
-    gbuf = gather_wire(encode_wire(xs, layout, rands), group)
+    gbuf = gather_wire(encode_wire(xs, layout, keys), group)
     return decode_gathered_wire(gbuf, layout, group_size(group), out_dtypes)
 
 

@@ -76,10 +76,11 @@ def split(key: Key, num: int = 2) -> list[Key]:
     return [_threefry2x32(key[0], key[1], 0, i) for i in range(num)]
 
 
-def _bits32(keys, counts):
-    """XOR of the two hash words at (hi, lo) = (0, counts) — the
-    partitionable ``random_bits`` for < 2**32 values per key."""
-    b0, b1 = _threefry2x32(keys[0], keys[1], torch.zeros_like(counts), counts)
+def bits_at(key: Key, counts: torch.Tensor) -> torch.Tensor:
+    """The 32 bits that ``jax.random.bits(key, shape, uint32)`` puts at the
+    flat indices `counts` (int64, < 2**32): XOR of the two hash words at
+    (hi, lo) = (0, count), the partitionable ``random_bits``."""
+    b0, b1 = _threefry2x32(key[0], key[1], torch.zeros_like(counts), counts)
     return b0 ^ b1
 
 
@@ -92,19 +93,16 @@ def bits(key: Key, shape: Sequence[int], device="cpu",
     n = math.prod(shape)
     if n >= 1 << 32:
         raise ValueError("more than 2**32 values per key are not supported")
-    out = _bits32(key, torch.arange(n, dtype=torch.int64, device=device))
+    out = bits_at(key, torch.arange(n, dtype=torch.int64, device=device))
     if width == 16:
         out = out & 0xFFFF
     return out.reshape(tuple(shape))
 
 
-def _bits_to_unit(b: torch.Tensor) -> torch.Tensor:
-    """uint32 bits -> f32 in [0, 1): mantissa fill of 1.0, minus 1."""
-    one = ((b >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
-    return one - 1.0
-
-
-def _affine(u: torch.Tensor, minval: float, maxval: float) -> torch.Tensor:
+def to_uniform(b: torch.Tensor, minval: float = 0.0, maxval: float = 1.0) -> torch.Tensor:
+    """uint32 bits -> f32 in [minval, maxval) as ``jax.random.uniform``
+    makes them: mantissa fill of 1.0, minus 1, then the affine map."""
+    u = ((b >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
     lo = torch.tensor(minval, dtype=torch.float32, device=u.device)
     hi = torch.tensor(maxval, dtype=torch.float32, device=u.device)
     return torch.maximum(lo, u * (hi - lo) + lo)
@@ -113,24 +111,7 @@ def _affine(u: torch.Tensor, minval: float, maxval: float) -> torch.Tensor:
 def uniform(key: Key, shape: Sequence[int], device="cpu",
             minval: float = 0.0, maxval: float = 1.0) -> torch.Tensor:
     """``jax.random.uniform(key, shape, float32, minval, maxval)``."""
-    return _affine(_bits_to_unit(bits(key, shape, device)), minval, maxval)
-
-
-def uniform_segments(keys: Sequence[Key], sizes: Sequence[int], device="cpu",
-                     minval: float = 0.0, maxval: float = 1.0) -> torch.Tensor:
-    """Concatenation of ``uniform(keys[i], (sizes[i],))`` over i, drawn in
-    ONE pass of tensor ops (the per-tensor draws of a layer gather), so the
-    launch count does not grow with the number of tensors.  Bit-identical
-    to the separate draws."""
-    sz = torch.tensor(list(sizes), dtype=torch.int64, device=device)
-    n = int(sum(sizes))
-    kt = torch.tensor(list(keys), dtype=torch.int64, device=device)
-    seg = torch.repeat_interleave(torch.arange(len(sizes), device=device), sz,
-                                  output_size=n)
-    starts = torch.cumsum(sz, 0) - sz
-    counts = torch.arange(n, dtype=torch.int64, device=device) - starts[seg]
-    b = _bits32((kt[seg, 0], kt[seg, 1]), counts)
-    return _affine(_bits_to_unit(b), minval, maxval)
+    return to_uniform(bits(key, shape, device), minval, maxval)
 
 
 def randint(key: Key, shape: Sequence[int], minval: int, maxval: int,

@@ -35,7 +35,7 @@ import torch
 from ..kernels.ops import RowQuantWeight
 from . import collectives as coll
 from . import prng
-from .quant import QuantConfig, draw_rands, quantize, quantized_shapes, unpack_codes
+from .quant import QuantConfig, quantize, unpack_codes
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -202,18 +202,23 @@ class QSDPConfig:
 _GRAD_SALT = 0x5D  # fold_in(gather key, _GRAD_SALT) keys the gradient RS
 
 
+def _tensor_key(key: prng.Key, name: str) -> prng.Key:
+    """The key a gather under `key` rounds tensor `name` with."""
+    return prng.fold_in(key, prng.stable_hash(name))
+
+
 class _GatherLayer(torch.autograd.Function):
     """Coalesced layer gather (forward) / coalesced quantized reduce-scatter
     of the cotangents (backward): the reference's ``qsdp_gather_layer``."""
 
     @staticmethod
-    def forward(ctx, eng, names, key, rands, *shards):
+    def forward(ctx, eng, names, key, *shards):
         ctx.eng, ctx.names, ctx.key = eng, names, key
         layout = eng.layout(names)
         out_dt = eng.compute_dtype if eng.cfg.dequant_to_compute else torch.float32
         return tuple(coll.all_gather_coalesced(
             shards, layout,
-            [rands[(n, key)] if s.cfg is not None else None
+            [_tensor_key(key, n) if s.cfg is not None else None
              for n, s in zip(names, layout.segments)],
             [out_dt if s.cfg is not None else torch.float32 for s in layout.segments],
             eng.group))
@@ -222,10 +227,10 @@ class _GatherLayer(torch.autograd.Function):
     def backward(ctx, *cts):
         eng, p = ctx.eng, ctx.eng.ms.fsdp_size
         layout = eng.rs_layout(ctx.names)
-        keys = [prng.fold_in(prng.fold_in(ctx.key, prng.stable_hash(n)), _GRAD_SALT)
+        keys = [prng.fold_in(_tensor_key(ctx.key, n), _GRAD_SALT)
                 if s.cfg is not None else None for n, s in zip(ctx.names, layout.segments)]
         gs = coll.reduce_scatter_coalesced([c.float() for c in cts], layout, keys, eng.group)
-        return (None, None, None, None, *(g / p for g in gs))
+        return (None, None, None, *(g / p for g in gs))
 
 
 class _GatherOne(torch.autograd.Function):
@@ -233,11 +238,11 @@ class _GatherOne(torch.autograd.Function):
     payload) / per-tensor reduce-scatter: the reference's ``qsdp_gather``."""
 
     @staticmethod
-    def forward(ctx, eng, name, key, rands, flat):
+    def forward(ctx, eng, name, key, flat):
         ctx.eng, ctx.name, ctx.key = eng, name, key
         if eng._is_quantized(eng.specs[name]):
             out_dt = eng.compute_dtype if eng.cfg.dequant_to_compute else None
-            return coll.all_gather_quantized(flat, eng.cfg.wcfg(), rands[(name, key)],
+            return coll.all_gather_quantized(flat, eng.cfg.wcfg(), _tensor_key(key, name),
                                              eng.group, out_dtype=out_dt)
         return coll.all_gather_fp(flat, eng.group, _DTYPES[eng.cfg.weight_wire_dtype])
 
@@ -246,11 +251,11 @@ class _GatherOne(torch.autograd.Function):
         eng, name = ctx.eng, ctx.name
         ct = ct.float()
         if eng._is_grad_quantized(eng.specs[name]):
-            bkey = prng.fold_in(prng.fold_in(ctx.key, prng.stable_hash(name)), _GRAD_SALT)
+            bkey = prng.fold_in(_tensor_key(ctx.key, name), _GRAD_SALT)
             g = coll.reduce_scatter_quantized(ct, eng.cfg.gcfg(), bkey, eng.group)
         else:
             g = coll.reduce_scatter_fp(ct, eng.group, _DTYPES[eng.cfg.grad_wire_dtype])
-        return None, None, None, None, g / eng.ms.fsdp_size
+        return None, None, None, g / eng.ms.fsdp_size
 
 
 class QSDPEngine:
@@ -310,49 +315,31 @@ class QSDPEngine:
 
     # -- gathers ----------------------------------------------------------------
 
-    def draw_rands(self, gathers, device) -> dict:
-        """The rounding randomness of several gathers, drawn in ONE pass.
-
-        gathers: [(full param names, gather key)] — one entry per gather a
-        step will make.  Returns {(full name, gather key): (rand,
-        rand_scale)} for every quantized tensor among them: the same bits
-        each gather would draw for itself from fold_in(key,
-        stable_hash(name)).  A decode step passes the result to its gathers
-        so the threefry work is one pass per step, not one per layer."""
-        wcfg = self.cfg.wcfg()
-        entries = [(n, k) for names, k in gathers for n in names
-                   if self._is_quantized(self.specs[n])]
-        keys = [prng.fold_in(k, prng.stable_hash(n)) for n, k in entries]
-        nbs = [quantized_shapes(self.specs[n].n_local(self.ms), wcfg)["scale"][0]
-               for n, _ in entries]
-        return dict(zip(entries, draw_rands([wcfg] * len(entries), keys, nbs, device)))
-
     def _reshape_full(self, name: str, full: torch.Tensor) -> torch.Tensor:
         spec = self.specs[name]
         n = spec.n_logical_local(self.ms.model_size)
         w = full[:n].reshape(spec.tp_local_shape(self.ms.model_size))
         return w.to(self.compute_dtype)
 
-    def gather(self, name: str, local: torch.Tensor, key: prng.Key,
-               rands: dict) -> torch.Tensor:
+    def gather(self, name: str, local: torch.Tensor, key: prng.Key) -> torch.Tensor:
         """The TP-local tensor of parameter `name` from its flat shard."""
-        return self.gather_layer("", {name: local}, key, rands)[name]
+        return self.gather_layer("", {name: local}, key)[name]
 
     def gather_layer(self, prefix: str, leaves: dict[str, torch.Tensor],
-                     key: prng.Key, rands: dict) -> dict[str, torch.Tensor]:
+                     key: prng.Key) -> dict[str, torch.Tensor]:
         """Gather every parameter of one layer dict — ONE collective for the
         whole layer under ``cfg.coalesce``, per-tensor otherwise — with the
-        quantized reduce-scatter as its backward.  `rands`: the randomness
-        drawn by :meth:`draw_rands` for (name, key)."""
+        quantized reduce-scatter as its backward.  Tensor `name` is rounded
+        under ``fold_in(key, stable_hash(name))``."""
         if not leaves:
             return {}
         names = tuple(sorted(leaves))
         full_names = tuple(f"{prefix}{k}" for k in names)
         if not self.layer_coalesced(full_names):
             return {k: self._reshape_full(
-                        n, _GatherOne.apply(self, n, key, rands, leaves[k].reshape(-1)))
+                        n, _GatherOne.apply(self, n, key, leaves[k].reshape(-1)))
                     for k, n in zip(names, full_names)}
-        fulls = _GatherLayer.apply(self, full_names, key, rands,
+        fulls = _GatherLayer.apply(self, full_names, key,
                                    *[leaves[k].reshape(-1) for k in names])
         return {k: self._reshape_full(n, f) for k, n, f in zip(names, full_names, fulls)}
 
@@ -387,16 +374,15 @@ class QSDPEngine:
         spec = self.specs[name]
         return self._is_quantized(spec) and self._rowquant_tiling_ok(spec, self.cfg.wcfg())
 
-    def gather_rowquant(self, name: str, local: torch.Tensor, key: prng.Key,
-                        rands: dict):
+    def gather_rowquant(self, name: str, local: torch.Tensor, key: prng.Key):
         """Gather `name` as a :class:`RowQuantWeight` (wire codes + per-bucket
         affine) for ``ops.rowquant_matmul``; the dense :meth:`gather` when
         the buckets do not tile its rows."""
         if not self.rowquant_eligible(name):
-            return self.gather(name, local, key, rands)
+            return self.gather(name, local, key)
         wcfg = self.cfg.wcfg()
         return self._assemble_rowquant(self.specs[name], wcfg,
-                                       quantize(local.reshape(-1), wcfg, rand=rands[(name, key)]))
+                                       quantize(local.reshape(-1), wcfg, _tensor_key(key, name)))
 
     # -- host-side helpers ----------------------------------------------------------
 

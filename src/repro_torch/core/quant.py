@@ -8,16 +8,18 @@ A :class:`Quantized` holds packed u8 codes: exactly what QSDP puts on the
 wire, byte for byte the same as the JAX package's ``core.quant``.  A
 :class:`QuantizedParam` is a train-state leaf kept in that wire form.
 
-Randomness is drawn from the threefry twin (``core.prng``) exactly as the
-JAX package draws it, so shift- and stochastic-mode bytes are comparable
+Randomness comes from a PRNG key and is the threefry stream the JAX
+package draws from it, so shift- and stochastic-mode bytes are comparable
 bit for bit.  The quantize and dequantize work runs in ``kernels.ops``: the
-CUDA kernels for tensors on the card, the plain versions on the CPU.
+CUDA kernels for tensors on the card (K1 computes the threefry bits in its
+own threads), the plain versions on the CPU (which draw them with
+``core.prng``).
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional, Sequence
+from typing import Optional
 
 import torch
 
@@ -109,53 +111,16 @@ def _to_buckets(x: torch.Tensor, bucket_size: int) -> tuple[torch.Tensor, int]:
     return flat.reshape(-1, bucket_size).contiguous(), size
 
 
-def draw_rand(cfg: QuantConfig, key: Optional[prng.Key], nb: int,
-              device) -> tuple[torch.Tensor, float]:
-    """The rounding randomness of one quantize call, drawn as the JAX
-    package draws it (``core/quant.py:241-254``): (rand, rand_scale)."""
+def quantize(x: torch.Tensor, cfg: QuantConfig, key: Optional[prng.Key] = None) -> Quantized:
+    """Bucketed min-max quantization with packed codes (K1), its rounding
+    randomness drawn from `key` as the JAX package draws it
+    (``core/quant.py:241-254``): on the card inside the kernel, on the CPU
+    by the threefry twin."""
     if cfg.mode in ("shift", "stochastic") and key is None:
         raise ValueError(f"mode={cfg.mode!r} requires a PRNG key")
-    if cfg.mode == "stochastic":
-        shape = (nb, cfg.bucket_size)
-        if cfg.rand_bits == 16:
-            return prng.bits(key, shape, device, width=16).to(torch.float32), 65536.0
-        return prng.uniform(key, shape, device), 1.0
-    if cfg.mode == "shift":
-        return prng.uniform(key, (nb, 1), device, -0.5, 0.5), 1.0
-    return torch.zeros((nb, 1), dtype=torch.float32, device=device), 1.0
-
-
-def draw_rands(cfgs: Sequence[QuantConfig], keys: Sequence[prng.Key],
-               nbs: Sequence[int], device) -> list[tuple[torch.Tensor, float]]:
-    """:func:`draw_rand` for several tensors.  All shift-mode draws are made
-    in one pass (``prng.uniform_segments``) — the same bits as one draw per
-    tensor, with a launch count that does not grow with the tensor count."""
-    shift = [i for i, c in enumerate(cfgs) if c.mode == "shift"]
-    out: list = [None] * len(cfgs)
-    if shift:
-        if any(keys[i] is None for i in shift):
-            raise ValueError("mode='shift' requires a PRNG key")
-        flat = prng.uniform_segments([keys[i] for i in shift],
-                                     [nbs[i] for i in shift], device, -0.5, 0.5)
-        for i, r in zip(shift, torch.split(flat, [nbs[i] for i in shift])):
-            out[i] = (r.reshape(-1, 1), 1.0)
-    for i, c in enumerate(cfgs):
-        if out[i] is None:
-            out[i] = draw_rand(c, keys[i], nbs[i], device)
-    return out
-
-
-def quantize(x: torch.Tensor, cfg: QuantConfig, key: Optional[prng.Key] = None,
-             rand: Optional[tuple[torch.Tensor, float]] = None) -> Quantized:
-    """Bucketed min-max quantization with packed codes (K1).
-
-    `rand` (optional) is a pre-drawn ``(rand, rand_scale)`` pair from
-    :func:`draw_rands`; by default it is drawn here from `key`."""
     buckets, size = _to_buckets(x, cfg.bucket_size)
-    nb = buckets.shape[0]
-    r, rand_scale = rand if rand is not None else draw_rand(cfg, key, nb, x.device)
-    codes, scale, zero = ops.quantize_pack(buckets, r, cfg.levels, cfg.bits,
-                                           cfg.mode, rand_scale)
+    codes, scale, zero = ops.quantize_pack(buckets, key, cfg.levels, cfg.bits, cfg.mode,
+                                           cfg.rand_bits)
     return Quantized(codes=codes, scale=scale[:, 0], zero=zero[:, 0],
                      shape=tuple(x.shape), size=size, cfg=cfg)
 

@@ -26,17 +26,18 @@ ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 FLAGS = ("-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
          "-lineinfo")
 
-_P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+_P, _I, _U, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_longlong,
+                       ctypes.c_float)
 SIGNATURES = {
     "quantize": {
-        "qsdp_quantize_pack": (_P, _P, _I, _P, _P, _P, _LL, _I, _I, _I, _F, _I, _F, _P),
+        "qsdp_quantize_pack": (_P, _U, _U, _I, _P, _P, _P, _LL, _I, _I, _I, _F, _I, _P),
         "qsdp_unpack_dequantize": (_P, _P, _P, _P, _I, _LL, _I, _I, _P),
         "qsdp_quantize_buckets": (_P, _P, _P, _P, _P, _LL, _I, _I, _F, _I, _P),
         "qsdp_dequantize_buckets": (_P, _P, _P, _P, _I, _LL, _I, _P),
     },
     "dequant_matmul": {
-        "qsdp_rowquant_matmul": (_P, _I, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _P),
-        "qsdp_rowquant_split": (_I, _I, _I),
+        "qsdp_rowquant_matmul": (_P, _I, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _P),
+        "qsdp_rowquant_workspace": (_I, _I, _I, _I, _P, _P, _P),
     },
 }
 

@@ -11,6 +11,8 @@ the counts).
 """
 from __future__ import annotations
 
+import ctypes
+import functools
 from collections import Counter
 from typing import NamedTuple
 
@@ -58,27 +60,31 @@ def _raise_on(rc: int, kernel: str) -> None:
         raise RuntimeError(f"{kernel}: CUDA error {rc} at launch")
 
 
-def quantize_pack(x: torch.Tensor, rand: torch.Tensor, levels: int, bits: int,
-                  mode: str = "nearest", rand_scale: float = 1.0):
-    """K1: fused bucketed quantize + bit-pack of (nb, bucket) f32 rows.
-    Returns (codes u8 (nb, bucket*bits/8 or bucket), scale (nb, 1),
-    zero (nb, 1)); `rand` as in ``ref.quantize_pack_ref``."""
-    if _on_cpu(x, rand):
-        return ref.quantize_pack_ref(x, rand, levels, bits, mode, rand_scale)
+def quantize_pack(x: torch.Tensor, key, levels: int, bits: int,
+                  mode: str = "nearest", rand_bits: int = 32):
+    """K1: fused bucketed quantize + bit-pack of (nb, bucket) f32 rows,
+    drawing its rounding randomness from the PRNG `key` (a pair of u32
+    words; None for "nearest") as ``ref.draw_rand`` does.  Returns (codes u8
+    (nb, bucket*bits/8 or bucket), scale (nb, 1), zero (nb, 1))."""
+    if _on_cpu(x):
+        return ref.quantize_pack_key_ref(x, key, levels, bits, mode, rand_bits)
     nb, bucket = x.shape
     k = ref.codes_per_byte(bits)
-    if mode not in _MODE_IDS or bucket % k or not 1 <= bits <= 8:
-        raise ValueError(f"unsupported mode={mode!r} bits={bits} bucket={bucket}")
-    rand_cols = bucket if mode == "stochastic" else 1
+    if mode not in _MODE_IDS or bucket % k or not 1 <= bits <= 8 or rand_bits not in (16, 32):
+        raise ValueError(f"unsupported mode={mode!r} bits={bits} bucket={bucket} "
+                         f"rand_bits={rand_bits}")
+    if mode != "nearest" and key is None:
+        raise ValueError(f"mode={mode!r} requires a PRNG key")
+    if mode == "stochastic" and nb * bucket > 1 << 32:
+        raise ValueError("more than 2**32 draws per key are not supported")
     _check("x", x, torch.float32, (nb, bucket))
-    _check("rand", rand, torch.float32, (nb, rand_cols))
+    k0, k1 = key if key is not None else (0, 0)
     codes = torch.empty((nb, bucket // k), dtype=torch.uint8, device=x.device)
     scale = torch.empty((nb, 1), dtype=torch.float32, device=x.device)
     zero = torch.empty((nb, 1), dtype=torch.float32, device=x.device)
     rc = build.load("quantize").qsdp_quantize_pack(
-        x.data_ptr(), rand.data_ptr(), rand_cols, codes.data_ptr(),
-        scale.data_ptr(), zero.data_ptr(), nb, bucket, bits, levels,
-        1.0 / levels, _MODE_IDS[mode], rand_scale, _stream())
+        x.data_ptr(), k0, k1, rand_bits, codes.data_ptr(), scale.data_ptr(),
+        zero.data_ptr(), nb, bucket, bits, levels, 1.0 / levels, _MODE_IDS[mode], _stream())
     _raise_on(rc, "quantize_pack")
     LAUNCHES["quantize_pack"] += 1
     return codes, scale, zero
@@ -152,6 +158,29 @@ def dequantize_buckets(codes: torch.Tensor, scale: torch.Tensor, zero: torch.Ten
     return out
 
 
+_TICKETS: dict = {}
+
+
+@functools.lru_cache(maxsize=None)
+def _rowquant_workspace(lib, m: int, k: int, n: int, n_seg: int,
+                        aligned: bool) -> tuple[int, int]:
+    """(tickets, partial floats) K3 needs for these shapes; its tiling sees
+    the codes pointer only through its 16-byte alignment."""
+    n_tickets, n_partial = ctypes.c_int(), ctypes.c_longlong()
+    lib.qsdp_rowquant_workspace(m, k, n, n_seg, 0 if aligned else 1, ctypes.byref(n_tickets),
+                                ctypes.byref(n_partial))
+    return n_tickets.value, n_partial.value
+
+
+def _tickets(device: torch.device, n: int) -> torch.Tensor:
+    """K3's per-tile tickets on `device`: zeroed once, and every launch
+    leaves them zero (launches on one stream, as the wrappers make them)."""
+    t = _TICKETS.get(device)
+    if t is None or t.numel() < n:
+        t = _TICKETS[device] = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+    return t
+
+
 class RowQuantWeight(NamedTuple):
     """A (K, N) matmul weight kept in quantized code form: codes (K, N) u8,
     scale/zero (K, n_seg) f32, the affine constant over N-segments of
@@ -160,12 +189,6 @@ class RowQuantWeight(NamedTuple):
     codes: torch.Tensor
     scale: torch.Tensor
     zero: torch.Tensor
-
-
-def rowquant_split(m: int, k: int, n: int) -> int:
-    """Split-K factor of the rowquant kernel for these shapes, as the kernel
-    source defines it (its tiling lives only in ``dequant_matmul.cu``)."""
-    return build.load("dequant_matmul").qsdp_rowquant_split(m, k, n)
 
 
 def rowquant_matmul(x: torch.Tensor, codes: torch.Tensor, scale: torch.Tensor,
@@ -186,13 +209,14 @@ def rowquant_matmul(x: torch.Tensor, codes: torch.Tensor, scale: torch.Tensor,
     _check("codes", codes, torch.uint8, (k, n))
     _check("scale", scale, torch.float32, (k, n_seg))
     _check("zero", zero, torch.float32, (k, n_seg))
-    split = rowquant_split(m, k, n)
-    partial = torch.empty((split, m, n), dtype=torch.float32, device=x.device)
+    lib = build.load("dequant_matmul")
+    n_tickets, n_partial = _rowquant_workspace(lib, m, k, n, n_seg, codes.data_ptr() % 16 == 0)
+    partial = torch.empty(n_partial, dtype=torch.float32, device=x.device)
     y = torch.empty((m, n), dtype=x.dtype, device=x.device)
-    rc = build.load("dequant_matmul").qsdp_rowquant_matmul(
-        x.data_ptr(), int(x.dtype == torch.bfloat16), codes.data_ptr(),
-        scale.data_ptr(), zero.data_ptr(), n_seg, partial.data_ptr(),
-        y.data_ptr(), m, k, n, split, _stream())
+    rc = lib.qsdp_rowquant_matmul(
+        x.data_ptr(), int(x.dtype == torch.bfloat16), codes.data_ptr(), scale.data_ptr(),
+        zero.data_ptr(), n_seg, partial.data_ptr(), _tickets(x.device, n_tickets).data_ptr(),
+        y.data_ptr(), m, k, n, _stream())
     _raise_on(rc, "rowquant_matmul")
     LAUNCHES["rowquant_matmul"] += 1
     return y

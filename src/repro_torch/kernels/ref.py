@@ -8,10 +8,17 @@ Two expressions of the reference are fused multiply-adds under XLA (the
 shift-mode ``zero = lo + r*scale`` and the decode ``c*scale + zero``); the
 kernels use ``__fmaf_rn`` there and :func:`fma_f32` reproduces a correctly
 rounded f32 fma here.
+
+K1 takes a PRNG key and draws its rounding randomness itself; its plain
+version :func:`quantize_pack_key_ref` draws the same bits with the threefry
+twin (:func:`draw_rand`, at the counters :func:`k1_counters` names) and
+quantizes with :func:`quantize_pack_ref`.
 """
 from __future__ import annotations
 
 import torch
+
+from ..core import prng
 
 _MODES = ("nearest", "stochastic", "shift")
 
@@ -94,6 +101,52 @@ def quantize_pack_ref(x: torch.Tensor, rand: torch.Tensor, levels: int,
         zero = lo
     codes = torch.clamp(codes, 0, levels).to(torch.uint8)
     return pack_codes(codes, bits), scale, zero
+
+
+def k1_counters(nb: int, bucket: int, mode: str, device="cpu") -> torch.Tensor:
+    """The threefry counter K1 hashes for value j of bucket b, as an int64
+    grid: ``b * bucket + j`` in stochastic mode ((nb, bucket): the flat
+    index ``jax.random.uniform(key, (nb, bucket))`` draws at), ``b`` in
+    shift mode ((nb, 1): one draw per bucket)."""
+    b = torch.arange(nb, dtype=torch.int64, device=device)[:, None]
+    if mode == "stochastic":
+        return b * bucket + torch.arange(bucket, dtype=torch.int64, device=device)
+    return b
+
+
+def draw_rand(key, nb: int, bucket: int, mode: str, rand_bits: int = 32,
+              device="cpu") -> tuple[torch.Tensor, float]:
+    """K1's rounding randomness for (nb, bucket) values under `key`, as
+    (rand, rand_scale) for :func:`quantize_pack_ref`: the bits the kernel
+    computes in its threads, and those the JAX package draws
+    (``core/quant.py:241-254``).  Stochastic: ``uniform(key, (nb, bucket))``,
+    or with ``rand_bits=16`` the low 16 bits of ``bits(key, (nb, bucket))``
+    compared against frac * 65536; shift: ``uniform(key, (nb, 1), -0.5,
+    0.5)``; nearest: no draw (zeros)."""
+    if mode not in _MODES:
+        raise ValueError(mode)
+    if mode == "nearest":
+        return torch.zeros((nb, 1), dtype=torch.float32, device=device), 1.0
+    if key is None:
+        raise ValueError(f"mode={mode!r} requires a PRNG key")
+    if rand_bits not in (16, 32):
+        raise ValueError(f"rand_bits must be 16 or 32, got {rand_bits}")
+    if nb * (bucket if mode == "stochastic" else 1) > 1 << 32:
+        raise ValueError("more than 2**32 draws per key are not supported")
+    b = prng.bits_at(key, k1_counters(nb, bucket, mode, device))
+    if mode == "shift":
+        return prng.to_uniform(b, -0.5, 0.5), 1.0
+    if rand_bits == 16:
+        return (b & 0xFFFF).to(torch.float32), 65536.0
+    return prng.to_uniform(b), 1.0
+
+
+def quantize_pack_key_ref(x: torch.Tensor, key, levels: int, bits: int,
+                          mode: str = "nearest", rand_bits: int = 32):
+    """K1 as the wrapper calls it: the rounding randomness drawn from `key`
+    (:func:`draw_rand`), then :func:`quantize_pack_ref`."""
+    rand, rand_scale = draw_rand(key, x.shape[0], x.shape[1], mode, rand_bits, x.device)
+    return quantize_pack_ref(x, rand, levels, bits, mode, rand_scale)
 
 
 def unpack_dequantize_ref(codes: torch.Tensor, scale: torch.Tensor,

@@ -93,28 +93,15 @@ class DecodeModel:
         dead lane).  Returns (next tokens (B,), cache updated in place)."""
         m, cfg = self.m, self.m.cfg
         pos = pos.expand(tokens.shape) if pos.ndim == 0 else pos
-        rands = self._step_rands(params, key, tokens.device)
-        emb = m.engine.gather("embed", params["embed"], key, rands)
+        emb = m.engine.gather("embed", params["embed"], key)
         x = L.embed_vocab_parallel(tokens[:, None], emb)[:, 0]
         cos, sin = L.rope_cos_sin(pos, cfg.head_dim, cfg.rope_theta)
-        x = self._decode_attn_stack(params, "layers", x, cache, pos, cos, sin, key, rands)
-        fn = m.engine.gather("final_norm", params["final_norm"], key, rands)
+        x = self._decode_attn_stack(params, "layers", x, cache, pos, cos, sin, key)
+        fn = m.engine.gather("final_norm", params["final_norm"], key)
         x = L.rms_norm(x, fn, cfg.norm_eps)
-        head = emb if cfg.tie_embeddings else m.engine.gather("lm_head", params["lm_head"],
-                                                               key, rands)
+        head = emb if cfg.tie_embeddings else m.engine.gather("lm_head", params["lm_head"], key)
         logits = L.vocab_parallel_logits(x, head)
         return self._sample(logits, head.shape[0]), cache
-
-    def _step_rands(self, params: Params, key: prng.Key, device) -> dict:
-        """The shift-rounding randomness of every gather one step makes
-        (embed, head, final norm with `key`; layer i with fold_in(key, i)),
-        drawn in one pass — the same bits each gather would draw itself."""
-        top = tuple(n for n in params if "/" not in n)
-        layers = tuple(f"layers/{n}" for n in self.m._group(params, "layers"))
-        n_layers = params[layers[0]].shape[0]
-        return self.m.engine.draw_rands(
-            [(top, key)] + [(layers, prng.fold_in(key, i)) for i in range(n_layers)],
-            device)
 
     def _sample(self, logits: torch.Tensor, v_local: int) -> torch.Tensor:
         """Greedy next token (sampling: ROADMAP A10)."""
@@ -142,7 +129,7 @@ class DecodeModel:
         return x + L.swiglu_mlp(h, w["w_gate"], w["w_up"], w["w_down"])
 
     def _gather_layer_w(self, prefix: str, names, lw: Params, lkey: prng.Key,
-                        rands: dict, mlp=None) -> dict:
+                        mlp=None) -> dict:
         """One layer's weights: one coalesced gather for the dense ones; with
         rowquant decode (mlp="dense") the MLP matmul weights come back as
         RowQuantWeights, gathered separately, that stay in code form."""
@@ -150,18 +137,18 @@ class DecodeModel:
         rq = [n for n in names
               if self.spec.rowquant_mlp and mlp == "dense" and n in ROWQUANT_MLP]
         out = m.engine.gather_layer(f"{prefix}/", {n: lw[n] for n in names if n not in rq},
-                                    lkey, rands)
+                                    lkey)
         for n in rq:
-            out[n] = m.engine.gather_rowquant(f"{prefix}/{n}", lw[n], lkey, rands)
+            out[n] = m.engine.gather_rowquant(f"{prefix}/{n}", lw[n], lkey)
         return out
 
-    def _decode_attn_stack(self, params, prefix, x, cache, pos, cos, sin, key, rands):
+    def _decode_attn_stack(self, params, prefix, x, cache, pos, cos, sin, key):
         grp = self.m._group(params, prefix)
         names = list(grp)
         for idx in range(next(iter(grp.values())).shape[0]):
             lkey = prng.fold_in(key, idx)
             w = self._gather_layer_w(prefix, names, {n: grp[n][idx] for n in names},
-                                     lkey, rands, mlp="dense")
+                                     lkey, mlp="dense")
             x = self._decode_attn_layer(x, w, cache["k"], cache["v"], idx, pos, cos, sin)
         return x
 
@@ -179,17 +166,14 @@ class DecodeModel:
         b, s = tokens.shape
         if s > self.spec.cache_len:
             raise ValueError(f"prompt ({s}) exceeds the KV ring ({self.spec.cache_len})")
-        rands = self._step_rands(params, key, tokens.device)
-        emb = m.engine.gather("embed", params["embed"], key, rands)
+        emb = m.engine.gather("embed", params["embed"], key)
         x = L.embed_vocab_parallel(tokens, emb)
         positions = torch.arange(s, device=tokens.device)
         cos, sin = L.rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
-        x = self._prefill_attn_stack(params, "layers", x, key, rands, cos, sin, positions,
-                                     cache)
-        fn = m.engine.gather("final_norm", params["final_norm"], key, rands)
+        x = self._prefill_attn_stack(params, "layers", x, key, cos, sin, positions, cache)
+        fn = m.engine.gather("final_norm", params["final_norm"], key)
         h = L.rms_norm(x[:, -1], fn, cfg.norm_eps)
-        head = emb if cfg.tie_embeddings else m.engine.gather("lm_head", params["lm_head"],
-                                                               key, rands)
+        head = emb if cfg.tie_embeddings else m.engine.gather("lm_head", params["lm_head"], key)
         logits = L.vocab_parallel_logits(h, head)
         return self._sample(logits, head.shape[0]), cache
 
@@ -212,15 +196,13 @@ class DecodeModel:
         return (x, self._slice_seq(kf).to(torch.bfloat16),
                 self._slice_seq(vf).to(torch.bfloat16))
 
-    def _prefill_attn_stack(self, params, prefix, x, key, rands, cos, sin, positions,
-                            cache):
+    def _prefill_attn_stack(self, params, prefix, x, key, cos, sin, positions, cache):
         grp = self.m._group(params, prefix)
         names = list(grp)
         for idx in range(next(iter(grp.values())).shape[0]):
             lkey = prng.fold_in(key, idx)
             # mlp=None: rowquant is a decode-only path, as in the reference
-            w = self._gather_layer_w(prefix, names, {n: grp[n][idx] for n in names}, lkey,
-                                     rands)
+            w = self._gather_layer_w(prefix, names, {n: grp[n][idx] for n in names}, lkey)
             x, cache["k"][idx], cache["v"][idx] = self._prefill_attn_layer(
                 x, w, cos, sin, positions)
         return x

@@ -113,17 +113,14 @@ class Model:
         cfg, eng = self.cfg, self.engine
         tokens = batch["tokens"]
         b, s = tokens.shape
-        top = tuple(n for n in ("embed", "final_norm", "lm_head") if n in params)
-        rands = eng.draw_rands([(top, key)], tokens.device)
-        emb = eng.gather("embed", params["embed"], key, rands)
+        emb = eng.gather("embed", params["embed"], key)
         x = L.embed_vocab_parallel(tokens, emb)
         positions = torch.arange(s, device=tokens.device)
         cos, sin = L.rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
         x = self._run_stack(params, x, key, cos, sin, positions)
-        fn = eng.gather("final_norm", params["final_norm"], key, rands)
+        fn = eng.gather("final_norm", params["final_norm"], key)
         x = L.rms_norm(x, fn, cfg.norm_eps)
-        head = emb if cfg.tie_embeddings else eng.gather("lm_head", params["lm_head"],
-                                                         key, rands)
+        head = emb if cfg.tie_embeddings else eng.gather("lm_head", params["lm_head"], key)
         return L.vocab_parallel_xent(x.reshape(b * s, -1), head,
                                      batch["labels"].reshape(b * s))
 
@@ -138,15 +135,12 @@ class Model:
         eng = self.engine
         grp = self._group(params, prefix)
         names = sorted(grp)
-        full = tuple(f"{prefix}/{n}" for n in names)
         # one UnbindBackward per stack: a layer's gradient lands in its own
         # slice instead of a zero-padded copy of the whole stack
         slices = [grp[n].unbind(0) for n in names]
 
         def body(x, idx, *lw):
-            lkey = prng.fold_in(key, idx)
-            rands = eng.draw_rands([(full, lkey)], x.device)
-            w = eng.gather_layer(f"{prefix}/", dict(zip(names, lw)), lkey, rands)
+            w = eng.gather_layer(f"{prefix}/", dict(zip(names, lw)), prng.fold_in(key, idx))
             return layer_fn(x, w, cos, sin, positions)
 
         for idx in range(len(slices[0])):

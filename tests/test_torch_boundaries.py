@@ -63,7 +63,8 @@ def test_multi_rank_mesh_names_roadmap():
 
 def test_wrappers_reject_mixed_devices():
     with pytest.raises(ValueError, match="CPU or on one CUDA device"):
-        ops.quantize_pack(torch.zeros(1, 4), torch.zeros(1, 1, device="meta"), 255, 8)
+        ops.unpack_dequantize(torch.zeros((1, 4), dtype=torch.uint8),
+                              torch.zeros((1, 1), device="meta"), torch.zeros((1, 1)), 8)
 
 
 def test_train_entry_points_raise_without_cuda(monkeypatch):

@@ -66,11 +66,16 @@ def test_serve_key_catalog_uniforms():
 
 
 def test_uniform_segments_equal_separate_draws():
+    """The draws K1 makes per segment (one key per quantized tensor, bits at
+    its own counters) equal the separate ``uniform`` draws of each tensor."""
+    from repro_torch.kernels import ref
     keys = [prng.fold_in(prng.PRNGKey(9), i) for i in range(4)]
     sizes = [3, 1, 256, 17]
-    flat = prng.uniform_segments(keys, sizes, "cpu", -0.5, 0.5)
-    parts = [prng.uniform(k, (n,), "cpu", -0.5, 0.5) for k, n in zip(keys, sizes)]
-    assert torch.equal(flat, torch.cat(parts))
+    for k, n in zip(keys, sizes):
+        shift, _ = ref.draw_rand(k, n, 1024, "shift")
+        assert torch.equal(shift, prng.uniform(k, (n, 1), "cpu", -0.5, 0.5))
+        stoch, _ = ref.draw_rand(k, 1, n, "stochastic")
+        assert torch.equal(stoch, prng.uniform(k, (1, n), "cpu"))
 
 
 @pytest.mark.parametrize("width", [16, 32])

@@ -84,8 +84,8 @@ def test_pallas_interpret_one_case_per_kernel(bits):
     levels = (1 << bits) - 1
     cj, sj, zj = jops.quantize_packed(jnp.asarray(x), jnp.asarray(rand), levels,
                                       bits, "shift", 1.0, interpret=True)
-    ct, st, zt = tops.quantize_pack(torch.from_numpy(x), torch.from_numpy(rand),
-                                    levels, bits, "shift")
+    ct, st, zt = tops.quantize_pack(torch.from_numpy(x), prng.PRNGKey(1), levels, bits,
+                                    "shift")
     for a, b in ((cj, ct), (sj, st), (zj, zt)):
         _bytes_equal(a, b)
     dj = jops.dequantize_packed(cj, sj, zj, bits, interpret=True)
@@ -99,8 +99,8 @@ def test_pallas_interpret_one_case_per_kernel(bits):
 @pytest.mark.parametrize("bits", [4, 8])
 def test_coalesced_wire_byte_equal(bits, meta):
     """encode_wire/decode_gathered_wire of one layer (two quantized tensors
-    and an fp payload) against the JAX package's, with each tensor's
-    randomness drawn in one pass from fold_in(key, stable_hash(name))."""
+    and an fp payload) against the JAX package's, each tensor rounded under
+    fold_in(key, stable_hash(name))."""
     from repro.core import collectives as jc
     from repro.core.qsdp import _stable_hash
     from repro_torch.core import collectives as tc
@@ -118,15 +118,10 @@ def test_coalesced_wire_byte_equal(bits, meta):
     jkey, tkey = jax.random.PRNGKey(5), prng.PRNGKey(5)
     jkeys = [jax.random.fold_in(jkey, _stable_hash(n)) if q else None
              for n, q in zip(names, quantized)]
-    qi = [i for i, q in enumerate(quantized) if q]
-    drawn = tq.draw_rands([tcfg] * len(qi),
-                          [prng.fold_in(tkey, prng.stable_hash(names[i])) for i in qi],
-                          [-(-sizes[i] // 256) for i in qi], "cpu")
-    rands = [None] * len(sizes)
-    for i, r in zip(qi, drawn):
-        rands[i] = r
+    tkeys = [prng.fold_in(tkey, prng.stable_hash(n)) if q else None
+             for n, q in zip(names, quantized)]
     wj = jc.encode_wire([jnp.asarray(x) for x in xs], jl, jkeys)
-    wt = tc.encode_wire([torch.from_numpy(x) for x in xs], tl, rands)
+    wt = tc.encode_wire([torch.from_numpy(x) for x in xs], tl, tkeys)
     _bytes_equal(wj, wt)
     dts = [jnp.float32] * 3
     for a, b in zip(jc.decode_gathered_wire(wj, jl, 1, dts),

@@ -71,8 +71,7 @@ def test_layer_grad_wire_bytes_equal(coalesce, mesh11, monkeypatch):
                                                        or rows, group))
     tleaves = {n: torch.from_numpy(v.copy()).requires_grad_() for n, v in leaves.items()}
     tkey = prng.PRNGKey(3)
-    rands = tm.engine.draw_rands([(tuple(f"layers/{n}" for n in names), tkey)], "cpu")
-    outs = tm.engine.gather_layer("layers/", tleaves, tkey, rands)
+    outs = tm.engine.gather_layer("layers/", tleaves, tkey)
     torch.autograd.backward([outs[n] for n in names],
                             [torch.from_numpy(cts[n]).to(outs[n].dtype) for n in names])
 

@@ -66,6 +66,12 @@ def test_chip_smoke_train_phase_rehearsal(monkeypatch):
     monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a, **k: 0)
     monkeypatch.setattr(configs, "get_config", configs.get_smoke)
     monkeypatch.setitem(cs.TRAIN, "seq", 32)
+    # the profiled step reads kernel events, which only the card records
+    profiled = []
+    monkeypatch.setattr(cs, "profile_train_step",
+                        lambda torch_, run, state, log: profiled.append(run(state)) or dict(
+                            k1_ms=0.0, k1_n=0, k2_ms=0.0, k2_n=0, int64_ms=0.0, int64_n=0,
+                            threefry_int64=0))
     for name in ("quantize_pack", "unpack_dequantize"):
         def counted(*a, _orig=getattr(ops, name), _name=name, **k):
             ops.LAUNCHES[_name] += 1
@@ -78,6 +84,7 @@ def test_chip_smoke_train_phase_rehearsal(monkeypatch):
     assert want["per_micro"] == (15, 14, 15)
     assert counts["quantize_pack"] == cs.TRAIN_TIMED * want["quantize_pack"] == 3 * 2 * 44
     assert any("quantized_state == quantize_master" in x for x in lines)
+    assert len(profiled) == 1
 
 
 @pytest.mark.parametrize("kind", ["adamw", "adamw_wd", "adamw_m8", "sgd", "sgd_momentum"])
