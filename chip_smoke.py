@@ -10,12 +10,14 @@ Phases, each of which makes the script exit non-zero when it fails:
               bits from the key, K2 unpack->dequantize, K3 rowquant matmul,
               K4 unpacked quantize, K5 unpacked dequantize) against its
               plain PyTorch version on the card at the gpt-1.3b shapes of
-              its path: K1/K2/K4/K5 byte-equal, K3 within tolerance; times
-              by CUDA events on cold L2 beside the bound (bytes, f32 and
-              INT32 operations), and beside the one library call that
-              computes the same function where there is one (K2/K5:
-              ``torch.addcmul``; K3: ``torch.matmul`` on the dequantized
-              bf16 weight).  Then the
+              its path: K1/K2/K4/K5 byte-equal, K3 within tolerance; K2
+              also over a whole gpt-1.3b layer's wire buffer in one launch
+              (bf16 and f32 out) and over segments off 16-byte alignment.
+              Times by CUDA events on cold L2 and by the profiler (kernel
+              alone) beside the bound (bytes, f32 and INT32 operations),
+              and beside the one library call that computes the same
+              function where there is one (K2/K5: ``torch.addcmul``; K3:
+              ``torch.matmul`` on the dequantized bf16 weight).  Then the
               K4/K5 entry points' own path (``quantize_buckets`` ->
               ``dequantize_buckets`` of an embedding-sized gradient).
 3. small   -- the gpt-1.3b smoke config on the card and on the CPU (plain
@@ -27,8 +29,10 @@ Phases, each of which makes the script exit non-zero when it fails:
               greedy, seed 0, through ``build_serve_setup`` ->
               ``ServeEngine.generate``: dense, then rowquant MLP.  Launch
               counts per kernel are checked against the counts the code's
-              structure predicts, and the two runs' first decode-step
-              logits must agree.
+              structure predicts (K2: one per decoded wire buffer), and the
+              two runs' first decode-step logits must agree.  ``--profile``
+              adds a profiled decode step of each (kernel time by name, the
+              bf16 casts and K2's launches).
 5. train   -- gpt-1.3b at full width and depth, default QSDPConfig (W8
               shift weights, G8 stochastic gradients, bucket 1024,
               coalesced, bf16 compute, full remat), AdamW + cosine, batch 4
@@ -118,19 +122,22 @@ def kernel_ms(torch, fn, reps=10, flush=None):
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):  # a session can come back without kernel events; ask again
+    # a session can come back without some of its kernel events, which
+    # would understate the mean: take one that recorded a whole number of
+    # kernels per call, and ask again otherwise
+    for _ in range(5):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 if flush is not None:
                     flush.zero_()
                 fn()
             torch.cuda.synchronize()
-        total = sum(e.device_time_total for e in prof.events()
-                    if e.device_type == torch.autograd.DeviceType.CUDA
-                    and "fill" not in e.name.lower() and "elementwise" not in e.name)
-        if total > 0:
-            return total / reps / 1e3
-    raise PhaseError("torch.profiler recorded no kernel of the timed call")
+        times = [e.device_time_total for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and "fill" not in e.name.lower() and "elementwise" not in e.name]
+        if times and len(times) % reps == 0:
+            return sum(times) / reps / 1e3
+    raise PhaseError("torch.profiler did not record every kernel of the timed calls")
 
 
 def bound(nbytes, flops=0.0, flop_rate=F32_FLOP_PER_S, int_ops=0.0):
@@ -151,11 +158,91 @@ GPT13_NB = {"attn (wq/wk/wv/wo)": 4096, "mlp (w_gate/w_up/w_down)": 16384,
 K3_SHAPES = {"w_gate/w_up": (4, 2048, 8192, 8), "w_down": (4, 8192, 2048, 2)}
 
 
-def kernel_phase(torch, log):
+def dt_name(dt) -> str:
+    return {"torch.float32": "f32", "torch.bfloat16": "bf16"}[str(dt)]
+
+
+def log_decode_row(name, r, log):
+    b_ms, b_by = r["bound"]
+    log(f"{name} {r['shape']:34s} nb={r['nb']:6d}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, "
+        f"torch.addcmul {r['library_ms']:.4f}, bound {b_ms:.4f} by {b_by}); kernel time alone "
+        f"(profiler) {r['kernel_ms']:.4f} ms, {100 * b_ms / r['kernel_ms']:.0f}% of bound")
+
+
+def layer_decode_rows(torch, log, gen, decode_row, addcmul_ms, dev="cuda"):
+    """K2 over whole wire buffers, as the gathers decode them.  Timed: one
+    gpt-1.3b layer's real buffer (its 7 quantized matmul weights and 2 fp
+    norms, encoded by K1 under the engine's layout) decoded in one launch, in
+    bf16 and in f32, byte-equal to the plain version; the library call is
+    ``torch.addcmul`` over the layer's codes gathered into one tensor.
+    Checked only: segments off 16-byte alignment, in two rows."""
+    from repro_torch import configs
+    from repro_torch.core import collectives as coll
+    from repro_torch.core import prng
+    from repro_torch.core.qsdp import MeshSpec, QSDPConfig
+    from repro_torch.core.quant import QuantConfig
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models.transformer import Model
+
+    eng = Model(configs.get_config("gpt-1.3b"), MeshSpec(("data", "model"), (1, 1)),
+                QSDPConfig()).engine
+    layout = eng.layout(tuple(sorted(n for n in eng.specs if n.startswith("layers/"))))
+
+    def encode(layout, seed):
+        xs = [torch.randn(seg.n, generator=gen, device=dev) * 0.02 for seg in layout.segments]
+        keys = [prng.fold_in(prng.PRNGKey(seed), i) if seg.cfg is not None else None
+                for i, seg in enumerate(layout.segments)]
+        return coll.encode_wire(xs, layout, keys)
+
+    buf = encode(layout, 20)
+    out = []
+    for dt in (torch.bfloat16, torch.float32):
+        table, dts = coll.wire_table(layout, 1, [dt] * len(layout.segments))
+        nb, n = sum(t.nb for t in table), sum(t.nb * t.bucket for t in table)
+        want = ref.unpack_dequantize_wire_ref(buf, table, dts)
+        # the library's operands: the layer's codes as one (nb, 1024) tensor
+        # and its f32 scale/zero as (nb, 1)
+        check(all(t.meta_dtype == torch.float32 for t in table), "layer meta is not f32")
+        meta = [buf[t.offset + t.code_bytes:t.offset + t.nbytes].clone().view(torch.float32)
+                .view(2, t.nb, 1) for t in table]
+        lib = (torch.cat([buf[t.offset:t.offset + t.code_bytes].view(t.nb, t.bucket)
+                          for t in table]),
+               torch.cat([m[0] for m in meta]), torch.cat([m[1] for m in meta]))
+        out.append(decode_row(
+            f"whole layer ({len(table)} tensors), {dt_name(dt)} out", nb,
+            lambda: ops.unpack_dequantize_wire(buf, table, dts),
+            lambda: ref.unpack_dequantize_wire_ref(buf, table, dts),
+            addcmul_ms(*lib, torch.cat(want)), sum(t.nbytes for t in table) + dt.itemsize * n,
+            n))
+        del want, meta, lib
+    # odd nb moves the next segment 8 bytes off 16 at 8 bits; bf16 scale/zero
+    # and an odd bf16 fp payload leave even 4-byte alignment behind
+    odd = coll.WireLayout((
+        coll.WireSegment(5 * 1024 - 3, QuantConfig(bits=8, meta_dtype="bfloat16")),
+        coll.WireSegment(77, None, "bfloat16"),
+        coll.WireSegment(3 * 1024, QuantConfig(bits=4, meta_dtype="bfloat16")),
+        coll.WireSegment(7 * 1024 + 1, QuantConfig(bits=2)),
+        coll.WireSegment(2000, QuantConfig(bits=3, bucket_size=100)),
+        coll.WireSegment(33 * 1024, QuantConfig(bits=8))))
+    rows = torch.cat([encode(odd, 21), encode(odd, 22)])
+    for dt in (torch.bfloat16, torch.float32):
+        table, dts = coll.wire_table(odd, 2, [dt] * len(odd.segments))
+        check(any((rows.data_ptr() + t.offset) % 16 for t in table),
+              "unaligned case: every segment is 16-byte aligned")
+        for g, w in zip(ops.unpack_dequantize_wire(rows, table, dts),
+                        ref.unpack_dequantize_wire_ref(rows, table, dts), strict=True):
+            check(torch.equal(g.view(torch.uint8), w.view(torch.uint8)),
+                  f"K2 unaligned segments, {dt_name(dt)} out: values differ")
+    log(f"K2 over wire buffers: a whole gpt-1.3b layer byte-equal to plain in one launch; "
+        f"segments off 16-byte alignment (bits 2/3/4/8, bf16 and f32 scale/zero, 2 rows, "
+        f"{len(table)} table entries) byte-equal, bf16 and f32 out")
+    return out
+
+
+def kernel_phase(torch, log, dev="cuda"):
     from repro_torch.core import prng
     from repro_torch.kernels import ops, ref
 
-    dev = "cuda"
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
     gen = torch.Generator(device=dev).manual_seed(0)
     rows = {}
@@ -165,12 +252,32 @@ def kernel_phase(torch, log):
 
     def addcmul_ms(codes, scale, zero, want):
         """The library's one call for codes * scale + zero at one code per
-        byte, f32 out (``addcmul`` promotes u8 codes): its time, after a
-        check that it computes the kernel's function (within rounding)."""
-        lib = torch.addcmul(zero, codes, scale)
-        err = (lib - want).abs().max().item()
-        check(err <= 1e-6 * want.abs().max().item(), f"torch.addcmul differs by {err:.3e}")
-        return cuda_ms(torch, lambda: torch.addcmul(zero, codes, scale), flush=flush)
+        byte (``addcmul`` promotes the u8 codes, computes in f32 and writes
+        `want`'s dtype): its time, after a check that it computes the
+        kernel's function (within one rounding of that dtype)."""
+        out = torch.empty_like(want)
+        torch.addcmul(zero, codes, scale, out=out)
+        err = (out.float() - want.float()).abs().max().item()
+        rel = 1e-6 if want.dtype == torch.float32 else 2.0 ** -7
+        check(err <= rel * want.float().abs().max().item(), f"torch.addcmul differs by {err:.3e}")
+        return cuda_ms(torch, lambda: torch.addcmul(zero, codes, scale, out=out), flush=flush)
+
+    def decode_row(what, nb, call, plain, library_ms, nbytes, n):
+        """A K2/K5 row: `call` (the kernel, a tensor or a list of them)
+        byte-equal to `plain`, then timed by events and by the profiler
+        beside the plain version and the library call."""
+        got, want = call(), plain()
+        got, want = (got, want) if isinstance(got, list) else ([got], [want])
+        for g, w in zip(got, want, strict=True):
+            check(g.dtype == w.dtype and torch.equal(g.view(torch.uint8), w.view(torch.uint8)),
+                  f"{what}: differs from the plain version in "
+                  f"{(g.float() != w.float()).sum().item()} values")
+        return dict(shape=what, nb=nb, ms=cuda_ms(torch, call, flush=flush),
+                    kernel_ms=kernel_ms(torch, call, flush=flush),
+                    plain_ms=cuda_ms(torch, plain, reps=3, flush=flush),
+                    library_ms=library_ms, bound=bound(nbytes, flops=2 * n),
+                    max_abs_err=max((g.float() - w.float()).abs().max().item()
+                                    for g, w in zip(got, want)))
 
     def k1_row(what, x, key, mode, rand_bits=32):
         """K1 in its key form against its plain version (threefry twin +
@@ -217,45 +324,28 @@ def kernel_phase(torch, log):
         f"{{nearest,stochastic,shift}} x rand_bits {{16,32}}, nb={nb} x 1024")
     log("K2 unpack_dequantize: byte-equal to plain, same cases, f32 and bf16 out")
 
-    # K1/K2 at every main-path gather shape (W8, shift, f32 out), byte-equal
-    # and timed
+    # K1/K2 at every main-path gather shape (W8, shift), byte-equal and
+    # timed; K2 in bf16 (the gather's decode, written in the compute dtype)
+    # and f32 (the reduce-scatter's dequant-sum)
     k1, k2 = [], []
     for what, nb in GPT13_NB.items():
         x = torch.randn((nb, 1024), generator=gen, device=dev) * 0.02
         q, row = k1_row(what, x, prng.PRNGKey(nb), "shift")
         k1.append(row)
-        d = ops.unpack_dequantize(*q, 8)
-        dr = ref.unpack_dequantize_ref(*q, 8)
-        check(torch.equal(d, dr), f"K2 {what}: differs")
         n = nb * 1024
-        k2.append(dict(
-            shape=what, nb=nb,
-            ms=cuda_ms(torch, lambda: ops.unpack_dequantize(*q, 8), flush=flush),
-            plain_ms=cuda_ms(torch, lambda: ref.unpack_dequantize_ref(*q, 8), reps=3,
-                             flush=flush),
-            library_ms=addcmul_ms(*q, dr),
-            bound=bound(n + 8 * nb + 4 * n, flops=2 * n),
-            max_abs_err=(d - dr).abs().max().item()))
-        del x, q, d, dr
-    # the gradient path's modes at the embedding shape: K1 stochastic, one
-    # threefry draw per value (Def. 12), K2 decoding to f32 (the dequant-sum)
-    nb = GPT13_NB["embed"]
-    n = nb * 1024
-    x = torch.randn((nb, 1024), generator=gen, device=dev) * 1e-3
-    q, row = k1_row("embed grad", x, prng.fold_in(prng.PRNGKey(12), 0x5D), "stochastic")
-    k1.append(row)
-    d = ops.unpack_dequantize(*q, 8, torch.float32)
-    dr = ref.unpack_dequantize_ref(*q, 8, torch.float32)
-    check(torch.equal(d, dr), "K2 f32 embed: differs")
-    k2.append(dict(
-        shape="embed grad, f32 out", nb=nb,
-        ms=cuda_ms(torch, lambda: ops.unpack_dequantize(*q, 8, torch.float32), flush=flush),
-        plain_ms=cuda_ms(torch, lambda: ref.unpack_dequantize_ref(*q, 8, torch.float32),
-                         reps=3, flush=flush),
-        library_ms=addcmul_ms(*q, dr),
-        bound=bound(n + 8 * nb + 4 * n, flops=2 * n),
-        max_abs_err=(d - dr).abs().max().item()))
-    del x, q, d, dr
+        for dt in (torch.bfloat16, torch.float32):
+            k2.append(decode_row(
+                f"{what}, {dt_name(dt)} out", nb, lambda: ops.unpack_dequantize(*q, 8, dt),
+                lambda: ref.unpack_dequantize_ref(*q, 8, dt),
+                addcmul_ms(*q, ref.unpack_dequantize_ref(*q, 8, dt)),
+                n + 8 * nb + dt.itemsize * n, n))
+        del x, q
+    # the gradient path's mode at the embedding shape: K1 stochastic, one
+    # threefry draw per value (Def. 12)
+    x = torch.randn((GPT13_NB["embed"], 1024), generator=gen, device=dev) * 1e-3
+    k1.append(k1_row("embed grad", x, prng.fold_in(prng.PRNGKey(12), 0x5D), "stochastic")[1])
+    del x
+    k2 += layer_decode_rows(torch, log, gen, decode_row, addcmul_ms, dev)
     for r in k1:
         b_ms, b_by = r["bound"]
         log(f"K1 {r['shape']:26s} {r['mode']:10s} nb={r['nb']:6d}: {r['ms']:.4f} ms (plain "
@@ -263,8 +353,7 @@ def kernel_phase(torch, log):
             f"of bound); kernel time alone (profiler) {r['kernel_ms']:.4f} ms, "
             f"{100 * b_ms / r['kernel_ms']:.0f}% of bound")
     for r in k2:
-        log(f"K2 {r['shape']:26s} nb={r['nb']:6d}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, "
-            f"torch.addcmul {r['library_ms']:.4f}, bound {r['bound'][0]:.4f} by {r['bound'][1]})")
+        log_decode_row("K2", r, log)
     rows["quantize_pack"] = k1
     rows["unpack_dequantize"] = k2
 
@@ -293,9 +382,6 @@ def kernel_phase(torch, log):
     q = ops.quantize_buckets(x, rand, 255, True)
     qr = ref.quantize_buckets_ref(x, rand, 255, True)
     check(all(torch.equal(a, b) for a, b in zip(q, qr)), "K4 embed: differs")
-    d = ops.dequantize_buckets(*q)
-    dr = ref.dequantize_buckets_ref(*q)
-    check(torch.equal(d, dr), "K5 embed: differs")
     rows["quantize_buckets"] = [dict(
         shape="embed, stochastic", nb=nb,
         ms=cuda_ms(torch, lambda: ops.quantize_buckets(x, rand, 255, True), flush=flush),
@@ -303,19 +389,18 @@ def kernel_phase(torch, log):
                          flush=flush),
         bound=bound(4 * n + 4 * n + n + 8 * nb, flops=6 * n),
         max_abs_err=max((a.float() - b.float()).abs().max().item() for a, b in zip(q, qr)))]
-    rows["dequantize_buckets"] = [dict(
-        shape="embed, f32 out", nb=nb,
-        ms=cuda_ms(torch, lambda: ops.dequantize_buckets(*q), flush=flush),
-        plain_ms=cuda_ms(torch, lambda: ref.dequantize_buckets_ref(*q), reps=3, flush=flush),
-        library_ms=addcmul_ms(*q, dr),
-        bound=bound(n + 8 * nb + 4 * n, flops=2 * n),
-        max_abs_err=(d - dr).abs().max().item())]
-    for name in ("quantize_buckets", "dequantize_buckets"):
-        r = rows[name][0]
-        lib = f", torch.addcmul {r['library_ms']:.4f}" if "library_ms" in r else ""
-        log(f"{name} {r['shape']} nb={nb}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}{lib}, "
-            f"bound {r['bound'][0]:.4f} by {r['bound'][1]})")
-    del x, rand, q, qr, d, dr
+    rows["dequantize_buckets"] = [
+        decode_row(f"embed, {dt_name(dt)} out", nb, lambda: ops.dequantize_buckets(*q, dt),
+                   lambda: ref.dequantize_buckets_ref(*q, dt),
+                   addcmul_ms(*q, ref.dequantize_buckets_ref(*q, dt)),
+                   n + 8 * nb + dt.itemsize * n, n)
+        for dt in (torch.float32, torch.bfloat16)]
+    r = rows["quantize_buckets"][0]
+    log(f"quantize_buckets {r['shape']} nb={nb}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, "
+        f"bound {r['bound'][0]:.4f} by {r['bound'][1]})")
+    for r in rows["dequantize_buckets"]:
+        log_decode_row("K5 dequantize_buckets", r, log)
+    del x, rand, q, qr
 
     # K3: tolerance against plain, both x dtypes; times in bf16 (main path)
     # beside torch.matmul on the dense bf16 weight
@@ -420,6 +505,7 @@ def kernel_line(rows, launches):
             "ms": big["ms"], "plain_ms": big["plain_ms"],
             "bound_ms": big["bound"][0], "bound_by": big["bound"][1],
             "library_ms": big.get("library_ms"),
+            "kernel_ms": big.get("kernel_ms"),
             "shape": big["shape"],
         })
     return {"kernels": out}
@@ -520,10 +606,12 @@ def capture_logits(store):
 
 
 def capture_gathers(model, store):
+    import torch
+
     def wrap(orig):
         def f(name, full):
             n = model.specs[name].n_logical_local(model.ms.model_size)
-            raw = full[:n].detach().contiguous().cpu().numpy().tobytes()
+            raw = full[:n].detach().contiguous().cpu().view(torch.uint8).numpy().tobytes()
             store.setdefault(name, []).append(hashlib.sha256(raw).hexdigest())
             return orig(name, full)
         return f
@@ -584,21 +672,40 @@ SERVE = dict(batch=4, prompt_len=128, gen=16, seed=0)
 SERVE_REPS = 3  # timed generate() runs per path
 
 
+def k2_buffers(eng, quantized, skip=()) -> tuple[int, int]:
+    """Gathered (or reduce-scattered) wire buffers of one pass over the
+    parameters that hold a tensor `quantized` says is quantized, each decoded
+    by ONE K2 launch: (tensors outside a stack, each gathered alone; layers
+    of the stacks, each one buffer of its tensors not named in `skip`)."""
+    alone = sum(1 for s in eng.specs.values() if s.stack is None and quantized(s))
+    layers = {}
+    for n, s in eng.specs.items():
+        if s.stack is not None and n.split("/")[-1] not in skip and quantized(s):
+            layers[n.rsplit("/", 1)[0]] = s.stack
+    return alone, sum(layers.values())
+
+
 def expected_launches(model, gen: int, rowquant: bool) -> dict:
     """Kernel launches of generate() by the code's structure: every decode
     step (and the prefill) quantizes each quantized tensor once (K1) and
-    densely decodes each one (K2) -- except, with rowquant, the decode MLP
-    weights, which go through K3 instead of K2."""
+    decodes each gathered buffer that holds a quantized tensor in one launch
+    (K2) -- the embedding's, and one per layer -- except, with rowquant, the
+    decode MLP weights, which go through K3 (each one falling back to a
+    buffer of its own where its buckets do not tile its rows)."""
     from repro_torch.models.decode import ROWQUANT_MLP
     eng = model.engine
     n_q = sum((s.stack or 1) for s in eng.specs.values() if eng._is_quantized(s))
-    n_rq = sum(s.stack or 1 for n, s in eng.specs.items()
-               if n.split("/")[-1] in ROWQUANT_MLP and eng.rowquant_eligible(n)) if rowquant else 0
+    rq = [n for n in eng.specs if n.split("/")[-1] in ROWQUANT_MLP] if rowquant else []
+    n_rq = sum(eng.specs[n].stack or 1 for n in rq if eng.rowquant_eligible(n))
+    k2_prefill = sum(k2_buffers(eng, eng._is_quantized))
+    k2_step = (sum(k2_buffers(eng, eng._is_quantized, skip=ROWQUANT_MLP if rowquant else ()))
+               + sum(eng.specs[n].stack or 1 for n in rq
+                     if eng._is_quantized(eng.specs[n]) and not eng.rowquant_eligible(n)))
     steps = gen - 1
     return {"quantize_pack": n_q * gen,
-            "unpack_dequantize": n_q * gen - n_rq * steps,
+            "unpack_dequantize": k2_prefill + k2_step * steps,
             "rowquant_matmul": n_rq * steps,
-            "per_step": (n_q, n_q - n_rq, n_rq)}
+            "per_step": (n_q, k2_step, n_rq)}
 
 
 def serve_phase(torch, log, profile=False):
@@ -709,6 +816,14 @@ def profile_step(torch, setup, prompt, log, tag):
         f"({100 * busy / 1e3 / wall_ms:.1f}% of wall, idle {100 - 100 * busy / 1e3 / wall_ms:.1f}%)")
     for name, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]:
         log(f"profile {tag}:   {us / 1e3:8.3f} ms  x{n:5d}  {name[:80]}")
+    for what, key in (("bfloat16_copy (casts to bf16)", "bfloat16_copy"),
+                      ("K2 unpack_dequantize", "unpack_dequantize")):
+        hits = [v for k, v in by_name.items() if key in k]
+        log(f"profile {tag}: {what}: {sum(v[1] for v in hits)} kernels, "
+            f"{sum(v[0] for v in hits) / 1e3:.3f} ms")
+    copies = [e for e in events if e.get("cat") == "gpu_memcpy"]
+    log(f"profile {tag}: {len(copies)} memory copies (not kernels), "
+        f"{sum(e['dur'] for e in copies) / 1e3:.3f} ms")
 
 
 # ---------------------------------------------------------------------------
@@ -783,16 +898,19 @@ def expected_train_launches(model, n_micro: int) -> dict:
     the top, each layer inside its checkpoint), the backward re-gathers
     every layer's quantized tensors once more (the checkpoint replays the
     gather), and every gradient-quantized tensor is reduce-scattered once.
-    Each gather encodes with K1 and decodes with K2; each reduce-scatter
-    quantizes with K1 and dequant-sums with K2."""
+    K1 encodes each quantized tensor of a gather or reduce-scatter; K2
+    decodes each buffer that holds one, in one launch (the final norm's
+    buffers hold fp payloads only)."""
     eng = model.engine
     fwd = sum(s.stack or 1 for s in eng.specs.values() if eng._is_quantized(s))
     replay = sum(s.stack for n, s in eng.specs.items()
                  if n.startswith("layers/") and eng._is_quantized(s))
     grads = sum(s.stack or 1 for s in eng.specs.values() if eng._is_grad_quantized(s))
-    per_step = n_micro * (fwd + replay + grads)
-    return {"quantize_pack": per_step, "unpack_dequantize": per_step,
-            "per_micro": (fwd, replay, grads)}
+    alone, layers = k2_buffers(eng, eng._is_quantized)
+    k2 = (alone + layers, layers, sum(k2_buffers(eng, eng._is_grad_quantized)))
+    return {"quantize_pack": n_micro * (fwd + replay + grads),
+            "unpack_dequantize": n_micro * sum(k2),
+            "per_micro": (fwd, replay, grads), "k2_per_micro": k2}
 
 
 def train_phase(torch, log, dev="cuda"):
@@ -858,9 +976,10 @@ def train_phase(torch, log, dev="cuda"):
     log(f"train: losses {[round(x, 4) for x in losses]}, grad norms "
         f"{[round(x, 4) for x in gnorms]} (first loss vs ln {cfg.vocab_size} = "
         f"{math.log(cfg.vocab_size):.4f})")
-    log(f"train: launches in {TRAIN_TIMED} steps {counts}; per step K1 = K2 = "
+    log(f"train: launches in {TRAIN_TIMED} steps {counts}; per step K1 "
         f"{want['quantize_pack']} = {TRAIN['n_micro']} microbatches x (forward, replay, "
-        f"gradient) {want['per_micro']}")
+        f"gradient) tensors {want['per_micro']}, K2 {want['unpack_dequantize']} = "
+        f"{TRAIN['n_micro']} x buffers {want['k2_per_micro']}")
 
     # one more step under torch.profiler: K1's device time per step and
     # the int64 elementwise kernels left (the threefry draws of core/prng.py

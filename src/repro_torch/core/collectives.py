@@ -24,9 +24,11 @@ from typing import Optional, Sequence
 
 import torch
 
+from ..kernels import ops
 from . import prng
 from .quant import (QuantConfig, Quantized, dequantize, fp_pack, fp_segment_bytes,
-                    fp_unpack, quantize, wire_pack, wire_segment_bytes, wire_unpack)
+                    fp_unpack, kernel_dtype, quantize, quantized_shapes, wire_pack,
+                    wire_segment_bytes)
 
 
 def group_size(group) -> int:
@@ -67,7 +69,7 @@ def all_gather_quantized(x: torch.Tensor, cfg: QuantConfig, key: prng.Key,
     md = cfg.meta_torch_dtype
     wire = Quantized(q.codes, q.scale.to(md).to(torch.float32),
                      q.zero.to(md).to(torch.float32), (x.shape[0],), x.shape[0], cfg)
-    return dequantize(wire).to(out_dtype or x.dtype)
+    return dequantize(wire, out_dtype or x.dtype)
 
 
 def reduce_scatter_fp(x: torch.Tensor, group=None,
@@ -165,29 +167,45 @@ def gather_wire(buf: torch.Tensor, group=None) -> torch.Tensor:
     return buf
 
 
-def _decode_segments(rows: torch.Tensor, layout: WireLayout) -> list[list[torch.Tensor]]:
-    """(P, layout.nbytes) u8 rows -> per segment, the P (seg.n,) f32 decodes
-    (shared by the gather decode and the reduce-scatter dequant-sum)."""
-    outs = []
-    for seg, off in zip(layout.segments, layout.offsets()):
-        vals = []
-        for row in rows:
-            sb = row[off:off + seg.nbytes]
-            if seg.cfg is None:
-                vals.append(fp_unpack(sb, seg.n, seg.fp_dtype))
-            else:
-                vals.append(dequantize(wire_unpack(sb, seg.n, seg.cfg)))
-        outs.append(vals)
-    return outs
+def wire_table(layout: WireLayout, p: int,
+               out_dtypes: Sequence) -> tuple[list, list[torch.dtype]]:
+    """K2's segment table for P rows of `layout` laid end to end: one
+    ``ops.WireCodes`` per quantized (segment, row), segment-major, and the
+    dtype K2 writes for each (the segment's out dtype where K2 writes it,
+    else f32)."""
+    table, dts = [], []
+    for seg, off, dt in zip(layout.segments, layout.offsets(), out_dtypes):
+        if seg.cfg is not None:
+            nb = quantized_shapes(seg.n, seg.cfg)["scale"][0]
+            table += [ops.WireCodes(r * layout.nbytes + off, nb, seg.cfg.bucket_size,
+                                    seg.cfg.bits, seg.cfg.meta_torch_dtype) for r in range(p)]
+            dts += [kernel_dtype(dt)] * p
+    return table, dts
+
+
+def _decode_segments(rows: torch.Tensor, layout: WireLayout,
+                     out_dtypes: Sequence) -> list[list[torch.Tensor]]:
+    """(P, layout.nbytes) u8 rows -> per segment, the P (seg.n,) decodes: a
+    quantized segment's from ONE K2 launch over the whole buffer (scale and
+    zero read in place) in the dtype :func:`wire_table` gives it, an fp
+    segment's in f32 (shared by the gather decode and the reduce-scatter
+    dequant-sum)."""
+    p = rows.shape[0]
+    table, dts = wire_table(layout, p, out_dtypes)
+    decoded = iter(ops.unpack_dequantize_wire(rows.reshape(-1), table, dts) if table else ())
+    return [[fp_unpack(row[off:off + seg.nbytes], seg.n, seg.fp_dtype) for row in rows]
+            if seg.cfg is None else [next(decoded).reshape(-1)[:seg.n] for _ in range(p)]
+            for seg, off in zip(layout.segments, layout.offsets())]
 
 
 def decode_gathered_wire(gbuf: torch.Tensor, layout: WireLayout, p: int,
                          out_dtypes: Sequence) -> list[torch.Tensor]:
     """Decode a gathered (P * layout.nbytes,) buffer into full flat tensors
-    [(P * seg.n,) in out_dtype], each shard decoded with its own padding."""
+    [(P * seg.n,) in out_dtype], each shard decoded with its own padding; the
+    quantized segments in one K2 launch that writes their out dtypes."""
     rows = gbuf.reshape(p, layout.nbytes)
     return [(vals[0] if p == 1 else torch.cat(vals)).to(dt)
-            for vals, dt in zip(_decode_segments(rows, layout), out_dtypes)]
+            for vals, dt in zip(_decode_segments(rows, layout, out_dtypes), out_dtypes)]
 
 
 def all_gather_coalesced(xs: Sequence[torch.Tensor], layout: WireLayout,
@@ -218,4 +236,4 @@ def reduce_scatter_coalesced(gs: Sequence[torch.Tensor], layout: WireLayout,
                                      for c, k in zip(chunks, prng.split(key, p))]))
     rbuf = _all_to_all_rows(torch.cat(rows, dim=1), group)
     return [vals[0] if p == 1 else torch.stack(vals).sum(0)
-            for vals in _decode_segments(rbuf, layout)]
+            for vals in _decode_segments(rbuf, layout, [torch.float32] * len(gs))]

@@ -215,12 +215,16 @@ class _GatherLayer(torch.autograd.Function):
     def forward(ctx, eng, names, key, *shards):
         ctx.eng, ctx.names, ctx.key = eng, names, key
         layout = eng.layout(names)
-        out_dt = eng.compute_dtype if eng.cfg.dequant_to_compute else torch.float32
+        # K2 decodes each quantized weight straight into the compute dtype
+        # that _reshape_full casts to: the bytes of the f32 decode's cast
+        # (with or without cfg.dequant_to_compute), without the cast kernel.
+        # The cotangent then arrives in that dtype; the backward sums in f32.
         return tuple(coll.all_gather_coalesced(
             shards, layout,
             [_tensor_key(key, n) if s.cfg is not None else None
              for n, s in zip(names, layout.segments)],
-            [out_dt if s.cfg is not None else torch.float32 for s in layout.segments],
+            [eng.compute_dtype if s.cfg is not None else torch.float32
+             for s in layout.segments],
             eng.group))
 
     @staticmethod
@@ -241,9 +245,8 @@ class _GatherOne(torch.autograd.Function):
     def forward(ctx, eng, name, key, flat):
         ctx.eng, ctx.name, ctx.key = eng, name, key
         if eng._is_quantized(eng.specs[name]):
-            out_dt = eng.compute_dtype if eng.cfg.dequant_to_compute else None
             return coll.all_gather_quantized(flat, eng.cfg.wcfg(), _tensor_key(key, name),
-                                             eng.group, out_dtype=out_dt)
+                                             eng.group, out_dtype=eng.compute_dtype)
         return coll.all_gather_fp(flat, eng.group, _DTYPES[eng.cfg.weight_wire_dtype])
 
     @staticmethod

@@ -125,11 +125,17 @@ def quantize(x: torch.Tensor, cfg: QuantConfig, key: Optional[prng.Key] = None) 
                      shape=tuple(x.shape), size=size, cfg=cfg)
 
 
+def kernel_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The dtype K2 decodes into for a consumer that reads `dtype`: that
+    dtype where K2 writes it (f32, bf16), else f32 (then cast)."""
+    return dtype if dtype in (torch.float32, torch.bfloat16) else torch.float32
+
+
 def dequantize(q: Quantized, dtype=torch.float32) -> torch.Tensor:
-    """Affine decode back to the original shape (K2)."""
+    """Affine decode back to the original shape in `dtype` (K2)."""
     x = ops.unpack_dequantize(q.codes, q.scale[:, None], q.zero[:, None],
-                              q.cfg.bits, dtype)
-    return x.reshape(-1)[: q.size].reshape(q.shape)
+                              q.cfg.bits, kernel_dtype(dtype))
+    return x.reshape(-1)[: q.size].reshape(q.shape).to(dtype)
 
 
 def quantize_dequantize(x: torch.Tensor, cfg: QuantConfig,

@@ -32,6 +32,7 @@ SIGNATURES = {
     "quantize": {
         "qsdp_quantize_pack": (_P, _U, _U, _I, _P, _P, _P, _LL, _I, _I, _I, _F, _I, _P),
         "qsdp_unpack_dequantize": (_P, _P, _P, _P, _I, _LL, _I, _I, _P),
+        "qsdp_unpack_dequantize_wire": (_P, _I, _P),
         "qsdp_quantize_buckets": (_P, _P, _P, _P, _P, _LL, _I, _I, _F, _I, _P),
         "qsdp_dequantize_buckets": (_P, _P, _P, _P, _I, _LL, _I, _P),
     },

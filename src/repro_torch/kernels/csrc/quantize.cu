@@ -24,7 +24,10 @@
 // threefry-2x32 block per value: 20 rounds of add/rotate/xor plus five key
 // injections, ~75 32-bit integer operations, which at the card's 64 INT32
 // lanes per SM per clock is ~0.45 ms at the embedding -- there the integer
-// rate bounds it.  K2 reads 1 B/value and writes 4 B/value.
+// rate bounds it.  K2 reads the codes (bits/8 B a value) and 2 x 4 or 2 x 2
+// B of scale/zero a bucket and writes 2 (bf16) or 4 (f32) B a value: at 8
+// bits, 3 or 5 B a value, bound by bytes (a whole gpt-1.3b layer, 7
+// quantized tensors of 6.7e7 values, in bf16: 0.060 ms).
 //
 // K1's design.  The TPU kernel takes its randomness as an input array that
 // XLA draws upstream; copied as is, that is an (nb, bucket) f32 array of
@@ -38,9 +41,32 @@
 // at once and keeps the values in registers, min/max by shuffle, codes built
 // from registers, and the codes of 1..8 neighbouring lanes joined by shuffle
 // into whole 32-bit words, one store per word.  Other buckets take a generic
-// one-warp loop (two passes over the bucket, the second through L1).  K2
-// writes 16-byte vectors.  K4 runs K1's device code with its thresholds
-// read from an array (the TPU kernel's interface), K5 runs K2's.
+// one-warp loop (two passes over the bucket, the second through L1).  K4
+// runs K1's device code with its thresholds read from an array (the TPU
+// kernel's interface), K5 runs K2's.
+//
+// K2's design.  The TPU kernel decodes one (rows, bucket) tile of one tensor
+// per grid step; on this card a gathered layer buffer decoded tensor by
+// tensor costs a launch (and a few microseconds of first-byte latency) per
+// tensor, so one launch takes a table of segments (passed by value as a
+// kernel parameter: codes, scale, zero and output pointers, nb, bucket,
+// code width, metadata and output dtype) and decodes all of them, each into
+// its own dtype, reading scale/zero straight from the wire bytes.  The
+// grid is one wave of resident blocks; each warp walks whole buckets (the
+// segment found from the table's prefix counts, no division per value),
+// keeps the bucket's scale/zero in registers, and issues the next bucket's
+// loads before it decodes the current one, so every SM holds ~1 KB of codes
+// in flight per warp, tens of KB per SM where ~10 KB cover the first-byte
+// latency of the codes at the card's rate.  One wave, not a block per bucket: a warp's
+// next loads then overlap its own stores with no block start in between,
+// and its walk through the table only moves forward.  Codes come in 16-byte loads (16, 32 or 64 codes), go
+// through a 1 KB shared-memory stage per warp, and leave as 16-byte stores
+// of 8 bf16 or 4 f32 values, 512 contiguous bytes per warp instruction.  A
+// segment whose codes or output are not 16-byte aligned (an odd nb shifts
+// the next segment of a buffer by 8 bytes at 8 bits) or whose bucket does
+// not fill whole 16-byte loads takes a generic path in the same launch (one
+// value per lane, byte loads); scale/zero that are not aligned to their
+// width are read byte by byte.
 //
 // Numerics: every operation is an explicitly rounded intrinsic so nvcc can
 // neither contract nor reassociate: IEEE division (__fdiv_rn), half-even
@@ -268,64 +294,248 @@ cudaError_t launch_quantize(const float* x, Rand rnd, uint8_t* codes, float* sca
   return cudaGetLastError();
 }
 
-template <typename T>
-__device__ __forceinline__ T to_out(float v);
-template <>
-__device__ __forceinline__ float to_out<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 to_out<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
+// ---------------------------------------------------------------------------
+// K2 (and K5): bit-unpack -> dequantize of a table of segments in one launch
+// ---------------------------------------------------------------------------
+
+enum SegFlags {
+  kPbitsMask = 15,     // code width in the byte stream: bits (8 % bits == 0) or 8
+  kMetaBf16 = 16,      // scale/zero are bf16 (else f32)
+  kOutBf16 = 32,       // writes bf16 (else f32)
+  kFast = 64,          // the 16-byte path (launch_wire decides)
+  kMetaAligned = 128,  // scale/zero pointers aligned to their width
+};
+
+// One segment: nb buckets of `bucket` values, codes from `codes` (the
+// bucket's bucket*pbits/8 bytes one after the other), scale[b] / zero[b] in
+// f32 or bf16 at any byte address, decoded into `out` (nb, bucket).
+struct Seg {
+  const uint8_t* codes;
+  const uint8_t* scale;
+  const uint8_t* zero;
+  void* out;
+  int nb;
+  int bucket;
+  int unit0;  // the segment's first bucket in the launch's count of buckets
+  int flags;
+};
+
+// Passed by value (48 bytes a segment, 3 KB in all: within the 4 KB of
+// kernel parameters), read through the constant bank.
+constexpr int kMaxSegs = 64;
+struct SegTable {
+  Seg seg[kMaxSegs];
+  int units;  // buckets of all segments
+};
+
+constexpr int kDqWarps = 8;
+// bucket indices stay ints, with room for the grid's stride above them
+constexpr long long kMaxUnits = (1LL << 31) - (1LL << 24);
+constexpr int kMaxCodeBytes = 1024;  // 16-byte path: one bucket's codes staged per warp
+
+// One bucket's inputs, fetched one bucket ahead of its decode.
+struct Fetched {
+  uint4 c[kMaxCodeBytes / 16 / 32];
+  float s, z;
+};
+
+__device__ __forceinline__ float load_meta(const uint8_t* p, long long b, int flags) {
+  if (flags & kMetaBf16) {
+    const uint8_t* q = p + 2 * b;
+    const unsigned v = (flags & kMetaAligned) ? *reinterpret_cast<const uint16_t*>(q)
+                                              : (unsigned)q[0] | ((unsigned)q[1] << 8);
+    return __uint_as_float(v << 16);
+  }
+  const uint8_t* q = p + 4 * b;
+  const unsigned v = (flags & kMetaAligned)
+                         ? *reinterpret_cast<const uint32_t*>(q)
+                         : (unsigned)q[0] | ((unsigned)q[1] << 8) | ((unsigned)q[2] << 16) |
+                               ((unsigned)q[3] << 24);
+  return __uint_as_float(v);
 }
 
-// One thread per VEC consecutive output values of one bucket.
-template <typename T, int VEC>
-__global__ void unpack_dequantize_kernel(const uint8_t* __restrict__ codes,
-                                         const float* __restrict__ scale,
-                                         const float* __restrict__ zero,
-                                         T* __restrict__ out,
-                                         long long n_vec, int bucket, int bits) {
-  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= n_vec) return;
-  const long long e0 = t * VEC;
-  const long long b = e0 / bucket;
-  const int j0 = (int)(e0 - b * bucket);
-  const int k = (8 % bits == 0) ? 8 / bits : 1;
-  const unsigned int mask = (1u << bits) - 1u;
-  const uint8_t* cb = codes + b * (bucket / k);
-  const float s = scale[b], z = zero[b];
-  alignas(16) T v[VEC];
+// c*scale + zero, one rounding (XLA contracts the reference's expression
+// into an FMA).  float(c) by the exponent trick: exact for c < 2^23, and an
+// OR and an FADD where the conversion instruction runs at a quarter rate.
+__device__ __forceinline__ float dq(unsigned c, float s, float z) {
+  return __fmaf_rn(__fsub_rn(__uint_as_float(0x4B000000u | c), 8388608.f), s, z);
+}
+
+__device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+__device__ __forceinline__ Fetched fetch(const Seg& g, long long b, int lane) {
+  Fetched f;
+  f.s = load_meta(g.scale, b, g.flags);
+  f.z = load_meta(g.zero, b, g.flags);
+  if (g.flags & kFast) {
+    const int n16 = g.bucket * (g.flags & kPbitsMask) / 128;
+    const uint4* src = reinterpret_cast<const uint4*>(g.codes) + b * n16;
 #pragma unroll
-  for (int i = 0; i < VEC; ++i) {
-    const int j = j0 + i;
-    const unsigned int c = (cb[j / k] >> ((j % k) * bits)) & mask;
-    v[i] = to_out<T>(__fmaf_rn((float)c, s, z));
+    for (int i = 0; i < kMaxCodeBytes / 16 / 32; ++i) {
+      const int c = lane + 32 * i;
+      f.c[i] = c < n16 ? __ldcs(src + c) : make_uint4(0, 0, 0, 0);
+    }
   }
-  T* o = out + e0;
-  if constexpr (VEC * sizeof(T) == 16) {
-    *reinterpret_cast<uint4*>(o) = *reinterpret_cast<const uint4*>(v);
-  } else if constexpr (VEC * sizeof(T) == 8) {
-    *reinterpret_cast<uint2*>(o) = *reinterpret_cast<const uint2*>(v);
-  } else {
+  return f;
+}
+
+// The 16-byte path: the warp's codes go through shared memory so that each
+// lane's 16-byte store takes the codes of 8 (bf16) or 4 (f32) neighbouring
+// values, and the warp stores 512 contiguous bytes per instruction.
+__device__ __forceinline__ void decode_fast(const Seg& g, long long b, const Fetched& f,
+                                            uint4* stage, int lane) {
+  const int pbits = g.flags & kPbitsMask;
+  const unsigned mask = (1u << pbits) - 1u;
+  const int n16 = g.bucket * pbits / 128;
+  __syncwarp();  // the previous bucket's reads of the stage are done
 #pragma unroll
-    for (int i = 0; i < VEC; ++i) o[i] = v[i];
+  for (int i = 0; i < kMaxCodeBytes / 16 / 32; ++i)
+    if (lane + 32 * i < n16) stage[lane + 32 * i] = f.c[i];
+  __syncwarp();
+  const uint64_t* st = reinterpret_cast<const uint64_t*>(stage);
+  if (g.flags & kOutBf16) {
+    uint4* o = reinterpret_cast<uint4*>(static_cast<__nv_bfloat16*>(g.out) + b * g.bucket);
+    const int nst = g.bucket / 8;
+#pragma unroll 4
+    for (int i = lane; i < nst; i += 32) {
+      const int bit = i * 8 * pbits;
+      const uint64_t w = st[bit >> 6] >> (bit & 63);
+      uint32_t r[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        r[j] = bf16x2(dq((unsigned)(w >> (2 * j * pbits)) & mask, f.s, f.z),
+                      dq((unsigned)(w >> ((2 * j + 1) * pbits)) & mask, f.s, f.z));
+      o[i] = make_uint4(r[0], r[1], r[2], r[3]);
+    }
+  } else {
+    float4* o = reinterpret_cast<float4*>(static_cast<float*>(g.out) + b * g.bucket);
+    const int nst = g.bucket / 4;
+#pragma unroll 4
+    for (int i = lane; i < nst; i += 32) {
+      const int bit = i * 4 * pbits;
+      const uint64_t w = st[bit >> 6] >> (bit & 63);
+      o[i] = make_float4(dq((unsigned)w & mask, f.s, f.z),
+                         dq((unsigned)(w >> pbits) & mask, f.s, f.z),
+                         dq((unsigned)(w >> (2 * pbits)) & mask, f.s, f.z),
+                         dq((unsigned)(w >> (3 * pbits)) & mask, f.s, f.z));
+    }
   }
 }
 
-template <typename T>
-cudaError_t launch_dequant(const uint8_t* codes, const float* scale, const float* zero,
-                           T* out, long long nb, int bucket, int bits, cudaStream_t st) {
-  const long long n = nb * (long long)bucket;
-  const int threads = 256;
-  if (bucket % 4 == 0) {
-    const long long nv = n / 4;
-    const long long blocks = (nv + threads - 1) / threads;
-    unpack_dequantize_kernel<T, 4><<<(unsigned int)blocks, threads, 0, st>>>(
-        codes, scale, zero, out, nv, bucket, bits);
-  } else {
-    const long long blocks = (n + threads - 1) / threads;
-    unpack_dequantize_kernel<T, 1><<<(unsigned int)blocks, threads, 0, st>>>(
-        codes, scale, zero, out, n, bucket, bits);
+// Any bucket, codes and output at any alignment: one value per lane and
+// step, codes read byte by byte.
+__device__ __forceinline__ void decode_generic(const Seg& g, long long b, float s, float z,
+                                               int lane) {
+  const int pbits = g.flags & kPbitsMask;
+  const unsigned mask = (1u << pbits) - 1u;
+  const uint8_t* src = g.codes + b * (g.bucket * pbits / 8);
+  const long long o = b * g.bucket;
+  for (int j = lane; j < g.bucket; j += 32) {
+    const int bit = j * pbits;
+    const float v = dq(((unsigned)src[bit >> 3] >> (bit & 7)) & mask, s, z);
+    if (g.flags & kOutBf16)
+      static_cast<__nv_bfloat16*>(g.out)[o + j] = __float2bfloat16_rn(v);
+    else
+      static_cast<float*>(g.out)[o + j] = v;
   }
+}
+
+// A grid of about one wave of resident blocks; warp w of the grid decodes
+// buckets w, w + W, w + 2W, ... (W warps in all) of the table, each bucket
+// whole, issuing the next bucket's loads before it decodes the current one.
+__global__ void __launch_bounds__(32 * kDqWarps)
+unpack_dequantize_kernel(const __grid_constant__ SegTable t) {
+  __shared__ uint4 stage_all[kDqWarps][kMaxCodeBytes / 16];
+  const int lane = threadIdx.x & 31;
+  uint4* stage = stage_all[threadIdx.x >> 5];
+  const int stride = gridDim.x * kDqWarps;
+  int u = blockIdx.x * kDqWarps + (threadIdx.x >> 5);
+  if (u >= t.units) return;
+  int s = 0;
+  while (u >= t.seg[s].unit0 + t.seg[s].nb) ++s;
+  Fetched cur = fetch(t.seg[s], u - t.seg[s].unit0, lane);
+  for (;;) {
+    const int un = u + stride;
+    int sn = s;
+    Fetched nxt = cur;
+    if (un < t.units) {
+      while (un >= t.seg[sn].unit0 + t.seg[sn].nb) ++sn;
+      nxt = fetch(t.seg[sn], un - t.seg[sn].unit0, lane);
+    }
+    const Seg& g = t.seg[s];
+    if (g.flags & kFast)
+      decode_fast(g, u - g.unit0, cur, stage, lane);
+    else
+      decode_generic(g, u - g.unit0, cur.s, cur.z, lane);
+    if (un >= t.units) break;
+    u = un;
+    s = sn;
+    cur = nxt;
+  }
+}
+
+int resident_blocks() {
+  constexpr int kMaxDevices = 64;
+  static int cache[kMaxDevices] = {0};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
+  if (dev < kMaxDevices && cache[dev] > 0) return cache[dev];
+  int sms = 0, per_sm = 0;
+  if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, unpack_dequantize_kernel,
+                                                    32 * kDqWarps, 0) != cudaSuccess)
+    return 0;
+  const int r = sms * (per_sm > 0 ? per_sm : 1);
+  if (dev < kMaxDevices) cache[dev] = r;
+  return r;
+}
+
+// Segment description rows, as the wrapper passes them (8 int64 each).
+enum DescCol { kCodes, kScale, kZero, kOut, kNb, kBucket, kBits, kDescFlags, kDescCols };
+enum DescFlags { kDescMetaBf16 = 1, kDescOutBf16 = 2 };
+
+cudaError_t launch_wire(const long long* desc, int n_seg, cudaStream_t st) {
+  SegTable t;
+  int n = 0;
+  long long units = 0;
+  for (int i = 0; i < n_seg; ++i) {
+    const long long* d = desc + (long long)i * kDescCols;
+    const int bits = (int)d[kBits];
+    const long long nb = d[kNb], bucket = d[kBucket];
+    if (bits < 1 || bits > 8 || nb < 0 || bucket < 1 || bucket > (1 << 24))
+      return cudaErrorInvalidValue;
+    if (nb == 0) continue;
+    if (n == kMaxSegs) return cudaErrorInvalidValue;
+    const int pbits = (8 % bits == 0) ? bits : 8;
+    if (bucket * pbits % 8) return cudaErrorInvalidValue;
+    const bool meta_bf16 = d[kDescFlags] & kDescMetaBf16, out_bf16 = d[kDescFlags] & kDescOutBf16;
+    const long long code_bytes = bucket * pbits / 8, mb = meta_bf16 ? 2 : 4;
+    const bool fast = code_bytes % 16 == 0 && code_bytes <= kMaxCodeBytes &&
+                      d[kCodes] % 16 == 0 && d[kOut] % 16 == 0;
+    const bool aligned = d[kScale] % mb == 0 && d[kZero] % mb == 0;
+    Seg& g = t.seg[n++];
+    g.codes = reinterpret_cast<const uint8_t*>(d[kCodes]);
+    g.scale = reinterpret_cast<const uint8_t*>(d[kScale]);
+    g.zero = reinterpret_cast<const uint8_t*>(d[kZero]);
+    g.out = reinterpret_cast<void*>(d[kOut]);
+    g.nb = (int)nb;
+    g.bucket = (int)bucket;
+    g.unit0 = (int)units;
+    g.flags = pbits | (meta_bf16 ? kMetaBf16 : 0) | (out_bf16 ? kOutBf16 : 0) |
+              (fast ? kFast : 0) | (aligned ? kMetaAligned : 0);
+    units += nb;
+    if (units > kMaxUnits) return cudaErrorInvalidValue;
+  }
+  t.units = (int)units;
+  if (units == 0) return cudaSuccess;
+  const int resident = resident_blocks();
+  if (resident == 0) return cudaGetLastError();
+  const long long want = (units + kDqWarps - 1) / kDqWarps;
+  const int blocks = (int)(want < resident ? want : resident);
+  unpack_dequantize_kernel<<<blocks, 32 * kDqWarps, 0, st>>>(t);
   return cudaGetLastError();
 }
 
@@ -342,16 +552,22 @@ extern "C" int qsdp_quantize_pack(const float* x, uint32_t k0, uint32_t k1, int 
                               mode, rand_bits == 16 ? 65536.f : 1.f, (cudaStream_t)stream);
 }
 
+// K2 over a table of n_seg segments, one launch: rows of 8 int64
+// (codes, scale, zero, out pointers; nb, bucket, bits; flags 1 = bf16
+// scale/zero, 2 = bf16 out).  At most 64 segments with nb > 0.
+extern "C" int qsdp_unpack_dequantize_wire(const long long* desc, int n_seg, void* stream) {
+  return (int)launch_wire(desc, n_seg, (cudaStream_t)stream);
+}
+
+// K2 on one tensor: (nb, bucket*bits/8) codes, (nb, 1) f32 scale/zero.
 extern "C" int qsdp_unpack_dequantize(const uint8_t* codes, const float* scale,
                                       const float* zero, void* out, int out_bf16,
                                       long long nb, int bucket, int bits,
                                       void* stream) {
-  if (nb == 0) return 0;
-  cudaStream_t st = (cudaStream_t)stream;
-  if (out_bf16)
-    return (int)launch_dequant<__nv_bfloat16>(codes, scale, zero,
-                                              (__nv_bfloat16*)out, nb, bucket, bits, st);
-  return (int)launch_dequant<float>(codes, scale, zero, (float*)out, nb, bucket, bits, st);
+  const long long desc[kDescCols] = {(long long)codes, (long long)scale, (long long)zero,
+                                     (long long)out, nb, bucket, bits,
+                                     out_bf16 ? kDescOutBf16 : 0};
+  return (int)launch_wire(desc, 1, (cudaStream_t)stream);
 }
 
 // K4: unpacked quantize, one u8 code per value: (nb, bucket) f32 x and

@@ -7,24 +7,29 @@ tensor never takes the plain path.
 
 ``LAUNCHES[name]`` counts kernel launches and nothing else, so a run can
 show which kernels its main path went through (``reset_launches()`` zeroes
-the counts).
+the counts).  K2 has two entry points, one tensor (``unpack_dequantize``)
+and a wire buffer's table of segments (``unpack_dequantize_wire``); both
+count under ``"unpack_dequantize"``.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+import itertools
 from collections import Counter
-from typing import NamedTuple
+from typing import NamedTuple, Sequence
 
 import torch
 
 from . import build, ref
+from .ref import WireCodes
 
 KERNELS = ("quantize_pack", "unpack_dequantize", "rowquant_matmul", "quantize_buckets",
            "dequantize_buckets")
 LAUNCHES: Counter = Counter({k: 0 for k in KERNELS})
 
 _MODE_IDS = {"nearest": 0, "stochastic": 1, "shift": 2}
+_OUT_DTYPES = (torch.float32, torch.bfloat16)  # what K2 and K5 write
 
 
 def reset_launches() -> None:
@@ -97,7 +102,7 @@ def unpack_dequantize(codes: torch.Tensor, scale: torch.Tensor,
     (nb, 1) scale/zero -> (nb, bucket) in `dtype` (f32 or bf16)."""
     if _on_cpu(codes, scale, zero):
         return ref.unpack_dequantize_ref(codes, scale, zero, bits, dtype)
-    if dtype not in (torch.float32, torch.bfloat16):
+    if dtype not in _OUT_DTYPES:
         raise TypeError(f"unpack_dequantize writes f32 or bf16, not {dtype}")
     nb, nbytes = codes.shape
     bucket = nbytes * ref.codes_per_byte(bits)
@@ -111,6 +116,51 @@ def unpack_dequantize(codes: torch.Tensor, scale: torch.Tensor,
     _raise_on(rc, "unpack_dequantize")
     LAUNCHES["unpack_dequantize"] += 1
     return out
+
+
+_WIRE_MAX_SEGS = 64  # quantize.cu: kMaxSegs, the segments one launch's table holds
+
+
+def unpack_dequantize_wire(buf: torch.Tensor, segments: Sequence[WireCodes],
+                           out_dtypes: Sequence) -> list[torch.Tensor]:
+    """K2 over a wire buffer: every quantized segment of the 1-D u8 `buf`
+    (``ref.WireCodes``: codes, then scale and zero read in place) decoded
+    into a new (nb, bucket) tensor in its out dtype (f32 or bf16), all in
+    one launch (at most 64 segments with nb > 0)."""
+    if len(segments) != len(out_dtypes):
+        raise ValueError(f"{len(segments)} segments, {len(out_dtypes)} out dtypes")
+    if _on_cpu(buf):
+        return ref.unpack_dequantize_wire_ref(buf, segments, out_dtypes)
+    _check("buf", buf, torch.uint8, (buf.numel(),))
+    outs, rows = [], []
+    base = buf.data_ptr()
+    for seg, dt in zip(segments, out_dtypes):
+        if dt not in _OUT_DTYPES:
+            raise TypeError(f"unpack_dequantize_wire writes f32 or bf16, not {dt}")
+        if seg.meta_dtype not in _OUT_DTYPES:
+            raise TypeError(f"scale/zero must be f32 or bf16, not {seg.meta_dtype}")
+        if (not 1 <= seg.bits <= 8 or seg.bucket < 1 or seg.nb < 0
+                or seg.bucket % ref.codes_per_byte(seg.bits)):
+            raise ValueError(f"unsupported segment {seg}")
+        if seg.offset < 0 or seg.offset + seg.nbytes > buf.numel():
+            raise ValueError(f"segment {seg} runs past the {buf.numel()}-byte buffer")
+        out = torch.empty((seg.nb, seg.bucket), dtype=dt, device=buf.device)
+        outs.append(out)
+        if seg.nb:
+            codes = base + seg.offset
+            meta = codes + seg.code_bytes
+            mb = seg.nb * seg.meta_dtype.itemsize
+            flags = int(seg.meta_dtype == torch.bfloat16) | 2 * int(dt == torch.bfloat16)
+            rows.append((codes, meta, meta + mb, out.data_ptr(), seg.nb, seg.bucket, seg.bits,
+                         flags))
+    if len(rows) > _WIRE_MAX_SEGS:
+        raise ValueError(f"{len(rows)} segments: one launch takes at most {_WIRE_MAX_SEGS}")
+    if rows:
+        desc = (ctypes.c_longlong * (8 * len(rows)))(*itertools.chain.from_iterable(rows))
+        _raise_on(build.load("quantize").qsdp_unpack_dequantize_wire(desc, len(rows), _stream()),
+                  "unpack_dequantize_wire")
+        LAUNCHES["unpack_dequantize"] += 1
+    return outs
 
 
 def quantize_buckets(x: torch.Tensor, rand: torch.Tensor, levels: int = 255,
@@ -143,7 +193,7 @@ def dequantize_buckets(codes: torch.Tensor, scale: torch.Tensor, zero: torch.Ten
     codes*scale + zero in `dtype` (f32 or bf16)."""
     if _on_cpu(codes, scale, zero):
         return ref.dequantize_buckets_ref(codes, scale, zero, dtype)
-    if dtype not in (torch.float32, torch.bfloat16):
+    if dtype not in _OUT_DTYPES:
         raise TypeError(f"dequantize_buckets writes f32 or bf16, not {dtype}")
     nb, bucket = codes.shape
     _check("codes", codes, torch.uint8, (nb, bucket))

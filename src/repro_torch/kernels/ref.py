@@ -16,6 +16,8 @@ quantizes with :func:`quantize_pack_ref`.
 """
 from __future__ import annotations
 
+from typing import NamedTuple, Sequence
+
 import torch
 
 from ..core import prng
@@ -155,6 +157,47 @@ def unpack_dequantize_ref(codes: torch.Tensor, scale: torch.Tensor,
     """K2: (nb, bucket*bits/8) packed u8 + (nb, 1) affine -> (nb, bucket)."""
     c = unpack_codes(codes, bits).to(torch.float32)
     return fma_f32(c, scale, zero).to(dtype)
+
+
+class WireCodes(NamedTuple):
+    """One quantized segment inside a u8 wire buffer, laid out as
+    ``core.quant.wire_pack`` writes it: from byte `offset`, the codes (nb,
+    bucket*bits/8, or bucket when 8 % bits != 0), then scale (nb,) and zero
+    (nb,) in `meta_dtype` (f32 or bf16)."""
+
+    offset: int
+    nb: int
+    bucket: int
+    bits: int
+    meta_dtype: torch.dtype = torch.float32
+
+    @property
+    def code_bytes(self) -> int:
+        return self.nb * (self.bucket // codes_per_byte(self.bits))
+
+    @property
+    def nbytes(self) -> int:
+        return self.code_bytes + 2 * self.nb * self.meta_dtype.itemsize
+
+
+def _meta_f32(b: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    # clone: a slice of a wire buffer need not be aligned for the view
+    return b.clone().view(dtype).to(torch.float32)
+
+
+def unpack_dequantize_wire_ref(buf: torch.Tensor, segments: Sequence[WireCodes],
+                               out_dtypes: Sequence) -> list[torch.Tensor]:
+    """K2 over a wire buffer: each segment of (1-D u8) `buf` decoded into an
+    (nb, bucket) tensor in its out dtype (f32 or bf16), as the per-segment
+    ``wire_unpack`` + ``dequantize`` of ``core.quant`` does."""
+    outs = []
+    for seg, dt in zip(segments, out_dtypes, strict=True):
+        o, c, m = seg.offset, seg.code_bytes, seg.nb * seg.meta_dtype.itemsize
+        codes = buf[o:o + c].reshape(seg.nb, seg.bucket // codes_per_byte(seg.bits))
+        scale = _meta_f32(buf[o + c:o + c + m], seg.meta_dtype)
+        zero = _meta_f32(buf[o + c + m:o + c + 2 * m], seg.meta_dtype)
+        outs.append(unpack_dequantize_ref(codes, scale[:, None], zero[:, None], seg.bits, dt))
+    return outs
 
 
 def quantize_buckets_ref(x: torch.Tensor, rand: torch.Tensor, levels: int = 255,

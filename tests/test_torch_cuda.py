@@ -131,3 +131,96 @@ def test_buckets_wrappers_check_inputs_on_the_card(cuda):
     with pytest.raises(ValueError, match="levels"):
         ops.quantize_buckets(torch.zeros((2, 8), device=cuda), torch.zeros((2, 8), device=cuda),
                              256)
+
+
+def _wire(p, meta, seed):
+    """P rows of a mixed wire layout, encoded on the CPU (plain versions):
+    bits 2/3/4/8, buckets 1024/100/256, odd nb (the next segment 8 bytes off
+    16-byte alignment), odd-length fp payloads in f32 and bf16."""
+    from repro_torch.core import collectives as coll
+    from repro_torch.core.quant import QuantConfig
+    layout = coll.WireLayout((
+        coll.WireSegment(2048, None, "float32"),
+        coll.WireSegment(5 * 1024 - 3, QuantConfig(bits=8, meta_dtype=meta)),
+        coll.WireSegment(77, None, "bfloat16"),
+        coll.WireSegment(3 * 1024, QuantConfig(bits=4, meta_dtype=meta)),
+        coll.WireSegment(7 * 1024 + 1, QuantConfig(bits=2, meta_dtype=meta)),
+        coll.WireSegment(2000, QuantConfig(bits=3, bucket_size=100, meta_dtype=meta)),
+        coll.WireSegment(3000, QuantConfig(bits=8, bucket_size=256, meta_dtype=meta)),
+        coll.WireSegment(33 * 1024, QuantConfig(bits=8, meta_dtype=meta))))
+    g = torch.Generator().manual_seed(seed)
+    rows = []
+    for r in range(p):
+        xs = [torch.randn(s.n, generator=g) * 0.02 for s in layout.segments]
+        keys = [prng.fold_in(prng.PRNGKey(seed), 10 * r + i) if s.cfg is not None else None
+                for i, s in enumerate(layout.segments)]
+        rows.append(coll.encode_wire(xs, layout, keys))
+    return layout, torch.cat(rows)
+
+
+@pytest.mark.parametrize("p", [1, 3])
+@pytest.mark.parametrize("meta", ["float32", "bfloat16"])
+def test_unpack_dequantize_wire_byte_equal(cuda, meta, p):
+    """K2 over a wire buffer's table (P rows x 6 quantized segments, aligned
+    and not) in one launch, byte-equal to its plain version, per-segment
+    out dtypes bf16 and f32."""
+    from repro_torch.core import collectives as coll
+    layout, buf = _wire(p, meta, seed=p)
+    for out in ([torch.bfloat16] * 8, [torch.float32] * 8, [torch.bfloat16, torch.float32] * 4):
+        table, dts = coll.wire_table(layout, p, out)
+        gbuf = buf.to(cuda)
+        assert any((gbuf.data_ptr() + t.offset) % 16 for t in table)
+        before = ops.LAUNCHES["unpack_dequantize"]
+        got = ops.unpack_dequantize_wire(gbuf, table, dts)
+        assert ops.LAUNCHES["unpack_dequantize"] == before + 1
+        for t, g, w in zip(table, got, ref.unpack_dequantize_wire_ref(buf, table, dts),
+                           strict=True):
+            assert g.dtype == w.dtype and g.shape == (t.nb, t.bucket)
+            assert torch.equal(g.cpu().view(torch.uint8), w.view(torch.uint8)), t
+
+
+@pytest.mark.parametrize("shift", range(16))
+def test_unpack_dequantize_wire_any_offset(cuda, shift):
+    """One segment at every byte offset mod 16 of the buffer: codes and
+    scale/zero at every alignment; random codes (3-bit segments keep the
+    high bits of each byte, as the reference does)."""
+    g = torch.Generator().manual_seed(shift)
+    for bits, bucket, meta in ((8, 1024, torch.float32), (4, 256, torch.bfloat16),
+                               (3, 64, torch.float32)):
+        nb = 9
+        seg = ops.WireCodes(shift, nb, bucket, bits, meta)
+        buf = torch.randint(0, 256, (shift + seg.nbytes + 5,), generator=g, dtype=torch.uint8)
+        m = seg.offset + seg.code_bytes
+        buf[m:m + 2 * nb * meta.itemsize] = (torch.rand(2 * nb, generator=g) * 0.1).to(
+            meta).view(torch.uint8)
+        for dt in (torch.float32, torch.bfloat16):
+            got = ops.unpack_dequantize_wire(buf.to(cuda), [seg], [dt])[0]
+            want = ref.unpack_dequantize_wire_ref(buf, [seg], [dt])[0]
+            assert torch.equal(got.cpu().view(torch.uint8), want.view(torch.uint8)), (bits, dt)
+
+
+def test_unpack_dequantize_wire_table_limits(cuda):
+    """One launch decodes 64 segments; a 65th raises; empty segments take
+    no entry and an all-empty table launches nothing."""
+    seg_bytes = ops.WireCodes(0, 2, 1024, 8).nbytes
+    buf = torch.zeros(65 * seg_bytes, dtype=torch.uint8, device=cuda)
+    table = [ops.WireCodes(i * seg_bytes, 2, 1024, 8) for i in range(65)]
+    before = ops.LAUNCHES["unpack_dequantize"]
+    outs = ops.unpack_dequantize_wire(buf, table[:64] + [ops.WireCodes(0, 0, 1024, 8)],
+                                      [torch.float32] * 65)
+    assert all(bool((o == 0).all()) for o in outs) and outs[-1].shape == (0, 1024)
+    assert ops.LAUNCHES["unpack_dequantize"] == before + 1
+    with pytest.raises(ValueError, match="at most 64"):
+        ops.unpack_dequantize_wire(buf, table, [torch.float32] * 65)
+    ops.unpack_dequantize_wire(buf, [ops.WireCodes(0, 0, 1024, 8)], [torch.bfloat16])
+    assert ops.LAUNCHES["unpack_dequantize"] == before + 1
+
+
+def test_unpack_dequantize_wire_checks_inputs_on_the_card(cuda):
+    buf = torch.zeros(4096, dtype=torch.uint8, device=cuda)
+    with pytest.raises(TypeError, match="f32 or bf16"):
+        ops.unpack_dequantize_wire(buf, [ops.WireCodes(0, 1, 1024, 8)], [torch.float16])
+    with pytest.raises(ValueError, match="past"):
+        ops.unpack_dequantize_wire(buf, [ops.WireCodes(3500, 1, 1024, 8)], [torch.float32])
+    with pytest.raises(ValueError, match="unsupported"):
+        ops.unpack_dequantize_wire(buf, [ops.WireCodes(0, 1, 1023, 4)], [torch.float32])

@@ -7,7 +7,9 @@ with the same key.  Values are captured with test-side hooks: in the JAX
 package through ``jax.debug.callback`` (no JAX file changes), in the port by
 wrapping the same functions.
 
-  (a) every gathered weight, before the compute-dtype cast, byte-equal;
+  (a) every gathered weight, in the compute dtype the model reads it in,
+      byte-equal (the port's K2 writes that dtype itself; the f32-compute
+      run holds the f32 decode);
   (b) f32 compute: prefill and decode logits within LOGIT_ATOL_F32;
   (c) bf16 compute, port teacher-forced with the JAX tokens: greedy tokens
       equal wherever the JAX top-1/top-2 margin exceeds LOGIT_ATOL_BF16;
@@ -52,6 +54,8 @@ ROWQUANT_RTOL = 3e-2
 
 def _digest(a) -> str:
     a = np.ascontiguousarray(np.asarray(a))
+    if a.dtype.name == "bfloat16":  # JAX's bf16 and the port's (as int16) alike
+        a = a.view(np.uint16)
     return hashlib.sha256(a.tobytes() + str(a.dtype).encode() + str(a.shape).encode()).hexdigest()
 
 
@@ -82,7 +86,7 @@ def _jax_run(qcfg: JQSDPConfig, monkeypatch):
     def hook_full(name, full):
         n = model.specs[name].n_logical_local(1)
         jax.debug.callback(lambda v, name=name: fulls.setdefault(name, []).append(
-            _digest(v)), full[:n])
+            _digest(v)), full[:n].astype(model.engine.compute_dtype))
         return orig_full(name, full)
 
     monkeypatch.setattr(jlayers, "vocab_parallel_logits", hook_logits)
@@ -120,7 +124,10 @@ def _port_teacher_forced(qcfg: QSDPConfig, np_params, tokens, monkeypatch,
 
     def hook_full(name, full):
         n = model.specs[name].n_logical_local(1)
-        fulls.setdefault(name, []).append(_digest(full[:n].numpy()))
+        w = full[:n].to(model.engine.compute_dtype)
+        fulls.setdefault(name, []).append(_digest(
+            w.view(torch.int16).numpy().view(np.uint16) if w.dtype == torch.bfloat16
+            else w.numpy()))
         return orig_full(name, full)
 
     def hook_rq(*a):

@@ -72,9 +72,11 @@ def test_chip_smoke_train_phase_rehearsal(monkeypatch):
                         lambda torch_, run, state, log: profiled.append(run(state)) or dict(
                             k1_ms=0.0, k1_n=0, k2_ms=0.0, k2_n=0, int64_ms=0.0, int64_n=0,
                             threefry_int64=0))
-    for name in ("quantize_pack", "unpack_dequantize"):
-        def counted(*a, _orig=getattr(ops, name), _name=name, **k):
-            ops.LAUNCHES[_name] += 1
+    for name, kernel in (("quantize_pack", "quantize_pack"),
+                         ("unpack_dequantize", "unpack_dequantize"),
+                         ("unpack_dequantize_wire", "unpack_dequantize")):
+        def counted(*a, _orig=getattr(ops, name), _kernel=kernel, **k):
+            ops.LAUNCHES[_kernel] += 1
             return _orig(*a, **k)
         monkeypatch.setattr(ops, name, counted)
     lines = []
@@ -83,6 +85,10 @@ def test_chip_smoke_train_phase_rehearsal(monkeypatch):
     # smoke: 1 embed + 2 layers x 7 weights; every one of them grad-quantized
     assert want["per_micro"] == (15, 14, 15)
     assert counts["quantize_pack"] == cs.TRAIN_TIMED * want["quantize_pack"] == 3 * 2 * 44
+    # K2: one launch per buffer -- embed + 2 layers, 2 replayed layers,
+    # embed + 2 layer gradients (the final norm's buffers are fp only)
+    assert want["k2_per_micro"] == (3, 2, 3)
+    assert counts["unpack_dequantize"] == cs.TRAIN_TIMED * want["unpack_dequantize"] == 3 * 2 * 8
     assert any("quantized_state == quantize_master" in x for x in lines)
     assert len(profiled) == 1
 
