@@ -115,10 +115,17 @@ def cuda_ms(torch, fn, reps=10, flush=None):
     return total / reps
 
 
-def kernel_ms(torch, fn, reps=10, flush=None):
-    """Mean device time of the kernels fn() launches, read from
-    torch.profiler (cold L2 as in cuda_ms): unlike CUDA events around one
-    launch it leaves out the launch latency and any host gap."""
+def _not_ours(name):
+    """Kernels kernel_ms leaves out by default: the L2 flush's fill and
+    PyTorch's elementwise kernels (none of the port's kernels is one)."""
+    return "fill" in name.lower() or "elementwise" in name
+
+
+def kernel_ms(torch, fn, reps=10, flush=None, keep=lambda name: not _not_ours(name)):
+    """Mean device time of the kernels fn() launches whose names `keep`
+    accepts, read from torch.profiler (cold L2 as in cuda_ms): unlike CUDA
+    events around one launch it leaves out the launch latency and any host
+    gap."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -133,8 +140,7 @@ def kernel_ms(torch, fn, reps=10, flush=None):
                 fn()
             torch.cuda.synchronize()
         times = [e.device_time_total for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA
-                 and "fill" not in e.name.lower() and "elementwise" not in e.name]
+                 if e.device_type == torch.autograd.DeviceType.CUDA and keep(e.name)]
         if times and len(times) % reps == 0:
             return sum(times) / reps / 1e3
     raise PhaseError("torch.profiler did not record every kernel of the timed calls")
@@ -164,9 +170,13 @@ def dt_name(dt) -> str:
 
 def log_decode_row(name, r, log):
     b_ms, b_by = r["bound"]
+    lib = ("no torch.addcmul (packed codes)" if r["library_ms"] is None else
+           f"torch.addcmul {r['library_ms']:.4f}, kernel {r['library_kernel_ms']:.4f}: "
+           f"{r['library_ms'] / r['ms']:.2f}x by events, "
+           f"{r['library_kernel_ms'] / r['kernel_ms']:.2f}x kernel alone")
     log(f"{name} {r['shape']:34s} nb={r['nb']:6d}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, "
-        f"torch.addcmul {r['library_ms']:.4f}, bound {b_ms:.4f} by {b_by}); kernel time alone "
-        f"(profiler) {r['kernel_ms']:.4f} ms, {100 * b_ms / r['kernel_ms']:.0f}% of bound")
+        f"bound {b_ms:.4f} by {b_by}); kernel time alone (profiler) {r['kernel_ms']:.4f} ms, "
+        f"{100 * b_ms / r['kernel_ms']:.0f}% of bound; {lib}")
 
 
 def layer_decode_rows(torch, log, gen, decode_row, addcmul_ms, dev="cuda"):
@@ -202,18 +212,18 @@ def layer_decode_rows(torch, log, gen, decode_row, addcmul_ms, dev="cuda"):
         want = ref.unpack_dequantize_wire_ref(buf, table, dts)
         # the library's operands: the layer's codes as one (nb, 1024) tensor
         # and its f32 scale/zero as (nb, 1)
-        check(all(t.meta_dtype == torch.float32 for t in table), "layer meta is not f32")
-        meta = [buf[t.offset + t.code_bytes:t.offset + t.nbytes].clone().view(torch.float32)
-                .view(2, t.nb, 1) for t in table]
-        lib = (torch.cat([buf[t.offset:t.offset + t.code_bytes].view(t.nb, t.bucket)
-                          for t in table]),
+        check(all(t.meta_dtype == torch.float32 and t.bits == 8 for t in table),
+              "layer codes are not W8 with f32 scale/zero")
+        meta = [buf[t.scale:t.zero + 4 * t.nb].clone().view(torch.float32).view(2, t.nb, 1)
+                for t in table]
+        lib = (torch.cat([buf[t.codes:t.scale].view(t.nb, t.bucket) for t in table]),
                torch.cat([m[0] for m in meta]), torch.cat([m[1] for m in meta]))
         out.append(decode_row(
             f"whole layer ({len(table)} tensors), {dt_name(dt)} out", nb,
             lambda: ops.unpack_dequantize_wire(buf, table, dts),
             lambda: ref.unpack_dequantize_wire_ref(buf, table, dts),
-            addcmul_ms(*lib, torch.cat(want)), sum(t.nbytes for t in table) + dt.itemsize * n,
-            n))
+            addcmul_ms(*lib, torch.cat(want)),
+            sum(t.zero + 4 * t.nb - t.codes for t in table) + dt.itemsize * n, n))
         del want, meta, lib
     # odd nb moves the next segment 8 bytes off 16 at 8 bits; bf16 scale/zero
     # and an odd bf16 fp payload leave even 4-byte alignment behind
@@ -227,7 +237,7 @@ def layer_decode_rows(torch, log, gen, decode_row, addcmul_ms, dev="cuda"):
     rows = torch.cat([encode(odd, 21), encode(odd, 22)])
     for dt in (torch.bfloat16, torch.float32):
         table, dts = coll.wire_table(odd, 2, [dt] * len(odd.segments))
-        check(any((rows.data_ptr() + t.offset) % 16 for t in table),
+        check(any((rows.data_ptr() + t.codes) % 16 for t in table),
               "unaligned case: every segment is 16-byte aligned")
         for g, w in zip(ops.unpack_dequantize_wire(rows, table, dts),
                         ref.unpack_dequantize_wire_ref(rows, table, dts), strict=True):
@@ -253,19 +263,26 @@ def kernel_phase(torch, log, dev="cuda"):
     def addcmul_ms(codes, scale, zero, want):
         """The library's one call for codes * scale + zero at one code per
         byte (``addcmul`` promotes the u8 codes, computes in f32 and writes
-        `want`'s dtype): its time, after a check that it computes the
-        kernel's function (within one rounding of that dtype)."""
+        `want`'s dtype), after a check that it computes the kernel's
+        function (within one rounding of that dtype): its time by events
+        and its kernels' time alone (profiler), as the kernel's are taken."""
         out = torch.empty_like(want)
         torch.addcmul(zero, codes, scale, out=out)
         err = (out.float() - want.float()).abs().max().item()
         rel = 1e-6 if want.dtype == torch.float32 else 2.0 ** -7
         check(err <= rel * want.float().abs().max().item(), f"torch.addcmul differs by {err:.3e}")
-        return cuda_ms(torch, lambda: torch.addcmul(zero, codes, scale, out=out), flush=flush)
 
-    def decode_row(what, nb, call, plain, library_ms, nbytes, n):
+        def call():
+            return torch.addcmul(zero, codes, scale, out=out)
+        return dict(library_ms=cuda_ms(torch, call, flush=flush),
+                    library_kernel_ms=kernel_ms(torch, call, flush=flush,
+                                                keep=lambda name: "fill" not in name.lower()))
+
+    def decode_row(what, nb, call, plain, library, nbytes, n):
         """A K2/K5 row: `call` (the kernel, a tensor or a list of them)
         byte-equal to `plain`, then timed by events and by the profiler
-        beside the plain version and the library call."""
+        beside the plain version and the library call (`library`: its
+        times, or None where no library call computes the function)."""
         got, want = call(), plain()
         got, want = (got, want) if isinstance(got, list) else ([got], [want])
         for g, w in zip(got, want, strict=True):
@@ -275,7 +292,8 @@ def kernel_phase(torch, log, dev="cuda"):
         return dict(shape=what, nb=nb, ms=cuda_ms(torch, call, flush=flush),
                     kernel_ms=kernel_ms(torch, call, flush=flush),
                     plain_ms=cuda_ms(torch, plain, reps=3, flush=flush),
-                    library_ms=library_ms, bound=bound(nbytes, flops=2 * n),
+                    **(library or dict(library_ms=None, library_kernel_ms=None)),
+                    bound=bound(nbytes, flops=2 * n),
                     max_abs_err=max((g.float() - w.float()).abs().max().item()
                                     for g, w in zip(got, want)))
 
@@ -340,6 +358,22 @@ def kernel_phase(torch, log, dev="cuda"):
                 addcmul_ms(*q, ref.unpack_dequantize_ref(*q, 8, dt)),
                 n + 8 * nb + dt.itemsize * n, n))
         del x, q
+    # buckets past 1 KB of codes (``launch/train.py --bucket 4096``): the
+    # 16-byte path walks them in 1 KB chunks; timed at the MLP's value count
+    # at 8 bits (beside torch.addcmul) and 4 bits (packed: no library call)
+    n = GPT13_NB["mlp (w_gate/w_up/w_down)"] * 1024
+    x = torch.randn((n // 4096, 4096), generator=gen, device=dev) * 0.02
+    for bits in (8, 4):
+        q = ops.quantize_pack(x, prng.PRNGKey(bits), (1 << bits) - 1, bits, "shift")
+        for dt in (torch.bfloat16, torch.float32):
+            k2.append(decode_row(
+                f"bucket 4096 W{bits} (MLP size), {dt_name(dt)} out", n // 4096,
+                lambda: ops.unpack_dequantize(*q, bits, dt),
+                lambda: ref.unpack_dequantize_ref(*q, bits, dt),
+                addcmul_ms(*q, ref.unpack_dequantize_ref(*q, bits, dt)) if bits == 8 else None,
+                n * bits // 8 + 8 * (n // 4096) + dt.itemsize * n, n))
+        del q
+    del x
     # the gradient path's mode at the embedding shape: K1 stochastic, one
     # threefry draw per value (Def. 12)
     x = torch.randn((GPT13_NB["embed"], 1024), generator=gen, device=dev) * 1e-3
@@ -506,6 +540,7 @@ def kernel_line(rows, launches):
             "bound_ms": big["bound"][0], "bound_by": big["bound"][1],
             "library_ms": big.get("library_ms"),
             "kernel_ms": big.get("kernel_ms"),
+            "library_kernel_ms": big.get("library_kernel_ms"),
             "shape": big["shape"],
         })
     return {"kernels": out}
@@ -673,16 +708,20 @@ SERVE_REPS = 3  # timed generate() runs per path
 
 
 def k2_buffers(eng, quantized, skip=()) -> tuple[int, int]:
-    """Gathered (or reduce-scattered) wire buffers of one pass over the
-    parameters that hold a tensor `quantized` says is quantized, each decoded
-    by ONE K2 launch: (tensors outside a stack, each gathered alone; layers
-    of the stacks, each one buffer of its tensors not named in `skip`)."""
+    """K2 launches that decode the gathered (or reduce-scattered) wire
+    buffers of one pass over the parameters, one launch per
+    ``ops.WIRE_MAX_SEGS`` tensors that `quantized` says are quantized in a
+    buffer (one rank: one row per buffer): (tensors outside a stack, each
+    gathered alone; layers of the stacks, each one buffer of its tensors not
+    named in `skip`)."""
+    from repro_torch.kernels import ops
     alone = sum(1 for s in eng.specs.values() if s.stack is None and quantized(s))
     layers = {}
     for n, s in eng.specs.items():
         if s.stack is not None and n.split("/")[-1] not in skip and quantized(s):
-            layers[n.rsplit("/", 1)[0]] = s.stack
-    return alone, sum(layers.values())
+            n_q, stack = layers.get(n.rsplit("/", 1)[0], (0, s.stack))
+            layers[n.rsplit("/", 1)[0]] = (n_q + 1, stack)
+    return alone, sum(-(-n_q // ops.WIRE_MAX_SEGS) * stack for n_q, stack in layers.values())
 
 
 def expected_launches(model, gen: int, rowquant: bool) -> dict:

@@ -27,7 +27,7 @@ import torch
 from ..kernels import ops
 from . import prng
 from .quant import (QuantConfig, Quantized, dequantize, fp_pack, fp_segment_bytes,
-                    fp_unpack, kernel_dtype, quantize, quantized_shapes, wire_pack,
+                    fp_unpack, kernel_dtype, quantize, wire_codes, wire_pack,
                     wire_segment_bytes)
 
 
@@ -176,9 +176,7 @@ def wire_table(layout: WireLayout, p: int,
     table, dts = [], []
     for seg, off, dt in zip(layout.segments, layout.offsets(), out_dtypes):
         if seg.cfg is not None:
-            nb = quantized_shapes(seg.n, seg.cfg)["scale"][0]
-            table += [ops.WireCodes(r * layout.nbytes + off, nb, seg.cfg.bucket_size,
-                                    seg.cfg.bits, seg.cfg.meta_torch_dtype) for r in range(p)]
+            table += [wire_codes(r * layout.nbytes + off, seg.n, seg.cfg) for r in range(p)]
             dts += [kernel_dtype(dt)] * p
     return table, dts
 

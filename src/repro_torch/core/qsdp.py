@@ -155,7 +155,10 @@ def init_param(gen: torch.Generator, spec: ParamSpec, ms: MeshSpec,
 class QSDPConfig:
     """Communication policy; the paper's QSDP default is W8G8, bucket 1024.
     ``baseline()`` is the paper's FSDP baseline (fp32 weights, bf16
-    gradients, per-tensor collectives)."""
+    gradients, per-tensor collectives).  Gathered weights are always
+    decoded straight into ``compute_dtype``, which gives the bytes of the
+    f32 decode's cast, so the JAX package's ``dequant_to_compute`` has no
+    counterpart here."""
 
     quantize_weights: bool = True
     quantize_grads: bool = True
@@ -170,7 +173,6 @@ class QSDPConfig:
     compute_dtype: str = "bfloat16"
     remat_policy: str = "full"        # recompute each layer in the backward
     attn_bf16: bool = False
-    dequant_to_compute: bool = False
     rand_bits: int = 32
     coalesce: bool = True
     coalesce_max_bytes: Optional[int] = None
@@ -217,7 +219,8 @@ class _GatherLayer(torch.autograd.Function):
         layout = eng.layout(names)
         # K2 decodes each quantized weight straight into the compute dtype
         # that _reshape_full casts to: the bytes of the f32 decode's cast
-        # (with or without cfg.dequant_to_compute), without the cast kernel.
+        # (the JAX package's dequant_to_compute gives them too), without the
+        # cast kernel.
         # The cotangent then arrives in that dtype; the backward sums in f32.
         return tuple(coll.all_gather_coalesced(
             shards, layout,

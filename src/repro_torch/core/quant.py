@@ -24,7 +24,7 @@ from typing import Optional
 import torch
 
 from ..kernels import ops
-from ..kernels.ref import codes_per_byte, pack_codes, unpack_codes  # noqa: F401
+from ..kernels.ref import codes_per_byte, pack_codes, unpack_codes, view_bytes  # noqa: F401
 from . import prng
 
 _MODES = ("shift", "stochastic", "nearest")
@@ -160,10 +160,20 @@ def quantized_shapes(n: int, cfg: QuantConfig) -> dict:
                 scale=(nb,), zero=(nb,))
 
 
+def wire_codes(offset: int, n: int, cfg: QuantConfig) -> ops.WireCodes:
+    """Where the parts of an n-element tensor's wire segment that starts at
+    byte `offset` of a buffer lie: K2's table entry for it."""
+    s = quantized_shapes(n, cfg)
+    nb = s["scale"][0]
+    scale = offset + math.prod(s["codes"])
+    return ops.WireCodes(offset, scale, scale + nb * cfg.meta_bytes, nb, cfg.bucket_size,
+                         cfg.bits, cfg.meta_torch_dtype)
+
+
 def wire_segment_bytes(n: int, cfg: QuantConfig) -> int:
     """Byte length of the wire segment of an n-element tensor."""
-    s = quantized_shapes(n, cfg)
-    return math.prod(s["codes"]) + 2 * cfg.meta_bytes * s["scale"][0]
+    w = wire_codes(0, n, cfg)
+    return w.zero + w.nb * cfg.meta_bytes
 
 
 def fp_segment_bytes(n: int, dtype_str: str) -> int:
@@ -174,11 +184,6 @@ def _f2b(x: torch.Tensor) -> torch.Tensor:
     return x.contiguous().view(torch.uint8).reshape(-1)
 
 
-def _b2f(buf: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    # clone: a slice of a coalesced buffer need not be aligned for the view
-    return buf.clone().view(dtype)
-
-
 def wire_pack(q: Quantized) -> torch.Tensor:
     md = q.cfg.meta_torch_dtype
     return torch.cat([q.codes.reshape(-1), _f2b(q.scale.to(md)), _f2b(q.zero.to(md))])
@@ -186,14 +191,11 @@ def wire_pack(q: Quantized) -> torch.Tensor:
 
 def wire_unpack(buf: torch.Tensor, n: int, cfg: QuantConfig,
                 shape: Optional[tuple] = None) -> Quantized:
-    s = quantized_shapes(n, cfg)
-    nb = s["scale"][0]
-    cb = math.prod(s["codes"])
-    mb = cfg.meta_bytes
+    w = wire_codes(0, n, cfg)
     md = cfg.meta_torch_dtype
-    codes = buf[:cb].reshape(s["codes"])
-    scale = _b2f(buf[cb:cb + nb * mb], md).to(torch.float32)
-    zero = _b2f(buf[cb + nb * mb:cb + 2 * nb * mb], md).to(torch.float32)
+    codes = buf[:w.scale].reshape(quantized_shapes(n, cfg)["codes"])
+    scale = view_bytes(buf[w.scale:w.zero], md).to(torch.float32)
+    zero = view_bytes(buf[w.zero:w.zero + w.nb * cfg.meta_bytes], md).to(torch.float32)
     return Quantized(codes, scale, zero, shape or (n,), n, cfg)
 
 
@@ -202,7 +204,7 @@ def fp_pack(x: torch.Tensor, dtype_str: str) -> torch.Tensor:
 
 
 def fp_unpack(buf: torch.Tensor, n: int, dtype_str: str) -> torch.Tensor:
-    return _b2f(buf[: n * _FP_DTYPES[dtype_str].itemsize],
+    return view_bytes(buf[: n * _FP_DTYPES[dtype_str].itemsize],
                 _FP_DTYPES[dtype_str]).to(torch.float32)
 
 
@@ -263,10 +265,13 @@ def qparam_encode(x: torch.Tensor, cfg: QuantConfig,
 
 def qparam_decode(qp: QuantizedParam, dtype=torch.float32) -> torch.Tensor:
     """QuantizedParam -> rest-layout dense leaf (stack?, A, B, n_local), the
-    exact inverse of :func:`qparam_encode`'s layout (deterministic)."""
+    exact inverse of :func:`qparam_encode`'s layout (deterministic); every
+    cell's segment decoded by one K2 call over the whole wire."""
     lead = tuple(qp.wire.shape[:-1])
-    flat = qp.wire.reshape(-1, qp.wire.shape[-1])
-    out = torch.stack([dequantize(wire_unpack(b, qp.n, qp.cfg), dtype) for b in flat])
+    cells, nbytes = math.prod(lead), qp.wire.shape[-1]
+    table = [wire_codes(i * nbytes, qp.n, qp.cfg) for i in range(cells)]
+    outs = ops.unpack_dequantize_wire(qp.wire.reshape(-1), table, [kernel_dtype(dtype)] * cells)
+    out = torch.stack([o.reshape(-1)[:qp.n] for o in outs]).to(dtype)
     out = out.reshape(*lead, *qp.cell_shape)
     return torch.movedim(out, -2, 0).contiguous() if qp.stacked else out
 

@@ -52,21 +52,23 @@
 // kernel parameter: codes, scale, zero and output pointers, nb, bucket,
 // code width, metadata and output dtype) and decodes all of them, each into
 // its own dtype, reading scale/zero straight from the wire bytes.  The
-// grid is one wave of resident blocks; each warp walks whole buckets (the
-// segment found from the table's prefix counts, no division per value),
-// keeps the bucket's scale/zero in registers, and issues the next bucket's
-// loads before it decodes the current one, so every SM holds ~1 KB of codes
-// in flight per warp, tens of KB per SM where ~10 KB cover the first-byte
-// latency of the codes at the card's rate.  One wave, not a block per bucket: a warp's
-// next loads then overlap its own stores with no block start in between,
-// and its walk through the table only moves forward.  Codes come in 16-byte loads (16, 32 or 64 codes), go
-// through a 1 KB shared-memory stage per warp, and leave as 16-byte stores
-// of 8 bf16 or 4 f32 values, 512 contiguous bytes per warp instruction.  A
-// segment whose codes or output are not 16-byte aligned (an odd nb shifts
-// the next segment of a buffer by 8 bytes at 8 bits) or whose bucket does
-// not fill whole 16-byte loads takes a generic path in the same launch (one
-// value per lane, byte loads); scale/zero that are not aligned to their
-// width are read byte by byte.
+// grid is one wave of resident blocks; each warp walks units of work -- a
+// bucket's codes in chunks of up to 1 KB, so a bucket of any size (4096 at
+// 8 bits is 4 chunks) takes the same path -- found from the table's prefix
+// counts (no division per value), keeps the unit's scale/zero in
+// registers, and issues the next unit's loads before it decodes the
+// current one, so every SM holds ~1 KB of codes in flight per warp, tens
+// of KB per SM where ~10 KB cover the first-byte latency of the codes at
+// the card's rate.  One wave, not a block per bucket: a warp's next loads
+// then overlap its own stores with no block start in between, and its walk
+// through the table only moves forward.  Codes come in 16-byte loads (16,
+// 32 or 64 codes), go through a 1 KB shared-memory stage per warp, and
+// leave as 16-byte stores of 8 bf16 or 4 f32 values, 512 contiguous bytes
+// per warp instruction.  A segment whose codes or output are not 16-byte
+// aligned (an odd nb shifts the next segment of a buffer by 8 bytes at 8
+// bits) or whose bucket does not fill whole 16-byte loads takes a generic
+// path in the same launch (one value per lane, byte loads); scale/zero
+// that are not aligned to their width are read byte by byte.
 //
 // Numerics: every operation is an explicitly rounded intrinsic so nvcc can
 // neither contract nor reassociate: IEEE division (__fdiv_rn), half-even
@@ -306,36 +308,40 @@ enum SegFlags {
   kMetaAligned = 128,  // scale/zero pointers aligned to their width
 };
 
-// One segment: nb buckets of `bucket` values, codes from `codes` (the
-// bucket's bucket*pbits/8 bytes one after the other), scale[b] / zero[b] in
-// f32 or bf16 at any byte address, decoded into `out` (nb, bucket).
+constexpr int kDqWarps = 8;
+// unit indices stay ints, with room for the grid's stride above them
+constexpr long long kMaxUnits = (1LL << 31) - (1LL << 24);
+constexpr int kChunkBytes = 1024;  // 16-byte path: the codes one unit stages per warp
+constexpr int kChunk16 = kChunkBytes / 16;
+
+// One segment: buckets of `bucket` values, codes from `codes` (the bucket's
+// bucket*pbits/8 bytes one after the other), scale[b] / zero[b] in f32 or
+// bf16 at any byte address, decoded into `out` (nb, bucket).  Its work is
+// `units` units, `upb` per bucket: on the 16-byte path the bucket's codes
+// in chunks of kChunkBytes (the last one shorter), else the whole bucket.
 struct Seg {
   const uint8_t* codes;
   const uint8_t* scale;
   const uint8_t* zero;
   void* out;
-  int nb;
   int bucket;
-  int unit0;  // the segment's first bucket in the launch's count of buckets
+  int unit0;  // the segment's first unit in the launch's count of units
+  int units;
+  int upb;
   int flags;
 };
 
-// Passed by value (48 bytes a segment, 3 KB in all: within the 4 KB of
+// Passed by value (56 bytes a segment, 3.5 KB in all: within the 4 KB of
 // kernel parameters), read through the constant bank.
 constexpr int kMaxSegs = 64;
 struct SegTable {
   Seg seg[kMaxSegs];
-  int units;  // buckets of all segments
+  int units;  // units of all segments
 };
 
-constexpr int kDqWarps = 8;
-// bucket indices stay ints, with room for the grid's stride above them
-constexpr long long kMaxUnits = (1LL << 31) - (1LL << 24);
-constexpr int kMaxCodeBytes = 1024;  // 16-byte path: one bucket's codes staged per warp
-
-// One bucket's inputs, fetched one bucket ahead of its decode.
+// One unit's inputs, fetched one unit ahead of its decode.
 struct Fetched {
-  uint4 c[kMaxCodeBytes / 16 / 32];
+  uint4 c[kChunk16 / 32];
   float s, z;
 };
 
@@ -366,17 +372,34 @@ __device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&h);
 }
 
-__device__ __forceinline__ Fetched fetch(const Seg& g, long long b, int lane) {
+// Unit v of a segment: its bucket, and (16-byte path) its chunk's first
+// 16-byte word in the bucket and count of 16-byte words.
+struct Unit {
+  long long b;
+  int w0, n16;
+};
+
+__device__ __forceinline__ Unit locate(const Seg& g, long long v) {
+  Unit u;
+  u.b = g.upb == 1 ? v : v / g.upb;
+  const int words = g.bucket * (g.flags & kPbitsMask) / 128;
+  u.w0 = (int)(v - u.b * g.upb) * kChunk16;
+  u.n16 = min(kChunk16, words - u.w0);
+  return u;
+}
+
+__device__ __forceinline__ Fetched fetch(const Seg& g, long long v, int lane) {
   Fetched f;
-  f.s = load_meta(g.scale, b, g.flags);
-  f.z = load_meta(g.zero, b, g.flags);
+  const Unit u = locate(g, v);
+  f.s = load_meta(g.scale, u.b, g.flags);
+  f.z = load_meta(g.zero, u.b, g.flags);
   if (g.flags & kFast) {
-    const int n16 = g.bucket * (g.flags & kPbitsMask) / 128;
-    const uint4* src = reinterpret_cast<const uint4*>(g.codes) + b * n16;
+    const int words = g.bucket * (g.flags & kPbitsMask) / 128;
+    const uint4* src = reinterpret_cast<const uint4*>(g.codes) + u.b * words + u.w0;
 #pragma unroll
-    for (int i = 0; i < kMaxCodeBytes / 16 / 32; ++i) {
+    for (int i = 0; i < kChunk16 / 32; ++i) {
       const int c = lane + 32 * i;
-      f.c[i] = c < n16 ? __ldcs(src + c) : make_uint4(0, 0, 0, 0);
+      f.c[i] = c < u.n16 ? __ldcs(src + c) : make_uint4(0, 0, 0, 0);
     }
   }
   return f;
@@ -385,20 +408,23 @@ __device__ __forceinline__ Fetched fetch(const Seg& g, long long b, int lane) {
 // The 16-byte path: the warp's codes go through shared memory so that each
 // lane's 16-byte store takes the codes of 8 (bf16) or 4 (f32) neighbouring
 // values, and the warp stores 512 contiguous bytes per instruction.
-__device__ __forceinline__ void decode_fast(const Seg& g, long long b, const Fetched& f,
+__device__ __forceinline__ void decode_fast(const Seg& g, long long v, const Fetched& f,
                                             uint4* stage, int lane) {
   const int pbits = g.flags & kPbitsMask;
   const unsigned mask = (1u << pbits) - 1u;
-  const int n16 = g.bucket * pbits / 128;
-  __syncwarp();  // the previous bucket's reads of the stage are done
+  const Unit u = locate(g, v);
+  // the chunk's first value (16-byte words hold 128 / pbits values each)
+  const long long o0 = u.b * g.bucket + (long long)u.w0 * (128 / pbits);
+  const int nvals = u.n16 * (128 / pbits);
+  __syncwarp();  // the previous unit's reads of the stage are done
 #pragma unroll
-  for (int i = 0; i < kMaxCodeBytes / 16 / 32; ++i)
-    if (lane + 32 * i < n16) stage[lane + 32 * i] = f.c[i];
+  for (int i = 0; i < kChunk16 / 32; ++i)
+    if (lane + 32 * i < u.n16) stage[lane + 32 * i] = f.c[i];
   __syncwarp();
   const uint64_t* st = reinterpret_cast<const uint64_t*>(stage);
   if (g.flags & kOutBf16) {
-    uint4* o = reinterpret_cast<uint4*>(static_cast<__nv_bfloat16*>(g.out) + b * g.bucket);
-    const int nst = g.bucket / 8;
+    uint4* o = reinterpret_cast<uint4*>(static_cast<__nv_bfloat16*>(g.out) + o0);
+    const int nst = nvals / 8;
 #pragma unroll 4
     for (int i = lane; i < nst; i += 32) {
       const int bit = i * 8 * pbits;
@@ -411,8 +437,8 @@ __device__ __forceinline__ void decode_fast(const Seg& g, long long b, const Fet
       o[i] = make_uint4(r[0], r[1], r[2], r[3]);
     }
   } else {
-    float4* o = reinterpret_cast<float4*>(static_cast<float*>(g.out) + b * g.bucket);
-    const int nst = g.bucket / 4;
+    float4* o = reinterpret_cast<float4*>(static_cast<float*>(g.out) + o0);
+    const int nst = nvals / 4;
 #pragma unroll 4
     for (int i = lane; i < nst; i += 32) {
       const int bit = i * 4 * pbits;
@@ -426,7 +452,7 @@ __device__ __forceinline__ void decode_fast(const Seg& g, long long b, const Fet
 }
 
 // Any bucket, codes and output at any alignment: one value per lane and
-// step, codes read byte by byte.
+// step, codes read byte by byte (a unit is a whole bucket here).
 __device__ __forceinline__ void decode_generic(const Seg& g, long long b, float s, float z,
                                                int lane) {
   const int pbits = g.flags & kPbitsMask;
@@ -444,25 +470,25 @@ __device__ __forceinline__ void decode_generic(const Seg& g, long long b, float 
 }
 
 // A grid of about one wave of resident blocks; warp w of the grid decodes
-// buckets w, w + W, w + 2W, ... (W warps in all) of the table, each bucket
-// whole, issuing the next bucket's loads before it decodes the current one.
+// units w, w + W, w + 2W, ... (W warps in all) of the table, issuing the
+// next unit's loads before it decodes the current one.
 __global__ void __launch_bounds__(32 * kDqWarps)
 unpack_dequantize_kernel(const __grid_constant__ SegTable t) {
-  __shared__ uint4 stage_all[kDqWarps][kMaxCodeBytes / 16];
+  __shared__ uint4 stage_all[kDqWarps][kChunk16];
   const int lane = threadIdx.x & 31;
   uint4* stage = stage_all[threadIdx.x >> 5];
   const int stride = gridDim.x * kDqWarps;
   int u = blockIdx.x * kDqWarps + (threadIdx.x >> 5);
   if (u >= t.units) return;
   int s = 0;
-  while (u >= t.seg[s].unit0 + t.seg[s].nb) ++s;
+  while (u >= t.seg[s].unit0 + t.seg[s].units) ++s;
   Fetched cur = fetch(t.seg[s], u - t.seg[s].unit0, lane);
   for (;;) {
     const int un = u + stride;
     int sn = s;
     Fetched nxt = cur;
     if (un < t.units) {
-      while (un >= t.seg[sn].unit0 + t.seg[sn].nb) ++sn;
+      while (un >= t.seg[sn].unit0 + t.seg[sn].units) ++sn;
       nxt = fetch(t.seg[sn], un - t.seg[sn].unit0, lane);
     }
     const Seg& g = t.seg[s];
@@ -513,21 +539,22 @@ cudaError_t launch_wire(const long long* desc, int n_seg, cudaStream_t st) {
     if (bucket * pbits % 8) return cudaErrorInvalidValue;
     const bool meta_bf16 = d[kDescFlags] & kDescMetaBf16, out_bf16 = d[kDescFlags] & kDescOutBf16;
     const long long code_bytes = bucket * pbits / 8, mb = meta_bf16 ? 2 : 4;
-    const bool fast = code_bytes % 16 == 0 && code_bytes <= kMaxCodeBytes &&
-                      d[kCodes] % 16 == 0 && d[kOut] % 16 == 0;
+    const bool fast = code_bytes % 16 == 0 && d[kCodes] % 16 == 0 && d[kOut] % 16 == 0;
     const bool aligned = d[kScale] % mb == 0 && d[kZero] % mb == 0;
+    const long long upb = fast ? (code_bytes + kChunkBytes - 1) / kChunkBytes : 1;
+    if (nb > kMaxUnits / upb || units + nb * upb > kMaxUnits) return cudaErrorInvalidValue;
     Seg& g = t.seg[n++];
     g.codes = reinterpret_cast<const uint8_t*>(d[kCodes]);
     g.scale = reinterpret_cast<const uint8_t*>(d[kScale]);
     g.zero = reinterpret_cast<const uint8_t*>(d[kZero]);
     g.out = reinterpret_cast<void*>(d[kOut]);
-    g.nb = (int)nb;
     g.bucket = (int)bucket;
     g.unit0 = (int)units;
+    g.units = (int)(nb * upb);
+    g.upb = (int)upb;
     g.flags = pbits | (meta_bf16 ? kMetaBf16 : 0) | (out_bf16 ? kOutBf16 : 0) |
               (fast ? kFast : 0) | (aligned ? kMetaAligned : 0);
-    units += nb;
-    if (units > kMaxUnits) return cudaErrorInvalidValue;
+    units += nb * upb;
   }
   t.units = (int)units;
   if (units == 0) return cudaSuccess;

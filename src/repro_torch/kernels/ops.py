@@ -118,15 +118,15 @@ def unpack_dequantize(codes: torch.Tensor, scale: torch.Tensor,
     return out
 
 
-_WIRE_MAX_SEGS = 64  # quantize.cu: kMaxSegs, the segments one launch's table holds
+WIRE_MAX_SEGS = 64  # quantize.cu: kMaxSegs, the segments one launch's table holds
 
 
 def unpack_dequantize_wire(buf: torch.Tensor, segments: Sequence[WireCodes],
                            out_dtypes: Sequence) -> list[torch.Tensor]:
     """K2 over a wire buffer: every quantized segment of the 1-D u8 `buf`
-    (``ref.WireCodes``: codes, then scale and zero read in place) decoded
-    into a new (nb, bucket) tensor in its out dtype (f32 or bf16), all in
-    one launch (at most 64 segments with nb > 0)."""
+    (``ref.WireCodes``: codes, scale and zero read in place) decoded into a
+    new (nb, bucket) tensor in its out dtype (f32 or bf16).  One launch per
+    WIRE_MAX_SEGS segments with nb > 0: one launch for a buffer of up to 64."""
     if len(segments) != len(out_dtypes):
         raise ValueError(f"{len(segments)} segments, {len(out_dtypes)} out dtypes")
     if _on_cpu(buf):
@@ -142,22 +142,22 @@ def unpack_dequantize_wire(buf: torch.Tensor, segments: Sequence[WireCodes],
         if (not 1 <= seg.bits <= 8 or seg.bucket < 1 or seg.nb < 0
                 or seg.bucket % ref.codes_per_byte(seg.bits)):
             raise ValueError(f"unsupported segment {seg}")
-        if seg.offset < 0 or seg.offset + seg.nbytes > buf.numel():
-            raise ValueError(f"segment {seg} runs past the {buf.numel()}-byte buffer")
+        mb = seg.nb * seg.meta_dtype.itemsize
+        for start, n in ((seg.codes, seg.nb * ref.bucket_bytes(seg.bucket, seg.bits)),
+                         (seg.scale, mb), (seg.zero, mb)):
+            if start < 0 or start + n > buf.numel():
+                raise ValueError(f"segment {seg} runs past the {buf.numel()}-byte buffer")
         out = torch.empty((seg.nb, seg.bucket), dtype=dt, device=buf.device)
         outs.append(out)
         if seg.nb:
-            codes = base + seg.offset
-            meta = codes + seg.code_bytes
-            mb = seg.nb * seg.meta_dtype.itemsize
             flags = int(seg.meta_dtype == torch.bfloat16) | 2 * int(dt == torch.bfloat16)
-            rows.append((codes, meta, meta + mb, out.data_ptr(), seg.nb, seg.bucket, seg.bits,
-                         flags))
-    if len(rows) > _WIRE_MAX_SEGS:
-        raise ValueError(f"{len(rows)} segments: one launch takes at most {_WIRE_MAX_SEGS}")
-    if rows:
-        desc = (ctypes.c_longlong * (8 * len(rows)))(*itertools.chain.from_iterable(rows))
-        _raise_on(build.load("quantize").qsdp_unpack_dequantize_wire(desc, len(rows), _stream()),
+            rows.append((base + seg.codes, base + seg.scale, base + seg.zero, out.data_ptr(),
+                         seg.nb, seg.bucket, seg.bits, flags))
+    lib = build.load("quantize") if rows else None
+    for i in range(0, len(rows), WIRE_MAX_SEGS):
+        part = rows[i:i + WIRE_MAX_SEGS]
+        desc = (ctypes.c_longlong * (8 * len(part)))(*itertools.chain.from_iterable(part))
+        _raise_on(lib.qsdp_unpack_dequantize_wire(desc, len(part), _stream()),
                   "unpack_dequantize_wire")
         LAUNCHES["unpack_dequantize"] += 1
     return outs

@@ -159,44 +159,45 @@ def unpack_dequantize_ref(codes: torch.Tensor, scale: torch.Tensor,
     return fma_f32(c, scale, zero).to(dtype)
 
 
-class WireCodes(NamedTuple):
-    """One quantized segment inside a u8 wire buffer, laid out as
-    ``core.quant.wire_pack`` writes it: from byte `offset`, the codes (nb,
-    bucket*bits/8, or bucket when 8 % bits != 0), then scale (nb,) and zero
-    (nb,) in `meta_dtype` (f32 or bf16)."""
+def bucket_bytes(bucket: int, bits: int) -> int:
+    """Bytes of one bucket's packed codes."""
+    return bucket // codes_per_byte(bits)
 
-    offset: int
+
+def view_bytes(b: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """1-D u8 bytes read as `dtype` (a copy: a slice of a wire buffer need
+    not be aligned for a view)."""
+    return b.clone().view(dtype)
+
+
+class WireCodes(NamedTuple):
+    """One quantized tensor inside a u8 wire buffer, as K2's table takes it:
+    the byte offsets of its codes (nb buckets of ``bucket_bytes(bucket,
+    bits)``), of its scale (nb,) and of its zero (nb,) in `meta_dtype` (f32
+    or bf16).  ``core.quant.wire_codes`` places them as the wire format
+    lays them out."""
+
+    codes: int
+    scale: int
+    zero: int
     nb: int
     bucket: int
     bits: int
     meta_dtype: torch.dtype = torch.float32
 
-    @property
-    def code_bytes(self) -> int:
-        return self.nb * (self.bucket // codes_per_byte(self.bits))
-
-    @property
-    def nbytes(self) -> int:
-        return self.code_bytes + 2 * self.nb * self.meta_dtype.itemsize
-
-
-def _meta_f32(b: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    # clone: a slice of a wire buffer need not be aligned for the view
-    return b.clone().view(dtype).to(torch.float32)
-
 
 def unpack_dequantize_wire_ref(buf: torch.Tensor, segments: Sequence[WireCodes],
                                out_dtypes: Sequence) -> list[torch.Tensor]:
     """K2 over a wire buffer: each segment of (1-D u8) `buf` decoded into an
-    (nb, bucket) tensor in its out dtype (f32 or bf16), as the per-segment
-    ``wire_unpack`` + ``dequantize`` of ``core.quant`` does."""
+    (nb, bucket) tensor in its out dtype (f32 or bf16), one
+    :func:`unpack_dequantize_ref` per segment."""
     outs = []
-    for seg, dt in zip(segments, out_dtypes, strict=True):
-        o, c, m = seg.offset, seg.code_bytes, seg.nb * seg.meta_dtype.itemsize
-        codes = buf[o:o + c].reshape(seg.nb, seg.bucket // codes_per_byte(seg.bits))
-        scale = _meta_f32(buf[o + c:o + c + m], seg.meta_dtype)
-        zero = _meta_f32(buf[o + c + m:o + c + 2 * m], seg.meta_dtype)
-        outs.append(unpack_dequantize_ref(codes, scale[:, None], zero[:, None], seg.bits, dt))
+    for w, dt in zip(segments, out_dtypes, strict=True):
+        cb, mb = bucket_bytes(w.bucket, w.bits), w.nb * w.meta_dtype.itemsize
+        codes = buf[w.codes:w.codes + w.nb * cb].reshape(w.nb, cb)
+        scale = view_bytes(buf[w.scale:w.scale + mb], w.meta_dtype).to(torch.float32)
+        zero = view_bytes(buf[w.zero:w.zero + mb], w.meta_dtype).to(torch.float32)
+        outs.append(unpack_dequantize_ref(codes, scale[:, None], zero[:, None], w.bits, dt))
     return outs
 
 

@@ -169,7 +169,7 @@ def test_unpack_dequantize_wire_byte_equal(cuda, meta, p):
     for out in ([torch.bfloat16] * 8, [torch.float32] * 8, [torch.bfloat16, torch.float32] * 4):
         table, dts = coll.wire_table(layout, p, out)
         gbuf = buf.to(cuda)
-        assert any((gbuf.data_ptr() + t.offset) % 16 for t in table)
+        assert any((gbuf.data_ptr() + t.codes) % 16 for t in table)
         before = ops.LAUNCHES["unpack_dequantize"]
         got = ops.unpack_dequantize_wire(gbuf, table, dts)
         assert ops.LAUNCHES["unpack_dequantize"] == before + 1
@@ -179,6 +179,20 @@ def test_unpack_dequantize_wire_byte_equal(cuda, meta, p):
             assert torch.equal(g.cpu().view(torch.uint8), w.view(torch.uint8)), t
 
 
+def _random_segment(g, shift, nb, bucket, bits, meta):
+    """One wire segment of random codes at byte `shift` of a buffer (5 bytes
+    to spare after it), with scale/zero of magnitude 0.1."""
+    from repro_torch.core.quant import QuantConfig, wire_codes, wire_segment_bytes
+    cfg = QuantConfig(bits=bits, bucket_size=bucket,
+                      meta_dtype="bfloat16" if meta == torch.bfloat16 else "float32")
+    seg = wire_codes(shift, nb * bucket, cfg)
+    buf = torch.randint(0, 256, (shift + wire_segment_bytes(nb * bucket, cfg) + 5,),
+                        generator=g, dtype=torch.uint8)
+    buf[seg.scale:seg.zero + nb * meta.itemsize] = (torch.rand(2 * nb, generator=g) * 0.1).to(
+        meta).view(torch.uint8)
+    return seg, buf
+
+
 @pytest.mark.parametrize("shift", range(16))
 def test_unpack_dequantize_wire_any_offset(cuda, shift):
     """One segment at every byte offset mod 16 of the buffer: codes and
@@ -186,41 +200,70 @@ def test_unpack_dequantize_wire_any_offset(cuda, shift):
     high bits of each byte, as the reference does)."""
     g = torch.Generator().manual_seed(shift)
     for bits, bucket, meta in ((8, 1024, torch.float32), (4, 256, torch.bfloat16),
-                               (3, 64, torch.float32)):
-        nb = 9
-        seg = ops.WireCodes(shift, nb, bucket, bits, meta)
-        buf = torch.randint(0, 256, (shift + seg.nbytes + 5,), generator=g, dtype=torch.uint8)
-        m = seg.offset + seg.code_bytes
-        buf[m:m + 2 * nb * meta.itemsize] = (torch.rand(2 * nb, generator=g) * 0.1).to(
-            meta).view(torch.uint8)
+                               (3, 64, torch.float32), (8, 4096, torch.bfloat16)):
+        seg, buf = _random_segment(g, shift, 9, bucket, bits, meta)
         for dt in (torch.float32, torch.bfloat16):
             got = ops.unpack_dequantize_wire(buf.to(cuda), [seg], [dt])[0]
             want = ref.unpack_dequantize_wire_ref(buf, [seg], [dt])[0]
             assert torch.equal(got.cpu().view(torch.uint8), want.view(torch.uint8)), (bits, dt)
 
 
+@pytest.mark.parametrize("bits", [1, 2, 4, 8])
+@pytest.mark.parametrize("bucket", [2048, 4096, 1040 * 16, 8192 + 128])
+def test_unpack_dequantize_large_buckets(cuda, bits, bucket):
+    """Buckets whose codes pass 1 KB take the 16-byte path in 1 KB chunks
+    (the last one shorter where the bucket's codes are not a whole number
+    of KB), through both entry points, byte-equal."""
+    g = torch.Generator().manual_seed(bucket + bits)
+    seg, buf = _random_segment(g, 0, 7, bucket, bits, torch.float32)
+    codes = buf[:seg.scale].view(7, -1).to(cuda)
+    scale = (torch.rand((7, 1), generator=g) * 0.1).to(cuda)
+    zero = (torch.randn((7, 1), generator=g) * 0.1).to(cuda)
+    for dt in (torch.float32, torch.bfloat16):
+        got = ops.unpack_dequantize_wire(buf.to(cuda), [seg], [dt])[0]
+        want = ref.unpack_dequantize_wire_ref(buf, [seg], [dt])[0]
+        assert torch.equal(got.cpu().view(torch.uint8), want.view(torch.uint8)), dt
+        got = ops.unpack_dequantize(codes, scale, zero, bits, dt)
+        want = ref.unpack_dequantize_ref(codes, scale, zero, bits, dt)
+        assert torch.equal(got.view(torch.uint8), want.view(torch.uint8)), dt
+
+
 def test_unpack_dequantize_wire_table_limits(cuda):
-    """One launch decodes 64 segments; a 65th raises; empty segments take
-    no entry and an all-empty table launches nothing."""
-    seg_bytes = ops.WireCodes(0, 2, 1024, 8).nbytes
-    buf = torch.zeros(65 * seg_bytes, dtype=torch.uint8, device=cuda)
-    table = [ops.WireCodes(i * seg_bytes, 2, 1024, 8) for i in range(65)]
+    """A table of up to 64 segments is one launch; 130 segments take three
+    (64 + 64 + 2), byte-equal; empty segments take no entry and an
+    all-empty table launches nothing."""
+    from repro_torch.core.quant import QuantConfig, wire_codes, wire_segment_bytes
+    cfg = QuantConfig(bits=8)
+    seg_bytes = wire_segment_bytes(2048, cfg)
+    g = torch.Generator().manual_seed(130)
+    buf = torch.randint(0, 256, (130 * seg_bytes,), generator=g, dtype=torch.uint8)
+    table = [wire_codes(i * seg_bytes, 2048, cfg) for i in range(130)]
+    for t in table:
+        buf[t.scale:t.zero + 8] = (torch.rand(4, generator=g) * 0.1).view(torch.uint8)
+    gbuf = buf.to(cuda)
+    empty = wire_codes(0, 0, cfg)
+    for n, launches in ((64, 1), (130, 3)):
+        dts = [torch.float32, torch.bfloat16] * (n // 2) + [torch.float32]
+        before = ops.LAUNCHES["unpack_dequantize"]
+        outs = ops.unpack_dequantize_wire(gbuf, table[:n] + [empty], dts)
+        assert ops.LAUNCHES["unpack_dequantize"] == before + launches
+        assert outs[-1].shape == (0, 1024)
+        for o, w in zip(outs, ref.unpack_dequantize_wire_ref(buf, table[:n] + [empty], dts),
+                        strict=True):
+            assert torch.equal(o.cpu().view(torch.uint8), w.view(torch.uint8))
     before = ops.LAUNCHES["unpack_dequantize"]
-    outs = ops.unpack_dequantize_wire(buf, table[:64] + [ops.WireCodes(0, 0, 1024, 8)],
-                                      [torch.float32] * 65)
-    assert all(bool((o == 0).all()) for o in outs) and outs[-1].shape == (0, 1024)
-    assert ops.LAUNCHES["unpack_dequantize"] == before + 1
-    with pytest.raises(ValueError, match="at most 64"):
-        ops.unpack_dequantize_wire(buf, table, [torch.float32] * 65)
-    ops.unpack_dequantize_wire(buf, [ops.WireCodes(0, 0, 1024, 8)], [torch.bfloat16])
-    assert ops.LAUNCHES["unpack_dequantize"] == before + 1
+    ops.unpack_dequantize_wire(gbuf, [empty], [torch.bfloat16])
+    assert ops.LAUNCHES["unpack_dequantize"] == before
 
 
 def test_unpack_dequantize_wire_checks_inputs_on_the_card(cuda):
+    from repro_torch.core.quant import QuantConfig, wire_codes
     buf = torch.zeros(4096, dtype=torch.uint8, device=cuda)
     with pytest.raises(TypeError, match="f32 or bf16"):
-        ops.unpack_dequantize_wire(buf, [ops.WireCodes(0, 1, 1024, 8)], [torch.float16])
+        ops.unpack_dequantize_wire(buf, [wire_codes(0, 1024, QuantConfig())], [torch.float16])
     with pytest.raises(ValueError, match="past"):
-        ops.unpack_dequantize_wire(buf, [ops.WireCodes(3500, 1, 1024, 8)], [torch.float32])
+        ops.unpack_dequantize_wire(buf, [wire_codes(3500, 1024, QuantConfig())],
+                                   [torch.float32])
     with pytest.raises(ValueError, match="unsupported"):
-        ops.unpack_dequantize_wire(buf, [ops.WireCodes(0, 1, 1023, 4)], [torch.float32])
+        ops.unpack_dequantize_wire(buf, [ops.WireCodes(0, 1000, 1004, 1, 1023, 4)],
+                                   [torch.float32])

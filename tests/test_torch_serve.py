@@ -232,15 +232,15 @@ def test_generate_matches_teacher_forced_run(runs):
     np.testing.assert_array_equal(out.numpy(), r["tokens"])
 
 
-@pytest.mark.parametrize("dequant_to_compute", [False, True])
-def test_per_tensor_gather_equals_coalesced(dequant_to_compute):
+@pytest.mark.parametrize("compute_dtype", ["bfloat16", "float32"])
+def test_per_tensor_gather_equals_coalesced(compute_dtype):
     """One layer gathered per tensor (coalesce=False: three collectives per
-    quantized tensor) gives the bytes of the one-buffer coalesced gather."""
+    quantized tensor) gives the bytes of the one-buffer coalesced gather,
+    in either compute dtype K2 decodes into."""
     cfg, ms = tcfg_mod.smoke(), MeshSpec(("data", "model"), (1, 1))
     out = []
     for coalesce in (True, False):
-        model = Model(cfg, ms, QSDPConfig(coalesce=coalesce,
-                                          dequant_to_compute=dequant_to_compute))
+        model = Model(cfg, ms, QSDPConfig(coalesce=coalesce, compute_dtype=compute_dtype))
         params = model.engine.init_params(SEED, "cpu")
         names = tuple(sorted(n for n in params if n.startswith("layers/")))
         key = prng.fold_in(prng.PRNGKey(KEY), 1)
@@ -251,7 +251,7 @@ def test_per_tensor_gather_equals_coalesced(dequant_to_compute):
             "layers/", {n.split("/", 1)[1]: params[n][1] for n in names}, key))
     assert out[0].keys() == out[1].keys()
     for n in out[0]:
-        assert out[0][n].dtype == out[1][n].dtype
+        assert out[0][n].dtype == out[1][n].dtype == model.engine.compute_dtype
         assert torch.equal(out[0][n].view(torch.uint8), out[1][n].view(torch.uint8)), n
 
 

@@ -14,7 +14,9 @@ Tolerance 0 throughout: every comparison is byte for byte.
       one K2 call;
   (d) the K2 launches of ``generate()`` equal to what ``chip_smoke.py``
       derives from the code's structure (one per decoded buffer), dense and
-      rowquant, with and without K3-tiling MLP rows.
+      rowquant, with and without K3-tiling MLP rows;
+  (e) a buffer of more (row, segment) entries than one launch's table
+      holds, and ``qparam_decode`` of several cells in one K2 call.
 """
 import importlib.util
 from pathlib import Path
@@ -141,9 +143,61 @@ def test_wire_table_rows_and_segments():
     for i, t in enumerate(table):
         seg, off = q[i // 3]
         r = i % 3
-        assert t.offset == r * tl.nbytes + off and t.nbytes == seg.nbytes
+        assert t.codes == r * tl.nbytes + off
+        assert t.scale - t.codes == np.prod(tq.quantized_shapes(seg.n, seg.cfg)["codes"])
+        assert t.zero - t.scale == 2 * t.nb and t.zero + 2 * t.nb - t.codes == seg.nbytes
         assert t.nb * t.bucket >= seg.n > (t.nb - 1) * t.bucket
         assert t.meta_dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("meta", ["float32", "bfloat16"])
+def test_decode_more_than_64_table_entries_matches_jax(meta):
+    """14 rows x 5 quantized segments = 70 (row, segment) entries, more than
+    one launch's table holds (``ops.WIRE_MAX_SEGS``): the gather decode and
+    the reduce-scatter decode still equal the JAX package's."""
+    p = 14
+    jl, tl = _layouts(meta)
+    table, _ = tc.wire_table(tl, p, [torch.float32] * len(MIXED))
+    assert len(table) == 70 > ops.WIRE_MAX_SEGS
+    gbuf = _rows(jl, p, seed=64)
+    tdts = ([torch.bfloat16, torch.float32] * 4)[:len(MIXED)]
+    jdts = [jnp.float32 if dt == torch.float32 else jnp.bfloat16 for dt in tdts]
+    got = tc.decode_gathered_wire(torch.from_numpy(gbuf.copy()), tl, p, tdts)
+    want = jc.decode_gathered_wire(jnp.asarray(gbuf), jl, p, jdts)
+    for g, w, dt in zip(got, want, tdts, strict=True):
+        assert g.dtype == dt and g.shape == w.shape
+        assert _bits(g)[1] == _bits(w)[1]
+    rows = gbuf.reshape(p, -1)
+    tseg = tc._decode_segments(torch.from_numpy(rows.copy()), tl, [torch.float32] * len(MIXED))
+    for tv, jv in zip(tseg, jc._decode_segments(jnp.asarray(rows), jl), strict=True):
+        assert [_bits(v)[1] for v in tv] == [_bits(np.asarray(jv)[r])[1] for r in range(p)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,bits,meta", [((2, 3, 1500), 8, "float32"),
+                                             ((2, 2, 3, 1000), 4, "bfloat16")])
+def test_qparam_decode_is_one_wire_call(shape, bits, meta, dtype, monkeypatch):
+    """``qparam_decode`` of a leaf of several cells: one
+    ``unpack_dequantize_wire`` call over the whole wire (no single-tensor
+    K2 call), byte-equal to the JAX package's ``qparam_decode``."""
+    x = np.random.default_rng(bits).standard_normal(shape).astype(np.float32)
+    jqp = jq.qparam_encode(jnp.asarray(x), jq.QuantConfig(bits=bits, mode="shift",
+                                                          meta_dtype=meta, backend="jnp"),
+                           jax.random.PRNGKey(3))
+    tqp = tq.qparam_encode(torch.from_numpy(x), tq.QuantConfig(bits=bits, mode="shift",
+                                                               meta_dtype=meta), prng.PRNGKey(3))
+    assert tqp.wire.numpy().tobytes() == np.asarray(jqp.wire).tobytes()
+    calls = {"wire": 0, "one": 0}
+    for fn, tag in (("unpack_dequantize_wire", "wire"), ("unpack_dequantize", "one")):
+        def counted(*a, _orig=getattr(ops, fn), _tag=tag, **k):
+            calls[_tag] += 1
+            return _orig(*a, **k)
+        monkeypatch.setattr(ops, fn, counted)
+    got = tq.qparam_decode(tqp, dtype)
+    assert calls == {"wire": 1, "one": 0}
+    want = jq.qparam_decode(jqp, jnp.float32 if dtype == torch.float32 else jnp.bfloat16)
+    assert got.dtype == dtype and tuple(got.shape) == shape == want.shape
+    assert _bits(got)[1] == _bits(want)[1]
 
 
 def test_gpt125m_layer_gather_matches_reference(mesh11, monkeypatch):
