@@ -8,10 +8,13 @@ Phases, each of which makes the script exit non-zero when it fails:
 1. build   -- nvcc builds every kernel source of the port, in parallel.
 2. kernels -- each CUDA kernel (K1 quantize->pack drawing its threefry
               bits from the key, K2 unpack->dequantize, K3 rowquant matmul,
-              K4 unpacked quantize, K5 unpacked dequantize) against its
-              plain PyTorch version on the card at the gpt-1.3b shapes of
-              its path: K1/K2/K4/K5 byte-equal, K3 within tolerance; K2
-              also over a whole gpt-1.3b layer's wire buffer in one launch
+              K4 unpacked quantize, K5 unpacked dequantize, and the
+              sampler's draw random_bits) against its plain PyTorch version
+              on the card at the gpt-1.3b shapes of its path: K1/K2/K4/K5
+              and random_bits byte-equal, K3 within tolerance; K1/K2 also
+              at the cold tier's block shape (W4, bucket 128), K3 also at
+              the chunk path's M (off the path, for the record); K2 also
+              over a whole gpt-1.3b layer's wire buffer in one launch
               (bf16 and f32 out) and over segments off 16-byte alignment.
               Times by CUDA events on cold L2 and by the profiler (kernel
               alone) beside the bound (bytes, f32 and INT32 operations),
@@ -33,7 +36,20 @@ Phases, each of which makes the script exit non-zero when it fails:
               two runs' first decode-step logits must agree.  ``--profile``
               adds a profiled decode step of each (kernel time by name, the
               bf16 casts and K2's launches).
-5. train   -- gpt-1.3b at full width and depth, default QSDPConfig (W8
+5. continuous -- gpt-1.3b at full width and depth through
+              ``make_scheduler`` -> ``ContinuousScheduler.run``: 4 slots,
+              ring 512, KV block 16 (paged pool of 256 blocks, prefix
+              sharing, 4-bit cold tier with horizon 8), chunk 64 with 3
+              buckets, 12 requests (CONT_PLAN: half behind a shared
+              128-token prefix, half sampled at temperature 0.8 / top-k 40).
+              Two runs with the same tokens; greedy requests bit-equal to
+              their solo runs; pool invariants, demotions and
+              rehydrations; launch counts against the structure; one
+              profiled step without int64 bitwise/shift kernels.  Prints
+              tokens/s, TTFT, step times, occupancy, prefix hit rate, cold
+              bytes, and which GEMM/attention launches are not
+              row-invariant across row counts.
+6. train   -- gpt-1.3b at full width and depth, default QSDPConfig (W8
               shift weights, G8 stochastic gradients, bucket 1024,
               coalesced, bf16 compute, full remat), AdamW + cosine, batch 4
               x seq 2048, 2 microbatches, SyntheticLM seed 0, through
@@ -50,6 +66,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import hashlib
 import json
 import math
@@ -162,6 +179,16 @@ def bound(nbytes, flops=0.0, flop_rate=F32_FLOP_PER_S, int_ops=0.0):
 GPT13_NB = {"attn (wq/wk/wv/wo)": 4096, "mlp (w_gate/w_up/w_down)": 16384,
             "embed": 100608}
 K3_SHAPES = {"w_gate/w_up": (4, 2048, 8192, 8), "w_down": (4, 8192, 2048, 2)}
+# K3 at the continuous phase's chunk M = slots x top bucket, timed for the
+# record: the chunk path gathers its MLP densely (as the reference does:
+# rowquant is a decode path), so these shapes are off the main path
+K3_CHUNK_SHAPES = {"w_gate/w_up, chunk M": (256, 2048, 8192, 8),
+                   "w_down, chunk M": (256, 8192, 2048, 2)}
+# the cold tier's codec at gpt-1.3b: one KV block (24 layers x 16 tokens x
+# 32 heads x 64) of k or v, 4 bits, buckets of 128, f32 scale/zero
+COLD_NB, COLD_BUCKET, COLD_BITS = 24 * 16 * 32 * 64 // 128, 128, 4
+# the sampler's draw: one row of vocabulary size per sampled slot (4 slots)
+RANDOM_BITS_SHAPE = (4, 50304)
 
 
 def dt_name(dt) -> str:
@@ -391,6 +418,59 @@ def kernel_phase(torch, log, dev="cuda"):
     rows["quantize_pack"] = k1
     rows["unpack_dequantize"] = k2
 
+    # the cold tier's codec at its gpt-1.3b block shape (continuous phase):
+    # K1 nearest at 4 bits, bucket 128; K2 decoding it into bf16
+    x = torch.randn((COLD_NB, COLD_BUCKET), generator=gen, device=dev)
+    levels, n = (1 << COLD_BITS) - 1, COLD_NB * COLD_BUCKET
+    q = ops.quantize_pack(x, None, levels, COLD_BITS, "nearest")
+    qr = ref.quantize_pack_key_ref(x, None, levels, COLD_BITS, "nearest")
+    for g, w, part in zip(q, qr, ("codes", "scale", "zero")):
+        check(torch.equal(g, w), f"K1 cold block: {part} differ in {(g != w).sum().item()} places")
+    k1.append(dict(
+        shape="cold KV block, W4 bucket 128", nb=COLD_NB, mode="nearest",
+        ms=cuda_ms(torch, lambda: ops.quantize_pack(x, None, levels, COLD_BITS, "nearest"),
+                   flush=flush),
+        kernel_ms=kernel_ms(torch, lambda: ops.quantize_pack(x, None, levels, COLD_BITS,
+                                                             "nearest"), flush=flush),
+        plain_ms=cuda_ms(torch, lambda: ref.quantize_pack_key_ref(x, None, levels, COLD_BITS,
+                                                                  "nearest"),
+                         reps=3, flush=flush),
+        bound=bound(4 * n + n * COLD_BITS // 8 + 8 * COLD_NB, flops=5 * n),
+        max_abs_err=max((a.float() - b.float()).abs().max().item() for a, b in zip(q, qr))))
+    r = k1[-1]
+    log(f"K1 {r['shape']} nb={COLD_NB}: byte-equal to plain; {r['ms']:.4f} ms, kernel "
+        f"{r['kernel_ms']:.4f} (plain {r['plain_ms']:.4f}, bound {r['bound'][0]:.4f} by "
+        f"{r['bound'][1]})")
+    k2.append(decode_row(
+        "cold KV block, W4 bucket 128, bf16 out", COLD_NB,
+        lambda: ops.unpack_dequantize(*q, COLD_BITS, torch.bfloat16),
+        lambda: ref.unpack_dequantize_ref(*q, COLD_BITS, torch.bfloat16), None,
+        n * COLD_BITS // 8 + 8 * COLD_NB + 2 * n, n))
+    log_decode_row("K2", k2[-1], log)
+    del x, q, qr
+
+    # the sampler's draw: jax.random bits of a vocabulary per sampled row
+    from repro_torch.core import prng as _prng
+    rows_n, vocab = RANDOM_BITS_SHAPE
+    keys = _prng.as_i32(_prng.fold_in_rows(
+        torch.tensor([_prng.PRNGKey(i) for i in range(rows_n)]), torch.arange(rows_n) + 129))
+    keys_d = keys.to(dev)
+    got, want = ops.random_bits(keys_d, vocab), ref.random_bits_ref(keys, vocab)
+    check(torch.equal(got.cpu(), want), f"random_bits: {(got.cpu() != want).sum().item()} "
+          "values differ from the plain version")
+    rows["random_bits"] = [dict(
+        shape=f"{rows_n} rows x {vocab}", nb=rows_n,
+        ms=cuda_ms(torch, lambda: ops.random_bits(keys_d, vocab), flush=flush),
+        kernel_ms=kernel_ms(torch, lambda: ops.random_bits(keys_d, vocab), flush=flush),
+        plain_ms=cuda_ms(torch, lambda: ref.random_bits_ref(keys_d, vocab), reps=3,
+                         flush=flush),
+        bound=bound(4 * rows_n * vocab + 8 * rows_n, int_ops=K1_DRAW_INT_OPS * rows_n * vocab),
+        max_abs_err=0.0)]
+    r = rows["random_bits"][0]
+    log(f"random_bits {r['shape']}: byte-equal to plain (jax.random.bits); {r['ms']:.4f} ms, "
+        f"kernel {r['kernel_ms']:.4f} (plain {r['plain_ms']:.4f}, bound {r['bound'][0]:.4f} "
+        f"by {r['bound'][1]}); no library call computes threefry bits")
+
     # K4/K5: the unpacked forms, byte-equal for levels x modes, f32 and bf16
     nb = GPT13_NB["mlp (w_gate/w_up/w_down)"]
     x = torch.randn((nb, 1024), generator=gen, device=dev) * 0.02
@@ -439,7 +519,7 @@ def kernel_phase(torch, log, dev="cuda"):
     # K3: tolerance against plain, both x dtypes; times in bf16 (main path)
     # beside torch.matmul on the dense bf16 weight
     k3 = []
-    for what, (m, k, n, n_seg) in K3_SHAPES.items():
+    for what, (m, k, n, n_seg) in {**K3_SHAPES, **K3_CHUNK_SHAPES}.items():
         w = torch.randn((k, n), generator=gen, device=dev) * 0.02
         nb = k * n // 1024
         codes, s, z = ops.quantize_pack(w.reshape(nb, 1024), prng.PRNGKey(k), 255, 8, "shift")
@@ -468,7 +548,7 @@ def kernel_phase(torch, log, dev="cuda"):
             kernel_ms=kernel_ms(torch, lambda: ops.rowquant_matmul(xb, codes, s, z), flush=flush),
             library_kernel_ms=kernel_ms(torch, lambda: torch.matmul(xb, wd), flush=flush),
             bound=bound(nbytes, flops=2 * m * k * n + 4 * m * k * n_seg),
-            max_abs_err=err))
+            max_abs_err=err, main_path=what in K3_SHAPES))
         del w, codes, s, z, wd
     for r in k3:
         log(f"K3 {r['shape']:12s} M={r['m']} K={r['k']} N={r['n']}: {r['ms']:.4f} ms "
@@ -497,6 +577,10 @@ KERNEL_META = {  # name: (source, the TPU kernel's pl.pallas_call)
                          "src/repro/kernels/quantize.py:88"),
     "dequantize_buckets": ("src/repro_torch/kernels/csrc/quantize.cu",
                            "src/repro/kernels/quantize.py:280"),
+    # not a TPU kernel: it draws the jax.random.gumbel bits of the reference's
+    # sampler on the card
+    "random_bits": ("src/repro_torch/kernels/csrc/quantize.cu",
+                    "src/repro/models/layers.py:225"),
 }
 
 
@@ -531,7 +615,8 @@ def kernel_line(rows, launches):
     main-path shape (the other shapes are in the log above)."""
     out = []
     for name, (src, replaces) in KERNEL_META.items():
-        big = max(rows[name], key=lambda r: r["bound"][0])
+        big = max((r for r in rows[name] if r.get("main_path", True)),
+                  key=lambda r: r["bound"][0])
         out.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": launches.get(name, 0),
@@ -557,8 +642,9 @@ def smi_line():
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="build,kernels,small,serve,train",
-                    help="comma-separated subset of build,kernels,small,serve,train")
+    ap.add_argument("--phases", default="build,kernels,small,serve,continuous,train",
+                    help="comma-separated subset of build,kernels,small,serve,continuous,"
+                         "train")
     ap.add_argument("--profile", action="store_true",
                     help="serve phase: also profile one decode step of each run "
                          "(chrome traces kept)")
@@ -603,6 +689,8 @@ def main(argv=None) -> int:
             small_train_phase(torch, log)
         if "serve" in phases:
             paths.append(serve_phase(torch, log, profile=args.profile))
+        if "continuous" in phases:
+            paths.append(continuous_phase(torch, log))
         if "train" in phases:
             paths.append(train_phase(torch, log))
         launches = {k: sum(p.get(k, 0) for p in paths) for k in KERNEL_META}
@@ -621,13 +709,20 @@ def main(argv=None) -> int:
 
 @contextlib.contextmanager
 def hooked(obj, attr, wrap):
-    """Temporarily replace obj.attr by wrap(original)."""
+    """Temporarily replace obj.attr by wrap(original).  A method found on
+    the class is deleted from the instance afterwards, not set back: an
+    instance holding its own bound method is a reference cycle, which would
+    keep it (and the device memory it holds) alive until a GC pass."""
     orig = getattr(obj, attr)
+    own = attr in vars(obj)
     setattr(obj, attr, wrap(orig))
     try:
         yield
     finally:
-        setattr(obj, attr, orig)
+        if own:
+            setattr(obj, attr, orig)
+        else:
+            delattr(obj, attr)
 
 
 def capture_logits(store):
@@ -866,6 +961,274 @@ def profile_step(torch, setup, prompt, log, tag):
 
 
 # ---------------------------------------------------------------------------
+# phase 5: continuous batching of gpt-1.3b (scheduler, chunked prefill, paged
+# KV pool with prefix sharing and its quantized cold tier, sampling)
+# ---------------------------------------------------------------------------
+
+# pool: 256 blocks, twice one window per slot, so that an idle prefix reaches
+# the cold horizon before the allocator has to evict it
+CONT = dict(slots=4, ring=512, block=16, pool_blocks=256, chunk=64, buckets=3, interleave=1,
+            quant_bits=4, horizon=8, seed=0, temperature=0.8, top_k=40, prefix=128)
+# (behind the shared prefix?, sampled?, prompt tokens, new tokens) of the
+# requests in submission order: prompts 32-384 tokens, 16-32 new tokens.
+# The scheduler's decisions depend on these lengths only, so the plan fixes
+# what happens: c0 and c1 start together (no hit; c0's prefix blocks are
+# registered first), c3 retires early and c4 is admitted while c0 holds the
+# prefix (a greedy hot hit), the long c5-c8 keep every slot busy past the
+# cold horizon after the last prefix holder retires, and c9 rehydrates the
+# demoted prefix, c10 and c11 share it hot.  c9-c11 are sampled: a
+# rehydrated block holds 4-bit KV that no solo run of the request has.
+CONT_PLAN = ((True, False, 288, 24), (True, True, 352, 32), (False, False, 320, 28),
+             (False, False, 32, 16), (True, False, 160, 16), (False, True, 384, 32),
+             (False, False, 384, 30), (False, True, 384, 32), (False, False, 256, 20),
+             (True, True, 224, 24), (True, True, 300, 20), (True, True, 192, 18))
+
+
+def continuous_requests(vocab: int):
+    """CONT_PLAN's requests: prompts from rows of SyntheticLM seed
+    CONT['seed'], the shared prefix the first CONT['prefix'] tokens of one
+    more row."""
+    from repro_torch.data import SyntheticLM
+    from repro_torch.serve import Request
+    longest = max(n for _, _, n, _ in CONT_PLAN)
+    rows, _ = SyntheticLM(vocab, longest, len(CONT_PLAN) + 1, seed=CONT["seed"]).sample(0)
+    prefix = rows[-1, :CONT["prefix"]].tolist()
+    reqs = []
+    for i, (shared, sampled, plen, gen) in enumerate(CONT_PLAN):
+        prompt = (prefix + rows[i, :plen - CONT["prefix"]].tolist() if shared
+                  else rows[i, :plen].tolist())
+        reqs.append(Request(rid=f"c{i}", prompt=prompt, max_new_tokens=gen,
+                            temperature=CONT["temperature"] if sampled else 0.0,
+                            top_k=CONT["top_k"] if sampled else 0, seed=CONT["seed"] + i))
+    return reqs
+
+
+def expected_continuous_launches(model, st: dict) -> dict:
+    """K1/K2/random_bits launches of one scheduler run by the code's
+    structure: every chunk launch and decode step gathers the whole model
+    once (K1 per quantized tensor, K2 per buffer: the embedding's and one
+    per layer; the chunk path gathers its MLP densely, so no K3); each
+    demoted block encodes k and v (K1 x 2), each rehydrated one decodes them
+    (K2 x 2); one random_bits launch per launch that draws for a row."""
+    eng = model.engine
+    n_q = sum((s.stack or 1) for s in eng.specs.values() if eng._is_quantized(s))
+    passes = st["prefill_chunks"] + st["decode_launches"]
+    return {"quantize_pack": n_q * passes + 2 * st["demotions"],
+            "unpack_dequantize": sum(k2_buffers(eng, eng._is_quantized)) * passes
+            + 2 * st["rehydrations"],
+            "random_bits": st["sampled_launches"]}
+
+
+def row_invariance(torch, log, dev):
+    """Row 0's bits of the path's GEMMs and decode attention at M rows
+    against at one row, at gpt-1.3b shapes: 0 where the row is
+    row-invariant, else the max |difference|.  Says which launch a pooled
+    batch changes when shapes follow the batch composition."""
+    import repro_torch.models.layers as L
+    from repro_torch.models.attention import AttnConfig, decode_attend
+    g = torch.Generator(device=dev).manual_seed(1)
+
+    def rnd(*shape, dt=torch.bfloat16):
+        return torch.randn(shape, generator=g, device=dev).to(dt)
+
+    def row0(fn, ms, make):
+        base, res = None, {}
+        for m in ms:
+            r = fn(make(m))[0].float().cpu()
+            base = r if base is None else base
+            res[m] = 0.0 if torch.equal(r, base) else (r - base).abs().max().item()
+        return res
+
+    ms = (1, 4, 22, 43, 64, 88, 172, 256)
+    out = {}
+    for what, (k, n, dt, m_set) in {
+            "x @ wq/wk/wv/wo (K 2048, N 2048) bf16": (2048, 2048, torch.bfloat16, ms),
+            "x @ w_gate/w_up (K 2048, N 8192) bf16": (2048, 8192, torch.bfloat16, ms),
+            "x @ w_down (K 8192, N 2048) bf16": (8192, 2048, torch.bfloat16, ms),
+            "logits (K 2048, N 50304) f32": (2048, 50304, torch.float32, (1, 2, 4, 8))}.items():
+        w = rnd(k, n, dt=dt) * 0.02
+        x0 = rnd(1, k, dt=dt)
+        out[what] = row0(lambda x, w=w: x @ w, m_set,
+                         lambda m, x0=x0, k=k, dt=dt: torch.cat([x0, rnd(m - 1, k, dt=dt)]))
+    wn = torch.ones(2048, device=dev)
+    x0 = rnd(1, 2048)
+    out["rms_norm (2048) bf16"] = row0(lambda x: L.rms_norm(x, wn), ms,
+                                       lambda m: torch.cat([x0, rnd(m - 1, 2048)]))
+    acfg = AttnConfig(n_heads=32, n_kv=32, head_dim=64, tp=1)
+    q0, c0 = rnd(1, 32, 64), rnd(1, CONT["ring"], 32, 64)
+
+    def attend(qc):
+        q, c = qc
+        return decode_attend(q, c, c, acfg, torch.full((q.shape[0],), 300, device=dev),
+                             CONT["ring"])
+    out["decode attention (ring 512) bf16"] = row0(
+        attend, (1, 2, 4, 8), lambda m: (torch.cat([q0, rnd(m - 1, 32, 64)]),
+                                         torch.cat([c0, rnd(m - 1, CONT["ring"], 32, 64)])))
+    for what, res in out.items():
+        varies = {m: d for m, d in res.items() if d}
+        log(f"continuous: row invariance, {what}: "
+            + (f"row 0 differs at M = {varies}" if varies else
+               f"row 0 bit-equal at every M in {tuple(res)}"))
+    return out
+
+
+def continuous_phase(torch, log, dev="cuda", profile=True):
+    """gpt-1.3b at full width and depth through ``make_scheduler`` ->
+    ``ContinuousScheduler.run``: CONT's configuration, CONT_PLAN's requests.
+    Run 1 (profiling one pooled decode step of sampled lanes: no int64
+    bitwise or shift kernel may appear) and run 2 (counts zeroed just before,
+    read just after, against the code's structure; timed) must give every
+    request the same tokens; each greedy request must equal its solo run
+    (``generate(fold_step_keys=False, prefill_chunk=64)`` on an engine of
+    the scheduler's spec); the pool's invariants hold, blocks were demoted
+    and rehydrated, and none is left in use.  Also reported: the same solo
+    runs on a batch-of-1 engine (the reference's solo form) and
+    ``row_invariance``."""
+    import numpy as np
+    from repro_torch.core import prng
+    from repro_torch.kernels import ops
+    from repro_torch.serve import ServeEngine, build_serve_setup, make_scheduler
+
+    gen_max = max(g for *_, g in CONT_PLAN)
+    setup = build_serve_setup("gpt-1.3b", smoke=False, batch=CONT["slots"],
+                              prompt_len=CONT["ring"] - gen_max, gen=gen_max,
+                              seed=CONT["seed"], sampling=True, kv_block_size=CONT["block"],
+                              kv_pool_blocks=CONT["pool_blocks"], device=dev)
+    check(setup.spec.cache_len == CONT["ring"], f"ring {setup.spec.cache_len}")
+    reqs = continuous_requests(setup.cfg.vocab_size)
+    key = prng.PRNGKey(CONT["seed"])
+
+    def sync():
+        if dev == "cuda":
+            torch.cuda.synchronize()
+
+    def run(profile_step):
+        sched = make_scheduler(setup, gather_key=key, prefill_chunk=CONT["chunk"],
+                               prefill_buckets=CONT["buckets"],
+                               prefill_interleave=CONT["interleave"],
+                               kv_quant_bits=CONT["quant_bits"],
+                               kv_quant_horizon=CONT["horizon"])
+        cold = set()
+
+        def attach(orig):
+            def f(slot_i, st):
+                before = sched.pool.stats["rehydrations"]
+                orig(slot_i, st)
+                if sched.pool.stats["rehydrations"] > before:
+                    cold.add(st.req.rid)
+            return f
+
+        steps, prof = [], None
+        sync()
+        with hooked(sched, "_prefix_attach", attach):
+            for r in reqs:
+                sched.submit(r)
+            t0 = time.perf_counter()
+            while sched.queue or sched.n_active():
+                decoding = [s for s in sched.slots if s is not None and not s.prefilling]
+                if (profile_step and prof is None
+                        and any(s.req.needs_sampling for s in decoding)):
+                    prof = profile_train_step(torch, lambda _: sched.step(), None, log,
+                                              tag="continuous")
+                    continue
+                chunked = sched.prefill_chunk_count
+                t = time.perf_counter()
+                sched.step()  # ends in a host read of the tokens
+                steps.append((time.perf_counter() - t, sched.prefill_chunk_count > chunked))
+            sync()
+            wall = time.perf_counter() - t0
+        sched.pool.check_invariants()
+        return sched, {r: c.tokens.tolist() for r, c in sched.finished.items()}, cold, \
+            steps, prof, wall
+
+    with torch.inference_mode():
+        s1, out1, cold1, _, prof, _ = run(profile)
+        ops.reset_launches()
+        s2, out2, cold2, steps, _, wall = run(False)
+        counts = dict(ops.LAUNCHES)
+    st = s2.stats()
+    check(out1 == out2, "continuous: two runs gave different tokens: " + str(
+        sorted(r for r in out1 if out1[r] != out2.get(r))))
+    check(set(out2) == {r.rid for r in reqs}, "continuous: not every request finished")
+    for r in reqs:
+        check(len(out2[r.rid]) == r.max_new_tokens
+              and all(0 <= t < setup.cfg.vocab_size for t in out2[r.rid]),
+              f"continuous {r.rid}: tokens {out2[r.rid]}")
+    check(st["demotions"] > 0 and st["rehydrations"] > 0,
+          f"continuous: demotions {st['demotions']}, rehydrations {st['rehydrations']}")
+    check(st["blocks_in_use"] == 0, f"continuous: {st['blocks_in_use']} blocks left in use")
+    greedy = [r for r in reqs if not r.needs_sampling]
+    check(not cold2 & {r.rid for r in greedy} and cold1 == cold2,
+          f"continuous: greedy requests attached rehydrated blocks: {cold2}")
+    want = expected_continuous_launches(setup.model, st)
+    for k in ops.KERNELS:
+        check(counts[k] == want.get(k, 0), f"continuous: {k} launched {counts[k]} times, "
+              f"the code's structure predicts {want.get(k, 0)}")
+    check(min(counts[k] for k in want) > 0, f"continuous: a kernel never launched: {counts}")
+    if profile:
+        check(prof is not None, "continuous: no step with a sampled lane decoding to profile")
+        check(prof["threefry_int64"] == 0, f"continuous: {prof['threefry_int64']} int64 "
+              "bitwise/shift kernels in the profiled step (a threefry draw outside the kernels)")
+        check(prof["rb_n"] >= 1, "continuous: no random_bits launch in the profiled step of "
+              "a sampled lane")
+
+    # each greedy request against its solo run on an engine of the
+    # scheduler's spec (all lanes, the rest dead); on the card also on a
+    # batch-of-1 engine, the reference's solo form, to see what it changes
+    solo = ServeEngine(setup.model, setup.spec, setup.device)
+    solo1 = ServeEngine(setup.model, dataclasses.replace(setup.spec, batch_global=1),
+                        setup.device)
+    kw = dict(key=key, fold_step_keys=False, prefill_chunk=CONT["chunk"],
+              prefill_buckets=CONT["buckets"])
+    one_equal = []
+    for r in greedy:
+        prompt = {"tokens": torch.tensor([list(r.prompt)], dtype=torch.int64)}
+        ref = solo.generate(setup.params, prompt, r.max_new_tokens, **kw)[0].tolist()
+        check(ref == out2[r.rid], f"continuous {r.rid}: scheduler tokens {out2[r.rid]} != "
+              f"solo run {ref}")
+        if dev == "cuda":
+            one = solo1.generate(setup.params, prompt, r.max_new_tokens, **kw)[0].tolist()
+            one_equal.append(next((i for i, (a, b) in enumerate(zip(one, ref)) if a != b),
+                                  None))
+    log(f"continuous: {len(greedy)} greedy requests bit-equal to their solo runs "
+        f"({[r.rid for r in greedy]}); sampled {[r.rid for r in reqs if r.needs_sampling]} "
+        f"equal across two runs; rehydrating requests {sorted(cold2)}")
+    if dev == "cuda":
+        log(f"continuous: solo at batch 1 (the reference's solo form) vs the scheduler: "
+            f"first differing token per greedy request {one_equal} (None = all equal)")
+
+    ttft = sorted(c.first_token_time - c.submit_time for c in s2.finished.values())
+    dec = sorted(t for t, chunked in steps if not chunked)
+    mix = sorted(t for t, chunked in steps if chunked)
+    pct = (lambda a, q: float(np.percentile(a, q)) if a else float("nan"))
+    log(f"continuous: gpt-1.3b, {len(reqs)} requests on {CONT['slots']} slots, ring "
+        f"{CONT['ring']}, block {CONT['block']}, chunk {CONT['chunk']} (buckets {s2.buckets}): "
+        f"{st['tokens_generated']} tokens in {wall:.3f} s = "
+        f"{st['tokens_generated'] / wall:.2f} tokens/s; TTFT p50 {pct(ttft, 50):.3f} s, "
+        f"p95 {pct(ttft, 95):.3f} s")
+    log(f"continuous: step ms: decode only median {1e3 * pct(dec, 50):.2f} (p95 "
+        f"{1e3 * pct(dec, 95):.2f}, {len(dec)} steps); with a chunk launch median "
+        f"{1e3 * pct(mix, 50):.2f} (p95 {1e3 * pct(mix, 95):.2f}, {len(mix)} steps); "
+        f"occupancy {st['mean_occupancy']:.3f} of {CONT['slots']}; {st['prefill_chunks']} "
+        f"chunk launches, {st['decode_launches']} decode steps")
+    log(f"continuous: prefix hit rate {st['prefix_hit_rate']:.3f} ({st['prefix_hits']} hits), "
+        f"demotions {st['demotions']}, rehydrations {st['rehydrations']}, cold blocks at the "
+        f"end {st['cold_blocks']} = {st['cold_bytes']} bytes "
+        f"({st['cold_compression']:.2f}x smaller than hot), cow forks {st['cow_forks']}")
+    log(f"continuous: launches {counts} = structure {want}")
+    if profile:
+        log(f"continuous: profiled step: random_bits {prof['rb_n']}, K1 {prof['k1_n']}, K2 "
+            f"{prof['k2_n']}; int64 elementwise kernels {prof['int64_n']}, of which bitwise/"
+            f"shift {prof['threefry_int64']}")
+    if dev == "cuda":
+        row_invariance(torch, log, dev)
+    del setup, s1, s2, solo, solo1
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    return counts
+
+
+# ---------------------------------------------------------------------------
 # phase 3b: small training input, card against CPU
 # ---------------------------------------------------------------------------
 
@@ -921,7 +1284,7 @@ def small_train_phase(torch, log):
 
 
 # ---------------------------------------------------------------------------
-# phase 5: gpt-1.3b training
+# phase 6: gpt-1.3b training
 # ---------------------------------------------------------------------------
 
 TRAIN = dict(batch=4, seq=2048, n_micro=2, seed=0, lr=6e-4, warmup=10, total=100)
@@ -1074,10 +1437,11 @@ def busy_share(events):
     return busy, kernels
 
 
-def profile_train_step(torch, run_step, state, log):
-    """torch.profiler over one train step: device busy share and kernel time
-    by name (the trace is read from a temporary file and not kept: a step
-    holds ~10^4-10^5 kernels).  Returns K1's and K2's device time and
+def profile_train_step(torch, run_step, state, log, tag="train"):
+    """torch.profiler over one step (`tag`: train, or continuous for a
+    scheduler step): device busy share and kernel time by name (the trace is
+    read from a temporary file and not kept: a train step holds ~10^4-10^5
+    kernels).  Returns K1's and K2's device time and launches, random_bits'
     launches and the int64 elementwise kernels of the step."""
     import tempfile
     from torch.profiler import ProfilerActivity, profile
@@ -1093,16 +1457,16 @@ def profile_train_step(torch, run_step, state, log):
         trace = json.loads(path.read_text())
     events = trace["traceEvents"] if isinstance(trace, dict) else trace
     busy, kernels = busy_share(events)
-    check(kernels, "profile train: the trace holds no kernel events")
+    check(kernels, f"profile {tag}: the trace holds no kernel events")
     by_name = {}
     for e in kernels:
         d = by_name.setdefault(e["name"], [0.0, 0])
         d[0] += e["dur"]
         d[1] += 1
-    log(f"profile train (one step, profiler on): wall {wall_ms:.1f} ms, {len(kernels)} "
+    log(f"profile {tag} (one step, profiler on): wall {wall_ms:.1f} ms, {len(kernels)} "
         f"kernels, device busy {busy / 1e3:.1f} ms ({100 * busy / 1e3 / wall_ms:.1f}% of wall)")
     for name, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]:
-        log(f"profile train:   {us / 1e3:9.3f} ms  x{n:6d}  {name[:80]}")
+        log(f"profile {tag}:   {us / 1e3:9.3f} ms  x{n:6d}  {name[:80]}")
 
     def total(pred):
         hits = [v for k, v in by_name.items() if pred(k)]
@@ -1121,7 +1485,7 @@ def profile_train_step(torch, run_step, state, log):
     _, threefry = total(lambda k: int64_elementwise(k) and bitwise(k))
     return dict(wall_ms=wall_ms, busy_ms=busy / 1e3, kernels=len(kernels), k1_ms=k1_ms,
                 k1_n=k1_n, k2_ms=k2_ms, k2_n=k2_n, int64_ms=int64_ms, int64_n=int64_n,
-                threefry_int64=threefry)
+                threefry_int64=threefry, rb_n=total(lambda k: "random_bits" in k)[1])
 
 
 if __name__ == "__main__":

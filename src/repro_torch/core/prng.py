@@ -8,13 +8,18 @@ stochastic-mode wire bytes equal to the reference's byte for byte.
 
 A key is a pair of Python ints ``(k1, k2)``, each a uint32 value.  Key
 derivation (``PRNGKey``, ``fold_in``, ``split``) is scalar integer work and
-runs on the host; bulk draws (``bits``, ``uniform``, ``randint``) run as
-int64 tensor arithmetic on any device, masked to 32 bits.
+runs on the host, as does ``fold_in_rows`` over a (B, 2) tensor of keys;
+bulk draws (``bits``, ``uniform``, ``randint``, ``gumbel``) run as int64
+tensor arithmetic, masked to 32 bits, and are used on the CPU only (on the
+card the kernels draw: K1 its rounding bits, ``kernels.ops.random_bits``
+the sampler's).  ``to_uniform`` and ``gumbel_from_bits`` turn drawn bits
+into floats with int32 and f32 operations only.
 
 Sources in JAX 0.9.0: ``jax/_src/prng.py`` (``threefry_seed``,
 ``_threefry2x32_lowering``, ``_threefry_split_foldlike``,
 ``threefry_fold_in``, ``_threefry_random_bits_partitionable``) and
-``jax/_src/random.py`` (``_uniform``, ``_randint``).
+``jax/_src/random.py`` (``_uniform``, ``_randint``, ``_gumbel`` in its
+default "low" mode).
 """
 from __future__ import annotations
 
@@ -76,6 +81,22 @@ def split(key: Key, num: int = 2) -> list[Key]:
     return [_threefry2x32(key[0], key[1], 0, i) for i in range(num)]
 
 
+def fold_in_rows(keys: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
+    """``jax.vmap(jax.random.fold_in)(keys, data)``: (B, 2) keys (int64 or
+    int32 tensors of u32 values or bit patterns) and (B,) 32-bit data ->
+    (B, 2) int64 keys."""
+    k = keys.to(torch.int64) & _M32
+    x0, x1 = _threefry2x32(k[:, 0], k[:, 1], torch.zeros_like(k[:, 0]),
+                           data.to(torch.int64) & _M32)
+    return torch.stack([x0, x1], dim=1)
+
+
+def as_i32(b: torch.Tensor) -> torch.Tensor:
+    """u32 values in an int64 tensor -> the same bit patterns as int32."""
+    b = b & _M32
+    return torch.where(b >= 1 << 31, b - (1 << 32), b).to(torch.int32)
+
+
 def bits_at(key: Key, counts: torch.Tensor) -> torch.Tensor:
     """The 32 bits that ``jax.random.bits(key, shape, uint32)`` puts at the
     flat indices `counts` (int64, < 2**32): XOR of the two hash words at
@@ -100,9 +121,10 @@ def bits(key: Key, shape: Sequence[int], device="cpu",
 
 
 def to_uniform(b: torch.Tensor, minval: float = 0.0, maxval: float = 1.0) -> torch.Tensor:
-    """uint32 bits -> f32 in [minval, maxval) as ``jax.random.uniform``
-    makes them: mantissa fill of 1.0, minus 1, then the affine map."""
-    u = ((b >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
+    """uint32 bits (u32 values in int64, or their bit patterns in int32) ->
+    f32 in [minval, maxval) as ``jax.random.uniform`` makes them: mantissa
+    fill of 1.0, minus 1, then the affine map."""
+    u = (((b >> 9) & 0x7FFFFF) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
     lo = torch.tensor(minval, dtype=torch.float32, device=u.device)
     hi = torch.tensor(maxval, dtype=torch.float32, device=u.device)
     return torch.maximum(lo, u * (hi - lo) + lo)
@@ -112,6 +134,20 @@ def uniform(key: Key, shape: Sequence[int], device="cpu",
             minval: float = 0.0, maxval: float = 1.0) -> torch.Tensor:
     """``jax.random.uniform(key, shape, float32, minval, maxval)``."""
     return to_uniform(bits(key, shape, device), minval, maxval)
+
+
+_F32_TINY = torch.finfo(torch.float32).tiny
+
+
+def gumbel_from_bits(b: torch.Tensor) -> torch.Tensor:
+    """Drawn bits -> ``jax.random.gumbel``'s f32 noise: a uniform in
+    [tiny, 1), then ``-log(-log(u))``."""
+    return -torch.log(-torch.log(to_uniform(b, _F32_TINY, 1.0)))
+
+
+def gumbel(key: Key, shape: Sequence[int], device="cpu") -> torch.Tensor:
+    """``jax.random.gumbel(key, shape, float32)`` (default "low" mode)."""
+    return gumbel_from_bits(bits(key, shape, device))
 
 
 def randint(key: Key, shape: Sequence[int], minval: int, maxval: int,

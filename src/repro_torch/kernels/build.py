@@ -35,6 +35,7 @@ SIGNATURES = {
         "qsdp_unpack_dequantize_wire": (_P, _I, _P),
         "qsdp_quantize_buckets": (_P, _P, _P, _P, _P, _LL, _I, _I, _F, _I, _P),
         "qsdp_dequantize_buckets": (_P, _P, _P, _P, _I, _LL, _I, _P),
+        "qsdp_random_bits": (_P, _I, _LL, _P, _P),
     },
     "dequant_matmul": {
         "qsdp_rowquant_matmul": (_P, _I, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _P),

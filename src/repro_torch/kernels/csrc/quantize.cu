@@ -8,7 +8,9 @@
 //   K5  src/repro/kernels/quantize.py  dequantize_pallas         (body _dequantize_kernel)
 // K4 and K5 compute K1's and K2's functions at 8 bits -- one code per byte,
 // any levels in 1..255, nearest or stochastic rounding -- so they launch the
-// same device code with k = 1 through entry points of their own.
+// same device code with k = 1 through entry points of their own.  The file
+// also holds the serving sampler's draw of jax.random bits (random_bits,
+// not a TPU kernel: see its entry point).
 //
 // Wire format (identical to the JAX package, byte for byte):
 //   codes u8 (nb, bucket*bits/8) when 8 % bits == 0, else one byte per code;
@@ -566,7 +568,39 @@ cudaError_t launch_wire(const long long* desc, int n_seg, cudaStream_t st) {
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// The sampler's draw: rows of jax.random bits, one PRNG key per row
+// ---------------------------------------------------------------------------
+
+// out[r * n + j] = threefry_bits(keys[2r], keys[2r + 1], j): row r of
+// jax.random.bits(key_r, (n,), uint32), for the Gumbel noise of the rows the
+// serving sampler draws for (models/layers.py::sample_vocab_parallel).  Not a
+// port of a TPU kernel: the JAX package draws these bits with XLA's threefry,
+// and the port's int64 tensor arithmetic for them would cost ~170 elementwise
+// launches.  Bound by its integer operations (~75 per value, the threefry
+// block) at a vocabulary's worth of values per row; one thread per value,
+// grid-stride over a row, grid.y over the rows.
+__global__ void random_bits_kernel(const uint32_t* __restrict__ keys, long long n,
+                                   uint32_t* __restrict__ out) {
+  const long long r = blockIdx.y;
+  const uint32_t k0 = keys[2 * r], k1 = keys[2 * r + 1];
+  for (long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x; j < n;
+       j += (long long)gridDim.x * blockDim.x)
+    out[r * n + j] = threefry_bits(k0, k1, (uint32_t)j);
+}
+
 }  // namespace
+
+// The sampler's draw: `rows` keys (two u32 words each) -> (rows, n) u32 bits,
+// n < 2^32, rows < 65536.
+extern "C" int qsdp_random_bits(const uint32_t* keys, int rows, long long n, uint32_t* out,
+                                void* stream) {
+  if (rows < 1 || rows > 65535 || n < 1 || n > 0xFFFFFFFFLL) return (int)cudaErrorInvalidValue;
+  const long long want = (n + 255) / 256;
+  const dim3 grid((unsigned)(want < 1024 ? want : 1024), (unsigned)rows);
+  random_bits_kernel<<<grid, 256, 0, (cudaStream_t)stream>>>(keys, n, out);
+  return (int)cudaGetLastError();
+}
 
 // K1: rounding randomness drawn in the kernel from the key (k0, k1);
 // rand_bits 32 (f32 uniforms) or 16 (low 16 bits vs frac * 65536).

@@ -7,9 +7,11 @@ tensor never takes the plain path.
 
 ``LAUNCHES[name]`` counts kernel launches and nothing else, so a run can
 show which kernels its main path went through (``reset_launches()`` zeroes
-the counts).  K2 has two entry points, one tensor (``unpack_dequantize``)
-and a wire buffer's table of segments (``unpack_dequantize_wire``); both
-count under ``"unpack_dequantize"``.
+the counts).  Beside K1-K5, ``random_bits`` draws the serving sampler's
+``jax.random`` bits on the card (not a TPU kernel).  K2 has two entry
+points, one tensor (``unpack_dequantize``) and a wire buffer's table of
+segments (``unpack_dequantize_wire``); both count under
+``"unpack_dequantize"``.
 """
 from __future__ import annotations
 
@@ -25,7 +27,7 @@ from . import build, ref
 from .ref import WireCodes
 
 KERNELS = ("quantize_pack", "unpack_dequantize", "rowquant_matmul", "quantize_buckets",
-           "dequantize_buckets")
+           "dequantize_buckets", "random_bits")
 LAUNCHES: Counter = Counter({k: 0 for k in KERNELS})
 
 _MODE_IDS = {"nearest": 0, "stochastic": 1, "shift": 2}
@@ -205,6 +207,25 @@ def dequantize_buckets(codes: torch.Tensor, scale: torch.Tensor, zero: torch.Ten
         int(dtype == torch.bfloat16), nb, bucket, _stream())
     _raise_on(rc, "dequantize_buckets")
     LAUNCHES["dequantize_buckets"] += 1
+    return out
+
+
+def random_bits(keys: torch.Tensor, n: int) -> torch.Tensor:
+    """The sampler's draw: (R, 2) PRNG keys -> (R, n) bits, row r equal to
+    ``jax.random.bits(key_r, (n,), uint32)`` (threefry-2x32 at counters 0..n-1,
+    partitionable mode).  Keys and bits are u32 bit patterns in int32
+    tensors.  One launch for all R rows."""
+    if _on_cpu(keys):
+        return ref.random_bits_ref(keys, n)
+    r = keys.shape[0] if keys.dim() == 2 else -1
+    if not 1 <= r <= 65535 or not 1 <= n < 1 << 32:
+        raise ValueError(f"random_bits: {tuple(keys.shape)} keys, n={n}")
+    _check("keys", keys, torch.int32, (r, 2))
+    out = torch.empty((r, n), dtype=torch.int32, device=keys.device)
+    rc = build.load("quantize").qsdp_random_bits(keys.data_ptr(), r, n, out.data_ptr(),
+                                                 _stream())
+    _raise_on(rc, "random_bits")
+    LAUNCHES["random_bits"] += 1
     return out
 
 

@@ -1,4 +1,5 @@
-"""Plain PyTorch versions of the CUDA kernels (K1-K5).
+"""Plain PyTorch versions of the CUDA kernels (K1-K5, and the sampler's
+draw ``random_bits``).
 
 Each function computes exactly what its kernel computes; ``kernels.ops``
 runs it for tensors on the CPU, the tests hold it against the JAX package,
@@ -230,3 +231,13 @@ def rowquant_matmul_ref(x: torch.Tensor, codes: torch.Tensor,
     z = torch.repeat_interleave(zero, n // n_seg, dim=1)
     w = fma_f32(codes.to(torch.float32), s, z)
     return (x.to(torch.float32) @ w).to(x.dtype)
+
+
+def random_bits_ref(keys: torch.Tensor, n: int) -> torch.Tensor:
+    """The sampler's draw: row r of ``jax.random.bits(key_r, (n,), uint32)``
+    for each of the (R, 2) keys, with the threefry twin.  Keys and bits are
+    u32 bit patterns held in int32 tensors (PyTorch's unsigned 32-bit type
+    has few kernels); returns (R, n) int32."""
+    rows = [prng.bits(tuple(int(w) & 0xFFFFFFFF for w in k), (n,), keys.device)
+            for k in keys.tolist()]
+    return prng.as_i32(torch.stack(rows)) if rows else keys.new_empty((0, n))

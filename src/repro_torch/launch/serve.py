@@ -1,31 +1,44 @@
-"""Serving launcher of the port: one-shot batched greedy generation with
-quantized FSDP weight gathers, on the card.
+"""Serving launcher of the port, on the card: one-shot batched generation
+with quantized FSDP weight gathers, or a request queue drained by the
+continuous-batching scheduler.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gpt-1.3b \\
       --batch 4 --prompt-len 128 --gen 16
 
+Continuous batching (--continuous): a fixed pool of --batch decode slots,
+requests admitted into freed slots mid-decode, per-request sampling;
+chunked admission with --prefill-chunk, the paged KV pool with
+--kv-block-size and its quantized cold tier with --kv-quant-bits:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch gpt-1.3b \\
+      --continuous --batch 4 --requests 12 --prompt-len 384 --gen 32 \\
+      --temperature 0.8 --top-k 40 --prefill-chunk 64 --prefill-buckets 3 \\
+      --kv-block-size 16 --kv-quant-bits 4 --kv-quant-horizon 8
+
 ``--smoke`` serves the 2-layer smoke config; ``--device cpu`` runs the
-plain versions of the kernels on the CPU.  The continuous-batching
-scheduler of the JAX launcher (``--continuous`` and its flags) comes with
-ROADMAP A10.
+plain versions of the kernels on the CPU.  Speculative decoding
+(``--draft-bits``/``--draft-depth``) comes with ROADMAP A10c.
 """
 from __future__ import annotations
 
 import argparse
 import time
 
+import numpy as np
 import torch
 
+from ..core import prng
 from ..core.qsdp import QSDPConfig
 from ..data import SyntheticLM
-from ..serve import build_serve_setup, make_prompt_batch
+from ..serve import Request, build_serve_setup, make_prompt_batch, make_scheduler
 
 
 def _build_parser():
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="gpt-125m")
     ap.add_argument("--smoke", action="store_true")
-    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--batch", type=int, default=8,
+                    help="batch size (one-shot) / decode-slot pool size (--continuous)")
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=16)
     ap.add_argument("--baseline", action="store_true",
@@ -34,17 +47,119 @@ def _build_parser():
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="cuda (default when a card is present) or cpu")
+    # continuous batching
+    ap.add_argument("--continuous", action="store_true",
+                    help="serve a request queue through the continuous-batching scheduler")
+    ap.add_argument("--requests", type=int, default=16,
+                    help="--continuous: number of queued requests")
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="--continuous: per-request sampling temperature (0 = greedy)")
+    ap.add_argument("--top-k", type=int, default=0,
+                    help="--continuous: per-request top-k (0 = full vocab)")
+    ap.add_argument("--prefill-chunk", type=int, default=0,
+                    help="--continuous: prefill at most this many prompt tokens per "
+                         "scheduler step (0 = blocking whole-prompt admission)")
+    ap.add_argument("--prefill-buckets", type=int, default=4,
+                    help="--continuous: chunk length buckets")
+    ap.add_argument("--prefill-interleave", type=int, default=1,
+                    help="--continuous: chunk launches per scheduler step")
+    ap.add_argument("--kv-block-size", type=int, default=0,
+                    help="paged KV pool block size in tokens (0 = per-slot ring; > 0 "
+                         "requires --prefill-chunk and enables prefix sharing)")
+    ap.add_argument("--kv-pool-blocks", type=int, default=0,
+                    help="physical KV blocks in the pool (0 = one full window per slot)")
+    ap.add_argument("--kv-quant-bits", type=int, default=0,
+                    help="--continuous paged: re-encode idle cached prefix blocks into "
+                         "the wire format at this bit width (0 = cold tier off)")
+    ap.add_argument("--kv-quant-horizon", type=int, default=64,
+                    help="--continuous paged: idle scheduler steps before a cached "
+                         "block demotes to the cold tier")
+    ap.add_argument("--draft-bits", type=int, default=0,
+                    help="speculative decoding: not ported yet (ROADMAP A10c)")
+    ap.add_argument("--draft-depth", type=int, default=0,
+                    help="speculative decoding: not ported yet (ROADMAP A10c)")
     return ap
+
+
+def validate_args(ap, args) -> None:
+    """Reject inconsistent flags at parse time, with a one-line reason."""
+    if not 2 <= args.wbits <= 8:
+        ap.error(f"--wbits must be in 2..8 (got {args.wbits})")
+    if min(args.batch, args.prompt_len, args.gen) < 1:
+        ap.error("--batch, --prompt-len and --gen must be >= 1")
+    if args.draft_bits or args.draft_depth:
+        ap.error("--draft-bits/--draft-depth: speculative decoding is not ported yet "
+                 "(ROADMAP A10c)")
+    if args.kv_quant_bits and not 2 <= args.kv_quant_bits <= 8:
+        ap.error(f"--kv-quant-bits must be 0 (off) or in 2..8 (got {args.kv_quant_bits})")
+    if args.prefill_buckets < 1:
+        ap.error(f"--prefill-buckets must be >= 1 (got {args.prefill_buckets})")
+    if min(args.prefill_chunk, args.kv_block_size, args.kv_pool_blocks,
+           args.prefill_interleave - 1) < 0:
+        ap.error("--prefill-chunk/--kv-block-size/--kv-pool-blocks must be >= 0 and "
+                 "--prefill-interleave >= 1")
+    if args.kv_block_size and not args.prefill_chunk:
+        ap.error("--kv-block-size requires --prefill-chunk (paged serving admits "
+                 "through chunked prefill)")
+    if args.kv_quant_bits and not args.kv_block_size:
+        ap.error("--kv-quant-bits requires --kv-block-size (the cold tier demotes "
+                 "paged pool blocks)")
+    if args.requests < 1:
+        ap.error(f"--requests must be >= 1 (got {args.requests})")
 
 
 def parse_args(argv=None):
     ap = _build_parser()
     args = ap.parse_args(argv)
-    if not 2 <= args.wbits <= 8:
-        ap.error(f"--wbits must be in 2..8 (got {args.wbits})")
-    if min(args.batch, args.prompt_len, args.gen) < 1:
-        ap.error("--batch, --prompt-len and --gen must be >= 1")
+    validate_args(ap, args)
     return args
+
+
+def _sync(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def run_continuous(setup, args) -> int:
+    rng = np.random.default_rng(args.seed)
+    sched = make_scheduler(
+        setup, gather_key=prng.PRNGKey(args.seed), prefill_chunk=args.prefill_chunk,
+        prefill_buckets=args.prefill_buckets, prefill_interleave=args.prefill_interleave,
+        kv_quant_bits=args.kv_quant_bits if args.kv_block_size else 0,
+        kv_quant_horizon=args.kv_quant_horizon)
+    # mixed prompt/gen lengths, seeded
+    for i in range(args.requests):
+        plen = int(rng.integers(max(args.prompt_len // 2, 1), args.prompt_len + 1))
+        gen = int(rng.integers(max(args.gen // 2, 1), args.gen + 1))
+        sched.submit(Request(
+            rid=f"req{i}", prompt=rng.integers(0, setup.cfg.vocab_size, size=plen).tolist(),
+            max_new_tokens=gen, temperature=args.temperature, top_k=args.top_k,
+            seed=args.seed + i))
+    _sync(setup.device)
+    t0 = time.perf_counter()
+    done = sched.run()
+    _sync(setup.device)
+    dt = time.perf_counter() - t0
+    st = sched.stats()
+    lat = [c.finish_step - c.submit_step for c in done.values()]
+    ttft = [c.first_token_time - c.submit_time for c in done.values()]
+    print(f"# {setup.cfg.name} continuous on {setup.device}: {len(done)} requests, "
+          f"{st['tokens_generated']} tokens in {dt:.2f}s "
+          f"({st['tokens_generated'] / dt:.1f} tok/s incl. kernel build), "
+          f"occupancy {st['mean_occupancy']:.2f}/{st['slots']}, "
+          f"latency p50={np.percentile(lat, 50):.0f} p95={np.percentile(lat, 95):.0f} steps, "
+          f"ttft p95={np.percentile(ttft, 95):.3f}s")
+    if args.prefill_chunk:
+        print(f"# chunked prefill: chunk={args.prefill_chunk} buckets={sched.buckets} -> "
+              f"{st['prefill_chunks']} chunk launches, {st['prefill_traces']} bucket shapes")
+    if sched.pool is not None:
+        print(f"# paged KV pool: {st['blocks_total']} blocks x {setup.spec.kv_block_size} "
+              f"tok, prefix hit rate {st['prefix_hit_rate']:.2f}, cow forks "
+              f"{st['cow_forks']}, cold blocks {st['cold_blocks']} (demoted "
+              f"{st['demotions']}, rehydrated {st['rehydrations']}, {st['cold_bytes']} bytes)")
+    first = done[sorted(done)[0]]
+    print("sample:", first.tokens.tolist())
+    return 0
 
 
 def run_batch(setup, args) -> int:
@@ -52,10 +167,13 @@ def run_batch(setup, args) -> int:
                        global_batch=args.batch, seed=args.seed)
     tokens, _ = data.sample(0)
     prompt = make_prompt_batch(setup.cfg, setup.spec, setup.ms, tokens, setup.device)
+    kw = {}
+    if setup.spec.paged:  # paged serving prefills in chunks, one fixed model
+        kw = dict(prefill_chunk=args.prefill_chunk, prefill_buckets=args.prefill_buckets,
+                  fold_step_keys=False)
     t0 = time.perf_counter()
-    out = setup.engine.generate(setup.params, prompt, n_tokens=args.gen)
-    if setup.device.type == "cuda":
-        torch.cuda.synchronize()
+    out = setup.engine.generate(setup.params, prompt, n_tokens=args.gen, **kw)
+    _sync(setup.device)
     dt = time.perf_counter() - t0
     print(f"# {setup.cfg.name} on {setup.device}: generated {args.batch}x{args.gen} "
           f"tokens in {dt:.2f}s ({args.batch * args.gen / dt:.1f} tok/s incl. "
@@ -67,9 +185,14 @@ def run_batch(setup, args) -> int:
 def main(argv=None):
     args = parse_args(argv)
     qsdp = QSDPConfig.baseline() if args.baseline else QSDPConfig(weight_bits=args.wbits)
-    setup = build_serve_setup(args.arch, smoke=args.smoke, qsdp=qsdp, batch=args.batch,
-                              prompt_len=args.prompt_len, gen=args.gen, seed=args.seed,
-                              device=args.device)
+    setup = build_serve_setup(
+        args.arch, smoke=args.smoke, qsdp=qsdp, batch=args.batch,
+        prompt_len=args.prompt_len, gen=args.gen, seed=args.seed,
+        sampling=args.continuous and (args.temperature > 0 or args.top_k > 1),
+        kv_block_size=args.kv_block_size, kv_pool_blocks=args.kv_pool_blocks,
+        device=args.device)
+    if args.continuous:
+        return run_continuous(setup, args)
     return run_batch(setup, args)
 
 

@@ -1,6 +1,7 @@
 """Attention: GQA with the JAX package's tensor-parallel layout, chunked
-(flash) attention for training and prefill, and ring-cache decode (dense
-family; ``models/attention.py`` of the JAX package).
+(flash) attention for training and prefill, ring-cache and paged-pool
+decode, and the multi-query attend of chunked prefill (dense family;
+``models/attention.py`` of the JAX package).
 
 These are plain PyTorch tensor ops: the JAX package has no Pallas
 attention kernel.  Query heads are padded to a multiple of the model-axis
@@ -156,6 +157,18 @@ def decode_new_kv(x, w: dict, cfg: AttnConfig, cos, sin):
     return q, k1, v1  # one model rank: nothing to all-gather
 
 
+def chunk_new_kv(x, w: dict, cfg: AttnConfig, cos, sin):
+    """Multi-token :func:`decode_new_kv` for chunked prefill: x (B, Lq, d),
+    cos/sin (B, Lq, hd//2) per slot and token.  Returns (q_all (B, Lq, Hp,
+    hd), k1/v1 (B, Lq, n_kv, hd)), the shapes the KV cache stores."""
+    b, lq, _ = x.shape
+    hd = cfg.head_dim
+    q, k1, v1 = (_proj(x, w, n) for n in "qkv")
+    q = apply_rope(q.reshape(b, lq, cfg.heads_local, hd), cos, sin)
+    k1 = apply_rope(k1.reshape(b, lq, cfg.kv_local, hd), cos, sin)
+    return q, k1, v1.reshape(b, lq, cfg.kv_local, hd)  # one model rank
+
+
 def ring_slot(pos: torch.Tensor, window: int, s_loc: int, rank: int = 0):
     """Ring addressing of (per-slot) positions: (local index, is_mine)."""
     slot = torch.remainder(pos, window)
@@ -166,6 +179,54 @@ def ring_slot(pos: torch.Tensor, window: int, s_loc: int, rank: int = 0):
 def slot_valid_mask(pos: torch.Tensor) -> torch.Tensor:
     """THE dead-lane test: ``pos >= 0``."""
     return pos >= 0
+
+
+# Paged block-pool addressing (``serve/kv_pool.py``).  The pool keeps the
+# ring tensors' shape, (R, S_row, n_kv, hd) per layer, each row read as
+# S_row // block_loc physical blocks of block_loc = block_size // tp tokens;
+# a slot's logical ring maps through its block table bt[j] -> physical id,
+# logical position p in logical block (p % window) // block_size.  Attend
+# gathers a slot's blocks into logical order first, so the math downstream
+# is the ring math on the gathered view, whatever the placement.
+
+
+def paged_gather_kv(cache: torch.Tensor, block_tables: torch.Tensor,
+                    block_loc: int) -> torch.Tensor:
+    """(R, S_row, n_kv, hd) pool -> (B, n_log * block_loc, n_kv, hd), each
+    slot's logical view through its table (B, n_log) of physical ids.  Read
+    only: unallocated entries (< 0) read block 0, positions the caller's
+    validity mask excludes (they lie past the slot's write head)."""
+    r, s_row, nk, hd = cache.shape
+    bpr = s_row // block_loc
+    pool = cache.reshape(r * bpr, block_loc, nk, hd)
+    b, n_log = block_tables.shape
+    return pool[block_tables.clamp(0, r * bpr - 1)].reshape(b, n_log * block_loc, nk, hd)
+
+
+def paged_s_glob(window: int, block_size: int, block_loc: int, rank: int = 0,
+                 device=None) -> torch.Tensor:
+    """Global ring offsets of this rank's slice of the gathered view: index
+    i sits in logical block i // block_loc at offset rank * block_loc +
+    i % block_loc."""
+    i = torch.arange((window // block_size) * block_loc, device=device)
+    return (i // block_loc) * block_size + rank * block_loc + i % block_loc
+
+
+def paged_slot(pos: torch.Tensor, window: int, block_size: int, block_loc: int,
+               block_tables: torch.Tensor, rank: int = 0):
+    """Paged write addressing of positions pos (B,) or (B, Lq) through
+    block_tables (B, n_log): (pool row, row seq index, is_mine).  Writers
+    keep only the targets of valid positions that this rank holds, and
+    whose table entry is allocated (>= 0): there is no drop mode to send
+    the others to."""
+    lp = torch.remainder(pos, window)
+    j = torch.div(lp, block_size, rounding_mode="floor")
+    o = lp - j * block_size
+    phys = torch.gather(block_tables, 1, j.reshape(j.shape[0], -1)).reshape(j.shape)
+    bpr = window // block_size  # pool rows are ring-length
+    row = torch.div(phys, bpr, rounding_mode="floor")
+    seq = (phys - row * bpr) * block_loc + o % block_loc
+    return row, seq, torch.div(o, block_loc, rounding_mode="floor") == rank
 
 
 def _kv_major_q(q_all, k_cache, v_cache, cfg: AttnConfig):
@@ -180,30 +241,48 @@ def _kv_major_q(q_all, k_cache, v_cache, cfg: AttnConfig):
 
 
 def decode_attend(q_all, k_cache, v_cache, cfg: AttnConfig, pos: torch.Tensor,
-                  window: int, rank: int = 0) -> torch.Tensor:
+                  window: int, block_tables=None, block_size: int = 0,
+                  rank: int = 0) -> torch.Tensor:
     """Decode attention over the ring cache without a GQA-expanded copy:
-    q (B, Hp, hd) against k/v (B, S_loc, n_kv, hd); operands in their own
-    dtype, f32 accumulation.  pos (B,) per slot.  Returns (B, Hp, hd) f32."""
-    b, hp, hd = q_all.shape
-    s_loc = k_cache.shape[1]
-    s_glob = rank * s_loc + torch.arange(s_loc, device=q_all.device)
+    q (B, Hp, hd) at per-slot positions pos (B,) against k/v (B, S_loc,
+    n_kv, hd), the token's own KV already written; operands in their own
+    dtype, f32 accumulation.  A chunk's queries (B, Lq, Hp, hd) at (B, Lq)
+    positions take the same math (``chunk_attend``): each query sees the
+    slots whose held position is causally visible.  With `block_tables`
+    the caches are the (R, S_row, ...) paged pool, gathered into each
+    slot's logical view first.  Returns q's shape in f32."""
+    *lead, hp, hd = q_all.shape
+    if block_tables is not None:
+        bl_loc = block_size // cfg.tp
+        k_cache = paged_gather_kv(k_cache, block_tables, bl_loc)
+        v_cache = paged_gather_kv(v_cache, block_tables, bl_loc)
+        s_glob = paged_s_glob(window, block_size, bl_loc, rank, q_all.device)
+    else:
+        s_loc = k_cache.shape[1]
+        s_glob = rank * s_loc + torch.arange(s_loc, device=q_all.device)
     qr, k_cache, v_cache = _kv_major_q(q_all, k_cache, v_cache, cfg)
-    p_s = pos[:, None] - torch.remainder(pos[:, None] - s_glob[None, :], window)
-    valid = (p_s >= 0) & slot_valid_mask(pos)[:, None]
-    scale = 1.0 / math.sqrt(hd)
-    s_ij = torch.einsum("bkgd,bskd->bkgs", qr.float(),
-                        k_cache.to(qr.dtype).float()) * scale
-    s_ij = s_ij.masked_fill(~valid[:, None, None, :], float("-inf"))
+    # slot s holds position p_s = pos - ((pos - s) mod W)
+    p_s = pos[..., None] - torch.remainder(pos[..., None] - s_glob, window)
+    valid = ((p_s >= 0) & slot_valid_mask(pos)[..., None])[..., None, None, :]
+    sc, pv = (("blkgd,bskd->blkgs", "blkgs,bskd->blkgd") if len(lead) == 2
+              else ("bkgd,bskd->bkgs", "bkgs,bskd->bkgd"))
+    dt = q_all.dtype
+    s_ij = torch.einsum(sc, qr.float(), k_cache.to(dt).float()) * (1.0 / math.sqrt(hd))
+    s_ij = s_ij.masked_fill(~valid, float("-inf"))
     m = torch.amax(s_ij, dim=-1)
     m_safe = torch.where(torch.isinf(m), torch.zeros_like(m), m)
-    p = torch.exp(s_ij - m_safe[..., None]).masked_fill(~valid[:, None, None, :], 0.0)
+    p = torch.exp(s_ij - m_safe[..., None]).masked_fill(~valid, 0.0)
     l_ = p.sum(-1)
-    o = torch.einsum("bkgs,bskd->bkgd", p.to(q_all.dtype).float(),
-                     v_cache.to(q_all.dtype).float())
-    o = (o / torch.clamp(l_, min=1e-30)[..., None]).reshape(b, cfg.n_heads, hd)
+    o = torch.einsum(pv, p.to(dt).float(), v_cache.to(dt).float())
+    o = (o / torch.clamp(l_, min=1e-30)[..., None]).reshape(*lead, cfg.n_heads, hd)
     if hp > cfg.n_heads:
         o = torch.nn.functional.pad(o, (0, 0, 0, hp - cfg.n_heads))
     return o
+
+
+# the reference's chunk_attend (attention.py:321): decode_attend's math over
+# a chunk's (B, Lq) queries
+chunk_attend = decode_attend
 
 
 def decode_out_proj(o, w: dict, cfg: AttnConfig, dtype, rank: int = 0):

@@ -11,7 +11,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..core import prng
 from ..core.tp import tp_copy, tp_reduce
+from ..kernels import ops
 from ..kernels.ops import RowQuantWeight, rowquant_matmul
 
 
@@ -113,6 +115,36 @@ def greedy_sample_vocab_parallel(logits_local: torch.Tensor, v_local: int,
                                  rank: int = 0) -> torch.Tensor:
     """Argmax over the model-sharded vocab (first index on ties), (T,)."""
     return torch.argmax(logits_local, dim=-1) + rank * v_local
+
+
+def sample_vocab_parallel(logits_local: torch.Tensor, v_local: int, temp: torch.Tensor,
+                          top_k: torch.Tensor, key: torch.Tensor, rank: int = 0) -> torch.Tensor:
+    """Per-row temperature / top-k sampling (``layers.py:195-236`` of the JAX
+    package, one model rank).  logits_local (T, V) f32 on any device; the
+    per-row state lives on the host: temp (T,) f32 (<= 0: greedy), top_k
+    (T,) int (<= 0: whole vocabulary, 1: greedy), key (T, 2) u32 keys as
+    int64.  Rows with temp <= 0 or top_k == 1 take the greedy argmax bit for
+    bit and draw nothing; the others draw ``jax.random.gumbel(key_row, (V,))``
+    (bits by ``kernels.ops.random_bits``: one launch for all drawn rows), keep
+    the logits at or above their k-th largest, and take the argmax of
+    logits / max(temp, 1e-6) + noise.  A row's token depends on its own
+    inputs only."""
+    greedy = greedy_sample_vocab_parallel(logits_local, v_local, rank)
+    rows = torch.nonzero(~((temp <= 0.0) | (top_k == 1))).flatten()
+    if rows.numel() == 0:
+        return greedy
+    dev = logits_local.device
+    rows_d = rows.to(dev)
+    lg = logits_local[rows_d]  # one model rank: the local shard is the whole vocab
+    v = lg.shape[1]
+    k = top_k[rows].to(torch.int64)
+    kth = torch.sort(lg, dim=-1).values.gather(1, (v - k.clamp(1, v)).to(dev)[:, None])
+    keep = (k <= 0).to(dev)[:, None] | (lg >= kth)
+    noise = prng.gumbel_from_bits(ops.random_bits(prng.as_i32(key[rows]).to(dev), v))
+    z = lg / temp[rows].to(torch.float32).clamp(min=1e-6).to(dev)[:, None] + noise
+    out = greedy.clone()
+    out[rows_d] = torch.argmax(z.masked_fill(~keep, float("-inf")), dim=-1) + rank * v_local
+    return out
 
 
 def qmatmul(x: torch.Tensor, w) -> torch.Tensor:

@@ -1,6 +1,6 @@
 """Shared serve-engine setup: model config (registry name or ModelConfig),
-mesh, QSDP engine, ring-sized DecodeSpec, ServeEngine and the prompt batch,
-built the same way for every entry point.
+mesh, QSDP engine, ring-sized DecodeSpec, ServeEngine, the prompt batch and
+the continuous scheduler, built the same way for every entry point.
 
 Entry points run on the card unless the caller passes ``device="cpu"``;
 with no CUDA device and no device given they raise.
@@ -31,13 +31,27 @@ def decode_cache_len(cfg: ModelConfig, prompt_len: int, gen: int, tp: int) -> in
 
 
 def make_serve_spec(cfg: ModelConfig, ms: MeshSpec, batch: int, prompt_len: int,
-                    gen: int, *, rowquant_mlp: bool = False,
-                    batch_sharded: Optional[bool] = None) -> DecodeSpec:
+                    gen: int, *, sampling: bool = False, rowquant_mlp: bool = False,
+                    batch_sharded: Optional[bool] = None, kv_block_size: int = 0,
+                    kv_pool_blocks: int = 0, draft_bits: int = 0,
+                    draft_depth: int = 0) -> DecodeSpec:
+    """The DecodeSpec every serve entry point derives from (arch, shape).
+    kv_block_size > 0 turns on the paged KV pool (chunked prefill only, an
+    unsharded batch axis); kv_pool_blocks sizes it (0 = one full window per
+    slot).  draft_bits / draft_depth (speculative decode) are not ported yet
+    (ROADMAP A10c): the engine refuses a spec that sets them."""
     if batch_sharded is None:
-        batch_sharded = batch % ms.fsdp_size == 0
-    return DecodeSpec(cache_len=decode_cache_len(cfg, prompt_len, gen, ms.model_size),
-                      batch_global=batch, batch_sharded=batch_sharded,
-                      rowquant_mlp=rowquant_mlp)
+        batch_sharded = batch % ms.fsdp_size == 0 and not kv_block_size
+    cache_len = decode_cache_len(cfg, prompt_len, gen, ms.model_size)
+    if kv_block_size and cache_len:
+        # the window tiles into whole blocks, each split over the model axis
+        kv_block_size += (-kv_block_size) % ms.model_size
+        cache_len += (-cache_len) % kv_block_size
+    return DecodeSpec(cache_len=cache_len, batch_global=batch, batch_sharded=batch_sharded,
+                      rowquant_mlp=rowquant_mlp, sampling=sampling,
+                      kv_block_size=kv_block_size if cache_len else 0,
+                      kv_pool_blocks=kv_pool_blocks, draft_bits=draft_bits,
+                      draft_depth=draft_depth)
 
 
 @dataclasses.dataclass
@@ -56,8 +70,9 @@ class ServeSetup:
 def build_serve_setup(arch, *, data_par: int = 1, model_par: int = 1,
                       smoke: bool = True, qsdp: Optional[QSDPConfig] = None,
                       batch: int = 8, prompt_len: int = 32, gen: int = 16,
-                      seed: int = 0, rowquant_mlp: bool = False,
-                      batch_sharded: Optional[bool] = None,
+                      seed: int = 0, sampling: bool = False, rowquant_mlp: bool = False,
+                      batch_sharded: Optional[bool] = None, kv_block_size: int = 0,
+                      kv_pool_blocks: int = 0, draft_bits: int = 0, draft_depth: int = 0,
                       params: Optional[dict] = None, device=None) -> ServeSetup:
     """Build (model, params, DecodeSpec, ServeEngine) for serving.  `arch` is
     a registry name (smoke or full config) or a ModelConfig; `params`
@@ -72,8 +87,10 @@ def build_serve_setup(arch, *, data_par: int = 1, model_par: int = 1,
     model = Model(cfg, ms, qsdp if qsdp is not None else QSDPConfig())
     if params is None:
         params = model.init_params(seed, device)
-    spec = make_serve_spec(cfg, ms, batch, prompt_len, gen, rowquant_mlp=rowquant_mlp,
-                           batch_sharded=batch_sharded)
+    spec = make_serve_spec(cfg, ms, batch, prompt_len, gen, sampling=sampling,
+                           rowquant_mlp=rowquant_mlp, batch_sharded=batch_sharded,
+                           kv_block_size=kv_block_size, kv_pool_blocks=kv_pool_blocks,
+                           draft_bits=draft_bits, draft_depth=draft_depth)
     return ServeSetup(cfg=cfg, model=model, params=params, ms=ms, spec=spec,
                       engine=ServeEngine(model, spec, device), device=device)
 
@@ -83,3 +100,29 @@ def make_prompt_batch(cfg: ModelConfig, spec: DecodeSpec, ms: MeshSpec,
     """The prefill batch {"tokens": (B, S) int64} on `device` (dense family:
     no modality stubs)."""
     return {"tokens": torch.as_tensor(tokens, dtype=torch.int64).to(device)}
+
+
+def scheduler_batch_builder(cfg: ModelConfig, spec: DecodeSpec, ms: MeshSpec, device):
+    """The ContinuousScheduler `batch_builder`: the batch-of-1 prefill batch
+    of blocking admission."""
+    pf_spec = dataclasses.replace(spec, batch_global=1, batch_sharded=False)
+
+    def build(tokens):
+        return make_prompt_batch(cfg, pf_spec, ms, tokens, device)
+
+    return build
+
+
+def make_scheduler(setup: ServeSetup, *, gather_key=None, prefill_chunk: int = 0,
+                   prefill_buckets: int = 4, prefill_interleave: int = 1,
+                   kv_quant_bits: int = 0, kv_quant_horizon: int = 0,
+                   kv_prefix_share: bool = True):
+    """The ContinuousScheduler every serve entry point builds from a
+    ServeSetup; the kv_quant_* knobs configure the paged pool's cold tier."""
+    from .scheduler import ContinuousScheduler
+    return ContinuousScheduler(
+        setup.model, setup.spec, setup.params, setup.device, gather_key=gather_key,
+        batch_builder=scheduler_batch_builder(setup.cfg, setup.spec, setup.ms, setup.device),
+        prefill_chunk=prefill_chunk, prefill_buckets=prefill_buckets,
+        prefill_interleave=prefill_interleave, kv_quant_bits=kv_quant_bits,
+        kv_quant_horizon=kv_quant_horizon, kv_prefix_share=kv_prefix_share)

@@ -129,3 +129,22 @@ def test_bucket_wrappers_reject_mixed_devices():
     with pytest.raises(ValueError, match="CPU or on one CUDA device"):
         ops.dequantize_buckets(torch.zeros(1, 4, dtype=torch.uint8),
                                torch.zeros(1, 1, device="meta"), torch.zeros(1, 1))
+
+
+def test_unported_serving_paths_name_roadmap():
+    """Speculative decoding (a spec with draft bits and depth) raises naming
+    A10c wherever an engine or scheduler is built from it; the scheduler of
+    another family fails at its Model, naming A11."""
+    from repro_torch.serve import make_scheduler
+    with pytest.raises(NotImplementedError, match="ROADMAP A10c"):
+        build_serve_setup("gpt-1.3b", smoke=True, batch=2, prompt_len=8, gen=4,
+                          draft_bits=4, draft_depth=3, device="cpu")
+    setup = build_serve_setup("gpt-1.3b", smoke=True, batch=2, prompt_len=8, gen=4,
+                              kv_block_size=4, device="cpu")
+    assert setup.spec.paged and setup.spec.pool_blocks() == 2 * setup.spec.blocks_per_slot
+    with pytest.raises(ValueError, match="requires chunked admission"):
+        make_scheduler(setup)
+    moe = ModelConfig(name="moe", arch_type="moe", n_layers=1, d_model=64, vocab_size=128,
+                      n_heads=2, n_kv_heads=2, head_dim=32)
+    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
+        build_serve_setup(moe, device="cpu", kv_block_size=4)

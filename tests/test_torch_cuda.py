@@ -267,3 +267,47 @@ def test_unpack_dequantize_wire_checks_inputs_on_the_card(cuda):
     with pytest.raises(ValueError, match="unsupported"):
         ops.unpack_dequantize_wire(buf, [ops.WireCodes(0, 1000, 1004, 1, 1023, 4)],
                                    [torch.float32])
+
+
+@pytest.mark.parametrize("rows,n", [(1, 1), (3, 255), (4, 50304), (7, 100000)])
+def test_random_bits_byte_equal(cuda, rows, n):
+    """The sampler's draw against its plain version (prng.bits per row)."""
+    keys = prng.as_i32(prng.fold_in_rows(torch.tensor([prng.PRNGKey(r) for r in range(rows)]),
+                                         torch.arange(rows) * 7 + 3))
+    before = ops.LAUNCHES["random_bits"]
+    got = ops.random_bits(keys.to(cuda), n)
+    assert ops.LAUNCHES["random_bits"] == before + 1
+    assert got.dtype == torch.int32 and got.shape == (rows, n)
+    assert torch.equal(got.cpu(), ref.random_bits_ref(keys, n))
+
+
+def test_random_bits_checks_inputs_on_the_card(cuda):
+    with pytest.raises(TypeError):
+        ops.random_bits(torch.zeros((2, 2), dtype=torch.int64, device=cuda), 8)
+    with pytest.raises(ValueError):
+        ops.random_bits(torch.zeros((2, 3), dtype=torch.int32, device=cuda), 8)
+    with pytest.raises(ValueError):
+        ops.random_bits(torch.zeros((2, 2), dtype=torch.int32, device=cuda), 0)
+
+
+def test_sampler_on_the_card_matches_the_cpu(cuda):
+    """sample_vocab_parallel on the card (random_bits + torch ops) against
+    the same call on the CPU (plain draw): greedy rows bit for bit, sampled
+    rows wherever their top two perturbed logits lie apart by more than the
+    noise's tolerance (the CPU test's 2e-5)."""
+    from repro_torch.models import layers as L
+    g = torch.Generator().manual_seed(0)
+    logits = torch.randn((16, 50304), generator=g) * 3
+    temp = torch.tensor([0.0, 0.8, 1.3, 0.5] * 4)
+    top_k = torch.tensor([0, 40, 1, 0, 5, 0, 40, 0] * 2)
+    keys = torch.tensor([prng.PRNGKey(i) for i in range(16)])
+    on_card = L.sample_vocab_parallel(logits.to(cuda), 50304, temp, top_k, keys).cpu()
+    on_cpu = L.sample_vocab_parallel(logits, 50304, temp, top_k, keys)
+    greedy = (temp <= 0) | (top_k == 1)
+    assert torch.equal(on_card[greedy], on_cpu[greedy])
+    noise = prng.gumbel_from_bits(ref.random_bits_ref(prng.as_i32(keys), 50304))
+    z = logits / temp.clamp(min=1e-6)[:, None] + noise
+    top2 = torch.sort(z, dim=-1).values[:, -2:]
+    clear = ~greedy & (top_k == 0) & (top2[:, 1] - top2[:, 0] > 2e-5)
+    assert clear.any()
+    assert torch.equal(on_card[clear], on_cpu[clear])
