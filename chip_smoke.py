@@ -45,11 +45,25 @@ Phases, each of which makes the script exit non-zero when it fails:
               Two runs with the same tokens; greedy requests bit-equal to
               their solo runs; pool invariants, demotions and
               rehydrations; launch counts against the structure; one
-              profiled step without int64 bitwise/shift kernels.  Prints
-              tokens/s, TTFT, step times, occupancy, prefix hit rate, cold
-              bytes, and which GEMM/attention launches are not
-              row-invariant across row counts.
-6. train   -- gpt-1.3b at full width and depth, default QSDPConfig (W8
+              profiled step without int64 bitwise/shift kernels.  Every
+              engine runs the fixed-shape route (every decode-path launch
+              at blocks of 4 lanes), so every request that attaches no
+              rehydrated block must equal its solo run on a batch-of-1
+              engine, and the route's row gate must pass at every launch
+              shape of the path.  Prints tokens/s, TTFT, step times,
+              occupancy, prefix hit rate, cold bytes, which GEMM/attention
+              launches are not row-invariant across row counts, and what
+              the fixed shapes cost a batch-of-1 engine.
+6. speculative -- the continuous phase's configuration and requests with
+              self-speculative decoding (a 4-bit draft of depth 4): every
+              request on no rehydrated block commits the tokens of its
+              non-speculative batch-of-1 solo run, drafts are accepted,
+              K1/K2/K3/random_bits launches equal the structure's, pool
+              invariants; one profiled step.  Prints tokens/s, TTFT, the
+              draft and verify launches' times, acceptance and draft
+              overhead; the kernel phase adds K2 at the draft layer and K3
+              at the draft MLP.
+7. train   -- gpt-1.3b at full width and depth, default QSDPConfig (W8
               shift weights, G8 stochastic gradients, bucket 1024,
               coalesced, bf16 compute, full remat), AdamW + cosine, batch 4
               x seq 2048, 2 microbatches, SyntheticLM seed 0, through
@@ -184,6 +198,14 @@ K3_SHAPES = {"w_gate/w_up": (4, 2048, 8192, 8), "w_down": (4, 8192, 2048, 2)}
 # rowquant is a decode path), so these shapes are off the main path
 K3_CHUNK_SHAPES = {"w_gate/w_up, chunk M": (256, 2048, 8192, 8),
                    "w_down, chunk M": (256, 8192, 2048, 2)}
+# the speculative draft (make_draft_params at gpt-1.3b: 4 bits, nearest,
+# bucket gcd(n_local, 256) = 256): K3 runs the draft MLP at M = slots from
+# the codes unpacked to one byte each, n_seg = N / 256; K2 decodes one
+# draft layer's wq/wk/wv/wo (four wire segments, each in its own buffer) in
+# one launch
+DRAFT_BITS, DRAFT_BUCKET = 4, 256
+K3_DRAFT_SHAPES = {"w_gate/w_up, draft W4": (4, 2048, 8192, 8192 // DRAFT_BUCKET),
+                   "w_down, draft W4": (4, 8192, 2048, 2048 // DRAFT_BUCKET)}
 # the cold tier's codec at gpt-1.3b: one KV block (24 layers x 16 tokens x
 # 32 heads x 64) of k or v, 4 bits, buckets of 128, f32 scale/zero
 COLD_NB, COLD_BUCKET, COLD_BITS = 24 * 16 * 32 * 64 // 128, 128, 4
@@ -449,6 +471,30 @@ def kernel_phase(torch, log, dev="cuda"):
     log_decode_row("K2", k2[-1], log)
     del x, q, qr
 
+    # the speculative draft's layer: wq/wk/wv/wo at 4 bits, bucket 256, each
+    # tensor its own wire buffer, decoded into bf16 in one launch
+    from repro_torch.core import quant
+    dcfg = quant.QuantConfig(bits=DRAFT_BITS, bucket_size=DRAFT_BUCKET, mode="nearest")
+    n1 = 2048 * 2048
+    qs = [quant.quantize(torch.randn(n1, generator=gen, device=dev) * 0.02, dcfg)
+          for _ in range(4)]
+    bufs = [quant.wire_pack(q) for q in qs]
+    table = [quant.wire_codes(0, n1, dcfg)] * 4
+    dts = [torch.bfloat16] * 4
+    want = ref.unpack_dequantize_wire_ref(bufs, table, dts)
+    nb = 4 * n1 // DRAFT_BUCKET
+    k2.append(decode_row(
+        "draft layer wq/wk/wv/wo, W4 bucket 256, bf16 out", nb,
+        lambda: ops.unpack_dequantize_wire(bufs, table, dts),
+        lambda: ref.unpack_dequantize_wire_ref(bufs, table, dts),
+        # the library reads the codes unpacked to one byte each
+        addcmul_ms(torch.cat([ref.unpack_codes(q.codes, DRAFT_BITS) for q in qs]),
+                   torch.cat([q.scale for q in qs])[:, None],
+                   torch.cat([q.zero for q in qs])[:, None], torch.cat(want)),
+        sum(b.numel() for b in bufs) + 2 * 4 * n1, 4 * n1))
+    log_decode_row("K2", k2[-1], log)
+    del qs, bufs, want
+
     # the sampler's draw: jax.random bits of a vocabulary per sampled row
     from repro_torch.core import prng as _prng
     rows_n, vocab = RANDOM_BITS_SHAPE
@@ -519,10 +565,15 @@ def kernel_phase(torch, log, dev="cuda"):
     # K3: tolerance against plain, both x dtypes; times in bf16 (main path)
     # beside torch.matmul on the dense bf16 weight
     k3 = []
-    for what, (m, k, n, n_seg) in {**K3_SHAPES, **K3_CHUNK_SHAPES}.items():
+    for what, (m, k, n, n_seg) in {**K3_SHAPES, **K3_CHUNK_SHAPES, **K3_DRAFT_SHAPES}.items():
         w = torch.randn((k, n), generator=gen, device=dev) * 0.02
-        nb = k * n // 1024
-        codes, s, z = ops.quantize_pack(w.reshape(nb, 1024), prng.PRNGKey(k), 255, 8, "shift")
+        bits = DRAFT_BITS if what in K3_DRAFT_SHAPES else 8
+        bucket = n // n_seg
+        nb = k * n // bucket
+        codes, s, z = (ops.quantize_pack(w.reshape(nb, bucket), None, 15, bits, "nearest")
+                       if bits < 8 else
+                       ops.quantize_pack(w.reshape(nb, bucket), prng.PRNGKey(k), 255, 8, "shift"))
+        codes = ref.unpack_codes(codes, bits)
         codes, s, z = codes.reshape(k, n), s.reshape(k, n_seg), z.reshape(k, n_seg)
         for dt in (torch.float32, torch.bfloat16):
             xx = torch.randn((m, k), generator=gen, device=dev).to(dt)
@@ -534,7 +585,7 @@ def kernel_phase(torch, log, dev="cuda"):
                   f"K3 {what} {dt}: max |err| {err:.3e} > {tol:.3e}")
             log(f"K3 {what} x {dt}: max |err| {err:.3e} (tol {tol:.3e})")
         xb = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
-        wd = ref.unpack_dequantize_ref(codes.reshape(nb, 1024), s.reshape(nb, 1),
+        wd = ref.unpack_dequantize_ref(codes.reshape(nb, bucket), s.reshape(nb, 1),
                                        z.reshape(nb, 1), 8).reshape(k, n).to(torch.bfloat16)
         err = (ops.rowquant_matmul(xb, codes, s, z).float()
                - ref.rowquant_matmul_ref(xb, codes, s, z).float()).abs().max().item()
@@ -642,9 +693,9 @@ def smi_line():
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="build,kernels,small,serve,continuous,train",
+    ap.add_argument("--phases", default="build,kernels,small,serve,continuous,speculative,train",
                     help="comma-separated subset of build,kernels,small,serve,continuous,"
-                         "train")
+                         "speculative,train")
     ap.add_argument("--profile", action="store_true",
                     help="serve phase: also profile one decode step of each run "
                          "(chrome traces kept)")
@@ -691,6 +742,8 @@ def main(argv=None) -> int:
             paths.append(serve_phase(torch, log, profile=args.profile))
         if "continuous" in phases:
             paths.append(continuous_phase(torch, log))
+        if "speculative" in phases:
+            paths.append(speculative_phase(torch, log))
         if "train" in phases:
             paths.append(train_phase(torch, log))
         launches = {k: sum(p.get(k, 0) for p in paths) for k in KERNEL_META}
@@ -761,8 +814,8 @@ SMALL_LOGIT_ATOL = 1e-3
 
 def small_phase(torch, log):
     """gpt-1.3b smoke (f32 compute) on the card and on the CPU from the same
-    weights: gathered weight bytes equal (K1/K2 are bit-exact), logits
-    within SMALL_LOGIT_ATOL, same greedy tokens."""
+    weights: gathered weight bytes equal (K1/K2 are bit-exact), the live
+    lanes' logits within SMALL_LOGIT_ATOL, same greedy tokens."""
     import repro_torch.models.layers as L
     from repro_torch.core.qsdp import QSDPConfig
     from repro_torch.data import SyntheticLM
@@ -786,7 +839,8 @@ def small_phase(torch, log):
         res[dev] = (out.cpu(), [t.cpu() for t in logits], gathers)
     (tc, lc, gc), (tp, lp, gp) = res["cuda"], res["cpu"]
     check(gc == gp, "small: gathered weight bytes differ between card and CPU")
-    err = max((a - b).abs().max().item() for a, b in zip(lc, lp))
+    # the card's launches run at LANE_BLOCK lanes: its logits carry dead lanes
+    err = max((a[:len(b)] - b).abs().max().item() for a, b in zip(lc, lp))
     check(math.isfinite(err) and err <= SMALL_LOGIT_ATOL,
           f"small: logits differ by {err:.3e} > {SMALL_LOGIT_ATOL}")
     check(torch.equal(tc, tp), f"small: tokens differ: {tc.tolist()} vs {tp.tolist()}")
@@ -1003,20 +1057,99 @@ def continuous_requests(vocab: int):
     return reqs
 
 
-def expected_continuous_launches(model, st: dict) -> dict:
-    """K1/K2/random_bits launches of one scheduler run by the code's
-    structure: every chunk launch and decode step gathers the whole model
-    once (K1 per quantized tensor, K2 per buffer: the embedding's and one
-    per layer; the chunk path gathers its MLP densely, so no K3); each
-    demoted block encodes k and v (K1 x 2), each rehydrated one decodes them
-    (K2 x 2); one random_bits launch per launch that draws for a row."""
+def expected_continuous_launches(model, st: dict, draft_params=None) -> dict:
+    """K1/K2/K3/random_bits launches of one scheduler run by the code's
+    structure: every chunk launch, decode step and speculative verify
+    gathers the whole model once (K1 per quantized tensor, K2 per buffer:
+    the embedding's and one per layer; the chunk path gathers its MLP
+    densely, so no K3); each demoted block encodes k and v (K1 x 2), each
+    rehydrated one decodes them (K2 x 2); one random_bits launch per
+    sampler pass that draws for a row.  With `draft_params` (speculative),
+    each draft launch gathers the tensors the draft keeps dense as a decode
+    step does, decodes each layer's wire-form tensors that K3 does not take
+    in one K2 launch, and runs K3 once per wire-form MLP weight."""
+    from repro_torch.core.quant import QuantizedParam
+    from repro_torch.models.decode import ROWQUANT_MLP
     eng = model.engine
     n_q = sum((s.stack or 1) for s in eng.specs.values() if eng._is_quantized(s))
-    passes = st["prefill_chunks"] + st["decode_launches"]
-    return {"quantize_pack": n_q * passes + 2 * st["demotions"],
-            "unpack_dequantize": sum(k2_buffers(eng, eng._is_quantized)) * passes
-            + 2 * st["rehydrations"],
-            "random_bits": st["sampled_launches"]}
+    passes = st["prefill_chunks"] + st["decode_launches"] + st["verify_launches"]
+    out = {"quantize_pack": n_q * passes + 2 * st["demotions"],
+           "unpack_dequantize": sum(k2_buffers(eng, eng._is_quantized)) * passes
+           + 2 * st["rehydrations"],
+           "random_bits": st["sampled_launches"]}
+    if draft_params:
+        wire = {n for n, v in draft_params.items() if isinstance(v, QuantizedParam)}
+        rq = {n for n in wire if n.split("/")[-1] in ROWQUANT_MLP
+              and eng.rowquant_wire_eligible(n, draft_params[n])}
+        dense_q = sum((s.stack or 1) for n, s in eng.specs.items()
+                      if eng._is_quantized(s) and n not in wire)
+        k2_dense = sum(k2_buffers(eng, eng._is_quantized,
+                                  skip={n.split("/")[-1] for n in wire}))
+        k2_wire = sum({n.rsplit("/", 1)[0]: eng.specs[n].stack or 1
+                       for n in wire - rq}.values())
+        d = st["draft_launches"]
+        out["quantize_pack"] += dense_q * d
+        out["unpack_dequantize"] += (k2_dense + k2_wire) * d
+        out["rowquant_matmul"] = sum(eng.specs[n].stack or 1 for n in rq) * d
+    return out
+
+
+def route_setup(setup):
+    """`setup` with the card's fixed-shape route (LANE_BLOCK lanes per
+    launch) on any device: the CPU's default is the plain shapes, so a CPU
+    rehearsal of the phase runs the card's route."""
+    from repro_torch.models.decode import LANE_BLOCK
+    from repro_torch.serve import ServeEngine
+    spec = dataclasses.replace(setup.spec, lane_block=LANE_BLOCK)
+    return dataclasses.replace(setup, spec=spec,
+                               engine=ServeEngine(setup.model, spec, setup.device))
+
+
+# the non-speculative batch-of-1 solo runs of CONT_PLAN's requests (the
+# reference's solo form), shared by the continuous and speculative phases:
+# both build gpt-1.3b from seed CONT["seed"] and serve it under one key
+_SOLO: dict = {}
+
+
+def solo_runs(torch, setup, reqs, key) -> dict:
+    """{rid: tokens} of each request served alone on a batch-of-1 engine of
+    the setup's spec (speculation off): ``generate(fold_step_keys=False,
+    prefill_chunk=...)`` with the request's sampling parameters."""
+    from repro_torch.serve import ServeEngine, make_sample_params
+    solo = ServeEngine(setup.model, dataclasses.replace(setup.spec, batch_global=1,
+                                                        draft_bits=0, draft_depth=0),
+                       setup.device)
+    for r in reqs:
+        if r.rid not in _SOLO:
+            prompt = {"tokens": torch.tensor([list(r.prompt)], dtype=torch.int64)}
+            _SOLO[r.rid] = solo.generate(
+                setup.params, prompt, r.max_new_tokens, key=key, fold_step_keys=False,
+                sample=make_sample_params(r.temperature, r.top_k, r.seed),
+                prefill_chunk=CONT["chunk"], prefill_buckets=CONT["buckets"])[0].tolist()
+    return {r.rid: _SOLO[r.rid] for r in reqs}
+
+
+def track_cold(sched):
+    """Hooks that collect the requests whose lanes attach a block the cold
+    tier rehydrated (4-bit KV that no solo run has): (hooks, that set)."""
+    rehydrated, cold = set(), set()
+
+    def rehydrate(orig):
+        def f(*a, **k):
+            bid, cache = orig(*a, **k)
+            rehydrated.add(bid)
+            return bid, cache
+        return f
+
+    def attach(orig):
+        def f(slot_i, st):
+            orig(slot_i, st)
+            n = st.pf_off // sched.spec.kv_block_size
+            if rehydrated & set(sched.block_tables[slot_i, :n].tolist()):
+                cold.add(st.req.rid)
+        return f
+
+    return [(sched.engine, "rehydrate_block", rehydrate), (sched, "_prefix_attach", attach)], cold
 
 
 def row_invariance(torch, log, dev):
@@ -1069,32 +1202,128 @@ def row_invariance(torch, log, dev):
         log(f"continuous: row invariance, {what}: "
             + (f"row 0 differs at M = {varies}" if varies else
                f"row 0 bit-equal at every M in {tuple(res)}"))
+    out["route"] = route_invariance(torch, log, dev, rnd, acfg)
     return out
+
+
+def route_invariance(torch, log, dev, rnd, acfg):
+    """The fixed-shape route's gate: every launch of the decode path runs at
+    LANE_BLOCK lanes (decode and verify: M = LANE_BLOCK rows; chunks: M =
+    LANE_BLOCK x the top bucket), so a request's rows must come out with the
+    same bits whatever the other lanes hold and whichever lane it rides:
+    alone in lane 0 with the others dead (zeros; a batch-of-1 engine, M = 1
+    or one lane's chunk), or in lane 2 beside live lanes (the pool).  Checked
+    for every GEMM weight shape of the layer, the f32 logits, decode
+    attention (ring) and chunk attention (paged, the continuous cell's)."""
+    import repro_torch.models.layers as L
+    from repro_torch.models.attention import chunk_attend, decode_attend
+    from repro_torch.models.decode import LANE_BLOCK
+    lb, lq, ring = LANE_BLOCK, CONT["chunk"], CONT["ring"]
+
+    def gate(what, fn, req, live, rows=1):
+        """fn over lanes of `rows` rows: `req` one lane's input tensors,
+        `live` the same tensors for all lanes; the request's output rows in
+        lane 0 (the other lanes zero) and in lane 2 (the others live)."""
+        def place(lane, fill):
+            return [torch.cat([f[:lane * rows], r, f[(lane + 1) * rows:]])
+                    for r, f in zip(req, fill)]
+        a = fn(*place(0, [torch.zeros_like(f) for f in live]))[:rows].float().cpu()
+        b = fn(*place(2, live))[2 * rows:3 * rows].float().cpu()
+        diff = 0.0 if torch.equal(a, b) else (a - b).abs().max().item()
+        check(diff == 0.0, f"fixed-shape route: {what}: the request's rows differ by {diff:.3e} "
+              "between lane 0 beside dead lanes and lane 2 beside live ones")
+        done.append(what)
+
+    done = []
+    for what, (k, n) in {"wq/wk/wv/wo": (2048, 2048), "w_gate/w_up": (2048, 8192),
+                         "w_down": (8192, 2048)}.items():
+        w = rnd(k, n) * 0.02
+        for rows in (1, lq):
+            gate(f"x @ {what} bf16 at M = {lb * rows}", lambda x, w=w: x @ w,
+                 [rnd(rows, k)], [rnd(lb * rows, k)], rows)
+    head, fnorm = rnd(50304, 2048, dt=torch.float32) * 0.02, torch.ones(2048, device=dev)
+    gate(f"final norm + f32 logits at M = {lb}",
+         lambda x: L.vocab_parallel_logits(L.rms_norm(x, fnorm), head),
+         [rnd(1, 2048)], [rnd(lb, 2048)])
+    pos = torch.full((lb,), 300, device=dev)
+    gate(f"decode attention (ring {ring}) at B = {lb}",
+         lambda q, c: decode_attend(q, c, c, acfg, pos, ring),
+         [rnd(1, 32, 64), rnd(1, ring, 32, 64)], [rnd(lb, 32, 64), rnd(lb, ring, 32, 64)])
+    bs = CONT["block"]
+    bt = torch.arange(lb * (ring // bs), device=dev).reshape(lb, ring // bs)
+    cpos = (torch.arange(lq, device=dev) + 200)[None].expand(lb, lq)
+    gate(f"chunk attention (paged, block {bs}) at B = {lb} x {lq}",
+         lambda q, c: chunk_attend(q, c, c, acfg, cpos, ring, bt, bs),
+         [rnd(1, lq, 32, 64), rnd(1, ring, 32, 64)], [rnd(lb, lq, 32, 64), rnd(lb, ring, 32, 64)])
+    log(f"continuous: fixed-shape route: a request's rows bit-equal in lane 0 beside dead "
+        f"lanes and in lane 2 beside live ones, for {done}")
+    return done
+
+
+def fixed_shape_cost(torch, log, setup, key, reps=5):
+    """What the fixed-shape route costs a batch-of-1 engine: one lane's
+    decode step and 21-token chunk launch at the route's shapes (LANE_BLOCK
+    lanes, the top bucket) vs at batch-composition shapes (one lane, the
+    chunk's own bucket), host clock to the token on the host, in turns
+    (plain, fixed, fixed, plain).  The 4-slot pool's launches already ran
+    at LANE_BLOCK lanes and the top bucket, so its steps are the same
+    either way."""
+    from repro_torch.core import prng
+    from repro_torch.serve import ServeEngine, make_sample_params
+    spec1 = dataclasses.replace(setup.spec, batch_global=1)
+    engines = {"plain": ServeEngine(setup.model, dataclasses.replace(spec1, lane_block=1),
+                                    setup.device),
+               "fixed": ServeEngine(setup.model, spec1, setup.device)}
+    clen, top = 21, CONT["chunk"]
+    tokens = torch.arange(clen, dtype=torch.int64)[None] + 100
+    bt = torch.arange(setup.spec.blocks_per_slot, dtype=torch.int64)[None]
+    sample = make_sample_params(b=1)
+    times = {(t, w): [] for t in engines for w in ("chunk", "decode")}
+    with torch.inference_mode():
+        for tag in ["plain", "fixed", "fixed", "plain"] * reps:
+            dm = engines[tag].dm
+            cache = engines[tag].init_cache()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            nxt, cache = dm.prefill_chunk_fn(setup.params, cache, tokens, torch.tensor([0]),
+                                             torch.tensor([clen]), key, sample, bt,
+                                             compute_len=top if tag == "fixed" else 0)
+            nxt = nxt.cpu()
+            times[tag, "chunk"].append(time.perf_counter() - t)
+            t = time.perf_counter()
+            dm.decode_fn(setup.params, cache, nxt, torch.tensor([clen]), key, sample,
+                         bt)[0].cpu()
+            times[tag, "decode"].append(time.perf_counter() - t)
+            del cache
+    med = {k: 1e3 * statistics.median(v) for k, v in times.items()}
+    log(f"continuous: fixed-shape cost, one lane (median of {2 * reps}, ms): decode step "
+        f"{med['plain', 'decode']:.2f} at 1 lane -> {med['fixed', 'decode']:.2f} at "
+        f"{engines['fixed'].dm.lanes} lanes; chunk launch of {clen} tokens "
+        f"{med['plain', 'chunk']:.2f} at 1 lane x {clen} -> {med['fixed', 'chunk']:.2f} at "
+        f"{engines['fixed'].dm.lanes} lanes x {top}")
+    del engines
+    torch.cuda.empty_cache()
+    return med
 
 
 def continuous_phase(torch, log, dev="cuda", profile=True):
     """gpt-1.3b at full width and depth through ``make_scheduler`` ->
-    ``ContinuousScheduler.run``: CONT's configuration, CONT_PLAN's requests.
-    Run 1 (profiling one pooled decode step of sampled lanes: no int64
-    bitwise or shift kernel may appear) and run 2 (counts zeroed just before,
-    read just after, against the code's structure; timed) must give every
-    request the same tokens; each greedy request must equal its solo run
-    (``generate(fold_step_keys=False, prefill_chunk=64)`` on an engine of
-    the scheduler's spec); the pool's invariants hold, blocks were demoted
-    and rehydrated, and none is left in use.  Also reported: the same solo
-    runs on a batch-of-1 engine (the reference's solo form) and
-    ``row_invariance``."""
+    ``ContinuousScheduler.run``: CONT's configuration, CONT_PLAN's requests,
+    every launch on the fixed-shape route.  Run 1 (profiling one pooled
+    decode step of sampled lanes: no int64 bitwise or shift kernel may
+    appear) and run 2 (counts zeroed just before, read just after, against
+    the code's structure; timed) must give every request the same tokens;
+    every request that attached no rehydrated block (every greedy one) must
+    equal its solo run on a batch-of-1 engine (``generate(fold_step_keys=
+    False, prefill_chunk=64)``, the reference's solo form); the pool's
+    invariants hold, blocks were demoted and rehydrated, and none is left in
+    use.  On the card also ``row_invariance`` and ``fixed_shape_cost``."""
     import numpy as np
     from repro_torch.core import prng
     from repro_torch.kernels import ops
-    from repro_torch.serve import ServeEngine, build_serve_setup, make_scheduler
+    from repro_torch.serve import make_scheduler
 
-    gen_max = max(g for *_, g in CONT_PLAN)
-    setup = build_serve_setup("gpt-1.3b", smoke=False, batch=CONT["slots"],
-                              prompt_len=CONT["ring"] - gen_max, gen=gen_max,
-                              seed=CONT["seed"], sampling=True, kv_block_size=CONT["block"],
-                              kv_pool_blocks=CONT["pool_blocks"], device=dev)
-    check(setup.spec.cache_len == CONT["ring"], f"ring {setup.spec.cache_len}")
+    setup = continuous_setup(torch, dev)
     reqs = continuous_requests(setup.cfg.vocab_size)
     key = prng.PRNGKey(CONT["seed"])
 
@@ -1108,19 +1337,12 @@ def continuous_phase(torch, log, dev="cuda", profile=True):
                                prefill_interleave=CONT["interleave"],
                                kv_quant_bits=CONT["quant_bits"],
                                kv_quant_horizon=CONT["horizon"])
-        cold = set()
-
-        def attach(orig):
-            def f(slot_i, st):
-                before = sched.pool.stats["rehydrations"]
-                orig(slot_i, st)
-                if sched.pool.stats["rehydrations"] > before:
-                    cold.add(st.req.rid)
-            return f
-
+        hooks, cold = track_cold(sched)
         steps, prof = [], None
         sync()
-        with hooked(sched, "_prefix_attach", attach):
+        with contextlib.ExitStack() as stack:
+            for h in hooks:
+                stack.enter_context(hooked(*h))
             for r in reqs:
                 sched.submit(r)
             t0 = time.perf_counter()
@@ -1158,8 +1380,8 @@ def continuous_phase(torch, log, dev="cuda", profile=True):
           f"continuous: demotions {st['demotions']}, rehydrations {st['rehydrations']}")
     check(st["blocks_in_use"] == 0, f"continuous: {st['blocks_in_use']} blocks left in use")
     greedy = [r for r in reqs if not r.needs_sampling]
-    check(not cold2 & {r.rid for r in greedy} and cold1 == cold2,
-          f"continuous: greedy requests attached rehydrated blocks: {cold2}")
+    check(not cold2 & {r.rid for r in greedy} and cold1 == cold2 and cold2,
+          f"continuous: requests that attached rehydrated blocks: {cold1} / {cold2}")
     want = expected_continuous_launches(setup.model, st)
     for k in ops.KERNELS:
         check(counts[k] == want.get(k, 0), f"continuous: {k} launched {counts[k]} times, "
@@ -1172,30 +1394,18 @@ def continuous_phase(torch, log, dev="cuda", profile=True):
         check(prof["rb_n"] >= 1, "continuous: no random_bits launch in the profiled step of "
               "a sampled lane")
 
-    # each greedy request against its solo run on an engine of the
-    # scheduler's spec (all lanes, the rest dead); on the card also on a
-    # batch-of-1 engine, the reference's solo form, to see what it changes
-    solo = ServeEngine(setup.model, setup.spec, setup.device)
-    solo1 = ServeEngine(setup.model, dataclasses.replace(setup.spec, batch_global=1),
-                        setup.device)
-    kw = dict(key=key, fold_step_keys=False, prefill_chunk=CONT["chunk"],
-              prefill_buckets=CONT["buckets"])
-    one_equal = []
-    for r in greedy:
-        prompt = {"tokens": torch.tensor([list(r.prompt)], dtype=torch.int64)}
-        ref = solo.generate(setup.params, prompt, r.max_new_tokens, **kw)[0].tolist()
-        check(ref == out2[r.rid], f"continuous {r.rid}: scheduler tokens {out2[r.rid]} != "
-              f"solo run {ref}")
-        if dev == "cuda":
-            one = solo1.generate(setup.params, prompt, r.max_new_tokens, **kw)[0].tolist()
-            one_equal.append(next((i for i, (a, b) in enumerate(zip(one, ref)) if a != b),
-                                  None))
-    log(f"continuous: {len(greedy)} greedy requests bit-equal to their solo runs "
-        f"({[r.rid for r in greedy]}); sampled {[r.rid for r in reqs if r.needs_sampling]} "
-        f"equal across two runs; rehydrating requests {sorted(cold2)}")
-    if dev == "cuda":
-        log(f"continuous: solo at batch 1 (the reference's solo form) vs the scheduler: "
-            f"first differing token per greedy request {one_equal} (None = all equal)")
+    # every request that attached no rehydrated block against its solo run
+    # on a batch-of-1 engine (the reference's solo form); the fixed-shape
+    # route makes that engine launch at the pool's shapes
+    solo = solo_runs(torch, setup, [r for r in reqs if r.rid not in cold2], key)
+    for rid, ref in solo.items():
+        check(ref == out2[rid], f"continuous {rid}: scheduler tokens {out2[rid]} != batch-of-1 "
+              f"solo run {ref} (first difference at token "
+              f"{next((i for i, (a, b) in enumerate(zip(ref, out2[rid])) if a != b), None)})")
+    log(f"continuous: {len(solo)} requests bit-equal to their batch-of-1 solo runs "
+        f"({sorted(solo)}; greedy {[r.rid for r in greedy]}); sampled "
+        f"{[r.rid for r in reqs if r.needs_sampling]} equal across two runs; requests on "
+        f"rehydrated blocks {sorted(cold2)}")
 
     ttft = sorted(c.first_token_time - c.submit_time for c in s2.finished.values())
     dec = sorted(t for t, chunked in steps if not chunked)
@@ -1222,10 +1432,175 @@ def continuous_phase(torch, log, dev="cuda", profile=True):
             f"shift {prof['threefry_int64']}")
     if dev == "cuda":
         row_invariance(torch, log, dev)
-    del setup, s1, s2, solo, solo1
+        fixed_shape_cost(torch, log, setup, key)
+    del setup, s1, s2
     if dev == "cuda":
         torch.cuda.empty_cache()
     return counts
+
+
+def continuous_setup(torch, dev, **kw):
+    """gpt-1.3b at CONT's configuration on the fixed-shape route; `kw` adds
+    DecodeSpec fields (the speculative phase's draft)."""
+    from repro_torch.serve import build_serve_setup
+    gen_max = max(g for *_, g in CONT_PLAN)
+    setup = build_serve_setup("gpt-1.3b", smoke=False, batch=CONT["slots"],
+                              prompt_len=CONT["ring"] - gen_max, gen=gen_max,
+                              seed=CONT["seed"], sampling=True, kv_block_size=CONT["block"],
+                              kv_pool_blocks=CONT["pool_blocks"], device=dev, **kw)
+    check(setup.spec.cache_len == CONT["ring"], f"ring {setup.spec.cache_len}")
+    return route_setup(setup)
+
+
+# ---------------------------------------------------------------------------
+# phase 6: self-speculative decoding of gpt-1.3b in the continuous cell
+# ---------------------------------------------------------------------------
+
+# the reference's qsdp-spec setting (benchmarks/bench_serve.py:362): a 4-bit
+# draft of the same weights drafts up to 4 tokens per slot per step
+SPEC = dict(draft_bits=4, draft_depth=4)
+
+
+def speculative_phase(torch, log, dev="cuda"):
+    """gpt-1.3b at full width and depth through ``make_scheduler`` with
+    ``DecodeSpec(draft_bits=4, draft_depth=4)``: CONT's configuration and
+    CONT_PLAN's requests, as the continuous phase.  Gates: every request
+    that attached no rehydrated block, greedy and sampled, commits the
+    tokens of its non-speculative batch-of-1 solo run; at least one drafted
+    token is accepted; the launches of K1/K2/K3/random_bits (counts zeroed
+    just before the run, read just after) are those the code's structure
+    derives from the run's statistics; the pool's invariants hold and no
+    block is left in use.  Prints tokens/s, TTFT, the draft and verify
+    launches' times, the acceptance rate and the draft overhead."""
+    import numpy as np
+    from repro_torch.core import prng
+    from repro_torch.kernels import ops
+    from repro_torch.serve import make_scheduler
+
+    setup = continuous_setup(torch, dev, **SPEC)
+    reqs = continuous_requests(setup.cfg.vocab_size)
+    key = prng.PRNGKey(CONT["seed"])
+
+    def sync():
+        if dev == "cuda":
+            torch.cuda.synchronize()
+
+    times = {"draft": [], "verify": []}
+
+    def timed(tag):
+        """A launch's host time to its tokens on the host: the call, then a
+        sync (the scheduler reads the tokens right after)."""
+        def wrap(orig):
+            def step_fn():
+                fn = orig()
+
+                def f(*a, **k):
+                    t = time.perf_counter()
+                    out = fn(*a, **k)
+                    sync()
+                    times[tag].append(time.perf_counter() - t)
+                    return out
+                return f
+            return step_fn
+        return wrap
+
+    sched = make_scheduler(setup, gather_key=key, prefill_chunk=CONT["chunk"],
+                           prefill_buckets=CONT["buckets"], prefill_interleave=CONT["interleave"],
+                           kv_quant_bits=CONT["quant_bits"], kv_quant_horizon=CONT["horizon"])
+    hooks, cold = track_cold(sched)
+    hooks += [(sched.draft_engine, "decode_step", timed("draft")),
+              (sched.engine, "verify_step", timed("verify"))]
+    steps = []
+    with torch.inference_mode(), contextlib.ExitStack() as stack:
+        for h in hooks:
+            stack.enter_context(hooked(*h))
+        for r in reqs:
+            sched.submit(r)
+        sync()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        while sched.queue or sched.n_active():
+            chunked = sched.prefill_chunk_count
+            t = time.perf_counter()
+            sched.step()
+            steps.append((time.perf_counter() - t, sched.prefill_chunk_count > chunked))
+        sync()
+        wall = time.perf_counter() - t0
+        counts = dict(ops.LAUNCHES)
+    sched.pool.check_invariants()
+    st = sched.stats()
+    out = {r: c.tokens.tolist() for r, c in sched.finished.items()}
+    check(set(out) == {r.rid for r in reqs}, "speculative: not every request finished")
+    check(st["blocks_in_use"] == 0, f"speculative: {st['blocks_in_use']} blocks left in use")
+    check(st["verify_launches"] > 0 and st["draft_launches"] > 0,
+          f"speculative: {st['draft_launches']} draft and {st['verify_launches']} verify launches")
+    check(st["spec_tokens"] > st["spec_lane_steps"],
+          f"speculative: no drafted token accepted ({st['spec_tokens']} tokens in "
+          f"{st['spec_lane_steps']} verified lane steps)")
+    want = expected_continuous_launches(setup.model, st, sched.draft_params)
+    for k in ops.KERNELS:
+        check(counts[k] == want.get(k, 0), f"speculative: {k} launched {counts[k]} times, "
+              f"the code's structure predicts {want.get(k, 0)}")
+    check(min(counts[k] for k in want) > 0, f"speculative: a kernel never launched: {counts}")
+    solo = solo_runs(torch, setup, [r for r in reqs if r.rid not in cold], key)
+    check(any(r.needs_sampling for r in reqs if r.rid in solo)
+          and all(r.rid in solo for r in reqs if not r.needs_sampling),
+          f"speculative: requests on rehydrated blocks {sorted(cold)} leave no sampled one "
+          "or take a greedy one")
+    for rid, ref in solo.items():
+        check(ref == out[rid], f"speculative {rid}: committed tokens {out[rid]} != the "
+              f"non-speculative batch-of-1 solo run {ref}")
+    ttft = sorted(c.first_token_time - c.submit_time for c in sched.finished.values())
+    pct = (lambda a, q: float(np.percentile(a, q)) if a else float("nan"))
+    dec = sorted(t for t, chunked in steps if not chunked)
+    log(f"speculative: {len(solo)} requests ({sorted(solo)}) commit the tokens of their "
+        f"non-speculative batch-of-1 solo runs, greedy and sampled; requests on rehydrated "
+        f"blocks {sorted(cold)}")
+    log(f"speculative: gpt-1.3b, draft {SPEC['draft_bits']}-bit x depth {SPEC['draft_depth']}, "
+        f"{len(reqs)} requests on {CONT['slots']} slots: {st['tokens_generated']} tokens in "
+        f"{wall:.3f} s = {st['tokens_generated'] / wall:.2f} tokens/s; TTFT p50 "
+        f"{pct(ttft, 50):.3f} s, p95 {pct(ttft, 95):.3f} s")
+    log(f"speculative: step ms: without a chunk launch median {1e3 * pct(dec, 50):.2f} "
+        f"({len(dec)} steps); draft launch median {1e3 * pct(times['draft'], 50):.2f} "
+        f"({len(times['draft'])}), verify launch median {1e3 * pct(times['verify'], 50):.2f} "
+        f"({len(times['verify'])}); {st['prefill_chunks']} chunk launches, "
+        f"{st['decode_launches']} plain decode steps")
+    log(f"speculative: accepted per verify lane step {st['accepted_per_launch']:.3f} "
+        f"({st['spec_tokens']} tokens / {st['spec_lane_steps']} lane steps), draft overhead "
+        f"{st['draft_overhead']:.3f} draft lane steps per token, launches per token "
+        f"{st['launches_per_token']:.3f}; demotions {st['demotions']}, rehydrations "
+        f"{st['rehydrations']}")
+    log(f"speculative: launches {counts} = structure {want}")
+    if dev == "cuda":
+        profile_speculative_step(torch, log, sched, reqs)
+    del setup, sched
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    return counts
+
+
+def profile_speculative_step(torch, log, sched, reqs):
+    """After the timed run: 4 more greedy requests (64-token prompts, one
+    chunk launch for all of them), then one step of draft and verify
+    launches under torch.profiler (device busy share, kernel time by name),
+    then the queue drained.  No int64 bitwise or shift kernel may appear,
+    and the step must run K3 and K2."""
+    from repro_torch.serve import Request
+    for i, r in enumerate(reqs[:4]):
+        sched.submit(Request(rid=f"p{i}", prompt=list(r.prompt[:CONT["chunk"]]),
+                             max_new_tokens=12))
+    sched.step()  # the chunk launch, then the first window
+    with torch.inference_mode():
+        prof = profile_train_step(torch, lambda _: sched.step(), None, log, tag="speculative")
+        sched.run()
+    check(prof["threefry_int64"] == 0, f"speculative: {prof['threefry_int64']} int64 bitwise/"
+          "shift kernels in the profiled step")
+    check(prof["k3_n"] > 0 and prof["k2_n"] > 0, f"speculative: the profiled step ran K3 "
+          f"{prof['k3_n']} and K2 {prof['k2_n']} times")
+    log(f"speculative: profiled step: K1 {prof['k1_n']} ({prof['k1_ms']:.3f} ms), K2 "
+        f"{prof['k2_n']} ({prof['k2_ms']:.3f} ms), K3 {prof['k3_n']} ({prof['k3_ms']:.3f} ms); "
+        f"int64 elementwise kernels {prof['int64_n']}, of which bitwise/shift "
+        f"{prof['threefry_int64']}")
 
 
 # ---------------------------------------------------------------------------
@@ -1284,7 +1659,7 @@ def small_train_phase(torch, log):
 
 
 # ---------------------------------------------------------------------------
-# phase 6: gpt-1.3b training
+# phase 7: gpt-1.3b training
 # ---------------------------------------------------------------------------
 
 TRAIN = dict(batch=4, seq=2048, n_micro=2, seed=0, lr=6e-4, warmup=10, total=100)
@@ -1438,11 +1813,12 @@ def busy_share(events):
 
 
 def profile_train_step(torch, run_step, state, log, tag="train"):
-    """torch.profiler over one step (`tag`: train, or continuous for a
-    scheduler step): device busy share and kernel time by name (the trace is
-    read from a temporary file and not kept: a train step holds ~10^4-10^5
-    kernels).  Returns K1's and K2's device time and launches, random_bits'
-    launches and the int64 elementwise kernels of the step."""
+    """torch.profiler over one step (`tag`: train, or continuous /
+    speculative for a scheduler step): device busy share and kernel time by
+    name (the trace is read from a temporary file and not kept: a train step
+    holds ~10^4-10^5 kernels).  Returns K1's, K2's and K3's device time and
+    launches, random_bits' launches and the int64 elementwise kernels of the
+    step."""
     import tempfile
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1481,10 +1857,12 @@ def profile_train_step(torch, run_step, state, log, tag="train"):
 
     k1_ms, k1_n = total(lambda k: "quantize_pack" in k)
     k2_ms, k2_n = total(lambda k: "unpack_dequantize" in k)
+    k3_ms, k3_n = total(lambda k: "rowquant" in k)
     int64_ms, int64_n = total(int64_elementwise)
     _, threefry = total(lambda k: int64_elementwise(k) and bitwise(k))
     return dict(wall_ms=wall_ms, busy_ms=busy / 1e3, kernels=len(kernels), k1_ms=k1_ms,
-                k1_n=k1_n, k2_ms=k2_ms, k2_n=k2_n, int64_ms=int64_ms, int64_n=int64_n,
+                k1_n=k1_n, k2_ms=k2_ms, k2_n=k2_n, k3_ms=k3_ms, k3_n=k3_n,
+                int64_ms=int64_ms, int64_n=int64_n,
                 threefry_int64=threefry, rb_n=total(lambda k: "random_bits" in k)[1])
 
 

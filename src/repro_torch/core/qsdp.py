@@ -35,7 +35,9 @@ import torch
 from ..kernels.ops import RowQuantWeight
 from . import collectives as coll
 from . import prng
-from .quant import QuantConfig, quantize, unpack_codes
+from ..kernels import ops
+from .quant import (QuantConfig, QuantizedParam, kernel_dtype, quantize, unpack_codes,
+                    wire_codes, wire_unpack)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -389,6 +391,44 @@ class QSDPEngine:
         wcfg = self.cfg.wcfg()
         return self._assemble_rowquant(self.specs[name], wcfg,
                                        quantize(local.reshape(-1), wcfg, _tensor_key(key, name)))
+
+    def rowquant_wire_eligible(self, name: str, qp: QuantizedParam) -> bool:
+        """:meth:`rowquant_eligible` for a parameter whose rest state already
+        is wire codes (a quantized checkpoint, the speculative draft): its
+        own buckets must tile the weight's rows, with f32 scale/zero as K3
+        reads them.  Independent of this engine's own quantization."""
+        return (qp.cfg.meta_dtype == "float32"
+                and self._rowquant_tiling_ok(self.specs[name], qp.cfg))
+
+    def gather_rowquant_wire(self, name: str, qp: QuantizedParam) -> RowQuantWeight:
+        """Gather a parameter stored as wire codes straight into a
+        :class:`RowQuantWeight` for K3: no quantize on the way out, no
+        dequantize on the way in.  Sub-8-bit codes are unpacked to one byte
+        per value after the gather (reference ``qsdp.py:745-764, 801``).
+        `qp` is one layer's view, cell (n_local,); the caller checks
+        :meth:`rowquant_wire_eligible`."""
+        q = wire_unpack(qp.wire.reshape(-1), qp.n, qp.cfg)
+        return self._assemble_rowquant(self.specs[name], qp.cfg, q)
+
+    def gather_wire_dequant(self, prefix: str,
+                            qps: dict[str, QuantizedParam]) -> dict[str, torch.Tensor]:
+        """Dense decode of parameters stored as wire codes that K3 does not
+        take (the attention projections; odd buckets): each one's wire
+        segments gathered over FSDP (one rank: as they are; every segment
+        carries its own bucket padding, so any bucket size works) and all of
+        them decoded into the compute dtype by ONE K2 launch, a table entry
+        per segment read in its own buffer (reference ``qsdp.py:812`` decodes
+        one parameter per call).  Returns {name: TP-local tensor}."""
+        if not qps:
+            return {}
+        coll.require_one_rank(self.group)
+        names = sorted(qps)
+        bufs = [qps[n].wire.reshape(-1) for n in names]
+        table = [wire_codes(0, qps[n].n, qps[n].cfg) for n in names]
+        dt = kernel_dtype(self.compute_dtype)
+        outs = ops.unpack_dequantize_wire(bufs, table, [dt] * len(names))
+        return {n: self._reshape_full(f"{prefix}{n}", o.reshape(-1))
+                for n, o in zip(names, outs)}
 
     # -- host-side helpers ----------------------------------------------------------
 

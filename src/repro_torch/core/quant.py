@@ -279,3 +279,30 @@ def qparam_decode(qp: QuantizedParam, dtype=torch.float32) -> torch.Tensor:
 def qparam_wire_nbytes(cell_shape: tuple, cfg: QuantConfig) -> int:
     """Per-cell wire length of a QuantizedParam."""
     return wire_segment_bytes(math.prod(cell_shape), cfg)
+
+
+def qparam_split_stack(qp: QuantizedParam) -> QuantizedParam:
+    """Re-slice a stacked QuantizedParam into one wire segment per stack
+    slice: wire (*lead, nbytes) -> (stack, *lead, nbytes_slice), cell
+    (n_local,) (``core/quant.py:558`` of the JAX package).  Each slice owns
+    whole buckets (n_local % bucket_size == 0), so it is a valid segment
+    (codes | scale | zero) whose decode equals those rows of the full
+    decode bit for bit: serving can walk the layers of a stack while the
+    codes stay in wire form."""
+    if not qp.stacked:
+        raise ValueError(f"not a stacked QuantizedParam: cell {qp.cell_shape}")
+    stack, n_local = qp.cell_shape
+    cfg = qp.cfg
+    if n_local % cfg.bucket_size:
+        raise ValueError(f"stack slices of {n_local} values do not hold whole buckets of "
+                         f"{cfg.bucket_size}")
+    nb_s = n_local // cfg.bucket_size
+    cb_s = nb_s * (cfg.bucket_size // cfg.codes_per_byte)
+    mb_s = nb_s * cfg.meta_bytes
+    lead = tuple(qp.wire.shape[:-1])
+    cb, sb = cb_s * stack, mb_s * stack
+    codes = qp.wire[..., :cb].reshape(*lead, stack, cb_s)
+    scale = qp.wire[..., cb:cb + sb].reshape(*lead, stack, mb_s)
+    zero = qp.wire[..., cb + sb:cb + 2 * sb].reshape(*lead, stack, mb_s)
+    wire = torch.cat([codes, scale, zero], dim=-1)
+    return QuantizedParam(torch.movedim(wire, -2, 0).contiguous(), (n_local,), cfg)

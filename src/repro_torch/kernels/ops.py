@@ -123,20 +123,26 @@ def unpack_dequantize(codes: torch.Tensor, scale: torch.Tensor,
 WIRE_MAX_SEGS = 64  # quantize.cu: kMaxSegs, the segments one launch's table holds
 
 
-def unpack_dequantize_wire(buf: torch.Tensor, segments: Sequence[WireCodes],
+def unpack_dequantize_wire(buf, segments: Sequence[WireCodes],
                            out_dtypes: Sequence) -> list[torch.Tensor]:
     """K2 over a wire buffer: every quantized segment of the 1-D u8 `buf`
     (``ref.WireCodes``: codes, scale and zero read in place) decoded into a
-    new (nb, bucket) tensor in its out dtype (f32 or bf16).  One launch per
-    WIRE_MAX_SEGS segments with nb > 0: one launch for a buffer of up to 64."""
+    new (nb, bucket) tensor in its out dtype (f32 or bf16).  `buf` may also
+    be a sequence of 1-D u8 buffers, one per segment, each segment's offsets
+    into its own.  One launch per WIRE_MAX_SEGS segments with nb > 0: one
+    launch for up to 64."""
     if len(segments) != len(out_dtypes):
         raise ValueError(f"{len(segments)} segments, {len(out_dtypes)} out dtypes")
-    if _on_cpu(buf):
+    bufs = [buf] * len(segments) if isinstance(buf, torch.Tensor) else list(buf)
+    if len(bufs) != len(segments):
+        raise ValueError(f"{len(segments)} segments, {len(bufs)} buffers")
+    if _on_cpu(*bufs):
         return ref.unpack_dequantize_wire_ref(buf, segments, out_dtypes)
-    _check("buf", buf, torch.uint8, (buf.numel(),))
+    for b in bufs:
+        _check("buf", b, torch.uint8, (b.numel(),))
     outs, rows = [], []
-    base = buf.data_ptr()
-    for seg, dt in zip(segments, out_dtypes):
+    for buf, seg, dt in zip(bufs, segments, out_dtypes):
+        base = buf.data_ptr()
         if dt not in _OUT_DTYPES:
             raise TypeError(f"unpack_dequantize_wire writes f32 or bf16, not {dt}")
         if seg.meta_dtype not in _OUT_DTYPES:

@@ -187,13 +187,15 @@ class WireCodes(NamedTuple):
     meta_dtype: torch.dtype = torch.float32
 
 
-def unpack_dequantize_wire_ref(buf: torch.Tensor, segments: Sequence[WireCodes],
+def unpack_dequantize_wire_ref(buf, segments: Sequence[WireCodes],
                                out_dtypes: Sequence) -> list[torch.Tensor]:
     """K2 over a wire buffer: each segment of (1-D u8) `buf` decoded into an
     (nb, bucket) tensor in its out dtype (f32 or bf16), one
-    :func:`unpack_dequantize_ref` per segment."""
+    :func:`unpack_dequantize_ref` per segment.  `buf` may be a sequence of
+    buffers, one per segment."""
+    bufs = [buf] * len(segments) if isinstance(buf, torch.Tensor) else buf
     outs = []
-    for w, dt in zip(segments, out_dtypes, strict=True):
+    for buf, w, dt in zip(bufs, segments, out_dtypes, strict=True):
         cb, mb = bucket_bytes(w.bucket, w.bits), w.nb * w.meta_dtype.itemsize
         codes = buf[w.codes:w.codes + w.nb * cb].reshape(w.nb, cb)
         scale = view_bytes(buf[w.scale:w.scale + mb], w.meta_dtype).to(torch.float32)

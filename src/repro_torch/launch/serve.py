@@ -15,9 +15,12 @@ chunked admission with --prefill-chunk, the paged KV pool with
       --temperature 0.8 --top-k 40 --prefill-chunk 64 --prefill-buckets 3 \\
       --kv-block-size 16 --kv-quant-bits 4 --kv-quant-horizon 8
 
+Self-speculative decoding (--continuous): a --draft-bits draft of the same
+weights drafts up to --draft-depth tokens per slot per step, verified at
+serving precision (add ``--draft-bits 4 --draft-depth 4`` above).
+
 ``--smoke`` serves the 2-layer smoke config; ``--device cpu`` runs the
-plain versions of the kernels on the CPU.  Speculative decoding
-(``--draft-bits``/``--draft-depth``) comes with ROADMAP A10c.
+plain versions of the kernels on the CPU.
 """
 from __future__ import annotations
 
@@ -75,9 +78,11 @@ def _build_parser():
                     help="--continuous paged: idle scheduler steps before a cached "
                          "block demotes to the cold tier")
     ap.add_argument("--draft-bits", type=int, default=0,
-                    help="speculative decoding: not ported yet (ROADMAP A10c)")
+                    help="--continuous: bit width of the self-speculative draft (0 = off; "
+                         "2-4 typical); the draft re-quantizes the same weights")
     ap.add_argument("--draft-depth", type=int, default=0,
-                    help="speculative decoding: not ported yet (ROADMAP A10c)")
+                    help="--continuous: draft up to this many tokens per slot per step, "
+                         "verified at serving precision (<= 1 = off)")
     return ap
 
 
@@ -87,9 +92,9 @@ def validate_args(ap, args) -> None:
         ap.error(f"--wbits must be in 2..8 (got {args.wbits})")
     if min(args.batch, args.prompt_len, args.gen) < 1:
         ap.error("--batch, --prompt-len and --gen must be >= 1")
-    if args.draft_bits or args.draft_depth:
-        ap.error("--draft-bits/--draft-depth: speculative decoding is not ported yet "
-                 "(ROADMAP A10c)")
+    if args.draft_bits and not 2 <= args.draft_bits <= 8:
+        ap.error(f"--draft-bits must be 0 (off) or in 2..8 (got {args.draft_bits}): the "
+                 "draft re-quantizes the serving weights through the 2-8 bit wire kernels")
     if args.kv_quant_bits and not 2 <= args.kv_quant_bits <= 8:
         ap.error(f"--kv-quant-bits must be 0 (off) or in 2..8 (got {args.kv_quant_bits})")
     if args.prefill_buckets < 1:
@@ -104,6 +109,11 @@ def validate_args(ap, args) -> None:
     if args.kv_quant_bits and not args.kv_block_size:
         ap.error("--kv-quant-bits requires --kv-block-size (the cold tier demotes "
                  "paged pool blocks)")
+    if (args.draft_bits > 0) != (args.draft_depth > 1):
+        ap.error("speculative decode needs BOTH --draft-bits >= 2 and --draft-depth >= 2")
+    if args.draft_depth > 1 and not args.continuous:
+        ap.error("--draft-depth requires --continuous (speculation lives in the "
+                 "scheduler's draft/verify phases)")
     if args.requests < 1:
         ap.error(f"--requests must be >= 1 (got {args.requests})")
 
@@ -157,6 +167,11 @@ def run_continuous(setup, args) -> int:
               f"tok, prefix hit rate {st['prefix_hit_rate']:.2f}, cow forks "
               f"{st['cow_forks']}, cold blocks {st['cold_blocks']} (demoted "
               f"{st['demotions']}, rehydrated {st['rehydrations']}, {st['cold_bytes']} bytes)")
+    if setup.spec.speculative:
+        print(f"# speculative: draft {setup.spec.draft_bits}-bit x depth "
+              f"{setup.spec.draft_depth} -> accepted/launch {st['accepted_per_launch']:.2f}, "
+              f"launches/token {st['launches_per_token']:.2f}, draft overhead "
+              f"{st['draft_overhead']:.2f} draft lane-steps/token")
     first = done[sorted(done)[0]]
     print("sample:", first.tokens.tolist())
     return 0
@@ -190,7 +205,7 @@ def main(argv=None):
         prompt_len=args.prompt_len, gen=args.gen, seed=args.seed,
         sampling=args.continuous and (args.temperature > 0 or args.top_k > 1),
         kv_block_size=args.kv_block_size, kv_pool_blocks=args.kv_pool_blocks,
-        device=args.device)
+        draft_bits=args.draft_bits, draft_depth=args.draft_depth, device=args.device)
     if args.continuous:
         return run_continuous(setup, args)
     return run_batch(setup, args)

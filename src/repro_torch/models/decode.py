@@ -23,6 +23,23 @@ positions and tables, and every layer writes through that one index.
 Control tensors (positions, chunk offsets and lengths, block tables, the
 ``sample`` tree) live on the host, where the scheduler keeps them; the
 functions move what the device math needs.
+
+Fixed launch shapes: cuBLAS's GEMMs and batched attention products are not
+row-invariant across row counts on the card, so a request's bits would
+depend on how many lanes share its launch.  Every launch of the decode
+path (decode, chunked prefill, speculative verify) therefore computes at
+blocks of ``lane_block`` lanes: an engine's lanes are padded with dead
+lanes to a multiple of it, and a launch over more lanes runs one block at
+a time.  A batch-of-1 engine and the scheduler's pool then launch every
+GEMM and attention product at one shape.  ServeEngine picks
+``LANE_BLOCK`` on the card and, on the CPU, the plain shapes (all lanes in
+one launch) unless the spec names a block.
+
+Self-speculative decoding (``DecodeSpec.draft_bits/draft_depth``): a draft
+engine over :func:`serve.engine.make_draft_params` runs :meth:`decode_fn`
+with low-bit wire-form layer weights (K2 for the attention projections, K3
+for the MLP), and :meth:`verify_fn` scores the drafted tokens at serving
+precision with a decode step's launches, token by token.
 """
 from __future__ import annotations
 
@@ -32,6 +49,7 @@ from typing import Optional
 import torch
 
 from ..core import prng
+from ..core.quant import QuantizedParam
 from . import attention as attn_mod
 from . import layers as L
 from .transformer import Model
@@ -45,6 +63,10 @@ ROWQUANT_MLP = ("w_gate", "w_up", "w_down")
 # families whose prompts may prefill chunk-at-a-time into the pool cache
 # (the reference's pure attention stacks; the port has the dense family)
 CHUNKED_PREFILL_ARCHS = ("dense", "moe")
+
+# lanes per launch of the decode path on the card (the continuous cell's
+# slot count): every GEMM and attention product runs at this many lanes
+LANE_BLOCK = 4
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,9 +87,14 @@ class DecodeSpec:
     # physical blocks (0 = batch_global * cache_len // kv_block_size),
     # rounded up to whole pool rows
     kv_pool_blocks: int = 0
-    # self-speculative decoding: not ported yet (ROADMAP A10c)
+    # self-speculative decoding: a draft_bits-bit forward of the same model
+    # drafts up to draft_depth tokens per slot per step, verified at serving
+    # precision; draft_depth <= 1 is plain decode
     draft_bits: int = 0
     draft_depth: int = 0
+    # lanes per launch block of the decode path (0: LANE_BLOCK on the card,
+    # all lanes in one launch on the CPU; see the module docstring)
+    lane_block: int = 0
 
     @property
     def paged(self) -> bool:
@@ -107,16 +134,22 @@ def make_decode_spec(model: Model, shape, rowquant_mlp: bool = False) -> DecodeS
 class DecodeModel:
     """Prefill / decode step functions for a bound Model."""
 
-    def __init__(self, model: Model, spec: DecodeSpec):
+    def __init__(self, model: Model, spec: DecodeSpec, lane_block: int = 0):
+        """`lane_block`: lanes per launch of the decode path (0: all of
+        them in one launch, unpadded)."""
         self.m = model
         self.spec = spec
         self.tp = model.ms.model_size
+        cfg = model.cfg
         if spec.cache_len % self.tp:
             raise ValueError(f"cache_len {spec.cache_len} must split over {self.tp} ranks")
-        if spec.speculative:
-            raise NotImplementedError(
-                f"speculative decode (draft_bits={spec.draft_bits}, draft_depth="
-                f"{spec.draft_depth}) is not ported yet (ROADMAP A10c)")
+        if spec.speculative and cfg.arch_type not in CHUNKED_PREFILL_ARCHS:
+            raise ValueError(f"speculative decode (draft_depth={spec.draft_depth}) supports "
+                             f"{CHUNKED_PREFILL_ARCHS}, not {cfg.arch_type!r}")
+        if spec.draft_bits and not 2 <= spec.draft_bits <= 8:
+            raise ValueError(f"draft_bits must be in [2, 8], got {spec.draft_bits}")
+        if lane_block < 0:
+            raise ValueError(f"lane_block must be >= 0, got {lane_block}")
         if spec.paged:
             if spec.batch_sharded:
                 raise ValueError("paged KV requires batch_sharded=False: block tables "
@@ -130,6 +163,9 @@ class DecodeModel:
         self.s_loc = spec.cache_len // self.tp
         self.b_loc = (spec.batch_global // model.ms.fsdp_size if spec.batch_sharded
                       else spec.batch_global)
+        self.lane_block = lane_block or self.b_loc
+        # lanes the decode path computes: b_loc padded to whole lane blocks
+        self.lanes = -(-self.b_loc // self.lane_block) * self.lane_block
 
     def cache_struct(self) -> dict[str, tuple[tuple[int, ...], torch.dtype]]:
         """Global cache shapes and dtypes."""
@@ -139,16 +175,78 @@ class DecodeModel:
         return {"k": (shp, torch.bfloat16), "v": (shp, torch.bfloat16)}
 
     def init_cache_local(self, device) -> Cache:
-        """This rank's zero cache: batch b_loc (paged: all pool rows), ring
-        S_loc."""
+        """This rank's zero cache: ring S_loc over the engine's lanes (b_loc
+        padded to whole lane blocks; paged: all pool rows)."""
         out = {}
         for k, (shp, dt) in self.cache_struct().items():
             shp = list(shp)
             if not self.spec.paged:
-                shp[1] = self.b_loc
+                shp[1] = self.lanes
             shp[2] //= self.tp
             out[k] = torch.zeros(shp, dtype=dt, device=device)
         return out
+
+    # ------------------------------------------------------------------
+    # Lane blocks (fixed launch shapes)
+    # ------------------------------------------------------------------
+
+    def _pad_lanes(self, t, fill) -> torch.Tensor:
+        """(B, ...) -> (lanes, ...), the extra lanes filled with `fill`."""
+        t = torch.as_tensor(t)
+        extra = self.lanes - t.shape[0]
+        if extra < 0:
+            raise ValueError(f"{t.shape[0]} lanes given, the engine has {self.lanes}")
+        return torch.cat([t, t.new_full((extra, *t.shape[1:]), fill)]) if extra else t
+
+    def _pad_sample(self, sample: Optional[dict]) -> Optional[dict]:
+        """The padded lanes of a `sample` tree are greedy."""
+        if sample is None:
+            return None
+        return {"temp": self._pad_lanes(sample["temp"], 0.0),
+                "top_k": self._pad_lanes(sample["top_k"], 1),
+                "key": self._pad_lanes(sample["key"], 0)}
+
+    def _blocks(self, pos, keep_h, block_tables, dev) -> list[_Block]:
+        """One :class:`_Block` per lane_block lanes of positions `pos` (lanes,)
+        or (lanes, Lq): its positions and rope on `dev` and, where the
+        writes index kept targets (paged; chunks), the KV writes of the
+        positions `keep_h` keeps, found on the host."""
+        cfg = self.m.cfg
+        out = []
+        for i in range(0, self.lanes, self.lane_block):
+            sl = slice(i, i + self.lane_block)
+            p = pos[sl]
+            pd = p.to(dev)
+            cos, sin = L.rope_cos_sin(pd, cfg.head_dim, cfg.rope_theta)
+            writes = bt = None
+            if block_tables is not None:
+                writes = self._paged_writes(p.cpu(), keep_h[sl], block_tables[sl], dev)
+                bt = block_tables[sl].to(dev)
+            elif p.dim() == 2:
+                writes = self._ring_chunk_writes(p.cpu(), keep_h[sl], dev)
+            out.append(_Block(sl, pd, cos, sin, writes, bt))
+        return out
+
+    @staticmethod
+    def _per_block(x: torch.Tensor, blocks: list, fn) -> torch.Tensor:
+        """fn(lanes of x, block) for each block, joined along the lanes."""
+        if len(blocks) == 1:
+            return fn(x, blocks[0])
+        return torch.cat([fn(x[b.sl], b) for b in blocks])
+
+    def _lane_cache(self, cache: Cache, blk: _Block):
+        """The k/v caches a block reads and writes: its lanes of the rings (a
+        view, written in place), or the whole paged pool."""
+        if self.spec.paged:
+            return cache["k"], cache["v"]
+        return cache["k"][:, blk.sl], cache["v"][:, blk.sl]
+
+    def _logits(self, x: torch.Tensor, fn: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
+        """Final norm and f32 logits of (lanes, d), lane_block rows per launch."""
+        eps, lb = self.m.cfg.norm_eps, self.lane_block
+        parts = [L.vocab_parallel_logits(L.rms_norm(x[i:i + lb], fn, eps), head)
+                 for i in range(0, x.shape[0], lb)]
+        return parts[0] if len(parts) == 1 else torch.cat(parts)
 
     # ------------------------------------------------------------------
     # Decode (one token)
@@ -164,36 +262,33 @@ class DecodeModel:
         (B,) int, "key": (B, 2) u32 keys as int64}; the token produced at
         position pos + 1 is keyed by fold_in(slot key, pos + 1).  Paged
         specs take block_tables (B, blocks_per_slot) of physical block ids
-        (-1: unallocated).  Returns (next tokens (B,), cache updated in
-        place)."""
+        (-1: unallocated).  B <= the engine's lanes; the rest run dead.
+        Returns (next tokens (B,), cache updated in place)."""
         m, cfg = self.m, self.m.cfg
         dev = cache["k"].device
+        if self.spec.paged and block_tables is None:
+            raise ValueError("paged DecodeSpec: decode_fn needs block_tables")
+        b = tokens.shape[0]
         pos_in = torch.as_tensor(pos)
         if pos_in.ndim == 0:
             pos_in = pos_in.expand(tokens.shape)
-        pos = pos_in.to(dev)
-        if self.spec.paged and block_tables is None:
-            raise ValueError("paged DecodeSpec: decode_fn needs block_tables")
-        writes = bt = None
+        pos_in = self._pad_lanes(pos_in, -1)
+        bt = keep = None
         if block_tables is not None:
-            pos_h = pos_in.cpu()
-            writes = self._paged_writes(pos_h, attn_mod.slot_valid_mask(pos_h),
-                                        block_tables, dev)
-            bt = block_tables.to(dev)
+            bt = self._pad_lanes(block_tables.to(torch.int64).cpu(), -1)
+            keep = attn_mod.slot_valid_mask(pos_in.cpu())
+        blocks = self._blocks(pos_in, keep, bt, dev)
         emb = m.engine.gather("embed", params["embed"], key)
-        x = L.embed_vocab_parallel(tokens.to(dev)[:, None], emb)[:, 0]
-        cos, sin = L.rope_cos_sin(pos, cfg.head_dim, cfg.rope_theta)
-        x = self._decode_attn_stack(params, "layers", x, cache, pos, cos, sin, key,
-                                    writes, bt)
+        x = L.embed_vocab_parallel(self._pad_lanes(tokens, 0).to(dev)[:, None], emb)[:, 0]
+        x = self._decode_attn_stack(params, "layers", x, cache, blocks, key)
         fn = m.engine.gather("final_norm", params["final_norm"], key)
-        x = L.rms_norm(x, fn, cfg.norm_eps)
         head = emb if cfg.tie_embeddings else m.engine.gather("lm_head", params["lm_head"], key)
-        logits = L.vocab_parallel_logits(x, head)
+        logits = self._logits(x, fn, head)
         if sample is None:
-            return self._sample(logits, head.shape[0]), cache
+            return self._sample(logits, head.shape[0])[:b], cache
         pos_h = pos_in.cpu()
-        return self._sample(logits, head.shape[0], sample, pos_h + 1,
-                            attn_mod.slot_valid_mask(pos_h)), cache
+        return self._sample(logits, head.shape[0], self._pad_sample(sample), pos_h + 1,
+                            attn_mod.slot_valid_mask(pos_h))[:b], cache
 
     def _sample(self, logits: torch.Tensor, v_local: int, sample: Optional[dict] = None,
                 n_consumed: Optional[torch.Tensor] = None,
@@ -248,17 +343,18 @@ class DecodeModel:
         kc_all[layer, bi, idx] = torch.where(mine, k1.to(kc_all.dtype), kc_all[layer, bi, idx])
         vc_all[layer, bi, idx] = torch.where(mine, v1.to(vc_all.dtype), vc_all[layer, bi, idx])
 
-    def _decode_attn_layer(self, x, w, kc_all, vc_all, layer: int, pos, cos, sin,
-                           writes=None, bt=None):
+    def _decode_attn_layer(self, x, w, cache: Cache, layer: int, blk: _Block):
+        """One layer over one lane block's tokens x (lane_block, d)."""
         m, cfg = self.m, self.m.cfg
+        kc_all, vc_all = self._lane_cache(cache, blk)
         h = L.rms_norm(x, w["attn_norm"], cfg.norm_eps)
-        q_all, k1, v1 = attn_mod.decode_new_kv(h, w, m.acfg, cos, sin)
-        if bt is None:
-            self._write_token_kv(kc_all, vc_all, layer, k1, v1, pos)
+        q_all, k1, v1 = attn_mod.decode_new_kv(h, w, m.acfg, blk.cos, blk.sin)
+        if blk.bt is None:
+            self._write_token_kv(kc_all, vc_all, layer, k1, v1, blk.pos)
         else:
-            self._write_kv(kc_all, vc_all, layer, k1, v1, writes)
-        o = attn_mod.decode_attend(q_all, kc_all[layer], vc_all[layer], m.acfg, pos,
-                                   self.spec.cache_len, bt, self.spec.kv_block_size)
+            self._write_kv(kc_all, vc_all, layer, k1, v1, blk.writes)
+        o = attn_mod.decode_attend(q_all, kc_all[layer], vc_all[layer], m.acfg, blk.pos,
+                                   self.spec.cache_len, blk.bt, self.spec.kv_block_size)
         x = x + attn_mod.decode_out_proj(o, w, m.acfg, x.dtype)
         h = L.rms_norm(x, w["mlp_norm"], cfg.norm_eps)
         return x + L.swiglu_mlp(h, w["w_gate"], w["w_up"], w["w_down"])
@@ -267,27 +363,104 @@ class DecodeModel:
                         mlp=None) -> dict:
         """One layer's weights: one coalesced gather for the dense ones; with
         rowquant decode (mlp="dense") the MLP matmul weights come back as
-        RowQuantWeights, gathered separately, that stay in code form."""
+        RowQuantWeights, gathered separately, that stay in code form.
+
+        Weights that arrive as wire codes (QuantizedParam: a quantized
+        checkpoint served through ``prepare_wire_params``, or the low-bit
+        draft of ``make_draft_params``) are gathered as those codes, never
+        re-quantized: MLP weights whose buckets tile their rows stay in code
+        form for K3 (``QSDPEngine.gather_rowquant_wire``), the rest decode
+        densely, all of the layer's in one K2 launch
+        (``QSDPEngine.gather_wire_dequant``); reference ``decode.py:430``."""
         m = self.m
-        rq = [n for n in names
-              if self.spec.rowquant_mlp and mlp == "dense" and n in ROWQUANT_MLP]
-        out = m.engine.gather_layer(f"{prefix}/", {n: lw[n] for n in names if n not in rq},
-                                    lkey)
+        wire = [n for n in names if isinstance(lw[n], QuantizedParam)]
+        rq = [n for n in names if n not in wire
+              and self.spec.rowquant_mlp and mlp == "dense" and n in ROWQUANT_MLP]
+        out = m.engine.gather_layer(
+            f"{prefix}/", {n: lw[n] for n in names if n not in rq and n not in wire}, lkey)
+        rq_wire = [n for n in wire if n in ROWQUANT_MLP
+                   and m.engine.rowquant_wire_eligible(f"{prefix}/{n}", lw[n])]
+        for n in rq_wire:
+            out[n] = m.engine.gather_rowquant_wire(f"{prefix}/{n}", lw[n])
+        out.update(m.engine.gather_wire_dequant(
+            f"{prefix}/", {n: lw[n] for n in wire if n not in rq_wire}))
         for n in rq:
             out[n] = m.engine.gather_rowquant(f"{prefix}/{n}", lw[n], lkey)
         return out
 
-    def _decode_attn_stack(self, params, prefix, x, cache, pos, cos, sin, key,
-                           writes=None, bt=None):
+    def _decode_attn_stack(self, params, prefix, x, cache, blocks, key):
         grp = self.m._group(params, prefix)
         names = list(grp)
-        for idx in range(next(iter(grp.values())).shape[0]):
-            lkey = prng.fold_in(key, idx)
-            w = self._gather_layer_w(prefix, names, {n: grp[n][idx] for n in names},
-                                     lkey, mlp="dense")
-            x = self._decode_attn_layer(x, w, cache["k"], cache["v"], idx, pos, cos, sin,
-                                        writes, bt)
+        for idx in range(_n_layers(grp)):
+            w = self._gather_layer_w(prefix, names, _layer(grp, idx), prng.fold_in(key, idx),
+                                     mlp="dense")
+            x = self._per_block(x, blocks, lambda xb, blk, w=w, idx=idx:
+                                self._decode_attn_layer(xb, w, cache, idx, blk))
         return x
+
+    # ------------------------------------------------------------------
+    # Speculative verify (score K drafted tokens with a decode step's launches)
+    # ------------------------------------------------------------------
+
+    def verify_fn(self, params: Params, cache: Cache, tokens: torch.Tensor,
+                  pos: torch.Tensor, n_spec: torch.Tensor, key: prng.Key,
+                  sample: Optional[dict] = None,
+                  block_tables: Optional[torch.Tensor] = None
+                  ) -> tuple[torch.Tensor, Cache]:
+        """Serving-precision verify of up to K drafted tokens per slot
+        (reference ``decode.py:489``).  tokens (B, K): token j of slot b is
+        fed at position pos[b] + j, [t0, g1, .., g_{K-1}] with t0 the slot's
+        feed token and g its draft chain; pos (B,) the feed positions (< 0:
+        dead lane); n_spec (B,) how many of the K tokens the slot runs (token
+        j >= n_spec[b] runs dead).  Returns (out (B, K), cache): out[b, j] is
+        the model's token after tokens[b, :j+1], out[b, 0] what decode_fn
+        would emit, and every run token's KV is (re)written at serving
+        precision, over what the draft left there.
+
+        Each layer's weights are gathered once; inside the layer the K token
+        positions run one after another, each as :meth:`decode_fn` runs its
+        token (write its KV, then attend), at the same lanes and blocks;
+        the final norm, logits and sampling run per token too.  So every
+        launch has a decode step's shape, and a committed token is bit for
+        bit the token that sequential decode_fn calls produce."""
+        m, cfg = self.m, self.m.cfg
+        if cfg.arch_type not in CHUNKED_PREFILL_ARCHS:
+            raise NotImplementedError(f"speculative verify supports {CHUNKED_PREFILL_ARCHS}, "
+                                      f"not {cfg.arch_type!r}")
+        if self.spec.paged and block_tables is None:
+            raise ValueError("paged DecodeSpec: verify_fn needs block_tables")
+        dev = cache["k"].device
+        b, kmax = tokens.shape
+        tokens = self._pad_lanes(torch.as_tensor(tokens).to(torch.int64), 0).to(dev)
+        pos_h = self._pad_lanes(torch.as_tensor(pos).cpu().to(torch.int64), -1)
+        n_spec = self._pad_lanes(torch.as_tensor(n_spec).cpu().to(torch.int64), 0)
+        js = torch.arange(kmax)
+        # (K, lanes) positions, the dead sentinel past each slot's depth
+        pjs = torch.where((js[:, None] < n_spec[None, :]) & attn_mod.slot_valid_mask(pos_h)[None],
+                          pos_h[None] + js[:, None], -1)
+        bt = (None if block_tables is None
+              else self._pad_lanes(block_tables.to(torch.int64).cpu(), -1))
+        blocks = [self._blocks(pj, attn_mod.slot_valid_mask(pj), bt, dev) for pj in pjs]
+        emb = m.engine.gather("embed", params["embed"], key)
+        xs = [L.embed_vocab_parallel(tokens[:, j, None], emb)[:, 0] for j in range(kmax)]
+        grp = m._group(params, "layers")
+        names = list(grp)
+        for idx in range(_n_layers(grp)):
+            w = self._gather_layer_w("layers", names, _layer(grp, idx), prng.fold_in(key, idx),
+                                     mlp="dense")
+            for j in range(kmax):
+                xs[j] = self._per_block(xs[j], blocks[j], lambda xb, blk, w=w, idx=idx:
+                                        self._decode_attn_layer(xb, w, cache, idx, blk))
+        fn = m.engine.gather("final_norm", params["final_norm"], key)
+        head = emb if cfg.tie_embeddings else m.engine.gather("lm_head", params["lm_head"], key)
+        sample = self._pad_sample(sample)
+        outs = []
+        for x, pj in zip(xs, pjs):
+            logits = self._logits(x, fn, head)
+            outs.append(self._sample(logits, head.shape[0]) if sample is None else
+                        self._sample(logits, head.shape[0], sample, pj + 1,
+                                     attn_mod.slot_valid_mask(pj)))
+        return torch.stack(outs, dim=1)[:b], cache
 
     # ------------------------------------------------------------------
     # Prefill (build the cache from a whole prompt)
@@ -343,12 +516,12 @@ class DecodeModel:
     def _prefill_attn_stack(self, params, prefix, x, key, cos, sin, positions, cache):
         grp = self.m._group(params, prefix)
         names = list(grp)
-        for idx in range(next(iter(grp.values())).shape[0]):
+        for idx in range(_n_layers(grp)):
             lkey = prng.fold_in(key, idx)
             # mlp=None: rowquant is a decode-only path, as in the reference
-            w = self._gather_layer_w(prefix, names, {n: grp[n][idx] for n in names}, lkey)
-            x, cache["k"][idx], cache["v"][idx] = self._prefill_attn_layer(
-                x, w, cos, sin, positions)
+            w = self._gather_layer_w(prefix, names, _layer(grp, idx), lkey)
+            x, kf, vf = self._prefill_attn_layer(x, w, cos, sin, positions)
+            cache["k"][idx, :x.shape[0]], cache["v"][idx, :x.shape[0]] = kf, vf
         return x
 
     # ------------------------------------------------------------------
@@ -362,35 +535,34 @@ class DecodeModel:
         src = torch.nonzero(keep_h & mine, as_tuple=True)
         return tuple(i.to(dev) for i in src), src[0].to(dev), idx[src].to(dev)
 
-    def _chunk_attn_layer(self, x, w, kc_all, vc_all, layer: int, pos, cos, sin,
-                          writes, bt=None):
-        """One layer over a (B, Lq, d) chunk: the chunk's KV is written first,
-        then the chunk attends the whole ring (its own earlier tokens and
-        every earlier chunk), as decode attends the prefix."""
+    def _chunk_attn_layer(self, x, w, cache: Cache, layer: int, blk: _Block):
+        """One layer over one lane block's (lane_block, Lq, d) chunk: the
+        chunk's KV is written first, then the chunk attends the whole ring
+        (its own earlier tokens and every earlier chunk), as decode attends
+        the prefix."""
         m, cfg = self.m, self.m.cfg
         b, lq, _ = x.shape
+        kc_all, vc_all = self._lane_cache(cache, blk)
         h = L.rms_norm(x, w["attn_norm"], cfg.norm_eps)
-        q_all, k1, v1 = attn_mod.chunk_new_kv(h, w, m.acfg, cos, sin)
-        self._write_kv(kc_all, vc_all, layer, k1, v1, writes)
-        o = attn_mod.chunk_attend(q_all, kc_all[layer], vc_all[layer], m.acfg, pos,
-                                  self.spec.cache_len, bt, self.spec.kv_block_size)
+        q_all, k1, v1 = attn_mod.chunk_new_kv(h, w, m.acfg, blk.cos, blk.sin)
+        self._write_kv(kc_all, vc_all, layer, k1, v1, blk.writes)
+        o = attn_mod.chunk_attend(q_all, kc_all[layer], vc_all[layer], m.acfg, blk.pos,
+                                  self.spec.cache_len, blk.bt, self.spec.kv_block_size)
         a = attn_mod.decode_out_proj(o.reshape(b * lq, o.shape[2], cfg.head_dim), w,
                                      m.acfg, x.dtype)
         x = x + a.reshape(b, lq, -1)
         h = L.rms_norm(x, w["mlp_norm"], cfg.norm_eps)
         return x + L.swiglu_mlp(h, w["w_gate"], w["w_up"], w["w_down"])
 
-    def _chunk_attn_stack(self, params, prefix, x, cache, pos, cos, sin, key, writes,
-                          bt=None):
+    def _chunk_attn_stack(self, params, prefix, x, cache, blocks, key):
         grp = self.m._group(params, prefix)
         names = list(grp)
-        for idx in range(next(iter(grp.values())).shape[0]):
-            lkey = prng.fold_in(key, idx)
+        for idx in range(_n_layers(grp)):
             # mlp=None: the gathers of whole-prompt prefill, so both prefill
             # paths dequantize bit-identical weights (reference decode.py:680)
-            w = self._gather_layer_w(prefix, names, {n: grp[n][idx] for n in names}, lkey)
-            x = self._chunk_attn_layer(x, w, cache["k"], cache["v"], idx, pos, cos, sin,
-                                       writes, bt)
+            w = self._gather_layer_w(prefix, names, _layer(grp, idx), prng.fold_in(key, idx))
+            x = self._per_block(x, blocks, lambda xb, blk, w=w, idx=idx:
+                                self._chunk_attn_layer(xb, w, cache, idx, blk))
         return x
 
     def prefill_chunk_fn(self, params: Params, cache: Cache, tokens: torch.Tensor,
@@ -419,29 +591,50 @@ class DecodeModel:
         if self.spec.paged and block_tables is None:
             raise ValueError("paged DecodeSpec requires block_tables")
         dev = cache["k"].device
-        tokens = torch.as_tensor(tokens).cpu().to(torch.int64)
+        b = tokens.shape[0]
+        tokens = self._pad_lanes(torch.as_tensor(tokens).cpu().to(torch.int64), 0)
         if compute_len > tokens.shape[1]:
             tokens = torch.nn.functional.pad(tokens, (0, compute_len - tokens.shape[1]))
-        b, lq = tokens.shape
-        offset = torch.as_tensor(offset).cpu().to(torch.int64)
-        n_valid = torch.as_tensor(n_valid).cpu().to(torch.int64)
+        lq = tokens.shape[1]
+        offset = self._pad_lanes(torch.as_tensor(offset).cpu().to(torch.int64), 0)
+        n_valid = self._pad_lanes(torch.as_tensor(n_valid).cpu().to(torch.int64), 0)
         pos_h = offset[:, None] + torch.arange(lq)[None, :]
         tok_valid = torch.arange(lq)[None, :] < n_valid[:, None]
-        if block_tables is not None:
-            writes = self._paged_writes(pos_h, tok_valid, block_tables, dev)
-            bt = block_tables.to(dev)
-        else:
-            writes, bt = self._ring_chunk_writes(pos_h, tok_valid, dev), None
-        pos = pos_h.to(dev)
+        bt = (None if block_tables is None
+              else self._pad_lanes(block_tables.to(torch.int64).cpu(), -1))
+        blocks = self._blocks(pos_h, tok_valid, bt, dev)
         emb = m.engine.gather("embed", params["embed"], key)
         x = L.embed_vocab_parallel(tokens.to(dev), emb)
-        cos, sin = L.rope_cos_sin(pos, cfg.head_dim, cfg.rope_theta)
-        x = self._chunk_attn_stack(params, "layers", x, cache, pos, cos, sin, key,
-                                   writes, bt)
+        x = self._chunk_attn_stack(params, "layers", x, cache, blocks, key)
         fn = m.engine.gather("final_norm", params["final_norm"], key)
         last = (n_valid - 1).clamp(0, lq - 1).to(dev)
-        h = L.rms_norm(x[torch.arange(b, device=dev), last], fn, cfg.norm_eps)
         head = emb if cfg.tie_embeddings else m.engine.gather("lm_head", params["lm_head"], key)
-        logits = L.vocab_parallel_logits(h, head)
-        return self._sample(logits, head.shape[0], sample, offset + n_valid,
-                            n_valid > 0), cache
+        logits = self._logits(x[torch.arange(self.lanes, device=dev), last], fn, head)
+        return self._sample(logits, head.shape[0], self._pad_sample(sample), offset + n_valid,
+                            n_valid > 0)[:b], cache
+
+
+@dataclasses.dataclass
+class _Block:
+    """One lane block of a launch: its lanes, their positions and rope on
+    the device, the KV writes of its kept targets (paged; chunks) and its
+    block tables (paged)."""
+
+    sl: slice
+    pos: torch.Tensor
+    cos: torch.Tensor
+    sin: torch.Tensor
+    writes: Optional[tuple]
+    bt: Optional[torch.Tensor]
+
+
+def _n_layers(grp: dict) -> int:
+    v = next(iter(grp.values()))
+    return (v.wire if isinstance(v, QuantizedParam) else v).shape[0]
+
+
+def _layer(grp: dict, idx: int) -> dict:
+    """Layer idx of a stacked group; a wire-form leaf (split per stack
+    slice, ``qparam_split_stack``) gives that layer's segment."""
+    return {n: QuantizedParam(v.wire[idx], v.cell_shape, v.cfg) if isinstance(v, QuantizedParam)
+            else v[idx] for n, v in grp.items()}

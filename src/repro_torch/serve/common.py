@@ -38,8 +38,9 @@ def make_serve_spec(cfg: ModelConfig, ms: MeshSpec, batch: int, prompt_len: int,
     """The DecodeSpec every serve entry point derives from (arch, shape).
     kv_block_size > 0 turns on the paged KV pool (chunked prefill only, an
     unsharded batch axis); kv_pool_blocks sizes it (0 = one full window per
-    slot).  draft_bits / draft_depth (speculative decode) are not ported yet
-    (ROADMAP A10c): the engine refuses a spec that sets them."""
+    slot).  draft_bits + draft_depth > 1 turn on self-speculative decoding:
+    a draft_bits-bit draft of the same weights drafts up to draft_depth
+    tokens per slot per step, verified at serving precision."""
     if batch_sharded is None:
         batch_sharded = batch % ms.fsdp_size == 0 and not kv_block_size
     cache_len = decode_cache_len(cfg, prompt_len, gen, ms.model_size)

@@ -9,18 +9,90 @@ the step loop, the cache and the paged pool's block operations;
 ``DecodeModel`` owns the math.  PyTorch runs eagerly: there is no compiled
 step to cache, so the reference's per-bucket compiled chunk steps are one
 function here.
+
+Quantized-domain parameters serve with no conversion:
+:func:`prepare_wire_params` keeps the dense-MLP weights of a quantized
+checkpoint as their wire codes (K3 consumes them), and
+:func:`make_draft_params` builds the low-bit draft of self-speculative
+decoding, whose layer weights the draft engine gathers as codes.
 """
 from __future__ import annotations
 
 import functools
+import math
 from typing import Optional
 
 import torch
 
 from ..core import prng
-from ..models.decode import DecodeModel, DecodeSpec
+from ..core.quant import (QuantConfig, QuantizedParam, qparam_decode, qparam_encode,
+                          qparam_split_stack)
+from ..models.decode import LANE_BLOCK, ROWQUANT_MLP, DecodeModel, DecodeSpec
 from ..models.transformer import Model
 from .kv_pool import PoolExhausted, decode_block, encode_block
+
+
+def prepare_wire_params(model: Model, params: dict) -> dict:
+    """Adapt a params dict that may hold QuantizedParam leaves (a quantized
+    train state or checkpoint) for serving (reference ``engine.py:40``):
+    the dense-MLP weights of a dense stack whose buckets tile their rows
+    keep their wire codes, split per layer (``qparam_split_stack``), and go
+    through K3 at every gather with no re-quantization; every other
+    QuantizedParam is decoded to its exact f32 rest-layout values."""
+    out = {}
+    eng = model.engine
+    for name, v in params.items():
+        if not isinstance(v, QuantizedParam):
+            out[name] = v
+            continue
+        if (model.cfg.arch_type in ("dense", "vlm") and name.startswith("layers/")
+                and name.rsplit("/", 1)[-1] in ROWQUANT_MLP
+                and eng.rowquant_wire_eligible(name, v)):
+            out[name] = qparam_split_stack(v) if v.stacked else v
+        else:
+            out[name] = qparam_decode(v)
+    return out
+
+
+# layer weights the self-speculative draft re-quantizes to `draft_bits`: the
+# large matmuls; norms, embedding and head stay shared with the serving set
+DRAFT_WEIGHTS = ROWQUANT_MLP + ("wq", "wk", "wv", "wo")
+
+
+def _draft_bucket(n_local: int, bits: int) -> int:
+    """Per-leaf draft bucket: the largest power-of-2 divisor of the shard
+    size, capped at 256 (low-bit min-max buckets that small track the
+    weights), so that ``qparam_split_stack`` stays bucket-aligned; 0 where
+    it does not hold whole packed bytes."""
+    cpb = 8 // bits if 8 % bits == 0 else 1
+    b = math.gcd(n_local, 256)
+    return b if b % cpb == 0 else 0
+
+
+def make_draft_params(model: Model, params: dict, draft_bits: int) -> dict:
+    """The self-speculative DRAFT parameter set (reference ``engine.py:84``):
+    the serving params with every large ``layers/*`` matmul weight replaced
+    by its `draft_bits`-bit wire codes (deterministic nearest rounding, so
+    the draft and its acceptance rate are functions of the served weights),
+    split per layer.  Leaves that already are wire codes are reused as they
+    are; everything else is the serving params' own tensor, no copy.  The
+    draft engine gathers the codes and consumes them through K3 where the
+    buckets tile the rows and K2 otherwise (``DecodeModel._gather_layer_w``)."""
+    if not 2 <= draft_bits <= 8:
+        raise ValueError(f"draft_bits must be in [2, 8], got {draft_bits}")
+    out = {}
+    for name, v in params.items():
+        if (not name.startswith("layers/") or name.rsplit("/", 1)[-1] not in DRAFT_WEIGHTS
+                or isinstance(v, QuantizedParam)):
+            out[name] = v
+            continue
+        bucket = _draft_bucket(v.shape[-1], draft_bits)
+        if not bucket or v.dim() not in (3, 4):
+            out[name] = v
+            continue
+        qp = qparam_encode(v, QuantConfig(bits=draft_bits, bucket_size=bucket, mode="nearest"))
+        out[name] = qparam_split_stack(qp) if qp.stacked else qp
+    return out
 
 
 def prefill_bucket_sizes(chunk: int, n_buckets: int, cache_len: int) -> tuple[int, ...]:
@@ -59,10 +131,14 @@ def greedy_sample_params(b: int) -> dict:
 
 class ServeEngine:
     def __init__(self, model: Model, spec: DecodeSpec, device):
+        """The decode path computes at blocks of ``spec.lane_block`` lanes,
+        by default LANE_BLOCK on the card and all lanes in one launch on the
+        CPU (see ``models/decode.py``)."""
         self.model = model
         self.spec = spec
         self.device = torch.device(device)
-        self.dm = DecodeModel(model, spec)
+        lane_block = spec.lane_block or (LANE_BLOCK if self.device.type == "cuda" else 0)
+        self.dm = DecodeModel(model, spec, lane_block=lane_block)
 
     def decode_step(self):
         """(params, cache, tokens (B,), pos (B,), key[, sample][,
@@ -88,6 +164,12 @@ class ServeEngine:
         over the whole slot pool, computed at `compute_len` tokens (the top
         bucket) whatever the chunk's bucket Lb."""
         return functools.partial(self.dm.prefill_chunk_fn, compute_len=compute_len)
+
+    def verify_step(self):
+        """(params, cache, tokens (B, K), pos (B,), n_spec (B,), key[,
+        sample][, block_tables=]) -> (out (B, K), cache): the speculative
+        verify over the whole slot pool (``DecodeModel.verify_fn``)."""
+        return self.dm.verify_fn
 
     def init_cache(self):
         return self.dm.init_cache_local(self.device)

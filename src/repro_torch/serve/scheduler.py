@@ -1,5 +1,5 @@
 """Continuous-batching request scheduler over the ServeEngine
-(``serve/scheduler.py`` of the JAX package, less speculative decoding).
+(``serve/scheduler.py`` of the JAX package).
 
 The scheduler owns a fixed pool of ``B = spec.batch_global`` decode slots.
 Queued requests are admitted into freed slots mid-decode, by one of two
@@ -22,6 +22,12 @@ admission paths:
   block before it writes it (ring wrap), and idle cached blocks demote to a
   quantized cold tier.
 
+With a speculative spec (``DecodeSpec(draft_bits, draft_depth)``) each
+decode step drafts up to ``draft_depth - 1`` tokens per slot on a low-bit
+draft engine over the same cache (``make_draft_params``), then verifies
+them at serving precision in one ``verify_fn`` pass and commits the
+longest prefix the verifier agrees with plus its own next token.
+
 Dead lanes (never filled, retired, or mid-chunked-prefill) carry ``pos =
 -1``: the decode step writes none of their KV, their attention sees no
 valid slot, and their sampling row is greedy.  Nothing a dead lane computes
@@ -32,11 +38,12 @@ Invariants (held by the CPU tests against the JAX package and by
 
 * **Slot isolation**: a greedy request's tokens are bit-identical whether
   it runs alone (``ServeEngine.generate(..., fold_step_keys=False)`` with
-  the matching ``prefill_chunk``, on an engine built from the scheduler's
-  spec) or interleaved with other requests here.  On the card this needs
+  the matching ``prefill_chunk``, on a batch-of-1 engine) or interleaved
+  with other requests here, speculative or not.  On the card this needs
   every launch to compute at one shape whatever the batch composition:
   cuBLAS's GEMMs and batched attention products are not row-invariant
-  across row counts, so the pooled launches always run all B lanes, and
+  across row counts, so every launch runs at whole blocks of the spec's
+  lane block (a batch-of-1 engine pads its lane with dead ones), and
   chunks compute at the top bucket.
 * **Fixed served model**: one ``gather_key`` for every prefill chunk and
   decode step.
@@ -58,7 +65,8 @@ import torch
 from ..core import prng
 from ..models.decode import DecodeSpec
 from ..models.transformer import Model
-from .engine import ServeEngine, make_sample_params, prefill_bucket_for, prefill_bucket_sizes
+from .engine import (ServeEngine, make_draft_params, make_sample_params, prefill_bucket_for,
+                     prefill_bucket_sizes)
 from .kv_pool import BlockPool, PoolExhausted, prefix_keys
 
 
@@ -177,6 +185,13 @@ class ContinuousScheduler:
         # batch-of-1 prefill engine (blocking admission), same ring layout
         self._pf_spec = dataclasses.replace(spec, batch_global=1, batch_sharded=False)
         self.prefill_engine = ServeEngine(model, self._pf_spec, self.device)
+        # self-speculative decoding: a low-bit draft of the same weights over
+        # the same cache; the verifier re-scores every drafted token
+        self.draft_engine: Optional[ServeEngine] = None
+        self.draft_params: Optional[dict] = None
+        if spec.speculative:
+            self.draft_params = make_draft_params(model, params, spec.draft_bits)
+            self.draft_engine = ServeEngine(model, spec, self.device)
 
         # paged pool: block tables map each lane's logical block index ->
         # physical block; every valid entry holds one pool reference
@@ -215,7 +230,13 @@ class ContinuousScheduler:
         self.occupancy_sum = 0
         self.tokens_generated = 0
         self.decode_launches = 0
-        self.sampled_launches = 0  # launches with a row that draws
+        self.sampled_launches = 0  # sampler passes with a row that draws
+        # speculative accounting (zero without a draft)
+        self.draft_launches = 0
+        self.draft_lane_steps = 0
+        self.verify_launches = 0
+        self.spec_tokens = 0
+        self.spec_lane_steps = 0
 
     # -- request intake ------------------------------------------------------
 
@@ -268,7 +289,8 @@ class ContinuousScheduler:
         return {"temp": _host(temp), "top_k": _host(top_k), "key": _host(keys)}
 
     def _count_sampled(self, lanes) -> None:
-        """Count a launch whose live `lanes` include one that draws."""
+        """Count a sampler pass whose live `lanes` include one that draws
+        (one random_bits launch)."""
         if any(self.slots[i].req.needs_sampling for i in lanes):
             self.sampled_launches += 1
 
@@ -354,6 +376,22 @@ class ContinuousScheduler:
                 self.block_tables[slot_i, j] = new
             elif self.pool.is_registered(b):
                 self.pool.unregister(b)
+
+    def _prepare_decode_blocks(self, slot_i: int, k: int) -> None:
+        """Speculative :meth:`_prepare_decode_block`: the lane may write
+        positions p .. p+k-1 this step, so every logical block of that span
+        needs a physical block first.  Drafting (k > 1) happens only where
+        the span does not wrap the window, past the prompt, where the lane
+        owns every target block: fresh allocation is the only case."""
+        if k <= 1:
+            self._prepare_decode_block(slot_i)
+            return
+        st = self.slots[slot_i]
+        p = int(self.pos[slot_i])
+        bs = self.spec.kv_block_size
+        for j in range(p // bs, (p + k - 1) // bs + 1):
+            if self.block_tables[slot_i, j] < 0:
+                self.block_tables[slot_i, j] = self._lane_alloc(st)
 
     def _emit(self, events: list, slot_i: int, token: int) -> None:
         """Record one generated token; retire the slot when it is done."""
@@ -538,10 +576,21 @@ class ContinuousScheduler:
         active = [i for i, s in enumerate(self.slots) if s is not None and not s.prefilling]
         if not active:
             return events
+        # per-slot draft depth: capped by the token budget and by the window
+        # (a lane whose draft span would wrap decodes plainly, k = 1, through
+        # the COW-aware single-block path)
+        n_spec = np.ones(self.B, np.int64)
+        if self.spec.speculative:
+            for i in active:
+                st = self.slots[i]
+                n_spec[i] = max(1, min(self.spec.draft_depth,
+                                       st.req.max_new_tokens - st.n_out,
+                                       self.spec.cache_len - int(self.pos[i])))
+        kmax = max(int(n_spec[i]) for i in active)
         bt = None
         if self.pool is not None:
             for i in active:
-                self._prepare_decode_block(i)
+                self._prepare_decode_blocks(i, int(n_spec[i]))
             if self.pool.quant_horizon > 0 and self.pool.quant_cfg:
                 # quantized cold tier: idle cached prefix blocks re-encode
                 # into the wire format, freeing their hot block
@@ -549,6 +598,8 @@ class ContinuousScheduler:
             bt = _host(self.block_tables)
         sample = (self._sample_tree(self.temp, self.top_k, self.keys)
                   if self.spec.sampling else None)
+        if kmax > 1:
+            return self._step_speculative(events, active, n_spec, kmax, bt, sample)
         nxt, self.cache = self.engine.decode_step()(
             self.params, self.cache, _host(self.tok), _host(self.pos), self.gather_key,
             sample, block_tables=bt)
@@ -560,6 +611,54 @@ class ContinuousScheduler:
         for slot_i in active:
             self.pos[slot_i] += 1
             self._emit(events, slot_i, int(nxt[slot_i]))
+        return events
+
+    def _step_speculative(self, events: list, active: list[int], n_spec: np.ndarray,
+                          kmax: int, bt, sample) -> list[TokenEvent]:
+        """Draft up to kmax - 1 tokens per lane on the low-bit engine, then
+        verify the window at serving precision (reference
+        ``scheduler.py:716``).  Draft round r feeds the previous round's
+        token at pos + r (lanes whose depth is spent ride along dead) and
+        writes draft-precision KV, which the verifier overwrites at serving
+        precision before any later query reads it.  The verifier scores
+        [tok, d1, .., d_{k-1}] with the decode step's math and sampling
+        streams, and the lane commits the longest prefix of drafts it agrees
+        with plus its own next token: every committed token, greedy or
+        sampled, is the token non-speculative decode produces."""
+        rows = [_host(self.tok)]
+        dstep = self.draft_engine.decode_step()
+        for r in range(kmax - 1):
+            live = (self.pos >= 0) & (n_spec - 1 > r)
+            pos_r = np.where(live, self.pos + r, -1)
+            cur, self.cache = dstep(self.draft_params, self.cache, rows[-1], _host(pos_r),
+                                    self.gather_key, sample, block_tables=bt)
+            rows.append(cur.cpu())
+            self.draft_launches += 1
+            self.draft_lane_steps += int(live.sum())
+            self._count_sampled(np.flatnonzero(live))
+        tok_mat = torch.stack(rows, dim=1)  # (B, kmax) the drafted window
+        outs, self.cache = self.engine.verify_step()(
+            self.params, self.cache, tok_mat, _host(self.pos), _host(n_spec), self.gather_key,
+            sample, block_tables=bt)
+        out = outs.cpu().numpy()
+        tok = tok_mat.numpy()
+        self.verify_launches += 1
+        self.spec_lane_steps += len(active)
+        for j in range(kmax):
+            self._count_sampled([i for i in active if n_spec[i] > j])
+        self.step_count += 1
+        self.occupancy_sum += len(active)
+        for i in active:
+            k_i = int(n_spec[i])
+            a = 0  # accepted drafts: the longest prefix the verifier agrees with
+            while a < k_i - 1 and int(out[i, a]) == int(tok[i, a + 1]):
+                a += 1
+            for j in range(a + 1):
+                self.pos[i] += 1
+                self.spec_tokens += 1
+                self._emit(events, i, int(out[i, j]))
+                if self.slots[i] is None:
+                    break  # EOS or budget retirement inside the window
         return events
 
     def run(self, max_steps: Optional[int] = None,
@@ -578,8 +677,8 @@ class ContinuousScheduler:
         return self.finished
 
     def stats(self) -> dict:
-        """The reference's statistics (its speculative ones are 0 here) and
-        ``sampled_launches``: launches that drew for at least one row."""
+        """The reference's statistics and ``sampled_launches``: sampler passes
+        that drew for at least one row (one random_bits launch each)."""
         d = self.pool.capacity_stats() if self.pool is not None else {}
         generated = max(1, self.tokens_generated - self.prefill_count)
         return d | {
@@ -593,14 +692,15 @@ class ContinuousScheduler:
             "mean_occupancy": (self.occupancy_sum / self.step_count
                                if self.step_count else 0.0),
             "decode_launches": self.decode_launches,
-            "draft_launches": 0,
-            "draft_lane_steps": 0,
-            "verify_launches": 0,
-            "spec_tokens": 0,
-            "spec_lane_steps": 0,
+            "draft_launches": self.draft_launches,
+            "draft_lane_steps": self.draft_lane_steps,
+            "verify_launches": self.verify_launches,
+            "spec_tokens": self.spec_tokens,
+            "spec_lane_steps": self.spec_lane_steps,
             "lane_steps": self.occupancy_sum,
-            "accepted_per_launch": 0.0,
+            "accepted_per_launch": (self.spec_tokens / self.spec_lane_steps
+                                    if self.spec_lane_steps else 0.0),
             "launches_per_token": self.occupancy_sum / generated,
-            "draft_overhead": 0.0,
+            "draft_overhead": self.draft_lane_steps / generated,
             "sampled_launches": self.sampled_launches,
         }

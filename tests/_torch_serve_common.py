@@ -13,6 +13,7 @@ import types
 import jax
 import jax.numpy as jnp
 import numpy as np
+import torch
 
 from repro.core.qsdp import MeshSpec as JMeshSpec, QSDPConfig as JQSDPConfig
 from repro.models.config import ModelConfig as JModelConfig
@@ -26,6 +27,11 @@ from repro_torch.models.decode import DecodeSpec
 from repro_torch.models.transformer import Model
 from repro_torch.serve import ContinuousScheduler, Request
 from repro_torch.weights import params_from_jax
+
+# thousands of small tensor ops per run: one intra-op thread runs them as
+# fast as eight on an idle machine, and keeps them fast when the test
+# workers share the cores (see tests/_torch_train_common.py)
+torch.set_num_threads(1)
 
 CFG = dict(name="sched", arch_type="dense", n_layers=2, d_model=64, vocab_size=256, n_heads=4,
            n_kv_heads=2, head_dim=16, d_ff=128)
@@ -74,16 +80,24 @@ def _host_block_ops(self):
     return extract, load, copy
 
 
-def schedulers(slots=3, paged=False, pool_blocks=0, **kw):
-    """(JAX scheduler, port scheduler) over the same spec and knobs."""
+def spec_kw(slots=3, paged=False, pool_blocks=0, draft_bits=0, draft_depth=0):
+    """The DecodeSpec fields both packages' schedulers are built from."""
+    return dict(cache_len=RING, batch_global=slots, batch_sharded=False, sampling=True,
+                kv_block_size=BLOCK if paged else 0, kv_pool_blocks=pool_blocks,
+                draft_bits=draft_bits, draft_depth=draft_depth)
+
+
+def schedulers(slots=3, paged=False, pool_blocks=0, draft_bits=0, draft_depth=0,
+               lane_block=0, **kw):
+    """(JAX scheduler, port scheduler) over the same spec and knobs;
+    `lane_block` sets the port's launch blocks (0: the CPU's plain shapes)."""
     (jm, jp), (tm, tp) = models()
-    spec_kw = dict(cache_len=RING, batch_global=slots, batch_sharded=False, sampling=True,
-                   kv_block_size=BLOCK if paged else 0, kv_pool_blocks=pool_blocks)
-    js = JScheduler(jm, MESH, JDecodeSpec(**spec_kw), jp,
+    skw = spec_kw(slots, paged, pool_blocks, draft_bits, draft_depth)
+    js = JScheduler(jm, MESH, JDecodeSpec(**skw), jp,
                     gather_key=jax.random.PRNGKey(GATHER_SEED), **kw)
     if paged:
         js.engine.kv_block_ops = types.MethodType(_host_block_ops, js.engine)
-    ts = ContinuousScheduler(tm, DecodeSpec(**spec_kw), tp, "cpu",
+    ts = ContinuousScheduler(tm, DecodeSpec(**skw, lane_block=lane_block), tp, "cpu",
                              gather_key=prng.PRNGKey(GATHER_SEED), **kw)
     return js, ts
 

@@ -132,13 +132,18 @@ def test_bucket_wrappers_reject_mixed_devices():
 
 
 def test_unported_serving_paths_name_roadmap():
-    """Speculative decoding (a spec with draft bits and depth) raises naming
-    A10c wherever an engine or scheduler is built from it; the scheduler of
-    another family fails at its Model, naming A11."""
+    """The scheduler of another family fails at its Model, naming A11.
+    Speculative decoding (ROADMAP A10c) is ported: a spec with draft bits and
+    depth builds a scheduler with a draft engine, and draft bits outside
+    [2, 8] are refused."""
     from repro_torch.serve import make_scheduler
-    with pytest.raises(NotImplementedError, match="ROADMAP A10c"):
+    spec_setup = build_serve_setup("gpt-1.3b", smoke=True, batch=2, prompt_len=8, gen=4,
+                                   draft_bits=4, draft_depth=3, device="cpu")
+    assert spec_setup.spec.speculative
+    assert make_scheduler(spec_setup).draft_engine is not None
+    with pytest.raises(ValueError, match="draft_bits"):
         build_serve_setup("gpt-1.3b", smoke=True, batch=2, prompt_len=8, gen=4,
-                          draft_bits=4, draft_depth=3, device="cpu")
+                          draft_bits=1, draft_depth=3, device="cpu")
     setup = build_serve_setup("gpt-1.3b", smoke=True, batch=2, prompt_len=8, gen=4,
                               kv_block_size=4, device="cpu")
     assert setup.spec.paged and setup.spec.pool_blocks() == 2 * setup.spec.blocks_per_slot

@@ -208,6 +208,24 @@ def test_unpack_dequantize_wire_any_offset(cuda, shift):
             assert torch.equal(got.cpu().view(torch.uint8), want.view(torch.uint8)), (bits, dt)
 
 
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_unpack_dequantize_wire_one_buffer_per_segment(cuda, dt):
+    """The speculative draft's layer decode: segments that each lie in their
+    own buffer (at assorted offsets, widths and buckets) decoded in one
+    launch, byte-equal to the plain version."""
+    g = torch.Generator().manual_seed(7)
+    segs, bufs = zip(*(_random_segment(g, shift, nb, bucket, bits, meta)
+                       for shift, nb, bucket, bits, meta in (
+                           (0, 64, 256, 4, torch.float32), (3, 9, 256, 4, torch.float32),
+                           (8, 5, 1024, 8, torch.bfloat16), (1, 7, 64, 3, torch.float32))))
+    before = ops.LAUNCHES["unpack_dequantize"]
+    got = ops.unpack_dequantize_wire([b.to(cuda) for b in bufs], segs, [dt] * len(segs))
+    assert ops.LAUNCHES["unpack_dequantize"] == before + 1
+    for g_, w in zip(got, ref.unpack_dequantize_wire_ref(list(bufs), segs, [dt] * len(segs)),
+                     strict=True):
+        assert torch.equal(g_.cpu().view(torch.uint8), w.view(torch.uint8))
+
+
 @pytest.mark.parametrize("bits", [1, 2, 4, 8])
 @pytest.mark.parametrize("bucket", [2048, 4096, 1040 * 16, 8192 + 128])
 def test_unpack_dequantize_large_buckets(cuda, bits, bucket):
