@@ -13,7 +13,9 @@ Phases, each of which makes the script exit non-zero when it fails:
               on the card at the gpt-1.3b shapes of its path: K1/K2/K4/K5
               and random_bits byte-equal, K3 within tolerance; K1/K2 also
               at the cold tier's block shape (W4, bucket 128), K3 also at
-              the chunk path's M (off the path, for the record); K2 also
+              the chunk path's M (off the path, for the record); K1/K2 at
+              the experiments' policies at gpt-125m's embedding (W8 nearest
+              at bucket 65536, W4 shift at 256, W6 at 1024); K2 also
               over a whole gpt-1.3b layer's wire buffer in one launch
               (bf16 and f32 out) and over segments off 16-byte alignment.
               Times by CUDA events on cold L2 and by the profiler (kernel
@@ -72,6 +74,21 @@ Phases, each of which makes the script exit non-zero when it fails:
               torch.profiler (K1's device time, no threefry int64 kernels
               left); then quantized_state vs quantize_master (8-bit
               moments) for 2 steps, losses equal.
+8. experiments -- first the theory runs' draws (64-bit bits, f64 and f32
+              uniforms), the f64 lattice quantizers and one ``run_qsgd``
+              trajectory on the card against the CPU twin; then the
+              paper's experiments through ``repro_torch.experiments``
+              at the JAX package's suite sizes (its ``benchmarks/run.py``):
+              the Theorem 2 / Corollary 3 table (3 kappas x 5 variants x 8
+              seeds), Table 1 (240 steps), Table 2 (2x2 grid, 160), Tables
+              3/6 (compression at 3/4/5 bits, W4 training, 160) and Figures
+              7/8 (160), on the 2-layer bench GPT at batch 8 x seq 128;
+              then Table 1 at gpt-125m's full width and depth (baseline vs
+              W8G8, batch 8 x seq 512, 100 steps).  Every experiment's
+              PASS/FAIL gates at the reference's bands, gpt-125m's losses
+              finite and falling and its W8G8 within 8 % of the baseline,
+              and K1/K2 launches equal to the structure's per train step;
+              one profiled W8G8 step of each model.
 
 Prints the kernel table as one JSON line, the card's name and power limit,
 and, last, ``{"ok": true, "device": {...}}``.
@@ -211,6 +228,10 @@ K3_DRAFT_SHAPES = {"w_gate/w_up, draft W4": (4, 2048, 8192, 8192 // DRAFT_BUCKET
 COLD_NB, COLD_BUCKET, COLD_BITS = 24 * 16 * 32 * 64 // 128, 128, 4
 # the sampler's draw: one row of vocabulary size per sampled slot (4 slots)
 RANDOM_BITS_SHAPE = (4, 50304)
+# the gpt-125m embedding's values (50,304 x 768) and the (bits, bucket, mode)
+# of the experiments' policies K1/K2 are also held at there
+EMBED_125M = 50304 * 768
+EXP_KERNEL_ROWS = ((8, 65536, "nearest"), (4, 256, "shift"), (6, 1024, "shift"))
 
 
 def dt_name(dt) -> str:
@@ -346,25 +367,27 @@ def kernel_phase(torch, log, dev="cuda"):
                     max_abs_err=max((g.float() - w.float()).abs().max().item()
                                     for g, w in zip(got, want)))
 
-    def k1_row(what, x, key, mode, rand_bits=32):
+    def k1_row(what, x, key, mode, rand_bits=32, bits=8):
         """K1 in its key form against its plain version (threefry twin +
-        quantize_pack_ref) at one shape, W8: byte-equal, then timed."""
+        quantize_pack_ref) at one shape and width: byte-equal, then timed."""
         nb, n = x.shape[0], x.numel()
-        q = ops.quantize_pack(x, key, 255, 8, mode, rand_bits)
-        qr = ref.quantize_pack_key_ref(x, key, 255, 8, mode, rand_bits)
+        levels = (1 << bits) - 1
+
+        def call():
+            return ops.quantize_pack(x, key, levels, bits, mode, rand_bits)
+
+        def plain():
+            return ref.quantize_pack_key_ref(x, key, levels, bits, mode, rand_bits)
+
+        q, qr = call(), plain()
         for g, w, part in zip(q, qr, ("codes", "scale", "zero")):
             check(torch.equal(g, w), f"K1 {what} {mode}: {part} differ in "
                   f"{(g != w).sum().item()} places")
         return q, dict(
             shape=what, nb=nb, mode=mode,
-            ms=cuda_ms(torch, lambda: ops.quantize_pack(x, key, 255, 8, mode, rand_bits),
-                       flush=flush),
-            kernel_ms=kernel_ms(torch, lambda: ops.quantize_pack(x, key, 255, 8, mode, rand_bits),
-                                flush=flush),
-            plain_ms=cuda_ms(torch, lambda: ref.quantize_pack_key_ref(x, key, 255, 8, mode,
-                                                                      rand_bits),
-                             reps=3, flush=flush),
-            bound=bound(4 * n + n + 8 * nb, flops=5 * n,
+            ms=cuda_ms(torch, call, flush=flush), kernel_ms=kernel_ms(torch, call, flush=flush),
+            plain_ms=cuda_ms(torch, plain, reps=3, flush=flush),
+            bound=bound(4 * n + q[0].numel() + 8 * nb, flops=5 * n,
                         int_ops=K1_DRAW_INT_OPS * n if mode == "stochastic" else 0),
             max_abs_err=max((a.float() - b.float()).abs().max().item() for a, b in zip(q, qr)))
 
@@ -429,6 +452,28 @@ def kernel_phase(torch, log, dev="cuda"):
     k1.append(k1_row("embed grad", x, prng.fold_in(prng.PRNGKey(12), 0x5D), "stochastic")[1])
     del x
     k2 += layer_decode_rows(torch, log, gen, decode_row, addcmul_ms, dev)
+    # the experiments phase's policies at the gpt-125m embedding (50,304 x
+    # 768): Table 1's rtn-nobucket (W8 nearest, bucket 65536: K1's generic
+    # body, one warp per bucket), Table 3's W4 at bucket 256 (shift) and the
+    # full grid's W6 (one byte per code); K2 decodes each into bf16, beside
+    # torch.addcmul on the codes one per byte
+    for bits, bucket, mode in EXP_KERNEL_ROWS:
+        nb = -(-EMBED_125M // bucket)
+        x = torch.zeros(nb * bucket, device=dev)
+        x[:EMBED_125M] = torch.randn(EMBED_125M, generator=gen, device=dev) * 0.02
+        x = x.view(nb, bucket)
+        key = None if mode == "nearest" else prng.PRNGKey(bucket + bits)
+        what = f"gpt-125m embed W{bits} b{bucket}"
+        q, row = k1_row(what, x, key, mode, bits=bits)
+        k1.append(row)
+        want = ref.unpack_dequantize_ref(*q, bits, torch.bfloat16)
+        n = nb * bucket
+        k2.append(decode_row(
+            f"{what}, bf16 out", nb, lambda: ops.unpack_dequantize(*q, bits, torch.bfloat16),
+            lambda: ref.unpack_dequantize_ref(*q, bits, torch.bfloat16),
+            addcmul_ms(ref.unpack_codes(q[0], bits), q[1], q[2], want),
+            q[0].numel() + 8 * nb + 2 * n, n))
+        del x, q, want
     for r in k1:
         b_ms, b_by = r["bound"]
         log(f"K1 {r['shape']:26s} {r['mode']:10s} nb={r['nb']:6d}: {r['ms']:.4f} ms (plain "
@@ -545,6 +590,8 @@ def kernel_phase(torch, log, dev="cuda"):
     rows["quantize_buckets"] = [dict(
         shape="embed, stochastic", nb=nb,
         ms=cuda_ms(torch, lambda: ops.quantize_buckets(x, rand, 255, True), flush=flush),
+        kernel_ms=kernel_ms(torch, lambda: ops.quantize_buckets(x, rand, 255, True),
+                            flush=flush),
         plain_ms=cuda_ms(torch, lambda: ref.quantize_buckets_ref(x, rand, 255, True), reps=3,
                          flush=flush),
         bound=bound(4 * n + 4 * n + n + 8 * nb, flops=6 * n),
@@ -557,7 +604,8 @@ def kernel_phase(torch, log, dev="cuda"):
         for dt in (torch.float32, torch.bfloat16)]
     r = rows["quantize_buckets"][0]
     log(f"quantize_buckets {r['shape']} nb={nb}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, "
-        f"bound {r['bound'][0]:.4f} by {r['bound'][1]})")
+        f"bound {r['bound'][0]:.4f} by {r['bound'][1]}); kernel time alone (profiler) "
+        f"{r['kernel_ms']:.4f} ms, {100 * r['bound'][0] / r['kernel_ms']:.0f}% of bound")
     for r in rows["dequantize_buckets"]:
         log_decode_row("K5 dequantize_buckets", r, log)
     del x, rand, q, qr
@@ -693,9 +741,10 @@ def smi_line():
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="build,kernels,small,serve,continuous,speculative,train",
+    ap.add_argument("--phases",
+                    default="build,kernels,small,serve,continuous,speculative,train,experiments",
                     help="comma-separated subset of build,kernels,small,serve,continuous,"
-                         "speculative,train")
+                         "speculative,train,experiments")
     ap.add_argument("--profile", action="store_true",
                     help="serve phase: also profile one decode step of each run "
                          "(chrome traces kept)")
@@ -746,6 +795,8 @@ def main(argv=None) -> int:
             paths.append(speculative_phase(torch, log))
         if "train" in phases:
             paths.append(train_phase(torch, log))
+        if "experiments" in phases:
+            paths.append(experiments_phase(torch, log)[0])
         launches = {k: sum(p.get(k, 0) for p in paths) for k in KERNEL_META}
         if rows is not None:
             print(json.dumps(kernel_line(rows, launches)))
@@ -1795,6 +1846,201 @@ def train_phase(torch, log, dev="cuda"):
     del qs, fs, step_q, step_f
     torch.cuda.empty_cache()
     return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the paper's experiments
+# ---------------------------------------------------------------------------
+
+# the JAX package's suite defaults (benchmarks/run.py): steps per training
+# run of each table, and the theory table's seeds; then Table 1 at gpt-125m
+# (full width and depth), batch 8 x seq 512: a cut of the paper's
+# pretraining to full_steps steps.  Cuts, were the phase too long for a
+# call, in this order: full_steps, then theory_seeds 8 -> 4, then the
+# bench model's steps; no gate's band changes.
+EXP = dict(table1=240, table2=160, table3=160, fig78=160, theory_seeds=8,
+           full_steps=100, full_batch=8, full_seq=512)
+EXP_RESULTS = "results/torch_bench"
+
+
+def expected_run_launches(qsdp, cfg, steps: int) -> dict:
+    """K1/K2 launches of `steps` train steps of `cfg` under `qsdp` (one
+    microbatch), by the code's structure (``expected_train_launches``)."""
+    from repro_torch.core.qsdp import MeshSpec
+    from repro_torch.models.transformer import Model
+    want = expected_train_launches(Model(cfg, MeshSpec(("data", "model"), (1, 1)), qsdp), 1)
+    return {k: steps * want[k] for k in ("quantize_pack", "unpack_dequantize")}
+
+
+# one Theorem 2 run (kappa 4, shift weights, Corollary 3's gradient
+# quantizer) on the card against the CPU: the same draws and roundings, f(x)
+# summed in another order
+THEORY_RTOL = 1e-12
+
+
+def theory_on_card(torch, log, dev):
+    """The theory runs' randomness on `dev` byte for byte against the CPU
+    twin (which the CPU tests hold to ``jax.random`` under x64): 64-bit
+    bits, f64 and f32 uniforms, the f64 lattice quantizers; then one
+    ``run_qsgd`` trajectory on both."""
+    from repro_torch.core import prng, quant
+    from repro_torch.core.theory import make_quadratic, run_qsgd, theorem2_params
+
+    rows = prng.key_rows([prng.PRNGKey(s) for s in range(8)])
+    rows_d = (rows[0].to(dev), rows[1].to(dev))
+    for key, key_d in ((prng.PRNGKey(3), prng.PRNGKey(3)), (rows, rows_d)):
+        for shape in ((), (64,), (33, 64)):
+            pairs = [(prng.bits(key_d, shape, dev, 64), prng.bits(key, shape, "cpu", 64))]
+            for dt in (torch.float64, torch.float32):
+                pairs.append((prng.uniform(key_d, shape, dev, -0.5, 0.5, dt),
+                              prng.uniform(key, shape, "cpu", -0.5, 0.5, dt)))
+            for got, want in pairs:
+                check(torch.equal(got.cpu(), want), f"theory draws {shape}: the card's "
+                      f"differ from the CPU twin's in {(got.cpu() != want).sum().item()} places")
+    x = prng.normal(prng.PRNGKey(4), (8, 1024), "cpu", torch.float64) * 10
+    for delta in (0.37, 1e-3):
+        for name, fn in (("q_shift", quant.q_shift), ("q_coinflip", quant.q_coinflip)):
+            got, want = fn(x.to(dev), delta, rows_d).cpu(), fn(x, delta, rows)
+            check(torch.equal(got, want), f"theory {name} delta={delta}: the card's values "
+                  f"differ from the CPU's in {(got != want).sum().item()} places")
+    obj = make_quadratic(prng.PRNGKey(0), n=64, kappa=4.0, device="cpu")
+    params = theorem2_params(obj.alpha, obj.beta, 0.5, 1e-3, 0.0, float(obj.f(torch.zeros(64))))
+    runs = [run_qsgd(obj, torch.zeros(64), params, prng.PRNGKey(1), grad_q_delta=0.05,
+                     device=d)[1].cpu() for d in (dev, "cpu")]
+    rel = ((runs[0] - runs[1]).abs() / runs[1].abs()).max().item()
+    check(rel <= THEORY_RTOL, f"theory: run_qsgd on the card vs the CPU, rel diff {rel:.3e}")
+    log(f"experiments: theory draws on the card byte-equal to the CPU twin (64-bit bits, f64 "
+        f"and f32 uniforms, one key and a row of 8); q_shift/q_coinflip f64 byte-equal; "
+        f"run_qsgd (kappa 4, shift + gradient quantizer, T {params.T}) within {rel:.2e} "
+        f"relative of the CPU at every step (tol {THEORY_RTOL})")
+
+
+def experiments_phase(torch, log, dev="cuda", enforce=True):
+    """The JAX package's paper suite through the port's twins
+    (``repro_torch.experiments``) at the reference's sizes, then Table 1 at
+    gpt-125m.  Every experiment's gates (``enforce``: a failed one fails
+    the phase; the CPU rehearsal, at a few steps, only reports them) and
+    K1/K2 launches against the structure's count per train step.  Returns
+    (the launches, {gate: passed})."""
+    from repro_torch import configs
+    from repro_torch.core.qsdp import QSDPConfig
+    from repro_torch.experiments import (fig78_compression_error, table1_recovery,
+                                         table2_bits_grid, table3_learned_levels,
+                                         theory_convergence)
+    from repro_torch.experiments._trainer import BENCH_MODEL, qsdp_wg, train_run
+    from repro_torch.kernels import ops
+
+    out_dir = str(REPO / EXP_RESULTS)
+    dv = ["--device", dev]
+    w8g8 = qsdp_wg(8, 8)
+    grid = [qsdp_wg(w, g) for w in (8, 4) for g in (8, 4)]
+    suite = [  # name, main, argv, the runs' QSDP policies, steps per run
+        ("theory_convergence", theory_convergence.main,
+         ["--seeds", str(EXP["theory_seeds"])], [], 0),
+        ("table1_recovery", table1_recovery.main, ["--steps", str(EXP["table1"])],
+         [QSDPConfig.baseline(), w8g8,
+          qsdp_wg(8, 8, weight_mode="nearest", grad_mode="nearest", bucket_size=65536)],
+         EXP["table1"]),
+        ("table2_bits_grid", table2_bits_grid.main, ["--steps", str(EXP["table2"])], grid,
+         EXP["table2"]),
+        ("table3_learned_levels", table3_learned_levels.main, ["--steps", str(EXP["table3"])],
+         [qsdp_wg(4, 8), qsdp_wg(4, 8, bucket_size=256)], EXP["table3"]),
+        ("fig78_compression_error", fig78_compression_error.main,
+         ["--steps", str(EXP["fig78"])], [w8g8], EXP["fig78"]),
+    ]
+    theory_on_card(torch, log, dev)
+    gates, counts = {}, {k: 0 for k in ops.KERNELS}
+    for name, main, argv, policies, steps in suite:
+        ops.reset_launches()
+        t = time.perf_counter()
+        rc = main(argv + dv, out_dir=out_dir)
+        dt = time.perf_counter() - t
+        got = dict(ops.LAUNCHES)
+        want = {k: 0 for k in ops.KERNELS}
+        for q in policies:
+            for k, v in expected_run_launches(q, BENCH_MODEL, steps).items():
+                want[k] += v
+        check(got == want, f"experiments {name}: launches {got}, the structure predicts {want}")
+        gates[name] = rc == 0
+        n_steps = steps * len(policies)
+        log(f"experiments {name}: {'PASS' if rc == 0 else 'FAIL'} in {dt:.1f} s"
+            + (f" ({n_steps} train steps, {n_steps / dt:.2f} steps/s)" if n_steps else "")
+            + f"; launches K1 {got['quantize_pack']}, K2 {got['unpack_dequantize']}")
+        for k in counts:
+            counts[k] += got[k]
+    per = expected_run_launches(w8g8, BENCH_MODEL, 1)
+    log(f"experiments: {BENCH_MODEL.name} W8G8 train step: K1 {per['quantize_pack']}, K2 "
+        f"{per['unpack_dequantize']} launches (structure), held by every run above")
+
+    # Table 1 at full width and depth
+    cfg = configs.get_config("gpt-125m")
+    full = {}
+    if dev == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    for tag, q in (("baseline-fsdp", QSDPConfig.baseline()), ("qsdp-w8g8", w8g8)):
+        ops.reset_launches()
+        r = train_run(q, steps=EXP["full_steps"], batch=EXP["full_batch"], seq=EXP["full_seq"],
+                      tag=tag, model_cfg=cfg, device=dev)
+        got = dict(ops.LAUNCHES)
+        want = expected_run_launches(q, cfg, EXP["full_steps"])
+        check(all(got[k] == want[k] for k in want) and sum(got.values()) == sum(want.values()),
+              f"experiments {cfg.name} {tag}: launches {got}, the structure predicts {want}")
+        for k in counts:
+            counts[k] += got[k]
+        full[tag] = r
+        losses = [l for _, l in r.losses]
+        check(all(map(math.isfinite, losses)), f"experiments {cfg.name} {tag}: losses {losses}")
+        gates[f"{cfg.name} {tag} learns"] = r.final_loss < losses[0]
+        log(f"experiments: {cfg.name} {tag:14s} first loss {losses[0]:.4f} final_loss="
+            f"{r.final_loss:.4f} ppl={r.ppl:.2f} ({r.seconds:.1f} s, {r.steps_per_s:.2f} "
+            f"steps/s, {EXP['full_batch'] * EXP['full_seq'] * r.steps_per_s:.0f} tokens/s); "
+            f"launches per step K1 {want['quantize_pack'] // EXP['full_steps']}, K2 "
+            f"{want['unpack_dequantize'] // EXP['full_steps']}")
+    base, qq = full["baseline-fsdp"].final_loss, full["qsdp-w8g8"].final_loss
+    gates[f"{cfg.name} recovery"] = table1_recovery.recovery_gates(base, qq, cfg.vocab_size)[0]
+    peak = torch.cuda.max_memory_allocated() if dev == "cuda" else 0
+    log(f"experiments: Table 1 at {cfg.name} ({cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"vocab {cfg.vocab_size}), batch {EXP['full_batch']} x seq {EXP['full_seq']}, "
+        f"{EXP['full_steps']} steps (cut: the paper pretrains to convergence): "
+        f"|{qq:.4f} - {base:.4f}| = {abs(qq - base):.4f} <= 8% of baseline "
+        f"({table1_recovery.RECOVERY_BAND * base:.4f}): "
+        f"{'PASS' if gates[f'{cfg.name} recovery'] else 'FAIL'}; peak memory "
+        f"{peak / 2**30:.2f} GiB")
+    # where a step's time goes: one profiled W8G8 step of each model
+    for c, batch, seq in ((BENCH_MODEL, 8, 128),
+                          (cfg, EXP["full_batch"], EXP["full_seq"])):
+        prof = profile_experiment_step(torch, log, c, w8g8, batch, seq, dev)
+        log(f"experiments: {c.name} W8G8 profiled step: {prof['kernels']} kernels, device busy "
+            f"{prof['busy_ms']:.1f} of {prof['wall_ms']:.1f} ms wall "
+            f"({100 * prof['busy_ms'] / max(prof['wall_ms'], 1e-9):.1f} %); K1 "
+            f"{prof['k1_ms']:.2f} ms in {prof['k1_n']}, K2 {prof['k2_ms']:.2f} ms in "
+            f"{prof['k2_n']}")
+    failed = sorted(k for k, ok in gates.items() if not ok)
+    log(f"experiments: gates {len(gates) - len(failed)}/{len(gates)} pass"
+        + (f"; FAILED: {failed}" if failed else ""))
+    check(not (enforce and failed), f"experiments: gates failed: {failed}")
+    return counts, gates
+
+
+def profile_experiment_step(torch, log, cfg, qsdp, batch, seq, dev):
+    """One train step of `cfg` under `qsdp` as ``train_run`` takes it (after
+    a warm-up step) under torch.profiler: ``profile_train_step``'s
+    numbers."""
+    from repro_torch.core import prng
+    from repro_torch.data import SyntheticLM, make_batch
+    from repro_torch.experiments._trainer import MESH11, init_params_like_reference
+    from repro_torch.models.transformer import Model
+    from repro_torch.optim import AdamWConfig, cosine_schedule, make_adamw
+    from repro_torch.train.step import TrainState, build_train_step
+
+    model = Model(cfg, MESH11, qsdp)
+    opt = make_adamw(AdamWConfig(lr=2e-3, schedule=cosine_schedule(2e-3, 20, 100)))
+    params = init_params_like_reference(model, 0, dev)
+    step = build_train_step(model, opt, n_micro=1, device=dev)
+    b = make_batch(SyntheticLM(cfg.vocab_size, seq, batch, seed=0, branching=4), 0, dev)
+    state, _ = step(TrainState(params=params, opt=opt.init(params)), b, prng.PRNGKey(1))
+    return profile_train_step(torch, lambda st: step(st, b, prng.PRNGKey(2)), state, log,
+                              tag=f"experiments {cfg.name}")
 
 
 def busy_share(events):

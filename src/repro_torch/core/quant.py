@@ -1,9 +1,18 @@
-"""Wire quantizers of QSDP (Markov et al., ICML 2023, Section 5) in PyTorch.
+"""Quantizers of QSDP (Markov et al., ICML 2023) in PyTorch.
 
-The bucketed min-max scheme: a tensor is flattened, zero-padded and split
-into equal buckets (default 1024); each bucket is scaled to ``[0, levels]``
-with its own (scale, zero) pair and rounded with one of three modes —
-"shift" (Def. 1, weights), "stochastic" (Def. 12, gradients) or "nearest".
+Lattice quantizers (``q_nearest``, ``q_shift``, ``q_coinflip``): the exact
+operators of the paper's analysis (Definitions 1 and 12) on a fixed grid
+``delta * Z^n (+ r 1)``, no scaling or clipping, as the JAX package's
+``core/quant.py:46-75``; ``core.theory`` iterates them.  Their draws come
+from ``core.prng`` in x's dtype (f64 under the theory runs, as the
+reference draws under x64), so they run on any device; a row of keys
+(``prng.key_rows``) quantizes each row of x under its own key.
+
+Wire quantizers (Section 5), the bucketed min-max scheme: a tensor is
+flattened, zero-padded and split into equal buckets (default 1024); each
+bucket is scaled to ``[0, levels]`` with its own (scale, zero) pair and
+rounded with one of three modes — "shift" (Def. 1, weights), "stochastic"
+(Def. 12, gradients) or "nearest".
 A :class:`Quantized` holds packed u8 codes: exactly what QSDP puts on the
 wire, byte for byte the same as the JAX package's ``core.quant``.  A
 :class:`QuantizedParam` is a train-state leaf kept in that wire form.
@@ -23,7 +32,7 @@ from typing import Optional
 
 import torch
 
-from ..kernels import ops
+from ..kernels import ops, ref
 from ..kernels.ref import codes_per_byte, pack_codes, unpack_codes, view_bytes  # noqa: F401
 from . import prng
 
@@ -31,6 +40,44 @@ _MODES = ("shift", "stochastic", "nearest")
 _META_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 _FP_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
               "float16": torch.float16}
+
+
+# ---------------------------------------------------------------------------
+# Lattice quantizers (paper Definitions 1 and 12)
+# ---------------------------------------------------------------------------
+
+
+def _draw_shape(key: prng.Key, x: torch.Tensor) -> tuple:
+    """The shape one key draws for x: all of x, or one row of it when
+    `key` is a row of keys (one per row of x)."""
+    return tuple(x.shape[1:]) if isinstance(key[0], torch.Tensor) else tuple(x.shape)
+
+
+def q_nearest(x: torch.Tensor, delta) -> torch.Tensor:
+    """Deterministic round-to-nearest (half to even) on ``delta * Z``: the
+    naive scheme the paper shows to break convergence."""
+    return delta * torch.round(x / delta)
+
+
+def q_shift(x: torch.Tensor, delta, key: prng.Key) -> torch.Tensor:
+    """Quantization by random shift (Definition 1): one shift ``r ~
+    Unif[-delta/2, delta/2)`` shared by every coordinate (of a row), each
+    rounded to the nearest point of ``delta * Z + r``.  XLA fuses the last
+    multiply-add; so does this (``ref.fma_f32`` / ``ref.fma_f64``)."""
+    r = prng.uniform(key, (), x.device, -0.5, 0.5, x.dtype) * delta
+    r = r.reshape(r.shape + (1,) * (x.dim() - r.dim()))
+    k = torch.round((x - r) / delta)
+    fma = ref.fma_f32 if x.dtype == torch.float32 else ref.fma_f64
+    return fma(torch.full_like(k, delta), k, r.expand_as(k))
+
+
+def q_coinflip(x: torch.Tensor, delta, key: prng.Key) -> torch.Tensor:
+    """Quantization by coin flip (Definition 12): per-coordinate
+    stochastic rounding onto ``delta * Z``, unbiased."""
+    lo = torch.floor(x / delta)
+    frac = x / delta - lo
+    up = prng.uniform(key, _draw_shape(key, x), x.device, dtype=x.dtype) < frac
+    return delta * (lo + up.to(x.dtype))
 
 
 @dataclasses.dataclass(frozen=True)

@@ -8,7 +8,8 @@ and ``chip_smoke.py`` holds each kernel against it on the card.
 Two expressions of the reference are fused multiply-adds under XLA (the
 shift-mode ``zero = lo + r*scale`` and the decode ``c*scale + zero``); the
 kernels use ``__fmaf_rn`` there and :func:`fma_f32` reproduces a correctly
-rounded f32 fma here.
+rounded f32 fma here (:func:`fma_f64` the f64 one, for the lattice
+quantizers of the theory runs).
 
 K1 takes a PRNG key and draws its rounding randomness itself; its plain
 version :func:`quantize_pack_key_ref` draws the same bits with the threefry
@@ -47,6 +48,26 @@ def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     fix = (err != 0) & ((bits & 1) == 0)
     s = torch.where(fix, bits + step, bits).view(torch.float64)
     return s.float()
+
+
+def fma_f64(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """a*b + c in f64 rounded once, as a fused multiply-add rounds it,
+    from error-free transformations: the exact product as p + e (Dekker's
+    split), p + c as s + err (TwoSum), then s + (err + e).  Correctly
+    rounded except where the final sum rounds twice (rare)."""
+    split = 134217729.0  # 2^27 + 1
+    p = a * b
+    t = split * a
+    ah = t - (t - a)
+    al = a - ah
+    t = split * b
+    bh = t - (t - b)
+    bl = b - bh
+    e = ((ah * bh - p) + ah * bl + al * bh) + al * bl
+    s = p + c
+    bb = s - p
+    err = (p - (s - bb)) + (c - bb)
+    return s + (err + e)
 
 
 def pack_codes(codes: torch.Tensor, bits: int) -> torch.Tensor:
