@@ -17,7 +17,10 @@ Phases, each of which makes the script exit non-zero when it fails:
               the experiments' policies at gpt-125m's embedding (W8 nearest
               at bucket 65536, W4 shift at 256, W6 at 1024); K2 also
               over a whole gpt-1.3b layer's wire buffer in one launch
-              (bf16 and f32 out) and over segments off 16-byte alignment.
+              (bf16 and f32 out) and over segments off 16-byte alignment;
+              at olmoe-1b-7b's shapes K1 W8 shift on one expert stack
+              (134,217,728 values), K2 over a whole olmoe layer's buffer
+              into bf16 and K2 on the draft's W4 expert stack.
               Times by CUDA events on cold L2 and by the profiler (kernel
               alone) beside the bound (bytes, f32 and INT32 operations),
               and beside the one library call that computes the same
@@ -65,7 +68,20 @@ Phases, each of which makes the script exit non-zero when it fails:
               draft and verify launches' times, acceptance and draft
               overhead; the kernel phase adds K2 at the draft layer and K3
               at the draft MLP.
-7. train   -- gpt-1.3b at full width and depth, default QSDPConfig (W8
+7. moe     -- the MoE family: olmoe-1b-7b's smoke config on the card and
+              on the CPU (gathered wire bytes equal, expert stacks
+              included; top-k experts equal where the CPU router margin is
+              clear; logits within tolerance); then olmoe-1b-7b at full
+              width and depth (16 layers, 64 experts top-8, 6.81 G
+              parameters, random weights from seed 0, default QSDPConfig):
+              batch serving (the serve phase's shape, run twice: equal
+              tokens, K1 113 / K2 17 launches per decode step as the
+              structure derives them), the continuous phase's cell and
+              gates and the speculative phase's (4-bit draft, depth 4;
+              the draft's 3-D expert stacks go through K2, never K3), and
+              the fixed-shape route's row gate at the MoE launch shapes.
+              Prints the phase's seconds and peak memory.
+8. train   -- gpt-1.3b at full width and depth, default QSDPConfig (W8
               shift weights, G8 stochastic gradients, bucket 1024,
               coalesced, bf16 compute, full remat), AdamW + cosine, batch 4
               x seq 2048, 2 microbatches, SyntheticLM seed 0, through
@@ -74,7 +90,7 @@ Phases, each of which makes the script exit non-zero when it fails:
               torch.profiler (K1's device time, no threefry int64 kernels
               left); then quantized_state vs quantize_master (8-bit
               moments) for 2 steps, losses equal.
-8. experiments -- first the theory runs' draws (64-bit bits, f64 and f32
+9. experiments -- first the theory runs' draws (64-bit bits, f64 and f32
               uniforms), the f64 lattice quantizers and one ``run_qsgd``
               trajectory on the card against the CPU twin; then the
               paper's experiments through ``repro_torch.experiments``
@@ -232,6 +248,9 @@ RANDOM_BITS_SHAPE = (4, 50304)
 # of the experiments' policies K1/K2 are also held at there
 EMBED_125M = 50304 * 768
 EXP_KERNEL_ROWS = ((8, 65536, "nearest"), (4, 256, "shift"), (6, 1024, "shift"))
+# one olmoe-1b-7b expert stack (w_gate, w_up or w_down of a layer): 64 x
+# 2048 x 1024 values
+OLMOE_EXPERT = 64 * 2048 * 1024
 
 
 def dt_name(dt) -> str:
@@ -249,34 +268,38 @@ def log_decode_row(name, r, log):
         f"{100 * b_ms / r['kernel_ms']:.0f}% of bound; {lib}")
 
 
-def layer_decode_rows(torch, log, gen, decode_row, addcmul_ms, dev="cuda"):
-    """K2 over whole wire buffers, as the gathers decode them.  Timed: one
-    gpt-1.3b layer's real buffer (its 7 quantized matmul weights and 2 fp
-    norms, encoded by K1 under the engine's layout) decoded in one launch, in
-    bf16 and in f32, byte-equal to the plain version; the library call is
-    ``torch.addcmul`` over the layer's codes gathered into one tensor.
-    Checked only: segments off 16-byte alignment, in two rows."""
-    from repro_torch import configs
+def encode_layout(torch, gen, layout, seed, dev):
+    """A wire buffer of `layout` (K1 under the engine's per-segment keys) over
+    random values."""
     from repro_torch.core import collectives as coll
     from repro_torch.core import prng
+    xs = [torch.randn(seg.n, generator=gen, device=dev) * 0.02 for seg in layout.segments]
+    keys = [prng.fold_in(prng.PRNGKey(seed), i) if seg.cfg is not None else None
+            for i, seg in enumerate(layout.segments)]
+    return coll.encode_wire(xs, layout, keys)
+
+
+def layer_decode_rows(torch, log, gen, decode_row, addcmul_ms, dev="cuda", arch="gpt-1.3b",
+                      dtypes=("bfloat16", "float32")):
+    """K2 over a whole wire buffer, as the gathers decode it.  Timed: one
+    layer of `arch` as its real buffer (gpt-1.3b: 7 quantized matmul weights
+    and 2 fp norms; olmoe-1b-7b: 4 attention weights and 3 expert stacks, the
+    router and 2 norms as fp segments; encoded by K1 under the engine's
+    layout) decoded in one launch into each of `dtypes`, byte-equal to the
+    plain version; the library call is ``torch.addcmul`` over the layer's
+    codes gathered into one tensor."""
+    from repro_torch import configs
+    from repro_torch.core import collectives as coll
     from repro_torch.core.qsdp import MeshSpec, QSDPConfig
-    from repro_torch.core.quant import QuantConfig
     from repro_torch.kernels import ops, ref
     from repro_torch.models.transformer import Model
 
-    eng = Model(configs.get_config("gpt-1.3b"), MeshSpec(("data", "model"), (1, 1)),
+    eng = Model(configs.get_config(arch), MeshSpec(("data", "model"), (1, 1)),
                 QSDPConfig()).engine
     layout = eng.layout(tuple(sorted(n for n in eng.specs if n.startswith("layers/"))))
-
-    def encode(layout, seed):
-        xs = [torch.randn(seg.n, generator=gen, device=dev) * 0.02 for seg in layout.segments]
-        keys = [prng.fold_in(prng.PRNGKey(seed), i) if seg.cfg is not None else None
-                for i, seg in enumerate(layout.segments)]
-        return coll.encode_wire(xs, layout, keys)
-
-    buf = encode(layout, 20)
+    buf = encode_layout(torch, gen, layout, 20, dev)
     out = []
-    for dt in (torch.bfloat16, torch.float32):
+    for dt in (getattr(torch, d) for d in dtypes):
         table, dts = coll.wire_table(layout, 1, [dt] * len(layout.segments))
         nb, n = sum(t.nb for t in table), sum(t.nb * t.bucket for t in table)
         want = ref.unpack_dequantize_wire_ref(buf, table, dts)
@@ -289,12 +312,21 @@ def layer_decode_rows(torch, log, gen, decode_row, addcmul_ms, dev="cuda"):
         lib = (torch.cat([buf[t.codes:t.scale].view(t.nb, t.bucket) for t in table]),
                torch.cat([m[0] for m in meta]), torch.cat([m[1] for m in meta]))
         out.append(decode_row(
-            f"whole layer ({len(table)} tensors), {dt_name(dt)} out", nb,
+            f"{arch} layer ({len(table)} tensors), {dt_name(dt)} out", nb,
             lambda: ops.unpack_dequantize_wire(buf, table, dts),
             lambda: ref.unpack_dequantize_wire_ref(buf, table, dts),
             addcmul_ms(*lib, torch.cat(want)),
             sum(t.zero + 4 * t.nb - t.codes for t in table) + dt.itemsize * n, n))
         del want, meta, lib
+    return out
+
+
+def unaligned_decode_check(torch, log, gen, dev="cuda"):
+    """K2 over segments off 16-byte alignment, in two rows, byte-equal to the
+    plain version in bf16 and f32 (checked, not timed)."""
+    from repro_torch.core import collectives as coll
+    from repro_torch.core.quant import QuantConfig
+    from repro_torch.kernels import ops, ref
     # odd nb moves the next segment 8 bytes off 16 at 8 bits; bf16 scale/zero
     # and an odd bf16 fp payload leave even 4-byte alignment behind
     odd = coll.WireLayout((
@@ -304,7 +336,8 @@ def layer_decode_rows(torch, log, gen, decode_row, addcmul_ms, dev="cuda"):
         coll.WireSegment(7 * 1024 + 1, QuantConfig(bits=2)),
         coll.WireSegment(2000, QuantConfig(bits=3, bucket_size=100)),
         coll.WireSegment(33 * 1024, QuantConfig(bits=8))))
-    rows = torch.cat([encode(odd, 21), encode(odd, 22)])
+    rows = torch.cat([encode_layout(torch, gen, odd, 21, dev),
+                      encode_layout(torch, gen, odd, 22, dev)])
     for dt in (torch.bfloat16, torch.float32):
         table, dts = coll.wire_table(odd, 2, [dt] * len(odd.segments))
         check(any((rows.data_ptr() + t.codes) % 16 for t in table),
@@ -313,10 +346,8 @@ def layer_decode_rows(torch, log, gen, decode_row, addcmul_ms, dev="cuda"):
                         ref.unpack_dequantize_wire_ref(rows, table, dts), strict=True):
             check(torch.equal(g.view(torch.uint8), w.view(torch.uint8)),
                   f"K2 unaligned segments, {dt_name(dt)} out: values differ")
-    log(f"K2 over wire buffers: a whole gpt-1.3b layer byte-equal to plain in one launch; "
-        f"segments off 16-byte alignment (bits 2/3/4/8, bf16 and f32 scale/zero, 2 rows, "
-        f"{len(table)} table entries) byte-equal, bf16 and f32 out")
-    return out
+    log(f"K2 over wire buffers: segments off 16-byte alignment (bits 2/3/4/8, bf16 and f32 "
+        f"scale/zero, 2 rows, {len(table)} table entries) byte-equal, bf16 and f32 out")
 
 
 def kernel_phase(torch, log, dev="cuda"):
@@ -452,6 +483,14 @@ def kernel_phase(torch, log, dev="cuda"):
     k1.append(k1_row("embed grad", x, prng.fold_in(prng.PRNGKey(12), 0x5D), "stochastic")[1])
     del x
     k2 += layer_decode_rows(torch, log, gen, decode_row, addcmul_ms, dev)
+    unaligned_decode_check(torch, log, gen, dev)
+    # olmoe-1b-7b (moe phase): K1 W8 shift on one expert stack, as every
+    # decode step gathers it; K2 over a whole layer's buffer into bf16
+    x = torch.randn((OLMOE_EXPERT // 1024, 1024), generator=gen, device=dev) * 0.02
+    k1.append(k1_row("olmoe expert (64 x 2048 x 1024)", x, prng.PRNGKey(64), "shift")[1])
+    del x
+    k2 += layer_decode_rows(torch, log, gen, decode_row, addcmul_ms, dev, arch="olmoe-1b-7b",
+                            dtypes=("bfloat16",))
     # the experiments phase's policies at the gpt-125m embedding (50,304 x
     # 768): Table 1's rtn-nobucket (W8 nearest, bucket 65536: K1's generic
     # body, one warp per bucket), Table 3's W4 at bucket 256 (shift) and the
@@ -539,6 +578,21 @@ def kernel_phase(torch, log, dev="cuda"):
         sum(b.numel() for b in bufs) + 2 * 4 * n1, 4 * n1))
     log_decode_row("K2", k2[-1], log)
     del qs, bufs, want
+    # the olmoe draft's expert stack: one 4-bit wire buffer of 134 M values,
+    # decoded into bf16 by K2 (3-D, so never K3)
+    q = quant.quantize(torch.randn(OLMOE_EXPERT, generator=gen, device=dev) * 0.02, dcfg)
+    bufs, table = [quant.wire_pack(q)], [quant.wire_codes(0, OLMOE_EXPERT, dcfg)]
+    want = ref.unpack_dequantize_wire_ref(bufs, table, dts[:1])
+    nb = OLMOE_EXPERT // DRAFT_BUCKET
+    k2.append(decode_row(
+        "olmoe draft expert, W4 bucket 256, bf16 out", nb,
+        lambda: ops.unpack_dequantize_wire(bufs, table, dts[:1]),
+        lambda: ref.unpack_dequantize_wire_ref(bufs, table, dts[:1]),
+        addcmul_ms(ref.unpack_codes(q.codes, DRAFT_BITS), q.scale[:, None], q.zero[:, None],
+                   want[0]),
+        bufs[0].numel() + 2 * OLMOE_EXPERT, OLMOE_EXPERT))
+    log_decode_row("K2", k2[-1], log)
+    del q, bufs, want
 
     # the sampler's draw: jax.random bits of a vocabulary per sampled row
     from repro_torch.core import prng as _prng
@@ -742,9 +796,10 @@ def smi_line():
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
-                    default="build,kernels,small,serve,continuous,speculative,train,experiments",
+                    default="build,kernels,small,serve,continuous,speculative,moe,train,"
+                            "experiments",
                     help="comma-separated subset of build,kernels,small,serve,continuous,"
-                         "speculative,train,experiments")
+                         "speculative,moe,train,experiments")
     ap.add_argument("--profile", action="store_true",
                     help="serve phase: also profile one decode step of each run "
                          "(chrome traces kept)")
@@ -793,6 +848,8 @@ def main(argv=None) -> int:
             paths.append(continuous_phase(torch, log))
         if "speculative" in phases:
             paths.append(speculative_phase(torch, log))
+        if "moe" in phases:
+            paths.append(moe_phase(torch, log))
         if "train" in phases:
             paths.append(train_phase(torch, log))
         if "experiments" in phases:
@@ -861,42 +918,76 @@ SMALL = dict(batch=2, prompt_len=16, gen=4, seed=0)
 # orders, and a 1-ulp difference upstream can flip the bf16 rounding of a
 # cached k/v element (2^-9 relative); measured 1.5e-4 on an H100
 SMALL_LOGIT_ATOL = 1e-3
+# the router's f32 product sums in other orders on the card and the CPU: a
+# token whose k-th and (k+1)-th probabilities lie closer than this on the
+# CPU may take another expert on the card, and is left out of the routing
+# gate (the count is printed)
+ROUTE_MARGIN = 1e-5
 
 
-def small_phase(torch, log):
-    """gpt-1.3b smoke (f32 compute) on the card and on the CPU from the same
-    weights: gathered weight bytes equal (K1/K2 are bit-exact), the live
-    lanes' logits within SMALL_LOGIT_ATOL, same greedy tokens."""
+def small_phase(torch, log, arch="gpt-1.3b"):
+    """`arch`'s smoke config (f32 compute) on the card and on the CPU from
+    the same weights: gathered weight bytes equal (K1/K2 are bit-exact), the
+    live lanes' logits within SMALL_LOGIT_ATOL, same greedy tokens; for the
+    MoE family also every MoE call's top-k experts, for the tokens whose CPU
+    router margin is at least ROUTE_MARGIN."""
     import repro_torch.models.layers as L
+    import repro_torch.models.moe as moe_mod
     from repro_torch.core.qsdp import QSDPConfig
     from repro_torch.data import SyntheticLM
     from repro_torch.serve import build_serve_setup, make_prompt_batch
+
+    def capture_routes(store):
+        def wrap(orig):
+            def f(x, router, cfg):
+                probs, topw, tope = orig(x, router, cfg)
+                store.append((probs.cpu(), tope.cpu()))
+                return probs, topw, tope
+            return f
+        return wrap
 
     qcfg = QSDPConfig(compute_dtype="float32")
     res = {}
     params = None
     for dev in ("cuda", "cpu"):
-        setup = build_serve_setup("gpt-1.3b", smoke=True, qsdp=qcfg, device=dev,
+        setup = build_serve_setup(arch, smoke=True, qsdp=qcfg, device=dev,
                                   params=params, **SMALL)
         params = {k: v.cpu() for k, v in setup.params.items()}
         tokens, _ = SyntheticLM(setup.cfg.vocab_size, SMALL["prompt_len"], SMALL["batch"],
                                 seed=SMALL["seed"]).sample(0)
         prompt = make_prompt_batch(setup.cfg, setup.spec, setup.ms, tokens, setup.device)
-        logits, gathers = [], {}
+        logits, gathers, routes = [], {}, []
         with hooked(L, "vocab_parallel_logits", capture_logits(logits)), \
                 hooked(setup.model.engine, "_reshape_full",
-                       capture_gathers(setup.model, gathers)):
+                       capture_gathers(setup.model, gathers)), \
+                hooked(moe_mod, "route", capture_routes(routes)):
             out = setup.engine.generate(setup.params, prompt, n_tokens=SMALL["gen"])
-        res[dev] = (out.cpu(), [t.cpu() for t in logits], gathers)
-    (tc, lc, gc), (tp, lp, gp) = res["cuda"], res["cpu"]
-    check(gc == gp, "small: gathered weight bytes differ between card and CPU")
+        res[dev] = (out.cpu(), [t.cpu() for t in logits], gathers, routes)
+    (tc, lc, gc, rc), (tp, lp, gp, rp) = res["cuda"], res["cpu"]
+    check(gc == gp, f"small {arch}: gathered weight bytes differ between card and CPU")
+    check(len(rc) == len(rp) and bool(rc) == setup.cfg.is_moe,
+          f"small {arch}: {len(rc)} / {len(rp)} MoE calls")
+    k, compared, excluded = setup.cfg.moe_top_k, 0, 0
+    for (_, ec), (pp, ep) in zip(rc, rp):
+        # the card's decode calls carry its dead lanes after the live ones
+        ec = ec[:len(ep)]
+        top = torch.sort(pp, dim=-1, descending=True).values
+        clear = (top[:, k - 1] - top[:, k]) >= ROUTE_MARGIN
+        same = (ec.sort(dim=-1).values == ep.sort(dim=-1).values).all(dim=-1)
+        check(bool(same[clear].all()), f"small {arch}: top-{k} experts differ between card "
+              f"and CPU for {int((~same & clear).sum())} tokens with a clear router margin")
+        compared += int(clear.sum())
+        excluded += int((~clear).sum())
     # the card's launches run at LANE_BLOCK lanes: its logits carry dead lanes
     err = max((a[:len(b)] - b).abs().max().item() for a, b in zip(lc, lp))
     check(math.isfinite(err) and err <= SMALL_LOGIT_ATOL,
-          f"small: logits differ by {err:.3e} > {SMALL_LOGIT_ATOL}")
-    check(torch.equal(tc, tp), f"small: tokens differ: {tc.tolist()} vs {tp.tolist()}")
-    log(f"small: gpt-1.3b smoke on card == CPU: {sum(map(len, gc.values()))} gathers "
-        f"byte-equal, logits max |diff| {err:.3e}, tokens {tc.tolist()}")
+          f"small {arch}: logits differ by {err:.3e} > {SMALL_LOGIT_ATOL}")
+    check(torch.equal(tc, tp), f"small {arch}: tokens differ: {tc.tolist()} vs {tp.tolist()}")
+    routing = (f"; top-{k} experts equal for {compared} token routings of {len(rc)} MoE "
+               f"calls, {excluded} left out (CPU router margin < {ROUTE_MARGIN:g})"
+               if rc else "")
+    log(f"small: {setup.cfg.name} on card == CPU: {sum(map(len, gc.values()))} gathers "
+        f"byte-equal{routing}, logits max |diff| {err:.3e}, tokens {tc.tolist()}")
 
 
 # ---------------------------------------------------------------------------
@@ -1072,6 +1163,7 @@ def profile_step(torch, setup, prompt, log, tag):
 
 # pool: 256 blocks, twice one window per slot, so that an idle prefix reaches
 # the cold horizon before the allocator has to evict it
+CONT_ARCH = "gpt-1.3b"
 CONT = dict(slots=4, ring=512, block=16, pool_blocks=256, chunk=64, buckets=3, interleave=1,
             quant_bits=4, horizon=8, seed=0, temperature=0.8, top_k=40, prefix=128)
 # (behind the shared prefix?, sampled?, prompt tokens, new tokens) of the
@@ -1145,6 +1237,26 @@ def expected_continuous_launches(model, st: dict, draft_params=None) -> dict:
     return out
 
 
+def launch_timer(torch, store, dev):
+    """A ``hooked`` wrapper of an engine's step-function getter: each launch
+    of the step it returns adds its host time to its tokens (the call, then
+    a sync: the scheduler reads the tokens right after) to `store`."""
+    def wrap(orig):
+        def step_fn(*a, **k):
+            fn = orig(*a, **k)
+
+            def f(*a2, **k2):
+                t = time.perf_counter()
+                out = fn(*a2, **k2)
+                if dev == "cuda":
+                    torch.cuda.synchronize()
+                store.append(time.perf_counter() - t)
+                return out
+            return f
+        return step_fn
+    return wrap
+
+
 def route_setup(setup):
     """`setup` with the card's fixed-shape route (LANE_BLOCK lanes per
     launch) on any device: the CPU's default is the plain shapes, so a CPU
@@ -1157,8 +1269,9 @@ def route_setup(setup):
 
 
 # the non-speculative batch-of-1 solo runs of CONT_PLAN's requests (the
-# reference's solo form), shared by the continuous and speculative phases:
-# both build gpt-1.3b from seed CONT["seed"] and serve it under one key
+# reference's solo form) by (model, request), shared by the continuous and
+# speculative phases: both build their model from seed CONT["seed"] and
+# serve it under one key
 _SOLO: dict = {}
 
 
@@ -1171,13 +1284,13 @@ def solo_runs(torch, setup, reqs, key) -> dict:
                                                         draft_bits=0, draft_depth=0),
                        setup.device)
     for r in reqs:
-        if r.rid not in _SOLO:
+        if (setup.cfg.name, r.rid) not in _SOLO:
             prompt = {"tokens": torch.tensor([list(r.prompt)], dtype=torch.int64)}
-            _SOLO[r.rid] = solo.generate(
+            _SOLO[setup.cfg.name, r.rid] = solo.generate(
                 setup.params, prompt, r.max_new_tokens, key=key, fold_step_keys=False,
                 sample=make_sample_params(r.temperature, r.top_k, r.seed),
                 prefill_chunk=CONT["chunk"], prefill_buckets=CONT["buckets"])[0].tolist()
-    return {r.rid: _SOLO[r.rid] for r in reqs}
+    return {r.rid: _SOLO[setup.cfg.name, r.rid] for r in reqs}
 
 
 def track_cold(sched):
@@ -1209,6 +1322,7 @@ def row_invariance(torch, log, dev):
     row-invariant, else the max |difference|.  Says which launch a pooled
     batch changes when shapes follow the batch composition."""
     import repro_torch.models.layers as L
+    from repro_torch import configs
     from repro_torch.models.attention import AttnConfig, decode_attend
     g = torch.Generator(device=dev).manual_seed(1)
 
@@ -1253,23 +1367,30 @@ def row_invariance(torch, log, dev):
         log(f"continuous: row invariance, {what}: "
             + (f"row 0 differs at M = {varies}" if varies else
                f"row 0 bit-equal at every M in {tuple(res)}"))
-    out["route"] = route_invariance(torch, log, dev, rnd, acfg)
+    out["route"] = route_invariance(torch, log, dev, rnd, configs.get_config(CONT_ARCH))
     return out
 
 
-def route_invariance(torch, log, dev, rnd, acfg):
-    """The fixed-shape route's gate: every launch of the decode path runs at
-    LANE_BLOCK lanes (decode and verify: M = LANE_BLOCK rows; chunks: M =
-    LANE_BLOCK x the top bucket), so a request's rows must come out with the
-    same bits whatever the other lanes hold and whichever lane it rides:
-    alone in lane 0 with the others dead (zeros; a batch-of-1 engine, M = 1
-    or one lane's chunk), or in lane 2 beside live lanes (the pool).  Checked
-    for every GEMM weight shape of the layer, the f32 logits, decode
-    attention (ring) and chunk attention (paged, the continuous cell's)."""
+def route_invariance(torch, log, dev, rnd, cfg):
+    """The fixed-shape route's gate for model config `cfg`: every launch of
+    the decode path runs at LANE_BLOCK lanes (decode and verify: M =
+    LANE_BLOCK rows; chunks: M = LANE_BLOCK x the top bucket), so a
+    request's rows must come out with the same bits whatever the other lanes
+    hold and whichever lane it rides: alone in lane 0 with the others dead
+    (zeros; a batch-of-1 engine, M = 1 or one lane's chunk), or in lane 2
+    beside live lanes (the pool).  Checked for every GEMM weight shape of the
+    layer, the MoE layer (drop-free: a token's slot in its experts' buffers
+    moves with the other lanes' routing), the f32 logits, decode attention
+    (ring) and chunk attention (paged, the continuous cell's).  A verify
+    launch runs each drafted token at the decode block's shape, so the
+    decode gates hold it."""
     import repro_torch.models.layers as L
-    from repro_torch.models.attention import chunk_attend, decode_attend
+    from repro_torch.models.attention import AttnConfig, chunk_attend, decode_attend
     from repro_torch.models.decode import LANE_BLOCK
+    from repro_torch.models.moe import MoEConfig, moe_layer
     lb, lq, ring = LANE_BLOCK, CONT["chunk"], CONT["ring"]
+    d, nh, nkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    acfg = AttnConfig(n_heads=nh, n_kv=nkv, head_dim=hd, tp=1)
 
     def gate(what, fn, req, live, rows=1):
         """fn over lanes of `rows` rows: `req` one lane's input tensors,
@@ -1286,27 +1407,45 @@ def route_invariance(torch, log, dev, rnd, acfg):
         done.append(what)
 
     done = []
-    for what, (k, n) in {"wq/wk/wv/wo": (2048, 2048), "w_gate/w_up": (2048, 8192),
-                         "w_down": (8192, 2048)}.items():
+    gemms = {}
+    for what, shape in (("wq", (d, nh * hd)), ("wk/wv", (d, nkv * hd)), ("wo", (nh * hd, d)),
+                        *((("w_gate/w_up", (d, cfg.d_ff)), ("w_down", (cfg.d_ff, d)))
+                          if not cfg.is_moe else ())):
+        gemms[shape] = f"{gemms[shape]}/{what}" if shape in gemms else what
+    for (k, n), what in gemms.items():
         w = rnd(k, n) * 0.02
         for rows in (1, lq):
             gate(f"x @ {what} bf16 at M = {lb * rows}", lambda x, w=w: x @ w,
                  [rnd(rows, k)], [rnd(lb * rows, k)], rows)
-    head, fnorm = rnd(50304, 2048, dt=torch.float32) * 0.02, torch.ones(2048, device=dev)
+        del w
+    if cfg.is_moe:
+        e, ff = cfg.n_experts, cfg.moe_d_ff
+        ecfg = MoEConfig(n_experts=e, top_k=cfg.moe_top_k, d_model=d, d_ff=ff, tp=1)
+        ew = {"router": rnd(d, e, dt=torch.float32) / d ** 0.5,
+              "w_gate": rnd(e, d, ff) * 0.02, "w_up": rnd(e, d, ff) * 0.02,
+              "w_down": rnd(e, ff, d) * 0.02}
+        for rows in (1, lq):
+            gate(f"MoE layer ({e} experts, top-{cfg.moe_top_k}, drop-free) bf16 at "
+                 f"M = {lb * rows}", lambda x: moe_layer(x, ew, ecfg, no_drop=True)[0],
+                 [rnd(rows, d)], [rnd(lb * rows, d)], rows)
+        del ew
+    head, fnorm = rnd(cfg.vocab_size, d, dt=torch.float32) * 0.02, torch.ones(d, device=dev)
     gate(f"final norm + f32 logits at M = {lb}",
          lambda x: L.vocab_parallel_logits(L.rms_norm(x, fnorm), head),
-         [rnd(1, 2048)], [rnd(lb, 2048)])
+         [rnd(1, d)], [rnd(lb, d)])
+    del head
     pos = torch.full((lb,), 300, device=dev)
     gate(f"decode attention (ring {ring}) at B = {lb}",
          lambda q, c: decode_attend(q, c, c, acfg, pos, ring),
-         [rnd(1, 32, 64), rnd(1, ring, 32, 64)], [rnd(lb, 32, 64), rnd(lb, ring, 32, 64)])
+         [rnd(1, nh, hd), rnd(1, ring, nkv, hd)], [rnd(lb, nh, hd), rnd(lb, ring, nkv, hd)])
     bs = CONT["block"]
     bt = torch.arange(lb * (ring // bs), device=dev).reshape(lb, ring // bs)
     cpos = (torch.arange(lq, device=dev) + 200)[None].expand(lb, lq)
     gate(f"chunk attention (paged, block {bs}) at B = {lb} x {lq}",
          lambda q, c: chunk_attend(q, c, c, acfg, cpos, ring, bt, bs),
-         [rnd(1, lq, 32, 64), rnd(1, ring, 32, 64)], [rnd(lb, lq, 32, 64), rnd(lb, ring, 32, 64)])
-    log(f"continuous: fixed-shape route: a request's rows bit-equal in lane 0 beside dead "
+         [rnd(1, lq, nh, hd), rnd(1, ring, nkv, hd)],
+         [rnd(lb, lq, nh, hd), rnd(lb, ring, nkv, hd)])
+    log(f"{cfg.name}: fixed-shape route: a request's rows bit-equal in lane 0 beside dead "
         f"lanes and in lane 2 beside live ones, for {done}")
     return done
 
@@ -1357,10 +1496,10 @@ def fixed_shape_cost(torch, log, setup, key, reps=5):
     return med
 
 
-def continuous_phase(torch, log, dev="cuda", profile=True):
-    """gpt-1.3b at full width and depth through ``make_scheduler`` ->
-    ``ContinuousScheduler.run``: CONT's configuration, CONT_PLAN's requests,
-    every launch on the fixed-shape route.  Run 1 (profiling one pooled
+def continuous_phase(torch, log, dev="cuda", profile=True, arch=None):
+    """`arch` (gpt-1.3b unless given) at full width and depth through
+    ``make_scheduler`` -> ``ContinuousScheduler.run``: CONT's configuration,
+    CONT_PLAN's requests, every launch on the fixed-shape route.  Run 1 (profiling one pooled
     decode step of sampled lanes: no int64 bitwise or shift kernel may
     appear) and run 2 (counts zeroed just before, read just after, against
     the code's structure; timed) must give every request the same tokens;
@@ -1368,13 +1507,15 @@ def continuous_phase(torch, log, dev="cuda", profile=True):
     equal its solo run on a batch-of-1 engine (``generate(fold_step_keys=
     False, prefill_chunk=64)``, the reference's solo form); the pool's
     invariants hold, blocks were demoted and rehydrated, and none is left in
-    use.  On the card also ``row_invariance`` and ``fixed_shape_cost``."""
+    use.  On the card, for gpt-1.3b, also ``row_invariance`` and
+    ``fixed_shape_cost``."""
     import numpy as np
     from repro_torch.core import prng
     from repro_torch.kernels import ops
     from repro_torch.serve import make_scheduler
 
-    setup = continuous_setup(torch, dev)
+    arch = arch or CONT_ARCH
+    setup = continuous_setup(torch, dev, arch)
     reqs = continuous_requests(setup.cfg.vocab_size)
     key = prng.PRNGKey(CONT["seed"])
 
@@ -1389,6 +1530,10 @@ def continuous_phase(torch, log, dev="cuda", profile=True):
                                kv_quant_bits=CONT["quant_bits"],
                                kv_quant_horizon=CONT["horizon"])
         hooks, cold = track_cold(sched)
+        launches = {"chunk": [], "decode": []}
+        hooks += [(sched.engine, "prefill_chunk_step",
+                   launch_timer(torch, launches["chunk"], dev)),
+                  (sched.engine, "decode_step", launch_timer(torch, launches["decode"], dev))]
         steps, prof = [], None
         sync()
         with contextlib.ExitStack() as stack:
@@ -1412,12 +1557,12 @@ def continuous_phase(torch, log, dev="cuda", profile=True):
             wall = time.perf_counter() - t0
         sched.pool.check_invariants()
         return sched, {r: c.tokens.tolist() for r, c in sched.finished.items()}, cold, \
-            steps, prof, wall
+            steps, prof, wall, launches
 
     with torch.inference_mode():
-        s1, out1, cold1, _, prof, _ = run(profile)
+        s1, out1, cold1, _, prof, _, _ = run(profile)
         ops.reset_launches()
-        s2, out2, cold2, steps, _, wall = run(False)
+        s2, out2, cold2, steps, _, wall, launch_s = run(False)
         counts = dict(ops.LAUNCHES)
     st = s2.stats()
     check(out1 == out2, "continuous: two runs gave different tokens: " + str(
@@ -1437,7 +1582,7 @@ def continuous_phase(torch, log, dev="cuda", profile=True):
     for k in ops.KERNELS:
         check(counts[k] == want.get(k, 0), f"continuous: {k} launched {counts[k]} times, "
               f"the code's structure predicts {want.get(k, 0)}")
-    check(min(counts[k] for k in want) > 0, f"continuous: a kernel never launched: {counts}")
+    check(all(counts[k] > 0 for k in want), f"continuous: a kernel never launched: {counts}")
     if profile:
         check(prof is not None, "continuous: no step with a sampled lane decoding to profile")
         check(prof["threefry_int64"] == 0, f"continuous: {prof['threefry_int64']} int64 "
@@ -1462,7 +1607,7 @@ def continuous_phase(torch, log, dev="cuda", profile=True):
     dec = sorted(t for t, chunked in steps if not chunked)
     mix = sorted(t for t, chunked in steps if chunked)
     pct = (lambda a, q: float(np.percentile(a, q)) if a else float("nan"))
-    log(f"continuous: gpt-1.3b, {len(reqs)} requests on {CONT['slots']} slots, ring "
+    log(f"continuous: {setup.cfg.name}, {len(reqs)} requests on {CONT['slots']} slots, ring "
         f"{CONT['ring']}, block {CONT['block']}, chunk {CONT['chunk']} (buckets {s2.buckets}): "
         f"{st['tokens_generated']} tokens in {wall:.3f} s = "
         f"{st['tokens_generated'] / wall:.2f} tokens/s; TTFT p50 {pct(ttft, 50):.3f} s, "
@@ -1472,16 +1617,23 @@ def continuous_phase(torch, log, dev="cuda", profile=True):
         f"{1e3 * pct(mix, 50):.2f} (p95 {1e3 * pct(mix, 95):.2f}, {len(mix)} steps); "
         f"occupancy {st['mean_occupancy']:.3f} of {CONT['slots']}; {st['prefill_chunks']} "
         f"chunk launches, {st['decode_launches']} decode steps")
+    log(f"continuous: launch ms (host, to the tokens): chunk launch median "
+        f"{1e3 * pct(launch_s['chunk'], 50):.2f} (p95 {1e3 * pct(launch_s['chunk'], 95):.2f}, "
+        f"{len(launch_s['chunk'])}), decode launch median {1e3 * pct(launch_s['decode'], 50):.2f} "
+        f"(p95 {1e3 * pct(launch_s['decode'], 95):.2f}, {len(launch_s['decode'])})")
     log(f"continuous: prefix hit rate {st['prefix_hit_rate']:.3f} ({st['prefix_hits']} hits), "
         f"demotions {st['demotions']}, rehydrations {st['rehydrations']}, cold blocks at the "
         f"end {st['cold_blocks']} = {st['cold_bytes']} bytes "
         f"({st['cold_compression']:.2f}x smaller than hot), cow forks {st['cow_forks']}")
     log(f"continuous: launches {counts} = structure {want}")
     if profile:
-        log(f"continuous: profiled step: random_bits {prof['rb_n']}, K1 {prof['k1_n']}, K2 "
-            f"{prof['k2_n']}; int64 elementwise kernels {prof['int64_n']}, of which bitwise/"
-            f"shift {prof['threefry_int64']}")
-    if dev == "cuda":
+        log(f"continuous: profiled step: {prof['kernels']} kernels, busy "
+            f"{prof['busy_ms']:.1f} of {prof['wall_ms']:.1f} ms "
+            f"({100 * prof['busy_ms'] / prof['wall_ms']:.1f}%); random_bits {prof['rb_n']}, "
+            f"K1 {prof['k1_n']} ({prof['k1_ms']:.3f} ms), K2 {prof['k2_n']} "
+            f"({prof['k2_ms']:.3f} ms); int64 elementwise kernels {prof['int64_n']}, of which "
+            f"bitwise/shift {prof['threefry_int64']}")
+    if dev == "cuda" and arch == CONT_ARCH:
         row_invariance(torch, log, dev)
         fixed_shape_cost(torch, log, setup, key)
     del setup, s1, s2
@@ -1490,12 +1642,12 @@ def continuous_phase(torch, log, dev="cuda", profile=True):
     return counts
 
 
-def continuous_setup(torch, dev, **kw):
-    """gpt-1.3b at CONT's configuration on the fixed-shape route; `kw` adds
+def continuous_setup(torch, dev, arch, **kw):
+    """`arch` at CONT's configuration on the fixed-shape route; `kw` adds
     DecodeSpec fields (the speculative phase's draft)."""
     from repro_torch.serve import build_serve_setup
     gen_max = max(g for *_, g in CONT_PLAN)
-    setup = build_serve_setup("gpt-1.3b", smoke=False, batch=CONT["slots"],
+    setup = build_serve_setup(arch, smoke=False, batch=CONT["slots"],
                               prompt_len=CONT["ring"] - gen_max, gen=gen_max,
                               seed=CONT["seed"], sampling=True, kv_block_size=CONT["block"],
                               kv_pool_blocks=CONT["pool_blocks"], device=dev, **kw)
@@ -1512,8 +1664,9 @@ def continuous_setup(torch, dev, **kw):
 SPEC = dict(draft_bits=4, draft_depth=4)
 
 
-def speculative_phase(torch, log, dev="cuda"):
-    """gpt-1.3b at full width and depth through ``make_scheduler`` with
+def speculative_phase(torch, log, dev="cuda", arch=None):
+    """`arch` (gpt-1.3b unless given) at full width and depth through
+    ``make_scheduler`` with
     ``DecodeSpec(draft_bits=4, draft_depth=4)``: CONT's configuration and
     CONT_PLAN's requests, as the continuous phase.  Gates: every request
     that attached no rehydrated block, greedy and sampled, commits the
@@ -1528,7 +1681,7 @@ def speculative_phase(torch, log, dev="cuda"):
     from repro_torch.kernels import ops
     from repro_torch.serve import make_scheduler
 
-    setup = continuous_setup(torch, dev, **SPEC)
+    setup = continuous_setup(torch, dev, arch or CONT_ARCH, **SPEC)
     reqs = continuous_requests(setup.cfg.vocab_size)
     key = prng.PRNGKey(CONT["seed"])
 
@@ -1537,30 +1690,12 @@ def speculative_phase(torch, log, dev="cuda"):
             torch.cuda.synchronize()
 
     times = {"draft": [], "verify": []}
-
-    def timed(tag):
-        """A launch's host time to its tokens on the host: the call, then a
-        sync (the scheduler reads the tokens right after)."""
-        def wrap(orig):
-            def step_fn():
-                fn = orig()
-
-                def f(*a, **k):
-                    t = time.perf_counter()
-                    out = fn(*a, **k)
-                    sync()
-                    times[tag].append(time.perf_counter() - t)
-                    return out
-                return f
-            return step_fn
-        return wrap
-
     sched = make_scheduler(setup, gather_key=key, prefill_chunk=CONT["chunk"],
                            prefill_buckets=CONT["buckets"], prefill_interleave=CONT["interleave"],
                            kv_quant_bits=CONT["quant_bits"], kv_quant_horizon=CONT["horizon"])
     hooks, cold = track_cold(sched)
-    hooks += [(sched.draft_engine, "decode_step", timed("draft")),
-              (sched.engine, "verify_step", timed("verify"))]
+    hooks += [(sched.draft_engine, "decode_step", launch_timer(torch, times["draft"], dev)),
+              (sched.engine, "verify_step", launch_timer(torch, times["verify"], dev))]
     steps = []
     with torch.inference_mode(), contextlib.ExitStack() as stack:
         for h in hooks:
@@ -1592,7 +1727,8 @@ def speculative_phase(torch, log, dev="cuda"):
     for k in ops.KERNELS:
         check(counts[k] == want.get(k, 0), f"speculative: {k} launched {counts[k]} times, "
               f"the code's structure predicts {want.get(k, 0)}")
-    check(min(counts[k] for k in want) > 0, f"speculative: a kernel never launched: {counts}")
+    check(all(counts[k] > 0 for k, n in want.items() if n),
+          f"speculative: a kernel never launched: {counts}")
     solo = solo_runs(torch, setup, [r for r in reqs if r.rid not in cold], key)
     check(any(r.needs_sampling for r in reqs if r.rid in solo)
           and all(r.rid in solo for r in reqs if not r.needs_sampling),
@@ -1607,7 +1743,8 @@ def speculative_phase(torch, log, dev="cuda"):
     log(f"speculative: {len(solo)} requests ({sorted(solo)}) commit the tokens of their "
         f"non-speculative batch-of-1 solo runs, greedy and sampled; requests on rehydrated "
         f"blocks {sorted(cold)}")
-    log(f"speculative: gpt-1.3b, draft {SPEC['draft_bits']}-bit x depth {SPEC['draft_depth']}, "
+    log(f"speculative: {setup.cfg.name}, draft {SPEC['draft_bits']}-bit x depth "
+        f"{SPEC['draft_depth']}, "
         f"{len(reqs)} requests on {CONT['slots']} slots: {st['tokens_generated']} tokens in "
         f"{wall:.3f} s = {st['tokens_generated'] / wall:.2f} tokens/s; TTFT p50 "
         f"{pct(ttft, 50):.3f} s, p95 {pct(ttft, 95):.3f} s")
@@ -1623,19 +1760,19 @@ def speculative_phase(torch, log, dev="cuda"):
         f"{st['rehydrations']}")
     log(f"speculative: launches {counts} = structure {want}")
     if dev == "cuda":
-        profile_speculative_step(torch, log, sched, reqs)
+        profile_speculative_step(torch, log, sched, reqs, k3=want["rowquant_matmul"] > 0)
     del setup, sched
     if dev == "cuda":
         torch.cuda.empty_cache()
     return counts
 
 
-def profile_speculative_step(torch, log, sched, reqs):
+def profile_speculative_step(torch, log, sched, reqs, k3=True):
     """After the timed run: 4 more greedy requests (64-token prompts, one
     chunk launch for all of them), then one step of draft and verify
     launches under torch.profiler (device busy share, kernel time by name),
     then the queue drained.  No int64 bitwise or shift kernel may appear,
-    and the step must run K3 and K2."""
+    and the step must run K2, and K3 where the draft's MLP takes it (`k3`)."""
     from repro_torch.serve import Request
     for i, r in enumerate(reqs[:4]):
         sched.submit(Request(rid=f"p{i}", prompt=list(r.prompt[:CONT["chunk"]]),
@@ -1646,12 +1783,111 @@ def profile_speculative_step(torch, log, sched, reqs):
         sched.run()
     check(prof["threefry_int64"] == 0, f"speculative: {prof['threefry_int64']} int64 bitwise/"
           "shift kernels in the profiled step")
-    check(prof["k3_n"] > 0 and prof["k2_n"] > 0, f"speculative: the profiled step ran K3 "
-          f"{prof['k3_n']} and K2 {prof['k2_n']} times")
+    check((prof["k3_n"] > 0) == k3 and prof["k2_n"] > 0, f"speculative: the profiled step ran "
+          f"K3 {prof['k3_n']} and K2 {prof['k2_n']} times")
     log(f"speculative: profiled step: K1 {prof['k1_n']} ({prof['k1_ms']:.3f} ms), K2 "
         f"{prof['k2_n']} ({prof['k2_ms']:.3f} ms), K3 {prof['k3_n']} ({prof['k3_ms']:.3f} ms); "
         f"int64 elementwise kernels {prof['int64_n']}, of which bitwise/shift "
         f"{prof['threefry_int64']}")
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the MoE family -- olmoe-1b-7b at full width and depth through
+# batch, continuous and speculative serving
+# ---------------------------------------------------------------------------
+
+MOE_ARCH = "olmoe-1b-7b"
+
+
+def moe_batch(torch, log, dev="cuda"):
+    """olmoe-1b-7b at full width and depth through ``build_serve_setup`` ->
+    ``ServeEngine.generate``: SERVE's batch 4 x prompt 128 x 16 greedy
+    tokens, run twice after a warm-up.  Gates: the two runs' tokens equal,
+    tokens in range, the launches of a run (counts zeroed just before, read
+    just after) equal the code's structure (K1 per quantized tensor, K2 per
+    layer buffer and the embedding's, per step)."""
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels import ops
+    from repro_torch.serve import build_serve_setup, make_prompt_batch
+
+    setup = build_serve_setup(MOE_ARCH, smoke=False, device=dev, **SERVE)
+    cfg, gen = setup.cfg, SERVE["gen"]
+    tokens, _ = SyntheticLM(cfg.vocab_size, SERVE["prompt_len"], SERVE["batch"],
+                            seed=SERVE["seed"]).sample(0)
+    prompt = make_prompt_batch(cfg, setup.spec, setup.ms, tokens, setup.device)
+
+    def run(n):
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = setup.engine.generate(setup.params, prompt, n_tokens=n).cpu()
+        return out, time.perf_counter() - t
+
+    run(2)  # warm-up: allocator, cuBLAS handles
+    t_prefill = statistics.median(run(1)[1] for _ in range(2))
+    ops.reset_launches()
+    out1, t1 = run(gen)
+    counts = dict(ops.LAUNCHES)
+    out2, t2 = run(gen)
+    want = expected_launches(setup.model, gen, False)
+    nl = cfg.n_layers
+    check(want["per_step"] == (7 * nl + 1, nl + 1, 0),
+          f"moe batch: per-step K1/K2/K3 {want['per_step']}, the layer holds 7 quantized "
+          f"tensors in one buffer")
+    check(tuple(out1.shape) == (SERVE["batch"], gen), f"moe batch: tokens shape {out1.shape}")
+    check(bool(((out1 >= 0) & (out1 < cfg.vocab_size)).all()), "moe batch: token out of range")
+    check(torch.equal(out1, out2), f"moe batch: two runs differ: {out1.tolist()} vs "
+          f"{out2.tolist()}")
+    for k in ops.KERNELS:
+        check(counts[k] == want.get(k, 0), f"moe batch: {k} launched {counts[k]} times, the "
+              f"code's structure predicts {want.get(k, 0)}")
+    step_ms = sorted((t - t_prefill) / (gen - 1) * 1e3 for t in (t1, t2))
+    log(f"moe batch: {cfg.name} ({cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_experts} experts top-{cfg.moe_top_k}, {cfg.n_params() / 1e9:.3f} G params, "
+        f"{cfg.n_active_params() / 1e9:.3f} G active) {SERVE['batch']}x{gen} tokens: "
+        f"runs {t1:.3f} / {t2:.3f} s ({SERVE['batch'] * gen / min(t1, t2):.1f} tok/s); prefill "
+        f"{t_prefill * 1e3:.1f} ms; decode step {step_ms[0]:.2f} / {step_ms[1]:.2f} ms")
+    peak = torch.cuda.max_memory_allocated() / 2**30 if dev == "cuda" else float("nan")
+    log(f"moe batch: launches {counts} = per decode step K1/K2/K3 {want['per_step']}; peak "
+        f"device memory {peak:.2f} GiB; tokens[0] = {out1[0].tolist()}")
+    del setup, prompt
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    return counts
+
+
+def moe_phase(torch, log, dev="cuda"):
+    """The MoE family on the card: olmoe-1b-7b's smoke config card vs CPU
+    (``small_phase``), then at full width and depth (16 layers, 64 experts
+    top-8, random weights from seed 0, default QSDPConfig) batch serving
+    (``moe_batch``), the continuous phase's cell (CONT, CONT_PLAN: two runs,
+    solo gates, pool, launches, a profiled step) and the speculative phase's
+    (a 4-bit draft of depth 4, whose expert stacks K2 decodes), and the
+    fixed-shape route's row gate at the MoE launch shapes.  Prints the
+    phase's seconds and its peak device memory.  Returns the launches of the
+    driven paths (the small phase's and the gates' are not counted)."""
+    from collections import Counter
+    from repro_torch import configs
+    t0 = time.perf_counter()
+    if dev == "cuda":
+        small_phase(torch, log, MOE_ARCH)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    counts = Counter(moe_batch(torch, log, dev))
+    counts.update(continuous_phase(torch, log, dev, profile=dev == "cuda", arch=MOE_ARCH))
+    counts.update(speculative_phase(torch, log, dev, arch=MOE_ARCH))
+    g = torch.Generator(device=dev).manual_seed(3)
+
+    def rnd(*shape, dt=torch.bfloat16):
+        return torch.randn(shape, generator=g, device=dev).to(dt)
+
+    route_invariance(torch, log, dev, rnd, configs.get_config(MOE_ARCH))
+    peak = torch.cuda.max_memory_allocated() / 2**30 if dev == "cuda" else float("nan")
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    log(f"moe: phase {time.perf_counter() - t0:.1f} s, peak device memory {peak:.2f} GiB; "
+        f"launches {dict(counts)}")
+    return dict(counts)
 
 
 # ---------------------------------------------------------------------------
@@ -1710,7 +1946,7 @@ def small_train_phase(torch, log):
 
 
 # ---------------------------------------------------------------------------
-# phase 7: gpt-1.3b training
+# phase 8: gpt-1.3b training
 # ---------------------------------------------------------------------------
 
 TRAIN = dict(batch=4, seq=2048, n_micro=2, seed=0, lr=6e-4, warmup=10, total=100)
@@ -1849,7 +2085,7 @@ def train_phase(torch, log, dev="cuda"):
 
 
 # ---------------------------------------------------------------------------
-# phase 8: the paper's experiments
+# phase 9: the paper's experiments
 # ---------------------------------------------------------------------------
 
 # the JAX package's suite defaults (benchmarks/run.py): steps per training

@@ -19,8 +19,9 @@ Self-speculative decoding (--continuous): a --draft-bits draft of the same
 weights drafts up to --draft-depth tokens per slot per step, verified at
 serving precision (add ``--draft-bits 4 --draft-depth 4`` above).
 
-``--smoke`` serves the 2-layer smoke config; ``--device cpu`` runs the
-plain versions of the kernels on the CPU.
+``--arch`` takes any config of ``repro_torch.configs`` (the MoE family
+too: ``--arch olmoe-1b-7b``); ``--smoke`` serves its 2-layer smoke config;
+``--device cpu`` runs the plain versions of the kernels on the CPU.
 """
 from __future__ import annotations
 

@@ -1,14 +1,17 @@
 """Architecture configuration — a copy of the JAX package's
 ``models/config.py`` (pure Python; the port imports nothing of ``repro``).
 
-One `ModelConfig` describes any of the six family types; this slice of the
-port serves the dense family (``repro_torch.configs``: the paper's GPT
-models).
+One `ModelConfig` describes any of the six family types; the port serves
+the dense and MoE families (``repro_torch.configs``).
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional
+
+
+# families of the JAX package the port does not build yet -> their ROADMAP item
+UNPORTED_FAMILIES = {"ssm": "A11c", "hybrid": "A11c", "vlm": "A11d", "audio": "A11d"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -74,6 +77,43 @@ class ModelConfig:
     @property
     def is_encoder_decoder(self) -> bool:
         return self.arch_type == "audio"
+
+    def n_params(self) -> int:
+        """Approximate logical parameter count (for 6ND model-flops)."""
+        d, v = self.d_model, self.vocab_size
+        total = v * d  # embedding
+        if not self.tie_embeddings:
+            total += v * d
+        per_attn = d * self.n_heads * self.head_dim + 2 * d * self.n_kv_heads * self.head_dim \
+            + self.n_heads * self.head_dim * d if self.has_attention else 0
+        per_dense_mlp = 3 * d * self.d_ff if self.d_ff else 0
+        per_moe = self.n_experts * 3 * d * self.moe_d_ff if self.is_moe else 0
+        d_in = self.ssm_expand * d
+        n_h = d_in // self.ssm_head_dim if self.ssm_state else 0
+        per_ssm = (2 * d * d_in + 2 * d * self.ssm_state + d * n_h + d_in * d) if self.ssm_state else 0
+        if self.arch_type in ("dense", "vlm"):
+            total += self.n_layers * (per_attn + per_dense_mlp)
+        elif self.arch_type == "moe":
+            total += self.n_layers * (per_attn + per_moe)
+        elif self.arch_type == "ssm":
+            total += self.n_layers * per_ssm
+        elif self.arch_type == "hybrid":
+            total += self.n_layers * per_ssm + (per_attn + per_dense_mlp)  # shared block
+        elif self.arch_type == "audio":
+            total += (self.n_layers + self.n_enc_layers) * (per_attn + per_dense_mlp)
+            total += self.n_layers * per_attn  # cross attention
+        return int(total)
+
+    def n_active_params(self) -> int:
+        """Active params per token (MoE: top-k experts only)."""
+        if not self.is_moe:
+            return self.n_params()
+        d = self.d_model
+        per_attn = d * self.n_heads * self.head_dim + 2 * d * self.n_kv_heads * self.head_dim \
+            + self.n_heads * self.head_dim * d
+        per_moe_active = self.moe_top_k * 3 * d * self.moe_d_ff
+        total = self.vocab_size * d + self.n_layers * (per_attn + per_moe_active)
+        return int(total)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,7 +1,12 @@
-"""Serving paths of the dense family: whole-prompt prefill (builds the KV
-ring), chunked prefill over the whole slot pool, and one-token decode with
-greedy or per-request sampling, over a private KV ring per slot or a paged
-pool of KV blocks; wired through the QSDP engine.
+"""Serving paths of the dense and MoE families: whole-prompt prefill (builds
+the KV ring), chunked prefill over the whole slot pool, and one-token decode
+with greedy or per-request sampling, over a private KV ring per slot or a
+paged pool of KV blocks; wired through the QSDP engine.
+
+The MoE layer dispatches drop-free on every launch of the decode path
+(decode, chunks, verify): capacity drops would let dead lanes, padding or
+other requests evict a token's expert slot.  Whole-prompt prefill keeps the
+reference's capacity drops (``models/moe.py``).
 
 FSDP serving: weights stay sharded at rest and are re-gathered — quantized —
 layer by layer inside every prefill and decode step, so one step runs the
@@ -52,6 +57,7 @@ from ..core import prng
 from ..core.quant import QuantizedParam
 from . import attention as attn_mod
 from . import layers as L
+from . import moe as moe_mod
 from .transformer import Model
 
 Params = dict[str, torch.Tensor]
@@ -61,7 +67,7 @@ Cache = dict[str, torch.Tensor]
 ROWQUANT_MLP = ("w_gate", "w_up", "w_down")
 
 # families whose prompts may prefill chunk-at-a-time into the pool cache
-# (the reference's pure attention stacks; the port has the dense family)
+# (the reference's pure attention stacks)
 CHUNKED_PREFILL_ARCHS = ("dense", "moe")
 
 # lanes per launch of the decode path on the card (the continuous cell's
@@ -343,6 +349,21 @@ class DecodeModel:
         kc_all[layer, bi, idx] = torch.where(mine, k1.to(kc_all.dtype), kc_all[layer, bi, idx])
         vc_all[layer, bi, idx] = torch.where(mine, v1.to(vc_all.dtype), vc_all[layer, bi, idx])
 
+    @property
+    def _mlp_kind(self) -> str:
+        """The feed-forward of the decode-path gathers: "dense" (rowquant may
+        take it) or "moe"."""
+        return "moe" if self.m.cfg.is_moe else "dense"
+
+    def _mlp(self, h: torch.Tensor, w: dict, no_drop: bool) -> torch.Tensor:
+        """The layer's feed-forward over h (..., d): the dense SwiGLU, or the
+        MoE layer over the flattened tokens (reference ``decode.py:418``,
+        ``:658``, ``:943``)."""
+        if not self.m.cfg.is_moe:
+            return L.swiglu_mlp(h, w["w_gate"], w["w_up"], w["w_down"])
+        y, _ = moe_mod.moe_layer(h.reshape(-1, h.shape[-1]), w, self.m.ecfg, no_drop=no_drop)
+        return y.reshape(h.shape)
+
     def _decode_attn_layer(self, x, w, cache: Cache, layer: int, blk: _Block):
         """One layer over one lane block's tokens x (lane_block, d)."""
         m, cfg = self.m, self.m.cfg
@@ -357,13 +378,14 @@ class DecodeModel:
                                    self.spec.cache_len, blk.bt, self.spec.kv_block_size)
         x = x + attn_mod.decode_out_proj(o, w, m.acfg, x.dtype)
         h = L.rms_norm(x, w["mlp_norm"], cfg.norm_eps)
-        return x + L.swiglu_mlp(h, w["w_gate"], w["w_up"], w["w_down"])
+        return x + self._mlp(h, w, no_drop=True)
 
     def _gather_layer_w(self, prefix: str, names, lw: Params, lkey: prng.Key,
                         mlp=None) -> dict:
         """One layer's weights: one coalesced gather for the dense ones; with
-        rowquant decode (mlp="dense") the MLP matmul weights come back as
-        RowQuantWeights, gathered separately, that stay in code form.
+        rowquant decode (mlp="dense": never the MoE experts) the MLP matmul
+        weights come back as RowQuantWeights, gathered separately, that stay
+        in code form.
 
         Weights that arrive as wire codes (QuantizedParam: a quantized
         checkpoint served through ``prepare_wire_params``, or the low-bit
@@ -393,7 +415,7 @@ class DecodeModel:
         names = list(grp)
         for idx in range(_n_layers(grp)):
             w = self._gather_layer_w(prefix, names, _layer(grp, idx), prng.fold_in(key, idx),
-                                     mlp="dense")
+                                     mlp=self._mlp_kind)
             x = self._per_block(x, blocks, lambda xb, blk, w=w, idx=idx:
                                 self._decode_attn_layer(xb, w, cache, idx, blk))
         return x
@@ -447,7 +469,7 @@ class DecodeModel:
         names = list(grp)
         for idx in range(_n_layers(grp)):
             w = self._gather_layer_w("layers", names, _layer(grp, idx), prng.fold_in(key, idx),
-                                     mlp="dense")
+                                     mlp=self._mlp_kind)
             for j in range(kmax):
                 xs[j] = self._per_block(xs[j], blocks[j], lambda xb, blk, w=w, idx=idx:
                                         self._decode_attn_layer(xb, w, cache, idx, blk))
@@ -509,7 +531,8 @@ class DecodeModel:
                                               cache_slice=True)
         x = x + a
         h = L.rms_norm(x, w["mlp_norm"], cfg.norm_eps)
-        x = x + L.swiglu_mlp(h, w["w_gate"], w["w_up"], w["w_down"])
+        # the reference's whole-prompt prefill keeps the capacity drops
+        x = x + self._mlp(h, w, no_drop=False)
         return (x, self._slice_seq(kf).to(torch.bfloat16),
                 self._slice_seq(vf).to(torch.bfloat16))
 
@@ -552,7 +575,7 @@ class DecodeModel:
                                      m.acfg, x.dtype)
         x = x + a.reshape(b, lq, -1)
         h = L.rms_norm(x, w["mlp_norm"], cfg.norm_eps)
-        return x + L.swiglu_mlp(h, w["w_gate"], w["w_up"], w["w_down"])
+        return x + self._mlp(h, w, no_drop=True)
 
     def _chunk_attn_stack(self, params, prefix, x, cache, blocks, key):
         grp = self.m._group(params, prefix)

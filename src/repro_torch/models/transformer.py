@@ -1,6 +1,7 @@
-"""Model composition: parameter specs of the dense family, the bound QSDP
-engine and the training forward (the dense subset of the JAX package's
-``models/transformer.py``; the other families come with ROADMAP A11).
+"""Model composition: parameter specs of the dense and MoE families, the
+bound QSDP engine and the dense family's training forward (the dense and MoE
+subset of the JAX package's ``models/transformer.py``; MoE training is
+ROADMAP A11b, the other families A11c/A11d).
 
 Parameters live in the engine's rest layout, ``(stack?, 1, 1, n_local)`` on
 the one-rank mesh, and are gathered per layer — quantized — inside every
@@ -22,7 +23,8 @@ from ..core.qsdp import MeshSpec, ParamSpec, QSDPConfig, QSDPEngine
 from . import attention as attn_mod
 from . import layers as L
 from .attention import AttnConfig
-from .config import ModelConfig
+from .config import UNPORTED_FAMILIES, ModelConfig
+from .moe import MoEConfig
 
 Params = dict[str, torch.Tensor]
 
@@ -59,6 +61,25 @@ def _mlp_specs(d: int, ff: int, stack: Optional[int], out_scale: float) -> dict[
     }
 
 
+def _moe_specs(d: int, e: int, ffe: int, stack: Optional[int],
+               out_scale: float) -> dict[str, ParamSpec]:
+    """The router rides the layer's wire buffer unquantized (an fp segment);
+    the expert stacks are sharded over the model axis on the expert axis."""
+    return {
+        "router": ParamSpec((d, e), tp_axis=None, stack=stack, init="scaled_normal",
+                            init_scale=1.0, quantize=False),
+        "w_gate": ParamSpec((e, d, ffe), tp_axis=0, stack=stack, init="scaled_normal",
+                            init_scale=1.0),
+        "w_up": ParamSpec((e, d, ffe), tp_axis=0, stack=stack, init="scaled_normal",
+                          init_scale=1.0),
+        "w_down": ParamSpec((e, ffe, d), tp_axis=0, stack=stack, init="scaled_normal",
+                            init_scale=out_scale),
+    }
+
+
+_PORTED_ARCHS = ("dense", "moe")
+
+
 def _norm_spec(d: int, stack: Optional[int]) -> ParamSpec:
     return ParamSpec((d,), tp_axis=None, stack=stack, init="ones", quantize=False)
 
@@ -68,10 +89,10 @@ class Model:
     and the QSDP engine that gathers it."""
 
     def __init__(self, cfg: ModelConfig, ms: MeshSpec, qcfg: QSDPConfig):
-        if cfg.arch_type != "dense":
+        if cfg.arch_type not in _PORTED_ARCHS:
             raise NotImplementedError(
-                f"arch_type {cfg.arch_type!r} is not ported yet (ROADMAP A11); "
-                "the port runs the dense family")
+                f"arch_type {cfg.arch_type!r} is not ported yet (ROADMAP "
+                f"{UNPORTED_FAMILIES.get(cfg.arch_type, 'A11')}); the port runs {_PORTED_ARCHS}")
         self.cfg = cfg
         self.ms = ms
         self.qcfg = qcfg
@@ -79,6 +100,11 @@ class Model:
                                head_dim=cfg.head_dim, tp=ms.model_size, causal=True,
                                sliding_window=cfg.sliding_window,
                                mxu_bf16=qcfg.attn_bf16)
+        if cfg.is_moe:
+            self.ecfg = MoEConfig(n_experts=cfg.n_experts, top_k=cfg.moe_top_k,
+                                  d_model=cfg.d_model, d_ff=cfg.moe_d_ff, tp=ms.model_size,
+                                  capacity_factor=cfg.moe_capacity_factor,
+                                  aux_coef=cfg.moe_aux_coef)
         self.vp = cfg.padded_vocab(ms.model_size)
         self.specs = self._build_specs()
         self.engine = QSDPEngine(ms, qcfg, self.specs)
@@ -92,8 +118,9 @@ class Model:
              "final_norm": _norm_spec(d, None)}
         if not cfg.tie_embeddings:
             s["lm_head"] = ParamSpec((self.vp, d), tp_axis=0, init="normal", init_scale=0.02)
-        block = {**_attn_specs(d, self.acfg, nl, cfg.qkv_bias, out_scale),
-                 **_mlp_specs(d, cfg.d_ff, nl, out_scale),
+        mlp = (_moe_specs(d, cfg.n_experts, cfg.moe_d_ff, nl, out_scale) if cfg.is_moe
+               else _mlp_specs(d, cfg.d_ff, nl, out_scale))
+        block = {**_attn_specs(d, self.acfg, nl, cfg.qkv_bias, out_scale), **mlp,
                  "attn_norm": _norm_spec(d, nl), "mlp_norm": _norm_spec(d, nl)}
         s.update({f"layers/{k}": v for k, v in block.items()})
         return s
@@ -111,6 +138,9 @@ class Model:
         """Mean token cross-entropy of one microbatch, {"tokens", "labels"}
         (B, S); every weight gathered quantized under `key`."""
         cfg, eng = self.cfg, self.engine
+        if cfg.is_moe:
+            raise NotImplementedError("MoE training is not ported yet (ROADMAP A11b); the "
+                                      "port serves the MoE family")
         tokens = batch["tokens"]
         b, s = tokens.shape
         emb = eng.gather("embed", params["embed"], key)

@@ -98,8 +98,8 @@ def build_serve_setup(arch, *, data_par: int = 1, model_par: int = 1,
 
 def make_prompt_batch(cfg: ModelConfig, spec: DecodeSpec, ms: MeshSpec,
                       tokens, device) -> dict:
-    """The prefill batch {"tokens": (B, S) int64} on `device` (dense family:
-    no modality stubs)."""
+    """The prefill batch {"tokens": (B, S) int64} on `device` (the dense and
+    MoE families take no modality stubs)."""
     return {"tokens": torch.as_tensor(tokens, dtype=torch.int64).to(device)}
 
 

@@ -40,14 +40,22 @@ MESH = jax.make_mesh((1, 1), ("data", "model"))
 _models: dict = {}
 
 
+# the reference's MoE scheduler-suite model (tests/test_serve_scheduler.py:
+# 45-51: its experts have moe_d_ff 0, so they add nothing), and one whose
+# experts compute
+MOE_CFG = dict(arch_type="moe", n_experts=4, moe_top_k=2)
+MOE_FF_CFG = dict(MOE_CFG, moe_d_ff=64)
+
+
 def models(**cfg_kw):
-    """((JAX model, params), (port model, params)), the same weights."""
+    """((JAX model, params), (port model, params)), the same weights; `cfg_kw`
+    overrides CFG's fields."""
     key = tuple(sorted(cfg_kw.items()))
     if key not in _models:
-        jm = JModel(JModelConfig(**CFG, **cfg_kw), JMeshSpec(("data", "model"), (1, 1)),
+        jm = JModel(JModelConfig(**{**CFG, **cfg_kw}), JMeshSpec(("data", "model"), (1, 1)),
                     JQSDPConfig(min_quant_size=256, compute_dtype="float32"))
         jp = jm.init_params(jax.random.PRNGKey(0))
-        tm = Model(ModelConfig(**CFG, **cfg_kw), MeshSpec(("data", "model"), (1, 1)),
+        tm = Model(ModelConfig(**{**CFG, **cfg_kw}), MeshSpec(("data", "model"), (1, 1)),
                    QSDPConfig(min_quant_size=256, compute_dtype="float32"))
         tp = params_from_jax({k: np.asarray(v) for k, v in jp.items()}, "cpu", tm)
         _models[key] = ((jm, jp), (tm, tp))
@@ -88,10 +96,11 @@ def spec_kw(slots=3, paged=False, pool_blocks=0, draft_bits=0, draft_depth=0):
 
 
 def schedulers(slots=3, paged=False, pool_blocks=0, draft_bits=0, draft_depth=0,
-               lane_block=0, **kw):
+               lane_block=0, cfg_kw=None, **kw):
     """(JAX scheduler, port scheduler) over the same spec and knobs;
-    `lane_block` sets the port's launch blocks (0: the CPU's plain shapes)."""
-    (jm, jp), (tm, tp) = models()
+    `lane_block` sets the port's launch blocks (0: the CPU's plain shapes);
+    `cfg_kw` the model's fields that differ from CFG."""
+    (jm, jp), (tm, tp) = models(**(cfg_kw or {}))
     skw = spec_kw(slots, paged, pool_blocks, draft_bits, draft_depth)
     js = JScheduler(jm, MESH, JDecodeSpec(**skw), jp,
                     gather_key=jax.random.PRNGKey(GATHER_SEED), **kw)
