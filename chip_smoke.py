@@ -88,8 +88,26 @@ Phases, each of which makes the script exit non-zero when it fails:
               ``build_train_step``: one warm-up step, 3 timed steps (launch
               counts checked against the code's structure), one step under
               torch.profiler (K1's device time, no threefry int64 kernels
-              left); then quantized_state vs quantize_master (8-bit
-              moments) for 2 steps, losses equal.
+              left); the same steps under remat "dots" (losses bit-equal to
+              "full", launches equal; time and peak beside "full"); then
+              quantized_state vs quantize_master (8-bit moments) for 2
+              steps, losses equal.
+8b. moetrain -- olmoe-1b-7b's training: first its smoke config one f32
+              step card vs CPU (loss and grad norm within the CPU tests'
+              step tolerances when no CPU router margin is below
+              ROUTE_MARGIN; routes equal where it is clear); then full width
+              cut to 8 of 16 layers (3.46 G parameters, random weights from
+              seed 0, default QSDPConfig, AdamW with 8-bit moments, TRAIN's
+              batch, sequence, microbatches and schedule): step 0 twice from
+              one state bit-equal, 3 timed steps (K1/K2 launches equal the
+              structure's, moment codes included), the first loss less the
+              load-balance term within 0.5 of ln 50,304, per-layer aux and
+              capacity drops, one profiled step (busy share; K1, K2, expert
+              products, dispatch/combine, attention; no int64 threefry
+              kernel), then one quantized_state step equal to the
+              quantize_master step.  The kernel phase adds K1 G8 stochastic
+              on one expert-stack gradient and K2 into f32 over a whole
+              olmoe layer's gradient buffer.
 9. experiments -- first the theory runs' draws (64-bit bits, f64 and f32
               uniforms), the f64 lattice quantizers and one ``run_qsgd``
               trajectory on the card against the CPU twin; then the
@@ -280,14 +298,16 @@ def encode_layout(torch, gen, layout, seed, dev):
 
 
 def layer_decode_rows(torch, log, gen, decode_row, addcmul_ms, dev="cuda", arch="gpt-1.3b",
-                      dtypes=("bfloat16", "float32")):
+                      dtypes=("bfloat16", "float32"), grad=False):
     """K2 over a whole wire buffer, as the gathers decode it.  Timed: one
     layer of `arch` as its real buffer (gpt-1.3b: 7 quantized matmul weights
     and 2 fp norms; olmoe-1b-7b: 4 attention weights and 3 expert stacks, the
     router and 2 norms as fp segments; encoded by K1 under the engine's
     layout) decoded in one launch into each of `dtypes`, byte-equal to the
     plain version; the library call is ``torch.addcmul`` over the layer's
-    codes gathered into one tensor."""
+    codes gathered into one tensor.  `grad`: the layer's gradient
+    reduce-scatter buffer instead (G8 stochastic, bf16 fp segments), as the
+    backward decodes it."""
     from repro_torch import configs
     from repro_torch.core import collectives as coll
     from repro_torch.core.qsdp import MeshSpec, QSDPConfig
@@ -296,7 +316,8 @@ def layer_decode_rows(torch, log, gen, decode_row, addcmul_ms, dev="cuda", arch=
 
     eng = Model(configs.get_config(arch), MeshSpec(("data", "model"), (1, 1)),
                 QSDPConfig()).engine
-    layout = eng.layout(tuple(sorted(n for n in eng.specs if n.startswith("layers/"))))
+    names = tuple(sorted(n for n in eng.specs if n.startswith("layers/")))
+    layout = eng.rs_layout(names) if grad else eng.layout(names)
     buf = encode_layout(torch, gen, layout, 20, dev)
     out = []
     for dt in (getattr(torch, d) for d in dtypes):
@@ -312,7 +333,8 @@ def layer_decode_rows(torch, log, gen, decode_row, addcmul_ms, dev="cuda", arch=
         lib = (torch.cat([buf[t.codes:t.scale].view(t.nb, t.bucket) for t in table]),
                torch.cat([m[0] for m in meta]), torch.cat([m[1] for m in meta]))
         out.append(decode_row(
-            f"{arch} layer ({len(table)} tensors), {dt_name(dt)} out", nb,
+            f"{arch} layer{' grad' if grad else ''} ({len(table)} tensors), {dt_name(dt)} out",
+            nb,
             lambda: ops.unpack_dequantize_wire(buf, table, dts),
             lambda: ref.unpack_dequantize_wire_ref(buf, table, dts),
             addcmul_ms(*lib, torch.cat(want)),
@@ -491,6 +513,15 @@ def kernel_phase(torch, log, dev="cuda"):
     del x
     k2 += layer_decode_rows(torch, log, gen, decode_row, addcmul_ms, dev, arch="olmoe-1b-7b",
                             dtypes=("bfloat16",))
+    # olmoe training (moetrain phase): K1 G8 stochastic on one expert stack's
+    # gradient, one threefry draw per value; K2 over a layer's gradient
+    # buffer into f32, the reduce-scatter's local decode
+    x = torch.randn((OLMOE_EXPERT // 1024, 1024), generator=gen, device=dev) * 1e-3
+    k1.append(k1_row("olmoe expert grad", x, prng.fold_in(prng.PRNGKey(65), 0x5D),
+                     "stochastic")[1])
+    del x
+    k2 += layer_decode_rows(torch, log, gen, decode_row, addcmul_ms, dev, arch="olmoe-1b-7b",
+                            dtypes=("float32",), grad=True)
     # the experiments phase's policies at the gpt-125m embedding (50,304 x
     # 768): Table 1's rtn-nobucket (W8 nearest, bucket 65536: K1's generic
     # body, one warp per bucket), Table 3's W4 at bucket 256 (shift) and the
@@ -797,9 +828,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
                     default="build,kernels,small,serve,continuous,speculative,moe,train,"
-                            "experiments",
+                            "moetrain,experiments",
                     help="comma-separated subset of build,kernels,small,serve,continuous,"
-                         "speculative,moe,train,experiments")
+                         "speculative,moe,train,moetrain,experiments")
     ap.add_argument("--profile", action="store_true",
                     help="serve phase: also profile one decode step of each run "
                          "(chrome traces kept)")
@@ -852,6 +883,8 @@ def main(argv=None) -> int:
             paths.append(moe_phase(torch, log))
         if "train" in phases:
             paths.append(train_phase(torch, log))
+        if "moetrain" in phases:
+            paths.append(moetrain_phase(torch, log))
         if "experiments" in phases:
             paths.append(experiments_phase(torch, log)[0])
         launches = {k: sum(p.get(k, 0) for p in paths) for k in KERNEL_META}
@@ -925,6 +958,37 @@ SMALL_LOGIT_ATOL = 1e-3
 ROUTE_MARGIN = 1e-5
 
 
+def capture_routes(store):
+    """Hook on ``moe.route``: each call's (probs, top-k ids), on the host."""
+    def wrap(orig):
+        def f(x, router, cfg):
+            probs, topw, tope = orig(x, router, cfg)
+            store.append((probs.detach().cpu(), tope.cpu()))
+            return probs, topw, tope
+        return f
+    return wrap
+
+
+def route_agreement(torch, card_routes, cpu_routes, k):
+    """Per token routing of the card against the CPU: (compared, left out)
+    counts; fails where a token whose CPU router margin (k-th minus (k+1)-th
+    probability) is at least ROUTE_MARGIN took other top-k experts."""
+    check(len(card_routes) == len(cpu_routes),
+          f"{len(card_routes)} MoE calls on the card, {len(cpu_routes)} on the CPU")
+    compared = excluded = 0
+    for (_, ec), (pp, ep) in zip(card_routes, cpu_routes):
+        # the card's decode calls carry its dead lanes after the live ones
+        ec = ec[:len(ep)]
+        top = torch.sort(pp, dim=-1, descending=True).values
+        clear = (top[:, k - 1] - top[:, k]) >= ROUTE_MARGIN
+        same = (ec.sort(dim=-1).values == ep.sort(dim=-1).values).all(dim=-1)
+        check(bool(same[clear].all()), f"top-{k} experts differ between card and CPU for "
+              f"{int((~same & clear).sum())} tokens with a clear router margin")
+        compared += int(clear.sum())
+        excluded += int((~clear).sum())
+    return compared, excluded
+
+
 def small_phase(torch, log, arch="gpt-1.3b"):
     """`arch`'s smoke config (f32 compute) on the card and on the CPU from
     the same weights: gathered weight bytes equal (K1/K2 are bit-exact), the
@@ -936,15 +1000,6 @@ def small_phase(torch, log, arch="gpt-1.3b"):
     from repro_torch.core.qsdp import QSDPConfig
     from repro_torch.data import SyntheticLM
     from repro_torch.serve import build_serve_setup, make_prompt_batch
-
-    def capture_routes(store):
-        def wrap(orig):
-            def f(x, router, cfg):
-                probs, topw, tope = orig(x, router, cfg)
-                store.append((probs.cpu(), tope.cpu()))
-                return probs, topw, tope
-            return f
-        return wrap
 
     qcfg = QSDPConfig(compute_dtype="float32")
     res = {}
@@ -965,19 +1020,12 @@ def small_phase(torch, log, arch="gpt-1.3b"):
         res[dev] = (out.cpu(), [t.cpu() for t in logits], gathers, routes)
     (tc, lc, gc, rc), (tp, lp, gp, rp) = res["cuda"], res["cpu"]
     check(gc == gp, f"small {arch}: gathered weight bytes differ between card and CPU")
-    check(len(rc) == len(rp) and bool(rc) == setup.cfg.is_moe,
-          f"small {arch}: {len(rc)} / {len(rp)} MoE calls")
-    k, compared, excluded = setup.cfg.moe_top_k, 0, 0
-    for (_, ec), (pp, ep) in zip(rc, rp):
-        # the card's decode calls carry its dead lanes after the live ones
-        ec = ec[:len(ep)]
-        top = torch.sort(pp, dim=-1, descending=True).values
-        clear = (top[:, k - 1] - top[:, k]) >= ROUTE_MARGIN
-        same = (ec.sort(dim=-1).values == ep.sort(dim=-1).values).all(dim=-1)
-        check(bool(same[clear].all()), f"small {arch}: top-{k} experts differ between card "
-              f"and CPU for {int((~same & clear).sum())} tokens with a clear router margin")
-        compared += int(clear.sum())
-        excluded += int((~clear).sum())
+    check(bool(rc) == setup.cfg.is_moe, f"small {arch}: {len(rc)} MoE calls")
+    k = setup.cfg.moe_top_k
+    try:
+        compared, excluded = route_agreement(torch, rc, rp, k)
+    except PhaseError as e:
+        raise PhaseError(f"small {arch}: {e}") from None
     # the card's launches run at LANE_BLOCK lanes: its logits carry dead lanes
     err = max((a[:len(b)] - b).abs().max().item() for a, b in zip(lc, lp))
     check(math.isfinite(err) and err <= SMALL_LOGIT_ATOL,
@@ -1956,15 +2004,17 @@ QSTATE_STEPS = 2  # quantized_state vs quantize_master
 FIRST_LOSS_ATOL = 0.5
 
 
-def expected_train_launches(model, n_micro: int) -> dict:
+def expected_train_launches(model, n_micro: int, moments: bool = False) -> dict:
     """K1/K2 launches of one train step by the code's structure.  Per
     microbatch: the forward gathers every quantized tensor once (embed at
     the top, each layer inside its checkpoint), the backward re-gathers
     every layer's quantized tensors once more (the checkpoint replays the
-    gather), and every gradient-quantized tensor is reduce-scattered once.
-    K1 encodes each quantized tensor of a gather or reduce-scatter; K2
-    decodes each buffer that holds one, in one launch (the final norm's
-    buffers hold fp payloads only)."""
+    gather, under remat "dots" too), and every gradient-quantized tensor is
+    reduce-scattered once.  K1 encodes each quantized tensor of a gather or
+    reduce-scatter; K2 decodes each buffer that holds one, in one launch
+    (the final norm's buffers hold fp payloads only).  With `moments` (Adam
+    moments kept as 8-bit codes) the update decodes (K2) and re-encodes (K1)
+    both moments of every parameter leaf once per step."""
     eng = model.engine
     fwd = sum(s.stack or 1 for s in eng.specs.values() if eng._is_quantized(s))
     replay = sum(s.stack for n, s in eng.specs.items()
@@ -1972,9 +2022,53 @@ def expected_train_launches(model, n_micro: int) -> dict:
     grads = sum(s.stack or 1 for s in eng.specs.values() if eng._is_grad_quantized(s))
     alone, layers = k2_buffers(eng, eng._is_quantized)
     k2 = (alone + layers, layers, sum(k2_buffers(eng, eng._is_grad_quantized)))
-    return {"quantize_pack": n_micro * (fwd + replay + grads),
-            "unpack_dequantize": n_micro * sum(k2),
-            "per_micro": (fwd, replay, grads), "k2_per_micro": k2}
+    moment_codes = 2 * len(eng.specs) if moments else 0
+    return {"quantize_pack": n_micro * (fwd + replay + grads) + moment_codes,
+            "unpack_dequantize": n_micro * sum(k2) + moment_codes,
+            "per_micro": (fwd, replay, grads), "k2_per_micro": k2,
+            "moment_codes": moment_codes}
+
+
+def timed_step(torch, step, st, batch, key):
+    """One train step between two synchronizations: (state, loss, grad
+    norm, seconds)."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    st, m = step(st, batch, key)
+    loss, gnorm = float(m["loss"]), float(m["grad_norm"])  # synchronizes
+    torch.cuda.synchronize()
+    return st, loss, gnorm, time.perf_counter() - t
+
+
+def timed_train_steps(torch, step, state, batches, key, dev="cuda"):
+    """One warm-up step, then TRAIN_TIMED timed steps with the launch counts
+    zeroed just before and the peak memory reset.  Returns the state, the
+    losses and grad norms of all steps, the timed steps' seconds, the
+    warm-up's, the timed steps' launches and their peak memory (bytes)."""
+    from repro_torch.kernels import ops
+
+    def run(i, st):
+        return timed_step(torch, step, st, batches[i], key(i))
+
+    state, loss0, gnorm0, t_warm = run(0, state)
+    losses, gnorms, times = [loss0], [gnorm0], []
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    for i in range(1, 1 + TRAIN_TIMED):
+        state, loss, gnorm, dt = run(i, state)
+        losses.append(loss)
+        gnorms.append(gnorm)
+        times.append(dt)
+    counts = dict(ops.LAUNCHES)
+    return state, losses, gnorms, times, t_warm, counts, torch.cuda.max_memory_allocated()
+
+
+def check_train_launches(counts, want, what):
+    from repro_torch.kernels import ops
+    for k in ops.KERNELS:
+        n_want = TRAIN_TIMED * want.get(k, 0)
+        check(counts[k] == n_want, f"{what}: {k} launched {counts[k]} times in "
+              f"{TRAIN_TIMED} steps, the code's structure predicts {n_want}")
 
 
 def train_phase(torch, log, dev="cuda"):
@@ -1982,7 +2076,6 @@ def train_phase(torch, log, dev="cuda"):
     from repro_torch.core import prng
     from repro_torch.core.qsdp import MeshSpec, QSDPConfig
     from repro_torch.data import SyntheticLM, make_batch
-    from repro_torch.kernels import ops
     from repro_torch.models.transformer import Model
     from repro_torch.optim import AdamWConfig, cosine_schedule, make_adamw
     from repro_torch.train.step import (build_train_step, dequantize_train_state,
@@ -2002,31 +2095,10 @@ def train_phase(torch, log, dev="cuda"):
     n_params = sum(math.prod(s.shape) * (s.stack or 1) for s in model.specs.values())
     state = init_train_state(model, opt, TRAIN["seed"], dev)
     step = build_train_step(model, opt, n_micro=TRAIN["n_micro"], device=dev)
-
-    def run(i, st):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        st, m = step(st, batches[i], key(i))
-        loss, gnorm = float(m["loss"]), float(m["grad_norm"])  # synchronizes
-        torch.cuda.synchronize()
-        return st, loss, gnorm, time.perf_counter() - t
-
-    state, loss0, gnorm0, t_warm = run(0, state)
-    losses, gnorms, times = [loss0], [gnorm0], []
-    torch.cuda.reset_peak_memory_stats()
-    ops.reset_launches()
-    for i in range(1, 1 + TRAIN_TIMED):
-        state, loss, gnorm, dt = run(i, state)
-        losses.append(loss)
-        gnorms.append(gnorm)
-        times.append(dt)
-    counts = dict(ops.LAUNCHES)
-    peak = torch.cuda.max_memory_allocated()
+    state, losses, gnorms, times, t_warm, counts, peak = timed_train_steps(
+        torch, step, state, batches, key, dev)
     want = expected_train_launches(model, TRAIN["n_micro"])
-    for k in ops.KERNELS:
-        n_want = TRAIN_TIMED * want.get(k, 0)
-        check(counts[k] == n_want, f"train: {k} launched {counts[k]} times in "
-              f"{TRAIN_TIMED} steps, the code's structure predicts {n_want}")
+    check_train_launches(counts, want, "train")
     check(all(map(math.isfinite, losses + gnorms)), f"train: losses {losses}, norms {gnorms}")
     check(abs(losses[0] - math.log(cfg.vocab_size)) <= FIRST_LOSS_ATOL,
           f"train: first loss {losses[0]:.4f}, ln(vocab) = {math.log(cfg.vocab_size):.4f}")
@@ -2060,6 +2132,26 @@ def train_phase(torch, log, dev="cuda"):
     del state, step
     torch.cuda.empty_cache()
 
+    # remat "dots": the same steps from the same initial state, keeping the
+    # layers' 2-D matmul outputs instead of recomputing them: losses bit-equal
+    # to "full", the same launches (the gathers still replay)
+    model_d = Model(cfg, MeshSpec(("data", "model"), (1, 1)), QSDPConfig(remat_policy="dots"))
+    step_d = build_train_step(model_d, opt, n_micro=TRAIN["n_micro"], device=dev)
+    state_d, losses_d, gnorms_d, times_d, _, counts_d, peak_d = timed_train_steps(
+        torch, step_d, init_train_state(model_d, opt, TRAIN["seed"], dev), batches, key, dev)
+    check(losses_d == losses and gnorms_d == gnorms,
+          f"train: remat 'dots' losses {losses_d} / norms {gnorms_d} differ from 'full' "
+          f"{losses} / {gnorms}")
+    check(counts_d == counts, f"train: remat 'dots' launches {counts_d} != 'full' {counts}")
+    med_d = statistics.median(times_d)
+    log(f"train: remat 'dots': losses and grad norms bit-equal to 'full' over "
+        f"{1 + TRAIN_TIMED} steps, launches equal; {TRAIN_TIMED} timed steps median "
+        f"{med_d * 1e3:.1f} ms (min {min(times_d) * 1e3:.1f}, max {max(times_d) * 1e3:.1f}), "
+        f"{tok / med_d:.1f} tokens/s, peak memory {peak_d / 2**30:.2f} GiB; 'full' "
+        f"{med * 1e3:.1f} ms, {peak / 2**30:.2f} GiB")
+    del state_d, step_d
+    torch.cuda.empty_cache()
+
     # quantized-domain state vs the QDQ master, 8-bit moments (Theorem 2)
     opt8 = make_adamw(AdamWConfig(lr=TRAIN["lr"], schedule=sched, moment_bits=8))
     qs = quantize_train_state(init_train_state(model, opt8, TRAIN["seed"], dev), model,
@@ -2081,6 +2173,313 @@ def train_phase(torch, log, dev="cuda"):
         f"{QSTATE_STEPS} steps")
     del qs, fs, step_q, step_f
     torch.cuda.empty_cache()
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 8b: MoE training
+# ---------------------------------------------------------------------------
+
+# olmoe-1b-7b at full width cut to 8 of its 16 layers (3.46 G parameters):
+# the f32 master, two sets of f32 gradients while the second microbatch
+# accumulates and 8-bit moments take ~48 GB, and the update's temporaries of
+# the largest stack (8 x 134 M values) ~25 GB more; 16 layers do not fit
+MOE_TRAIN_LAYERS = 8
+# card vs CPU, one f32 step of the smoke config from the same state: the
+# step tolerances of the CPU tests against the JAX package
+# (tests/_torch_train_common.py LOSS_RTOL, GNORM_RTOL)
+MOE_SMALL_LOSS_RTOL, MOE_SMALL_GNORM_RTOL = 1e-5, 1e-4
+
+
+def moe_small_train(torch, log):
+    """One step of olmoe-1b-7b's smoke config (f32 compute) on the card and
+    on the CPU from the same state, under the router-margin rule: if a token
+    of the CPU's routings has a top-k margin below ROUTE_MARGIN the card may
+    route it elsewhere, and the loss and grad norm are then not compared
+    (what was left out is printed); the routes of the other tokens must
+    agree."""
+    from repro_torch import configs
+    import repro_torch.models.moe as moe_mod
+    from repro_torch.core import prng
+    from repro_torch.core.qsdp import MeshSpec, QSDPConfig
+    from repro_torch.data import SyntheticLM, make_batch
+    from repro_torch.models.transformer import Model
+    from repro_torch.optim import AdamWConfig, make_adamw
+    from repro_torch.train.checkpoint import state_from_flat, state_to_flat
+    from repro_torch.train.step import build_train_step, init_train_state
+
+    cfg = configs.get_smoke(MOE_ARCH)
+    model = Model(cfg, MeshSpec(("data", "model"), (1, 1)), QSDPConfig(compute_dtype="float32"))
+    opt = make_adamw(AdamWConfig(lr=1e-3, moment_bits=8))
+    flat = state_to_flat(init_train_state(model, opt, SMALL_TRAIN["seed"], "cpu"))
+    data = SyntheticLM(cfg.vocab_size, SMALL_TRAIN["seq"], SMALL_TRAIN["batch"],
+                       seed=SMALL_TRAIN["seed"])
+    res = {}
+    for dev in ("cuda", "cpu"):
+        step = build_train_step(model, opt, n_micro=SMALL_TRAIN["n_micro"], device=dev)
+        routes = []
+        with hooked(moe_mod, "route", capture_routes(routes)):
+            _, m = step(state_from_flat(*flat, device=dev), make_batch(data, 0, dev),
+                        prng.PRNGKey(1))
+        res[dev] = float(m["loss"]), float(m["grad_norm"]), routes
+    (lc, gc, rc), (lp, gp, rp) = res["cuda"], res["cpu"]
+    try:
+        compared, excluded = route_agreement(torch, rc, rp, cfg.moe_top_k)
+    except PhaseError as e:
+        raise PhaseError(f"moetrain small: {e}") from None
+    check(all(map(math.isfinite, (lc, gc))), f"moetrain small: loss {lc}, grad norm {gc}")
+    rl, rg = abs(lc - lp) / abs(lp), abs(gc - gp) / abs(gp)
+    if excluded == 0:
+        check(rl <= MOE_SMALL_LOSS_RTOL and rg <= MOE_SMALL_GNORM_RTOL,
+              f"moetrain small: card loss {lc} / grad norm {gc} vs CPU {lp} / {gp} (rel "
+              f"{rl:.2e} / {rg:.2e}, tol {MOE_SMALL_LOSS_RTOL} / {MOE_SMALL_GNORM_RTOL})")
+    log(f"moetrain small: {cfg.name} one f32 step card vs CPU: loss {lc} vs {lp} (rel "
+        f"{rl:.2e}, tol {MOE_SMALL_LOSS_RTOL}), grad norm {gc} vs {gp} (rel {rg:.2e}, tol "
+        f"{MOE_SMALL_GNORM_RTOL}) {'compared' if excluded == 0 else 'NOT compared'}; "
+        f"top-{cfg.moe_top_k} experts equal for {compared} token routings of {len(rc)} MoE "
+        f"calls (forward and replay), {excluded} left out (CPU router margin < "
+        f"{ROUTE_MARGIN:g})")
+
+
+def moe_layer_stats(torch, store):
+    """Hook on ``moe.moe_layer``: each call's aux loss and its assignments
+    dropped by capacity (an expert keeps its first c assignments in the
+    stable sort, so it drops max(0, count - c))."""
+    import repro_torch.models.moe as moe_mod
+
+    def wrap(orig):
+        def f(x, w, cfg, no_drop=False, group=None):
+            out, aux = orig(x, w, cfg, no_drop, group)
+            _, _, tope = moe_mod.route(x, w["router"], cfg)
+            c = moe_mod.dispatch_capacity(cfg, x.shape[0], no_drop)
+            counts = torch.bincount(tope.reshape(-1), minlength=cfg.n_experts)
+            store.append((aux.detach(), torch.clamp(counts - c, min=0).sum(), tope.numel()))
+            return out, aux
+        return f
+    return wrap
+
+
+def moe_annotated(torch, orig, name):
+    def f(*a, **k):
+        with torch.profiler.record_function(name):
+            return orig(*a, **k)
+    return f
+
+
+def moetrain_phase(torch, log, dev="cuda"):
+    """olmoe-1b-7b training at full width, cut to MOE_TRAIN_LAYERS layers,
+    default QSDPConfig (W8 shift gathers, G8 stochastic gradients, full
+    remat), AdamW with 8-bit moments, TRAIN's shape and schedule, through
+    ``build_train_step``.  Gates: the smoke config card vs CPU
+    (``moe_small_train``); step 0 run twice from the same state and key
+    bit-equal (loss, grad norm, every updated parameter and moment code);
+    K1/K2 launches of the timed steps equal to the structure's; finite
+    losses, the first less the load-balance term (read per layer by a hook
+    on moe_layer in a no-grad forward of step 0's microbatches) within
+    FIRST_LOSS_ATOL of ln(vocab); no int64 threefry kernel in a profiled
+    step; one quantized_state step equal to the quantize_master step
+    (Theorem 2).  Prints step times, tokens/s, peak memory, the per-layer
+    capacity drops and the profiled step's parts."""
+    import dataclasses as dc
+    from repro_torch import configs
+    import repro_torch.models.attention as attn_mod
+    import repro_torch.models.layers as L
+    import repro_torch.models.moe as moe_mod
+    from repro_torch.core import prng
+    from repro_torch.core.qsdp import MeshSpec, QSDPConfig
+    from repro_torch.core.quant import QuantizedParam, qparam_decode
+    from repro_torch.data import SyntheticLM, make_batch
+    from repro_torch.models.transformer import Model
+    from repro_torch.optim import AdamWConfig, cosine_schedule, make_adamw
+    from repro_torch.train.step import (TrainState, build_train_step, init_train_state,
+                                        quantize_train_state)
+
+    t0 = time.perf_counter()
+    if dev == "cuda":
+        moe_small_train(torch, log)
+    cfg = dc.replace(configs.get_config(MOE_ARCH), n_layers=MOE_TRAIN_LAYERS)
+    model = Model(cfg, MeshSpec(("data", "model"), (1, 1)), QSDPConfig())
+    sched = cosine_schedule(TRAIN["lr"], TRAIN["warmup"], TRAIN["total"])
+    opt = make_adamw(AdamWConfig(lr=TRAIN["lr"], schedule=sched, moment_bits=8))
+    data = SyntheticLM(cfg.vocab_size, TRAIN["seq"], TRAIN["batch"], seed=TRAIN["seed"])
+    batches = [make_batch(data, i, dev) for i in range(1 + TRAIN_TIMED + 2)]
+    nm = TRAIN["n_micro"]
+
+    def key(i):
+        return prng.fold_in(prng.PRNGKey(TRAIN["seed"] + 1), i)
+
+    n_params = sum(math.prod(s.shape) * (s.stack or 1) for s in model.specs.values())
+    state = init_train_state(model, opt, TRAIN["seed"], dev)
+    step = build_train_step(model, opt, n_micro=nm, device=dev)
+
+    # step 0's forward without gradients, microbatch by microbatch under the
+    # step's keys: each layer's load-balance term and capacity drops
+    stats = []
+    with torch.no_grad(), hooked(moe_mod, "moe_layer", moe_layer_stats(torch, stats)):
+        for i in range(nm):
+            model.loss_fn(state.params, {k: v.reshape(nm, -1, v.shape[-1])[i]
+                                         for k, v in batches[0].items()},
+                          prng.fold_in(key(0), i))
+    check(len(stats) == nm * cfg.n_layers, f"moetrain: {len(stats)} moe_layer calls")
+    aux = [[float(a) for a, _, _ in stats[i * cfg.n_layers:(i + 1) * cfg.n_layers]]
+           for i in range(nm)]
+    drop = [sum(int(d) for _, d, _ in stats[j::cfg.n_layers]) /
+            sum(n for _, _, n in stats[j::cfg.n_layers]) for j in range(cfg.n_layers)]
+    del stats
+
+    # determinism: step 0 twice from the same state and key (the update
+    # runs in place, so the parameters are restored from a host copy)
+    def sync_step(i, st):
+        return timed_step(torch, step, st, batches[i], key(i))
+
+    def host(t):
+        return t.to("cpu", copy=True)
+
+    snap = {k: host(v) for k, v in state.params.items()}
+    st_a, loss_a, gnorm_a, t_warm = sync_step(0, state)
+    host_a = {k: host(v) for k, v in st_a.params.items()}
+    codes_a = {k: (st_a.opt.mu[k].wire.cpu(), st_a.opt.nu[k].wire.cpu()) for k in host_a}
+    del st_a
+    for k, v in state.params.items():
+        v.copy_(snap[k])
+    del snap
+    state, loss_b, gnorm_b, t_again = sync_step(0, state)
+    check(loss_a == loss_b and gnorm_a == gnorm_b,
+          f"moetrain: step 0 twice: losses {loss_a} / {loss_b}, grad norms {gnorm_a} / {gnorm_b}")
+    for k, v in state.params.items():
+        check(torch.equal(v.cpu(), host_a[k]), f"moetrain: step 0 twice: {k} differs")
+        check(torch.equal(state.opt.mu[k].wire.cpu(), codes_a[k][0])
+              and torch.equal(state.opt.nu[k].wire.cpu(), codes_a[k][1]),
+              f"moetrain: step 0 twice: the moments of {k} differ")
+    del host_a, codes_a
+    log(f"moetrain: step 0 run twice from the same state and key: loss {loss_a}, grad norm "
+        f"{gnorm_a} and all {len(state.params)} updated parameters and their 8-bit moments "
+        f"bit-equal ({t_warm * 1e3:.1f} / {t_again * 1e3:.1f} ms)")
+
+    # timed steps from step 1 on (step 0 above was the warm-up)
+    torch.cuda.reset_peak_memory_stats()
+    from repro_torch.kernels import ops
+    ops.reset_launches()
+    losses, gnorms, times = [loss_b], [gnorm_b], []
+    for i in range(1, 1 + TRAIN_TIMED):
+        state, loss, gnorm, dt = sync_step(i, state)
+        losses.append(loss)
+        gnorms.append(gnorm)
+        times.append(dt)
+    counts = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    want = expected_train_launches(model, nm, moments=True)
+    check_train_launches(counts, want, "moetrain")
+    aux0 = sum(sum(a) for a in aux) / nm
+    xent0 = losses[0] - aux0
+    check(all(map(math.isfinite, losses + gnorms)), f"moetrain: losses {losses}, norms {gnorms}")
+    check(abs(xent0 - math.log(cfg.vocab_size)) <= FIRST_LOSS_ATOL,
+          f"moetrain: first loss {losses[0]:.4f} less the load-balance term {aux0:.4f} = "
+          f"{xent0:.4f}, ln(vocab) = {math.log(cfg.vocab_size):.4f}")
+    balanced = model.ecfg.aux_coef * cfg.moe_top_k
+    tok = TRAIN["batch"] * TRAIN["seq"]
+    med = statistics.median(times)
+    c = moe_mod.dispatch_capacity(model.ecfg, tok // nm, False)
+    log(f"moetrain: {cfg.name} at full width cut to {cfg.n_layers} of 16 layers "
+        f"({n_params / 1e9:.3f} G params; d_model {cfg.d_model}, {cfg.n_experts} experts "
+        f"top-{cfg.moe_top_k}, capacity {c} slots per expert and microbatch), batch "
+        f"{TRAIN['batch']} x seq {TRAIN['seq']}, n_micro {nm}, 8-bit moments: "
+        f"{TRAIN_TIMED} timed steps median {med * 1e3:.1f} ms (min {min(times) * 1e3:.1f}, "
+        f"max {max(times) * 1e3:.1f}), {tok / med:.1f} tokens/s; peak memory "
+        f"{peak / 2**30:.2f} GiB of {torch.cuda.get_device_properties(0).total_memory / 2**30:.2f}"
+        if dev == "cuda" else f"moetrain: {cfg.name} ({cfg.n_layers} layers) on {dev}")
+    log(f"moetrain: losses {[round(x, 4) for x in losses]}, grad norms "
+        f"{[round(x, 4) for x in gnorms]}; first loss less the load-balance term "
+        f"{xent0:.4f} (ln {cfg.vocab_size} = {math.log(cfg.vocab_size):.4f})")
+    log(f"moetrain: load-balance term per layer (step 0, mean of {nm} microbatches) "
+        f"{[round(sum(a[j] for a in aux) / nm, 5) for j in range(cfg.n_layers)]}, sum "
+        f"{aux0:.5f}; balanced: {model.ecfg.aux_coef} x {cfg.n_experts} x "
+        f"{cfg.moe_top_k}/{cfg.n_experts} = {balanced:.2f} per layer, "
+        f"{balanced * cfg.n_layers:.2f} in all")
+    log(f"moetrain: top-k assignments dropped by capacity per layer (step 0) "
+        f"{[round(x, 5) for x in drop]}")
+    log(f"moetrain: launches in {TRAIN_TIMED} steps {counts}; per step K1 "
+        f"{want['quantize_pack']} = {nm} microbatches x (forward, replay, gradient) tensors "
+        f"{want['per_micro']} + {want['moment_codes']} moment encodes, K2 "
+        f"{want['unpack_dequantize']} = {nm} x buffers {want['k2_per_micro']} + "
+        f"{want['moment_codes']} moment decodes")
+
+    # one more step under torch.profiler (busy share, K1/K2, no threefry
+    # int64 kernel), then one with its parts in named ranges and the ops'
+    # input types recorded (the same step, the optimizer's update wrapped in
+    # a range too), which costs host time: its busy share is not the step's
+    i = 1 + TRAIN_TIMED
+    prof = profile_train_step(torch, lambda st: step(st, batches[i], key(i)), state, log,
+                              tag="moetrain")
+    check(prof["threefry_int64"] == 0,
+          f"moetrain: {prof['threefry_int64']} int64 bitwise/shift kernels in the profiled step")
+    log(f"moetrain: profiled step: busy {prof['busy_ms']:.1f} ms of {prof['wall_ms']:.1f} ms "
+        f"wall ({100 * prof['busy_ms'] / max(prof['wall_ms'], 1e-9):.1f}%); K1 "
+        f"{prof['k1_ms']:.1f} ms in {prof['k1_n']} launches, K2 {prof['k2_ms']:.1f} ms in "
+        f"{prof['k2_n']}; int64 bitwise/shift kernels {prof['threefry_int64']}")
+    rng = {v: k for k, v in RANGES.items()}
+    step_p = build_train_step(model, dc.replace(opt, update=moe_annotated(
+        torch, opt.update, rng["optimizer"])), n_micro=nm, device=dev)
+    with hooked(model.engine, "gather_layer",
+                lambda o: moe_annotated(torch, o, rng["gathers"])), \
+            hooked(attn_mod, "self_attention",
+                   lambda o: moe_annotated(torch, o, rng["attention"])), \
+            hooked(moe_mod, "moe_layer",
+                   lambda o: moe_annotated(torch, o, rng["dispatch/combine"])), \
+            hooked(L, "vocab_parallel_xent",
+                   lambda o: moe_annotated(torch, o, rng["logits/xent"])):
+        prof = profile_train_step(
+            torch, lambda st: step_p(st, batches[i + 1], key(i + 1)), state, log,
+            tag="moetrain by part", breakdown=lambda ev: moe_step_breakdown(ev, cfg.n_experts))
+    parts = dict(prof["parts"] or {})
+    matched, other = parts.pop("_matched", None), parts.pop("_other", [])
+    log("moetrain: profiled step by part (device ms, kernels): "
+        + ", ".join(f"{p} {ms:.1f} in {n}" for p, (ms, n) in
+                    sorted(parts.items(), key=lambda kv: -kv[1][0]))
+        + f"; backward nodes placed by their forward op's range {matched}; most of other: "
+        + "; ".join(f"{ms:.1f} ms {name[:60]}" for name, ms in other))
+    del state, step, step_p
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+
+    # Theorem 2 in the quantized domain, one step: the wire-code state's step
+    # equals the QDQ master's (8-bit moments shared: they are re-encoded, not
+    # updated in place)
+    qs0 = quantize_train_state(init_train_state(model, opt, TRAIN["seed"], dev), model,
+                               prng.PRNGKey(TRAIN["seed"] + 2))
+    # the step updates the fp leaves (norms, router) in place: keep them
+    fp0 = {k: v.clone() for k, v in qs0.params.items() if not isinstance(v, QuantizedParam)}
+    step_q = build_train_step(model, opt, n_micro=nm, quantized_state=True, device=dev)
+    qs1, mq = step_q(qs0, batches[0], key(0))
+    lq, gq = float(mq["loss"]), float(mq["grad_norm"])
+    q1 = {k: (QuantizedParam(v.wire.cpu(), v.cell_shape, v.cfg)
+              if isinstance(v, QuantizedParam) else v.cpu()) for k, v in qs1.params.items()}
+    m1 = {k: (qs1.opt.mu[k].wire.cpu(), qs1.opt.nu[k].wire.cpu()) for k in q1}
+    del qs1, step_q
+    fs0 = TrainState(params={k: fp0[k] if k in fp0 else qparam_decode(v)
+                             for k, v in qs0.params.items()}, opt=qs0.opt)
+    del qs0, fp0
+    step_f = build_train_step(model, opt, n_micro=nm, quantize_master=True, device=dev)
+    fs1, mf = step_f(fs0, batches[0], key(0))
+    lf, gf = float(mf["loss"]), float(mf["grad_norm"])
+    check(lq == lf and gq == gf and math.isfinite(lq),
+          f"moetrain: quantized_state loss {lq} / norm {gq} != quantize_master {lf} / {gf}")
+    for k, v in fs1.params.items():
+        q = q1[k]
+        got = (qparam_decode(QuantizedParam(q.wire.to(dev), q.cell_shape, q.cfg))
+               if isinstance(q, QuantizedParam) else q.to(dev))
+        check(torch.equal(got, v), f"moetrain: quantized_state {k} != quantize_master's")
+        check(torch.equal(fs1.opt.mu[k].wire.cpu(), m1[k][0])
+              and torch.equal(fs1.opt.nu[k].wire.cpu(), m1[k][1]),
+              f"moetrain: quantized_state moments of {k} != quantize_master's")
+    log(f"moetrain: quantized_state == quantize_master (8-bit moments, {cfg.n_layers} "
+        f"layers): loss {lq}, grad norm {gq}, every parameter and moment equal after one step")
+    del fs0, fs1, step_f, q1, m1
+    peak_all = torch.cuda.max_memory_allocated() / 2**30 if dev == "cuda" else float("nan")
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    log(f"moetrain: phase {time.perf_counter() - t0:.1f} s, peak device memory since the "
+        f"timed steps {peak_all:.2f} GiB")
     return counts
 
 
@@ -2294,17 +2693,19 @@ def busy_share(events):
     return busy, kernels
 
 
-def profile_train_step(torch, run_step, state, log, tag="train"):
+def profile_train_step(torch, run_step, state, log, tag="train", breakdown=None):
     """torch.profiler over one step (`tag`: train, or continuous /
     speculative for a scheduler step): device busy share and kernel time by
     name (the trace is read from a temporary file and not kept: a train step
     holds ~10^4-10^5 kernels).  Returns K1's, K2's and K3's device time and
     launches, random_bits' launches and the int64 elementwise kernels of the
-    step."""
+    step; with `breakdown` (a function of the trace's events, recorded with
+    the ops' input types) also what it returns, under "parts"."""
     import tempfile
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=breakdown is not None) as prof:
         t = time.perf_counter()
         run_step(state)
         torch.cuda.synchronize()
@@ -2345,7 +2746,136 @@ def profile_train_step(torch, run_step, state, log, tag="train"):
     return dict(wall_ms=wall_ms, busy_ms=busy / 1e3, kernels=len(kernels), k1_ms=k1_ms,
                 k1_n=k1_n, k2_ms=k2_ms, k2_n=k2_n, k3_ms=k3_ms, k3_n=k3_n,
                 int64_ms=int64_ms, int64_n=int64_n,
-                threefry_int64=threefry, rb_n=total(lambda k: "random_bits" in k)[1])
+                threefry_int64=threefry, rb_n=total(lambda k: "random_bits" in k)[1],
+                parts=breakdown(events) if breakdown is not None else None)
+
+
+# record_function ranges moetrain puts around the parts of a step: a layer's
+# gathers, its two halves, the logits/cross-entropy and the optimizer update
+RANGES = {"chip_smoke::gathers": "gathers", "chip_smoke::self_attention": "attention",
+          "chip_smoke::moe_layer": "dispatch/combine", "chip_smoke::xent": "logits/xent",
+          "chip_smoke::optimizer": "optimizer"}
+_EVAL = "autograd::engine::evaluate_function:"
+# backward nodes of the port's own autograd Functions, by name
+NODE_PARTS = {"_GatherLayer": "gathers", "_GatherOne": "gathers",
+              **{f: "dispatch/combine" for f in ("_Expand", "_Reduce", "_ToSlots",
+                                                 "_FromSlots", "_Permute", "_Softmax")}}
+
+
+def moe_step_breakdown(events, n_experts):
+    """Device ms and kernels of a profiled MoE train step by part.  Each
+    kernel goes to the ops open on its launching thread when it was
+    launched: K1 and K2 by name; "expert products" are the bf16 batched
+    GEMMs (aten::bmm on bf16 inputs, or batch = n_experts where the trace
+    has no input types); otherwise the innermost RANGES range open, or, for
+    a backward node, the range its forward op ran in (matched by the autograd
+    sequence number): "gathers" (the wire concatenations, the reduce-scatter's
+    sums and casts), "attention" (its products are f32), "dispatch/combine"
+    (everything of moe_layer but the expert products: router, sort, index
+    moves, SwiGLU's elementwise), "logits/xent", "optimizer"; the rest
+    (embedding, norms, residual adds, gradient accumulation and norm) is
+    "other".  A backward node of the port's own Functions goes by its name
+    (NODE_PARTS).  Also returns, under "_matched", how many backward nodes
+    found their forward op's range, and under "_other", the five kernels
+    that take most of "other"."""
+    launch = {e["args"]["correlation"]: e for e in events
+              if e.get("cat") in ("cuda_runtime", "cuda_driver")
+              and "correlation" in e.get("args", {})}
+    spans, queries = {}, {}
+    for e in events:
+        if e.get("cat") in ("cpu_op", "user_annotation") and "dur" in e:
+            spans.setdefault(e["tid"], []).append((e["ts"], e["ts"] + e["dur"], e["name"],
+                                                   e.get("args", {})))
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    for j, e in enumerate(kernels):
+        r = launch.get(e.get("args", {}).get("correlation"))
+        if r is not None:
+            queries.setdefault(r["tid"], []).append((r["ts"], ("k", j)))
+    # forward ops (run on their own thread: "Fwd thread id" 0; ops inside a
+    # backward node carry their node's) and the range they ran in, keyed by
+    # (thread, sequence number); a backward node names its forward op's
+    # sequence number and the profiler's own id of that thread, which is
+    # mapped to the thread whose forward ops share the most sequence numbers
+    fwd_seqs, bwd_seqs = {}, {}
+    for tid, v in spans.items():
+        for r in v:
+            seq = r[3].get("Sequence number")
+            if seq is None:
+                continue
+            if r[2].startswith(_EVAL):
+                bwd_seqs.setdefault(r[3].get("Fwd thread id"), set()).add(seq)
+            elif not r[3].get("Fwd thread id"):
+                fwd_seqs.setdefault(tid, set()).add(seq)
+                queries.setdefault(tid, []).append((r[0], ("s", (tid, seq))))
+    fwd_tid = {f: max(fwd_seqs, key=lambda t: len(fwd_seqs[t] & seqs), default=None)
+               for f, seqs in bwd_seqs.items()}
+
+    def node(args):
+        return fwd_tid.get(args.get("Fwd thread id")), args.get("Sequence number")
+    stacks, by_seq = [[] for _ in kernels], {}
+
+    def label(stack):
+        for r in reversed(stack):
+            if r[2] in RANGES:
+                return RANGES[r[2]]
+        return None
+
+    # one sweep per thread: a thread's ranges nest, so the open ones form a
+    # chain, innermost last
+    for tid, qs in queries.items():
+        v = sorted(spans.get(tid, []), key=lambda r: (r[0], -r[1]))
+        i, open_ = 0, []
+        for t, (kind, j) in sorted(qs, key=lambda q: q[0]):
+            while i < len(v) and v[i][0] <= t:
+                while open_ and open_[-1][1] < v[i][0]:
+                    open_.pop()
+                open_.append(v[i])
+                i += 1
+            while open_ and open_[-1][1] < t:
+                open_.pop()
+            if kind == "k":
+                stacks[j] = list(open_)
+            elif label(open_) is not None:
+                by_seq[j] = label(open_)
+
+    def part(kname, stack):
+        if "quantize_pack" in kname:
+            return "K1"
+        if "unpack_dequantize" in kname:
+            return "K2"
+        ops = [r for r in stack if r[2].startswith("aten::")]
+        if ops and ops[-1][2] in ("aten::bmm", "aten::baddbmm"):
+            args = ops[-1][3]
+            types = args.get("Input type") or []
+            dims = args.get("Input Dims") or [[]]
+            if (any("BFloat16" in str(x) for x in types[:2]) if types
+                    else bool(dims[0]) and dims[0][0] == n_experts):
+                return "expert products"
+        own = label(stack)
+        if own is not None:
+            return own
+        for r in reversed(stack):
+            if r[2].startswith(_EVAL):
+                fn = r[2][len(_EVAL):].strip()
+                for name, p in NODE_PARTS.items():
+                    if fn.startswith(name + "Backward"):
+                        return p
+                if node(r[3]) in by_seq:
+                    return by_seq[node(r[3])]
+        return "other"
+
+    out, other = {}, {}
+    for e, stack in zip(kernels, stacks):
+        p = part(e["name"], stack)
+        d = out.setdefault(p, [0.0, 0])
+        d[0] += e["dur"] / 1e3
+        d[1] += 1
+        if p == "other":
+            other[e["name"]] = other.get(e["name"], 0.0) + e["dur"] / 1e3
+    nodes = [r for v in spans.values() for r in v if r[2].startswith(_EVAL)]
+    out["_matched"] = (sum(node(r[3]) in by_seq for r in nodes), len(nodes), len(by_seq))
+    out["_other"] = sorted(other.items(), key=lambda kv: -kv[1])[:5]
+    return out
 
 
 if __name__ == "__main__":

@@ -173,7 +173,9 @@ class QSDPConfig:
     weight_wire_dtype: str = "float32"
     grad_wire_dtype: str = "bfloat16"
     compute_dtype: str = "bfloat16"
-    remat_policy: str = "full"        # recompute each layer in the backward
+    # activation checkpointing of the layer loop: "full" recomputes each
+    # layer in the backward, "dots" keeps its 2-D matmuls' outputs
+    remat_policy: str = "full"
     attn_bf16: bool = False
     rand_bits: int = 32
     coalesce: bool = True
@@ -181,10 +183,8 @@ class QSDPConfig:
     meta_wire_dtype: str = "float32"
 
     def __post_init__(self):
-        if self.remat_policy != "full":
-            raise NotImplementedError(
-                f"remat_policy={self.remat_policy!r} is not ported yet (ROADMAP A5c); "
-                "the port recomputes each whole layer ('full')")
+        if self.remat_policy not in ("full", "dots"):
+            raise ValueError(f"remat_policy must be 'full' or 'dots', got {self.remat_policy!r}")
 
     @classmethod
     def baseline(cls) -> "QSDPConfig":

@@ -1,5 +1,6 @@
-"""Training launcher of the port: QSDP training of the dense family on
-one card, with flag parity to the JAX package's ``launch/train.py``.
+"""Training launcher of the port: QSDP training of the dense and MoE
+families on one card, with flag parity to the JAX package's
+``launch/train.py``.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch gpt-1.3b \\
       --steps 10 --batch 4 --seq 2048 --n-micro 2
@@ -110,9 +111,6 @@ def main(argv=None):
     args = parse_args(argv)
     device = resolve_device(args.device)
     cfg = configs.get_smoke(args.arch) if args.smoke else configs.get_config(args.arch)
-    if cfg.is_moe:
-        raise NotImplementedError(f"{cfg.name}: MoE training is not ported yet (ROADMAP "
-                                  "A11b); the port serves the MoE family")
     qsdp = build_qsdp(args)
     model = Model(cfg, MeshSpec(axes=("data", "model"), shape=(1, 1)), qsdp)
     opt = make_adamw(AdamWConfig(lr=args.lr,

@@ -1,22 +1,30 @@
 """Model composition: parameter specs of the dense and MoE families, the
-bound QSDP engine and the dense family's training forward (the dense and MoE
-subset of the JAX package's ``models/transformer.py``; MoE training is
-ROADMAP A11b, the other families A11c/A11d).
+bound QSDP engine and their training forward (the dense and MoE subset of
+the JAX package's ``models/transformer.py``; the other families are
+ROADMAP A11c/A11d).
 
 Parameters live in the engine's rest layout, ``(stack?, 1, 1, n_local)`` on
 the one-rank mesh, and are gathered per layer — quantized — inside every
 train, prefill and decode step.  Training checkpoints each layer with its
 gather inside (``torch.utils.checkpoint``): the backward re-gathers the
 layer from the same key, then reduce-scatters its gradient once — FSDP's
-gather -> compute -> discard -> re-gather schedule.
+gather -> compute -> discard -> re-gather schedule.  Under
+``QSDPConfig(remat_policy="dots")`` the checkpoint keeps the outputs of the
+layer's 2-D matmuls and recomputes the rest (the reference's
+``dots_with_no_batch_dims_saveable``); the gather still replays, since the
+backward needs the weights.  A MoE layer's load-balance loss rides the
+checkpointed body beside the activations and is summed over the layers in
+layer order, in f32, onto the cross-entropy.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..core import prng
 from ..core.qsdp import MeshSpec, ParamSpec, QSDPConfig, QSDPEngine
@@ -24,6 +32,7 @@ from . import attention as attn_mod
 from . import layers as L
 from .attention import AttnConfig
 from .config import UNPORTED_FAMILIES, ModelConfig
+from . import moe as moe_mod
 from .moe import MoEConfig
 
 Params = dict[str, torch.Tensor]
@@ -136,32 +145,38 @@ class Model:
 
     def loss_fn(self, params: Params, batch: dict, key: prng.Key) -> torch.Tensor:
         """Mean token cross-entropy of one microbatch, {"tokens", "labels"}
-        (B, S); every weight gathered quantized under `key`."""
+        (B, S), plus the MoE layers' load-balance loss; every weight
+        gathered quantized under `key`."""
         cfg, eng = self.cfg, self.engine
-        if cfg.is_moe:
-            raise NotImplementedError("MoE training is not ported yet (ROADMAP A11b); the "
-                                      "port serves the MoE family")
         tokens = batch["tokens"]
         b, s = tokens.shape
         emb = eng.gather("embed", params["embed"], key)
         x = L.embed_vocab_parallel(tokens, emb)
         positions = torch.arange(s, device=tokens.device)
         cos, sin = L.rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
-        x = self._run_stack(params, x, key, cos, sin, positions)
+        x, aux = self._run_stack(params, x, key, cos, sin, positions)
         fn = eng.gather("final_norm", params["final_norm"], key)
         x = L.rms_norm(x, fn, cfg.norm_eps)
         head = emb if cfg.tie_embeddings else eng.gather("lm_head", params["lm_head"], key)
-        return L.vocab_parallel_xent(x.reshape(b * s, -1), head,
+        loss = L.vocab_parallel_xent(x.reshape(b * s, -1), head,
                                      batch["labels"].reshape(b * s))
+        return loss if aux is None else loss + aux.to(loss.dtype)
 
     def _run_stack(self, params, x, key, cos, sin, positions):
+        """(x, summed aux loss) after the layer stack; aux is None for the
+        dense family."""
+        if self.cfg.is_moe:
+            return self._scan_layers(params, "layers", x, key, cos, sin, positions,
+                                     self._moe_layer, carry_aux=True)
         return self._scan_layers(params, "layers", x, key, cos, sin, positions,
-                                 self._dense_layer)
+                                 self._dense_layer), None
 
-    def _scan_layers(self, params, prefix, x, key, cos, sin, positions, layer_fn):
+    def _scan_layers(self, params, prefix, x, key, cos, sin, positions, layer_fn,
+                     carry_aux=False):
         """Run a stacked layer group, gathering layer i's weights under
         ``fold_in(key, i)`` inside its checkpointed body (the reference's
-        rematerialized scan, non-prefetch branch)."""
+        rematerialized scan, non-prefetch branch).  With `carry_aux` the body
+        carries (x, aux), aux starting at an f32 zero; returns the carry."""
         eng = self.engine
         grp = self._group(params, prefix)
         names = sorted(grp)
@@ -169,14 +184,19 @@ class Model:
         # slice instead of a zero-padded copy of the whole stack
         slices = [grp[n].unbind(0) for n in names]
 
-        def body(x, idx, *lw):
+        def body(x, aux, idx, *lw):
             w = eng.gather_layer(f"{prefix}/", dict(zip(names, lw)), prng.fold_in(key, idx))
-            return layer_fn(x, w, cos, sin, positions)
+            return layer_fn((x, aux) if carry_aux else x, w, cos, sin, positions)
 
+        ckpt = dict(use_reentrant=False, preserve_rng_state=False)
+        if self.qcfg.remat_policy == "dots":
+            ckpt["context_fn"] = functools.partial(create_selective_checkpoint_contexts,
+                                                   _save_dots)
+        carry = (x, torch.zeros((), dtype=torch.float32, device=x.device)) if carry_aux else x
         for idx in range(len(slices[0])):
-            x = checkpoint(body, x, idx, *[sl[idx] for sl in slices], use_reentrant=False,
-                           preserve_rng_state=False)
-        return x
+            args = carry if carry_aux else (carry, None)
+            carry = checkpoint(body, *args, idx, *[sl[idx] for sl in slices], **ckpt)
+        return carry
 
     def _dense_layer(self, x, w, cos, sin, positions):
         cfg = self.cfg
@@ -185,3 +205,25 @@ class Model:
         x = x + a
         h = L.rms_norm(x, w["mlp_norm"], cfg.norm_eps)
         return x + L.swiglu_mlp(h, w["w_gate"], w["w_up"], w["w_down"])
+
+    def _moe_layer(self, carry, w, cos, sin, positions):
+        x, aux = carry
+        cfg = self.cfg
+        h = L.rms_norm(x, w["attn_norm"], cfg.norm_eps)
+        a, _ = attn_mod.self_attention(h, w, self.acfg, cos, sin, positions)
+        x = x + a
+        h = L.rms_norm(x, w["mlp_norm"], cfg.norm_eps)
+        b, s, d = h.shape
+        moe_w = {k: w[k] for k in ("router", "w_gate", "w_up", "w_down")}
+        y, a_l = moe_mod.moe_layer(h.reshape(b * s, d), moe_w, self.ecfg)
+        return x + y.reshape(b, s, d), aux + a_l
+
+
+# the matmuls without batch dimensions (the projections, the dense MLP, the
+# router), whose outputs remat "dots" keeps: jax.checkpoint_policies'
+# dots_with_no_batch_dims_saveable
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE

@@ -122,10 +122,15 @@ def build_train_step(model: Model, optimizer: Optimizer, n_micro: int = 1,
             loss = model.loss_fn(leaves, {k: v[i] for k, v in micro.items()},
                                  prng.fold_in(key, i))
             gs = torch.autograd.grad(loss, [leaves[k] for k in names])
-            acc = list(gs) if acc is None else [a + g for a, g in zip(acc, gs)]
+            # summed in place: one set of gradients beside the microbatch's
+            if acc is None:
+                acc = list(gs)
+            else:
+                for a, g in zip(acc, gs):
+                    a.add_(g)
             losses.append(loss.detach())
             del loss, gs
-        grads = {k: g / n_micro for k, g in zip(names, acc)}
+        grads = {k: g.div_(n_micro) for k, g in zip(names, acc)}
         del acc, leaves
 
         # global-norm clip (every element lives on exactly one rank)

@@ -1,7 +1,8 @@
 """Shared set-up of the training-slice tests (``test_torch_train*.py``):
 the port against the JAX package, on the CPU.
 
-gpt-1.3b smoke config on the (1, 1) mesh.  The JAX train state goes through
+gpt-1.3b smoke config (or another arch's, ``models(arch=...)``) on the
+(1, 1) mesh.  The JAX train state goes through
 ``weights.train_state_from_jax`` (the checkpoint's flat form) into the
 port, so both packages start every step from the same state; batches are
 made with numpy and handed to both.  The JAX step is
@@ -15,14 +16,14 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 
-from repro.configs import gpt_1_3b as jcfg_mod
+from repro import configs as jconfigs
 from repro.core.qsdp import MeshSpec as JMeshSpec, QSDPConfig as JQSDPConfig
 from repro.models.transformer import Model as JModel
 from repro.optim import (AdamWConfig as JAdamWConfig, cosine_schedule as jcosine,
                          make_adamw as jmake_adamw)
 from repro.train.checkpoint import _flatten as jflatten
 from repro.train.step import init_train_state as jinit, make_jitted_train_step
-from repro_torch.configs import gpt_1_3b as tcfg_mod
+from repro_torch import configs as tconfigs
 from repro_torch.core import prng
 from repro_torch.core.qsdp import MeshSpec, QSDPConfig
 from repro_torch.models.transformer import Model
@@ -59,11 +60,13 @@ def digest(a) -> str:
     return hashlib.sha256(a.tobytes() + str(a.dtype).encode() + str(a.shape).encode()).hexdigest()
 
 
-def models(baseline=False, **qkw):
-    """(JAX Model, port Model) of the smoke config under the same policy."""
+def models(baseline=False, arch="gpt-1.3b", **qkw):
+    """(JAX Model, port Model) of `arch`'s smoke config under the same
+    policy."""
     jq = dataclasses.replace(JQSDPConfig.baseline(), **qkw) if baseline else JQSDPConfig(**qkw)
     tq = dataclasses.replace(QSDPConfig.baseline(), **qkw) if baseline else QSDPConfig(**qkw)
-    return JModel(jcfg_mod.smoke(), JMS, jq), Model(tcfg_mod.smoke(), MS, tq)
+    return (JModel(jconfigs.get_smoke(arch), JMS, jq),
+            Model(tconfigs.get_smoke(arch), MS, tq))
 
 
 def batches(n):

@@ -95,9 +95,10 @@ def test_train_launcher_names_roadmap_for_unported_flags(flags, item, capsys):
 
 
 def test_unported_training_options_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP A5c"):
-        QSDPConfig(remat_policy="dots")
+    with pytest.raises(ValueError, match="'full' or 'dots'"):
+        QSDPConfig(remat_policy="offload")
     assert QSDPConfig().remat_policy == "full"
+    assert QSDPConfig(remat_policy="dots").remat_policy == "dots"
 
 
 def test_state_loaders_raise_without_cuda(monkeypatch, tmp_path):

@@ -329,3 +329,39 @@ def test_sampler_on_the_card_matches_the_cpu(cuda):
     clear = ~greedy & (top_k == 0) & (top2[:, 1] - top2[:, 0] > 2e-5)
     assert clear.any()
     assert torch.equal(on_card[clear], on_cpu[clear])
+
+
+@pytest.mark.parametrize("no_drop", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_layer_backward_on_the_card(cuda, dtype, no_drop):
+    """The MoE layer's forward and backward (capacity drops included) on the
+    card: two runs bit-equal (no atomics in the dispatch, the combine or
+    their transposes); in f32, outputs and gradients within 1e-5 of the
+    largest of the CPU's."""
+    from repro_torch.models import moe
+    t, e, k, d, ff = 96, 8, 2, 64, 32
+    g = torch.Generator().manual_seed(3)
+    x0 = torch.randn((t, d), generator=g)
+    w0 = {"router": torch.randn((d, e), generator=g) * 0.3,
+          "w_gate": torch.randn((e, d, ff), generator=g) * 0.1,
+          "w_up": torch.randn((e, d, ff), generator=g) * 0.1,
+          "w_down": torch.randn((e, ff, d), generator=g) * 0.1}
+    w0["router"][0] = torch.linspace(1.5, -1.5, e)  # uneven load: drops
+    x0[:, 0] = 1.0
+    gout = torch.randn((t, d), generator=g)
+    cfg = moe.MoEConfig(n_experts=e, top_k=k, d_model=d, d_ff=ff, tp=1)
+
+    def run(dev, dt):
+        x = x0.to(dev, dt).requires_grad_()
+        w = {n: v.to(dev, torch.float32 if n == "router" else dt).requires_grad_()
+             for n, v in w0.items()}
+        out, aux = moe.moe_layer(x, w, cfg, no_drop=no_drop)
+        torch.autograd.backward([out, aux], [gout.to(dev, dt), torch.tensor(0.5, device=dev)])
+        return [out.detach(), aux.detach(), x.grad] + [w[n].grad for n in sorted(w)]
+
+    a, b = run(cuda, dtype), run(cuda, dtype)
+    for u, v in zip(a, b):
+        assert torch.equal(u.reshape(-1).view(torch.uint8), v.reshape(-1).view(torch.uint8))
+    if dtype == torch.float32:
+        for u, v in zip(a, run("cpu", dtype)):
+            assert (u.cpu() - v).abs().max().item() <= 1e-5 * max(v.abs().max().item(), 1.0)

@@ -10,9 +10,9 @@ outputs and the aux loss within the tolerances below.  Then the reference's
 isolation property (drop-free is isolated, capacity leaks), the registry
 (every config the port registers field-equal to the JAX package's, the
 unported families naming their ROADMAP item), the MoE parameter specs, the
-4-bit draft of a MoE model byte-equal to the reference's, and the entry
-points (serve launcher in batch and continuous mode; training refused,
-naming ROADMAP A11b)."""
+4-bit draft of a MoE model byte-equal to the reference's, and the serve
+launcher in batch and continuous mode (MoE training is held in
+``test_torch_moe_train*.py``)."""
 import dataclasses
 import types
 
@@ -259,20 +259,6 @@ def test_make_draft_params_moe(bits):
 
 
 # -- entry points ----------------------------------------------------------------
-
-def test_moe_training_names_roadmap(capsys):
-    from repro_torch.launch import train as launch_train
-    tm = Model(configs.get_smoke("olmoe-1b-7b"), MeshSpec(("data", "model"), (1, 1)),
-               QSDPConfig())
-    params = tm.init_params(0, "cpu")
-    batch = {"tokens": torch.zeros(1, 4, dtype=torch.int64),
-             "labels": torch.zeros(1, 4, dtype=torch.int64)}
-    with pytest.raises(NotImplementedError, match="ROADMAP A11b"):
-        tm.loss_fn(params, batch, (0, 0))
-    with pytest.raises(NotImplementedError, match="ROADMAP A11b"):
-        launch_train.main(["--arch", "olmoe-1b-7b", "--smoke", "--device", "cpu",
-                           "--steps", "1"])
-
 
 @pytest.mark.parametrize("flags", [[], ["--continuous", "--requests", "3", "--prefill-chunk",
                                         "8", "--prefill-buckets", "2", "--kv-block-size", "8",
