@@ -81,6 +81,25 @@ Phases, each of which makes the script exit non-zero when it fails:
               the draft's 3-D expert stacks go through K2, never K3), and
               the fixed-shape route's row gate at the MoE launch shapes.
               Prints the phase's seconds and peak memory.
+7b. ssm    -- the SSM and hybrid families: mamba2-370m's and zamba2-7b's
+              smoke configs on the card and on the CPU (gathered wire bytes
+              equal, logits within tolerance, tokens equal), zamba2's smoke
+              rowquant decode (shared MLP through K3) equal to its dense
+              one; then mamba2-370m (48 layers, 367.6 M parameters) and
+              zamba2-7b (81 layers and 13 invocations of the shared
+              attention+MLP block, 6.63 G parameters) at full width and
+              depth, random weights from seed 0, default QSDPConfig: batch
+              serving (the serve phase's shape, run twice: equal tokens,
+              K1/K2 launches per step as the structure and the hand count
+              derive them; zamba2 also rowquant, K3 on the shared
+              w_gate/w_up), the continuous cell with blocking admission (4
+              slots, ring 512 for zamba2's shared KV, CONT_PLAN: two runs
+              equal, greedy requests equal to their batch-of-1 solo runs,
+              launches, one profiled decode step) and the fixed-shape
+              route's row gate at their launch shapes (the Mamba2
+              projections and one recurrent step).  The kernel phase adds
+              K1 on zamba2's w_z and mamba2's w_dt, K2 over a whole Mamba2
+              layer of each, and K3 at zamba2's shared w_gate/w_up.
 8. train   -- gpt-1.3b at full width and depth, default QSDPConfig (W8
               shift weights, G8 stochastic gradients, bucket 1024,
               coalesced, bf16 compute, full remat), AdamW + cosine, batch 4
@@ -243,7 +262,11 @@ def bound(nbytes, flops=0.0, flop_rate=F32_FLOP_PER_S, int_ops=0.0):
 
 GPT13_NB = {"attn (wq/wk/wv/wo)": 4096, "mlp (w_gate/w_up/w_down)": 16384,
             "embed": 100608}
-K3_SHAPES = {"w_gate/w_up": (4, 2048, 8192, 8), "w_down": (4, 8192, 2048, 2)}
+K3_SHAPES = {"w_gate/w_up": (4, 2048, 8192, 8), "w_down": (4, 8192, 2048, 2),
+             # zamba2-7b's shared MLP under rowquant, one lane block per
+             # invocation (its w_down's 3,584 columns are not whole buckets of
+             # 1,024, so K2 decodes it)
+             "zamba2 shared w_gate/w_up": (4, 3584, 14336, 14)}
 # K3 at the continuous phase's chunk M = slots x top bucket, timed for the
 # record: the chunk path gathers its MLP densely (as the reference does:
 # rowquant is a decode path), so these shapes are off the main path
@@ -269,6 +292,10 @@ EXP_KERNEL_ROWS = ((8, 65536, "nearest"), (4, 256, "shift"), (6, 1024, "shift"))
 # one olmoe-1b-7b expert stack (w_gate, w_up or w_down of a layer): 64 x
 # 2048 x 1024 values
 OLMOE_EXPERT = 64 * 2048 * 1024
+# the SSM/hybrid families' largest and smallest quantized Mamba2 weights:
+# zamba2-7b's w_z (3,584 x 7,168) and mamba2-370m's w_dt (1,024 x 32 heads)
+SSM_K1_ROWS = (("zamba2-7b w_z (3584 x 7168)", 3584 * 7168),
+               ("mamba2-370m w_dt (1024 x 32)", 1024 * 32))
 
 
 def dt_name(dt) -> str:
@@ -522,6 +549,17 @@ def kernel_phase(torch, log, dev="cuda"):
     del x
     k2 += layer_decode_rows(torch, log, gen, decode_row, addcmul_ms, dev, arch="olmoe-1b-7b",
                             dtypes=("float32",), grad=True)
+    # the SSM/hybrid families (ssm phase): K1 W8 shift on zamba2-7b's w_z and
+    # mamba2-370m's w_dt, as every decode step gathers them; K2 over a whole
+    # Mamba2 layer's buffer of each (5 quantized weights, 6 fp segments)
+    # into bf16
+    for what, n in SSM_K1_ROWS:
+        x = torch.randn((n // 1024, 1024), generator=gen, device=dev) * 0.02
+        k1.append(k1_row(what, x, prng.PRNGKey(n % 9973), "shift")[1])
+        del x
+    for arch in ("zamba2-7b", "mamba2-370m"):
+        k2 += layer_decode_rows(torch, log, gen, decode_row, addcmul_ms, dev, arch=arch,
+                                dtypes=("bfloat16",))
     # the experiments phase's policies at the gpt-125m embedding (50,304 x
     # 768): Table 1's rtn-nobucket (W8 nearest, bucket 65536: K1's generic
     # body, one warp per bucket), Table 3's W4 at bucket 256 (shift) and the
@@ -827,10 +865,10 @@ def smi_line():
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
-                    default="build,kernels,small,serve,continuous,speculative,moe,train,"
+                    default="build,kernels,small,serve,continuous,speculative,moe,ssm,train,"
                             "moetrain,experiments",
                     help="comma-separated subset of build,kernels,small,serve,continuous,"
-                         "speculative,moe,train,moetrain,experiments")
+                         "speculative,moe,ssm,train,moetrain,experiments")
     ap.add_argument("--profile", action="store_true",
                     help="serve phase: also profile one decode step of each run "
                          "(chrome traces kept)")
@@ -881,6 +919,8 @@ def main(argv=None) -> int:
             paths.append(speculative_phase(torch, log))
         if "moe" in phases:
             paths.append(moe_phase(torch, log))
+        if "ssm" in phases:
+            paths.append(ssm_phase(torch, log))
         if "train" in phases:
             paths.append(train_phase(torch, log))
         if "moetrain" in phases:
@@ -1323,21 +1363,23 @@ def route_setup(setup):
 _SOLO: dict = {}
 
 
-def solo_runs(torch, setup, reqs, key) -> dict:
+def solo_runs(torch, setup, reqs, key, chunk=CONT["chunk"]) -> dict:
     """{rid: tokens} of each request served alone on a batch-of-1 engine of
     the setup's spec (speculation off): ``generate(fold_step_keys=False,
-    prefill_chunk=...)`` with the request's sampling parameters."""
+    prefill_chunk=chunk)`` with the request's sampling parameters (chunk 0:
+    whole-prompt prefill, the blocking scheduler's)."""
     from repro_torch.serve import ServeEngine, make_sample_params
     solo = ServeEngine(setup.model, dataclasses.replace(setup.spec, batch_global=1,
                                                         draft_bits=0, draft_depth=0),
                        setup.device)
     for r in reqs:
         if (setup.cfg.name, r.rid) not in _SOLO:
-            prompt = {"tokens": torch.tensor([list(r.prompt)], dtype=torch.int64)}
+            prompt = {"tokens": torch.tensor([list(r.prompt)], dtype=torch.int64,
+                                             device=setup.device)}
             _SOLO[setup.cfg.name, r.rid] = solo.generate(
                 setup.params, prompt, r.max_new_tokens, key=key, fold_step_keys=False,
                 sample=make_sample_params(r.temperature, r.top_k, r.seed),
-                prefill_chunk=CONT["chunk"], prefill_buckets=CONT["buckets"])[0].tolist()
+                prefill_chunk=chunk, prefill_buckets=CONT["buckets"])[0].tolist()
     return {r.rid: _SOLO[setup.cfg.name, r.rid] for r in reqs}
 
 
@@ -1431,14 +1473,19 @@ def route_invariance(torch, log, dev, rnd, cfg):
     moves with the other lanes' routing), the f32 logits, decode attention
     (ring) and chunk attention (paged, the continuous cell's).  A verify
     launch runs each drafted token at the decode block's shape, so the
-    decode gates hold it."""
+    decode gates hold it.  The SSM and hybrid families add the Mamba2
+    projections and one recurrent step of the mixer (its output and both
+    states); they have no chunk path, and the SSM family no attention."""
     import repro_torch.models.layers as L
     from repro_torch.models.attention import AttnConfig, chunk_attend, decode_attend
-    from repro_torch.models.decode import LANE_BLOCK
+    from repro_torch.models.decode import CHUNKED_PREFILL_ARCHS, LANE_BLOCK
     from repro_torch.models.moe import MoEConfig, moe_layer
     lb, lq, ring = LANE_BLOCK, CONT["chunk"], CONT["ring"]
     d, nh, nkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     acfg = AttnConfig(n_heads=nh, n_kv=nkv, head_dim=hd, tp=1)
+    chunked = cfg.arch_type in CHUNKED_PREFILL_ARCHS
+    mamba = cfg.arch_type in ("ssm", "hybrid")
+    din, n_ssm = cfg.ssm_expand * d, cfg.ssm_state
 
     def gate(what, fn, req, live, rows=1):
         """fn over lanes of `rows` rows: `req` one lane's input tensors,
@@ -1456,16 +1503,44 @@ def route_invariance(torch, log, dev, rnd, cfg):
 
     done = []
     gemms = {}
-    for what, shape in (("wq", (d, nh * hd)), ("wk/wv", (d, nkv * hd)), ("wo", (nh * hd, d)),
-                        *((("w_gate/w_up", (d, cfg.d_ff)), ("w_down", (cfg.d_ff, d)))
-                          if not cfg.is_moe else ())):
+    shapes = []
+    if cfg.has_attention:
+        shapes += [("wq", (d, nh * hd)), ("wk/wv", (d, nkv * hd)), ("wo", (nh * hd, d))]
+    if cfg.d_ff and not cfg.is_moe:
+        shapes += [("w_gate/w_up", (d, cfg.d_ff)), ("w_down", (cfg.d_ff, d))]
+    if mamba:
+        shapes += [("w_z/w_x", (d, din)), ("w_bc", (d, 2 * n_ssm)),
+                   ("w_dt", (d, din // cfg.ssm_head_dim)), ("w_out", (din, d))]
+    for what, shape in shapes:
         gemms[shape] = f"{gemms[shape]}/{what}" if shape in gemms else what
     for (k, n), what in gemms.items():
         w = rnd(k, n) * 0.02
-        for rows in (1, lq):
+        for rows in ((1, lq) if chunked else (1,)):
             gate(f"x @ {what} bf16 at M = {lb * rows}", lambda x, w=w: x @ w,
                  [rnd(rows, k)], [rnd(lb * rows, k)], rows)
         del w
+    if mamba:
+        from repro_torch.models.mamba import MambaConfig, mamba2_decode
+        mc = MambaConfig(d_model=d, d_state=n_ssm, head_dim=cfg.ssm_head_dim,
+                         expand=cfg.ssm_expand, conv_k=cfg.ssm_conv, chunk=cfg.ssm_chunk, tp=1)
+        h = mc.n_heads
+        mw = {"w_z": rnd(d, din) * 0.02, "w_x": rnd(d, din) * 0.02,
+              "w_bc": rnd(d, 2 * n_ssm) * 0.02, "w_dt": rnd(d, h) * 0.02,
+              "conv_x": rnd(din, mc.conv_k) * 0.3, "conv_bc": rnd(2 * n_ssm, mc.conv_k) * 0.3,
+              "a_log": rnd(h) * 0.1 + 0.5, "dt_bias": rnd(h) * 0.3 - 4.0, "d_skip": rnd(h) + 1,
+              "norm": rnd(din) * 0.1 + 1, "w_out": rnd(din, d) * 0.02}
+
+        def mixer(x, conv, ssm):
+            out, conv, ssm = mamba2_decode(x, mw, mc, conv, ssm)
+            return torch.cat([out.float().flatten(1), conv.flatten(1), ssm.flatten(1)], 1)
+
+        cc = din + 2 * n_ssm
+        gate(f"Mamba2 decode step (out, conv ring, state) at B = {lb}", mixer,
+             [rnd(1, d), rnd(1, mc.conv_k - 1, cc, dt=torch.float32),
+              rnd(1, h, mc.head_dim, n_ssm, dt=torch.float32)],
+             [rnd(lb, d), rnd(lb, mc.conv_k - 1, cc, dt=torch.float32),
+              rnd(lb, h, mc.head_dim, n_ssm, dt=torch.float32)])
+        del mw
     if cfg.is_moe:
         e, ff = cfg.n_experts, cfg.moe_d_ff
         ecfg = MoEConfig(n_experts=e, top_k=cfg.moe_top_k, d_model=d, d_ff=ff, tp=1)
@@ -1483,16 +1558,18 @@ def route_invariance(torch, log, dev, rnd, cfg):
          [rnd(1, d)], [rnd(lb, d)])
     del head
     pos = torch.full((lb,), 300, device=dev)
-    gate(f"decode attention (ring {ring}) at B = {lb}",
-         lambda q, c: decode_attend(q, c, c, acfg, pos, ring),
-         [rnd(1, nh, hd), rnd(1, ring, nkv, hd)], [rnd(lb, nh, hd), rnd(lb, ring, nkv, hd)])
-    bs = CONT["block"]
-    bt = torch.arange(lb * (ring // bs), device=dev).reshape(lb, ring // bs)
-    cpos = (torch.arange(lq, device=dev) + 200)[None].expand(lb, lq)
-    gate(f"chunk attention (paged, block {bs}) at B = {lb} x {lq}",
-         lambda q, c: chunk_attend(q, c, c, acfg, cpos, ring, bt, bs),
-         [rnd(1, lq, nh, hd), rnd(1, ring, nkv, hd)],
-         [rnd(lb, lq, nh, hd), rnd(lb, ring, nkv, hd)])
+    if cfg.has_attention:
+        gate(f"decode attention (ring {ring}) at B = {lb}",
+             lambda q, c: decode_attend(q, c, c, acfg, pos, ring),
+             [rnd(1, nh, hd), rnd(1, ring, nkv, hd)], [rnd(lb, nh, hd), rnd(lb, ring, nkv, hd)])
+    if chunked:
+        bs = CONT["block"]
+        bt = torch.arange(lb * (ring // bs), device=dev).reshape(lb, ring // bs)
+        cpos = (torch.arange(lq, device=dev) + 200)[None].expand(lb, lq)
+        gate(f"chunk attention (paged, block {bs}) at B = {lb} x {lq}",
+             lambda q, c: chunk_attend(q, c, c, acfg, cpos, ring, bt, bs),
+             [rnd(1, lq, nh, hd), rnd(1, ring, nkv, hd)],
+             [rnd(lb, lq, nh, hd), rnd(lb, ring, nkv, hd)])
     log(f"{cfg.name}: fixed-shape route: a request's rows bit-equal in lane 0 beside dead "
         f"lanes and in lane 2 beside live ones, for {done}")
     return done
@@ -1934,6 +2011,320 @@ def moe_phase(torch, log, dev="cuda"):
     if dev == "cuda":
         torch.cuda.empty_cache()
     log(f"moe: phase {time.perf_counter() - t0:.1f} s, peak device memory {peak:.2f} GiB; "
+        f"launches {dict(counts)}")
+    return dict(counts)
+
+
+# ---------------------------------------------------------------------------
+# phase 7b: the SSM and hybrid families -- mamba2-370m and zamba2-7b at full
+# width and depth through batch and continuous serving
+# ---------------------------------------------------------------------------
+
+SSM_ARCHS = ("mamba2-370m", "zamba2-7b")
+# the reference's rowquant test config for the hybrid family
+# (tests/test_kernel_dispatch.py:206): buckets of 128 tile the smoke shared
+# MLP's rows, so its decode runs K3
+SSM_RQ_QSDP = dict(min_quant_size=256, bucket_size=128)
+# K1/K2/K3 launches per decode step as counted by hand from the configs:
+# the embedding (K1 + K2), 5 quantized Mamba2 weights in one buffer per
+# layer, and for zamba2-7b 13 shared-block invocations of 7 quantized
+# weights in one buffer; under rowquant w_gate/w_up go through K3 and w_down
+# (3,584 columns: 3.5 buckets of 1,024) is gathered alone through K2
+SSM_PER_STEP = {("mamba2-370m", False): (1 + 5 * 48, 1 + 48, 0),
+                ("zamba2-7b", False): (1 + 5 * 81 + 7 * 13, 1 + 81 + 13, 0),
+                ("zamba2-7b", True): (1 + 5 * 81 + 7 * 13, 1 + 81 + 13 * 2, 13 * 2)}
+
+
+def expected_ssm_launches(model, rowquant: bool) -> dict:
+    """K1/K2/K3 launches of one whole-prompt prefill and one decode step of
+    an SSM/hybrid model by the code's structure: K1 once per quantized
+    tensor per gather (the shared block's at each of its n_layers // every
+    invocations); K2 once per gathered buffer holding a quantized tensor
+    (the embedding's, each layer's, each shared invocation's); with rowquant
+    the decode step's shared MLP weights go through K3 where their buckets
+    tile their rows and are gathered alone through K2 where not."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.decode import ROWQUANT_MLP
+    eng, cfg = model.engine, model.cfg
+    groups = cfg.n_layers // cfg.hybrid_attn_every if cfg.arch_type == "hybrid" else 0
+    q = [n for n, sp in eng.specs.items() if eng._is_quantized(sp)]
+    top = [n for n in q if "/" not in n]
+    layer = [n for n in q if n.startswith("layers/")]
+    shared = [n for n in q if n.startswith("shared/")]
+    rq = [n for n in shared if rowquant and n.split("/")[-1] in ROWQUANT_MLP]
+    rq_ok = [n for n in rq if eng.rowquant_eligible(n)]
+
+    def bufs(k):
+        return -(-k // ops.WIRE_MAX_SEGS)
+
+    k1 = len(top) + cfg.n_layers * len(layer) + groups * len(shared)
+    k2 = len(top) + cfg.n_layers * bufs(len(layer))
+    return {"prefill": (k1, k2 + groups * bufs(len(shared)), 0),
+            "step": (k1, k2 + groups * (bufs(len(shared) - len(rq)) + len(rq) - len(rq_ok)),
+                     groups * len(rq_ok))}
+
+
+def ssm_batch(torch, log, arch, dev="cuda", rowquant=False, params=None):
+    """`arch` at full width and depth through ``build_serve_setup`` ->
+    ``ServeEngine.generate``: SERVE's batch 4 x prompt 128 x 16 greedy
+    tokens, run twice after a warm-up, on the weights `params` (drawn from
+    seed 0 when None).  Gates: the two runs' tokens equal and in range, the
+    logits finite, the launches of a run (counts zeroed just before, read
+    just after) equal the code's structure and, at the full configs, the
+    hand count (SSM_PER_STEP).  Returns (launches, params, the first decode
+    step's logits)."""
+    import repro_torch.models.layers as L
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels import ops
+    from repro_torch.serve import build_serve_setup, make_prompt_batch
+
+    setup = build_serve_setup(arch, smoke=False, device=dev, rowquant_mlp=rowquant,
+                              params=params, **SERVE)
+    cfg, gen = setup.cfg, SERVE["gen"]
+    tag = f"{cfg.name} {'rowquant' if rowquant else 'dense'}"
+    tokens, _ = SyntheticLM(cfg.vocab_size, SERVE["prompt_len"], SERVE["batch"],
+                            seed=SERVE["seed"]).sample(0)
+    prompt = make_prompt_batch(cfg, setup.spec, setup.ms, tokens, setup.device)
+
+    def run(n):
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = setup.engine.generate(setup.params, prompt, n_tokens=n).cpu()
+        return out, time.perf_counter() - t
+
+    run(2)  # warm-up: allocator, cuBLAS and cuDNN handles
+    t_prefill = statistics.median(run(1)[1] for _ in range(2))
+    if dev == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    logits = []
+    ops.reset_launches()
+    with hooked(L, "vocab_parallel_logits", capture_logits(logits)):
+        out1, t1 = run(gen)
+    counts = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30 if dev == "cuda" else float("nan")
+    out2, t2 = run(gen)
+    want = expected_ssm_launches(setup.model, rowquant)
+    pf, st = want["prefill"], want["step"]
+    if (cfg.name, rowquant) in SSM_PER_STEP:
+        check(st == SSM_PER_STEP[cfg.name, rowquant], f"{tag}: per-step K1/K2/K3 {st}, the "
+              f"hand count is {SSM_PER_STEP[cfg.name, rowquant]}")
+    check(tuple(out1.shape) == (SERVE["batch"], gen), f"{tag}: tokens shape {out1.shape}")
+    check(bool(((out1 >= 0) & (out1 < cfg.vocab_size)).all()), f"{tag}: token out of range")
+    check(all(bool(torch.isfinite(t).all()) for t in logits) and len(logits) == gen,
+          f"{tag}: {len(logits)} logit sets, or non-finite logits")
+    check(torch.equal(out1, out2), f"{tag}: two runs differ: {out1.tolist()} vs {out2.tolist()}")
+    for k, i in (("quantize_pack", 0), ("unpack_dequantize", 1), ("rowquant_matmul", 2)):
+        n = pf[i] + st[i] * (gen - 1)
+        check(counts[k] == n, f"{tag}: {k} launched {counts[k]} times, the code's structure "
+              f"predicts {n}")
+    check(sum(counts.values()) == sum(pf) + sum(st) * (gen - 1),
+          f"{tag}: launches of other kernels: {counts}")
+    step_ms = sorted((t - t_prefill) / (gen - 1) * 1e3 for t in (t1, t2))
+    log(f"ssm batch {tag}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_params() / 1e9:.4f} G params, {SERVE['batch']}x{gen} tokens: runs "
+        f"{t1:.3f} / {t2:.3f} s ({SERVE['batch'] * gen / min(t1, t2):.1f} tok/s); prefill "
+        f"{t_prefill * 1e3:.1f} ms; decode step {step_ms[0]:.2f} / {step_ms[1]:.2f} ms; peak "
+        f"device memory {peak:.2f} GiB")
+    log(f"ssm batch {tag}: launches {counts} = prefill K1/K2/K3 {pf} + {gen - 1} x per decode "
+        f"step {st}; tokens[0] = {out1[0].tolist()}")
+    params = setup.params
+    del setup, prompt
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    return counts, params, logits[1].float()
+
+
+def ssm_continuous(torch, log, arch, params, dev="cuda", profile=True):
+    """`arch` at full width and depth through ``make_scheduler`` with
+    blocking admission (the reference's only admission for the SSM and
+    hybrid families): 4 slots, ring 512 for zamba2's shared KV, CONT_PLAN's
+    12 requests (prompts 32-384, half sampled), every launch on the
+    fixed-shape route, on the weights `params`.  Run 1 (one pooled decode
+    step with a sampled lane profiled: busy share; no int64 bitwise or
+    shift kernel) and run 2 (counts zeroed just before, read just after,
+    against the structure; timed) give every request the same tokens; every
+    greedy request equals its batch-of-1 solo run (``generate(
+    fold_step_keys=False)``, whole-prompt prefill)."""
+    import numpy as np
+    from repro_torch.core import prng
+    from repro_torch.kernels import ops
+    from repro_torch.serve import build_serve_setup, make_scheduler
+
+    gen_max = max(g for *_, g in CONT_PLAN)
+    setup = route_setup(build_serve_setup(
+        arch, smoke=False, batch=CONT["slots"], prompt_len=CONT["ring"] - gen_max, gen=gen_max,
+        seed=CONT["seed"], sampling=True, device=dev, params=params))
+    cfg = setup.cfg
+    check(setup.spec.cache_len == (0 if cfg.arch_type == "ssm" else CONT["ring"]),
+          f"ring {setup.spec.cache_len}")
+    reqs = continuous_requests(cfg.vocab_size)
+    key = prng.PRNGKey(CONT["seed"])
+
+    def sync():
+        if dev == "cuda":
+            torch.cuda.synchronize()
+
+    def run(profile_step):
+        sched = make_scheduler(setup, gather_key=key)
+        launches = {"prefill": [], "decode": []}
+        steps, prof = [], None
+        hooks = [(sched.prefill_engine, "prefill_step",
+                  launch_timer(torch, launches["prefill"], dev)),
+                 (sched.engine, "decode_step", launch_timer(torch, launches["decode"], dev))]
+        sync()
+        with contextlib.ExitStack() as stack:
+            for h in hooks:
+                stack.enter_context(hooked(*h))
+            for r in reqs:
+                sched.submit(r)
+            t0 = time.perf_counter()
+            while sched.queue or sched.n_active():
+                if (profile_step and prof is None and not sched.queue
+                        and any(s is not None and s.req.needs_sampling for s in sched.slots)):
+                    prof = profile_train_step(torch, lambda _: sched.step(), None, log,
+                                              tag=f"ssm continuous {cfg.name}")
+                    continue
+                prefills = sched.prefill_count
+                t = time.perf_counter()
+                sched.step()
+                steps.append((time.perf_counter() - t, sched.prefill_count > prefills))
+            sync()
+            wall = time.perf_counter() - t0
+        return sched, {r: c.tokens.tolist() for r, c in sched.finished.items()}, steps, prof, \
+            wall, launches
+
+    with torch.inference_mode():
+        _, out1, _, prof, _, _ = run(profile and dev == "cuda")
+        ops.reset_launches()
+        s2, out2, steps, _, wall, launch_s = run(False)
+        counts = dict(ops.LAUNCHES)
+    st = s2.stats()
+    tag = f"ssm continuous {cfg.name}"
+    check(out1 == out2, f"{tag}: two runs gave different tokens: "
+          + str(sorted(r for r in out1 if out1[r] != out2.get(r))))
+    check(set(out2) == {r.rid for r in reqs}, f"{tag}: not every request finished")
+    for r in reqs:
+        check(len(out2[r.rid]) == r.max_new_tokens
+              and all(0 <= t < cfg.vocab_size for t in out2[r.rid]), f"{tag} {r.rid}: tokens "
+              f"{out2[r.rid]}")
+    check(st["prefills"] == len(reqs) and st["prefill_chunks"] == 0,
+          f"{tag}: {st['prefills']} prefills, {st['prefill_chunks']} chunk launches")
+    want = expected_ssm_launches(setup.model, False)
+    pf, sp = want["prefill"], want["step"]
+    want_n = {"quantize_pack": pf[0] * st["prefills"] + sp[0] * st["decode_launches"],
+              "unpack_dequantize": pf[1] * st["prefills"] + sp[1] * st["decode_launches"],
+              "random_bits": st["sampled_launches"]}
+    for k in ops.KERNELS:
+        check(counts[k] == want_n.get(k, 0), f"{tag}: {k} launched {counts[k]} times, the "
+              f"code's structure predicts {want_n.get(k, 0)}")
+    check(all(v > 0 for v in want_n.values()), f"{tag}: a kernel never launched: {counts}")
+    if prof is not None:
+        check(prof["threefry_int64"] == 0, f"{tag}: {prof['threefry_int64']} int64 bitwise/"
+              "shift kernels in the profiled step")
+        check(prof["rb_n"] >= 1, f"{tag}: no random_bits launch in the profiled step")
+    greedy = [r for r in reqs if not r.needs_sampling]
+    solo = solo_runs(torch, setup, greedy, key, chunk=0)
+    for rid, ref in solo.items():
+        check(ref == out2[rid], f"{tag} {rid}: scheduler tokens {out2[rid]} != batch-of-1 solo "
+              f"run {ref} (first difference at token "
+              f"{next((i for i, (a, b) in enumerate(zip(ref, out2[rid])) if a != b), None)})")
+    pct = (lambda a, q: float(np.percentile(a, q)) if a else float("nan"))
+    ttft = sorted(c.first_token_time - c.submit_time for c in s2.finished.values())
+    dec = sorted(t for t, admitted in steps if not admitted)
+    log(f"{tag}: {len(solo)} greedy requests bit-equal to their batch-of-1 solo runs "
+        f"({sorted(solo)}); sampled {[r.rid for r in reqs if r.needs_sampling]} equal across "
+        "two runs")
+    log(f"{tag}: {len(reqs)} requests on {CONT['slots']} slots (blocking admission"
+        f"{', shared-block ring ' + str(CONT['ring']) if cfg.arch_type == 'hybrid' else ''}): "
+        f"{st['tokens_generated']} tokens in {wall:.3f} s = {st['tokens_generated'] / wall:.2f} "
+        f"tokens/s; TTFT p50 {pct(ttft, 50):.3f} s, p95 {pct(ttft, 95):.3f} s; decode-only "
+        f"step median {1e3 * pct(dec, 50):.2f} ms (p95 {1e3 * pct(dec, 95):.2f}, {len(dec)} "
+        f"steps); prefill launch median {1e3 * pct(launch_s['prefill'], 50):.2f} ms (max "
+        f"{1e3 * max(launch_s['prefill']):.2f}); occupancy {st['mean_occupancy']:.3f}")
+    log(f"{tag}: stats {st}")
+    log(f"{tag}: launches {counts} = structure {want_n}")
+    if prof is not None:
+        log(f"{tag}: profiled decode step: {prof['kernels']} kernels, busy "
+            f"{prof['busy_ms']:.1f} of {prof['wall_ms']:.1f} ms "
+            f"({100 * prof['busy_ms'] / prof['wall_ms']:.1f}%); K1 {prof['k1_n']} "
+            f"({prof['k1_ms']:.3f} ms), K2 {prof['k2_n']} ({prof['k2_ms']:.3f} ms), "
+            f"random_bits {prof['rb_n']}")
+    del setup, s2
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    return counts
+
+
+def small_rowquant(torch, log, dev="cuda"):
+    """zamba2's smoke config under SSM_RQ_QSDP on `dev`: the rowquant decode
+    (shared MLP through K3) gives the dense decode's greedy tokens (the
+    reference's ``test_serve_rowquant_decode_audio_hybrid``)."""
+    from repro_torch.core.qsdp import QSDPConfig
+    from repro_torch.kernels import ops
+    from repro_torch.serve import build_serve_setup
+    outs, params = {}, None
+    tokens = torch.ones((SMALL["batch"], SMALL["prompt_len"]), dtype=torch.int64)
+    for rowquant in (False, True):
+        setup = build_serve_setup("zamba2-7b", smoke=True, qsdp=QSDPConfig(**SSM_RQ_QSDP),
+                                  rowquant_mlp=rowquant, device=dev, params=params, **SMALL)
+        params = setup.params
+        ops.reset_launches()
+        outs[rowquant] = setup.engine.generate(params, {"tokens": tokens.to(dev)},
+                                               n_tokens=5).cpu()
+        k3 = ops.LAUNCHES["rowquant_matmul"]
+        check((k3 > 0) == rowquant or dev != "cuda", f"small zamba2 rowquant={rowquant}: K3 "
+              f"launched {k3} times")
+    check(torch.equal(outs[False], outs[True]), f"small zamba2: rowquant tokens "
+          f"{outs[True].tolist()} != dense {outs[False].tolist()}")
+    log(f"small: zamba2-smoke rowquant decode (shared MLP through K3) == dense decode, tokens "
+        f"{outs[True].tolist()}")
+
+
+def ssm_phase(torch, log, dev="cuda", archs=SSM_ARCHS):
+    """The SSM and hybrid families on the card: both smoke configs card vs
+    CPU (``small_phase``) and zamba2's rowquant smoke decode equal to its
+    dense one; then mamba2-370m (48 layers) and zamba2-7b (81 layers: 13
+    groups of 6 Mamba2 layers, each followed by the shared attention+MLP
+    block, and a tail of 3) at full width and depth, random weights from
+    seed 0, default QSDPConfig: batch serving (dense, and for zamba2 also
+    rowquant), the continuous cell with blocking admission, and the
+    fixed-shape route's row gate at their launch shapes.  Prints the
+    phase's seconds and peak device memory.  Returns the launches of the
+    driven paths (the small phase's and the gates' are not counted)."""
+    from collections import Counter
+    from repro_torch import configs
+    t0 = time.perf_counter()
+    if dev == "cuda":
+        for arch in archs:
+            small_phase(torch, log, arch)
+        small_rowquant(torch, log)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    counts = Counter()
+    g = torch.Generator(device=dev).manual_seed(4)
+
+    def rnd(*shape, dt=torch.bfloat16):
+        return torch.randn(shape, generator=g, device=dev).to(dt)
+
+    for arch in archs:
+        c, params, first = ssm_batch(torch, log, arch, dev)
+        counts.update(c)
+        if configs.get_config(arch).arch_type == "hybrid":
+            c, _, first_rq = ssm_batch(torch, log, arch, dev, rowquant=True, params=params)
+            counts.update(c)
+            rel = (first - first_rq).abs().max().item() / first.abs().max().item()
+            check(math.isfinite(rel) and rel <= LOGIT_RTOL, f"{arch}: first decode step logits "
+                  f"dense vs rowquant differ by {rel:.3e} of max |logit|")
+            log(f"ssm batch {arch}: first decode step logits dense vs rowquant: max |diff| / "
+                f"max |logit| = {rel:.3e} (tol {LOGIT_RTOL})")
+        counts.update(ssm_continuous(torch, log, arch, params, dev))
+        del params
+        route_invariance(torch, log, dev, rnd, configs.get_config(arch))
+        if dev == "cuda":
+            torch.cuda.empty_cache()
+    peak = torch.cuda.max_memory_allocated() / 2**30 if dev == "cuda" else float("nan")
+    log(f"ssm: phase {time.perf_counter() - t0:.1f} s, peak device memory {peak:.2f} GiB; "
         f"launches {dict(counts)}")
     return dict(counts)
 

@@ -1,8 +1,8 @@
 """Architecture registry of the port: the paper's own GPT family (125M /
-350M / 1.3B), the dense GQA decoders and the MoE family of the JAX
-package's registry, each with a reduced smoke variant (2 layers, d_model
-<= 448, <= 4 experts).  The SSM/hybrid and VLM/audio families come with
-later items of ROADMAP A11 and raise naming theirs."""
+350M / 1.3B), the dense GQA decoders, the MoE family and the SSM and hybrid
+families of the JAX package's registry, each with a reduced smoke variant
+(2-3 layers, d_model <= 448, <= 4 experts).  The VLM/audio families come
+with a later item of ROADMAP A11 and raise naming it."""
 from __future__ import annotations
 
 import importlib
@@ -10,11 +10,11 @@ import importlib
 from ..models.config import UNPORTED_FAMILIES, ModelConfig
 
 ARCHS = ["qwen2_5_3b", "yi_6b", "qwen1_5_32b", "olmoe_1b_7b", "yi_34b",
-         "qwen3_moe_235b_a22b", "gpt_125m", "gpt_350m", "gpt_1_3b"]
+         "qwen3_moe_235b_a22b", "mamba2_370m", "zamba2_7b", "gpt_125m", "gpt_350m",
+         "gpt_1_3b"]
 
 # registered in the JAX package, not ported yet: name -> family
-NOT_PORTED = {"zamba2_7b": "hybrid", "mamba2_370m": "ssm",
-              "qwen2_vl_72b": "vlm", "seamless_m4t_large_v2": "audio"}
+NOT_PORTED = {"qwen2_vl_72b": "vlm", "seamless_m4t_large_v2": "audio"}
 
 _ALIAS = {a.replace("_", "-"): a for a in [*ARCHS, *NOT_PORTED]}
 _ALIAS.update({"qwen2.5-3b": "qwen2_5_3b", "qwen1.5-32b": "qwen1_5_32b",

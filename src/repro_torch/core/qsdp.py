@@ -71,6 +71,9 @@ class ParamSpec:
     init: str = "normal"              # normal | scaled_normal | zeros | ones | constant
     init_scale: float = 0.02
     quantize: bool = True             # False: always full-precision comm
+    # model-replicated but consumed rank-specifically (the reference psums its
+    # gradient over the model axis); the identity at tp = 1
+    grad_sync_model: bool = False
 
     def tp_local_shape(self, model_size: int) -> tuple[int, ...]:
         if self.tp_axis is None:

@@ -20,8 +20,11 @@ weights drafts up to --draft-depth tokens per slot per step, verified at
 serving precision (add ``--draft-bits 4 --draft-depth 4`` above).
 
 ``--arch`` takes any config of ``repro_torch.configs`` (the MoE family
-too: ``--arch olmoe-1b-7b``); ``--smoke`` serves its 2-layer smoke config;
-``--device cpu`` runs the plain versions of the kernels on the CPU.
+too: ``--arch olmoe-1b-7b``; the SSM and hybrid families, ``--arch
+mamba2-370m`` / ``zamba2-7b``, serve with whole-prompt prefill: no chunked
+prefill, paged pool or speculation, as in the reference); ``--smoke``
+serves its 2-layer smoke config; ``--device cpu`` runs the plain versions
+of the kernels on the CPU.
 """
 from __future__ import annotations
 
@@ -140,7 +143,8 @@ def run_continuous(setup, args) -> int:
         kv_quant_horizon=args.kv_quant_horizon)
     # mixed prompt/gen lengths, seeded
     for i in range(args.requests):
-        plen = int(rng.integers(max(args.prompt_len // 2, 1), args.prompt_len + 1))
+        plen = int(rng.integers(max(args.prompt_len // 2, sched.engine.dm.min_prompt_len),
+                                args.prompt_len + 1))
         gen = int(rng.integers(max(args.gen // 2, 1), args.gen + 1))
         sched.submit(Request(
             rid=f"req{i}", prompt=rng.integers(0, setup.cfg.vocab_size, size=plen).tolist(),

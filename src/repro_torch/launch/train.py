@@ -1,6 +1,7 @@
 """Training launcher of the port: QSDP training of the dense and MoE
 families on one card, with flag parity to the JAX package's
-``launch/train.py``.
+``launch/train.py`` (the SSM and hybrid families serve only, and raise
+naming ROADMAP A11f).
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch gpt-1.3b \\
       --steps 10 --batch 4 --seq 2048 --n-micro 2
@@ -113,6 +114,7 @@ def main(argv=None):
     cfg = configs.get_smoke(args.arch) if args.smoke else configs.get_config(args.arch)
     qsdp = build_qsdp(args)
     model = Model(cfg, MeshSpec(axes=("data", "model"), shape=(1, 1)), qsdp)
+    model.check_trainable()
     opt = make_adamw(AdamWConfig(lr=args.lr,
                                  schedule=cosine_schedule(args.lr, args.warmup, args.steps),
                                  moment_bits=args.moment_bits))

@@ -2,7 +2,7 @@
 ``models/config.py`` (pure Python; the port imports nothing of ``repro``).
 
 One `ModelConfig` describes any of the six family types; the port serves
-the dense and MoE families (``repro_torch.configs``).
+the dense, MoE, SSM and hybrid families (``repro_torch.configs``).
 """
 from __future__ import annotations
 
@@ -11,7 +11,7 @@ from typing import Optional
 
 
 # families of the JAX package the port does not build yet -> their ROADMAP item
-UNPORTED_FAMILIES = {"ssm": "A11c", "hybrid": "A11c", "vlm": "A11d", "audio": "A11d"}
+UNPORTED_FAMILIES = {"vlm": "A11d", "audio": "A11d"}
 
 
 @dataclasses.dataclass(frozen=True)

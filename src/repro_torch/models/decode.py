@@ -1,7 +1,21 @@
-"""Serving paths of the dense and MoE families: whole-prompt prefill (builds
-the KV ring), chunked prefill over the whole slot pool, and one-token decode
-with greedy or per-request sampling, over a private KV ring per slot or a
-paged pool of KV blocks; wired through the QSDP engine.
+"""Serving paths of the dense, MoE, SSM and hybrid families: whole-prompt
+prefill (builds the KV ring or the recurrent state), chunked prefill over
+the whole slot pool, and one-token decode with greedy or per-request
+sampling, over a private KV ring per slot or a paged pool of KV blocks;
+wired through the QSDP engine.  Chunked prefill, the paged pool and
+speculative decoding serve the attention-only stacks (dense, MoE), as in
+the reference.
+
+SSM and hybrid: every layer is a Mamba2 mixer whose state (the conv ring of
+the last K-1 inputs and the SSM state, both f32) replaces the KV ring; the
+hybrid family runs one shared attention+MLP block after every
+``hybrid_attn_every`` layers, re-gathered (quantized) at each invocation,
+with a KV ring per invocation.  Layer i of the SSM stack is gathered under
+``fold_in(key, i)``; in the hybrid stack group g's layers under
+``fold_in(fold_in(key, 1000 + g), i)``, its shared block under
+``fold_in(key, 5000 + g)`` and the tail's under ``fold_in(fold_in(key,
+2000), j)`` (reference ``decode.py:748-839``, ``:971-1021``).  Dead lanes
+run the recurrence like live ones; admission overwrites a lane's state.
 
 The MoE layer dispatches drop-free on every launch of the decode path
 (decode, chunks, verify): capacity drops would let dead lanes, padding or
@@ -57,6 +71,7 @@ from ..core import prng
 from ..core.quant import QuantizedParam
 from . import attention as attn_mod
 from . import layers as L
+from . import mamba as mamba_mod
 from . import moe as moe_mod
 from .transformer import Model
 
@@ -69,6 +84,10 @@ ROWQUANT_MLP = ("w_gate", "w_up", "w_down")
 # families whose prompts may prefill chunk-at-a-time into the pool cache
 # (the reference's pure attention stacks)
 CHUNKED_PREFILL_ARCHS = ("dense", "moe")
+
+# the hybrid family's shared block, in the order the reference gathers it
+SHARED_NAMES = ("attn_norm", "wq", "wk", "wv", "wo", "bq", "bk", "bv", "mlp_norm",
+                "w_gate", "w_up", "w_down")
 
 # lanes per launch of the decode path on the card (the continuous cell's
 # slot count): every GEMM and attention product runs at this many lanes
@@ -130,8 +149,12 @@ def make_decode_spec(model: Model, shape, rowquant_mlp: bool = False) -> DecodeS
     """Decode configuration for a ShapeConfig."""
     cfg = model.cfg
     s = shape.seq_len
-    cache_len = cfg.long_context_window if (
-        s > 65536 and cfg.long_context == "sliding_window") else s
+    if cfg.arch_type == "ssm":
+        cache_len = 0  # the state is O(1): no KV ring
+    elif s > 65536 and cfg.long_context == "sliding_window":
+        cache_len = cfg.long_context_window
+    else:
+        cache_len = s
     return DecodeSpec(cache_len=cache_len, batch_global=shape.global_batch,
                       batch_sharded=shape.global_batch % model.ms.fsdp_size == 0,
                       rowquant_mlp=rowquant_mlp)
@@ -157,6 +180,9 @@ class DecodeModel:
         if lane_block < 0:
             raise ValueError(f"lane_block must be >= 0, got {lane_block}")
         if spec.paged:
+            if cfg.arch_type not in CHUNKED_PREFILL_ARCHS:
+                raise ValueError(f"paged KV (kv_block_size={spec.kv_block_size}) supports "
+                                 f"{CHUNKED_PREFILL_ARCHS}, not {cfg.arch_type!r}")
             if spec.batch_sharded:
                 raise ValueError("paged KV requires batch_sharded=False: block tables "
                                  "may point any lane at any pool row")
@@ -174,23 +200,45 @@ class DecodeModel:
         self.lanes = -(-self.b_loc // self.lane_block) * self.lane_block
 
     def cache_struct(self) -> dict[str, tuple[tuple[int, ...], torch.dtype]]:
-        """Global cache shapes and dtypes."""
+        """Global cache shapes and dtypes: the KV ring or pool (L, rows, S,
+        n_kv, hd) bf16; SSM: the conv ring (L, B, K-1, d_inner + 2N) and the
+        state (L, B, H, P, N), both f32; hybrid: those and the shared
+        block's KV rings (n_layers // every, B, S, n_kv, hd)."""
         cfg = self.m.cfg
-        shp = (cfg.n_layers, self.spec.pool_rows(), self.spec.cache_len,
-               self.m.acfg.n_kv, cfg.head_dim)
-        return {"k": (shp, torch.bfloat16), "v": (shp, torch.bfloat16)}
+
+        def kv(prefix, layers):
+            shp = (layers, self.spec.pool_rows(), self.spec.cache_len, self.m.acfg.n_kv,
+                   cfg.head_dim)
+            return {prefix + "k": (shp, torch.bfloat16), prefix + "v": (shp, torch.bfloat16)}
+
+        if cfg.arch_type not in ("ssm", "hybrid"):
+            return kv("", cfg.n_layers)
+        mc, b = self.m.mcfg, self.spec.batch_global
+        out = {"conv": ((cfg.n_layers, b, mc.conv_k - 1,
+                         self.tp * (mc.d_inner_local + 2 * mc.d_state)), torch.float32),
+               "ssm": ((cfg.n_layers, b, mc.n_heads, mc.head_dim, mc.d_state), torch.float32)}
+        if cfg.arch_type == "hybrid":
+            out.update(kv("shared_", cfg.n_layers // cfg.hybrid_attn_every))
+        return out
 
     def init_cache_local(self, device) -> Cache:
-        """This rank's zero cache: ring S_loc over the engine's lanes (b_loc
-        padded to whole lane blocks; paged: all pool rows)."""
+        """This rank's zero cache over the engine's lanes (b_loc padded to
+        whole lane blocks; paged: all pool rows): the ring S_loc, the conv
+        ring's and the state's local channels and heads."""
         out = {}
         for k, (shp, dt) in self.cache_struct().items():
             shp = list(shp)
             if not self.spec.paged:
                 shp[1] = self.lanes
-            shp[2] //= self.tp
+            shp[3 if k == "conv" else 2] //= self.tp
             out[k] = torch.zeros(shp, dtype=dt, device=device)
         return out
+
+    @property
+    def min_prompt_len(self) -> int:
+        """The shortest prompt whole-prompt prefill takes: a Mamba2 layer's
+        conv state needs K-1 prompt tokens (ROADMAP C7)."""
+        return self.m.mcfg.conv_k - 1 if self.m.cfg.arch_type in ("ssm", "hybrid") else 1
 
     # ------------------------------------------------------------------
     # Lane blocks (fixed launch shapes)
@@ -223,7 +271,9 @@ class DecodeModel:
             sl = slice(i, i + self.lane_block)
             p = pos[sl]
             pd = p.to(dev)
-            cos, sin = L.rope_cos_sin(pd, cfg.head_dim, cfg.rope_theta)
+            cos = sin = None
+            if cfg.has_attention:
+                cos, sin = L.rope_cos_sin(pd, cfg.head_dim, cfg.rope_theta)
             writes = bt = None
             if block_tables is not None:
                 writes = self._paged_writes(p.cpu(), keep_h[sl], block_tables[sl], dev)
@@ -240,12 +290,13 @@ class DecodeModel:
             return fn(x, blocks[0])
         return torch.cat([fn(x[b.sl], b) for b in blocks])
 
-    def _lane_cache(self, cache: Cache, blk: _Block):
+    def _lane_cache(self, cache: Cache, blk: _Block, prefix: str = ""):
         """The k/v caches a block reads and writes: its lanes of the rings (a
-        view, written in place), or the whole paged pool."""
+        view, written in place), or the whole paged pool.  `prefix` "shared_"
+        names the hybrid family's shared-block rings."""
         if self.spec.paged:
             return cache["k"], cache["v"]
-        return cache["k"][:, blk.sl], cache["v"][:, blk.sl]
+        return cache[prefix + "k"][:, blk.sl], cache[prefix + "v"][:, blk.sl]
 
     def _logits(self, x: torch.Tensor, fn: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
         """Final norm and f32 logits of (lanes, d), lane_block rows per launch."""
@@ -271,7 +322,7 @@ class DecodeModel:
         (-1: unallocated).  B <= the engine's lanes; the rest run dead.
         Returns (next tokens (B,), cache updated in place)."""
         m, cfg = self.m, self.m.cfg
-        dev = cache["k"].device
+        dev = next(iter(cache.values())).device
         if self.spec.paged and block_tables is None:
             raise ValueError("paged DecodeSpec: decode_fn needs block_tables")
         b = tokens.shape[0]
@@ -286,7 +337,10 @@ class DecodeModel:
         blocks = self._blocks(pos_in, keep, bt, dev)
         emb = m.engine.gather("embed", params["embed"], key)
         x = L.embed_vocab_parallel(self._pad_lanes(tokens, 0).to(dev)[:, None], emb)[:, 0]
-        x = self._decode_attn_stack(params, "layers", x, cache, blocks, key)
+        if cfg.arch_type in ("ssm", "hybrid"):
+            x = self._decode_mamba(params, x, cache, blocks, key)
+        else:
+            x = self._decode_attn_stack(params, "layers", x, cache, blocks, key)
         fn = m.engine.gather("final_norm", params["final_norm"], key)
         head = emb if cfg.tie_embeddings else m.engine.gather("lm_head", params["lm_head"], key)
         logits = self._logits(x, fn, head)
@@ -364,10 +418,12 @@ class DecodeModel:
         y, _ = moe_mod.moe_layer(h.reshape(-1, h.shape[-1]), w, self.m.ecfg, no_drop=no_drop)
         return y.reshape(h.shape)
 
-    def _decode_attn_layer(self, x, w, cache: Cache, layer: int, blk: _Block):
-        """One layer over one lane block's tokens x (lane_block, d)."""
+    def _decode_attn_layer(self, x, w, cache: Cache, layer: int, blk: _Block,
+                           prefix: str = ""):
+        """One layer over one lane block's tokens x (lane_block, d); `prefix`
+        "shared_": the hybrid family's shared block at invocation `layer`."""
         m, cfg = self.m, self.m.cfg
-        kc_all, vc_all = self._lane_cache(cache, blk)
+        kc_all, vc_all = self._lane_cache(cache, blk, prefix)
         h = L.rms_norm(x, w["attn_norm"], cfg.norm_eps)
         q_all, k1, v1 = attn_mod.decode_new_kv(h, w, m.acfg, blk.cos, blk.sin)
         if blk.bt is None:
@@ -418,6 +474,82 @@ class DecodeModel:
                                      mlp=self._mlp_kind)
             x = self._per_block(x, blocks, lambda xb, blk, w=w, idx=idx:
                                 self._decode_attn_layer(xb, w, cache, idx, blk))
+        return x
+
+    # ------------------------------------------------------------------
+    # SSM and hybrid stacks
+    # ------------------------------------------------------------------
+
+    def _mamba_plan(self, key: prng.Key) -> list[tuple[str, int, prng.Key]]:
+        """The SSM/hybrid stack in order, with each gather's key: ("mamba",
+        layer, key) and, for the hybrid family, ("shared", group, key) after
+        every `hybrid_attn_every` layers, then the tail's layers."""
+        cfg = self.m.cfg
+        if cfg.arch_type == "ssm":
+            return [("mamba", i, prng.fold_in(key, i)) for i in range(cfg.n_layers)]
+        every = cfg.hybrid_attn_every
+        n_groups, rem = divmod(cfg.n_layers, every)
+        plan = []
+        for g in range(n_groups):
+            gkey = prng.fold_in(key, 1000 + g)
+            plan += [("mamba", g * every + i, prng.fold_in(gkey, i)) for i in range(every)]
+            plan.append(("shared", g, prng.fold_in(key, 5000 + g)))
+        tkey = prng.fold_in(key, 2000)
+        return plan + [("mamba", n_groups * every + j, prng.fold_in(tkey, j))
+                       for j in range(rem)]
+
+    def _mamba_gathers(self, params: Params, key: prng.Key, shared_mlp=None):
+        """(kind, index, gathered weights) along :meth:`_mamba_plan`; the
+        shared block's MLP goes through rowquant where `shared_mlp` is
+        "dense" (the decode path)."""
+        grp = self.m._group(params, "layers")
+        names = list(grp)
+        shared = {n: params[f"shared/{n}"] for n in SHARED_NAMES if f"shared/{n}" in params}
+        for kind, i, k in self._mamba_plan(key):
+            if kind == "mamba":
+                yield kind, i, self._gather_layer_w("layers", names, _layer(grp, i), k)
+            else:
+                yield kind, i, self._gather_layer_w("shared", list(shared), shared, k,
+                                                    mlp=shared_mlp)
+
+    def _decode_mamba_layer(self, x, w, cache: Cache, layer: int, blk: _Block):
+        """One Mamba2 layer over one lane block's tokens x (lane_block, d),
+        its lanes' conv ring and state updated in place."""
+        conv, ssm = cache["conv"][layer, blk.sl], cache["ssm"][layer, blk.sl]
+        h = L.rms_norm(x, w["pre_norm"], self.m.cfg.norm_eps)
+        y, conv_new, ssm_new = mamba_mod.mamba2_decode(h, w, self.m.mcfg, conv, ssm)
+        conv.copy_(conv_new)
+        ssm.copy_(ssm_new)
+        return x + y
+
+    def _decode_mamba(self, params, x, cache, blocks, key):
+        """The SSM/hybrid decode stack (reference ``decode.py:741-839``); the
+        shared block reuses the attention layer on the "shared_" rings."""
+        for kind, i, w in self._mamba_gathers(params, key, shared_mlp="dense"):
+            if kind == "mamba":
+                x = self._per_block(x, blocks, lambda xb, blk, w=w, i=i:
+                                    self._decode_mamba_layer(xb, w, cache, i, blk))
+            else:
+                x = self._per_block(x, blocks, lambda xb, blk, w=w, i=i:
+                                    self._decode_attn_layer(xb, w, cache, i, blk, "shared_"))
+        return x
+
+    def _prefill_mamba(self, params, x, key, cos, sin, positions, cache):
+        """The SSM/hybrid prefill stack (reference ``decode.py:971-1021``):
+        each layer's conv ring (the last K-1 pre-conv inputs, the B/C part
+        rounded to the compute dtype, stored f32) and final state, and the
+        shared block's KV, written into the first rows of `cache`."""
+        b, eps = x.shape[0], self.m.cfg.norm_eps
+        for kind, i, w in self._mamba_gathers(params, key):
+            if kind == "mamba":
+                h = L.rms_norm(x, w["pre_norm"], eps)
+                y, (cx, cbc, hf) = mamba_mod.mamba2_block(h, w, self.m.mcfg, return_state=True)
+                cache["conv"][i, :b] = torch.cat([cx, cbc.to(cx.dtype)], dim=-1).float()
+                cache["ssm"][i, :b] = hf.float()
+                x = x + y
+            else:
+                x, kf, vf = self._prefill_attn_layer(x, w, cos, sin, positions)
+                cache["shared_k"][i, :b], cache["shared_v"][i, :b] = kf, vf
         return x
 
     # ------------------------------------------------------------------
@@ -502,13 +634,22 @@ class DecodeModel:
                                       "prefill through prefill_chunk_fn")
         tokens = batch["tokens"]
         b, s = tokens.shape
-        if s > self.spec.cache_len:
+        if cfg.has_attention and s > self.spec.cache_len:
             raise ValueError(f"prompt ({s}) exceeds the KV ring ({self.spec.cache_len})")
+        if s < self.min_prompt_len:
+            raise ValueError(f"a prompt of {s} tokens is shorter than the {cfg.arch_type} "
+                             f"prefill's minimum of {self.min_prompt_len} (the Mamba2 conv "
+                             "state holds the last conv_k - 1 prompt tokens)")
         emb = m.engine.gather("embed", params["embed"], key)
         x = L.embed_vocab_parallel(tokens, emb)
         positions = torch.arange(s, device=tokens.device)
-        cos, sin = L.rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
-        x = self._prefill_attn_stack(params, "layers", x, key, cos, sin, positions, cache)
+        cos = sin = None
+        if cfg.has_attention:
+            cos, sin = L.rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
+        if cfg.arch_type in ("ssm", "hybrid"):
+            x = self._prefill_mamba(params, x, key, cos, sin, positions, cache)
+        else:
+            x = self._prefill_attn_stack(params, "layers", x, key, cos, sin, positions, cache)
         fn = m.engine.gather("final_norm", params["final_norm"], key)
         h = L.rms_norm(x[:, -1], fn, cfg.norm_eps)
         head = emb if cfg.tie_embeddings else m.engine.gather("lm_head", params["lm_head"], key)

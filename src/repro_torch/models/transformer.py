@@ -1,7 +1,8 @@
-"""Model composition: parameter specs of the dense and MoE families, the
-bound QSDP engine and their training forward (the dense and MoE subset of
-the JAX package's ``models/transformer.py``; the other families are
-ROADMAP A11c/A11d).
+"""Model composition: parameter specs of the dense, MoE, SSM and hybrid
+families, the bound QSDP engine and the training forward of the dense and
+MoE families (that subset of the JAX package's ``models/transformer.py``;
+SSM/hybrid training is ROADMAP A11f, the VLM/audio families A11d).  The SSM
+and hybrid families serve through ``models/decode.py``.
 
 Parameters live in the engine's rest layout, ``(stack?, 1, 1, n_local)`` on
 the one-rank mesh, and are gathered per layer — quantized — inside every
@@ -33,6 +34,7 @@ from . import layers as L
 from .attention import AttnConfig
 from .config import UNPORTED_FAMILIES, ModelConfig
 from . import moe as moe_mod
+from .mamba import MambaConfig
 from .moe import MoEConfig
 
 Params = dict[str, torch.Tensor]
@@ -86,7 +88,35 @@ def _moe_specs(d: int, e: int, ffe: int, stack: Optional[int],
     }
 
 
-_PORTED_ARCHS = ("dense", "moe")
+def _mamba_specs(m: MambaConfig, stack: Optional[int], out_scale: float) -> dict[str, ParamSpec]:
+    """The Mamba2 mixer's parameters, in the reference's order
+    (``transformer.py:85``); the convs, A, dt bias, D and the norm ride the
+    layer's wire buffer unquantized (fp segments)."""
+    d, din, h, n, k = m.d_model, m.d_inner, m.n_heads, m.d_state, m.conv_k
+    return {
+        "w_z": ParamSpec((d, din), tp_axis=1, stack=stack, init="scaled_normal", init_scale=1.0),
+        "w_x": ParamSpec((d, din), tp_axis=1, stack=stack, init="scaled_normal", init_scale=1.0),
+        "w_bc": ParamSpec((d, 2 * n), tp_axis=None, stack=stack, init="scaled_normal",
+                          init_scale=1.0, grad_sync_model=True),
+        "w_dt": ParamSpec((d, h), tp_axis=1, stack=stack, init="scaled_normal", init_scale=1.0),
+        "conv_x": ParamSpec((din, k), tp_axis=0, stack=stack, init="normal", init_scale=0.3,
+                            quantize=False),
+        "conv_bc": ParamSpec((2 * n, k), tp_axis=None, stack=stack, init="normal",
+                             init_scale=0.3, quantize=False, grad_sync_model=True),
+        "a_log": ParamSpec((h,), tp_axis=0, stack=stack, init="constant", init_scale=0.5,
+                           quantize=False),
+        "dt_bias": ParamSpec((h,), tp_axis=0, stack=stack, init="constant", init_scale=-4.0,
+                             quantize=False),
+        "d_skip": ParamSpec((h,), tp_axis=0, stack=stack, init="ones", quantize=False),
+        "norm": ParamSpec((din,), tp_axis=0, stack=stack, init="ones", quantize=False),
+        "w_out": ParamSpec((din, d), tp_axis=0, stack=stack, init="scaled_normal",
+                           init_scale=out_scale),
+    }
+
+
+# families the port builds (serving); training runs the dense and MoE ones
+_PORTED_ARCHS = ("dense", "moe", "ssm", "hybrid")
+_TRAINED_ARCHS = ("dense", "moe")
 
 
 def _norm_spec(d: int, stack: Optional[int]) -> ParamSpec:
@@ -105,10 +135,16 @@ class Model:
         self.cfg = cfg
         self.ms = ms
         self.qcfg = qcfg
-        self.acfg = AttnConfig(n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
-                               head_dim=cfg.head_dim, tp=ms.model_size, causal=True,
-                               sliding_window=cfg.sliding_window,
-                               mxu_bf16=qcfg.attn_bf16)
+        if cfg.has_attention:
+            self.acfg = AttnConfig(n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
+                                   head_dim=cfg.head_dim, tp=ms.model_size, causal=True,
+                                   sliding_window=cfg.sliding_window,
+                                   mxu_bf16=qcfg.attn_bf16)
+        if cfg.arch_type in ("ssm", "hybrid"):
+            self.mcfg = MambaConfig(d_model=cfg.d_model, d_state=cfg.ssm_state,
+                                    head_dim=cfg.ssm_head_dim, expand=cfg.ssm_expand,
+                                    conv_k=cfg.ssm_conv, chunk=cfg.ssm_chunk,
+                                    tp=ms.model_size)
         if cfg.is_moe:
             self.ecfg = MoEConfig(n_experts=cfg.n_experts, top_k=cfg.moe_top_k,
                                   d_model=cfg.d_model, d_ff=cfg.moe_d_ff, tp=ms.model_size,
@@ -127,12 +163,29 @@ class Model:
              "final_norm": _norm_spec(d, None)}
         if not cfg.tie_embeddings:
             s["lm_head"] = ParamSpec((self.vp, d), tp_axis=0, init="normal", init_scale=0.02)
+        if cfg.arch_type in ("ssm", "hybrid"):
+            s.update({f"layers/{k}": v for k, v in _mamba_specs(self.mcfg, nl, out_scale).items()})
+            s["layers/pre_norm"] = _norm_spec(d, nl)
+            if cfg.arch_type == "hybrid":
+                # the shared transformer block, re-gathered at every invocation
+                shared = {**_attn_specs(d, self.acfg, None, cfg.qkv_bias, out_scale),
+                          **_mlp_specs(d, cfg.d_ff, None, out_scale),
+                          "attn_norm": _norm_spec(d, None), "mlp_norm": _norm_spec(d, None)}
+                s.update({f"shared/{k}": v for k, v in shared.items()})
+            return s
         mlp = (_moe_specs(d, cfg.n_experts, cfg.moe_d_ff, nl, out_scale) if cfg.is_moe
                else _mlp_specs(d, cfg.d_ff, nl, out_scale))
         block = {**_attn_specs(d, self.acfg, nl, cfg.qkv_bias, out_scale), **mlp,
                  "attn_norm": _norm_spec(d, nl), "mlp_norm": _norm_spec(d, nl)}
         s.update({f"layers/{k}": v for k, v in block.items()})
         return s
+
+    def check_trainable(self) -> None:
+        """Raises for a family the port serves but does not train yet."""
+        if self.cfg.arch_type not in _TRAINED_ARCHS:
+            raise NotImplementedError(
+                f"training the {self.cfg.arch_type!r} family is not ported yet (ROADMAP "
+                f"A11f); the port trains {_TRAINED_ARCHS} and serves {_PORTED_ARCHS}")
 
     def init_params(self, seed: int, device) -> Params:
         return self.engine.init_params(seed, device)
@@ -147,6 +200,7 @@ class Model:
         """Mean token cross-entropy of one microbatch, {"tokens", "labels"}
         (B, S), plus the MoE layers' load-balance loss; every weight
         gathered quantized under `key`."""
+        self.check_trainable()
         cfg, eng = self.cfg, self.engine
         tokens = batch["tokens"]
         b, s = tokens.shape

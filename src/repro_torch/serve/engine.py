@@ -266,7 +266,7 @@ class ServeEngine:
         if fold_step_keys:
             raise ValueError("chunked prefill serves a fixed quantized model; pass "
                              "fold_step_keys=False")
-        if s > sp.cache_len:
+        if sp.cache_len and s > sp.cache_len:
             raise ValueError(f"prompt ({s}) exceeds the KV ring ({sp.cache_len}); chunked "
                              "prefill cannot stream a prompt through a smaller window")
         lanes = sp.batch_global

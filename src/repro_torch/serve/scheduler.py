@@ -63,7 +63,7 @@ import numpy as np
 import torch
 
 from ..core import prng
-from ..models.decode import DecodeSpec
+from ..models.decode import CHUNKED_PREFILL_ARCHS, DecodeSpec
 from ..models.transformer import Model
 from .engine import (ServeEngine, make_draft_params, make_sample_params, prefill_bucket_for,
                      prefill_bucket_sizes)
@@ -179,6 +179,9 @@ class ContinuousScheduler:
         if spec.paged and not self.prefill_chunk:
             raise ValueError("paged DecodeSpec(kv_block_size > 0) requires chunked "
                              "admission; pass prefill_chunk > 0")
+        if self.prefill_chunk and model.cfg.arch_type not in CHUNKED_PREFILL_ARCHS:
+            raise ValueError(f"prefill_chunk requires an arch in {CHUNKED_PREFILL_ARCHS}; "
+                             f"{model.cfg.arch_type!r} prefills whole-prompt (prefill_chunk=0)")
         self.prefill_interleave = max(int(prefill_interleave), 1)
         self.buckets = prefill_bucket_sizes(self.prefill_chunk, prefill_buckets,
                                             spec.cache_len)
@@ -248,6 +251,9 @@ class ContinuousScheduler:
                              "with DecodeSpec(sampling=False)")
         if len(req.prompt) < 1:
             raise ValueError(f"request {req.rid!r}: prompt must be non-empty")
+        if len(req.prompt) < self.engine.dm.min_prompt_len:
+            raise ValueError(f"request {req.rid!r}: prompt of {len(req.prompt)} tokens, the "
+                             f"model prefills at least {self.engine.dm.min_prompt_len}")
         if self.spec.cache_len and len(req.prompt) > self.spec.cache_len:
             raise ValueError(f"request {req.rid!r}: prompt ({len(req.prompt)}) exceeds the "
                              f"logical KV window ({self.spec.cache_len})")

@@ -55,10 +55,10 @@ def test_cpu_setup_when_asked():
 def test_multi_rank_mesh_names_roadmap():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         QSDPEngine(MeshSpec(("data", "model"), (2, 1)), QSDPConfig(), {})
-    ssm = ModelConfig(name="ssm", arch_type="ssm", n_layers=1, d_model=64,
-                      vocab_size=128, ssm_state=16, ssm_head_dim=32)
+    vlm = ModelConfig(name="vlm", arch_type="vlm", n_layers=1, d_model=64, vocab_size=128,
+                      n_heads=4, n_kv_heads=4, head_dim=16, d_ff=128, rope_mode="mrope")
     with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        build_serve_setup(ssm, device="cpu")
+        build_serve_setup(vlm, device="cpu")
 
 
 def test_wrappers_reject_mixed_devices():
@@ -150,7 +150,8 @@ def test_unported_serving_paths_name_roadmap():
     assert setup.spec.paged and setup.spec.pool_blocks() == 2 * setup.spec.blocks_per_slot
     with pytest.raises(ValueError, match="requires chunked admission"):
         make_scheduler(setup)
-    ssm = ModelConfig(name="ssm", arch_type="ssm", n_layers=1, d_model=64, vocab_size=128,
-                      ssm_state=16, ssm_head_dim=32)
+    audio = ModelConfig(name="audio", arch_type="audio", n_layers=1, d_model=64,
+                        vocab_size=128, n_heads=4, n_kv_heads=4, head_dim=16, d_ff=128,
+                        n_enc_layers=1)
     with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        build_serve_setup(ssm, device="cpu", kv_block_size=4)
+        build_serve_setup(audio, device="cpu", kv_block_size=4)

@@ -365,3 +365,77 @@ def test_moe_layer_backward_on_the_card(cuda, dtype, no_drop):
     if dtype == torch.float32:
         for u, v in zip(a, run("cpu", dtype)):
             assert (u.cpu() - v).abs().max().item() <= 1e-5 * max(v.abs().max().item(), 1.0)
+
+
+def _mamba_case(seed, dtype, device):
+    """A Mamba2 mixer of d_model 64 (d_inner 128, 8 heads of 16, N 16, conv
+    4, chunk 16) with random weights in `dtype` and a 40-token input (pads
+    to whole chunks), built on the CPU and moved to `device`."""
+    from repro_torch.models.mamba import MambaConfig
+    g = torch.Generator().manual_seed(seed)
+    cfg = MambaConfig(d_model=64, d_state=16, head_dim=16, expand=2, conv_k=4, chunk=16, tp=1)
+    d, din, h, n = 64, 128, 8, 16
+
+    def nrm(*shape, s):
+        return (torch.randn(shape, generator=g) * s).to(device, dtype)
+
+    w = {"w_z": nrm(d, din, s=d ** -0.5), "w_x": nrm(d, din, s=d ** -0.5),
+         "w_bc": nrm(d, 2 * n, s=d ** -0.5), "w_dt": nrm(d, h, s=d ** -0.5),
+         "conv_x": nrm(din, 4, s=0.3), "conv_bc": nrm(2 * n, 4, s=0.3),
+         "a_log": nrm(h, s=0.1) + 0.5, "dt_bias": nrm(h, s=0.3) - 1.0,
+         "d_skip": nrm(h, s=0.1) + 1.0, "norm": nrm(din, s=0.1) + 1.0,
+         "w_out": nrm(din, d, s=din ** -0.5)}
+    x = torch.randn((2, 40, d), generator=g).to(device, dtype)
+    return cfg, w, x
+
+
+# card vs CPU: cuBLAS/cuDNN sum in other orders than the CPU (f32), and a
+# 1-ulp difference upstream can flip a bf16 rounding (one ulp of ~4 is 3e-2)
+MAMBA_CARD_ATOL = {torch.float32: 1e-4, torch.bfloat16: 6e-2}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mamba2_block_and_decode_on_the_card(cuda, dtype):
+    """``mamba2_block(return_state=True)`` and three ``mamba2_decode`` steps
+    from its state, on the card against the CPU, within MAMBA_CARD_ATOL."""
+    from repro_torch.models.mamba import mamba2_block, mamba2_decode
+    cfg, w_c, x_c = _mamba_case(0, dtype, "cpu")
+    w_g, x_g = {k: v.to(cuda) for k, v in w_c.items()}, x_c.to(cuda)
+    atol = MAMBA_CARD_ATOL[dtype]
+    outs = []
+    for w, x in ((w_g, x_g), (w_c, x_c)):
+        out, (cx, cbc, h) = mamba2_block(x, w, cfg, return_state=True)
+        conv = torch.cat([cx, cbc.to(cx.dtype)], -1).float()
+        steps = []
+        for t in range(3):
+            y, conv, h = mamba2_decode(x[:, t], w, cfg, conv, h)
+            steps.append(y)
+        outs.append([out, conv, h, *steps])
+    for i, (g, c) in enumerate(zip(*outs)):
+        assert g.device.type == "cuda" and bool(torch.isfinite(g).all()), i
+        scale = max(1.0, c.float().abs().max().item())
+        assert (g.cpu().float() - c.float()).abs().max().item() <= atol * scale, i
+
+
+def test_zamba2_smoke_decode_step_bit_stable(cuda):
+    """One decode step of zamba2's smoke config (Mamba2 layers, the shared
+    block, a tail layer) on the card, twice from the same prefill cache:
+    tokens and every cache leaf bit-equal."""
+    from repro_torch.core.qsdp import QSDPConfig
+    from repro_torch.serve import build_serve_setup
+    setup = build_serve_setup("zamba2-7b", smoke=True, qsdp=QSDPConfig(), batch=2,
+                              prompt_len=16, gen=4, device="cuda")
+    tokens = torch.randint(0, 1024, (2, 16), generator=torch.Generator().manual_seed(1))
+    key = prng.PRNGKey(3)
+    nxt, cache = setup.engine.prefill_step()(setup.params, {"tokens": tokens.to(cuda)}, key)
+    pos = torch.full((2,), 16, dtype=torch.int64)
+    runs = []
+    for _ in range(2):
+        c = {k: v.clone() for k, v in cache.items()}
+        out, c = setup.engine.decode_step()(setup.params, c, nxt, pos, key)
+        runs.append((out.cpu(), {k: v.cpu() for k, v in c.items()}))
+    (t1, c1), (t2, c2) = runs
+    assert torch.equal(t1, t2)
+    assert set(c1) == {"conv", "ssm", "shared_k", "shared_v"}
+    for k in c1:
+        assert torch.equal(c1[k].view(torch.uint8), c2[k].view(torch.uint8)), k

@@ -182,7 +182,7 @@ def test_registered_config_equals_reference(name):
 
 def test_registry_covers_the_reference():
     assert set(configs.ARCHS) | set(configs.NOT_PORTED) == set(jconfigs.ARCHS)
-    assert {_JAX_FAMILIES[n] for n in configs.ARCHS} == {"dense", "moe"}
+    assert {_JAX_FAMILIES[n] for n in configs.ARCHS} == {"dense", "moe", "ssm", "hybrid"}
     olmoe = configs.get_config("olmoe-1b-7b")
     assert (olmoe.n_layers, olmoe.d_model, olmoe.n_experts, olmoe.moe_top_k) == (16, 2048, 64, 8)
     assert olmoe.n_params() == 6_813_908_992 and olmoe.n_active_params() == 1_176_764_416
@@ -191,7 +191,7 @@ def test_registry_covers_the_reference():
 @pytest.mark.parametrize("name", sorted(configs.NOT_PORTED))
 def test_unported_families_name_their_item(name):
     assert configs.NOT_PORTED[name] == _JAX_FAMILIES[name]
-    item = "A11c" if _JAX_FAMILIES[name] in ("ssm", "hybrid") else "A11d"
+    item = "A11d"
     for get in (configs.get_config, configs.get_smoke):
         with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
             get(name)
