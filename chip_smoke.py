@@ -127,6 +127,26 @@ Phases, each of which makes the script exit non-zero when it fails:
               quantize_master step.  The kernel phase adds K1 G8 stochastic
               on one expert-stack gradient and K2 into f32 over a whole
               olmoe layer's gradient buffer.
+8c. ssmtrain -- the SSM and hybrid families' training: first
+              mamba2-370m's and zamba2-7b's smoke configs one f32 step each
+              card vs CPU (every gathered weight byte-equal, the shared
+              block's at each invocation; loss and grad norm within the CPU
+              tests' step tolerances); then mamba2-370m at full width and
+              depth (48 layers, f32 moments) and zamba2-7b at full width cut
+              to 39 of 81 layers (6 groups of 6 with the shared block after
+              each, and a 3-layer tail; 3.36 G parameters; 8-bit moments),
+              random weights from seed 0, default QSDPConfig, AdamW + cosine,
+              TRAIN's batch, sequence, microbatches and schedule: step 0 twice
+              from one state bit-equal, 3 timed steps (K1/K2 launches equal
+              the structure's, the shared block's gathers and reduce-scatters
+              once per invocation), the first loss within 0.5 of ln(vocab),
+              one profiled step (busy share; no int64 threefry kernel) and
+              one by part (SSD scan, projections, conv, mixer elementwise,
+              gathers, K1, K2, attention, shared MLP, logits/xent,
+              optimizer).  Prints step times, tokens/s, peak memory and the
+              phase's seconds.  The kernel phase adds K1 G8 stochastic on
+              zamba2's w_z gradient and K2 into f32 over a whole zamba2
+              Mamba2 layer's gradient buffer.
 9. experiments -- first the theory runs' draws (64-bit bits, f64 and f32
               uniforms), the f64 lattice quantizers and one ``run_qsgd``
               trajectory on the card against the CPU twin; then the
@@ -560,6 +580,16 @@ def kernel_phase(torch, log, dev="cuda"):
     for arch in ("zamba2-7b", "mamba2-370m"):
         k2 += layer_decode_rows(torch, log, gen, decode_row, addcmul_ms, dev, arch=arch,
                                 dtypes=("bfloat16",))
+    # SSM/hybrid training (ssmtrain phase): K1 G8 stochastic on zamba2-7b's
+    # w_z gradient, one threefry draw per value; K2 over a zamba2 Mamba2
+    # layer's gradient buffer into f32, the reduce-scatter's local decode
+    n = SSM_K1_ROWS[0][1]
+    x = torch.randn((n // 1024, 1024), generator=gen, device=dev) * 1e-3
+    k1.append(k1_row("zamba2-7b w_z grad", x, prng.fold_in(prng.PRNGKey(66), 0x5D),
+                     "stochastic")[1])
+    del x
+    k2 += layer_decode_rows(torch, log, gen, decode_row, addcmul_ms, dev, arch="zamba2-7b",
+                            dtypes=("float32",), grad=True)
     # the experiments phase's policies at the gpt-125m embedding (50,304 x
     # 768): Table 1's rtn-nobucket (W8 nearest, bucket 65536: K1's generic
     # body, one warp per bucket), Table 3's W4 at bucket 256 (shift) and the
@@ -866,9 +896,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
                     default="build,kernels,small,serve,continuous,speculative,moe,ssm,train,"
-                            "moetrain,experiments",
+                            "moetrain,ssmtrain,experiments",
                     help="comma-separated subset of build,kernels,small,serve,continuous,"
-                         "speculative,moe,ssm,train,moetrain,experiments")
+                         "speculative,moe,ssm,train,moetrain,ssmtrain,experiments")
     ap.add_argument("--profile", action="store_true",
                     help="serve phase: also profile one decode step of each run "
                          "(chrome traces kept)")
@@ -925,6 +955,8 @@ def main(argv=None) -> int:
             paths.append(train_phase(torch, log))
         if "moetrain" in phases:
             paths.append(moetrain_phase(torch, log))
+        if "ssmtrain" in phases:
+            paths.append(ssmtrain_phase(torch, log))
         if "experiments" in phases:
             paths.append(experiments_phase(torch, log)[0])
         launches = {k: sum(p.get(k, 0) for p in paths) for k in KERNEL_META}
@@ -1086,21 +1118,25 @@ SERVE = dict(batch=4, prompt_len=128, gen=16, seed=0)
 SERVE_REPS = 3  # timed generate() runs per path
 
 
-def k2_buffers(eng, quantized, skip=()) -> tuple[int, int]:
+def k2_buffers(eng, quantized, skip=(), invocations=None) -> tuple[int, int]:
     """K2 launches that decode the gathered (or reduce-scattered) wire
     buffers of one pass over the parameters, one launch per
     ``ops.WIRE_MAX_SEGS`` tensors that `quantized` says are quantized in a
-    buffer (one rank: one row per buffer): (tensors outside a stack, each
-    gathered alone; layers of the stacks, each one buffer of its tensors not
-    named in `skip`)."""
+    buffer (one rank: one row per buffer): (top-level tensors, each
+    gathered alone; the buffers of the grouped tensors not named in `skip`:
+    one per layer of a stack, and one per each of the `invocations` of an
+    un-stacked block, the hybrid's shared block)."""
     from repro_torch.kernels import ops
-    alone = sum(1 for s in eng.specs.values() if s.stack is None and quantized(s))
-    layers = {}
+    alone = sum(1 for n, s in eng.specs.items() if "/" not in n and quantized(s))
+    groups = {}
     for n, s in eng.specs.items():
-        if s.stack is not None and n.split("/")[-1] not in skip and quantized(s):
-            n_q, stack = layers.get(n.rsplit("/", 1)[0], (0, s.stack))
-            layers[n.rsplit("/", 1)[0]] = (n_q + 1, stack)
-    return alone, sum(-(-n_q // ops.WIRE_MAX_SEGS) * stack for n_q, stack in layers.values())
+        if "/" in n and n.split("/")[-1] not in skip and quantized(s):
+            g = n.rsplit("/", 1)[0]
+            times = s.stack if s.stack is not None else invocations
+            if times is None:
+                raise ValueError(f"{g}/ is gathered once per invocation: pass `invocations`")
+            groups[g] = (groups.get(g, (0, times))[0] + 1, times)
+    return alone, sum(-(-n_q // ops.WIRE_MAX_SEGS) * times for n_q, times in groups.values())
 
 
 def expected_launches(model, gen: int, rowquant: bool) -> dict:
@@ -2395,24 +2431,38 @@ QSTATE_STEPS = 2  # quantized_state vs quantize_master
 FIRST_LOSS_ATOL = 0.5
 
 
+def shared_invocations(cfg) -> int:
+    """Invocations of the hybrid's shared block in one forward pass."""
+    return cfg.n_layers // cfg.hybrid_attn_every if cfg.arch_type == "hybrid" else 0
+
+
 def expected_train_launches(model, n_micro: int, moments: bool = False) -> dict:
     """K1/K2 launches of one train step by the code's structure.  Per
-    microbatch: the forward gathers every quantized tensor once (embed at
-    the top, each layer inside its checkpoint), the backward re-gathers
-    every layer's quantized tensors once more (the checkpoint replays the
-    gather, under remat "dots" too), and every gradient-quantized tensor is
-    reduce-scattered once.  K1 encodes each quantized tensor of a gather or
-    reduce-scatter; K2 decodes each buffer that holds one, in one launch
-    (the final norm's buffers hold fp payloads only).  With `moments` (Adam
-    moments kept as 8-bit codes) the update decodes (K2) and re-encodes (K1)
-    both moments of every parameter leaf once per step."""
+    microbatch: the forward gathers every quantized tensor once per use
+    (embed at the top, each layer inside its checkpoint, the hybrid's shared
+    block inside its own checkpoint at each of its invocations), the
+    backward re-gathers every checkpointed buffer once more (the checkpoint
+    replays the gather, under remat "dots" too), and every gather's
+    gradient-quantized tensors are reduce-scattered once (the shared block's
+    once per invocation, the reduce-scatters summed).  K1 encodes each
+    quantized tensor of a gather or reduce-scatter; K2 decodes each buffer
+    that holds one, in one launch (the final norm's buffers hold fp payloads
+    only).  With `moments` (Adam moments kept as 8-bit codes) the update
+    decodes (K2) and re-encodes (K1) both moments of every parameter leaf
+    once per step."""
     eng = model.engine
-    fwd = sum(s.stack or 1 for s in eng.specs.values() if eng._is_quantized(s))
-    replay = sum(s.stack for n, s in eng.specs.items()
-                 if n.startswith("layers/") and eng._is_quantized(s))
-    grads = sum(s.stack or 1 for s in eng.specs.values() if eng._is_grad_quantized(s))
-    alone, layers = k2_buffers(eng, eng._is_quantized)
-    k2 = (alone + layers, layers, sum(k2_buffers(eng, eng._is_grad_quantized)))
+    inv = shared_invocations(model.cfg)
+
+    def uses(quantized, replay=False):
+        # a stack's layers each, a block's invocations, a top-level tensor once
+        return sum(s.stack if s.stack is not None else inv if "/" in n else int(not replay)
+                   for n, s in eng.specs.items() if quantized(s))
+
+    fwd, replay = uses(eng._is_quantized), uses(eng._is_quantized, replay=True)
+    grads = uses(eng._is_grad_quantized)
+    alone, layers = k2_buffers(eng, eng._is_quantized, invocations=inv)
+    k2 = (alone + layers, layers,
+          sum(k2_buffers(eng, eng._is_grad_quantized, invocations=inv)))
     moment_codes = 2 * len(eng.specs) if moments else 0
     return {"quantize_pack": n_micro * (fwd + replay + grads) + moment_codes,
             "unpack_dequantize": n_micro * sum(k2) + moment_codes,
@@ -2650,11 +2700,45 @@ def moe_layer_stats(torch, store):
     return wrap
 
 
-def moe_annotated(torch, orig, name):
+def annotated(torch, orig, name):
     def f(*a, **k):
         with torch.profiler.record_function(name):
             return orig(*a, **k)
     return f
+
+
+def step0_twice(torch, log, tag, run0, state):
+    """Determinism: step 0 (``run0(state)``, a ``timed_step``) run twice from
+    the same state and key, the loss, the grad norm, every updated parameter
+    and every moment (f32 or the codes of 8-bit ones) bit-equal.  The update
+    runs in place on the state's f32 tensors, so those are restored from host
+    copies in between.  Returns the second run's (state, loss, grad norm)."""
+    def tensors(st):
+        out = {("parameter", k): v for k, v in st.params.items()}
+        for which, tree in (("mu", st.opt.mu), ("nu", st.opt.nu)):
+            out.update({(which, k): getattr(v, "wire", v) for k, v in tree.items()})
+        return out
+
+    def host(t):
+        return t.to("cpu", copy=True)
+
+    snap = {k: host(v) for k, v in tensors(state).items()}
+    st_a, loss_a, gnorm_a, t_a = run0(state)
+    host_a = {k: host(v) for k, v in tensors(st_a).items()}
+    del st_a
+    for k, v in tensors(state).items():
+        v.copy_(snap[k])
+    del snap
+    state, loss_b, gnorm_b, t_b = run0(state)
+    check(loss_a == loss_b and gnorm_a == gnorm_b,
+          f"{tag}: step 0 twice: losses {loss_a} / {loss_b}, grad norms {gnorm_a} / {gnorm_b}")
+    for k, v in tensors(state).items():
+        check(torch.equal(v.cpu(), host_a[k]), f"{tag}: step 0 twice: {k[0]} {k[1]} differs")
+    bits = "8-bit" if any(hasattr(v, "wire") for v in state.opt.mu.values()) else "f32"
+    log(f"{tag}: step 0 run twice from the same state and key: loss {loss_a}, grad norm "
+        f"{gnorm_a} and all {len(state.params)} updated parameters and their {bits} moments "
+        f"bit-equal ({t_a * 1e3:.1f} / {t_b * 1e3:.1f} ms)")
+    return state, loss_b, gnorm_b
 
 
 def moetrain_phase(torch, log, dev="cuda"):
@@ -2718,34 +2802,11 @@ def moetrain_phase(torch, log, dev="cuda"):
             sum(n for _, _, n in stats[j::cfg.n_layers]) for j in range(cfg.n_layers)]
     del stats
 
-    # determinism: step 0 twice from the same state and key (the update
-    # runs in place, so the parameters are restored from a host copy)
     def sync_step(i, st):
         return timed_step(torch, step, st, batches[i], key(i))
 
-    def host(t):
-        return t.to("cpu", copy=True)
-
-    snap = {k: host(v) for k, v in state.params.items()}
-    st_a, loss_a, gnorm_a, t_warm = sync_step(0, state)
-    host_a = {k: host(v) for k, v in st_a.params.items()}
-    codes_a = {k: (st_a.opt.mu[k].wire.cpu(), st_a.opt.nu[k].wire.cpu()) for k in host_a}
-    del st_a
-    for k, v in state.params.items():
-        v.copy_(snap[k])
-    del snap
-    state, loss_b, gnorm_b, t_again = sync_step(0, state)
-    check(loss_a == loss_b and gnorm_a == gnorm_b,
-          f"moetrain: step 0 twice: losses {loss_a} / {loss_b}, grad norms {gnorm_a} / {gnorm_b}")
-    for k, v in state.params.items():
-        check(torch.equal(v.cpu(), host_a[k]), f"moetrain: step 0 twice: {k} differs")
-        check(torch.equal(state.opt.mu[k].wire.cpu(), codes_a[k][0])
-              and torch.equal(state.opt.nu[k].wire.cpu(), codes_a[k][1]),
-              f"moetrain: step 0 twice: the moments of {k} differ")
-    del host_a, codes_a
-    log(f"moetrain: step 0 run twice from the same state and key: loss {loss_a}, grad norm "
-        f"{gnorm_a} and all {len(state.params)} updated parameters and their 8-bit moments "
-        f"bit-equal ({t_warm * 1e3:.1f} / {t_again * 1e3:.1f} ms)")
+    state, loss_b, gnorm_b = step0_twice(torch, log, "moetrain",
+                                         lambda st: sync_step(0, st), state)
 
     # timed steps from step 1 on (step 0 above was the warm-up)
     torch.cuda.reset_peak_memory_stats()
@@ -2809,19 +2870,19 @@ def moetrain_phase(torch, log, dev="cuda"):
         f"{prof['k1_ms']:.1f} ms in {prof['k1_n']} launches, K2 {prof['k2_ms']:.1f} ms in "
         f"{prof['k2_n']}; int64 bitwise/shift kernels {prof['threefry_int64']}")
     rng = {v: k for k, v in RANGES.items()}
-    step_p = build_train_step(model, dc.replace(opt, update=moe_annotated(
+    step_p = build_train_step(model, dc.replace(opt, update=annotated(
         torch, opt.update, rng["optimizer"])), n_micro=nm, device=dev)
     with hooked(model.engine, "gather_layer",
-                lambda o: moe_annotated(torch, o, rng["gathers"])), \
+                lambda o: annotated(torch, o, rng["gathers"])), \
             hooked(attn_mod, "self_attention",
-                   lambda o: moe_annotated(torch, o, rng["attention"])), \
+                   lambda o: annotated(torch, o, rng["attention"])), \
             hooked(moe_mod, "moe_layer",
-                   lambda o: moe_annotated(torch, o, rng["dispatch/combine"])), \
+                   lambda o: annotated(torch, o, rng["dispatch/combine"])), \
             hooked(L, "vocab_parallel_xent",
-                   lambda o: moe_annotated(torch, o, rng["logits/xent"])):
+                   lambda o: annotated(torch, o, rng["logits/xent"])):
         prof = profile_train_step(
             torch, lambda st: step_p(st, batches[i + 1], key(i + 1)), state, log,
-            tag="moetrain by part", breakdown=lambda ev: moe_step_breakdown(ev, cfg.n_experts))
+            tag="moetrain by part", breakdown=lambda ev: step_breakdown(ev, cfg.n_experts))
     parts = dict(prof["parts"] or {})
     matched, other = parts.pop("_matched", None), parts.pop("_other", [])
     log("moetrain: profiled step by part (device ms, kernels): "
@@ -2871,6 +2932,228 @@ def moetrain_phase(torch, log, dev="cuda"):
         torch.cuda.empty_cache()
     log(f"moetrain: phase {time.perf_counter() - t0:.1f} s, peak device memory since the "
         f"timed steps {peak_all:.2f} GiB")
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 8c: SSM and hybrid training
+# ---------------------------------------------------------------------------
+
+# mamba2-370m trains at full depth; zamba2-7b at full width cut to 39 of 81
+# layers (3.36 G parameters: 6 groups of 6 Mamba2 layers, each followed by
+# the shared block, and a 3-layer tail, so the tail path runs): at olmoe's
+# 18.7 bytes a parameter (moetrain's peak) 81 layers would need ~124 GB
+SSM_TRAIN_LAYERS = {"mamba2-370m": None, "zamba2-7b": 39}
+# Adam moments as 8-bit codes where the master and the gradients alone fill
+# most of the card
+SSM_TRAIN_MOMENT_BITS = {"mamba2-370m": None, "zamba2-7b": 8}
+
+
+def ssm_small_train(torch, log, arch):
+    """One step of `arch`'s smoke config (f32 compute) on the card and on
+    the CPU from the same state: every gathered weight of the step (forward
+    and backward replay; the hybrid's shared block at each invocation)
+    byte-equal, loss and grad norm within the CPU tests' step tolerances."""
+    from repro_torch import configs
+    from repro_torch.core import prng
+    from repro_torch.core.qsdp import MeshSpec, QSDPConfig
+    from repro_torch.data import SyntheticLM, make_batch
+    from repro_torch.models.transformer import Model
+    from repro_torch.optim import AdamWConfig, make_adamw
+    from repro_torch.train.checkpoint import state_from_flat, state_to_flat
+    from repro_torch.train.step import build_train_step, init_train_state
+
+    cfg = configs.get_smoke(arch)
+    model = Model(cfg, MeshSpec(("data", "model"), (1, 1)), QSDPConfig(compute_dtype="float32"))
+    opt = make_adamw(AdamWConfig(lr=1e-3))
+    flat = state_to_flat(init_train_state(model, opt, SMALL_TRAIN["seed"], "cpu"))
+    data = SyntheticLM(cfg.vocab_size, SMALL_TRAIN["seq"], SMALL_TRAIN["batch"],
+                       seed=SMALL_TRAIN["seed"])
+    res = {}
+    for dev in ("cuda", "cpu"):
+        step = build_train_step(model, opt, n_micro=SMALL_TRAIN["n_micro"], device=dev)
+        gathers = {}
+        with hooked(model.engine, "_reshape_full", capture_gathers(model, gathers)):
+            _, m = step(state_from_flat(*flat, device=dev), make_batch(data, 0, dev),
+                        prng.PRNGKey(1))
+        res[dev] = float(m["loss"]), float(m["grad_norm"]), gathers
+    (lc, gc, wc), (lp, gp, wp) = res["cuda"], res["cpu"]
+    shared = sum(len(v) for k, v in wc.items() if k.startswith("shared/"))
+    check(wc == wp, f"ssmtrain small {arch}: gathered weight bytes differ between card and CPU")
+    check(all(map(math.isfinite, (lc, gc))), f"ssmtrain small {arch}: loss {lc}, norm {gc}")
+    rl, rg = abs(lc - lp) / abs(lp), abs(gc - gp) / abs(gp)
+    check(rl <= MOE_SMALL_LOSS_RTOL and rg <= MOE_SMALL_GNORM_RTOL,
+          f"ssmtrain small {arch}: card loss {lc} / grad norm {gc} vs CPU {lp} / {gp} (rel "
+          f"{rl:.2e} / {rg:.2e}, tol {MOE_SMALL_LOSS_RTOL} / {MOE_SMALL_GNORM_RTOL})")
+    log(f"ssmtrain small: {cfg.name} one f32 step card vs CPU: {sum(map(len, wc.values()))} "
+        f"gathers byte-equal ({shared} of the shared block's); loss {lc} vs {lp} (rel "
+        f"{rl:.2e}, tol {MOE_SMALL_LOSS_RTOL}), grad norm {gc} vs {gp} (rel {rg:.2e}, tol "
+        f"{MOE_SMALL_GNORM_RTOL})")
+
+
+def ssm_train_cell(torch, log, arch, dev="cuda"):
+    """`arch` (cut to SSM_TRAIN_LAYERS) at full width through
+    ``build_train_step``: default QSDPConfig, AdamW + cosine (moments of
+    SSM_TRAIN_MOMENT_BITS), TRAIN's batch, sequence, microbatches and
+    schedule.  Gates: step 0 twice bit-equal; K1/K2 launches of 3 timed steps
+    equal to the structure's; finite losses, the first within
+    FIRST_LOSS_ATOL of ln(vocab); no int64 threefry kernel in a profiled
+    step.  Prints step times, tokens/s, peak memory, launches per step and a
+    profiled step by part.  Returns the timed steps' launches."""
+    import dataclasses as dc
+    from repro_torch import configs
+    import repro_torch.models.attention as attn_mod
+    import repro_torch.models.layers as L
+    import repro_torch.models.mamba as mamba_mod
+    from repro_torch.core import prng
+    from repro_torch.core.qsdp import MeshSpec, QSDPConfig
+    from repro_torch.data import SyntheticLM, make_batch
+    from repro_torch.kernels import ops
+    from repro_torch.models.transformer import Model
+    from repro_torch.optim import AdamWConfig, cosine_schedule, make_adamw
+    from repro_torch.train.step import build_train_step, init_train_state
+
+    tag = f"ssmtrain {arch}"
+    full = configs.get_config(arch)
+    cut = SSM_TRAIN_LAYERS[arch]
+    cfg = full if cut is None else dc.replace(full, n_layers=cut)
+    model = Model(cfg, MeshSpec(("data", "model"), (1, 1)), QSDPConfig())
+    sched = cosine_schedule(TRAIN["lr"], TRAIN["warmup"], TRAIN["total"])
+    bits = SSM_TRAIN_MOMENT_BITS[arch]
+    opt = make_adamw(AdamWConfig(lr=TRAIN["lr"], schedule=sched, moment_bits=bits))
+    data = SyntheticLM(cfg.vocab_size, TRAIN["seq"], TRAIN["batch"], seed=TRAIN["seed"])
+    batches = [make_batch(data, i, dev) for i in range(1 + TRAIN_TIMED + 2)]
+    nm = TRAIN["n_micro"]
+
+    def key(i):
+        return prng.fold_in(prng.PRNGKey(TRAIN["seed"] + 1), i)
+
+    n_params = sum(math.prod(s.shape) * (s.stack or 1) for s in model.specs.values())
+    state = init_train_state(model, opt, TRAIN["seed"], dev)
+    step = build_train_step(model, opt, n_micro=nm, device=dev)
+
+    # each step's largest chunk exponent sum |dt a| of the SSD decay mask
+    # (exp overflows past 88.7), read from device scalars after the step
+    exps, chunk_exp = [], []
+
+    def record(orig):
+        def f(da_cs):
+            with torch.no_grad():
+                exps.append((da_cs[:, :, 0, :] - da_cs[:, :, -1, :]).amax())
+            return orig(da_cs)
+        return f
+
+    def sync_step(i, st):
+        out = timed_step(torch, step, st, batches[i], key(i))
+        chunk_exp.append(float(torch.stack(exps).max()))
+        exps.clear()
+        return out
+
+    with hooked(mamba_mod, "segsum_decay", record):
+        state, loss0, gnorm0 = step0_twice(torch, log, tag, lambda st: sync_step(0, st), state)
+
+        # timed steps from step 1 on (step 0 above was the warm-up)
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        losses, gnorms, times = [loss0], [gnorm0], []
+        for i in range(1, 1 + TRAIN_TIMED):
+            state, loss, gnorm, dt = sync_step(i, state)
+            losses.append(loss)
+            gnorms.append(gnorm)
+            times.append(dt)
+        counts = dict(ops.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+    want = expected_train_launches(model, nm, moments=bits is not None)
+    check_train_launches(counts, want, tag)
+    check(all(map(math.isfinite, losses + gnorms)), f"{tag}: losses {losses}, norms {gnorms}")
+    # random logits of variance d * s^2 (unit-RMS final norm, head rows of
+    # std s): E[loss] = ln(vocab) + d s^2 / 2, 0.73 above ln(vocab) at
+    # zamba2's d_model 3,584
+    s_head = model.specs["lm_head" if "lm_head" in model.specs else "embed"].init_scale
+    first = math.log(cfg.vocab_size) + cfg.d_model * s_head ** 2 / 2
+    check(abs(losses[0] - first) <= FIRST_LOSS_ATOL,
+          f"{tag}: first loss {losses[0]:.4f}, ln(vocab) + d s^2 / 2 = {first:.4f}")
+    tok = TRAIN["batch"] * TRAIN["seq"]
+    med = statistics.median(times)
+    inv = shared_invocations(cfg)
+    shape = (f"{cfg.n_layers} of {full.n_layers} layers" if cut is not None
+             else f"{cfg.n_layers} layers") + (f", {inv} shared-block invocations" if inv else "")
+    log(f"{tag}: {cfg.name} at full width, {shape} ({n_params / 1e9:.3f} G params), batch "
+        f"{TRAIN['batch']} x seq {TRAIN['seq']}, n_micro {nm}, "
+        f"{'8-bit' if bits else 'f32'} moments: {TRAIN_TIMED} timed steps median "
+        f"{med * 1e3:.1f} ms (min {min(times) * 1e3:.1f}, max {max(times) * 1e3:.1f}), "
+        f"{tok / med:.1f} tokens/s; peak memory {peak / 2**30:.2f} GiB of "
+        f"{torch.cuda.get_device_properties(0).total_memory / 2**30:.2f}"
+        if dev == "cuda" else f"{tag}: {cfg.name} ({shape}) on {dev}")
+    log(f"{tag}: losses {[round(x, 4) for x in losses]}, grad norms "
+        f"{[round(x, 4) for x in gnorms]}; first loss {losses[0]:.4f} (ln {cfg.vocab_size} = "
+        f"{math.log(cfg.vocab_size):.4f}, + d s^2 / 2 = {first:.4f})")
+    log(f"{tag}: largest chunk exponent sum |dt a| of the SSD decay mask per step (step 0 "
+        f"twice, then the timed steps) {[round(x, 2) for x in chunk_exp]}: exp overflows past "
+        f"88.7, where the reference's mask (exp, then where) has a NaN gradient; the port's "
+        f"masks inside the exponent")
+    log(f"{tag}: launches in {TRAIN_TIMED} steps {counts}; per step K1 "
+        f"{want['quantize_pack']} = {nm} microbatches x (forward, replay, gradient) tensors "
+        f"{want['per_micro']} + {want['moment_codes']} moment encodes, K2 "
+        f"{want['unpack_dequantize']} = {nm} x buffers {want['k2_per_micro']} + "
+        f"{want['moment_codes']} moment decodes")
+
+    # one more step under torch.profiler (busy share, K1/K2, no threefry
+    # int64 kernel), then one with its parts in named ranges (host time
+    # added: its busy share is not the step's)
+    i = 1 + TRAIN_TIMED
+    prof = profile_train_step(torch, lambda st: step(st, batches[i], key(i)), state, log,
+                              tag=tag)
+    check(prof["threefry_int64"] == 0,
+          f"{tag}: {prof['threefry_int64']} int64 bitwise/shift kernels in the profiled step")
+    log(f"{tag}: profiled step: busy {prof['busy_ms']:.1f} ms of {prof['wall_ms']:.1f} ms "
+        f"wall ({100 * prof['busy_ms'] / max(prof['wall_ms'], 1e-9):.1f}%) in "
+        f"{prof.get('kernels', 0)} kernels; K1 {prof['k1_ms']:.1f} ms in {prof['k1_n']} "
+        f"launches, K2 {prof['k2_ms']:.1f} ms in {prof['k2_n']}; int64 bitwise/shift kernels "
+        f"{prof['threefry_int64']}")
+    rng = {v: k for k, v in RANGES.items()}
+    step_p = build_train_step(model, dc.replace(opt, update=annotated(
+        torch, opt.update, rng["optimizer"])), n_micro=nm, device=dev)
+    with hooked(model.engine, "gather_layer",
+                lambda o: annotated(torch, o, rng["gathers"])), \
+            hooked(attn_mod, "self_attention",
+                   lambda o: annotated(torch, o, rng["attention"])), \
+            hooked(L, "swiglu_mlp", lambda o: annotated(torch, o, rng["shared MLP"])), \
+            hooked(mamba_mod, "mamba2_block",
+                   lambda o: annotated(torch, o, rng["mixer elementwise"])), \
+            hooked(mamba_mod, "ssd_chunked", lambda o: annotated(torch, o, rng["SSD scan"])), \
+            hooked(mamba_mod, "_causal_conv", lambda o: annotated(torch, o, rng["conv"])), \
+            hooked(L, "vocab_parallel_xent",
+                   lambda o: annotated(torch, o, rng["logits/xent"])):
+        prof = profile_train_step(
+            torch, lambda st: step_p(st, batches[i + 1], key(i + 1)), state, log,
+            tag=f"{tag} by part", breakdown=step_breakdown)
+    parts = dict(prof["parts"] or {})
+    matched, other = parts.pop("_matched", None), parts.pop("_other", [])
+    log(f"{tag}: profiled step by part (device ms, kernels): "
+        + ", ".join(f"{p} {ms:.1f} in {n}" for p, (ms, n) in
+                    sorted(parts.items(), key=lambda kv: -kv[1][0]))
+        + f"; backward nodes placed by their forward op's range {matched}; most of other: "
+        + "; ".join(f"{ms:.1f} ms {name[:60]}" for name, ms in other))
+    del state, step, step_p
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    return counts
+
+
+def ssmtrain_phase(torch, log, dev="cuda", archs=SSM_ARCHS):
+    """The SSM and hybrid families trained: each smoke config one f32 step
+    card vs CPU (``ssm_small_train``), then each of `archs` through
+    ``ssm_train_cell``.  Returns the timed steps' launches, summed."""
+    t0 = time.perf_counter()
+    if dev == "cuda":
+        for arch in archs:
+            ssm_small_train(torch, log, arch)
+    counts = {}
+    for arch in archs:
+        for k, v in ssm_train_cell(torch, log, arch, dev).items():
+            counts[k] = counts.get(k, 0) + v
+    log(f"ssmtrain: phase {time.perf_counter() - t0:.1f} s")
     return counts
 
 
@@ -3141,34 +3424,47 @@ def profile_train_step(torch, run_step, state, log, tag="train", breakdown=None)
                 parts=breakdown(events) if breakdown is not None else None)
 
 
-# record_function ranges moetrain puts around the parts of a step: a layer's
-# gathers, its two halves, the logits/cross-entropy and the optimizer update
+# record_function ranges the moetrain and ssmtrain phases put around the
+# parts of a step: a layer's gathers, attention, the MoE layer, the Mamba2
+# mixer and, inside it, the SSD scan and the causal convs, the shared
+# block's MLP, the logits/cross-entropy and the optimizer update
 RANGES = {"chip_smoke::gathers": "gathers", "chip_smoke::self_attention": "attention",
           "chip_smoke::moe_layer": "dispatch/combine", "chip_smoke::xent": "logits/xent",
-          "chip_smoke::optimizer": "optimizer"}
+          "chip_smoke::optimizer": "optimizer", "chip_smoke::mamba2_block": "mixer elementwise",
+          "chip_smoke::ssd_chunked": "SSD scan", "chip_smoke::causal_conv": "conv",
+          "chip_smoke::swiglu_mlp": "shared MLP"}
 _EVAL = "autograd::engine::evaluate_function:"
 # backward nodes of the port's own autograd Functions, by name
 NODE_PARTS = {"_GatherLayer": "gathers", "_GatherOne": "gathers",
+              "_CausalConv": "conv", "_Softplus": "mixer elementwise",
               **{f: "dispatch/combine" for f in ("_Expand", "_Reduce", "_ToSlots",
                                                  "_FromSlots", "_Permute", "_Softmax")}}
 
 
-def moe_step_breakdown(events, n_experts):
-    """Device ms and kernels of a profiled MoE train step by part.  Each
+def _is_gemm(kname):
+    k = kname.lower()
+    return any(w in k for w in ("gemm", "gemv", "nvjet", "cutlass"))
+
+
+def step_breakdown(events, n_experts=None):
+    """Device ms and kernels of a profiled train step by part.  Each
     kernel goes to the ops open on its launching thread when it was
-    launched: K1 and K2 by name; "expert products" are the bf16 batched
-    GEMMs (aten::bmm on bf16 inputs, or batch = n_experts where the trace
-    has no input types); otherwise the innermost RANGES range open, or, for
-    a backward node, the range its forward op ran in (matched by the autograd
-    sequence number): "gathers" (the wire concatenations, the reduce-scatter's
-    sums and casts), "attention" (its products are f32), "dispatch/combine"
-    (everything of moe_layer but the expert products: router, sort, index
-    moves, SwiGLU's elementwise), "logits/xent", "optimizer"; the rest
-    (embedding, norms, residual adds, gradient accumulation and norm) is
-    "other".  A backward node of the port's own Functions goes by its name
-    (NODE_PARTS).  Also returns, under "_matched", how many backward nodes
-    found their forward op's range, and under "_other", the five kernels
-    that take most of "other"."""
+    launched: K1 and K2 by name; with `n_experts` (a MoE model), "expert
+    products" are the bf16 batched GEMMs (aten::bmm on bf16 inputs, or batch
+    = n_experts where the trace has no input types); otherwise the innermost
+    RANGES range open, or, for a backward node, the range its forward op ran
+    in (matched by the autograd sequence number): "gathers" (the wire
+    concatenations, the reduce-scatter's sums and casts), "attention" (its
+    products are f32), "dispatch/combine" (everything of moe_layer but the
+    expert products: router, sort, index moves, SwiGLU's elementwise), "SSD
+    scan" (the chunked scan's products and elementwise), "conv", the Mamba2
+    mixer's GEMMs as "projections" and the rest of it as "mixer
+    elementwise" (gates, head norm, softplus), "shared MLP", "logits/xent",
+    "optimizer"; the rest (embedding, norms, residual adds, gradient
+    accumulation and norm) is "other".  A backward node of the port's own
+    Functions goes by its name (NODE_PARTS).  Also returns, under
+    "_matched", how many backward nodes found their forward op's range, and
+    under "_other", the five kernels that take most of "other"."""
     launch = {e["args"]["correlation"]: e for e in events
               if e.get("cat") in ("cuda_runtime", "cuda_driver")
               and "correlation" in e.get("args", {})}
@@ -3235,7 +3531,7 @@ def moe_step_breakdown(events, n_experts):
         if "unpack_dequantize" in kname:
             return "K2"
         ops = [r for r in stack if r[2].startswith("aten::")]
-        if ops and ops[-1][2] in ("aten::bmm", "aten::baddbmm"):
+        if n_experts is not None and ops and ops[-1][2] in ("aten::bmm", "aten::baddbmm"):
             args = ops[-1][3]
             types = args.get("Input type") or []
             dims = args.get("Input Dims") or [[]]
@@ -3258,6 +3554,8 @@ def moe_step_breakdown(events, n_experts):
     out, other = {}, {}
     for e, stack in zip(kernels, stacks):
         p = part(e["name"], stack)
+        if p == "mixer elementwise" and _is_gemm(e["name"]):
+            p = "projections"
         d = out.setdefault(p, [0.0, 0])
         d[0] += e["dur"] / 1e3
         d[1] += 1

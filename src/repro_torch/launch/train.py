@@ -1,7 +1,6 @@
-"""Training launcher of the port: QSDP training of the dense and MoE
-families on one card, with flag parity to the JAX package's
-``launch/train.py`` (the SSM and hybrid families serve only, and raise
-naming ROADMAP A11f).
+"""Training launcher of the port: QSDP training of the dense, MoE, SSM and
+hybrid families on one card, with flag parity to the JAX package's
+``launch/train.py``.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch gpt-1.3b \\
       --steps 10 --batch 4 --seq 2048 --n-micro 2
@@ -30,8 +29,7 @@ from ..train.checkpoint import save_checkpoint
 from ..train.step import build_train_step, init_train_state, quantize_train_state
 
 # flags of the JAX launcher this port does not run yet: (flag, ROADMAP item)
-_NOT_PORTED = (("--hierarchical", "A3b"), ("--prefetch", "A4b"),
-               ("--coalesce-max-bytes", "A12"), ("--plan", "A12"))
+_NOT_PORTED = (("--hierarchical", "A3b"), ("--prefetch", "A4b"), ("--plan", "A12"))
 
 
 def build_qsdp(args) -> QSDPConfig:
@@ -39,7 +37,7 @@ def build_qsdp(args) -> QSDPConfig:
         return QSDPConfig.baseline()
     return QSDPConfig(weight_bits=args.wbits, grad_bits=args.gbits,
                       bucket_size=args.bucket, min_quant_size=args.min_quant_size,
-                      coalesce=args.coalesce)
+                      coalesce=args.coalesce, coalesce_max_bytes=args.coalesce_max_bytes)
 
 
 def validate_args(ap: argparse.ArgumentParser, args) -> None:
@@ -56,6 +54,8 @@ def validate_args(ap: argparse.ArgumentParser, args) -> None:
                      "2-8 bit codes")
     if args.moment_bits is not None and not 2 <= args.moment_bits <= 8:
         ap.error(f"--moment-bits must be in 2..8 (got {args.moment_bits})")
+    if args.coalesce_max_bytes is not None and args.coalesce_max_bytes < 0:
+        ap.error("--coalesce-max-bytes must be >= 0 (0 = never coalesce)")
     if args.bucket <= 0:
         ap.error(f"--bucket must be positive (got {args.bucket})")
     if min(args.steps, args.batch, args.seq, args.n_micro) < 1:
@@ -88,7 +88,10 @@ def parse_args(argv=None):
     ap.add_argument("--coalesce", action=argparse.BooleanOptionalAction, default=True,
                     help="coalesced wire format (one u8 collective per layer gather)")
     ap.add_argument("--prefetch", action="store_true")
-    ap.add_argument("--coalesce-max-bytes", type=int, default=None)
+    ap.add_argument("--coalesce-max-bytes", type=int, default=None,
+                    help="per-layer byte threshold: gathers whose coalesced wire buffer "
+                         "exceeds this fall back to per-tensor launches (None = always "
+                         "coalesce)")
     ap.add_argument("--plan", type=str, default=None)
     ap.add_argument("--quantize-master", action="store_true",
                     help="f32 state, QDQ-round-tripped through Q^w each step")
@@ -114,7 +117,6 @@ def main(argv=None):
     cfg = configs.get_smoke(args.arch) if args.smoke else configs.get_config(args.arch)
     qsdp = build_qsdp(args)
     model = Model(cfg, MeshSpec(axes=("data", "model"), shape=(1, 1)), qsdp)
-    model.check_trainable()
     opt = make_adamw(AdamWConfig(lr=args.lr,
                                  schedule=cosine_schedule(args.lr, args.warmup, args.steps),
                                  moment_bits=args.moment_bits))
@@ -129,6 +131,8 @@ def main(argv=None):
                             master_bits=args.master_bits,
                             quantized_state=args.quantized_state, device=device)
     tag = "baseline-FSDP" if args.baseline else f"QSDP W{args.wbits}G{args.gbits}"
+    if qsdp.coalesce_max_bytes is not None:
+        tag += f" coalesce<={qsdp.coalesce_max_bytes}B"
     if args.quantized_state:
         tag += f" qstate{args.master_bits}" + (f"m{args.moment_bits}" if args.moment_bits else "")
     n_params = sum(math.prod(s.shape) * (s.stack or 1) for s in model.specs.values())

@@ -11,6 +11,10 @@ split into an intra-chunk part (quadratic within a chunk, through the
 summaries, a Python loop here where the reference has ``lax.scan``.  The
 gated RMSNorm is per head (group-norm style), as in the reference.
 
+Training differentiates the mixer by autograd, the chunk loop included;
+softplus, the causal conv and the decay mask carry their own backward or
+form (see each), with the reference's gradient.
+
 Every dtype move is the reference's: the projections run in the compute
 dtype, the x-branch conv in the compute dtype and the B/C conv in f32, the
 scan and the state in f32.  The f32 products are plain PyTorch ops (the JAX
@@ -62,24 +66,72 @@ class MambaConfig:
         return self.heads_local * self.head_dim
 
 
+class _Softplus(torch.autograd.Function):
+    """``jax.nn.softplus`` = logaddexp(x, 0) = max(x, 0) + log1p(exp(-|x|)),
+    with the reference's gradient: logaddexp's JVP, exp(x - softplus(x)) (=
+    sigmoid(x); 0.5 at x = 0, where the composite's autograd gives 1)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        out = torch.clamp_min(x, 0.0) + torch.log1p(torch.exp(-x.abs()))
+        ctx.save_for_backward(x, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, out = ctx.saved_tensors
+        inf = float("inf")
+        return g * torch.exp(torch.where(x == inf, 0.0, x) - torch.where(out == inf, 0.0, out))
+
+
 def softplus(x: torch.Tensor) -> torch.Tensor:
-    """``jax.nn.softplus`` = logaddexp(x, 0) = max(x, 0) + log1p(exp(-|x|))."""
-    return torch.clamp_min(x, 0.0) + torch.log1p(torch.exp(-x.abs()))
+    return _Softplus.apply(x)
+
+
+class _CausalConv(torch.autograd.Function):
+    """Depthwise causal conv, forward by ``F.conv1d``; the backward as K
+    shifted products summed in f32 (plain reductions: cuDNN's depthwise
+    weight gradient may sum with atomics, and a train step must repeat bit
+    for bit)."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        k = w.shape[1]
+        xt = F.pad(x.transpose(1, 2), (k - 1, 0))
+        return F.conv1d(xt, w[:, None, :], groups=x.shape[-1]).transpose(1, 2)
+
+    @staticmethod
+    def backward(ctx, dy):
+        # y[t] = sum_j xp[t + j] w[j], xp = x behind K - 1 zeros
+        x, w = ctx.saved_tensors
+        s, k = x.shape[1], w.shape[1]
+        dy, wf = dy.float(), w.float()
+        dyp = F.pad(dy, (0, 0, 0, k - 1))
+        dx = sum(dyp[:, k - 1 - j:k - 1 - j + s] * wf[:, j] for j in range(k))
+        xp = F.pad(x.float(), (0, 0, k - 1, 0))
+        dw = torch.stack([(dy * xp[:, j:j + s]).sum(dim=(0, 1)) for j in range(k)], dim=1)
+        return dx.to(x.dtype), dw.to(w.dtype)
 
 
 def _causal_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Depthwise causal conv. x: (B, S, C); w: (C, K); in x's dtype."""
-    k = w.shape[1]
-    xt = F.pad(x.transpose(1, 2), (k - 1, 0))
-    return F.conv1d(xt, w[:, None, :].to(x.dtype), groups=x.shape[-1]).transpose(1, 2)
+    return _CausalConv.apply(x, w.to(x.dtype))
 
 
 def segsum_decay(da_cs: torch.Tensor) -> torch.Tensor:
-    """L[..., i, j, h] = exp(cumsum_i - cumsum_j) masked to j <= i."""
+    """L[..., i, j, h] = exp(cumsum_i - cumsum_j) masked to j <= i.
+
+    The mask goes inside the exponent (exp(-inf) = 0).  The reference masks
+    after it: above the diagonal diff = sum |dt a| > 0, so once a chunk's
+    sum passes ~88.7 exp overflows to inf there, and the masked entries'
+    gradient 0 * inf is NaN in every parameter (zamba2-7b's train cell
+    reaches ~135 at its third step).  The values are the reference's bit
+    for bit, and so is the gradient wherever the reference's is finite."""
     q = da_cs.shape[2]
     diff = da_cs[:, :, :, None, :] - da_cs[:, :, None, :, :]
     mask = torch.tril(torch.ones((q, q), dtype=torch.bool, device=da_cs.device))
-    return torch.where(mask[None, None, :, :, None], torch.exp(diff), 0.0)
+    return torch.exp(torch.where(mask[None, None, :, :, None], diff, -torch.inf))
 
 
 def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, bmat: torch.Tensor,

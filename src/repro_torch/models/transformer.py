@@ -1,8 +1,7 @@
 """Model composition: parameter specs of the dense, MoE, SSM and hybrid
-families, the bound QSDP engine and the training forward of the dense and
-MoE families (that subset of the JAX package's ``models/transformer.py``;
-SSM/hybrid training is ROADMAP A11f, the VLM/audio families A11d).  The SSM
-and hybrid families serve through ``models/decode.py``.
+families, the bound QSDP engine and their training forward (that subset of
+the JAX package's ``models/transformer.py``; the VLM/audio families are
+ROADMAP A11d).  Serving runs through ``models/decode.py``.
 
 Parameters live in the engine's rest layout, ``(stack?, 1, 1, n_local)`` on
 the one-rank mesh, and are gathered per layer — quantized — inside every
@@ -16,6 +15,20 @@ layer's 2-D matmuls and recomputes the rest (the reference's
 backward needs the weights.  A MoE layer's load-balance loss rides the
 checkpointed body beside the activations and is summed over the layers in
 layer order, in f32, onto the cross-entropy.
+
+The hybrid family runs its Mamba2 stack in groups of ``hybrid_attn_every``
+layers, each group followed by the shared attention+MLP block, and a tail
+of the remaining layers; group g's layers are gathered under ``fold_in(
+fold_in(key, 1000 + g), i)``, its shared-block invocation under
+``fold_in(key, 1000 + g)``, tail layer j under ``fold_in(fold_in(key,
+2000), j)``.  Every Mamba2 layer and every shared-block invocation is
+checkpointed with its gather inside.  The reference also remats each group
+as a whole around them; the port does not nest that checkpoint (the values
+are the same, since a gather under a fixed key is deterministic; nesting
+would gather every layer of a group three times a step instead of twice).
+The shared block's gradient is the sum of one quantized reduce-scatter per
+invocation, accumulated by autograd from the last invocation to the first,
+as the reference's scan transpose does.
 """
 from __future__ import annotations
 
@@ -33,6 +46,7 @@ from . import attention as attn_mod
 from . import layers as L
 from .attention import AttnConfig
 from .config import UNPORTED_FAMILIES, ModelConfig
+from . import mamba as mamba_mod
 from . import moe as moe_mod
 from .mamba import MambaConfig
 from .moe import MoEConfig
@@ -114,9 +128,8 @@ def _mamba_specs(m: MambaConfig, stack: Optional[int], out_scale: float) -> dict
     }
 
 
-# families the port builds (serving); training runs the dense and MoE ones
+# families the port builds, serves and trains
 _PORTED_ARCHS = ("dense", "moe", "ssm", "hybrid")
-_TRAINED_ARCHS = ("dense", "moe")
 
 
 def _norm_spec(d: int, stack: Optional[int]) -> ParamSpec:
@@ -180,13 +193,6 @@ class Model:
         s.update({f"layers/{k}": v for k, v in block.items()})
         return s
 
-    def check_trainable(self) -> None:
-        """Raises for a family the port serves but does not train yet."""
-        if self.cfg.arch_type not in _TRAINED_ARCHS:
-            raise NotImplementedError(
-                f"training the {self.cfg.arch_type!r} family is not ported yet (ROADMAP "
-                f"A11f); the port trains {_TRAINED_ARCHS} and serves {_PORTED_ARCHS}")
-
     def init_params(self, seed: int, device) -> Params:
         return self.engine.init_params(seed, device)
 
@@ -200,14 +206,13 @@ class Model:
         """Mean token cross-entropy of one microbatch, {"tokens", "labels"}
         (B, S), plus the MoE layers' load-balance loss; every weight
         gathered quantized under `key`."""
-        self.check_trainable()
         cfg, eng = self.cfg, self.engine
         tokens = batch["tokens"]
         b, s = tokens.shape
         emb = eng.gather("embed", params["embed"], key)
         x = L.embed_vocab_parallel(tokens, emb)
         positions = torch.arange(s, device=tokens.device)
-        cos, sin = L.rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
+        cos, sin = self._rope(positions)
         x, aux = self._run_stack(params, x, key, cos, sin, positions)
         fn = eng.gather("final_norm", params["final_norm"], key)
         x = L.rms_norm(x, fn, cfg.norm_eps)
@@ -216,41 +221,87 @@ class Model:
                                      batch["labels"].reshape(b * s))
         return loss if aux is None else loss + aux.to(loss.dtype)
 
-    def _run_stack(self, params, x, key, cos, sin, positions):
-        """(x, summed aux loss) after the layer stack; aux is None for the
-        dense family."""
-        if self.cfg.is_moe:
-            return self._scan_layers(params, "layers", x, key, cos, sin, positions,
-                                     self._moe_layer, carry_aux=True)
-        return self._scan_layers(params, "layers", x, key, cos, sin, positions,
-                                 self._dense_layer), None
+    def _rope(self, positions):
+        """(cos, sin) of the rotary embedding; (None, None) for a model
+        without attention."""
+        if not self.cfg.has_attention:
+            return None, None
+        return L.rope_cos_sin(positions, self.cfg.head_dim, self.cfg.rope_theta)
 
-    def _scan_layers(self, params, prefix, x, key, cos, sin, positions, layer_fn,
-                     carry_aux=False):
-        """Run a stacked layer group, gathering layer i's weights under
-        ``fold_in(key, i)`` inside its checkpointed body (the reference's
-        rematerialized scan, non-prefetch branch).  With `carry_aux` the body
-        carries (x, aux), aux starting at an f32 zero; returns the carry."""
-        eng = self.engine
+    def _run_stack(self, params, x, key, cos, sin, positions):
+        """(x, summed aux loss) after the layer stack; aux is None but for
+        the MoE family."""
+        arch = self.cfg.arch_type
+        if arch == "hybrid":
+            return self._hybrid_stack(params, x, key, cos, sin, positions), None
+        names, layers = self._unbind_stack(params, "layers")
+        if arch == "moe":
+            return self._scan_layers("layers", names, layers, x, key, cos, sin, positions,
+                                     self._moe_layer, carry_aux=True)
+        layer_fn = self._mamba_layer if arch == "ssm" else self._dense_layer
+        return self._scan_layers("layers", names, layers, x, key, cos, sin, positions,
+                                 layer_fn), None
+
+    def _unbind_stack(self, params, prefix):
+        """(sorted tensor names, per layer the tuple of its slices) of a
+        stacked group.  One UnbindBackward per stack: a layer's gradient
+        lands in its own slice instead of a zero-padded copy of the whole
+        stack."""
         grp = self._group(params, prefix)
         names = sorted(grp)
-        # one UnbindBackward per stack: a layer's gradient lands in its own
-        # slice instead of a zero-padded copy of the whole stack
-        slices = [grp[n].unbind(0) for n in names]
+        return names, list(zip(*(grp[n].unbind(0) for n in names)))
+
+    def _checkpoint(self, fn, *args):
+        """``fn(*args)`` with its activations rematerialized in the backward
+        (the gathers inside replay) under the remat policy."""
+        kw = dict(use_reentrant=False, preserve_rng_state=False)
+        if self.qcfg.remat_policy == "dots":
+            kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts,
+                                                 _save_dots)
+        return checkpoint(fn, *args, **kw)
+
+    def _scan_layers(self, prefix, names, layers, x, key, cos, sin, positions, layer_fn,
+                     carry_aux=False):
+        """Run the layers `layers` (each a tuple of slices of `names`),
+        gathering layer i's weights under ``fold_in(key, i)`` inside its
+        checkpointed body (the reference's rematerialized scan, non-prefetch
+        branch).  With `carry_aux` the body carries (x, aux), aux starting at
+        an f32 zero; returns the carry."""
+        eng = self.engine
 
         def body(x, aux, idx, *lw):
             w = eng.gather_layer(f"{prefix}/", dict(zip(names, lw)), prng.fold_in(key, idx))
             return layer_fn((x, aux) if carry_aux else x, w, cos, sin, positions)
 
-        ckpt = dict(use_reentrant=False, preserve_rng_state=False)
-        if self.qcfg.remat_policy == "dots":
-            ckpt["context_fn"] = functools.partial(create_selective_checkpoint_contexts,
-                                                   _save_dots)
         carry = (x, torch.zeros((), dtype=torch.float32, device=x.device)) if carry_aux else x
-        for idx in range(len(slices[0])):
+        for idx, lw in enumerate(layers):
             args = carry if carry_aux else (carry, None)
-            carry = checkpoint(body, *args, idx, *[sl[idx] for sl in slices], **ckpt)
+            carry = self._checkpoint(body, *args, idx, *lw)
         return carry
+
+    def _hybrid_stack(self, params, x, key, cos, sin, positions):
+        """n_layers // every groups of Mamba2 layers, each followed by the
+        shared block, then the remaining layers as a tail."""
+        every = self.cfg.hybrid_attn_every
+        n_groups, rem = divmod(self.cfg.n_layers, every)
+        names, layers = self._unbind_stack(params, "layers")
+        shared = self._group(params, "shared")
+        snames = sorted(shared)
+
+        def shared_block(x, gkey, *sw):
+            w = self.engine.gather_layer("shared/", dict(zip(snames, sw)), gkey)
+            return self._dense_layer(x, w, cos, sin, positions)
+
+        for g in range(n_groups):
+            gkey = prng.fold_in(key, 1000 + g)
+            x = self._scan_layers("layers", names, layers[g * every:(g + 1) * every], x, gkey,
+                                  cos, sin, positions, self._mamba_layer)
+            x = self._checkpoint(shared_block, x, gkey, *(shared[n] for n in snames))
+        if rem:
+            x = self._scan_layers("layers", names, layers[n_groups * every:], x,
+                                  prng.fold_in(key, 2000), cos, sin, positions,
+                                  self._mamba_layer)
+        return x
 
     def _dense_layer(self, x, w, cos, sin, positions):
         cfg = self.cfg
@@ -271,6 +322,11 @@ class Model:
         moe_w = {k: w[k] for k in ("router", "w_gate", "w_up", "w_down")}
         y, a_l = moe_mod.moe_layer(h.reshape(b * s, d), moe_w, self.ecfg)
         return x + y.reshape(b, s, d), aux + a_l
+
+    def _mamba_layer(self, x, w, cos, sin, positions):
+        h = L.rms_norm(x, w["pre_norm"], self.cfg.norm_eps)
+        mw = {k: v for k, v in w.items() if k != "pre_norm"}
+        return x + mamba_mod.mamba2_block(h, mw, self.mcfg)
 
 
 # the matmuls without batch dimensions (the projections, the dense MLP, the

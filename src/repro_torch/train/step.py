@@ -104,7 +104,6 @@ def build_train_step(model: Model, optimizer: Optimizer, n_micro: int = 1,
     there.  metrics: loss (microbatch mean), grad_norm (before clipping),
     step."""
     device = resolve_device(device)
-    model.check_trainable()
     if quantize_master and quantized_state:
         raise ValueError("quantize_master and quantized_state are mutually exclusive")
 

@@ -15,6 +15,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import torch
+from jax.sharding import NamedSharding, PartitionSpec as P
 
 from repro import configs as jconfigs
 from repro.core.qsdp import MeshSpec as JMeshSpec, QSDPConfig as JQSDPConfig
@@ -22,7 +23,8 @@ from repro.models.transformer import Model as JModel
 from repro.optim import (AdamWConfig as JAdamWConfig, cosine_schedule as jcosine,
                          make_adamw as jmake_adamw)
 from repro.train.checkpoint import _flatten as jflatten
-from repro.train.step import init_train_state as jinit, make_jitted_train_step
+from repro.train.step import (init_train_state as jinit, make_jitted_train_step,
+                              state_pspecs)
 from repro_torch import configs as tconfigs
 from repro_torch.core import prng
 from repro_torch.core.qsdp import MeshSpec, QSDPConfig
@@ -85,6 +87,10 @@ def run_both(jm, tm, n_steps, seed=0):
     js = jinit(jm, jopt, jax.random.PRNGKey(seed))
     ts = train_state_from_jax(*jflatten(js), device="cpu", model=tm)
     mesh = jax.make_mesh((1, 1), ("data", "model"))
+    # placed as the step places its output, so that step 2 reuses step 1's
+    # compilation
+    js = jax.device_put(js, jax.tree.map(lambda p: NamedSharding(mesh, p), state_pspecs(jm),
+                                         is_leaf=lambda x: isinstance(x, P)))
     jstep = make_jitted_train_step(jm, jopt, mesh, n_micro=N_MICRO, donate=False)
     tstep = build_train_step(tm, topt, n_micro=N_MICRO, device="cpu")
     rows, first = [], None

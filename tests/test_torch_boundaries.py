@@ -85,8 +85,7 @@ def test_train_entry_points_raise_without_cuda(monkeypatch):
 
 @pytest.mark.parametrize("flags,item", [
     (["--data-par", "2"], "A3b"), (["--model-par", "2"], "A3b"),
-    (["--hierarchical"], "A3b"), (["--prefetch"], "A4b"),
-    (["--coalesce-max-bytes", "1024"], "A12"), (["--plan", "plan.json"], "A12")])
+    (["--hierarchical"], "A3b"), (["--prefetch"], "A4b"), (["--plan", "plan.json"], "A12")])
 def test_train_launcher_names_roadmap_for_unported_flags(flags, item, capsys):
     from repro_torch.launch import train as launch_train
     with pytest.raises(SystemExit):

@@ -439,3 +439,58 @@ def test_zamba2_smoke_decode_step_bit_stable(cuda):
     assert set(c1) == {"conv", "ssm", "shared_k", "shared_v"}
     for k in c1:
         assert torch.equal(c1[k].view(torch.uint8), c2[k].view(torch.uint8)), k
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mamba2_block_backward_on_the_card(cuda, dtype):
+    """The Mamba2 mixer's backward (the SSD scan's chunk loop, the causal
+    conv's shifted-product backward, softplus's own) on the card: two runs
+    bit-equal (a train step must repeat), and against the CPU's gradients
+    within MAMBA_CARD_ATOL of the largest of each."""
+    from repro_torch.models.mamba import mamba2_block
+    cfg, w_c, x_c = _mamba_case(1, dtype, "cpu")
+    gout = torch.randn(x_c.shape, generator=torch.Generator().manual_seed(2)).to(dtype)
+
+    def run(dev):
+        x = x_c.to(dev).requires_grad_()
+        w = {k: v.to(dev).requires_grad_() for k, v in w_c.items()}
+        mamba2_block(x, w, cfg).backward(gout.to(dev))
+        return [x.grad] + [w[k].grad for k in sorted(w)]
+
+    a, b, c = run(cuda), run(cuda), run("cpu")
+    atol = MAMBA_CARD_ATOL[dtype]
+    for i, (u, v, w) in enumerate(zip(a, b, c)):
+        assert torch.equal(u.reshape(-1).view(torch.uint8), v.reshape(-1).view(torch.uint8)), i
+        assert bool(torch.isfinite(u).all()), i
+        scale = max(1.0, w.float().abs().max().item())
+        assert (u.cpu().float() - w.float()).abs().max().item() <= atol * scale, i
+
+
+def test_zamba2_smoke_train_step_on_the_card(cuda):
+    """One f32 train step of zamba2's smoke config (Mamba2 layers, the shared
+    block, a tail layer) on the card, twice from the same state: loss, grad
+    norm and every updated parameter bit-equal; against the CPU's step within
+    the CPU tests' step tolerances (1e-5 / 1e-4)."""
+    from repro_torch import configs
+    from repro_torch.core.qsdp import MeshSpec, QSDPConfig
+    from repro_torch.models.transformer import Model
+    from repro_torch.optim import AdamWConfig, make_adamw
+    from repro_torch.train.checkpoint import state_from_flat, state_to_flat
+    from repro_torch.train.step import build_train_step, init_train_state
+    model = Model(configs.get_smoke("zamba2-7b"), MeshSpec(("data", "model"), (1, 1)),
+                  QSDPConfig(compute_dtype="float32"))
+    opt = make_adamw(AdamWConfig(lr=1e-3))
+    flat = state_to_flat(init_train_state(model, opt, 0, "cpu"))
+    tokens = torch.randint(0, 1024, (2, 2, 32), generator=torch.Generator().manual_seed(4))
+    batch = {"tokens": tokens[0], "labels": tokens[1]}
+
+    def run(dev):
+        step = build_train_step(model, opt, n_micro=2, device=dev)
+        st, m = step(state_from_flat(*flat, device=dev), batch, prng.PRNGKey(1))
+        return float(m["loss"]), float(m["grad_norm"]), {k: v.cpu() for k, v in st.params.items()}
+
+    (la, ga, pa), (lb, gb, pb), (lc, gc, _) = run(cuda), run(cuda), run("cpu")
+    assert (la, ga) == (lb, gb)
+    for k in pa:
+        assert torch.equal(pa[k], pb[k]), k
+    assert abs(la - lc) <= 1e-5 * abs(lc) and abs(ga - gc) <= 1e-4 * abs(gc)

@@ -6,9 +6,10 @@ and ``mamba2_decode`` (run through ``shard_map`` on the (1, 1) mesh, whose
 ``tp_reduce``/``psum`` are the identity there), in f32 and bf16 compute.
 Then the short-prompt case (ROADMAP C7): what the reference returns for a
 prompt shorter than the conv state, and the port's refusal.  Last, the
-family's registry entries and parameter specs against the reference's, the
-refusal to train it (ROADMAP A11f) and the serve launcher."""
+family's registry entries and parameter specs against the reference's, and
+the serve and train launchers."""
 import dataclasses
+import json
 
 import jax
 import jax.numpy as jnp
@@ -205,14 +206,11 @@ def test_short_prompt_reference_state_and_port_refusal(s):
 def test_ssm_family_ported(name):
     """The registry entry field-equal to the reference's (full and smoke) with
     its parameter count; the parameter specs equal the reference's (names
-    in order, shapes, flags, init), which fixes the wire layout; training is
-    refused naming ROADMAP A11f."""
+    in order, shapes, flags, init), which fixes the wire layout."""
     from repro import configs as jconfigs
     from repro.core.qsdp import MeshSpec as JMeshSpec, QSDPConfig as JQSDPConfig
     from repro.models.transformer import Model as JModel
     from repro_torch import configs
-    from repro_torch.optim import AdamWConfig, make_adamw
-    from repro_torch.train.step import build_train_step
     want_params = {"mamba2_370m": 367_632_384, "zamba2_7b": 6_632_579_072}[name]
     for tget, jget in ((configs.get_config, jconfigs.get_config),
                        (configs.get_smoke, jconfigs.get_smoke)):
@@ -228,10 +226,6 @@ def test_ssm_family_ported(name):
                     ts.grad_sync_model) == (js.shape, js.tp_axis, js.stack, js.init,
                                             js.init_scale, js.quantize, js.grad_sync_model), n
     assert configs.get_config(name).n_params() == want_params
-    with pytest.raises(NotImplementedError, match="ROADMAP A11f"):
-        tm.loss_fn({}, {}, (0, 0))
-    with pytest.raises(NotImplementedError, match="ROADMAP A11f"):
-        build_train_step(tm, make_adamw(AdamWConfig()), device="cpu")
 
 
 @pytest.mark.parametrize("flags", [[], ["--continuous", "--requests", "4", "--temperature",
@@ -247,8 +241,16 @@ def test_serve_launcher_ssm(arch, flags, capsys):
         assert "4 requests" in out
 
 
-def test_train_launcher_refuses_ssm():
+@pytest.mark.parametrize("arch", ["mamba2-370m", "zamba2-7b"])
+def test_train_launcher_ssm(arch, tmp_path, capsys):
     from repro_torch.launch import train as launch_train
-    with pytest.raises(NotImplementedError, match="ROADMAP A11f"):
-        launch_train.main(["--arch", "mamba2-370m", "--smoke", "--device", "cpu",
-                           "--steps", "1"])
+    out_json = tmp_path / "log.json"
+    rc = launch_train.main(["--arch", arch, "--smoke", "--device", "cpu", "--steps", "2",
+                            "--batch", "4", "--seq", "32", "--log-every", "1",
+                            "--out-json", str(out_json)])
+    out = capsys.readouterr().out
+    assert rc == 0 and arch.split("-")[0] + "-smoke" in out
+    log = json.loads(out_json.read_text())["log"]
+    assert [r["step"] for r in log] == [0, 1]
+    assert all(np.isfinite(r["loss"]) and np.isfinite(r["gnorm"]) for r in log)
+    assert abs(log[0]["loss"] - np.log(1024)) < 0.5

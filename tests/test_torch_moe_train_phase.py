@@ -123,7 +123,7 @@ def test_moe_step_breakdown_parts(cs):
     # the backward thread's events first: its ops inside backward nodes share
     # every node's sequence number, yet are not the nodes' forward ops
     ev.sort(key=lambda e: -e["tid"])
-    parts = cs.moe_step_breakdown(ev, n_experts=64)
+    parts = cs.step_breakdown(ev, n_experts=64)
     assert parts.pop("_matched") == (2, 2, 2)
     assert parts.pop("_other") == [("vectorized_elementwise_kernel", 0.05)]
     assert parts == {"expert products": [4.0, 1], "dispatch/combine": [1.5, 2],

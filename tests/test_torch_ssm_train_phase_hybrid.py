@@ -1,0 +1,18 @@
+"""``chip_smoke.py``'s ssmtrain phase rehearsed on the CPU at zamba2-7b's
+smoke config (3 Mamba2 layers: one group of 2 followed by the shared block,
+and a one-layer tail), 8-bit moments: the launch formula with the shared
+block gathered, replayed and reduce-scattered once per invocation, against
+the wrappers' calls (set-up in ``test_torch_ssm_train_phase.py``)."""
+from test_torch_ssm_train_phase import cs, rehearse  # noqa: F401  (fixture)
+
+
+def test_chip_smoke_ssmtrain_phase_rehearsal_hybrid(cs, monkeypatch):  # noqa: F811
+    counts, want, tags, text = rehearse(cs, monkeypatch, "zamba2-7b")
+    assert want["per_micro"] == (23, 22, 23)
+    assert want["k2_per_micro"] == (5, 4, 5)
+    # embed, final_norm, 12 layer stacks and 9 shared leaves, two moments each
+    assert want["moment_codes"] == 2 * 23 == 46
+    assert counts["quantize_pack"] == 3 * (2 * 68 + 46)
+    assert counts["unpack_dequantize"] == 3 * (2 * 14 + 46)
+    assert tags == ["ssmtrain zamba2-7b", "ssmtrain zamba2-7b by part"]
+    assert "8-bit moments bit-equal" in text and "1 shared-block invocations" in text
