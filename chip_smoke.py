@@ -100,6 +100,29 @@ Phases, each of which makes the script exit non-zero when it fails:
               projections and one recurrent step).  The kernel phase adds
               K1 on zamba2's w_z and mamba2's w_dt, K2 over a whole Mamba2
               layer of each, and K3 at zamba2's shared w_gate/w_up.
+7c. vlmaudio -- the VLM and audio families: qwen2-vl-72b's and
+              seamless-m4t-large-v2's smoke configs on the card and on the
+              CPU (gathered wire bytes equal, logits within tolerance,
+              tokens equal; qwen2-vl's on a prompt with an image block),
+              seamless's smoke rowquant decode (decoder MLP through
+              K3) equal to its dense one; then qwen2-vl-72b at full width
+              cut to 16 of 80 layers (15.29 G parameters: 80 layers hold
+              286 GB of f32 rest weights) and seamless-m4t-large-v2 (24
+              encoder and 24 decoder layers, 2.04 G parameters) at full
+              width and depth, random weights from seed 0, default
+              QSDPConfig: batch serving dense and rowquant (the serve
+              phase's shape; qwen2-vl's prompts carry an 8 x 8 image block
+              at positions 16-79 with Qwen2-VL's M-RoPE positions,
+              seamless's the reference's audio stub of 64 frames), the
+              first decode steps' logits dense vs rowquant within
+              LOGIT_RTOL, launches by the structure and the hand count; the
+              continuous cell with blocking admission (CONT_PLAN, greedy
+              requests equal to their batch-of-1 solo runs, one profiled
+              decode step); the fixed-shape route's row gate at their launch
+              shapes, the decoder's cross-attention included.  The kernel
+              phase adds K1 on a qwen2-vl-72b MLP weight and seamless's
+              lm_head, K2 over a whole qwen2-vl-72b layer, and K3 at
+              qwen2-vl's w_down and seamless's decoder w_gate/w_up.
 8. train   -- gpt-1.3b at full width and depth, default QSDPConfig (W8
               shift weights, G8 stochastic gradients, bucket 1024,
               coalesced, bf16 compute, full remat), AdamW + cosine, batch 4
@@ -140,10 +163,10 @@ Phases, each of which makes the script exit non-zero when it fails:
               from one state bit-equal, 3 timed steps (K1/K2 launches equal
               the structure's, the shared block's gathers and reduce-scatters
               once per invocation), the first loss within 0.5 of ln(vocab),
-              one profiled step (busy share; no int64 threefry kernel) and
-              one by part (SSD scan, projections, conv, mixer elementwise,
-              gathers, K1, K2, attention, shared MLP, logits/xent,
-              optimizer).  Prints step times, tokens/s, peak memory and the
+              one profiled step (busy share; no int64 threefry kernel) and,
+              for zamba2-7b, one by part (SSD scan, projections, conv, mixer
+              elementwise, gathers, K1, K2, attention, shared MLP,
+              logits/xent, optimizer).  Prints step times, tokens/s, peak memory and the
               phase's seconds.  The kernel phase adds K1 G8 stochastic on
               zamba2's w_z gradient and K2 into f32 over a whole zamba2
               Mamba2 layer's gradient buffer.
@@ -286,7 +309,13 @@ K3_SHAPES = {"w_gate/w_up": (4, 2048, 8192, 8), "w_down": (4, 8192, 2048, 2),
              # zamba2-7b's shared MLP under rowquant, one lane block per
              # invocation (its w_down's 3,584 columns are not whole buckets of
              # 1,024, so K2 decodes it)
-             "zamba2 shared w_gate/w_up": (4, 3584, 14336, 14)}
+             "zamba2 shared w_gate/w_up": (4, 3584, 14336, 14),
+             # the vlmaudio phase's rowquant decode: qwen2-vl-72b's w_down
+             # (its w_gate/w_up's 29,568 columns are 28.875 buckets of 1,024,
+             # so K2 decodes them) and seamless-m4t-large-v2's decoder MLP
+             "qwen2-vl w_down": (4, 29568, 8192, 8),
+             "seamless dec w_gate/w_up": (4, 1024, 8192, 8),
+             "seamless dec w_down": (4, 8192, 1024, 1)}
 # K3 at the continuous phase's chunk M = slots x top bucket, timed for the
 # record: the chunk path gathers its MLP densely (as the reference does:
 # rowquant is a decode path), so these shapes are off the main path
@@ -316,6 +345,11 @@ OLMOE_EXPERT = 64 * 2048 * 1024
 # zamba2-7b's w_z (3,584 x 7,168) and mamba2-370m's w_dt (1,024 x 32 heads)
 SSM_K1_ROWS = (("zamba2-7b w_z (3584 x 7168)", 3584 * 7168),
                ("mamba2-370m w_dt (1024 x 32)", 1024 * 32))
+# the VLM and audio families' largest quantized tensors: a qwen2-vl-72b MLP
+# weight (8,192 x 29,568) and seamless-m4t-large-v2's untied lm_head
+# (256,206 x 1,024)
+MM_K1_ROWS = (("qwen2-vl-72b w_gate (8192 x 29568)", 8192 * 29568),
+              ("seamless lm_head (256206 x 1024)", 256206 * 1024))
 
 
 def dt_name(dt) -> str:
@@ -590,6 +624,17 @@ def kernel_phase(torch, log, dev="cuda"):
     del x
     k2 += layer_decode_rows(torch, log, gen, decode_row, addcmul_ms, dev, arch="zamba2-7b",
                             dtypes=("float32",), grad=True)
+    # the VLM and audio families (vlmaudio phase): K1 W8 shift on a
+    # qwen2-vl-72b MLP weight and on seamless-m4t-large-v2's lm_head, as
+    # every decode step gathers them; K2 over a whole qwen2-vl-72b layer's
+    # buffer (7 quantized weights, 3 biases and 2 norms as fp segments) into
+    # bf16
+    for what, n in MM_K1_ROWS:
+        x = torch.randn((n // 1024, 1024), generator=gen, device=dev) * 0.02
+        k1.append(k1_row(what, x, prng.PRNGKey(n % 9973), "shift")[1])
+        del x
+    k2 += layer_decode_rows(torch, log, gen, decode_row, addcmul_ms, dev, arch="qwen2-vl-72b",
+                            dtypes=("bfloat16",))
     # the experiments phase's policies at the gpt-125m embedding (50,304 x
     # 768): Table 1's rtn-nobucket (W8 nearest, bucket 65536: K1's generic
     # body, one warp per bucket), Table 3's W4 at bucket 256 (shift) and the
@@ -895,10 +940,10 @@ def smi_line():
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
-                    default="build,kernels,small,serve,continuous,speculative,moe,ssm,train,"
-                            "moetrain,ssmtrain,experiments",
+                    default="build,kernels,small,serve,continuous,speculative,moe,ssm,vlmaudio,"
+                            "train,moetrain,ssmtrain,experiments",
                     help="comma-separated subset of build,kernels,small,serve,continuous,"
-                         "speculative,moe,ssm,train,moetrain,ssmtrain,experiments")
+                         "speculative,moe,ssm,vlmaudio,train,moetrain,ssmtrain,experiments")
     ap.add_argument("--profile", action="store_true",
                     help="serve phase: also profile one decode step of each run "
                          "(chrome traces kept)")
@@ -951,6 +996,8 @@ def main(argv=None) -> int:
             paths.append(moe_phase(torch, log))
         if "ssm" in phases:
             paths.append(ssm_phase(torch, log))
+        if "vlmaudio" in phases:
+            paths.append(vlmaudio_phase(torch, log))
         if "train" in phases:
             paths.append(train_phase(torch, log))
         if "moetrain" in phases:
@@ -1061,12 +1108,13 @@ def route_agreement(torch, card_routes, cpu_routes, k):
     return compared, excluded
 
 
-def small_phase(torch, log, arch="gpt-1.3b"):
+def small_phase(torch, log, arch="gpt-1.3b", prompt_fn=None):
     """`arch`'s smoke config (f32 compute) on the card and on the CPU from
     the same weights: gathered weight bytes equal (K1/K2 are bit-exact), the
     live lanes' logits within SMALL_LOGIT_ATOL, same greedy tokens; for the
     MoE family also every MoE call's top-k experts, for the tokens whose CPU
-    router margin is at least ROUTE_MARGIN."""
+    router margin is at least ROUTE_MARGIN.  The prompt batch is
+    ``prompt_fn(setup, tokens)`` (default ``make_prompt_batch``)."""
     import repro_torch.models.layers as L
     import repro_torch.models.moe as moe_mod
     from repro_torch.core.qsdp import QSDPConfig
@@ -1082,7 +1130,8 @@ def small_phase(torch, log, arch="gpt-1.3b"):
         params = {k: v.cpu() for k, v in setup.params.items()}
         tokens, _ = SyntheticLM(setup.cfg.vocab_size, SMALL["prompt_len"], SMALL["batch"],
                                 seed=SMALL["seed"]).sample(0)
-        prompt = make_prompt_batch(setup.cfg, setup.spec, setup.ms, tokens, setup.device)
+        prompt = (prompt_fn(setup, tokens) if prompt_fn is not None else
+                  make_prompt_batch(setup.cfg, setup.spec, setup.ms, tokens, setup.device))
         logits, gathers, routes = [], {}, []
         with hooked(L, "vocab_parallel_logits", capture_logits(logits)), \
                 hooked(setup.model.engine, "_reshape_full",
@@ -1403,15 +1452,16 @@ def solo_runs(torch, setup, reqs, key, chunk=CONT["chunk"]) -> dict:
     """{rid: tokens} of each request served alone on a batch-of-1 engine of
     the setup's spec (speculation off): ``generate(fold_step_keys=False,
     prefill_chunk=chunk)`` with the request's sampling parameters (chunk 0:
-    whole-prompt prefill, the blocking scheduler's)."""
-    from repro_torch.serve import ServeEngine, make_sample_params
-    solo = ServeEngine(setup.model, dataclasses.replace(setup.spec, batch_global=1,
-                                                        draft_bits=0, draft_depth=0),
-                       setup.device)
+    whole-prompt prefill, the blocking scheduler's) on the scheduler's
+    batch-of-1 prompt batch."""
+    from repro_torch.serve import ServeEngine, make_prompt_batch, make_sample_params
+    spec1 = dataclasses.replace(setup.spec, batch_global=1, draft_bits=0, draft_depth=0)
+    solo = ServeEngine(setup.model, spec1, setup.device)
     for r in reqs:
         if (setup.cfg.name, r.rid) not in _SOLO:
-            prompt = {"tokens": torch.tensor([list(r.prompt)], dtype=torch.int64,
-                                             device=setup.device)}
+            # the scheduler's batch-of-1 prefill batch, modality stubs included
+            prompt = make_prompt_batch(setup.cfg, dataclasses.replace(spec1, batch_sharded=False),
+                                       setup.ms, [list(r.prompt)], setup.device)
             _SOLO[setup.cfg.name, r.rid] = solo.generate(
                 setup.params, prompt, r.max_new_tokens, key=key, fold_step_keys=False,
                 sample=make_sample_params(r.temperature, r.top_k, r.seed),
@@ -1598,6 +1648,14 @@ def route_invariance(torch, log, dev, rnd, cfg):
         gate(f"decode attention (ring {ring}) at B = {lb}",
              lambda q, c: decode_attend(q, c, c, acfg, pos, ring),
              [rnd(1, nh, hd), rnd(1, ring, nkv, hd)], [rnd(lb, nh, hd), rnd(lb, ring, nkv, hd)])
+    if cfg.arch_type == "audio":
+        from repro_torch.models.attention import decode_cross_attention
+        enc = (CONT["ring"] - max(g for *_, g in CONT_PLAN)) // cfg.enc_frames_ratio
+        xw = {"wq": rnd(d, nh * hd) * 0.02, "wo": rnd(nh * hd, d) * 0.02}
+        gate(f"decode cross attention ({enc} frames) at B = {lb}",
+             lambda x, c: decode_cross_attention(x, xw, acfg, c, c, enc),
+             [rnd(1, d), rnd(1, enc, nkv, hd)], [rnd(lb, d), rnd(lb, enc, nkv, hd)])
+        del xw
     if chunked:
         bs = CONT["block"]
         bt = torch.arange(lb * (ring // bs), device=dev).reshape(lb, ring // bs)
@@ -2061,14 +2119,47 @@ SSM_ARCHS = ("mamba2-370m", "zamba2-7b")
 # (tests/test_kernel_dispatch.py:206): buckets of 128 tile the smoke shared
 # MLP's rows, so its decode runs K3
 SSM_RQ_QSDP = dict(min_quant_size=256, bucket_size=128)
-# K1/K2/K3 launches per decode step as counted by hand from the configs:
-# the embedding (K1 + K2), 5 quantized Mamba2 weights in one buffer per
-# layer, and for zamba2-7b 13 shared-block invocations of 7 quantized
-# weights in one buffer; under rowquant w_gate/w_up go through K3 and w_down
-# (3,584 columns: 3.5 buckets of 1,024) is gathered alone through K2
-SSM_PER_STEP = {("mamba2-370m", False): (1 + 5 * 48, 1 + 48, 0),
-                ("zamba2-7b", False): (1 + 5 * 81 + 7 * 13, 1 + 81 + 13, 0),
-                ("zamba2-7b", True): (1 + 5 * 81 + 7 * 13, 1 + 81 + 13 * 2, 13 * 2)}
+# K1/K2/K3 launches of a whole-prompt prefill and of one decode step of the
+# models served at full size (the ssm and vlmaudio phases), counted by hand
+# from the configs, by (name, rowquant).  mamba2-370m / zamba2-7b: the
+# embedding (K1 + K2), 5 quantized Mamba2 weights in one buffer per layer,
+# and for zamba2-7b 13 shared-block invocations of 7 quantized weights in one
+# buffer; under rowquant the decode step's shared w_gate/w_up go through K3
+# and w_down (3,584 columns: 3.5 buckets of 1,024) is gathered alone through
+# K2.  qwen2-vl-72b at 16 layers: the embedding and 7 quantized weights a
+# layer (its 3 biases and 2 norms ride the layer's buffer unquantized), one
+# buffer a layer; under rowquant w_down goes through K3 and w_gate/w_up
+# (29,568 columns: 28.875 buckets of 1,024) are gathered alone through K2.
+# seamless-m4t-large-v2: the embedding and the untied lm_head; prefill also
+# gathers the encoder's 24 layers of 7 quantized weights; a decoder layer
+# holds 11 (self- and cross-attention, MLP), one buffer each; under rowquant
+# its MLP goes through K3
+_MAMBA2 = (1 + 5 * 48, 1 + 48, 0)
+_ZAMBA2 = (1 + 5 * 81 + 7 * 13, 1 + 81 + 13, 0)
+_QWEN2VL = (1 + 7 * 16, 1 + 16, 0)
+_SEAMLESS = (2 + 7 * 24 + 11 * 24, 2 + 24 + 24, 0)
+SERVE_PER_STEP = {
+    ("mamba2-370m", False): {"prefill": _MAMBA2, "step": _MAMBA2},
+    ("zamba2-7b", False): {"prefill": _ZAMBA2, "step": _ZAMBA2},
+    ("zamba2-7b", True): {"prefill": _ZAMBA2, "step": (1 + 5 * 81 + 7 * 13, 1 + 81 + 13 * 2,
+                                                       13 * 2)},
+    ("qwen2-vl-72b", False): {"prefill": _QWEN2VL, "step": _QWEN2VL},
+    ("qwen2-vl-72b", True): {"prefill": _QWEN2VL, "step": (1 + 7 * 16, 1 + 16 * 3, 16)},
+    ("seamless-m4t-large-v2", False): {"prefill": _SEAMLESS, "step": (2 + 11 * 24, 2 + 24, 0)},
+    ("seamless-m4t-large-v2", True): {"prefill": _SEAMLESS,
+                                      "step": (2 + 11 * 24, 2 + 24, 3 * 24)}}
+
+
+def serve_family(cfg) -> str:
+    """The phase that serves `cfg`'s family at full size: its log tag."""
+    return "ssm" if cfg.arch_type in ("ssm", "hybrid") else "vlmaudio"
+
+
+def expected_serve_launches(model, rowquant: bool) -> dict:
+    """The launch formula of `model`'s family (``expected_ssm_launches`` or
+    ``expected_mm_launches``)."""
+    fn = expected_ssm_launches if serve_family(model.cfg) == "ssm" else expected_mm_launches
+    return fn(model, rowquant)
 
 
 def expected_ssm_launches(model, rowquant: bool) -> dict:
@@ -2100,15 +2191,18 @@ def expected_ssm_launches(model, rowquant: bool) -> dict:
                      groups * len(rq_ok))}
 
 
-def ssm_batch(torch, log, arch, dev="cuda", rowquant=False, params=None):
-    """`arch` at full width and depth through ``build_serve_setup`` ->
-    ``ServeEngine.generate``: SERVE's batch 4 x prompt 128 x 16 greedy
-    tokens, run twice after a warm-up, on the weights `params` (drawn from
-    seed 0 when None).  Gates: the two runs' tokens equal and in range, the
-    logits finite, the launches of a run (counts zeroed just before, read
-    just after) equal the code's structure and, at the full configs, the
-    hand count (SSM_PER_STEP).  Returns (launches, params, the first decode
-    step's logits)."""
+def serve_batch(torch, log, arch, dev="cuda", rowquant=False, params=None, prompt_fn=None):
+    """`arch` (a registry name, served at full width and depth, or a
+    ModelConfig) through ``build_serve_setup`` -> ``ServeEngine.generate``:
+    SERVE's batch 4 x prompt 128 x 16 greedy tokens, run twice after a
+    warm-up, on the weights `params` (drawn from seed 0 when None), the
+    prompt batch ``prompt_fn(setup, tokens)`` (default
+    ``make_prompt_batch``).  Gates: the two runs' tokens equal and in range,
+    the logits finite, the launches of a run (counts zeroed just before,
+    read just after) equal the code's structure
+    (``expected_serve_launches``) and, where SERVE_PER_STEP has the config,
+    the hand count.
+    Returns (launches, params, the first decode step's logits)."""
     import repro_torch.models.layers as L
     from repro_torch.data import SyntheticLM
     from repro_torch.kernels import ops
@@ -2117,10 +2211,12 @@ def ssm_batch(torch, log, arch, dev="cuda", rowquant=False, params=None):
     setup = build_serve_setup(arch, smoke=False, device=dev, rowquant_mlp=rowquant,
                               params=params, **SERVE)
     cfg, gen = setup.cfg, SERVE["gen"]
+    kind = serve_family(cfg)
     tag = f"{cfg.name} {'rowquant' if rowquant else 'dense'}"
     tokens, _ = SyntheticLM(cfg.vocab_size, SERVE["prompt_len"], SERVE["batch"],
                             seed=SERVE["seed"]).sample(0)
-    prompt = make_prompt_batch(cfg, setup.spec, setup.ms, tokens, setup.device)
+    prompt = (prompt_fn(setup, tokens) if prompt_fn is not None else
+              make_prompt_batch(cfg, setup.spec, setup.ms, tokens, setup.device))
 
     def run(n):
         if dev == "cuda":
@@ -2140,11 +2236,10 @@ def ssm_batch(torch, log, arch, dev="cuda", rowquant=False, params=None):
     counts = dict(ops.LAUNCHES)
     peak = torch.cuda.max_memory_allocated() / 2**30 if dev == "cuda" else float("nan")
     out2, t2 = run(gen)
-    want = expected_ssm_launches(setup.model, rowquant)
+    want = expected_serve_launches(setup.model, rowquant)
     pf, st = want["prefill"], want["step"]
-    if (cfg.name, rowquant) in SSM_PER_STEP:
-        check(st == SSM_PER_STEP[cfg.name, rowquant], f"{tag}: per-step K1/K2/K3 {st}, the "
-              f"hand count is {SSM_PER_STEP[cfg.name, rowquant]}")
+    hand = SERVE_PER_STEP.get((cfg.name, rowquant), want)
+    check(want == hand, f"{tag}: K1/K2/K3 by the structure {want}, by hand {hand}")
     check(tuple(out1.shape) == (SERVE["batch"], gen), f"{tag}: tokens shape {out1.shape}")
     check(bool(((out1 >= 0) & (out1 < cfg.vocab_size)).all()), f"{tag}: token out of range")
     check(all(bool(torch.isfinite(t).all()) for t in logits) and len(logits) == gen,
@@ -2157,12 +2252,12 @@ def ssm_batch(torch, log, arch, dev="cuda", rowquant=False, params=None):
     check(sum(counts.values()) == sum(pf) + sum(st) * (gen - 1),
           f"{tag}: launches of other kernels: {counts}")
     step_ms = sorted((t - t_prefill) / (gen - 1) * 1e3 for t in (t1, t2))
-    log(f"ssm batch {tag}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+    log(f"{kind} batch {tag}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
         f"{cfg.n_params() / 1e9:.4f} G params, {SERVE['batch']}x{gen} tokens: runs "
         f"{t1:.3f} / {t2:.3f} s ({SERVE['batch'] * gen / min(t1, t2):.1f} tok/s); prefill "
         f"{t_prefill * 1e3:.1f} ms; decode step {step_ms[0]:.2f} / {step_ms[1]:.2f} ms; peak "
         f"device memory {peak:.2f} GiB")
-    log(f"ssm batch {tag}: launches {counts} = prefill K1/K2/K3 {pf} + {gen - 1} x per decode "
+    log(f"{kind} batch {tag}: launches {counts} = prefill K1/K2/K3 {pf} + {gen - 1} x per decode "
         f"step {st}; tokens[0] = {out1[0].tolist()}")
     params = setup.params
     del setup, prompt
@@ -2171,13 +2266,14 @@ def ssm_batch(torch, log, arch, dev="cuda", rowquant=False, params=None):
     return counts, params, logits[1].float()
 
 
-def ssm_continuous(torch, log, arch, params, dev="cuda", profile=True):
-    """`arch` at full width and depth through ``make_scheduler`` with
-    blocking admission (the reference's only admission for the SSM and
-    hybrid families): 4 slots, ring 512 for zamba2's shared KV, CONT_PLAN's
-    12 requests (prompts 32-384, half sampled), every launch on the
-    fixed-shape route, on the weights `params`.  Run 1 (one pooled decode
-    step with a sampled lane profiled: busy share; no int64 bitwise or
+def serve_continuous(torch, log, arch, params, dev="cuda", profile=True):
+    """`arch` (a registry name, served at full width and depth, or a
+    ModelConfig) through ``make_scheduler`` with blocking admission (the
+    reference's only admission for the SSM, hybrid, VLM and audio
+    families): 4 slots, ring 512 (none for the SSM family), CONT_PLAN's 12
+    requests (prompts 32-384, half sampled), every launch on the fixed-shape
+    route, on the weights `params`; launches by
+    ``expected_serve_launches``.  Run 1 (one pooled decode step with a sampled lane profiled: busy share; no int64 bitwise or
     shift kernel) and run 2 (counts zeroed just before, read just after,
     against the structure; timed) give every request the same tokens; every
     greedy request equals its batch-of-1 solo run (``generate(
@@ -2192,6 +2288,7 @@ def ssm_continuous(torch, log, arch, params, dev="cuda", profile=True):
         arch, smoke=False, batch=CONT["slots"], prompt_len=CONT["ring"] - gen_max, gen=gen_max,
         seed=CONT["seed"], sampling=True, device=dev, params=params))
     cfg = setup.cfg
+    kind = serve_family(cfg)
     check(setup.spec.cache_len == (0 if cfg.arch_type == "ssm" else CONT["ring"]),
           f"ring {setup.spec.cache_len}")
     reqs = continuous_requests(cfg.vocab_size)
@@ -2219,7 +2316,7 @@ def ssm_continuous(torch, log, arch, params, dev="cuda", profile=True):
                 if (profile_step and prof is None and not sched.queue
                         and any(s is not None and s.req.needs_sampling for s in sched.slots)):
                     prof = profile_train_step(torch, lambda _: sched.step(), None, log,
-                                              tag=f"ssm continuous {cfg.name}")
+                                              tag=f"{kind} continuous {cfg.name}")
                     continue
                 prefills = sched.prefill_count
                 t = time.perf_counter()
@@ -2236,7 +2333,7 @@ def ssm_continuous(torch, log, arch, params, dev="cuda", profile=True):
         s2, out2, steps, _, wall, launch_s = run(False)
         counts = dict(ops.LAUNCHES)
     st = s2.stats()
-    tag = f"ssm continuous {cfg.name}"
+    tag = f"{kind} continuous {cfg.name}"
     check(out1 == out2, f"{tag}: two runs gave different tokens: "
           + str(sorted(r for r in out1 if out1[r] != out2.get(r))))
     check(set(out2) == {r.rid for r in reqs}, f"{tag}: not every request finished")
@@ -2246,7 +2343,7 @@ def ssm_continuous(torch, log, arch, params, dev="cuda", profile=True):
               f"{out2[r.rid]}")
     check(st["prefills"] == len(reqs) and st["prefill_chunks"] == 0,
           f"{tag}: {st['prefills']} prefills, {st['prefill_chunks']} chunk launches")
-    want = expected_ssm_launches(setup.model, False)
+    want = expected_serve_launches(setup.model, False)
     pf, sp = want["prefill"], want["step"]
     want_n = {"quantize_pack": pf[0] * st["prefills"] + sp[0] * st["decode_launches"],
               "unpack_dequantize": pf[1] * st["prefills"] + sp[1] * st["decode_launches"],
@@ -2271,8 +2368,11 @@ def ssm_continuous(torch, log, arch, params, dev="cuda", profile=True):
     log(f"{tag}: {len(solo)} greedy requests bit-equal to their batch-of-1 solo runs "
         f"({sorted(solo)}); sampled {[r.rid for r in reqs if r.needs_sampling]} equal across "
         "two runs")
+    ring = {"ssm": "", "hybrid": f", shared-block ring {CONT['ring']}"}.get(
+        cfg.arch_type, f", ring {CONT['ring']}")
+    enc = f", cross KV of {setup.spec.enc_len} frames" if setup.spec.enc_len else ""
     log(f"{tag}: {len(reqs)} requests on {CONT['slots']} slots (blocking admission"
-        f"{', shared-block ring ' + str(CONT['ring']) if cfg.arch_type == 'hybrid' else ''}): "
+        f"{ring}{enc}): "
         f"{st['tokens_generated']} tokens in {wall:.3f} s = {st['tokens_generated'] / wall:.2f} "
         f"tokens/s; TTFT p50 {pct(ttft, 50):.3f} s, p95 {pct(ttft, 95):.3f} s; decode-only "
         f"step median {1e3 * pct(dec, 50):.2f} ms (p95 {1e3 * pct(dec, 95):.2f}, {len(dec)} "
@@ -2292,29 +2392,31 @@ def ssm_continuous(torch, log, arch, params, dev="cuda", profile=True):
     return counts
 
 
-def small_rowquant(torch, log, dev="cuda"):
-    """zamba2's smoke config under SSM_RQ_QSDP on `dev`: the rowquant decode
-    (shared MLP through K3) gives the dense decode's greedy tokens (the
+def small_rowquant(torch, log, dev="cuda", arch="zamba2-7b"):
+    """`arch`'s smoke config (zamba2's or seamless's) under SSM_RQ_QSDP on
+    `dev`: the rowquant decode (zamba2: the shared MLP, seamless: the
+    decoder MLP, through K3) gives the dense decode's greedy tokens (the
     reference's ``test_serve_rowquant_decode_audio_hybrid``)."""
     from repro_torch.core.qsdp import QSDPConfig
     from repro_torch.kernels import ops
-    from repro_torch.serve import build_serve_setup
+    from repro_torch.serve import build_serve_setup, make_prompt_batch
     outs, params = {}, None
     tokens = torch.ones((SMALL["batch"], SMALL["prompt_len"]), dtype=torch.int64)
     for rowquant in (False, True):
-        setup = build_serve_setup("zamba2-7b", smoke=True, qsdp=QSDPConfig(**SSM_RQ_QSDP),
+        setup = build_serve_setup(arch, smoke=True, qsdp=QSDPConfig(**SSM_RQ_QSDP),
                                   rowquant_mlp=rowquant, device=dev, params=params, **SMALL)
         params = setup.params
+        prompt = make_prompt_batch(setup.cfg, setup.spec, setup.ms, tokens, dev)
         ops.reset_launches()
-        outs[rowquant] = setup.engine.generate(params, {"tokens": tokens.to(dev)},
-                                               n_tokens=5).cpu()
+        outs[rowquant] = setup.engine.generate(params, prompt, n_tokens=5).cpu()
         k3 = ops.LAUNCHES["rowquant_matmul"]
-        check((k3 > 0) == rowquant or dev != "cuda", f"small zamba2 rowquant={rowquant}: K3 "
-              f"launched {k3} times")
-    check(torch.equal(outs[False], outs[True]), f"small zamba2: rowquant tokens "
+        check((k3 > 0) == rowquant or dev != "cuda", f"small {setup.cfg.name} "
+              f"rowquant={rowquant}: K3 launched {k3} times")
+    name = setup.cfg.name
+    check(torch.equal(outs[False], outs[True]), f"small {name}: rowquant tokens "
           f"{outs[True].tolist()} != dense {outs[False].tolist()}")
-    log(f"small: zamba2-smoke rowquant decode (shared MLP through K3) == dense decode, tokens "
-        f"{outs[True].tolist()}")
+    log(f"small: {name} rowquant decode ({'decoder' if setup.cfg.arch_type == 'audio' else 'shared'}"
+        f" MLP through K3) == dense decode, tokens {outs[True].tolist()}")
 
 
 def ssm_phase(torch, log, dev="cuda", archs=SSM_ARCHS):
@@ -2344,23 +2446,185 @@ def ssm_phase(torch, log, dev="cuda", archs=SSM_ARCHS):
         return torch.randn(shape, generator=g, device=dev).to(dt)
 
     for arch in archs:
-        c, params, first = ssm_batch(torch, log, arch, dev)
+        c, params, first = serve_batch(torch, log, arch, dev)
         counts.update(c)
         if configs.get_config(arch).arch_type == "hybrid":
-            c, _, first_rq = ssm_batch(torch, log, arch, dev, rowquant=True, params=params)
+            c, params, first_rq = serve_batch(torch, log, arch, dev, rowquant=True,
+                                              params=params)
             counts.update(c)
             rel = (first - first_rq).abs().max().item() / first.abs().max().item()
             check(math.isfinite(rel) and rel <= LOGIT_RTOL, f"{arch}: first decode step logits "
                   f"dense vs rowquant differ by {rel:.3e} of max |logit|")
             log(f"ssm batch {arch}: first decode step logits dense vs rowquant: max |diff| / "
                 f"max |logit| = {rel:.3e} (tol {LOGIT_RTOL})")
-        counts.update(ssm_continuous(torch, log, arch, params, dev))
+        counts.update(serve_continuous(torch, log, arch, params, dev))
         del params
         route_invariance(torch, log, dev, rnd, configs.get_config(arch))
         if dev == "cuda":
             torch.cuda.empty_cache()
     peak = torch.cuda.max_memory_allocated() / 2**30 if dev == "cuda" else float("nan")
     log(f"ssm: phase {time.perf_counter() - t0:.1f} s, peak device memory {peak:.2f} GiB; "
+        f"launches {dict(counts)}")
+    return dict(counts)
+
+
+# ---------------------------------------------------------------------------
+# phase 7c: the VLM and audio families served
+# ---------------------------------------------------------------------------
+
+MM_ARCHS = ("qwen2-vl-72b", "seamless-m4t-large-v2")
+# layers served on one card: qwen2-vl-72b's 80 layers hold 286 GB of f32
+# rest weights, 16 of them 61.2 GB (15.29 G parameters with the embedding);
+# seamless-m4t-large-v2 (2.04 G) runs at full depth
+MM_LAYERS = {"qwen2-vl-72b": 16, "seamless-m4t-large-v2": None}
+# the image block of the VLM batch cell's prompts: an 8 x 8 grid of patch
+# embeddings (random bf16, scale 0.02) at prompt positions 16-79, with
+# Qwen2-VL's (t, h, w) positions (t = 16, h = 16 + row, w = 16 + col); the
+# text after it continues from 16 + 8 = 24 in all three streams
+MM_IMAGE = dict(start=16, rows=8, cols=8, scale=0.02, seed=6)
+
+
+def expected_mm_launches(model, rowquant: bool) -> dict:
+    """K1/K2/K3 launches of one whole-prompt prefill and one decode step of
+    a VLM or audio model by the code's structure: K1 once per quantized
+    tensor gathered (prefill: every stack, the audio encoder's included;
+    decode: the decoder's); K2 once per gathered buffer holding a quantized
+    tensor (the top-level tensors each alone, a layer's in one); with
+    rowquant the decode MLP weights go through K3 where their buckets tile
+    their rows and are gathered alone through K2 where not."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.decode import ROWQUANT_MLP
+    eng, cfg = model.engine, model.cfg
+    q = [n for n, sp in eng.specs.items() if eng._is_quantized(sp)]
+    top = [n for n in q if "/" not in n]
+    stacks = ({"enc": cfg.n_enc_layers, "dec": cfg.n_layers} if cfg.arch_type == "audio"
+              else {"layers": cfg.n_layers})
+    decoded = "dec" if cfg.arch_type == "audio" else "layers"
+
+    def group(g):
+        return [n for n in q if n.startswith(g + "/")]
+
+    def bufs(k):
+        return -(-k // ops.WIRE_MAX_SEGS)
+
+    lay = group(decoded)
+    rq = [n for n in lay if rowquant and n.split("/")[-1] in ROWQUANT_MLP]
+    rq_ok = [n for n in rq if eng.rowquant_eligible(n)]
+    nl = stacks[decoded]
+    return {"prefill": (len(top) + sum(n * len(group(g)) for g, n in stacks.items()),
+                        len(top) + sum(n * bufs(len(group(g))) for g, n in stacks.items()), 0),
+            "step": (len(top) + nl * len(lay),
+                     len(top) + nl * (bufs(len(lay) - len(rq)) + len(rq) - len(rq_ok)),
+                     nl * len(rq_ok))}
+
+
+def vlm_image_prompt(torch, cfg, spec, ms, tokens, dev, start, rows, cols, scale, seed):
+    """The VLM prompt batch with one image block: ``make_prompt_batch``'s
+    stubs, then rows x cols patch embeddings (random bf16 at `scale`, drawn
+    on the host from `seed`) spliced at prompt positions start .. start +
+    rows * cols - 1 (``vision_mask`` set), with Qwen2-VL's (t, h, w)
+    positions t = start, h = start + row, w = start + col; the text after
+    the block continues from start + max(rows, cols) in all three streams."""
+    from repro_torch.serve import make_prompt_batch
+    b = make_prompt_batch(cfg, spec, ms, tokens, "cpu")
+    n_tok, s = b["tokens"].shape
+    n = rows * cols
+    end = start + n
+    g = torch.Generator().manual_seed(seed)
+    emb = b["vision_embeds"].clone()
+    emb[:, start:end] = (torch.randn((n_tok, n, cfg.d_model), generator=g) * scale).to(
+        torch.bfloat16)
+    mask = b["vision_mask"].clone()
+    mask[:, start:end] = True
+    pos = torch.arange(s).repeat(3, 1)
+    r, c = torch.arange(n) // cols, torch.arange(n) % cols
+    pos[0, start:end] = start
+    pos[1, start:end] = start + r
+    pos[2, start:end] = start + c
+    pos[:, end:] = torch.arange(s - end) + start + max(rows, cols)
+    b.update(vision_embeds=emb, vision_mask=mask,
+             positions=pos[:, None, :].expand(3, n_tok, s).contiguous())
+    return {k: v.to(dev) for k, v in b.items()}
+
+
+def mm_config(arch):
+    """`arch`'s full config at the depth one card serves (MM_LAYERS)."""
+    from repro_torch import configs
+    cfg = configs.get_config(arch)
+    cut = MM_LAYERS.get(arch)
+    return dataclasses.replace(cfg, n_layers=cut) if cut and cut < cfg.n_layers else cfg
+
+
+def small_vlm_image(torch, log, dev="cuda"):
+    """qwen2-vl's smoke config card vs CPU (``small_phase``'s gates) on a
+    prompt with an image block: a 2 x 4 patch grid at positions 4-11, so the
+    splice and the per-row M-RoPE tables run on the card."""
+    def prompt(setup, tokens):
+        return vlm_image_prompt(torch, setup.cfg, setup.spec, setup.ms, tokens, setup.device,
+                                start=4, rows=2, cols=4, scale=MM_IMAGE["scale"],
+                                seed=MM_IMAGE["seed"])
+    small_phase(torch, log, "qwen2-vl-72b", prompt_fn=prompt)
+
+
+def vlmaudio_phase(torch, log, dev="cuda", archs=MM_ARCHS):
+    """The VLM and audio families on the card: both smoke configs card vs
+    CPU (``small_phase``; qwen2-vl's on a prompt with an image block) and
+    seamless's rowquant smoke decode equal to its dense one; then
+    qwen2-vl-72b at full width cut to 16 of 80 layers and
+    seamless-m4t-large-v2 at full width and depth, random weights from seed
+    0, default QSDPConfig: batch serving dense and rowquant (qwen2-vl's
+    prompts carry MM_IMAGE's image block; seamless's the reference's audio
+    stub of prompt // 2 = 64 frames), their first decode steps' logits
+    within LOGIT_RTOL, launches by the structure and the hand count
+    (SERVE_PER_STEP); the continuous cell with blocking admission (CONT_PLAN,
+    requests equal to their batch-of-1 solo runs, one profiled decode
+    step); the fixed-shape route's row gate at their launch shapes (the
+    audio decoder's cross-attention included).  Prints the phase's seconds
+    and peak device memory.  Returns the launches of the driven paths."""
+    from collections import Counter
+    t0 = time.perf_counter()
+    if dev == "cuda":
+        for arch in archs:
+            if arch == "qwen2-vl-72b":
+                small_vlm_image(torch, log, dev)
+            else:
+                small_phase(torch, log, arch)
+        if "seamless-m4t-large-v2" in archs:
+            small_rowquant(torch, log, dev, arch="seamless-m4t-large-v2")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    counts = Counter()
+    g = torch.Generator(device=dev).manual_seed(7)
+
+    def rnd(*shape, dt=torch.bfloat16):
+        return torch.randn(shape, generator=g, device=dev).to(dt)
+
+    def image(setup, tokens):
+        return vlm_image_prompt(torch, setup.cfg, setup.spec, setup.ms, tokens, setup.device,
+                                **MM_IMAGE)
+
+    for arch in archs:
+        cfg = mm_config(arch)
+        prompt_fn = image if cfg.arch_type == "vlm" else None
+        c, params, first = serve_batch(torch, log, cfg, dev, prompt_fn=prompt_fn)
+        counts.update(c)
+        c, params, first_rq = serve_batch(torch, log, cfg, dev, rowquant=True, params=params,
+                                          prompt_fn=prompt_fn)
+        counts.update(c)
+        rel = (first - first_rq).abs().max().item() / first.abs().max().item()
+        check(math.isfinite(rel) and rel <= LOGIT_RTOL, f"{cfg.name}: first decode step logits "
+              f"dense vs rowquant differ by {rel:.3e} of max |logit|")
+        log(f"vlmaudio batch {cfg.name}: first decode step logits dense vs rowquant: max |diff| "
+            f"/ max |logit| = {rel:.3e} (tol {LOGIT_RTOL})")
+        counts.update(serve_continuous(torch, log, cfg, params, dev))
+        del params
+        if dev == "cuda":
+            torch.cuda.empty_cache()
+        route_invariance(torch, log, dev, rnd, cfg)
+        if dev == "cuda":
+            torch.cuda.empty_cache()
+    peak = torch.cuda.max_memory_allocated() / 2**30 if dev == "cuda" else float("nan")
+    log(f"vlmaudio: phase {time.perf_counter() - t0:.1f} s, peak device memory {peak:.2f} GiB; "
         f"launches {dict(counts)}")
     return dict(counts)
 
@@ -2947,6 +3211,10 @@ SSM_TRAIN_LAYERS = {"mamba2-370m": None, "zamba2-7b": 39}
 # Adam moments as 8-bit codes where the master and the gradients alone fill
 # most of the card
 SSM_TRAIN_MOMENT_BITS = {"mamba2-370m": None, "zamba2-7b": 8}
+# the second profiled step, by part: zamba2-7b's only.  mamba2-370m's (a
+# host-bound step of ~53,000 kernels) was the first cut of the time budget
+# the vlmaudio phase needed (ROADMAP, chip_smoke budget)
+SSM_TRAIN_BY_PART = {"mamba2-370m": False, "zamba2-7b": True}
 
 
 def ssm_small_train(torch, log, arch):
@@ -3111,6 +3379,11 @@ def ssm_train_cell(torch, log, arch, dev="cuda"):
         f"{prof.get('kernels', 0)} kernels; K1 {prof['k1_ms']:.1f} ms in {prof['k1_n']} "
         f"launches, K2 {prof['k2_ms']:.1f} ms in {prof['k2_n']}; int64 bitwise/shift kernels "
         f"{prof['threefry_int64']}")
+    if not SSM_TRAIN_BY_PART[arch]:
+        del state, step
+        if dev == "cuda":
+            torch.cuda.empty_cache()
+        return counts
     rng = {v: k for k, v in RANGES.items()}
     step_p = build_train_step(model, dc.replace(opt, update=annotated(
         torch, opt.update, rng["optimizer"])), n_micro=nm, device=dev)

@@ -260,9 +260,28 @@ def erfinv(u: torch.Tensor) -> torch.Tensor:
     return torch.where(u.abs() == 1, u * math.inf, p * u)
 
 
+def _normal_bf16(key: Key, shape: Sequence[int], device) -> torch.Tensor:
+    """``jax.random.normal(key, shape, bfloat16)``.  Its uniform draws 8 bits
+    per value (bf16 has 7 mantissa bits, fewer than 8): the low byte of the
+    32-bit draw, shifted right once into the mantissa of a number in [1,
+    2); every step after that is a bf16 operation, rounded as the CPU
+    rounds it (computed in f32, rounded to bf16): minus 1, times (1 - lo),
+    plus lo, clamped at lo = nextafter(-1, 0) = -1 + 2**-8; erf_inv in f32
+    rounded to bf16; times sqrt(2) in bf16."""
+    bf = torch.bfloat16
+    b8 = bits(key, shape, device) & 0xFF
+    one = torch.tensor(1.0, dtype=bf, device=device)
+    lo = torch.tensor(-1.0 + 2.0 ** -8, dtype=bf, device=device)
+    f = ((b8 >> 1) | 0x3F80).to(torch.int16).view(bf) - one
+    u = torch.maximum(lo, f * (one - lo) + lo)
+    return torch.tensor(math.sqrt(2), dtype=bf, device=device) * erfinv(u.float()).to(bf)
+
+
 def normal(key: Key, shape: Sequence[int], device="cpu", dtype=torch.float32) -> torch.Tensor:
-    """``jax.random.normal(key, shape, dtype)`` (f32, or f64 as under x64):
-    a uniform on (nextafter(-1, 0), 1), times sqrt(2) after erf_inv."""
+    """``jax.random.normal(key, shape, dtype)`` (f32, bf16, or f64 as under
+    x64): a uniform on (nextafter(-1, 0), 1), times sqrt(2) after erf_inv."""
+    if dtype == torch.bfloat16:
+        return _normal_bf16(key, shape, device)
     one = torch.tensor(1.0, dtype=dtype)
     lo = float(torch.nextafter(-one, torch.zeros_like(one)))
     u = uniform(key, shape, device, lo, 1.0, dtype)

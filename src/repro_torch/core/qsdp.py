@@ -147,10 +147,12 @@ def init_param(gen: torch.Generator, spec: ParamSpec, ms: MeshSpec,
     elif spec.init == "constant":
         full = torch.full(shape, spec.init_scale, **f32)
     elif spec.init == "normal":
-        full = torch.randn(shape, generator=gen, **f32) * spec.init_scale
+        # scaled in place: the same values as `randn * scale`, without a
+        # second copy of the largest stack
+        full = torch.randn(shape, generator=gen, **f32).mul_(spec.init_scale)
     elif spec.init == "scaled_normal":
         fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
-        full = torch.randn(shape, generator=gen, **f32) * (spec.init_scale / math.sqrt(fan_in))
+        full = torch.randn(shape, generator=gen, **f32).mul_(spec.init_scale / math.sqrt(fan_in))
     else:
         raise ValueError(spec.init)
     return to_rest(full, spec, ms)

@@ -20,11 +20,14 @@ weights drafts up to --draft-depth tokens per slot per step, verified at
 serving precision (add ``--draft-bits 4 --draft-depth 4`` above).
 
 ``--arch`` takes any config of ``repro_torch.configs`` (the MoE family
-too: ``--arch olmoe-1b-7b``; the SSM and hybrid families, ``--arch
-mamba2-370m`` / ``zamba2-7b``, serve with whole-prompt prefill: no chunked
-prefill, paged pool or speculation, as in the reference); ``--smoke``
-serves its 2-layer smoke config; ``--device cpu`` runs the plain versions
-of the kernels on the CPU.
+too: ``--arch olmoe-1b-7b``; the SSM, hybrid, VLM and audio families,
+``--arch mamba2-370m`` / ``zamba2-7b`` / ``qwen2-vl-72b`` /
+``seamless-m4t-large-v2``, serve with whole-prompt prefill: no chunked
+prefill, paged pool or speculation, as in the reference; the VLM and audio
+prompts carry the reference's modality stubs, and qwen2-vl-72b's 286 GB of
+f32 weights do not fit one card at full depth); ``--smoke`` serves its
+2-layer smoke config; ``--device cpu`` runs the plain versions of the
+kernels on the CPU.
 """
 from __future__ import annotations
 

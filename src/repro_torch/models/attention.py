@@ -1,7 +1,8 @@
 """Attention: GQA with the JAX package's tensor-parallel layout, chunked
 (flash) attention for training and prefill, ring-cache and paged-pool
-decode, and the multi-query attend of chunked prefill (dense family;
-``models/attention.py`` of the JAX package).
+decode, the multi-query attend of chunked prefill, and the audio family's
+encoder-decoder cross-attention, whole-prompt and one token against the
+cached encoder KV (``models/attention.py`` of the JAX package).
 
 These are plain PyTorch tensor ops: the JAX package has no Pallas
 attention kernel.  Query heads are padded to a multiple of the model-axis
@@ -139,6 +140,52 @@ def self_attention(x, w: dict, cfg: AttnConfig, cos, sin, positions,
     if not cache_slice:
         return out, None
     return out, (k, v)  # one model rank: the local KV heads are all heads
+
+
+def cross_attention(x, memory, w: dict, cfg: AttnConfig):
+    """Encoder-decoder cross-attention of x (B, S, d) over the encoder
+    output memory (B, S_enc, d): no rotation, every frame visible (flash
+    attention with causal=False over S_enc keys); w holds wq/wk/wv/wo (the
+    reference applies no bias here)."""
+    b, s, _ = x.shape
+    s_enc, hd = memory.shape[1], cfg.head_dim
+    xi, mi = tp_copy(x), tp_copy(memory)
+    q = (xi @ w["wq"]).reshape(b, s, cfg.heads_local, hd)
+    k = (mi @ w["wk"]).reshape(b, s_enc, cfg.kv_local, hd)
+    v = (mi @ w["wv"]).reshape(b, s_enc, cfg.kv_local, hd)
+    o = flash_attention(q, _expand_kv_local(k, cfg), _expand_kv_local(v, cfg),
+                        torch.arange(s, device=x.device), torch.arange(s_enc, device=x.device),
+                        causal=False, window=0, q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk,
+                        mxu_bf16=cfg.mxu_bf16)
+    o = o * _local_head_mask(cfg, x.device)[None, None, :, None].to(o.dtype)
+    return tp_reduce(o.reshape(b, s, cfg.heads_local * hd) @ w["wo"])
+
+
+def decode_cross_attention(x, w: dict, cfg: AttnConfig, ck_cache, cv_cache, enc_len: int,
+                           rank: int = 0):
+    """One token's cross-attention, x (B, d), against the prefill's cached
+    encoder KV ck/cv (B, S_enc_loc, n_kv, hd) bf16, this rank's frames;
+    frames at or past `enc_len` are masked.  Scores and the softmax in f32
+    over operands in the compute dtype, as :func:`decode_attend` (on one
+    model rank the reference's pmax/psum are the identity).  Returns (B, d)."""
+    b = x.shape[0]
+    hd, s_loc = cfg.head_dim, ck_cache.shape[1]
+    q_all = (x @ w["wq"]).reshape(b, cfg.heads_local, hd)  # one rank: all heads
+    qr, ck_cache, cv_cache = _kv_major_q(q_all, ck_cache, cv_cache, cfg)
+    valid = (rank * s_loc + torch.arange(s_loc, device=x.device)) < enc_len
+    dt = q_all.dtype
+    s_ij = torch.einsum("bkgd,bskd->bkgs", qr.float(), ck_cache.to(dt).float()) \
+        * (1.0 / math.sqrt(hd))
+    s_ij = s_ij.masked_fill(~valid, float("-inf"))
+    m = torch.amax(s_ij, dim=-1)
+    m_safe = torch.where(torch.isinf(m), torch.zeros_like(m), m)
+    p = torch.exp(s_ij - m_safe[..., None]).masked_fill(~valid, 0.0)
+    l_ = p.sum(-1)
+    o = torch.einsum("bkgs,bskd->bkgd", p.to(dt).float(), cv_cache.to(dt).float())
+    o = (o / torch.clamp(l_, min=1e-30)[..., None]).reshape(b, cfg.n_heads, hd)
+    if cfg.n_heads_padded > cfg.n_heads:
+        o = torch.nn.functional.pad(o, (0, 0, 0, cfg.n_heads_padded - cfg.n_heads))
+    return decode_out_proj(o, w, cfg, x.dtype, rank)
 
 
 def decode_new_kv(x, w: dict, cfg: AttnConfig, cos, sin):

@@ -2,16 +2,12 @@
 ``models/config.py`` (pure Python; the port imports nothing of ``repro``).
 
 One `ModelConfig` describes any of the six family types; the port serves
-the dense, MoE, SSM and hybrid families (``repro_torch.configs``).
+all six (``repro_torch.configs``).
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional
-
-
-# families of the JAX package the port does not build yet -> their ROADMAP item
-UNPORTED_FAMILIES = {"vlm": "A11d", "audio": "A11d"}
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,10 +1,10 @@
-"""Serving paths of the dense, MoE, SSM and hybrid families: whole-prompt
-prefill (builds the KV ring or the recurrent state), chunked prefill over
+"""Serving paths of all six families: whole-prompt prefill (builds the KV
+ring, the recurrent state or the encoder's cross KV), chunked prefill over
 the whole slot pool, and one-token decode with greedy or per-request
 sampling, over a private KV ring per slot or a paged pool of KV blocks;
 wired through the QSDP engine.  Chunked prefill, the paged pool and
-speculative decoding serve the attention-only stacks (dense, MoE), as in
-the reference.
+speculative decoding serve the attention-only decoder stacks (dense, MoE),
+as in the reference.
 
 SSM and hybrid: every layer is a Mamba2 mixer whose state (the conv ring of
 the last K-1 inputs and the SSM state, both f32) replaces the KV ring; the
@@ -16,6 +16,24 @@ with a KV ring per invocation.  Layer i of the SSM stack is gathered under
 ``fold_in(key, 5000 + g)`` and the tail's under ``fold_in(fold_in(key,
 2000), j)`` (reference ``decode.py:748-839``, ``:971-1021``).  Dead lanes
 run the recurrence like live ones; admission overwrites a lane's state.
+
+VLM: the dense stack with M-RoPE.  Prefill splices the batch's
+``vision_embeds`` into the token embeddings where ``vision_mask`` is set
+and rotates with the three position streams of ``batch["positions"]`` (3,
+B, S).  Decode rotates with the slot's position broadcast to all three
+streams (reference ``decode.py:350-357``), which gives the angles of 1-D
+RoPE at that position: a prompt whose image patches advanced the streams
+by less than their count continues at its sequence index, not at upstream
+Qwen2-VL's next M-RoPE position.  The port mirrors the reference.
+
+Audio (encoder-decoder): prefill runs the encoder stack over the batch's
+``audio_embeds`` (layer i gathered under ``fold_in(fold_in(key, 3000),
+i)``, ``enc_final_norm`` under `key`), then the decoder layers (layer i
+under ``fold_in(key, i)``), each writing its self-attention ring and its
+cross KV ``ck/cv`` (L, lanes, enc_len, n_kv, hd) bf16 from the encoder
+output; decode runs each decoder layer's self-attention, its
+cross-attention against ``ck/cv`` and its MLP, which rowquant serves
+through K3 (reference ``decode.py:841-870``, ``:1023-1074``).
 
 The MoE layer dispatches drop-free on every launch of the decode path
 (decode, chunks, verify): capacity drops would let dead lanes, padding or
@@ -30,8 +48,9 @@ decode MLP weights stay in wire-code form and go through the rowquant
 kernel (K3) instead of K2.  Sampled rows draw their Gumbel noise with
 ``kernels.ops.random_bits``.
 
-Cache layout: KV (L, B, S_loc, n_kv, hd) bf16, a ring along S; paged, (L, R,
-S_row, n_kv, hd) with R pool rows read as blocks through per-slot block
+Cache layout: KV (L, B, S_loc, n_kv, hd) bf16, a ring along S (audio: and
+the cross KV (L, B, enc_len_loc, n_kv, hd) bf16); paged, (L, R, S_row, n_kv,
+hd) with R pool rows read as blocks through per-slot block
 tables.  Python loops take the place of the reference's ``lax.scan``, and
 the cache is updated in place (the reference returns a new one).  PyTorch
 has no drop-mode scatter: the KV writes of the paged and chunked paths
@@ -96,12 +115,13 @@ LANE_BLOCK = 4
 
 @dataclasses.dataclass(frozen=True)
 class DecodeSpec:
-    """Static decode-time configuration (the reference's DecodeSpec less the
-    encoder length of the audio family)."""
+    """Static decode-time configuration (the reference's DecodeSpec, plus
+    the lanes of a launch block)."""
 
     cache_len: int        # ring size (the logical window of a slot)
     batch_global: int
     batch_sharded: bool   # shard the batch over the FSDP axes?
+    enc_len: int = 0      # audio: frames of encoder memory in the cross KV
     rowquant_mlp: bool = False
     # per-slot sampling: decode/prefill take a `sample` tree of per-slot
     # (temp, top_k, key); rows at temp <= 0 or top_k == 1 stay greedy
@@ -157,6 +177,8 @@ def make_decode_spec(model: Model, shape, rowquant_mlp: bool = False) -> DecodeS
         cache_len = s
     return DecodeSpec(cache_len=cache_len, batch_global=shape.global_batch,
                       batch_sharded=shape.global_batch % model.ms.fsdp_size == 0,
+                      enc_len=(min(4096, s // cfg.enc_frames_ratio)
+                               if cfg.arch_type == "audio" else 0),
                       rowquant_mlp=rowquant_mlp)
 
 
@@ -201,16 +223,19 @@ class DecodeModel:
 
     def cache_struct(self) -> dict[str, tuple[tuple[int, ...], torch.dtype]]:
         """Global cache shapes and dtypes: the KV ring or pool (L, rows, S,
-        n_kv, hd) bf16; SSM: the conv ring (L, B, K-1, d_inner + 2N) and the
-        state (L, B, H, P, N), both f32; hybrid: those and the shared
-        block's KV rings (n_layers // every, B, S, n_kv, hd)."""
+        n_kv, hd) bf16; audio: and the cross KV (L, B, enc_len, n_kv, hd)
+        bf16; SSM: the conv ring (L, B, K-1, d_inner + 2N) and the state (L,
+        B, H, P, N), both f32; hybrid: those and the shared block's KV rings
+        (n_layers // every, B, S, n_kv, hd)."""
         cfg = self.m.cfg
 
-        def kv(prefix, layers):
-            shp = (layers, self.spec.pool_rows(), self.spec.cache_len, self.m.acfg.n_kv,
-                   cfg.head_dim)
+        def kv(prefix, layers, rows=self.spec.pool_rows(), seq=self.spec.cache_len):
+            shp = (layers, rows, seq, self.m.acfg.n_kv, cfg.head_dim)
             return {prefix + "k": (shp, torch.bfloat16), prefix + "v": (shp, torch.bfloat16)}
 
+        if cfg.arch_type == "audio":
+            return {**kv("", cfg.n_layers),
+                    **kv("c", cfg.n_layers, self.spec.batch_global, self.spec.enc_len)}
         if cfg.arch_type not in ("ssm", "hybrid"):
             return kv("", cfg.n_layers)
         mc, b = self.m.mcfg, self.spec.batch_global
@@ -273,6 +298,8 @@ class DecodeModel:
             pd = p.to(dev)
             cos = sin = None
             if cfg.has_attention:
+                # M-RoPE too: the reference's _decode_rope puts the slot's
+                # position in all three streams, which is 1-D RoPE's angles
                 cos, sin = L.rope_cos_sin(pd, cfg.head_dim, cfg.rope_theta)
             writes = bt = None
             if block_tables is not None:
@@ -339,6 +366,8 @@ class DecodeModel:
         x = L.embed_vocab_parallel(self._pad_lanes(tokens, 0).to(dev)[:, None], emb)[:, 0]
         if cfg.arch_type in ("ssm", "hybrid"):
             x = self._decode_mamba(params, x, cache, blocks, key)
+        elif cfg.arch_type == "audio":
+            x = self._decode_audio(params, x, cache, blocks, key)
         else:
             x = self._decode_attn_stack(params, "layers", x, cache, blocks, key)
         fn = m.engine.gather("final_norm", params["final_norm"], key)
@@ -418,13 +447,14 @@ class DecodeModel:
         y, _ = moe_mod.moe_layer(h.reshape(-1, h.shape[-1]), w, self.m.ecfg, no_drop=no_drop)
         return y.reshape(h.shape)
 
-    def _decode_attn_layer(self, x, w, cache: Cache, layer: int, blk: _Block,
-                           prefix: str = ""):
-        """One layer over one lane block's tokens x (lane_block, d); `prefix`
-        "shared_": the hybrid family's shared block at invocation `layer`."""
-        m, cfg = self.m, self.m.cfg
+    def _decode_self_attn(self, x, w, cache: Cache, layer: int, blk: _Block,
+                          prefix: str = ""):
+        """x plus layer `layer`'s self-attention of one lane block's tokens x
+        (lane_block, d), its KV written first; `prefix` "shared_": the
+        hybrid family's shared block at invocation `layer`."""
+        m = self.m
         kc_all, vc_all = self._lane_cache(cache, blk, prefix)
-        h = L.rms_norm(x, w["attn_norm"], cfg.norm_eps)
+        h = L.rms_norm(x, w["attn_norm"], m.cfg.norm_eps)
         q_all, k1, v1 = attn_mod.decode_new_kv(h, w, m.acfg, blk.cos, blk.sin)
         if blk.bt is None:
             self._write_token_kv(kc_all, vc_all, layer, k1, v1, blk.pos)
@@ -432,8 +462,14 @@ class DecodeModel:
             self._write_kv(kc_all, vc_all, layer, k1, v1, blk.writes)
         o = attn_mod.decode_attend(q_all, kc_all[layer], vc_all[layer], m.acfg, blk.pos,
                                    self.spec.cache_len, blk.bt, self.spec.kv_block_size)
-        x = x + attn_mod.decode_out_proj(o, w, m.acfg, x.dtype)
-        h = L.rms_norm(x, w["mlp_norm"], cfg.norm_eps)
+        return x + attn_mod.decode_out_proj(o, w, m.acfg, x.dtype)
+
+    def _decode_attn_layer(self, x, w, cache: Cache, layer: int, blk: _Block,
+                           prefix: str = ""):
+        """One layer over one lane block's tokens x (lane_block, d); `prefix`
+        as for :meth:`_decode_self_attn`."""
+        x = self._decode_self_attn(x, w, cache, layer, blk, prefix)
+        h = L.rms_norm(x, w["mlp_norm"], self.m.cfg.norm_eps)
         return x + self._mlp(h, w, no_drop=True)
 
     def _gather_layer_w(self, prefix: str, names, lw: Params, lkey: prng.Key,
@@ -474,6 +510,77 @@ class DecodeModel:
                                      mlp=self._mlp_kind)
             x = self._per_block(x, blocks, lambda xb, blk, w=w, idx=idx:
                                 self._decode_attn_layer(xb, w, cache, idx, blk))
+        return x
+
+    # ------------------------------------------------------------------
+    # Encoder-decoder (audio)
+    # ------------------------------------------------------------------
+
+    def _decode_audio_layer(self, x, w, cache: Cache, layer: int, blk: _Block):
+        """One decoder layer over one lane block's tokens x (lane_block, d):
+        self-attention over its ring, cross-attention over its lanes' cached
+        encoder KV, then the MLP (reference ``decode.py:847-864``)."""
+        m, cfg = self.m, self.m.cfg
+        x = self._decode_self_attn(x, w, cache, layer, blk)
+        h = L.rms_norm(x, w["xattn_norm"], cfg.norm_eps)
+        xw = {"wq": w["xwq"], "wk": w["xwk"], "wv": w["xwv"], "wo": w["xwo"]}
+        x = x + attn_mod.decode_cross_attention(h, xw, m.acfg, cache["ck"][layer, blk.sl],
+                                                cache["cv"][layer, blk.sl],
+                                                self.spec.enc_len)
+        h = L.rms_norm(x, w["mlp_norm"], cfg.norm_eps)
+        return x + L.swiglu_mlp(h, w["w_gate"], w["w_up"], w["w_down"])
+
+    def _decode_audio(self, params, x, cache, blocks, key):
+        """The decoder stack of one decode step; layer i gathered under
+        ``fold_in(key, i)``, its MLP in code form for K3 under rowquant."""
+        grp = self.m._group(params, "dec")
+        names = list(grp)
+        for idx in range(_n_layers(grp)):
+            w = self._gather_layer_w("dec", names, _layer(grp, idx), prng.fold_in(key, idx),
+                                     mlp="dense")
+            x = self._per_block(x, blocks, lambda xb, blk, w=w, idx=idx:
+                                self._decode_audio_layer(xb, w, cache, idx, blk))
+        return x
+
+    def _prefill_audio(self, params, batch, x, key, cos, sin, positions, cache):
+        """The audio prefill (reference ``decode.py:1023-1074``): the
+        encoder stack over ``batch["audio_embeds"]`` (B, S_enc, d) with 1-D
+        RoPE over its frames, layer i gathered under ``fold_in(fold_in(key,
+        3000), i)``, then ``enc_final_norm`` gathered under `key`; then each
+        decoder layer under ``fold_in(key, i)``, which writes its
+        self-attention ring and its cross KV, the first enc_len frames of
+        ``memory @ xwk`` / ``memory @ xwv`` in bf16, into the first rows of
+        `cache`."""
+        m, cfg = self.m, self.m.cfg
+        audio = batch["audio_embeds"].to(m.compute_dtype)
+        b, s_enc, _ = audio.shape
+        e_loc = self.spec.enc_len // self.tp
+        if s_enc < self.spec.enc_len:
+            raise ValueError(f"audio_embeds has {s_enc} frames, the cross KV holds "
+                             f"enc_len = {self.spec.enc_len}")
+        pe = torch.arange(s_enc, device=audio.device)
+        cos_e, sin_e = L.rope_cos_sin(pe, cfg.head_dim, cfg.rope_theta)
+        ekey = prng.fold_in(key, 3000)
+        grp = m._group(params, "enc")
+        names = list(grp)
+        mem = audio
+        for i in range(_n_layers(grp)):
+            w = self._gather_layer_w("enc", names, _layer(grp, i), prng.fold_in(ekey, i))
+            mem = m._enc_layer(mem, w, cos_e, sin_e, pe)
+        efn = m.engine.gather("enc_final_norm", params["enc_final_norm"], key)
+        mem = L.rms_norm(mem, efn, cfg.norm_eps)
+        grp = m._group(params, "dec")
+        names = list(grp)
+        kv_shape = (b, s_enc, m.acfg.kv_local, cfg.head_dim)
+        for idx in range(_n_layers(grp)):
+            w = self._gather_layer_w("dec", names, _layer(grp, idx), prng.fold_in(key, idx))
+            x, (kf, vf) = m._dec_layer(x, w, cos, sin, positions, mem, cache_slice=True)
+            cache["k"][idx, :b] = self._slice_seq(kf).to(torch.bfloat16)
+            cache["v"][idx, :b] = self._slice_seq(vf).to(torch.bfloat16)
+            # one model rank: the local frames of the cross KV are the first e_loc
+            for c, wn in (("ck", "xwk"), ("cv", "xwv")):
+                cache[c][idx, :b] = (mem @ w[wn]).reshape(kv_shape)[:, :e_loc].to(
+                    torch.bfloat16)
         return x
 
     # ------------------------------------------------------------------
@@ -622,9 +729,12 @@ class DecodeModel:
 
     def prefill_fn(self, params: Params, batch: dict, key: prng.Key,
                    cache: Cache, sample: Optional[dict] = None) -> tuple[torch.Tensor, Cache]:
-        """batch {"tokens": (B, S)}; writes the prompt's KV into `cache` (a
-        zero cache from :meth:`init_cache_local`) and returns (next tokens
-        from the last position (B,), cache).  `sample` as for
+        """batch {"tokens": (B, S)} and the family's modality stubs (VLM:
+        "vision_embeds" (B, S, d), "vision_mask" (B, S), "positions" (3, B,
+        S); audio: "audio_embeds" (B, S_enc >= enc_len, d)); writes the
+        prompt's caches into `cache` (a zero cache from
+        :meth:`init_cache_local`) and returns (next tokens from the last
+        position (B,), cache).  `sample` as for
         :meth:`decode_fn`; the first token is keyed by fold_in(slot key, S).
         Ring caches only: a paged spec prefills through
         :meth:`prefill_chunk_fn`."""
@@ -642,12 +752,15 @@ class DecodeModel:
                              "state holds the last conv_k - 1 prompt tokens)")
         emb = m.engine.gather("embed", params["embed"], key)
         x = L.embed_vocab_parallel(tokens, emb)
+        if cfg.arch_type == "vlm":
+            x = torch.where(batch["vision_mask"][..., None],
+                            batch["vision_embeds"].to(x.dtype), x)
         positions = torch.arange(s, device=tokens.device)
-        cos = sin = None
-        if cfg.has_attention:
-            cos, sin = L.rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
+        cos, sin = m._rope(positions, batch)
         if cfg.arch_type in ("ssm", "hybrid"):
             x = self._prefill_mamba(params, x, key, cos, sin, positions, cache)
+        elif cfg.arch_type == "audio":
+            x = self._prefill_audio(params, batch, x, key, cos, sin, positions, cache)
         else:
             x = self._prefill_attn_stack(params, "layers", x, key, cos, sin, positions, cache)
         fn = m.engine.gather("final_norm", params["final_norm"], key)

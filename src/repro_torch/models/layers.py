@@ -34,6 +34,24 @@ def rope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float):
     return torch.cos(ang), torch.sin(ang)
 
 
+def mrope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float,
+                  sections: tuple[int, ...]):
+    """Qwen2-VL's multimodal RoPE: positions (3, ...) hold the temporal /
+    height / width streams; the head_dim//2 frequencies are split into
+    `sections` (summing to head_dim//2) and section s rotates with stream s.
+    Returns cos/sin of shape (..., head_dim//2), f32."""
+    half = head_dim // 2
+    if sum(sections) != half:
+        raise ValueError(f"mrope sections {sections} do not sum to head_dim // 2 = {half}")
+    cos, sin, start = [], [], 0
+    for s, sec in enumerate(sections):
+        c, si = rope_cos_sin(positions[s], head_dim, theta)
+        cos.append(c[..., start:start + sec])
+        sin.append(si[..., start:start + sec])
+        start += sec
+    return torch.cat(cos, dim=-1), torch.cat(sin, dim=-1)
+
+
 def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
     """x (..., n_heads, head_dim); cos/sin broadcastable (..., head_dim//2);
     the rotate-half convention."""

@@ -1,7 +1,8 @@
-"""Model composition: parameter specs of the dense, MoE, SSM and hybrid
-families, the bound QSDP engine and their training forward (that subset of
-the JAX package's ``models/transformer.py``; the VLM/audio families are
-ROADMAP A11d).  Serving runs through ``models/decode.py``.
+"""Model composition: parameter specs of all six families, the bound QSDP
+engine, the training forward of the dense, MoE, SSM and hybrid families
+and the layer forwards the VLM and audio families serve with (the JAX
+package's ``models/transformer.py``; training the VLM and audio families is
+ROADMAP A11g).  Serving runs through ``models/decode.py``.
 
 Parameters live in the engine's rest layout, ``(stack?, 1, 1, n_local)`` on
 the one-rank mesh, and are gathered per layer — quantized — inside every
@@ -29,9 +30,20 @@ would gather every layer of a group three times a step instead of twice).
 The shared block's gradient is the sum of one quantized reduce-scatter per
 invocation, accumulated by autograd from the last invocation to the first,
 as the reference's scan transpose does.
+
+The audio family is an encoder-decoder: an encoder stack of non-causal
+self-attention layers over the frame embeddings (its own parameter group
+``enc/``, gathered under ``fold_in(fold_in(key, 3000), i)`` so that its
+quantization keys never equal the decoder's, which shares its short names)
+and ``enc_final_norm``; a decoder stack ``dec/`` whose layers add
+cross-attention (``dec/x{wq,wk,wv,wo}``, no rotation, full mask) over the
+encoder's output between self-attention and the MLP; and an untied
+``lm_head``.  The VLM family is the dense stack with M-RoPE: three position
+streams (temporal, height, width) rotate sections of the frequencies.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 import math
 from typing import Optional
@@ -45,7 +57,7 @@ from ..core.qsdp import MeshSpec, ParamSpec, QSDPConfig, QSDPEngine
 from . import attention as attn_mod
 from . import layers as L
 from .attention import AttnConfig
-from .config import UNPORTED_FAMILIES, ModelConfig
+from .config import ModelConfig
 from . import mamba as mamba_mod
 from . import moe as moe_mod
 from .mamba import MambaConfig
@@ -128,8 +140,8 @@ def _mamba_specs(m: MambaConfig, stack: Optional[int], out_scale: float) -> dict
     }
 
 
-# families the port builds, serves and trains
-_PORTED_ARCHS = ("dense", "moe", "ssm", "hybrid")
+# families whose training forward is not ported yet -> their ROADMAP item
+_UNTRAINED = {"vlm": "A11g", "audio": "A11g"}
 
 
 def _norm_spec(d: int, stack: Optional[int]) -> ParamSpec:
@@ -141,10 +153,6 @@ class Model:
     and the QSDP engine that gathers it."""
 
     def __init__(self, cfg: ModelConfig, ms: MeshSpec, qcfg: QSDPConfig):
-        if cfg.arch_type not in _PORTED_ARCHS:
-            raise NotImplementedError(
-                f"arch_type {cfg.arch_type!r} is not ported yet (ROADMAP "
-                f"{UNPORTED_FAMILIES.get(cfg.arch_type, 'A11')}); the port runs {_PORTED_ARCHS}")
         self.cfg = cfg
         self.ms = ms
         self.qcfg = qcfg
@@ -153,6 +161,8 @@ class Model:
                                    head_dim=cfg.head_dim, tp=ms.model_size, causal=True,
                                    sliding_window=cfg.sliding_window,
                                    mxu_bf16=qcfg.attn_bf16)
+            # the audio encoder's self-attention sees every frame
+            self.enc_acfg = dataclasses.replace(self.acfg, causal=False)
         if cfg.arch_type in ("ssm", "hybrid"):
             self.mcfg = MambaConfig(d_model=cfg.d_model, d_state=cfg.ssm_state,
                                     head_dim=cfg.ssm_head_dim, expand=cfg.ssm_expand,
@@ -186,11 +196,35 @@ class Model:
                           "attn_norm": _norm_spec(d, None), "mlp_norm": _norm_spec(d, None)}
                 s.update({f"shared/{k}": v for k, v in shared.items()})
             return s
+        if cfg.arch_type == "audio":
+            return self._encdec_specs(s, out_scale)
         mlp = (_moe_specs(d, cfg.n_experts, cfg.moe_d_ff, nl, out_scale) if cfg.is_moe
                else _mlp_specs(d, cfg.d_ff, nl, out_scale))
         block = {**_attn_specs(d, self.acfg, nl, cfg.qkv_bias, out_scale), **mlp,
                  "attn_norm": _norm_spec(d, nl), "mlp_norm": _norm_spec(d, nl)}
         s.update({f"layers/{k}": v for k, v in block.items()})
+        return s
+
+    def _encdec_specs(self, s: dict, out_scale: float) -> dict[str, ParamSpec]:
+        """The audio family's groups after embed/final_norm/lm_head, in the
+        reference's order (``transformer.py:192-203``): the encoder's
+        attention, MLP and norms, ``enc_final_norm``, the decoder's
+        self-attention and MLP, its cross-attention projections ``dec/x*``
+        and its three norms."""
+        cfg = self.cfg
+        d, nl, ne = cfg.d_model, cfg.n_layers, cfg.n_enc_layers
+        enc = {**_attn_specs(d, self.acfg, ne, cfg.qkv_bias, out_scale),
+               **_mlp_specs(d, cfg.d_ff, ne, out_scale),
+               "attn_norm": _norm_spec(d, ne), "mlp_norm": _norm_spec(d, ne)}
+        s.update({f"enc/{k}": v for k, v in enc.items()})
+        s["enc_final_norm"] = _norm_spec(d, None)
+        dec = {**_attn_specs(d, self.acfg, nl, cfg.qkv_bias, out_scale),
+               **_mlp_specs(d, cfg.d_ff, nl, out_scale),
+               **{f"x{k}": v for k, v in _attn_specs(d, self.acfg, nl, cfg.qkv_bias,
+                                                       out_scale).items()},
+               "attn_norm": _norm_spec(d, nl), "xattn_norm": _norm_spec(d, nl),
+               "mlp_norm": _norm_spec(d, nl)}
+        s.update({f"dec/{k}": v for k, v in dec.items()})
         return s
 
     def init_params(self, seed: int, device) -> Params:
@@ -207,6 +241,10 @@ class Model:
         (B, S), plus the MoE layers' load-balance loss; every weight
         gathered quantized under `key`."""
         cfg, eng = self.cfg, self.engine
+        if cfg.arch_type in _UNTRAINED:
+            raise NotImplementedError(
+                f"training the {cfg.arch_type} family is not ported yet (ROADMAP "
+                f"{_UNTRAINED[cfg.arch_type]}); the port serves it")
         tokens = batch["tokens"]
         b, s = tokens.shape
         emb = eng.gather("embed", params["embed"], key)
@@ -221,12 +259,18 @@ class Model:
                                      batch["labels"].reshape(b * s))
         return loss if aux is None else loss + aux.to(loss.dtype)
 
-    def _rope(self, positions):
-        """(cos, sin) of the rotary embedding; (None, None) for a model
-        without attention."""
-        if not self.cfg.has_attention:
+    def _rope(self, positions, batch: Optional[dict] = None):
+        """(cos, sin) of the rotary embedding at `positions` (S,); M-RoPE
+        reads the batch's three position streams ``batch["positions"]`` (3,
+        B, S) instead and gives per-row (B, S, hd/2) tables; (None, None)
+        for a model without attention."""
+        cfg = self.cfg
+        if not cfg.has_attention:
             return None, None
-        return L.rope_cos_sin(positions, self.cfg.head_dim, self.cfg.rope_theta)
+        if cfg.rope_mode == "mrope":
+            return L.mrope_cos_sin(batch["positions"], cfg.head_dim, cfg.rope_theta,
+                                   cfg.mrope_sections)
+        return L.rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
 
     def _run_stack(self, params, x, key, cos, sin, positions):
         """(x, summed aux loss) after the layer stack; aux is None but for
@@ -310,6 +354,32 @@ class Model:
         x = x + a
         h = L.rms_norm(x, w["mlp_norm"], cfg.norm_eps)
         return x + L.swiglu_mlp(h, w["w_gate"], w["w_up"], w["w_down"])
+
+    def _enc_layer(self, x, w, cos, sin, positions):
+        """One audio encoder layer: non-causal self-attention, then the MLP."""
+        cfg = self.cfg
+        h = L.rms_norm(x, w["attn_norm"], cfg.norm_eps)
+        a, _ = attn_mod.self_attention(h, w, self.enc_acfg, cos, sin, positions)
+        x = x + a
+        h = L.rms_norm(x, w["mlp_norm"], cfg.norm_eps)
+        return x + L.swiglu_mlp(h, w["w_gate"], w["w_up"], w["w_down"])
+
+    def _dec_layer(self, x, w, cos, sin, positions, memory, cache_slice: bool = False):
+        """One audio decoder layer over the encoder output `memory` (B,
+        S_enc, d): causal self-attention, cross-attention, then the MLP.
+        With `cache_slice`, returns (x, (k, v)) of the self-attention, for
+        the prefill's KV ring."""
+        cfg = self.cfg
+        h = L.rms_norm(x, w["attn_norm"], cfg.norm_eps)
+        a, kv = attn_mod.self_attention(h, w, self.acfg, cos, sin, positions,
+                                        cache_slice=cache_slice)
+        x = x + a
+        h = L.rms_norm(x, w["xattn_norm"], cfg.norm_eps)
+        xw = {"wq": w["xwq"], "wk": w["xwk"], "wv": w["xwv"], "wo": w["xwo"]}
+        x = x + attn_mod.cross_attention(h, memory, xw, self.acfg)
+        h = L.rms_norm(x, w["mlp_norm"], cfg.norm_eps)
+        x = x + L.swiglu_mlp(h, w["w_gate"], w["w_up"], w["w_down"])
+        return (x, kv) if cache_slice else x
 
     def _moe_layer(self, carry, w, cos, sin, positions):
         x, aux = carry

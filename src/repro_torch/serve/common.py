@@ -13,6 +13,7 @@ from typing import Optional
 import torch
 
 from .. import configs
+from ..core import prng
 from ..core.qsdp import MeshSpec, QSDPConfig
 from ..device import resolve_device
 from ..models.config import ModelConfig
@@ -40,7 +41,9 @@ def make_serve_spec(cfg: ModelConfig, ms: MeshSpec, batch: int, prompt_len: int,
     unsharded batch axis); kv_pool_blocks sizes it (0 = one full window per
     slot).  draft_bits + draft_depth > 1 turn on self-speculative decoding:
     a draft_bits-bit draft of the same weights drafts up to draft_depth
-    tokens per slot per step, verified at serving precision."""
+    tokens per slot per step, verified at serving precision.  The audio
+    family's cross KV holds prompt_len // enc_frames_ratio encoder frames
+    (at least one per model rank)."""
     if batch_sharded is None:
         batch_sharded = batch % ms.fsdp_size == 0 and not kv_block_size
     cache_len = decode_cache_len(cfg, prompt_len, gen, ms.model_size)
@@ -49,6 +52,8 @@ def make_serve_spec(cfg: ModelConfig, ms: MeshSpec, batch: int, prompt_len: int,
         kv_block_size += (-kv_block_size) % ms.model_size
         cache_len += (-cache_len) % kv_block_size
     return DecodeSpec(cache_len=cache_len, batch_global=batch, batch_sharded=batch_sharded,
+                      enc_len=(max(prompt_len // cfg.enc_frames_ratio, ms.model_size)
+                               if cfg.arch_type == "audio" else 0),
                       rowquant_mlp=rowquant_mlp, sampling=sampling,
                       kv_block_size=kv_block_size if cache_len else 0,
                       kv_pool_blocks=kv_pool_blocks, draft_bits=draft_bits,
@@ -97,15 +102,31 @@ def build_serve_setup(arch, *, data_par: int = 1, model_par: int = 1,
 
 
 def make_prompt_batch(cfg: ModelConfig, spec: DecodeSpec, ms: MeshSpec,
-                      tokens, device) -> dict:
-    """The prefill batch {"tokens": (B, S) int64} on `device` (the dense and
-    MoE families take no modality stubs)."""
-    return {"tokens": torch.as_tensor(tokens, dtype=torch.int64).to(device)}
+                      tokens, device, *, seed: int = 1) -> dict:
+    """The prefill batch {"tokens": (B, S) int64} on `device`, with the
+    reference's modality stubs (``serve/common.py:131-149``): VLM, zero
+    "vision_embeds" (B, S, d) bf16, a false "vision_mask" and "positions"
+    arange(S) in all three M-RoPE streams (3, B, S); audio, "audio_embeds"
+    0.1 * ``jax.random.normal(PRNGKey(seed), (B, enc_len, d), bfloat16)``,
+    drawn on the host with the threefry twin, byte-equal to the reference's
+    draw."""
+    tokens = torch.as_tensor(tokens, dtype=torch.int64)
+    b, s = tokens.shape
+    batch = {"tokens": tokens}
+    if cfg.arch_type == "vlm":
+        batch.update(vision_embeds=torch.zeros((b, s, cfg.d_model), dtype=torch.bfloat16),
+                     vision_mask=torch.zeros((b, s), dtype=torch.bool),
+                     positions=torch.arange(s).expand(3, b, s))
+    if cfg.arch_type == "audio":
+        z = prng.normal(prng.PRNGKey(seed), (b, spec.enc_len, cfg.d_model),
+                        dtype=torch.bfloat16)
+        batch["audio_embeds"] = torch.tensor(0.1, dtype=torch.bfloat16) * z
+    return {k: v.to(device) for k, v in batch.items()}
 
 
 def scheduler_batch_builder(cfg: ModelConfig, spec: DecodeSpec, ms: MeshSpec, device):
     """The ContinuousScheduler `batch_builder`: the batch-of-1 prefill batch
-    of blocking admission."""
+    of blocking admission, modality stubs included."""
     pf_spec = dataclasses.replace(spec, batch_global=1, batch_sharded=False)
 
     def build(tokens):

@@ -56,9 +56,13 @@ def test_multi_rank_mesh_names_roadmap():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         QSDPEngine(MeshSpec(("data", "model"), (2, 1)), QSDPConfig(), {})
     vlm = ModelConfig(name="vlm", arch_type="vlm", n_layers=1, d_model=64, vocab_size=128,
-                      n_heads=4, n_kv_heads=4, head_dim=16, d_ff=128, rope_mode="mrope")
+                      n_heads=4, n_kv_heads=4, head_dim=16, d_ff=128, rope_mode="mrope",
+                      mrope_sections=(4, 2, 2))
+    setup = build_serve_setup(vlm, device="cpu")  # served (A11d); trained with A11g
     with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        build_serve_setup(vlm, device="cpu")
+        setup.model.loss_fn(setup.params, {"tokens": torch.zeros((1, 4), dtype=torch.int64),
+                                           "labels": torch.zeros((1, 4), dtype=torch.int64)},
+                            (0, 0))
 
 
 def test_wrappers_reject_mixed_devices():
@@ -132,10 +136,10 @@ def test_bucket_wrappers_reject_mixed_devices():
 
 
 def test_unported_serving_paths_name_roadmap():
-    """The scheduler of another family fails at its Model, naming A11.
-    Speculative decoding (ROADMAP A10c) is ported: a spec with draft bits and
-    depth builds a scheduler with a draft engine, and draft bits outside
-    [2, 8] are refused."""
+    """Speculative decoding (ROADMAP A10c) is ported: a spec with draft bits
+    and depth builds a scheduler with a draft engine, and draft bits outside
+    [2, 8] are refused.  The audio family serves (A11d), but, as in the
+    reference, not from a paged pool: that spec fails at its DecodeModel."""
     from repro_torch.serve import make_scheduler
     spec_setup = build_serve_setup("gpt-1.3b", smoke=True, batch=2, prompt_len=8, gen=4,
                                    draft_bits=4, draft_depth=3, device="cpu")
@@ -152,5 +156,5 @@ def test_unported_serving_paths_name_roadmap():
     audio = ModelConfig(name="audio", arch_type="audio", n_layers=1, d_model=64,
                         vocab_size=128, n_heads=4, n_kv_heads=4, head_dim=16, d_ff=128,
                         n_enc_layers=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
+    with pytest.raises(ValueError, match="paged KV"):
         build_serve_setup(audio, device="cpu", kv_block_size=4)

@@ -494,3 +494,69 @@ def test_zamba2_smoke_train_step_on_the_card(cuda):
     for k in pa:
         assert torch.equal(pa[k], pb[k]), k
     assert abs(la - lc) <= 1e-5 * abs(lc) and abs(ga - gc) <= 1e-4 * abs(gc)
+
+
+# the VLM and audio families: cross-attention on the card against the CPU
+# (f32: summation order; bf16: the projections round at other places)
+CROSS_CARD_ATOL = {torch.float32: 1e-5, torch.bfloat16: 4e-2}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cross_attention_on_the_card(cuda, dtype):
+    """``cross_attention`` (12 queries over 6 frames) and
+    ``decode_cross_attention`` over a bf16 cross KV with its last 3 of 10
+    frames masked, card against CPU, GQA 8 / 2 heads."""
+    from repro_torch.models.attention import (AttnConfig, cross_attention,
+                                              decode_cross_attention)
+    cfg = AttnConfig(n_heads=8, n_kv=2, head_dim=16, tp=1)
+    g = torch.Generator().manual_seed(5)
+
+    def rnd(*shape, s=1.0):
+        return torch.randn(shape, generator=g) * s
+
+    w = {"wq": rnd(32, 128, s=32 ** -0.5), "wk": rnd(32, 32, s=32 ** -0.5),
+         "wv": rnd(32, 32, s=32 ** -0.5), "wo": rnd(128, 32, s=0.1)}
+    x, mem, x1 = rnd(2, 12, 32), rnd(2, 6, 32), rnd(3, 32)
+    ck, cv = rnd(3, 10, 2, 16).to(torch.bfloat16), rnd(3, 10, 2, 16).to(torch.bfloat16)
+    outs = []
+    for dev in (cuda, torch.device("cpu")):
+        wd = {k: v.to(dev, dtype) for k, v in w.items()}
+        outs.append((cross_attention(x.to(dev, dtype), mem.to(dev, dtype), wd, cfg),
+                     decode_cross_attention(x1.to(dev, dtype), wd, cfg, ck.to(dev), cv.to(dev),
+                                            7)))
+    for gpu, cpu in zip(*outs):
+        assert gpu.device.type == "cuda" and gpu.dtype == dtype
+        assert (gpu.cpu().float() - cpu.float()).abs().max().item() <= CROSS_CARD_ATOL[dtype]
+
+
+@pytest.mark.parametrize("arch", ["qwen2-vl-72b", "seamless-m4t-large-v2"])
+def test_mm_smoke_decode_step_bit_stable(cuda, arch):
+    """One decode step of the VLM (after a prompt with an image block) and
+    the audio (the encoder's cross KV) smoke configs on the card, twice from
+    the same prefill cache: tokens and every cache leaf bit-equal."""
+    from repro_torch.core.qsdp import QSDPConfig
+    from repro_torch.serve import build_serve_setup, make_prompt_batch
+    setup = build_serve_setup(arch, smoke=True, qsdp=QSDPConfig(), batch=2, prompt_len=16,
+                              gen=4, device="cuda")
+    tokens = torch.randint(0, 1024, (2, 16), generator=torch.Generator().manual_seed(1))
+    batch = make_prompt_batch(setup.cfg, setup.spec, setup.ms, tokens, cuda)
+    if setup.cfg.arch_type == "vlm":
+        batch["vision_mask"][:, 4:12] = True
+        batch["vision_embeds"][:, 4:12] = (torch.randn((2, 8, setup.cfg.d_model),
+                                                       generator=torch.Generator().manual_seed(2))
+                                           * 0.02).to(cuda, torch.bfloat16)
+        batch["positions"] = batch["positions"].clone()
+        batch["positions"][1:, :, 4:12] = 4 + torch.arange(8, device=cuda) % 4
+    key = prng.PRNGKey(3)
+    nxt, cache = setup.engine.prefill_step()(setup.params, batch, key)
+    pos = torch.full((2,), 16, dtype=torch.int64)
+    runs = []
+    for _ in range(2):
+        c = {k: v.clone() for k, v in cache.items()}
+        out, c = setup.engine.decode_step()(setup.params, c, nxt, pos, key)
+        runs.append((out.cpu(), {k: v.cpu() for k, v in c.items()}))
+    (t1, c1), (t2, c2) = runs
+    assert torch.equal(t1, t2)
+    assert set(c1) == ({"k", "v", "ck", "cv"} if setup.cfg.arch_type == "audio" else {"k", "v"})
+    for k in c1:
+        assert torch.equal(c1[k].view(torch.uint8), c2[k].view(torch.uint8)), k

@@ -181,23 +181,28 @@ def test_registered_config_equals_reference(name):
 
 
 def test_registry_covers_the_reference():
-    assert set(configs.ARCHS) | set(configs.NOT_PORTED) == set(jconfigs.ARCHS)
-    assert {_JAX_FAMILIES[n] for n in configs.ARCHS} == {"dense", "moe", "ssm", "hybrid"}
+    assert set(configs.ARCHS) == set(jconfigs.ARCHS)
+    assert {_JAX_FAMILIES[n] for n in configs.ARCHS} == {"dense", "moe", "ssm", "hybrid",
+                                                         "vlm", "audio"}
     olmoe = configs.get_config("olmoe-1b-7b")
     assert (olmoe.n_layers, olmoe.d_model, olmoe.n_experts, olmoe.moe_top_k) == (16, 2048, 64, 8)
     assert olmoe.n_params() == 6_813_908_992 and olmoe.n_active_params() == 1_176_764_416
 
 
-@pytest.mark.parametrize("name", sorted(configs.NOT_PORTED))
+@pytest.mark.parametrize("name", ["qwen2_vl_72b", "seamless_m4t_large_v2"])
 def test_unported_families_name_their_item(name):
-    assert configs.NOT_PORTED[name] == _JAX_FAMILIES[name]
-    item = "A11d"
+    """The VLM and audio families build and serve (A11d); their training is
+    not ported yet: ``loss_fn`` refuses it naming A11g."""
+    item = "A11g"
     for get in (configs.get_config, configs.get_smoke):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-            get(name)
+        assert get(name).arch_type == _JAX_FAMILIES[name]
     cfg = ModelConfig(**dataclasses.asdict(jconfigs.get_smoke(name)))
+    model = Model(cfg, MeshSpec(("data", "model"), (1, 1)), QSDPConfig())
+    params = model.init_params(0, "cpu")
+    batch = {"tokens": torch.zeros((1, 4), dtype=torch.int64),
+             "labels": torch.zeros((1, 4), dtype=torch.int64)}
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        Model(cfg, MeshSpec(("data", "model"), (1, 1)), QSDPConfig())
+        model.loss_fn(params, batch, (0, 0))
 
 
 @pytest.mark.parametrize("name", ["olmoe_1b_7b", "qwen3_moe_235b_a22b"])

@@ -57,9 +57,15 @@ def test_expected_ssm_launches_at_the_full_configs():
     from repro_torch import configs
     from repro_torch.core.qsdp import MeshSpec, QSDPConfig
     from repro_torch.models.transformer import Model
-    for (arch, rowquant), want in cs.SSM_PER_STEP.items():
+    for arch in cs.SSM_ARCHS:
         model = Model(configs.get_config(arch), MeshSpec(("data", "model"), (1, 1)),
                       QSDPConfig())
-        got = cs.expected_ssm_launches(model, rowquant)
-        assert got["step"] == want, (arch, rowquant)
-        assert got["prefill"] == cs.SSM_PER_STEP[arch, False], (arch, rowquant)
+        for rowquant in (False, True):
+            got = cs.expected_ssm_launches(model, rowquant)
+            assert got == cs.expected_serve_launches(model, rowquant), (arch, rowquant)
+            want = cs.SERVE_PER_STEP.get((arch, rowquant))
+            if want is None:  # mamba2 has no rowquant-eligible weight
+                assert got == cs.SERVE_PER_STEP[arch, False], arch
+                continue
+            assert got == want, (arch, rowquant)
+            assert got["prefill"] == cs.SERVE_PER_STEP[arch, False]["step"], (arch, rowquant)
