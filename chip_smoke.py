@@ -170,6 +170,28 @@ Phases, each of which makes the script exit non-zero when it fails:
               phase's seconds.  The kernel phase adds K1 G8 stochastic on
               zamba2's w_z gradient and K2 into f32 over a whole zamba2
               Mamba2 layer's gradient buffer.
+8d. mmtrain -- the VLM and audio families' training: first
+              qwen2-vl-72b's and seamless-m4t-large-v2's smoke configs one
+              f32 step each card vs CPU (every gathered weight byte-equal,
+              the encoder's under its own key scope; qwen2-vl's batch with
+              an image block; loss and grad norm within the CPU tests' step
+              tolerances); then qwen2-vl-72b at full width cut to 2 of 80
+              layers (3.00 G parameters, 8-bit moments; every row's image
+              block a 16 x 32 grid at positions 64-575 with Qwen2-VL's
+              M-RoPE positions, no loss on it) and seamless-m4t-large-v2 at
+              full width and depth (24 encoder and 24 decoder layers, 2.04 G
+              parameters, f32 moments; the frame stub of 1,024 frames),
+              random weights from seed 0, default QSDPConfig, AdamW +
+              cosine, TRAIN's batch, sequence, microbatches and schedule:
+              step 0 twice from one state bit-equal, 3 timed steps (K1/K2
+              launches equal the structure's, the encoder's gathers and
+              reduce-scatters included), the first loss within 0.5 of
+              ln(vocab) + d s^2 / 2, for qwen2-vl-72b one profiled step
+              (busy share; no int64 threefry kernel) and one by part.  Prints
+              step times, tokens/s, peak memory and the phase's seconds and
+              peak.  The kernel phase adds K1 G8 stochastic on qwen2-vl's
+              embedding gradient and seamless's lm_head gradient, and K2 into
+              f32 over a whole qwen2-vl layer's gradient buffer.
 9. experiments -- first the theory runs' draws (64-bit bits, f64 and f32
               uniforms), the f64 lattice quantizers and one ``run_qsgd``
               trajectory on the card against the CPU twin; then the
@@ -180,7 +202,7 @@ Phases, each of which makes the script exit non-zero when it fails:
               3/6 (compression at 3/4/5 bits, W4 training, 160) and Figures
               7/8 (160), on the 2-layer bench GPT at batch 8 x seq 128;
               then Table 1 at gpt-125m's full width and depth (baseline vs
-              W8G8, batch 8 x seq 512, 100 steps).  Every experiment's
+              W8G8, batch 8 x seq 512, 50 steps).  Every experiment's
               PASS/FAIL gates at the reference's bands, gpt-125m's losses
               finite and falling and its W8G8 within 8 % of the baseline,
               and K1/K2 launches equal to the structure's per train step;
@@ -350,6 +372,12 @@ SSM_K1_ROWS = (("zamba2-7b w_z (3584 x 7168)", 3584 * 7168),
 # (256,206 x 1,024)
 MM_K1_ROWS = (("qwen2-vl-72b w_gate (8192 x 29568)", 8192 * 29568),
               ("seamless lm_head (256206 x 1024)", 256206 * 1024))
+# their training's largest gradients, G8 stochastic: qwen2-vl-72b's tied
+# embedding (152,064 x 8,192: the largest K1 launch on any path; its plain
+# version draws its int64 threefry in chunks of 65,536 buckets, which fit the
+# card) and seamless-m4t-large-v2's lm_head; (what, values, plain's chunk)
+MM_GRAD_K1_ROWS = (("qwen2-vl-72b embed grad (152064 x 8192)", 152064 * 8192, 1 << 16),
+                   ("seamless lm_head grad (256206 x 1024)", 256206 * 1024, None))
 
 
 def dt_name(dt) -> str:
@@ -501,9 +529,12 @@ def kernel_phase(torch, log, dev="cuda"):
                     max_abs_err=max((g.float() - w.float()).abs().max().item()
                                     for g, w in zip(got, want)))
 
-    def k1_row(what, x, key, mode, rand_bits=32, bits=8):
+    def k1_row(what, x, key, mode, rand_bits=32, bits=8, chunk=None):
         """K1 in its key form against its plain version (threefry twin +
-        quantize_pack_ref) at one shape and width: byte-equal, then timed."""
+        quantize_pack_ref) at one shape and width: byte-equal, then timed.
+        With `chunk` (stochastic mode), the plain version runs `chunk`
+        buckets at a time at their own counters (``ref.k1_counters``: bucket
+        b's value j at b * bucket + j), the same draws and arithmetic."""
         nb, n = x.shape[0], x.numel()
         levels = (1 << bits) - 1
 
@@ -511,7 +542,16 @@ def kernel_phase(torch, log, dev="cuda"):
             return ops.quantize_pack(x, key, levels, bits, mode, rand_bits)
 
         def plain():
-            return ref.quantize_pack_key_ref(x, key, levels, bits, mode, rand_bits)
+            if chunk is None:
+                return ref.quantize_pack_key_ref(x, key, levels, bits, mode, rand_bits)
+            check(mode == "stochastic" and rand_bits == 32, "chunked plain K1: stochastic only")
+            parts = []
+            for b0 in range(0, nb, chunk):
+                xb = x[b0:b0 + chunk]
+                ctr = ref.k1_counters(xb.shape[0], xb.shape[1], mode, dev) + b0 * xb.shape[1]
+                parts.append(ref.quantize_pack_ref(xb, prng.to_uniform(prng.bits_at(key, ctr)),
+                                                   levels, bits, mode, 1.0))
+            return tuple(torch.cat(p) for p in zip(*parts))
 
         q, qr = call(), plain()
         for g, w, part in zip(q, qr, ("codes", "scale", "zero")):
@@ -635,6 +675,16 @@ def kernel_phase(torch, log, dev="cuda"):
         del x
     k2 += layer_decode_rows(torch, log, gen, decode_row, addcmul_ms, dev, arch="qwen2-vl-72b",
                             dtypes=("bfloat16",))
+    # the VLM and audio families trained (mmtrain phase): K1 G8 stochastic
+    # on their largest gradients; K2 over a qwen2-vl-72b layer's gradient
+    # buffer into f32, the reduce-scatter's local decode
+    for what, n, chunk in MM_GRAD_K1_ROWS:
+        x = torch.randn((n // 1024, 1024), generator=gen, device=dev) * 1e-3
+        k1.append(k1_row(what, x, prng.fold_in(prng.PRNGKey(n % 9973), 0x5D), "stochastic",
+                         chunk=chunk)[1])
+        del x
+    k2 += layer_decode_rows(torch, log, gen, decode_row, addcmul_ms, dev, arch="qwen2-vl-72b",
+                            dtypes=("float32",), grad=True)
     # the experiments phase's policies at the gpt-125m embedding (50,304 x
     # 768): Table 1's rtn-nobucket (W8 nearest, bucket 65536: K1's generic
     # body, one warp per bucket), Table 3's W4 at bucket 256 (shift) and the
@@ -941,9 +991,10 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
                     default="build,kernels,small,serve,continuous,speculative,moe,ssm,vlmaudio,"
-                            "train,moetrain,ssmtrain,experiments",
+                            "train,moetrain,ssmtrain,mmtrain,experiments",
                     help="comma-separated subset of build,kernels,small,serve,continuous,"
-                         "speculative,moe,ssm,vlmaudio,train,moetrain,ssmtrain,experiments")
+                         "speculative,moe,ssm,vlmaudio,train,moetrain,ssmtrain,mmtrain,"
+                         "experiments")
     ap.add_argument("--profile", action="store_true",
                     help="serve phase: also profile one decode step of each run "
                          "(chrome traces kept)")
@@ -1004,6 +1055,8 @@ def main(argv=None) -> int:
             paths.append(moetrain_phase(torch, log))
         if "ssmtrain" in phases:
             paths.append(ssmtrain_phase(torch, log))
+        if "mmtrain" in phases:
+            paths.append(mmtrain_phase(torch, log))
         if "experiments" in phases:
             paths.append(experiments_phase(torch, log)[0])
         launches = {k: sum(p.get(k, 0) for p in paths) for k in KERNEL_META}
@@ -1036,6 +1089,28 @@ def hooked(obj, attr, wrap):
             setattr(obj, attr, orig)
         else:
             delattr(obj, attr)
+
+
+@contextlib.contextmanager
+def phase_peak(torch, dev):
+    """A phase's peak device memory: the peak is reset where the phase
+    starts, and every reset inside it (a cell's own, for the cell's peak)
+    first keeps the peak so far.  Yields a function that returns the
+    phase's peak in GiB so far (nan off the card)."""
+    if dev != "cuda":
+        yield lambda: float("nan")
+        return
+    seen = [0]
+
+    def wrap(orig):
+        def f(*a, **k):
+            seen.append(torch.cuda.max_memory_allocated())
+            return orig(*a, **k)
+        return f
+
+    torch.cuda.reset_peak_memory_stats()
+    with hooked(torch.cuda, "reset_peak_memory_stats", wrap):
+        yield lambda: max(seen + [torch.cuda.max_memory_allocated()]) / 2**30
 
 
 def capture_logits(store):
@@ -2433,38 +2508,38 @@ def ssm_phase(torch, log, dev="cuda", archs=SSM_ARCHS):
     from collections import Counter
     from repro_torch import configs
     t0 = time.perf_counter()
-    if dev == "cuda":
-        for arch in archs:
-            small_phase(torch, log, arch)
-        small_rowquant(torch, log)
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-    counts = Counter()
-    g = torch.Generator(device=dev).manual_seed(4)
-
-    def rnd(*shape, dt=torch.bfloat16):
-        return torch.randn(shape, generator=g, device=dev).to(dt)
-
-    for arch in archs:
-        c, params, first = serve_batch(torch, log, arch, dev)
-        counts.update(c)
-        if configs.get_config(arch).arch_type == "hybrid":
-            c, params, first_rq = serve_batch(torch, log, arch, dev, rowquant=True,
-                                              params=params)
-            counts.update(c)
-            rel = (first - first_rq).abs().max().item() / first.abs().max().item()
-            check(math.isfinite(rel) and rel <= LOGIT_RTOL, f"{arch}: first decode step logits "
-                  f"dense vs rowquant differ by {rel:.3e} of max |logit|")
-            log(f"ssm batch {arch}: first decode step logits dense vs rowquant: max |diff| / "
-                f"max |logit| = {rel:.3e} (tol {LOGIT_RTOL})")
-        counts.update(serve_continuous(torch, log, arch, params, dev))
-        del params
-        route_invariance(torch, log, dev, rnd, configs.get_config(arch))
+    with phase_peak(torch, dev) as peak:
         if dev == "cuda":
+            for arch in archs:
+                small_phase(torch, log, arch)
+            small_rowquant(torch, log)
             torch.cuda.empty_cache()
-    peak = torch.cuda.max_memory_allocated() / 2**30 if dev == "cuda" else float("nan")
-    log(f"ssm: phase {time.perf_counter() - t0:.1f} s, peak device memory {peak:.2f} GiB; "
-        f"launches {dict(counts)}")
+        counts = Counter()
+        g = torch.Generator(device=dev).manual_seed(4)
+
+        def rnd(*shape, dt=torch.bfloat16):
+            return torch.randn(shape, generator=g, device=dev).to(dt)
+
+        for arch in archs:
+            c, params, first = serve_batch(torch, log, arch, dev)
+            counts.update(c)
+            if configs.get_config(arch).arch_type == "hybrid":
+                c, params, first_rq = serve_batch(torch, log, arch, dev, rowquant=True,
+                                                  params=params)
+                counts.update(c)
+                rel = (first - first_rq).abs().max().item() / first.abs().max().item()
+                check(math.isfinite(rel) and rel <= LOGIT_RTOL,
+                      f"{arch}: first decode step logits dense vs rowquant differ by "
+                      f"{rel:.3e} of max |logit|")
+                log(f"ssm batch {arch}: first decode step logits dense vs rowquant: max "
+                    f"|diff| / max |logit| = {rel:.3e} (tol {LOGIT_RTOL})")
+            counts.update(serve_continuous(torch, log, arch, params, dev))
+            del params
+            route_invariance(torch, log, dev, rnd, configs.get_config(arch))
+            if dev == "cuda":
+                torch.cuda.empty_cache()
+        log(f"ssm: phase {time.perf_counter() - t0:.1f} s, peak device memory {peak():.2f} "
+            f"GiB; launches {dict(counts)}")
     return dict(counts)
 
 
@@ -2482,6 +2557,9 @@ MM_LAYERS = {"qwen2-vl-72b": 16, "seamless-m4t-large-v2": None}
 # Qwen2-VL's (t, h, w) positions (t = 16, h = 16 + row, w = 16 + col); the
 # text after it continues from 16 + 8 = 24 in all three streams
 MM_IMAGE = dict(start=16, rows=8, cols=8, scale=0.02, seed=6)
+# the smoke configs' card-vs-CPU checks (vlmaudio, mmtrain): a 2 x 4 grid at
+# positions 4-11
+MM_SMALL_IMAGE = dict(MM_IMAGE, start=4, rows=2, cols=4)
 
 
 def expected_mm_launches(model, rowquant: bool) -> dict:
@@ -2561,8 +2639,7 @@ def small_vlm_image(torch, log, dev="cuda"):
     splice and the per-row M-RoPE tables run on the card."""
     def prompt(setup, tokens):
         return vlm_image_prompt(torch, setup.cfg, setup.spec, setup.ms, tokens, setup.device,
-                                start=4, rows=2, cols=4, scale=MM_IMAGE["scale"],
-                                seed=MM_IMAGE["seed"])
+                                **MM_SMALL_IMAGE)
     small_phase(torch, log, "qwen2-vl-72b", prompt_fn=prompt)
 
 
@@ -2583,49 +2660,49 @@ def vlmaudio_phase(torch, log, dev="cuda", archs=MM_ARCHS):
     and peak device memory.  Returns the launches of the driven paths."""
     from collections import Counter
     t0 = time.perf_counter()
-    if dev == "cuda":
+    with phase_peak(torch, dev) as peak:
+        if dev == "cuda":
+            for arch in archs:
+                if arch == "qwen2-vl-72b":
+                    small_vlm_image(torch, log, dev)
+                else:
+                    small_phase(torch, log, arch)
+            if "seamless-m4t-large-v2" in archs:
+                small_rowquant(torch, log, dev, arch="seamless-m4t-large-v2")
+            torch.cuda.empty_cache()
+        counts = Counter()
+        g = torch.Generator(device=dev).manual_seed(7)
+
+        def rnd(*shape, dt=torch.bfloat16):
+            return torch.randn(shape, generator=g, device=dev).to(dt)
+
+        def image(setup, tokens):
+            return vlm_image_prompt(torch, setup.cfg, setup.spec, setup.ms, tokens, setup.device,
+                                    **MM_IMAGE)
+
         for arch in archs:
-            if arch == "qwen2-vl-72b":
-                small_vlm_image(torch, log, dev)
-            else:
-                small_phase(torch, log, arch)
-        if "seamless-m4t-large-v2" in archs:
-            small_rowquant(torch, log, dev, arch="seamless-m4t-large-v2")
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-    counts = Counter()
-    g = torch.Generator(device=dev).manual_seed(7)
-
-    def rnd(*shape, dt=torch.bfloat16):
-        return torch.randn(shape, generator=g, device=dev).to(dt)
-
-    def image(setup, tokens):
-        return vlm_image_prompt(torch, setup.cfg, setup.spec, setup.ms, tokens, setup.device,
-                                **MM_IMAGE)
-
-    for arch in archs:
-        cfg = mm_config(arch)
-        prompt_fn = image if cfg.arch_type == "vlm" else None
-        c, params, first = serve_batch(torch, log, cfg, dev, prompt_fn=prompt_fn)
-        counts.update(c)
-        c, params, first_rq = serve_batch(torch, log, cfg, dev, rowquant=True, params=params,
-                                          prompt_fn=prompt_fn)
-        counts.update(c)
-        rel = (first - first_rq).abs().max().item() / first.abs().max().item()
-        check(math.isfinite(rel) and rel <= LOGIT_RTOL, f"{cfg.name}: first decode step logits "
-              f"dense vs rowquant differ by {rel:.3e} of max |logit|")
-        log(f"vlmaudio batch {cfg.name}: first decode step logits dense vs rowquant: max |diff| "
-            f"/ max |logit| = {rel:.3e} (tol {LOGIT_RTOL})")
-        counts.update(serve_continuous(torch, log, cfg, params, dev))
-        del params
-        if dev == "cuda":
-            torch.cuda.empty_cache()
-        route_invariance(torch, log, dev, rnd, cfg)
-        if dev == "cuda":
-            torch.cuda.empty_cache()
-    peak = torch.cuda.max_memory_allocated() / 2**30 if dev == "cuda" else float("nan")
-    log(f"vlmaudio: phase {time.perf_counter() - t0:.1f} s, peak device memory {peak:.2f} GiB; "
-        f"launches {dict(counts)}")
+            cfg = mm_config(arch)
+            prompt_fn = image if cfg.arch_type == "vlm" else None
+            c, params, first = serve_batch(torch, log, cfg, dev, prompt_fn=prompt_fn)
+            counts.update(c)
+            c, params, first_rq = serve_batch(torch, log, cfg, dev, rowquant=True, params=params,
+                                              prompt_fn=prompt_fn)
+            counts.update(c)
+            rel = (first - first_rq).abs().max().item() / first.abs().max().item()
+            check(math.isfinite(rel) and rel <= LOGIT_RTOL,
+                  f"{cfg.name}: first decode step logits dense vs rowquant differ by "
+                  f"{rel:.3e} of max |logit|")
+            log(f"vlmaudio batch {cfg.name}: first decode step logits dense vs rowquant: max "
+                f"|diff| / max |logit| = {rel:.3e} (tol {LOGIT_RTOL})")
+            counts.update(serve_continuous(torch, log, cfg, params, dev))
+            del params
+            if dev == "cuda":
+                torch.cuda.empty_cache()
+            route_invariance(torch, log, dev, rnd, cfg)
+            if dev == "cuda":
+                torch.cuda.empty_cache()
+        log(f"vlmaudio: phase {time.perf_counter() - t0:.1f} s, peak device memory "
+            f"{peak():.2f} GiB; launches {dict(counts)}")
     return dict(counts)
 
 
@@ -3217,15 +3294,44 @@ SSM_TRAIN_MOMENT_BITS = {"mamba2-370m": None, "zamba2-7b": 8}
 SSM_TRAIN_BY_PART = {"mamba2-370m": False, "zamba2-7b": True}
 
 
-def ssm_small_train(torch, log, arch):
+def train_batches(torch, cfg, n, dev, seq, batch, seed, image=None):
+    """n batches of the synthetic corpus (``make_batch``, steps 0..n-1) with
+    `cfg`'s modality inputs, the reference's train inputs
+    (``configs/inputs.py:26-43``): VLM, the image block `image`
+    (``vlm_image_prompt``'s arguments: patch embeddings, ``vision_mask``,
+    Qwen2-VL's (t, h, w) positions), its labels -1 (no loss on image
+    tokens); audio, the frame stub 0.1 * normal of (batch, seq //
+    enc_frames_ratio, d) in bf16, drawn on the host as ``make_prompt_batch``
+    draws it.  The modality tensors are one set shared by every batch."""
+    from repro_torch.core import prng
+    from repro_torch.data import SyntheticLM, make_batch
+    data = SyntheticLM(cfg.vocab_size, seq, batch, seed=seed)
+    out = [make_batch(data, i, dev) for i in range(n)]
+    extra = {}
+    if cfg.arch_type == "vlm":
+        img = vlm_image_prompt(torch, cfg, None, None, out[0]["tokens"].cpu(), dev, **image)
+        extra = {k: img[k] for k in ("vision_embeds", "vision_mask", "positions")}
+    elif cfg.arch_type == "audio":
+        z = prng.normal(prng.PRNGKey(1), (batch, max(seq // cfg.enc_frames_ratio, 1),
+                                          cfg.d_model), dtype=torch.bfloat16)
+        extra = {"audio_embeds": (torch.tensor(0.1, dtype=torch.bfloat16) * z).to(dev)}
+    for b in out:
+        b.update(extra)
+        if "vision_mask" in extra:
+            b["labels"] = b["labels"].masked_fill(extra["vision_mask"], -1)
+    return out
+
+
+def small_train_step(torch, log, tag, arch, image=None):
     """One step of `arch`'s smoke config (f32 compute) on the card and on
-    the CPU from the same state: every gathered weight of the step (forward
-    and backward replay; the hybrid's shared block at each invocation)
-    byte-equal, loss and grad norm within the CPU tests' step tolerances."""
+    the CPU from the same state and batch (``train_batches`` at SMALL_TRAIN's
+    size, modality inputs included): every gathered weight of the step
+    (forward and backward replay; the hybrid's shared block at each
+    invocation, the audio encoder's under its own key scope) byte-equal,
+    loss and grad norm within the CPU tests' step tolerances."""
     from repro_torch import configs
     from repro_torch.core import prng
     from repro_torch.core.qsdp import MeshSpec, QSDPConfig
-    from repro_torch.data import SyntheticLM, make_batch
     from repro_torch.models.transformer import Model
     from repro_torch.optim import AdamWConfig, make_adamw
     from repro_torch.train.checkpoint import state_from_flat, state_to_flat
@@ -3235,62 +3341,62 @@ def ssm_small_train(torch, log, arch):
     model = Model(cfg, MeshSpec(("data", "model"), (1, 1)), QSDPConfig(compute_dtype="float32"))
     opt = make_adamw(AdamWConfig(lr=1e-3))
     flat = state_to_flat(init_train_state(model, opt, SMALL_TRAIN["seed"], "cpu"))
-    data = SyntheticLM(cfg.vocab_size, SMALL_TRAIN["seq"], SMALL_TRAIN["batch"],
-                       seed=SMALL_TRAIN["seed"])
+    batch = train_batches(torch, cfg, 1, "cpu", SMALL_TRAIN["seq"], SMALL_TRAIN["batch"],
+                          SMALL_TRAIN["seed"], image)[0]
     res = {}
     for dev in ("cuda", "cpu"):
         step = build_train_step(model, opt, n_micro=SMALL_TRAIN["n_micro"], device=dev)
         gathers = {}
         with hooked(model.engine, "_reshape_full", capture_gathers(model, gathers)):
-            _, m = step(state_from_flat(*flat, device=dev), make_batch(data, 0, dev),
-                        prng.PRNGKey(1))
+            _, m = step(state_from_flat(*flat, device=dev), batch, prng.PRNGKey(1))
         res[dev] = float(m["loss"]), float(m["grad_norm"]), gathers
     (lc, gc, wc), (lp, gp, wp) = res["cuda"], res["cpu"]
-    shared = sum(len(v) for k, v in wc.items() if k.startswith("shared/"))
-    check(wc == wp, f"ssmtrain small {arch}: gathered weight bytes differ between card and CPU")
-    check(all(map(math.isfinite, (lc, gc))), f"ssmtrain small {arch}: loss {lc}, norm {gc}")
+    grouped = {g: sum(len(v) for k, v in wc.items() if k.startswith(g + "/"))
+               for g in ("shared", "enc")}
+    check(wc == wp, f"{tag} small {arch}: gathered weight bytes differ between card and CPU")
+    check(all(map(math.isfinite, (lc, gc))), f"{tag} small {arch}: loss {lc}, norm {gc}")
     rl, rg = abs(lc - lp) / abs(lp), abs(gc - gp) / abs(gp)
     check(rl <= MOE_SMALL_LOSS_RTOL and rg <= MOE_SMALL_GNORM_RTOL,
-          f"ssmtrain small {arch}: card loss {lc} / grad norm {gc} vs CPU {lp} / {gp} (rel "
+          f"{tag} small {arch}: card loss {lc} / grad norm {gc} vs CPU {lp} / {gp} (rel "
           f"{rl:.2e} / {rg:.2e}, tol {MOE_SMALL_LOSS_RTOL} / {MOE_SMALL_GNORM_RTOL})")
-    log(f"ssmtrain small: {cfg.name} one f32 step card vs CPU: {sum(map(len, wc.values()))} "
-        f"gathers byte-equal ({shared} of the shared block's); loss {lc} vs {lp} (rel "
-        f"{rl:.2e}, tol {MOE_SMALL_LOSS_RTOL}), grad norm {gc} vs {gp} (rel {rg:.2e}, tol "
-        f"{MOE_SMALL_GNORM_RTOL})")
+    log(f"{tag} small: {cfg.name} one f32 step card vs CPU: {sum(map(len, wc.values()))} "
+        f"gathers byte-equal ({grouped['shared']} of the shared block's, {grouped['enc']} of "
+        f"the encoder's); loss {lc} vs {lp} (rel {rl:.2e}, tol {MOE_SMALL_LOSS_RTOL}), grad "
+        f"norm {gc} vs {gp} (rel {rg:.2e}, tol {MOE_SMALL_GNORM_RTOL})")
 
 
-def ssm_train_cell(torch, log, arch, dev="cuda"):
-    """`arch` (cut to SSM_TRAIN_LAYERS) at full width through
-    ``build_train_step``: default QSDPConfig, AdamW + cosine (moments of
-    SSM_TRAIN_MOMENT_BITS), TRAIN's batch, sequence, microbatches and
-    schedule.  Gates: step 0 twice bit-equal; K1/K2 launches of 3 timed steps
-    equal to the structure's; finite losses, the first within
-    FIRST_LOSS_ATOL of ln(vocab); no int64 threefry kernel in a profiled
-    step.  Prints step times, tokens/s, peak memory, launches per step and a
-    profiled step by part.  Returns the timed steps' launches."""
+def train_cell(torch, log, tag, arch, layers, moment_bits, profile, dev="cuda", image=None):
+    """`arch` at full width, cut to `layers` layers where not None, through
+    ``build_train_step``: default QSDPConfig, AdamW + cosine (8-bit moments
+    where `moment_bits`), TRAIN's batch, sequence, microbatches and schedule
+    (``train_batches``: the family's modality inputs, the VLM's image block
+    `image`).  Gates: step 0 twice bit-equal; K1/K2 launches of 3 timed
+    steps equal to the structure's; finite losses, the first within
+    FIRST_LOSS_ATOL of ln(vocab) + d s^2 / 2; no int64 threefry kernel in a
+    profiled step.  Prints step times, tokens/s, peak memory, launches per
+    step, for the SSM families the SSD decay mask's largest chunk exponent
+    per step, and the cell's seconds.  `profile`: "step" profiles one more
+    step, "by part" also one by part, None none.  Returns the timed steps'
+    launches."""
     import dataclasses as dc
     from repro_torch import configs
-    import repro_torch.models.attention as attn_mod
-    import repro_torch.models.layers as L
     import repro_torch.models.mamba as mamba_mod
     from repro_torch.core import prng
     from repro_torch.core.qsdp import MeshSpec, QSDPConfig
-    from repro_torch.data import SyntheticLM, make_batch
     from repro_torch.kernels import ops
     from repro_torch.models.transformer import Model
     from repro_torch.optim import AdamWConfig, cosine_schedule, make_adamw
     from repro_torch.train.step import build_train_step, init_train_state
 
-    tag = f"ssmtrain {arch}"
+    tag = f"{tag} {arch}"
+    t0 = time.perf_counter()
     full = configs.get_config(arch)
-    cut = SSM_TRAIN_LAYERS[arch]
-    cfg = full if cut is None else dc.replace(full, n_layers=cut)
+    cfg = full if layers is None else dc.replace(full, n_layers=layers)
     model = Model(cfg, MeshSpec(("data", "model"), (1, 1)), QSDPConfig())
     sched = cosine_schedule(TRAIN["lr"], TRAIN["warmup"], TRAIN["total"])
-    bits = SSM_TRAIN_MOMENT_BITS[arch]
-    opt = make_adamw(AdamWConfig(lr=TRAIN["lr"], schedule=sched, moment_bits=bits))
-    data = SyntheticLM(cfg.vocab_size, TRAIN["seq"], TRAIN["batch"], seed=TRAIN["seed"])
-    batches = [make_batch(data, i, dev) for i in range(1 + TRAIN_TIMED + 2)]
+    opt = make_adamw(AdamWConfig(lr=TRAIN["lr"], schedule=sched, moment_bits=moment_bits))
+    batches = train_batches(torch, cfg, 1 + TRAIN_TIMED + 2, dev, TRAIN["seq"], TRAIN["batch"],
+                            TRAIN["seed"], image)
     nm = TRAIN["n_micro"]
 
     def key(i):
@@ -3300,8 +3406,10 @@ def ssm_train_cell(torch, log, arch, dev="cuda"):
     state = init_train_state(model, opt, TRAIN["seed"], dev)
     step = build_train_step(model, opt, n_micro=nm, device=dev)
 
-    # each step's largest chunk exponent sum |dt a| of the SSD decay mask
-    # (exp overflows past 88.7), read from device scalars after the step
+    # the SSM families: each step's largest chunk exponent sum |dt a| of the
+    # SSD decay mask (exp overflows past 88.7), read from device scalars
+    # after the step
+    mamba = cfg.arch_type in ("ssm", "hybrid")
     exps, chunk_exp = [], []
 
     def record(orig):
@@ -3313,8 +3421,9 @@ def ssm_train_cell(torch, log, arch, dev="cuda"):
 
     def sync_step(i, st):
         out = timed_step(torch, step, st, batches[i], key(i))
-        chunk_exp.append(float(torch.stack(exps).max()))
-        exps.clear()
+        if mamba:
+            chunk_exp.append(float(torch.stack(exps).max()))
+            exps.clear()
         return out
 
     with hooked(mamba_mod, "segsum_decay", record):
@@ -3331,12 +3440,12 @@ def ssm_train_cell(torch, log, arch, dev="cuda"):
             times.append(dt)
         counts = dict(ops.LAUNCHES)
         peak = torch.cuda.max_memory_allocated()
-    want = expected_train_launches(model, nm, moments=bits is not None)
+    want = expected_train_launches(model, nm, moments=moment_bits is not None)
     check_train_launches(counts, want, tag)
     check(all(map(math.isfinite, losses + gnorms)), f"{tag}: losses {losses}, norms {gnorms}")
     # random logits of variance d * s^2 (unit-RMS final norm, head rows of
     # std s): E[loss] = ln(vocab) + d s^2 / 2, 0.73 above ln(vocab) at
-    # zamba2's d_model 3,584
+    # zamba2's d_model 3,584, 1.64 at qwen2-vl's 8,192
     s_head = model.specs["lm_head" if "lm_head" in model.specs else "embed"].init_scale
     first = math.log(cfg.vocab_size) + cfg.d_model * s_head ** 2 / 2
     check(abs(losses[0] - first) <= FIRST_LOSS_ATOL,
@@ -3344,11 +3453,13 @@ def ssm_train_cell(torch, log, arch, dev="cuda"):
     tok = TRAIN["batch"] * TRAIN["seq"]
     med = statistics.median(times)
     inv = shared_invocations(cfg)
-    shape = (f"{cfg.n_layers} of {full.n_layers} layers" if cut is not None
+    shape = (f"{cfg.n_layers} of {full.n_layers} layers" if layers is not None
              else f"{cfg.n_layers} layers") + (f", {inv} shared-block invocations" if inv else "")
+    if cfg.arch_type == "audio":
+        shape += f" and {cfg.n_enc_layers} encoder layers"
     log(f"{tag}: {cfg.name} at full width, {shape} ({n_params / 1e9:.3f} G params), batch "
         f"{TRAIN['batch']} x seq {TRAIN['seq']}, n_micro {nm}, "
-        f"{'8-bit' if bits else 'f32'} moments: {TRAIN_TIMED} timed steps median "
+        f"{'8-bit' if moment_bits else 'f32'} moments: {TRAIN_TIMED} timed steps median "
         f"{med * 1e3:.1f} ms (min {min(times) * 1e3:.1f}, max {max(times) * 1e3:.1f}), "
         f"{tok / med:.1f} tokens/s; peak memory {peak / 2**30:.2f} GiB of "
         f"{torch.cuda.get_device_properties(0).total_memory / 2**30:.2f}"
@@ -3356,10 +3467,11 @@ def ssm_train_cell(torch, log, arch, dev="cuda"):
     log(f"{tag}: losses {[round(x, 4) for x in losses]}, grad norms "
         f"{[round(x, 4) for x in gnorms]}; first loss {losses[0]:.4f} (ln {cfg.vocab_size} = "
         f"{math.log(cfg.vocab_size):.4f}, + d s^2 / 2 = {first:.4f})")
-    log(f"{tag}: largest chunk exponent sum |dt a| of the SSD decay mask per step (step 0 "
-        f"twice, then the timed steps) {[round(x, 2) for x in chunk_exp]}: exp overflows past "
-        f"88.7, where the reference's mask (exp, then where) has a NaN gradient; the port's "
-        f"masks inside the exponent")
+    if mamba:
+        log(f"{tag}: largest chunk exponent sum |dt a| of the SSD decay mask per step (step 0 "
+            f"twice, then the timed steps) {[round(x, 2) for x in chunk_exp]}: exp overflows "
+            f"past 88.7, where the reference's mask (exp, then where) has a NaN gradient; the "
+            f"port's masks inside the exponent")
     log(f"{tag}: launches in {TRAIN_TIMED} steps {counts}; per step K1 "
         f"{want['quantize_pack']} = {nm} microbatches x (forward, replay, gradient) tensors "
         f"{want['per_micro']} + {want['moment_codes']} moment encodes, K2 "
@@ -3370,20 +3482,39 @@ def ssm_train_cell(torch, log, arch, dev="cuda"):
     # int64 kernel), then one with its parts in named ranges (host time
     # added: its busy share is not the step's)
     i = 1 + TRAIN_TIMED
-    prof = profile_train_step(torch, lambda st: step(st, batches[i], key(i)), state, log,
-                              tag=tag)
-    check(prof["threefry_int64"] == 0,
-          f"{tag}: {prof['threefry_int64']} int64 bitwise/shift kernels in the profiled step")
-    log(f"{tag}: profiled step: busy {prof['busy_ms']:.1f} ms of {prof['wall_ms']:.1f} ms "
-        f"wall ({100 * prof['busy_ms'] / max(prof['wall_ms'], 1e-9):.1f}%) in "
-        f"{prof.get('kernels', 0)} kernels; K1 {prof['k1_ms']:.1f} ms in {prof['k1_n']} "
-        f"launches, K2 {prof['k2_ms']:.1f} ms in {prof['k2_n']}; int64 bitwise/shift kernels "
-        f"{prof['threefry_int64']}")
-    if not SSM_TRAIN_BY_PART[arch]:
-        del state, step
-        if dev == "cuda":
-            torch.cuda.empty_cache()
-        return counts
+    if profile is not None:
+        prof = profile_train_step(torch, lambda st: step(st, batches[i], key(i)), state, log,
+                                  tag=tag)
+        check(prof["threefry_int64"] == 0,
+              f"{tag}: {prof['threefry_int64']} int64 bitwise/shift kernels in the profiled "
+              "step")
+        log(f"{tag}: profiled step: busy {prof['busy_ms']:.1f} ms of {prof['wall_ms']:.1f} ms "
+            f"wall ({100 * prof['busy_ms'] / max(prof['wall_ms'], 1e-9):.1f}%) in "
+            f"{prof.get('kernels', 0)} kernels; K1 {prof['k1_ms']:.1f} ms in {prof['k1_n']} "
+            f"launches, K2 {prof['k2_ms']:.1f} ms in {prof['k2_n']}; int64 bitwise/shift "
+            f"kernels {prof['threefry_int64']}")
+    if profile == "by part":
+        profile_by_part(torch, log, tag, model, opt, nm, state, batches[i + 1], key(i + 1),
+                        "shared MLP" if cfg.arch_type == "hybrid" else "MLP", dev)
+    del state, step
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    log(f"{tag}: cell {time.perf_counter() - t0:.1f} s")
+    return counts
+
+
+def profile_by_part(torch, log, tag, model, opt, nm, state, batch, key, mlp, dev):
+    """One train step of `model` (`nm` microbatches of `batch` under `key`)
+    under torch.profiler with its parts in named ranges (RANGES: gathers,
+    attention, cross-attention, the MLP as `mlp`, the Mamba2 mixer, SSD scan
+    and conv, logits/xent, optimizer); logs the device ms and kernels of
+    each part (``step_breakdown``)."""
+    import dataclasses as dc
+    import repro_torch.models.attention as attn_mod
+    import repro_torch.models.layers as L
+    import repro_torch.models.mamba as mamba_mod
+    from repro_torch.train.step import build_train_step
+
     rng = {v: k for k, v in RANGES.items()}
     step_p = build_train_step(model, dc.replace(opt, update=annotated(
         torch, opt.update, rng["optimizer"])), n_micro=nm, device=dev)
@@ -3391,16 +3522,17 @@ def ssm_train_cell(torch, log, arch, dev="cuda"):
                 lambda o: annotated(torch, o, rng["gathers"])), \
             hooked(attn_mod, "self_attention",
                    lambda o: annotated(torch, o, rng["attention"])), \
-            hooked(L, "swiglu_mlp", lambda o: annotated(torch, o, rng["shared MLP"])), \
+            hooked(attn_mod, "cross_attention",
+                   lambda o: annotated(torch, o, rng["cross-attention"])), \
+            hooked(L, "swiglu_mlp", lambda o: annotated(torch, o, rng[mlp])), \
             hooked(mamba_mod, "mamba2_block",
                    lambda o: annotated(torch, o, rng["mixer elementwise"])), \
             hooked(mamba_mod, "ssd_chunked", lambda o: annotated(torch, o, rng["SSD scan"])), \
             hooked(mamba_mod, "_causal_conv", lambda o: annotated(torch, o, rng["conv"])), \
             hooked(L, "vocab_parallel_xent",
                    lambda o: annotated(torch, o, rng["logits/xent"])):
-        prof = profile_train_step(
-            torch, lambda st: step_p(st, batches[i + 1], key(i + 1)), state, log,
-            tag=f"{tag} by part", breakdown=step_breakdown)
+        prof = profile_train_step(torch, lambda st: step_p(st, batch, key), state, log,
+                                  tag=f"{tag} by part", breakdown=step_breakdown)
     parts = dict(prof["parts"] or {})
     matched, other = parts.pop("_matched", None), parts.pop("_other", [])
     log(f"{tag}: profiled step by part (device ms, kernels): "
@@ -3408,25 +3540,78 @@ def ssm_train_cell(torch, log, arch, dev="cuda"):
                     sorted(parts.items(), key=lambda kv: -kv[1][0]))
         + f"; backward nodes placed by their forward op's range {matched}; most of other: "
         + "; ".join(f"{ms:.1f} ms {name[:60]}" for name, ms in other))
-    del state, step, step_p
-    if dev == "cuda":
-        torch.cuda.empty_cache()
-    return counts
 
 
 def ssmtrain_phase(torch, log, dev="cuda", archs=SSM_ARCHS):
     """The SSM and hybrid families trained: each smoke config one f32 step
-    card vs CPU (``ssm_small_train``), then each of `archs` through
-    ``ssm_train_cell``.  Returns the timed steps' launches, summed."""
+    card vs CPU (``small_train_step``), then each of `archs` through
+    ``train_cell`` (SSM_TRAIN_*).  Returns the timed steps' launches,
+    summed."""
     t0 = time.perf_counter()
     if dev == "cuda":
         for arch in archs:
-            ssm_small_train(torch, log, arch)
+            small_train_step(torch, log, "ssmtrain", arch)
     counts = {}
     for arch in archs:
-        for k, v in ssm_train_cell(torch, log, arch, dev).items():
+        profile = "by part" if SSM_TRAIN_BY_PART[arch] else "step"
+        for k, v in train_cell(torch, log, "ssmtrain", arch, SSM_TRAIN_LAYERS[arch],
+                               SSM_TRAIN_MOMENT_BITS[arch], profile, dev).items():
             counts[k] = counts.get(k, 0) + v
     log(f"ssmtrain: phase {time.perf_counter() - t0:.1f} s")
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 8d: VLM and audio training
+# ---------------------------------------------------------------------------
+
+# qwen2-vl-72b trains at full width cut to 2 of 80 layers (3.00 G
+# parameters: 2 x 877.7 M and the 1,245.7 M-value tied embedding), with
+# 8-bit moments: the f32 master, two sets of f32 gradients during the
+# second microbatch's backward and the moment codes take ~14 bytes a
+# parameter, and the cross-entropy's f32 copies of the embedding and of the
+# (4,096 x 152,064) logits, or the update's f32 temporaries on the
+# embedding, ~20 GB more.  3 layers (3.88 G) ran out of the card's 79.18
+# GiB in the update of the first timed step: 59.67 GiB allocated and 15.06
+# GiB reserved but free, in blocks too small for a 4.64 GiB temporary.
+# seamless-m4t-large-v2 at full width and depth (24 encoder and 24 decoder
+# layers, 2.04 G parameters), f32 moments
+MM_TRAIN_LAYERS = {"qwen2-vl-72b": 2, "seamless-m4t-large-v2": None}
+MM_TRAIN_MOMENT_BITS = {"qwen2-vl-72b": 8, "seamless-m4t-large-v2": None}
+# the profiled steps: qwen2-vl-72b's, and one by part (device-bound: the f32
+# logits and cross-entropy lead).  seamless-m4t-large-v2's step is
+# host-bound (41.0 % busy in 77,815 kernels, NVIDIA H100 80GB HBM3,
+# 700.00 W); its profile, a trace of that size, was a cut of the time
+# budget, like mamba2-370m's by-part step (ROADMAP, chip_smoke budget)
+MM_TRAIN_PROFILE = {"qwen2-vl-72b": "by part", "seamless-m4t-large-v2": None}
+# the image block of each row of the VLM train batch: a 16 x 32 grid of
+# patch embeddings (random bf16, scale 0.02) at positions 64-575, with
+# Qwen2-VL's (t, h, w) positions; the text after it continues from 64 + 32
+# in all three streams; no loss on its 512 tokens (labels -1)
+MM_TRAIN_IMAGE = dict(start=64, rows=16, cols=32, scale=0.02, seed=6)
+
+
+def mmtrain_phase(torch, log, dev="cuda", archs=MM_ARCHS):
+    """The VLM and audio families trained: each smoke config one f32 step
+    card vs CPU (``small_train_step``; qwen2-vl's batch with an image
+    block), then each of `archs` through ``train_cell`` (MM_TRAIN_*): the
+    VLM's batches carry MM_TRAIN_IMAGE, the audio model's the frame stub of
+    seq // 2 = 1,024 frames.  Prints the phase's seconds and peak device
+    memory.  Returns the timed steps' launches, summed."""
+    t0 = time.perf_counter()
+    counts = {}
+    with phase_peak(torch, dev) as peak:
+        if dev == "cuda":
+            for arch in archs:
+                small_train_step(torch, log, "mmtrain", arch, image=MM_SMALL_IMAGE)
+            torch.cuda.empty_cache()
+        for arch in archs:
+            for k, v in train_cell(torch, log, "mmtrain", arch, MM_TRAIN_LAYERS[arch],
+                                   MM_TRAIN_MOMENT_BITS[arch], MM_TRAIN_PROFILE[arch], dev,
+                                   image=MM_TRAIN_IMAGE).items():
+                counts[k] = counts.get(k, 0) + v
+        log(f"mmtrain: phase {time.perf_counter() - t0:.1f} s, peak device memory "
+            f"{peak():.2f} GiB")
     return counts
 
 
@@ -3438,10 +3623,11 @@ def ssmtrain_phase(torch, log, dev="cuda", archs=SSM_ARCHS):
 # run of each table, and the theory table's seeds; then Table 1 at gpt-125m
 # (full width and depth), batch 8 x seq 512: a cut of the paper's
 # pretraining to full_steps steps.  Cuts, were the phase too long for a
-# call, in this order: full_steps, then theory_seeds 8 -> 4, then the
-# bench model's steps; no gate's band changes.
+# call, in this order: full_steps (100 -> 50 to make room for the mmtrain
+# phase), then theory_seeds 8 -> 4, then the bench model's steps; no gate's
+# band changes.
 EXP = dict(table1=240, table2=160, table3=160, fig78=160, theory_seeds=8,
-           full_steps=100, full_batch=8, full_seq=512)
+           full_steps=50, full_batch=8, full_seq=512)
 EXP_RESULTS = "results/torch_bench"
 
 
@@ -3697,15 +3883,17 @@ def profile_train_step(torch, run_step, state, log, tag="train", breakdown=None)
                 parts=breakdown(events) if breakdown is not None else None)
 
 
-# record_function ranges the moetrain and ssmtrain phases put around the
-# parts of a step: a layer's gathers, attention, the MoE layer, the Mamba2
-# mixer and, inside it, the SSD scan and the causal convs, the shared
-# block's MLP, the logits/cross-entropy and the optimizer update
+# record_function ranges the moetrain, ssmtrain and mmtrain phases put
+# around the parts of a step: a layer's gathers, attention, the decoder's
+# cross-attention, the MoE layer, the Mamba2 mixer and, inside it, the SSD
+# scan and the causal convs, the shared block's MLP or a layer's, the
+# logits/cross-entropy and the optimizer update
 RANGES = {"chip_smoke::gathers": "gathers", "chip_smoke::self_attention": "attention",
+          "chip_smoke::cross_attention": "cross-attention",
           "chip_smoke::moe_layer": "dispatch/combine", "chip_smoke::xent": "logits/xent",
           "chip_smoke::optimizer": "optimizer", "chip_smoke::mamba2_block": "mixer elementwise",
           "chip_smoke::ssd_chunked": "SSD scan", "chip_smoke::causal_conv": "conv",
-          "chip_smoke::swiglu_mlp": "shared MLP"}
+          "chip_smoke::swiglu_mlp": "shared MLP", "chip_smoke::mlp": "MLP"}
 _EVAL = "autograd::engine::evaluate_function:"
 # backward nodes of the port's own autograd Functions, by name
 NODE_PARTS = {"_GatherLayer": "gathers", "_GatherOne": "gathers",

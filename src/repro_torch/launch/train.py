@@ -9,7 +9,11 @@ hybrid families on one card, with flag parity to the JAX package's
 plain versions of the kernels on the CPU.  Uses the deterministic synthetic
 Markov corpus, so loss curves are reproducible.  Flags of the JAX launcher
 that need more than one rank, and the comm-policy knobs that come with
-them, exit with an error naming the ROADMAP item that brings them.
+them, exit with an error naming the ROADMAP item that brings them.  The
+VLM and audio families exit with an error too: their batches carry
+modality inputs that the corpus does not give (the JAX launcher feeds the
+same corpus and fails in ``loss_fn``); they train through
+``train.step.build_train_step`` on a batch that carries them.
 """
 from __future__ import annotations
 
@@ -30,6 +34,9 @@ from ..train.step import build_train_step, init_train_state, quantize_train_stat
 
 # flags of the JAX launcher this port does not run yet: (flag, ROADMAP item)
 _NOT_PORTED = (("--hierarchical", "A3b"), ("--prefetch", "A4b"), ("--plan", "A12"))
+# families whose train batch carries inputs beside the tokens and labels
+_MODALITY_INPUTS = {"vlm": "vision_embeds, vision_mask and M-RoPE positions",
+                    "audio": "audio_embeds"}
 
 
 def build_qsdp(args) -> QSDPConfig:
@@ -41,6 +48,12 @@ def build_qsdp(args) -> QSDPConfig:
 
 
 def validate_args(ap: argparse.ArgumentParser, args) -> None:
+    family = configs.get_config(args.arch).arch_type
+    if family in _MODALITY_INPUTS:
+        ap.error(f"--arch {args.arch}: a {family} model trains on batches that carry "
+                 f"{_MODALITY_INPUTS[family]}, which the synthetic corpus does not give "
+                 "(nor does the JAX package's launcher); train it through "
+                 "train.step.build_train_step with such a batch")
     for flag, item in _NOT_PORTED:
         if getattr(args, flag[2:].replace("-", "_")) not in (None, False):
             ap.error(f"{flag} is not ported yet (ROADMAP {item})")

@@ -544,31 +544,25 @@ class DecodeModel:
 
     def _prefill_audio(self, params, batch, x, key, cos, sin, positions, cache):
         """The audio prefill (reference ``decode.py:1023-1074``): the
-        encoder stack over ``batch["audio_embeds"]`` (B, S_enc, d) with 1-D
-        RoPE over its frames, layer i gathered under ``fold_in(fold_in(key,
-        3000), i)``, then ``enc_final_norm`` gathered under `key`; then each
-        decoder layer under ``fold_in(key, i)``, which writes its
+        encoder over ``batch["audio_embeds"]`` (B, S_enc, d), the training
+        forward's (``Model._encode``: layer i gathered under
+        ``fold_in(fold_in(key, 3000), i)``, ``enc_final_norm`` under `key`),
+        its layers gathered as the decode path gathers; then each decoder
+        layer under ``fold_in(key, i)``, which writes its
         self-attention ring and its cross KV, the first enc_len frames of
         ``memory @ xwk`` / ``memory @ xwv`` in bf16, into the first rows of
         `cache`."""
         m, cfg = self.m, self.m.cfg
-        audio = batch["audio_embeds"].to(m.compute_dtype)
-        b, s_enc, _ = audio.shape
+        b, s_enc, _ = batch["audio_embeds"].shape
         e_loc = self.spec.enc_len // self.tp
         if s_enc < self.spec.enc_len:
             raise ValueError(f"audio_embeds has {s_enc} frames, the cross KV holds "
                              f"enc_len = {self.spec.enc_len}")
-        pe = torch.arange(s_enc, device=audio.device)
-        cos_e, sin_e = L.rope_cos_sin(pe, cfg.head_dim, cfg.rope_theta)
-        ekey = prng.fold_in(key, 3000)
         grp = m._group(params, "enc")
         names = list(grp)
-        mem = audio
-        for i in range(_n_layers(grp)):
-            w = self._gather_layer_w("enc", names, _layer(grp, i), prng.fold_in(ekey, i))
-            mem = m._enc_layer(mem, w, cos_e, sin_e, pe)
-        efn = m.engine.gather("enc_final_norm", params["enc_final_norm"], key)
-        mem = L.rms_norm(mem, efn, cfg.norm_eps)
+        layers = [tuple(_layer(grp, i)[n] for n in names) for i in range(_n_layers(grp))]
+        mem = m._encode(params, batch["audio_embeds"], key, layers=(names, layers),
+                        gather=lambda pfx, w, lkey: self._gather_layer_w(pfx, list(w), w, lkey))
         grp = m._group(params, "dec")
         names = list(grp)
         kv_shape = (b, s_enc, m.acfg.kv_local, cfg.head_dim)
@@ -750,13 +744,7 @@ class DecodeModel:
             raise ValueError(f"a prompt of {s} tokens is shorter than the {cfg.arch_type} "
                              f"prefill's minimum of {self.min_prompt_len} (the Mamba2 conv "
                              "state holds the last conv_k - 1 prompt tokens)")
-        emb = m.engine.gather("embed", params["embed"], key)
-        x = L.embed_vocab_parallel(tokens, emb)
-        if cfg.arch_type == "vlm":
-            x = torch.where(batch["vision_mask"][..., None],
-                            batch["vision_embeds"].to(x.dtype), x)
-        positions = torch.arange(s, device=tokens.device)
-        cos, sin = m._rope(positions, batch)
+        emb, x, positions, cos, sin = m._embed(params, batch, key)
         if cfg.arch_type in ("ssm", "hybrid"):
             x = self._prefill_mamba(params, x, key, cos, sin, positions, cache)
         elif cfg.arch_type == "audio":

@@ -1,8 +1,8 @@
 """Model composition: parameter specs of all six families, the bound QSDP
-engine, the training forward of the dense, MoE, SSM and hybrid families
-and the layer forwards the VLM and audio families serve with (the JAX
-package's ``models/transformer.py``; training the VLM and audio families is
-ROADMAP A11g).  Serving runs through ``models/decode.py``.
+engine and the training forward of every family (the JAX package's
+``models/transformer.py``).  Serving runs through ``models/decode.py``,
+which shares the embedding (the VLM's vision splice and rotary tables
+included) and the audio encoder with the training forward.
 
 Parameters live in the engine's rest layout, ``(stack?, 1, 1, n_local)`` on
 the one-rank mesh, and are gathered per layer — quantized — inside every
@@ -38,8 +38,13 @@ quantization keys never equal the decoder's, which shares its short names)
 and ``enc_final_norm``; a decoder stack ``dec/`` whose layers add
 cross-attention (``dec/x{wq,wk,wv,wo}``, no rotation, full mask) over the
 encoder's output between self-attention and the MLP; and an untied
-``lm_head``.  The VLM family is the dense stack with M-RoPE: three position
-streams (temporal, height, width) rotate sections of the frequencies.
+``lm_head``.  Both stacks are checkpointed layer by layer; the encoder's
+output enters every checkpointed decoder body as an explicit input, so its
+gradient, the sum of one cross-attention contribution per decoder layer,
+flows back into the encoder under either remat policy.  The VLM family is
+the dense stack with M-RoPE: three position streams (temporal, height,
+width) rotate sections of the frequencies, and the batch's vision
+embeddings replace the token embeddings where ``vision_mask`` is set.
 """
 from __future__ import annotations
 
@@ -140,10 +145,6 @@ def _mamba_specs(m: MambaConfig, stack: Optional[int], out_scale: float) -> dict
     }
 
 
-# families whose training forward is not ported yet -> their ROADMAP item
-_UNTRAINED = {"vlm": "A11g", "audio": "A11g"}
-
-
 def _norm_spec(d: int, stack: Optional[int]) -> ParamSpec:
     return ParamSpec((d,), tp_axis=None, stack=stack, init="ones", quantize=False)
 
@@ -238,26 +239,71 @@ class Model:
 
     def loss_fn(self, params: Params, batch: dict, key: prng.Key) -> torch.Tensor:
         """Mean token cross-entropy of one microbatch, {"tokens", "labels"}
-        (B, S), plus the MoE layers' load-balance loss; every weight
-        gathered quantized under `key`."""
-        cfg, eng = self.cfg, self.engine
-        if cfg.arch_type in _UNTRAINED:
-            raise NotImplementedError(
-                f"training the {cfg.arch_type} family is not ported yet (ROADMAP "
-                f"{_UNTRAINED[cfg.arch_type]}); the port serves it")
-        tokens = batch["tokens"]
-        b, s = tokens.shape
-        emb = eng.gather("embed", params["embed"], key)
-        x = L.embed_vocab_parallel(tokens, emb)
-        positions = torch.arange(s, device=tokens.device)
-        cos, sin = self._rope(positions)
+        (B, S) with the family's modality inputs (VLM: "vision_embeds" (B, S,
+        d), "vision_mask" (B, S), "positions" (3, B, S); audio:
+        "audio_embeds" (B, S_enc, d)), plus the MoE layers' load-balance
+        loss; every weight gathered quantized under `key`."""
+        if self.cfg.arch_type == "audio":
+            return self._loss_encdec(params, batch, key)
+        emb, x, positions, cos, sin = self._embed(params, batch, key)
         x, aux = self._run_stack(params, x, key, cos, sin, positions)
-        fn = eng.gather("final_norm", params["final_norm"], key)
-        x = L.rms_norm(x, fn, cfg.norm_eps)
-        head = emb if cfg.tie_embeddings else eng.gather("lm_head", params["lm_head"], key)
-        loss = L.vocab_parallel_xent(x.reshape(b * s, -1), head,
-                                     batch["labels"].reshape(b * s))
+        loss = self._head_loss(params, x, emb, batch["labels"], key)
         return loss if aux is None else loss + aux.to(loss.dtype)
+
+    def _embed(self, params: Params, batch: dict, key: prng.Key):
+        """(gathered embedding, x (B, S, d), positions arange(S), cos, sin)
+        of the tokens: the VLM's vision embeddings, cast to the compute
+        dtype, replace the token embeddings where ``vision_mask`` is set
+        (reference ``transformer.py:241``); the rotary tables are M-RoPE's
+        per-row ones where the model has M-RoPE.  The training forward and
+        the prefill start here."""
+        tokens = batch["tokens"]
+        emb = self.engine.gather("embed", params["embed"], key)
+        x = L.embed_vocab_parallel(tokens, emb)
+        if self.cfg.arch_type == "vlm":
+            x = torch.where(batch["vision_mask"][..., None],
+                            batch["vision_embeds"].to(x.dtype), x)
+        positions = torch.arange(tokens.shape[1], device=tokens.device)
+        return (emb, x, positions) + self._rope(positions, batch)
+
+    def _head_loss(self, params: Params, x, emb, labels, key: prng.Key) -> torch.Tensor:
+        """``final_norm``, then the cross-entropy of the (tied or untied)
+        head's logits against `labels` (B, S; negative labels masked)."""
+        cfg, eng = self.cfg, self.engine
+        x = L.rms_norm(x, eng.gather("final_norm", params["final_norm"], key), cfg.norm_eps)
+        head = emb if cfg.tie_embeddings else eng.gather("lm_head", params["lm_head"], key)
+        return L.vocab_parallel_xent(x.reshape(-1, x.shape[-1]), head, labels.reshape(-1))
+
+    def _loss_encdec(self, params: Params, batch: dict, key: prng.Key) -> torch.Tensor:
+        """The audio family's loss (reference ``_loss_encdec``,
+        ``transformer.py:426-453``): the encoder over ``batch["audio_embeds"]``
+        (:meth:`_encode`), then the embedding and the decoder stack under
+        `key`, every decoder layer cross-attending to the encoder's output,
+        then the head."""
+        mem = self._encode(params, batch["audio_embeds"], key)
+        emb, x, positions, cos, sin = self._embed(params, batch, key)
+        names, layers = self._unbind_stack(params, "dec")
+        x = self._scan_layers("dec", names, layers, x, key, cos, sin, positions,
+                              self._dec_layer, memory=mem)
+        return self._head_loss(params, x, emb, batch["labels"], key)
+
+    def _encode(self, params: Params, audio, key: prng.Key, layers=None, gather=None):
+        """The audio encoder over the frame embeddings `audio` (B, S_enc, d),
+        cast to the compute dtype: 1-D RoPE over the frames, non-causal
+        layers, layer i gathered under ``fold_in(fold_in(key, 3000), i)``
+        inside its checkpointed body; then ``enc_final_norm`` gathered under
+        `key`.  The loss and the audio prefill both run it; the prefill
+        passes its own `layers` ((names, per layer the tuple of its slices),
+        wire-form slices included) and `gather` (see :meth:`_scan_layers`)."""
+        cfg = self.cfg
+        audio = audio.to(self.compute_dtype)
+        pe = torch.arange(audio.shape[1], device=audio.device)
+        cos, sin = L.rope_cos_sin(pe, cfg.head_dim, cfg.rope_theta)
+        names, lws = self._unbind_stack(params, "enc") if layers is None else layers
+        mem = self._scan_layers("enc", names, lws, audio, prng.fold_in(key, 3000), cos, sin, pe,
+                                self._enc_layer, gather=gather)
+        efn = self.engine.gather("enc_final_norm", params["enc_final_norm"], key)
+        return L.rms_norm(mem, efn, cfg.norm_eps)
 
     def _rope(self, positions, batch: Optional[dict] = None):
         """(cos, sin) of the rotary embedding at `positions` (S,); M-RoPE
@@ -297,7 +343,10 @@ class Model:
 
     def _checkpoint(self, fn, *args):
         """``fn(*args)`` with its activations rematerialized in the backward
-        (the gathers inside replay) under the remat policy."""
+        (the gathers inside replay) under the remat policy; a plain call
+        where autograd records nothing (the prefill)."""
+        if not torch.is_grad_enabled():
+            return fn(*args)
         kw = dict(use_reentrant=False, preserve_rng_state=False)
         if self.qcfg.remat_policy == "dots":
             kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts,
@@ -305,22 +354,28 @@ class Model:
         return checkpoint(fn, *args, **kw)
 
     def _scan_layers(self, prefix, names, layers, x, key, cos, sin, positions, layer_fn,
-                     carry_aux=False):
+                     carry_aux=False, memory=None, gather=None):
         """Run the layers `layers` (each a tuple of slices of `names`),
         gathering layer i's weights under ``fold_in(key, i)`` inside its
         checkpointed body (the reference's rematerialized scan, non-prefetch
-        branch).  With `carry_aux` the body carries (x, aux), aux starting at
-        an f32 zero; returns the carry."""
-        eng = self.engine
+        branch), by ``gather(prefix, {name: slice}, key)`` (the engine's
+        coalesced ``gather_layer`` unless given).  With `carry_aux` the body
+        carries (x, aux), aux starting at an f32 zero; with `memory` (the
+        audio encoder's output) every body takes it as an explicit input and
+        hands it to ``layer_fn`` after `positions`.  Returns the carry."""
+        if gather is None:
+            def gather(pfx, w, lkey):
+                return self.engine.gather_layer(f"{pfx}/", w, lkey)
 
-        def body(x, aux, idx, *lw):
-            w = eng.gather_layer(f"{prefix}/", dict(zip(names, lw)), prng.fold_in(key, idx))
-            return layer_fn((x, aux) if carry_aux else x, w, cos, sin, positions)
+        def body(x, aux, mem, idx, *lw):
+            w = gather(prefix, dict(zip(names, lw)), prng.fold_in(key, idx))
+            extra = () if mem is None else (mem,)
+            return layer_fn((x, aux) if carry_aux else x, w, cos, sin, positions, *extra)
 
         carry = (x, torch.zeros((), dtype=torch.float32, device=x.device)) if carry_aux else x
         for idx, lw in enumerate(layers):
             args = carry if carry_aux else (carry, None)
-            carry = self._checkpoint(body, *args, idx, *lw)
+            carry = self._checkpoint(body, *args, memory, idx, *lw)
         return carry
 
     def _hybrid_stack(self, params, x, key, cos, sin, positions):

@@ -95,14 +95,29 @@ def dequantize_train_state(state: TrainState) -> TrainState:
                                    nu=_decode_leaves(state.opt.nu, copy=True)))
 
 
+def _split(name: str, x: torch.Tensor, n_micro: int) -> torch.Tensor:
+    """Batch leaf `name` as (n_micro, microbatch...): split on its batch
+    axis, axis 0 but for M-RoPE's "positions" (3, B, S), whose batch axis is
+    1 (reference ``train/step.py:182-193``); microbatch i holds rows i *
+    B / n_micro onwards."""
+    ax = 1 if name == "positions" else 0
+    b = x.shape[ax]
+    if b % n_micro:
+        raise ValueError(f"batch {name} of {b} rows does not split into {n_micro} "
+                         "microbatches")
+    x = x.movedim(ax, 0)
+    return x.reshape(n_micro, b // n_micro, *x.shape[1:]).movedim(1, ax + 1)
+
+
 def build_train_step(model: Model, optimizer: Optimizer, n_micro: int = 1,
                      grad_clip: float = 1.0, quantize_master: bool = False,
                      master_bits: int = 8, quantized_state: bool = False, device=None):
     """Returns ``step(state, batch, key) -> (state, metrics)``.  Runs on the
     card unless `device` says otherwise (raises when there is no card and
-    none was asked for); `batch` ({"tokens", "labels"} (B, S)) is moved
-    there.  metrics: loss (microbatch mean), grad_norm (before clipping),
-    step."""
+    none was asked for); `batch` ({"tokens", "labels"} (B, S), and the
+    family's modality inputs, see ``Model.loss_fn``) is moved there and
+    split into `n_micro` microbatches on each leaf's batch axis.  metrics:
+    loss (microbatch mean), grad_norm (before clipping), step."""
     device = resolve_device(device)
     if quantize_master and quantized_state:
         raise ValueError("quantize_master and quantized_state are mutually exclusive")
@@ -111,12 +126,7 @@ def build_train_step(model: Model, optimizer: Optimizer, n_micro: int = 1,
         params = _decode_leaves(state.params) if quantized_state else state.params
         names = sorted(params)
         leaves = {k: v.detach().requires_grad_() for k, v in params.items()}
-        micro = {}
-        for k, x in batch.items():
-            if x.shape[0] % n_micro:
-                raise ValueError(f"batch {k} of {x.shape[0]} rows does not split into "
-                                 f"{n_micro} microbatches")
-            micro[k] = x.to(device).reshape(n_micro, x.shape[0] // n_micro, *x.shape[1:])
+        micro = {k: _split(k, x.to(device), n_micro) for k, x in batch.items()}
         acc, losses = None, []
         for i in range(n_micro):
             loss = model.loss_fn(leaves, {k: v[i] for k, v in micro.items()},

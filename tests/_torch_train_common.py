@@ -2,17 +2,19 @@
 the port against the JAX package, on the CPU.
 
 gpt-1.3b smoke config (or another arch's, ``models(arch=...)``) on the
-(1, 1) mesh.  The JAX train state goes through
-``weights.train_state_from_jax`` (the checkpoint's flat form) into the
-port, so both packages start every step from the same state; batches are
-made with numpy and handed to both.  The JAX step is
-``make_jitted_train_step(..., mesh11, donate=False)`` on its jnp backend.
+(1, 1) mesh; a VLM or audio arch's batches carry its modality inputs.  The
+JAX train state goes through ``weights.train_state_from_jax`` (the
+checkpoint's flat form) into the port, so both packages start every step
+from the same state; batches are made with numpy and handed to both.  The
+JAX step is ``make_jitted_train_step(..., mesh11, donate=False)`` on its
+jnp backend.
 """
 import dataclasses
 import hashlib
 
 import jax
 import jax.numpy as jnp
+import ml_dtypes
 import numpy as np
 import torch
 from jax.sharding import NamedSharding, PartitionSpec as P
@@ -71,10 +73,48 @@ def models(baseline=False, arch="gpt-1.3b", **qkw):
             Model(tconfigs.get_smoke(arch), MS, tq))
 
 
-def batches(n):
+# the VLM train batch's image block: a 2 x 4 patch grid at positions 4-11 of
+# every row, its labels masked (-1), as a caption's image tokens are
+IMAGE = dict(start=4, rows=2, cols=4)
+
+
+def batches(n, cfg=None):
+    """n batches of B x S tokens and labels, with `cfg`'s modality inputs
+    (the reference's train inputs, ``configs/inputs.py:26-43``): VLM, an
+    image block (bf16-exact patch embeddings, its mask, Qwen2-VL's (t, h, w)
+    positions, ``_torch_mm_common.image_block``); audio, the frame stub
+    0.1 * normal of (B, S // enc_frames_ratio, d), bf16-exact.  Numpy
+    arrays; floats go to both packages as bf16 (:func:`to_jax`,
+    :func:`to_torch`)."""
     rng = np.random.default_rng(0)
-    return [{k: rng.integers(0, 1024, (B, S)).astype(np.int32) for k in ("tokens", "labels")}
-            for _ in range(n)]
+    out = []
+    for i in range(n):
+        b = {k: rng.integers(0, 1024, (B, S)).astype(np.int32) for k in ("tokens", "labels")}
+        family = cfg.arch_type if cfg is not None else None
+        if family == "vlm":
+            from _torch_mm_common import image_block
+            emb, mask, pos = image_block(cfg.d_model, b=B, s=S, seed=11 + i, **IMAGE)
+            b["labels"][mask] = -1
+            b.update(vision_embeds=emb, vision_mask=mask, positions=pos.astype(np.int32))
+        elif family == "audio":
+            frames = max(S // cfg.enc_frames_ratio, 1)
+            b["audio_embeds"] = (0.1 * rng.standard_normal((B, frames, cfg.d_model))).astype(
+                ml_dtypes.bfloat16).astype(np.float32)
+        out.append(b)
+    return out
+
+
+def to_jax(batch):
+    return {k: jnp.asarray(v, jnp.bfloat16 if v.dtype == np.float32 else None)
+            for k, v in batch.items()}
+
+
+def to_torch(batch):
+    def conv(v):
+        t = torch.from_numpy(v)
+        return (t.to(torch.bfloat16) if t.is_floating_point()
+                else t if t.dtype == torch.bool else t.long())
+    return {k: conv(v) for k, v in batch.items()}
 
 
 def run_both(jm, tm, n_steps, seed=0):
@@ -91,15 +131,15 @@ def run_both(jm, tm, n_steps, seed=0):
     # compilation
     js = jax.device_put(js, jax.tree.map(lambda p: NamedSharding(mesh, p), state_pspecs(jm),
                                          is_leaf=lambda x: isinstance(x, P)))
-    jstep = make_jitted_train_step(jm, jopt, mesh, n_micro=N_MICRO, donate=False)
+    data = batches(n_steps, jm.cfg)
+    jstep = make_jitted_train_step(jm, jopt, mesh, n_micro=N_MICRO, donate=False,
+                                   batch_pspec={k: P() for k in data[0]})
     tstep = build_train_step(tm, topt, n_micro=N_MICRO, device="cpu")
     rows, first = [], None
-    for i, batch in enumerate(batches(n_steps)):
+    for i, batch in enumerate(data):
         with mesh:
-            js, jmet = jstep(js, {k: jnp.asarray(v) for k, v in batch.items()},
-                             jax.random.fold_in(jax.random.PRNGKey(1), i))
-        ts, tmet = tstep(ts, {k: torch.from_numpy(v).long() for k, v in batch.items()},
-                         prng.fold_in(prng.PRNGKey(1), i))
+            js, jmet = jstep(js, to_jax(batch), jax.random.fold_in(jax.random.PRNGKey(1), i))
+        ts, tmet = tstep(ts, to_torch(batch), prng.fold_in(prng.PRNGKey(1), i))
         rows.append((float(jmet["loss"]), float(tmet["loss"]),
                      float(jmet["grad_norm"]), float(tmet["grad_norm"])))
         if i == 0:

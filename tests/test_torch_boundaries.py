@@ -52,17 +52,20 @@ def test_cpu_setup_when_asked():
     assert all(p.device.type == "cpu" for p in setup.params.values())
 
 
-def test_multi_rank_mesh_names_roadmap():
+def test_multi_rank_mesh_names_roadmap(capsys):
+    """A mesh of more than one rank names its ROADMAP item; the train
+    launcher refuses the VLM and audio families, whose batches carry inputs
+    the synthetic corpus does not give (they train through
+    ``build_train_step``), before it touches a device."""
+    from repro_torch.launch import train as launch_train
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         QSDPEngine(MeshSpec(("data", "model"), (2, 1)), QSDPConfig(), {})
-    vlm = ModelConfig(name="vlm", arch_type="vlm", n_layers=1, d_model=64, vocab_size=128,
-                      n_heads=4, n_kv_heads=4, head_dim=16, d_ff=128, rope_mode="mrope",
-                      mrope_sections=(4, 2, 2))
-    setup = build_serve_setup(vlm, device="cpu")  # served (A11d); trained with A11g
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        setup.model.loss_fn(setup.params, {"tokens": torch.zeros((1, 4), dtype=torch.int64),
-                                           "labels": torch.zeros((1, 4), dtype=torch.int64)},
-                            (0, 0))
+    for arch, inputs in (("qwen2-vl-72b", "vision_embeds"), ("seamless-m4t-large-v2",
+                                                              "audio_embeds")):
+        with pytest.raises(SystemExit):
+            launch_train.main(["--arch", arch, "--smoke", "--steps", "1"])
+        err = capsys.readouterr().err
+        assert f"--arch {arch}" in err and inputs in err and "build_train_step" in err
 
 
 def test_wrappers_reject_mixed_devices():

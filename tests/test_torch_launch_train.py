@@ -1,15 +1,25 @@
 """``launch/train.py``'s ``--coalesce-max-bytes`` against the JAX package's
 launcher: the same check (``>= 0``, 0 meaning never coalesce) and the same
 ``QSDPConfig`` field, which vetoes the coalesced gather of every layer
-whose wire buffer exceeds it; a smoke run under the veto trains."""
+whose wire buffer exceeds it; a smoke run under the veto trains.  The VLM
+and audio families exit with an error that says why: the corpus gives
+tokens and labels only, and the JAX launcher, fed the same corpus, fails
+in its ``loss_fn`` for want of the modality inputs."""
 import dataclasses
 import json
 
+import jax
 import numpy as np
 import pytest
 import torch
+from jax.sharding import PartitionSpec as P
 
+from repro import configs as jconfigs
+from repro.core.qsdp import MeshSpec as JMeshSpec, QSDPConfig as JQSDPConfig
+from repro.compat import shard_map
+from repro.data.synthetic import SyntheticLM as JSyntheticLM
 from repro.launch import train as jlaunch
+from repro.models.transformer import Model as JModel
 from repro_torch import configs
 from repro_torch.core.qsdp import MeshSpec
 from repro_torch.launch import train as launch_train
@@ -56,3 +66,26 @@ def test_train_launcher_under_the_veto(tmp_path, capsys):
     out = capsys.readouterr().out
     assert rc == 0 and "coalesce<=0B" in out
     assert np.isfinite(json.loads(out_json.read_text())["log"][0]["loss"])
+
+
+@pytest.mark.parametrize("arch,inputs", [("qwen2-vl-72b", "vision_embeds, vision_mask and "
+                                          "M-RoPE positions"),
+                                         ("seamless-m4t-large-v2", "audio_embeds")])
+def test_modality_families_refused_with_reason(arch, inputs, capsys, mesh11):
+    for argv in (["--arch", arch], ["--arch", arch, "--smoke", "--device", "cpu"]):
+        with pytest.raises(SystemExit) as e:
+            launch_train.parse_args(argv)
+        assert e.value.code == 2
+        err = capsys.readouterr().err
+        assert f"--arch {arch}: a {configs.get_config(arch).arch_type} model trains on " \
+               f"batches that carry {inputs}" in err
+    # the JAX launcher's batch: the corpus's tokens and labels, which its
+    # loss_fn cannot train on
+    cfg = jconfigs.get_smoke(arch)
+    tokens, labels = JSyntheticLM(vocab_size=cfg.vocab_size, seq_len=8, global_batch=2,
+                                  seed=0).sample(0)
+    jm = JModel(cfg, JMeshSpec(("data", "model"), (1, 1)), JQSDPConfig())
+    loss = shard_map(lambda p, b: jm.loss_fn(p, b, jax.random.PRNGKey(1)), mesh=mesh11,
+                     in_specs=(P(), P()), out_specs=P(), check_vma=False)
+    with pytest.raises(KeyError):
+        loss(jm.init_params(jax.random.PRNGKey(0)), {"tokens": tokens, "labels": labels})

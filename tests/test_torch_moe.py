@@ -9,7 +9,7 @@ assignments equal, at a size where the capacity drops assignments; the
 outputs and the aux loss within the tolerances below.  Then the reference's
 isolation property (drop-free is isolated, capacity leaks), the registry
 (every config the port registers field-equal to the JAX package's, the
-unported families naming their ROADMAP item), the MoE parameter specs, the
+VLM and audio families training), the MoE parameter specs, the
 4-bit draft of a MoE model byte-equal to the reference's, and the serve
 launcher in batch and continuous mode (MoE training is held in
 ``test_torch_moe_train*.py``)."""
@@ -191,18 +191,35 @@ def test_registry_covers_the_reference():
 
 @pytest.mark.parametrize("name", ["qwen2_vl_72b", "seamless_m4t_large_v2"])
 def test_unported_families_name_their_item(name):
-    """The VLM and audio families build and serve (A11d); their training is
-    not ported yet: ``loss_fn`` refuses it naming A11g."""
-    item = "A11g"
+    """The VLM and audio families, once refused for training, build, serve
+    and train: ``loss_fn`` on the reference's train inputs (the VLM's
+    vision stubs and positions, the audio frames of S // enc_frames_ratio)
+    gives a finite loss and a gradient for every leaf, the encoder's
+    ``enc/*``, ``enc_final_norm`` and the cross-attention's ``dec/x*``
+    included."""
     for get in (configs.get_config, configs.get_smoke):
         assert get(name).arch_type == _JAX_FAMILIES[name]
     cfg = ModelConfig(**dataclasses.asdict(jconfigs.get_smoke(name)))
     model = Model(cfg, MeshSpec(("data", "model"), (1, 1)), QSDPConfig())
-    params = model.init_params(0, "cpu")
-    batch = {"tokens": torch.zeros((1, 4), dtype=torch.int64),
-             "labels": torch.zeros((1, 4), dtype=torch.int64)}
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        model.loss_fn(params, batch, (0, 0))
+    params = {k: v.requires_grad_() for k, v in model.init_params(0, "cpu").items()}
+    b, s = 2, 8
+    batch = {"tokens": torch.ones((b, s), dtype=torch.int64),
+             "labels": torch.ones((b, s), dtype=torch.int64)}
+    if cfg.arch_type == "vlm":
+        batch.update(vision_embeds=torch.zeros((b, s, cfg.d_model), dtype=torch.bfloat16),
+                     vision_mask=torch.zeros((b, s), dtype=torch.bool),
+                     positions=torch.arange(s).expand(3, b, s))
+    else:
+        batch["audio_embeds"] = 0.1 * torch.randn(b, s // cfg.enc_frames_ratio, cfg.d_model,
+                                                  generator=torch.Generator().manual_seed(0))
+        assert {"enc/wq", "enc_final_norm", "dec/xwq", "dec/xattn_norm"} <= set(params)
+    loss = model.loss_fn(params, batch, (0, 0))
+    names = sorted(params)
+    grads = torch.autograd.grad(loss, [params[n] for n in names])
+    assert torch.isfinite(loss)
+    for n, g in zip(names, grads):
+        assert g.shape == params[n].shape and torch.isfinite(g).all(), n
+        assert g.abs().max() > 0, n
 
 
 @pytest.mark.parametrize("name", ["olmoe_1b_7b", "qwen3_moe_235b_a22b"])
