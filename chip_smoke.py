@@ -909,6 +909,92 @@ def kernel_phase(torch, log, dev="cuda"):
     return rows
 
 
+def whole_leaf_adamw(torch, cfg, params, grads, st, grad_scale):
+    """The AdamW update on whole leaves, the plain version the chunked
+    update (``optim.make_adamw``) is held to: each leaf's moments decoded
+    whole (8-bit codes through ``qparam_decode``), the same elementwise op
+    sequence on the whole leaf, the moments re-encoded whole
+    (``qparam_encode``).  Updates `params` in place; returns the moments."""
+    from repro_torch.core.quant import QuantConfig, QuantizedParam, qparam_decode, qparam_encode
+    from repro_torch.optim.optimizers import MOMENT_BUCKET_SIZE
+
+    def f32(v):
+        return torch.tensor(v, dtype=torch.float32)
+
+    mq = (QuantConfig(bits=cfg.moment_bits, bucket_size=MOMENT_BUCKET_SIZE, mode="nearest")
+          if cfg.moment_bits else None)
+    step = st.step + 1
+    lr = cfg.schedule(step) if cfg.schedule is not None else f32(cfg.lr)
+    c1 = 1.0 - f32(cfg.b1) ** f32(step)
+    c2 = 1.0 - f32(cfg.b2) ** f32(step)
+    mu, nu = {}, {}
+    for k, p in params.items():
+        g = grads[k].float() * grad_scale
+        m, v = st.mu[k], st.nu[k]
+        m = qparam_decode(m) if isinstance(m, QuantizedParam) else m
+        v = qparam_decode(v) if isinstance(v, QuantizedParam) else v
+        m.mul_(cfg.b1).add_(g * (1 - cfg.b1))
+        v.mul_(cfg.b2).add_(g * (1 - cfg.b2) * g)
+        step_dir = (m / c1) / (torch.sqrt(v / c2) + cfg.eps)
+        if cfg.weight_decay:
+            step_dir = step_dir + cfg.weight_decay * p
+        p.sub_(lr * step_dir)
+        mu[k] = qparam_encode(m, mq) if mq is not None else m
+        nu[k] = qparam_encode(v, mq) if mq is not None else v
+    return mu, nu
+
+
+# the update row: a stacked leaf of 4 slices of 256 buckets and an unstacked
+# leaf split into ranges of UPDATE_ROW_CHUNK values (its last one ends inside
+# a bucket), 8-bit moments, UPDATE_ROW_STEPS updates
+UPDATE_ROW = dict(stacked=(4, 1, 1, 256 * 1024), unstacked=(1, 1, 3 * 2048 + 904), steps=3)
+UPDATE_ROW_CHUNK = 2048
+
+
+def update_row(torch, log, dev="cuda"):
+    """The chunked optimizer update (``make_adamw`` with 8-bit moments and
+    weight decay: per layer slice and per range, moments decoded by K2 and
+    re-encoded in place by K1) against ``whole_leaf_adamw`` on the same
+    inputs: every parameter and moment wire torch.equal after each of
+    UPDATE_ROW's steps; the stacked leaf's gradient handed over as its
+    layer slices, as the train step hands it."""
+    import repro_torch.optim.optimizers as optim_mod
+    from repro_torch.core.quant import qparam_encode
+    from repro_torch.optim import AdamWConfig, OptState, cosine_schedule, make_adamw
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    cfg = AdamWConfig(lr=1e-2, weight_decay=0.1, schedule=cosine_schedule(1e-2, 1, 5),
+                      moment_bits=8)
+    shapes = {"a": UPDATE_ROW["unstacked"], "b": UPDATE_ROW["stacked"]}
+    pc = {k: torch.randn(s, generator=gen, device=dev) for k, s in shapes.items()}
+    pw = {k: v.clone() for k, v in pc.items()}
+    opt = make_adamw(cfg)
+    sc = opt.init(pc)
+    mw = {k: qparam_encode(torch.zeros(s, device=dev), sc.mu[k].cfg) for k, s in shapes.items()}
+    sw = OptState(step=0, mu=mw, nu={k: qparam_encode(torch.zeros(s, device=dev),
+                                                       sc.mu[k].cfg) for k, s in shapes.items()})
+    scale = torch.tensor(0.5, device=dev)
+    chunks = 0
+    with hooked(optim_mod, "CHUNK_VALUES", lambda _: UPDATE_ROW_CHUNK):
+        for i in range(UPDATE_ROW["steps"]):
+            g = {k: torch.randn(s, generator=gen, device=dev) for k, s in shapes.items()}
+            gc = {"a": g["a"].clone(), "b": list(g["b"].clone().unbind(0))}
+            pc, sc = opt.update(pc, gc, sc, grad_scale=scale)
+            mu, nu = whole_leaf_adamw(torch, cfg, pw, g, sw, scale)
+            sw = OptState(step=sw.step + 1, mu=mu, nu=nu)
+            for k in shapes:
+                check(torch.equal(pc[k], pw[k]), f"update row: step {i} parameter {k} differs "
+                      "from the whole-leaf update")
+                for which, a, b in (("mu", sc.mu, sw.mu), ("nu", sc.nu, sw.nu)):
+                    check(torch.equal(a[k].wire, b[k].wire), f"update row: step {i} {which} "
+                          f"codes of {k} differ from the whole-leaf update's")
+        chunks = sum(len(optim_mod.chunk_ranges(s)) for s in shapes.values())
+    log(f"update row: chunked AdamW (8-bit moments, weight decay) == whole-leaf on {dev}: "
+        f"stacked {shapes['b']} by layer slice and unstacked {shapes['a']} in ranges of "
+        f"{UPDATE_ROW_CHUNK}, {chunks} chunks, parameters and moment wires torch.equal after "
+        f"each of {UPDATE_ROW['steps']} steps")
+
+
 # ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
@@ -1014,10 +1100,11 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     from repro_torch.kernels import build
 
-    def log(msg):
-        print(f"[chip_smoke] {msg}", flush=True)
-
     t0 = time.time()
+
+    def log(msg):
+        print(f"[chip_smoke {time.time() - t0:6.1f}s] {msg}", flush=True)
+
     try:
         card = smi_line()
         log(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}")
@@ -1034,6 +1121,7 @@ def main(argv=None) -> int:
         if "kernels" in phases:
             rows = kernel_phase(torch, log)
             paths.append(buckets_path(torch, log))
+            update_row(torch, log)
         if "small" in phases:
             small_phase(torch, log)
             small_train_phase(torch, log)
@@ -2091,10 +2179,14 @@ def profile_speculative_step(torch, log, sched, reqs, k3=True):
 # ---------------------------------------------------------------------------
 
 MOE_ARCH = "olmoe-1b-7b"
+# layers served: olmoe-1b-7b serves at full depth (16 layers) on one card;
+# its serving cells run 8 to make room in the run's time for the train
+# cells at full depth (host-bound steps, whose time scales with the layers)
+MOE_SERVE_LAYERS = 8
 
 
 def moe_batch(torch, log, dev="cuda"):
-    """olmoe-1b-7b at full width and depth through ``build_serve_setup`` ->
+    """olmoe-1b-7b at full width, MOE_SERVE_LAYERS deep, through ``build_serve_setup`` ->
     ``ServeEngine.generate``: SERVE's batch 4 x prompt 128 x 16 greedy
     tokens, run twice after a warm-up.  Gates: the two runs' tokens equal,
     tokens in range, the launches of a run (counts zeroed just before, read
@@ -2104,7 +2196,8 @@ def moe_batch(torch, log, dev="cuda"):
     from repro_torch.kernels import ops
     from repro_torch.serve import build_serve_setup, make_prompt_batch
 
-    setup = build_serve_setup(MOE_ARCH, smoke=False, device=dev, **SERVE)
+    setup = build_serve_setup(cut_config(MOE_ARCH, MOE_SERVE_LAYERS), smoke=False, device=dev,
+                              **SERVE)
     cfg, gen = setup.cfg, SERVE["gen"]
     tokens, _ = SyntheticLM(cfg.vocab_size, SERVE["prompt_len"], SERVE["batch"],
                             seed=SERVE["seed"]).sample(0)
@@ -2152,8 +2245,9 @@ def moe_batch(torch, log, dev="cuda"):
 
 def moe_phase(torch, log, dev="cuda"):
     """The MoE family on the card: olmoe-1b-7b's smoke config card vs CPU
-    (``small_phase``), then at full width and depth (16 layers, 64 experts
-    top-8, random weights from seed 0, default QSDPConfig) batch serving
+    (``small_phase``), then at full width cut to MOE_SERVE_LAYERS of its 16
+    layers (64 experts top-8, random weights from seed 0, default
+    QSDPConfig) batch serving
     (``moe_batch``), the continuous phase's cell (CONT, CONT_PLAN: two runs,
     solo gates, pool, launches, a profiled step) and the speculative phase's
     (a 4-bit draft of depth 4, whose expert stacks K2 decodes), and the
@@ -2168,8 +2262,9 @@ def moe_phase(torch, log, dev="cuda"):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
     counts = Counter(moe_batch(torch, log, dev))
-    counts.update(continuous_phase(torch, log, dev, profile=dev == "cuda", arch=MOE_ARCH))
-    counts.update(speculative_phase(torch, log, dev, arch=MOE_ARCH))
+    cfg = cut_config(MOE_ARCH, MOE_SERVE_LAYERS)
+    counts.update(continuous_phase(torch, log, dev, profile=dev == "cuda", arch=cfg))
+    counts.update(speculative_phase(torch, log, dev, arch=cfg))
     g = torch.Generator(device=dev).manual_seed(3)
 
     def rnd(*shape, dt=torch.bfloat16):
@@ -2190,39 +2285,48 @@ def moe_phase(torch, log, dev="cuda"):
 # ---------------------------------------------------------------------------
 
 SSM_ARCHS = ("mamba2-370m", "zamba2-7b")
+# layers served: both models serve at full depth (48 and 81 layers) on one
+# card; the serving cells are cut to half of mamba2-370m's depth and a
+# third of zamba2-7b's (4 groups of 6
+# Mamba2 layers, each followed by the shared block, and the 3-layer tail)
+# to make room in the run's time for the train cells at full depth.  The
+# steps are host-bound: their time scales with the layers
+SSM_SERVE_LAYERS = {"mamba2-370m": 24, "zamba2-7b": 27}
 # the reference's rowquant test config for the hybrid family
 # (tests/test_kernel_dispatch.py:206): buckets of 128 tile the smoke shared
 # MLP's rows, so its decode runs K3
 SSM_RQ_QSDP = dict(min_quant_size=256, bucket_size=128)
 # K1/K2/K3 launches of a whole-prompt prefill and of one decode step of the
-# models served at full size (the ssm and vlmaudio phases), counted by hand
-# from the configs, by (name, rowquant).  mamba2-370m / zamba2-7b: the
-# embedding (K1 + K2), 5 quantized Mamba2 weights in one buffer per layer,
-# and for zamba2-7b 13 shared-block invocations of 7 quantized weights in one
-# buffer; under rowquant the decode step's shared w_gate/w_up go through K3
+# models served at full width (the ssm and vlmaudio phases, at the depths
+# they serve), counted by hand from the configs, by (name, rowquant).
+# mamba2-370m at 24 layers / zamba2-7b at 27: the embedding (K1 + K2), 5
+# quantized Mamba2 weights in one buffer per layer, and for zamba2-7b 4
+# shared-block invocations of 7 quantized weights in one buffer; under
+# rowquant the decode step's shared w_gate/w_up go through K3
 # and w_down (3,584 columns: 3.5 buckets of 1,024) is gathered alone through
-# K2.  qwen2-vl-72b at 16 layers: the embedding and 7 quantized weights a
+# K2.  qwen2-vl-72b at 8 layers: the embedding and 7 quantized weights a
 # layer (its 3 biases and 2 norms ride the layer's buffer unquantized), one
 # buffer a layer; under rowquant w_down goes through K3 and w_gate/w_up
 # (29,568 columns: 28.875 buckets of 1,024) are gathered alone through K2.
-# seamless-m4t-large-v2: the embedding and the untied lm_head; prefill also
-# gathers the encoder's 24 layers of 7 quantized weights; a decoder layer
+# seamless-m4t-large-v2 at 12 + 12 layers: the embedding and the untied
+# lm_head; prefill also gathers the encoder's 12 layers of 7 quantized
+# weights; a decoder layer
 # holds 11 (self- and cross-attention, MLP), one buffer each; under rowquant
 # its MLP goes through K3
-_MAMBA2 = (1 + 5 * 48, 1 + 48, 0)
-_ZAMBA2 = (1 + 5 * 81 + 7 * 13, 1 + 81 + 13, 0)
-_QWEN2VL = (1 + 7 * 16, 1 + 16, 0)
-_SEAMLESS = (2 + 7 * 24 + 11 * 24, 2 + 24 + 24, 0)
+_MAMBA2 = (1 + 5 * 24, 1 + 24, 0)
+_ZAMBA2 = (1 + 5 * 27 + 7 * 4, 1 + 27 + 4, 0)
+_QWEN2VL = (1 + 7 * 8, 1 + 8, 0)
+_SEAMLESS = (2 + 7 * 12 + 11 * 12, 2 + 12 + 12, 0)
 SERVE_PER_STEP = {
     ("mamba2-370m", False): {"prefill": _MAMBA2, "step": _MAMBA2},
     ("zamba2-7b", False): {"prefill": _ZAMBA2, "step": _ZAMBA2},
-    ("zamba2-7b", True): {"prefill": _ZAMBA2, "step": (1 + 5 * 81 + 7 * 13, 1 + 81 + 13 * 2,
-                                                       13 * 2)},
+    ("zamba2-7b", True): {"prefill": _ZAMBA2, "step": (1 + 5 * 27 + 7 * 4, 1 + 27 + 4 * 2,
+                                                       4 * 2)},
     ("qwen2-vl-72b", False): {"prefill": _QWEN2VL, "step": _QWEN2VL},
-    ("qwen2-vl-72b", True): {"prefill": _QWEN2VL, "step": (1 + 7 * 16, 1 + 16 * 3, 16)},
-    ("seamless-m4t-large-v2", False): {"prefill": _SEAMLESS, "step": (2 + 11 * 24, 2 + 24, 0)},
+    ("qwen2-vl-72b", True): {"prefill": _QWEN2VL, "step": (1 + 7 * 8, 1 + 8 * 3, 8)},
+    ("seamless-m4t-large-v2", False): {"prefill": _SEAMLESS, "step": (2 + 11 * 12, 2 + 12, 0)},
     ("seamless-m4t-large-v2", True): {"prefill": _SEAMLESS,
-                                      "step": (2 + 11 * 24, 2 + 24, 3 * 24)}}
+                                      "step": (2 + 11 * 12, 2 + 12, 3 * 12)}}
 
 
 def serve_family(cfg) -> str:
@@ -2497,10 +2601,10 @@ def small_rowquant(torch, log, dev="cuda", arch="zamba2-7b"):
 def ssm_phase(torch, log, dev="cuda", archs=SSM_ARCHS):
     """The SSM and hybrid families on the card: both smoke configs card vs
     CPU (``small_phase``) and zamba2's rowquant smoke decode equal to its
-    dense one; then mamba2-370m (48 layers) and zamba2-7b (81 layers: 13
-    groups of 6 Mamba2 layers, each followed by the shared attention+MLP
-    block, and a tail of 3) at full width and depth, random weights from
-    seed 0, default QSDPConfig: batch serving (dense, and for zamba2 also
+    dense one; then mamba2-370m (24 of 48 layers) and zamba2-7b (27 of 81
+    layers: 4 groups of 6 Mamba2 layers, each followed by the shared
+    attention+MLP block, and a tail of 3) at full width (SSM_SERVE_LAYERS),
+    random weights from seed 0, default QSDPConfig: batch serving (dense, and for zamba2 also
     rowquant), the continuous cell with blocking admission, and the
     fixed-shape route's row gate at their launch shapes.  Prints the
     phase's seconds and peak device memory.  Returns the launches of the
@@ -2521,10 +2625,11 @@ def ssm_phase(torch, log, dev="cuda", archs=SSM_ARCHS):
             return torch.randn(shape, generator=g, device=dev).to(dt)
 
         for arch in archs:
-            c, params, first = serve_batch(torch, log, arch, dev)
+            cfg = cut_config(arch, SSM_SERVE_LAYERS.get(arch))
+            c, params, first = serve_batch(torch, log, cfg, dev)
             counts.update(c)
-            if configs.get_config(arch).arch_type == "hybrid":
-                c, params, first_rq = serve_batch(torch, log, arch, dev, rowquant=True,
+            if cfg.arch_type == "hybrid":
+                c, params, first_rq = serve_batch(torch, log, cfg, dev, rowquant=True,
                                                   params=params)
                 counts.update(c)
                 rel = (first - first_rq).abs().max().item() / first.abs().max().item()
@@ -2533,7 +2638,7 @@ def ssm_phase(torch, log, dev="cuda", archs=SSM_ARCHS):
                       f"{rel:.3e} of max |logit|")
                 log(f"ssm batch {arch}: first decode step logits dense vs rowquant: max "
                     f"|diff| / max |logit| = {rel:.3e} (tol {LOGIT_RTOL})")
-            counts.update(serve_continuous(torch, log, arch, params, dev))
+            counts.update(serve_continuous(torch, log, cfg, params, dev))
             del params
             route_invariance(torch, log, dev, rnd, configs.get_config(arch))
             if dev == "cuda":
@@ -2548,10 +2653,13 @@ def ssm_phase(torch, log, dev="cuda", archs=SSM_ARCHS):
 # ---------------------------------------------------------------------------
 
 MM_ARCHS = ("qwen2-vl-72b", "seamless-m4t-large-v2")
-# layers served on one card: qwen2-vl-72b's 80 layers hold 286 GB of f32
-# rest weights, 16 of them 61.2 GB (15.29 G parameters with the embedding);
-# seamless-m4t-large-v2 (2.04 G) runs at full depth
-MM_LAYERS = {"qwen2-vl-72b": 16, "seamless-m4t-large-v2": None}
+# layers served: qwen2-vl-72b's 80 layers hold 286 GB of f32 rest weights,
+# 16 of them 61.2 GB (15.29 G parameters with the embedding), which one
+# card serves, as it serves seamless-m4t-large-v2 (2.04 G) at full depth;
+# the cells run qwen2-vl at 8 layers and seamless at 12 decoder and 12
+# encoder layers, to make room in the run's time for the train cells at
+# full depth
+MM_LAYERS = {"qwen2-vl-72b": 8, "seamless-m4t-large-v2": 12}
 # the image block of the VLM batch cell's prompts: an 8 x 8 grid of patch
 # embeddings (random bf16, scale 0.02) at prompt positions 16-79, with
 # Qwen2-VL's (t, h, w) positions (t = 16, h = 16 + row, w = 16 + col); the
@@ -2625,12 +2733,20 @@ def vlm_image_prompt(torch, cfg, spec, ms, tokens, dev, start, rows, cols, scale
     return {k: v.to(dev) for k, v in b.items()}
 
 
-def mm_config(arch):
-    """`arch`'s full config at the depth one card serves (MM_LAYERS)."""
+def cut_config(arch, layers):
+    """`arch`'s full config, cut to `layers` layers where that is fewer (an
+    encoder-decoder's encoder too)."""
     from repro_torch import configs
     cfg = configs.get_config(arch)
-    cut = MM_LAYERS.get(arch)
-    return dataclasses.replace(cfg, n_layers=cut) if cut and cut < cfg.n_layers else cfg
+    if not layers or layers >= cfg.n_layers:
+        return cfg
+    enc = {"n_enc_layers": min(layers, cfg.n_enc_layers)} if cfg.arch_type == "audio" else {}
+    return dataclasses.replace(cfg, n_layers=layers, **enc)
+
+
+def mm_config(arch):
+    """`arch`'s full config at the depth one card serves (MM_LAYERS)."""
+    return cut_config(arch, MM_LAYERS.get(arch))
 
 
 def small_vlm_image(torch, log, dev="cuda"):
@@ -2647,8 +2763,8 @@ def vlmaudio_phase(torch, log, dev="cuda", archs=MM_ARCHS):
     """The VLM and audio families on the card: both smoke configs card vs
     CPU (``small_phase``; qwen2-vl's on a prompt with an image block) and
     seamless's rowquant smoke decode equal to its dense one; then
-    qwen2-vl-72b at full width cut to 16 of 80 layers and
-    seamless-m4t-large-v2 at full width and depth, random weights from seed
+    qwen2-vl-72b and seamless-m4t-large-v2 at full width cut to MM_LAYERS
+    (8 of 80 layers; 12 of 24 decoder and encoder layers), random weights from seed
     0, default QSDPConfig: batch serving dense and rowquant (qwen2-vl's
     prompts carry MM_IMAGE's image block; seamless's the reference's audio
     stub of prompt // 2 = 64 frames), their first decode steps' logits
@@ -2767,6 +2883,9 @@ def small_train_phase(torch, log):
 
 TRAIN = dict(batch=4, seq=2048, n_micro=2, seed=0, lr=6e-4, warmup=10, total=100)
 TRAIN_TIMED = 3   # timed steps after one warm-up step
+# gpt-1.3b's remat "dots" run: timed steps after its warm-up (it ran
+# TRAIN_TIMED until the train cells at full depth needed the time)
+DOTS_TIMED = 1
 QSTATE_STEPS = 2  # quantized_state vs quantize_master
 # random init at 0.02: the first loss is close to ln(vocab)
 FIRST_LOSS_ATOL = 0.5
@@ -2789,8 +2908,9 @@ def expected_train_launches(model, n_micro: int, moments: bool = False) -> dict:
     quantized tensor of a gather or reduce-scatter; K2 decodes each buffer
     that holds one, in one launch (the final norm's buffers hold fp payloads
     only).  With `moments` (Adam moments kept as 8-bit codes) the update
-    decodes (K2) and re-encodes (K1) both moments of every parameter leaf
-    once per step."""
+    walks every leaf in chunks (``optim.chunk_ranges``: a stacked leaf by
+    layer slice, a large unstacked one by range) and, per chunk, decodes
+    both moments in one K2 launch and re-encodes each with K1."""
     eng = model.engine
     inv = shared_invocations(model.cfg)
 
@@ -2804,11 +2924,13 @@ def expected_train_launches(model, n_micro: int, moments: bool = False) -> dict:
     alone, layers = k2_buffers(eng, eng._is_quantized, invocations=inv)
     k2 = (alone + layers, layers,
           sum(k2_buffers(eng, eng._is_grad_quantized, invocations=inv)))
-    moment_codes = 2 * len(eng.specs) if moments else 0
-    return {"quantize_pack": n_micro * (fwd + replay + grads) + moment_codes,
-            "unpack_dequantize": n_micro * sum(k2) + moment_codes,
+    from repro_torch.optim.optimizers import chunk_ranges
+    chunks = (sum(len(chunk_ranges(s.rest_shape(model.ms))) for s in eng.specs.values())
+              if moments else 0)
+    return {"quantize_pack": n_micro * (fwd + replay + grads) + 2 * chunks,
+            "unpack_dequantize": n_micro * sum(k2) + chunks,
             "per_micro": (fwd, replay, grads), "k2_per_micro": k2,
-            "moment_codes": moment_codes}
+            "moment_chunks": chunks}
 
 
 def timed_step(torch, step, st, batch, key):
@@ -2822,9 +2944,10 @@ def timed_step(torch, step, st, batch, key):
     return st, loss, gnorm, time.perf_counter() - t
 
 
-def timed_train_steps(torch, step, state, batches, key, dev="cuda"):
-    """One warm-up step, then TRAIN_TIMED timed steps with the launch counts
-    zeroed just before and the peak memory reset.  Returns the state, the
+def timed_train_steps(torch, step, state, batches, key, dev="cuda", timed=None):
+    """One warm-up step, then `timed` (TRAIN_TIMED unless given) timed steps
+    with the launch counts zeroed just before and the peak memory reset.
+    Returns the state, the
     losses and grad norms of all steps, the timed steps' seconds, the
     warm-up's, the timed steps' launches and their peak memory (bytes)."""
     from repro_torch.kernels import ops
@@ -2836,7 +2959,7 @@ def timed_train_steps(torch, step, state, batches, key, dev="cuda"):
     losses, gnorms, times = [loss0], [gnorm0], []
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
-    for i in range(1, 1 + TRAIN_TIMED):
+    for i in range(1, 1 + (TRAIN_TIMED if timed is None else timed)):
         state, loss, gnorm, dt = run(i, state)
         losses.append(loss)
         gnorms.append(gnorm)
@@ -2914,20 +3037,25 @@ def train_phase(torch, log, dev="cuda"):
     del state, step
     torch.cuda.empty_cache()
 
-    # remat "dots": the same steps from the same initial state, keeping the
-    # layers' 2-D matmul outputs instead of recomputing them: losses bit-equal
-    # to "full", the same launches (the gathers still replay)
+    # remat "dots": the first DOTS_TIMED + 1 steps from the same initial
+    # state, keeping the layers' 2-D matmul outputs instead of recomputing
+    # them: losses bit-equal to "full", the same launches a step (the gathers
+    # still replay)
     model_d = Model(cfg, MeshSpec(("data", "model"), (1, 1)), QSDPConfig(remat_policy="dots"))
     step_d = build_train_step(model_d, opt, n_micro=TRAIN["n_micro"], device=dev)
     state_d, losses_d, gnorms_d, times_d, _, counts_d, peak_d = timed_train_steps(
-        torch, step_d, init_train_state(model_d, opt, TRAIN["seed"], dev), batches, key, dev)
-    check(losses_d == losses and gnorms_d == gnorms,
+        torch, step_d, init_train_state(model_d, opt, TRAIN["seed"], dev), batches, key, dev,
+        timed=DOTS_TIMED)
+    n_d = 1 + DOTS_TIMED
+    check(losses_d == losses[:n_d] and gnorms_d == gnorms[:n_d],
           f"train: remat 'dots' losses {losses_d} / norms {gnorms_d} differ from 'full' "
-          f"{losses} / {gnorms}")
-    check(counts_d == counts, f"train: remat 'dots' launches {counts_d} != 'full' {counts}")
+          f"{losses[:n_d]} / {gnorms[:n_d]}")
+    check(all(counts_d[k] * TRAIN_TIMED == counts[k] * DOTS_TIMED for k in counts),
+          f"train: remat 'dots' launches {counts_d} in {DOTS_TIMED} steps, 'full' {counts} in "
+          f"{TRAIN_TIMED}")
     med_d = statistics.median(times_d)
     log(f"train: remat 'dots': losses and grad norms bit-equal to 'full' over "
-        f"{1 + TRAIN_TIMED} steps, launches equal; {TRAIN_TIMED} timed steps median "
+        f"{n_d} steps, launches a step equal; {DOTS_TIMED} timed step(s) median "
         f"{med_d * 1e3:.1f} ms (min {min(times_d) * 1e3:.1f}, max {max(times_d) * 1e3:.1f}), "
         f"{tok / med_d:.1f} tokens/s, peak memory {peak_d / 2**30:.2f} GiB; 'full' "
         f"{med * 1e3:.1f} ms, {peak / 2**30:.2f} GiB")
@@ -2962,11 +3090,11 @@ def train_phase(torch, log, dev="cuda"):
 # phase 8b: MoE training
 # ---------------------------------------------------------------------------
 
-# olmoe-1b-7b at full width cut to 8 of its 16 layers (3.46 G parameters):
-# the f32 master, two sets of f32 gradients while the second microbatch
-# accumulates and 8-bit moments take ~48 GB, and the update's temporaries of
-# the largest stack (8 x 134 M values) ~25 GB more; 16 layers do not fit
-MOE_TRAIN_LAYERS = 8
+# olmoe-1b-7b at full width and depth, 16 layers (6.81 G parameters): the
+# f32 master, one set of f32 gradients (each layer slice's summed in place
+# over the microbatches) and the 8-bit moment codes take 63.5 GiB, and the
+# update's temporaries are a layer slice's (one expert stack: 134 M values)
+MOE_TRAIN_LAYERS = 16
 # card vs CPU, one f32 step of the smoke config from the same state: the
 # step tolerances of the CPU tests against the JAX package
 # (tests/_torch_train_common.py LOSS_RTOL, GNORM_RTOL)
@@ -3048,63 +3176,119 @@ def annotated(torch, orig, name):
     return f
 
 
-def step0_twice(torch, log, tag, run0, state):
-    """Determinism: step 0 (``run0(state)``, a ``timed_step``) run twice from
-    the same state and key, the loss, the grad norm, every updated parameter
-    and every moment (f32 or the codes of 8-bit ones) bit-equal.  The update
-    runs in place on the state's f32 tensors, so those are restored from host
-    copies in between.  Returns the second run's (state, loss, grad norm)."""
-    def tensors(st):
-        out = {("parameter", k): v for k, v in st.params.items()}
-        for which, tree in (("mu", st.opt.mu), ("nu", st.opt.nu)):
-            out.update({(which, k): getattr(v, "wire", v) for k, v in tree.items()})
-        return out
+def host_mem_total() -> str:
+    """The host's MemTotal line of /proc/meminfo ("not readable" elsewhere)."""
+    try:
+        return Path("/proc/meminfo").read_text().splitlines()[0].split(":", 1)[1].strip()
+    except (OSError, IndexError):
+        return "not readable"
 
-    def host(t):
-        return t.to("cpu", copy=True)
 
-    snap = {k: host(v) for k, v in tensors(state).items()}
-    st_a, loss_a, gnorm_a, t_a = run0(state)
-    host_a = {k: host(v) for k, v in tensors(st_a).items()}
-    del st_a
-    for k, v in tensors(state).items():
-        v.copy_(snap[k])
-    del snap
-    state, loss_b, gnorm_b, t_b = run0(state)
+def state_tensors(st) -> dict:
+    """Every tensor of a train state: the parameters and the moments (f32,
+    or the wire of 8-bit codes), keyed (part, name)."""
+    out = {("parameter", k): getattr(v, "wire", v) for k, v in st.params.items()}
+    for which, tree in (("mu", st.opt.mu), ("nu", st.opt.nu)):
+        out.update({(which, k): getattr(v, "wire", v) for k, v in tree.items()})
+    return out
+
+
+def equal_to_host(torch, v, h, step=1 << 28) -> bool:
+    """torch.equal of a device tensor and a host one, compared on the card
+    in ranges of `step` values (no device copy of a whole leaf)."""
+    v, h = v.reshape(-1), h.reshape(-1)
+    if v.dtype != h.dtype or v.numel() != h.numel():
+        return False
+    return all(torch.equal(v[a:a + step], h[a:a + step].to(v.device))
+               for a in range(0, v.numel(), step))
+
+
+def step0_twice(torch, log, tag, run0, init):
+    """Determinism: step 0 (``run0(state)``, a ``timed_step``) run twice,
+    each time from ``init()``, the state made anew from the seed
+    (``init_params`` draws from a seeded generator): the loss, the grad
+    norm, every updated parameter and every moment (f32 or the codes of
+    8-bit ones) bit-equal.  The update runs in place, so run A's result is
+    kept as the one host copy and run B's compared with it on the card.
+    Prints the host's MemTotal.  Returns run B's (state, loss, grad
+    norm)."""
+    st, loss_a, gnorm_a, t_a = run0(init())
+    host_a = {k: v.to("cpu") for k, v in state_tensors(st).items()}
+    del st
+    state, loss_b, gnorm_b, t_b = run0(init())
     check(loss_a == loss_b and gnorm_a == gnorm_b,
           f"{tag}: step 0 twice: losses {loss_a} / {loss_b}, grad norms {gnorm_a} / {gnorm_b}")
-    for k, v in tensors(state).items():
-        check(torch.equal(v.cpu(), host_a[k]), f"{tag}: step 0 twice: {k[0]} {k[1]} differs")
+    for k, v in state_tensors(state).items():
+        check(equal_to_host(torch, v, host_a.pop(k)), f"{tag}: step 0 twice: {k[0]} {k[1]} "
+              "differs")
     bits = "8-bit" if any(hasattr(v, "wire") for v in state.opt.mu.values()) else "f32"
-    log(f"{tag}: step 0 run twice from the same state and key: loss {loss_a}, grad norm "
-        f"{gnorm_a} and all {len(state.params)} updated parameters and their {bits} moments "
-        f"bit-equal ({t_a * 1e3:.1f} / {t_b * 1e3:.1f} ms)")
+    log(f"{tag}: step 0 run twice from the same state and key (made anew from the seed): loss "
+        f"{loss_a}, grad norm {gnorm_a} and all {len(state.params)} updated parameters and their {bits} "
+        f"moments bit-equal ({t_a * 1e3:.1f} / {t_b * 1e3:.1f} ms); host MemTotal "
+        f"{host_mem_total()}")
     return state, loss_b, gnorm_b
 
 
+def update_timer(torch, opt, spans, dev):
+    """`opt` with its update between two CUDA events (no synchronization
+    added), each step's pair appended to `spans`: the update's span on the
+    card.  `opt` itself off the card."""
+    if dev != "cuda":
+        return opt
+    import dataclasses as dc
+
+    def update(*a, **k):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = opt.update(*a, **k)
+        e1.record()
+        spans.append((e0, e1))
+        return out
+    return dc.replace(opt, update=update)
+
+
+def update_share(spans, times, n) -> str:
+    """The last `n` updates' spans (ms) beside the steps' times (s)."""
+    if not spans:
+        return "the update's span: not measured (no card)"
+    ms = [e0.elapsed_time(e1) for e0, e1 in spans[-n:]]
+    med = statistics.median(ms)
+    return (f"the update (norm excluded) {med:.1f} ms a step (min {min(ms):.1f}, max "
+            f"{max(ms):.1f}), {100 * med / (1e3 * statistics.median(times)):.1f}% of the step")
+
+
+def memory_line(torch, dev) -> str:
+    """Peak allocated and peak reserved device memory since the last reset,
+    of the card's total."""
+    if dev != "cuda":
+        return "peak memory: not measured (no card)"
+    tot = torch.cuda.get_device_properties(0).total_memory / 2**30
+    return (f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB allocated, "
+            f"{torch.cuda.max_memory_reserved() / 2**30:.2f} GiB reserved, of {tot:.2f}")
+
+
 def moetrain_phase(torch, log, dev="cuda"):
-    """olmoe-1b-7b training at full width, cut to MOE_TRAIN_LAYERS layers,
+    """olmoe-1b-7b training at full width and depth (MOE_TRAIN_LAYERS),
     default QSDPConfig (W8 shift gathers, G8 stochastic gradients, full
     remat), AdamW with 8-bit moments, TRAIN's shape and schedule, through
     ``build_train_step``.  Gates: the smoke config card vs CPU
-    (``moe_small_train``); step 0 run twice from the same state and key
-    bit-equal (loss, grad norm, every updated parameter and moment code);
-    K1/K2 launches of the timed steps equal to the structure's; finite
-    losses, the first less the load-balance term (read per layer by a hook
-    on moe_layer in a no-grad forward of step 0's microbatches) within
-    FIRST_LOSS_ATOL of ln(vocab); no int64 threefry kernel in a profiled
-    step; one quantized_state step equal to the quantize_master step
-    (Theorem 2).  Prints step times, tokens/s, peak memory, the per-layer
-    capacity drops and the profiled step's parts."""
+    (``moe_small_train``); step 0 run twice bit-equal (loss, grad norm,
+    every updated parameter and moment code); K1/K2 launches of the timed
+    steps equal to the structure's; finite losses, the first less the
+    load-balance term (read per layer by a hook on moe_layer in a no-grad
+    forward of step 0's microbatches) within FIRST_LOSS_ATOL of ln(vocab);
+    no int64 threefry kernel in the profiled step; one quantized_state step
+    equal to the quantize_master step (Theorem 2).  Prints step times,
+    tokens/s, peak memory allocated and reserved, the update's share of the
+    step, the per-layer capacity drops and the profiled step's parts."""
     import dataclasses as dc
     from repro_torch import configs
-    import repro_torch.models.attention as attn_mod
-    import repro_torch.models.layers as L
     import repro_torch.models.moe as moe_mod
     from repro_torch.core import prng
     from repro_torch.core.qsdp import MeshSpec, QSDPConfig
     from repro_torch.core.quant import QuantizedParam, qparam_decode
     from repro_torch.data import SyntheticLM, make_batch
+    from repro_torch.kernels import ops
     from repro_torch.models.transformer import Model
     from repro_torch.optim import AdamWConfig, cosine_schedule, make_adamw
     from repro_torch.train.step import (TrainState, build_train_step, init_train_state,
@@ -3113,29 +3297,35 @@ def moetrain_phase(torch, log, dev="cuda"):
     t0 = time.perf_counter()
     if dev == "cuda":
         moe_small_train(torch, log)
-    cfg = dc.replace(configs.get_config(MOE_ARCH), n_layers=MOE_TRAIN_LAYERS)
+    full = configs.get_config(MOE_ARCH)
+    cfg = dc.replace(full, n_layers=MOE_TRAIN_LAYERS)
     model = Model(cfg, MeshSpec(("data", "model"), (1, 1)), QSDPConfig())
     sched = cosine_schedule(TRAIN["lr"], TRAIN["warmup"], TRAIN["total"])
     opt = make_adamw(AdamWConfig(lr=TRAIN["lr"], schedule=sched, moment_bits=8))
     data = SyntheticLM(cfg.vocab_size, TRAIN["seq"], TRAIN["batch"], seed=TRAIN["seed"])
-    batches = [make_batch(data, i, dev) for i in range(1 + TRAIN_TIMED + 2)]
+    batches = [make_batch(data, i, dev) for i in range(1 + TRAIN_TIMED + 1)]
     nm = TRAIN["n_micro"]
 
     def key(i):
         return prng.fold_in(prng.PRNGKey(TRAIN["seed"] + 1), i)
 
+    def init():
+        return init_train_state(model, opt, TRAIN["seed"], dev)
+
     n_params = sum(math.prod(s.shape) * (s.stack or 1) for s in model.specs.values())
-    state = init_train_state(model, opt, TRAIN["seed"], dev)
-    step = build_train_step(model, opt, n_micro=nm, device=dev)
+    spans = []
+    step = build_train_step(model, update_timer(torch, opt, spans, dev), n_micro=nm, device=dev)
 
     # step 0's forward without gradients, microbatch by microbatch under the
     # step's keys: each layer's load-balance term and capacity drops
     stats = []
+    state = init()
     with torch.no_grad(), hooked(moe_mod, "moe_layer", moe_layer_stats(torch, stats)):
         for i in range(nm):
             model.loss_fn(state.params, {k: v.reshape(nm, -1, v.shape[-1])[i]
                                          for k, v in batches[0].items()},
                           prng.fold_in(key(0), i))
+    del state
     check(len(stats) == nm * cfg.n_layers, f"moetrain: {len(stats)} moe_layer calls")
     aux = [[float(a) for a, _, _ in stats[i * cfg.n_layers:(i + 1) * cfg.n_layers]]
            for i in range(nm)]
@@ -3146,12 +3336,11 @@ def moetrain_phase(torch, log, dev="cuda"):
     def sync_step(i, st):
         return timed_step(torch, step, st, batches[i], key(i))
 
-    state, loss_b, gnorm_b = step0_twice(torch, log, "moetrain",
-                                         lambda st: sync_step(0, st), state)
+    state, loss_b, gnorm_b = step0_twice(torch, log, "moetrain", lambda st: sync_step(0, st),
+                                         init)
 
     # timed steps from step 1 on (step 0 above was the warm-up)
     torch.cuda.reset_peak_memory_stats()
-    from repro_torch.kernels import ops
     ops.reset_launches()
     losses, gnorms, times = [loss_b], [gnorm_b], []
     for i in range(1, 1 + TRAIN_TIMED):
@@ -3160,7 +3349,7 @@ def moetrain_phase(torch, log, dev="cuda"):
         gnorms.append(gnorm)
         times.append(dt)
     counts = dict(ops.LAUNCHES)
-    peak = torch.cuda.max_memory_allocated()
+    mem = memory_line(torch, dev)
     want = expected_train_launches(model, nm, moments=True)
     check_train_launches(counts, want, "moetrain")
     aux0 = sum(sum(a) for a in aux) / nm
@@ -3173,14 +3362,13 @@ def moetrain_phase(torch, log, dev="cuda"):
     tok = TRAIN["batch"] * TRAIN["seq"]
     med = statistics.median(times)
     c = moe_mod.dispatch_capacity(model.ecfg, tok // nm, False)
-    log(f"moetrain: {cfg.name} at full width cut to {cfg.n_layers} of 16 layers "
+    log(f"moetrain: {cfg.name} at full width, {cfg.n_layers} of {full.n_layers} layers "
         f"({n_params / 1e9:.3f} G params; d_model {cfg.d_model}, {cfg.n_experts} experts "
         f"top-{cfg.moe_top_k}, capacity {c} slots per expert and microbatch), batch "
         f"{TRAIN['batch']} x seq {TRAIN['seq']}, n_micro {nm}, 8-bit moments: "
         f"{TRAIN_TIMED} timed steps median {med * 1e3:.1f} ms (min {min(times) * 1e3:.1f}, "
-        f"max {max(times) * 1e3:.1f}), {tok / med:.1f} tokens/s; peak memory "
-        f"{peak / 2**30:.2f} GiB of {torch.cuda.get_device_properties(0).total_memory / 2**30:.2f}"
-        if dev == "cuda" else f"moetrain: {cfg.name} ({cfg.n_layers} layers) on {dev}")
+        f"max {max(times) * 1e3:.1f}), {tok / med:.1f} tokens/s; {mem}; "
+        f"{update_share(spans, times, TRAIN_TIMED)}")
     log(f"moetrain: losses {[round(x, 4) for x in losses]}, grad norms "
         f"{[round(x, 4) for x in gnorms]}; first loss less the load-balance term "
         f"{xent0:.4f} (ln {cfg.vocab_size} = {math.log(cfg.vocab_size):.4f})")
@@ -3193,53 +3381,24 @@ def moetrain_phase(torch, log, dev="cuda"):
         f"{[round(x, 5) for x in drop]}")
     log(f"moetrain: launches in {TRAIN_TIMED} steps {counts}; per step K1 "
         f"{want['quantize_pack']} = {nm} microbatches x (forward, replay, gradient) tensors "
-        f"{want['per_micro']} + {want['moment_codes']} moment encodes, K2 "
-        f"{want['unpack_dequantize']} = {nm} x buffers {want['k2_per_micro']} + "
-        f"{want['moment_codes']} moment decodes")
+        f"{want['per_micro']} + 2 x {want['moment_chunks']} moment encodes (a moment of an "
+        f"update chunk each), K2 {want['unpack_dequantize']} = {nm} x buffers "
+        f"{want['k2_per_micro']} + {want['moment_chunks']} moment decodes (both moments of a "
+        f"chunk in one launch)")
 
-    # one more step under torch.profiler (busy share, K1/K2, no threefry
-    # int64 kernel), then one with its parts in named ranges and the ops'
-    # input types recorded (the same step, the optimizer's update wrapped in
-    # a range too), which costs host time: its busy share is not the step's
+    # one more step under torch.profiler with its parts in named ranges (busy
+    # share, K1/K2, no threefry int64 kernel; the ranges add host time)
     i = 1 + TRAIN_TIMED
-    prof = profile_train_step(torch, lambda st: step(st, batches[i], key(i)), state, log,
-                              tag="moetrain")
-    check(prof["threefry_int64"] == 0,
-          f"moetrain: {prof['threefry_int64']} int64 bitwise/shift kernels in the profiled step")
-    log(f"moetrain: profiled step: busy {prof['busy_ms']:.1f} ms of {prof['wall_ms']:.1f} ms "
-        f"wall ({100 * prof['busy_ms'] / max(prof['wall_ms'], 1e-9):.1f}%); K1 "
-        f"{prof['k1_ms']:.1f} ms in {prof['k1_n']} launches, K2 {prof['k2_ms']:.1f} ms in "
-        f"{prof['k2_n']}; int64 bitwise/shift kernels {prof['threefry_int64']}")
-    rng = {v: k for k, v in RANGES.items()}
-    step_p = build_train_step(model, dc.replace(opt, update=annotated(
-        torch, opt.update, rng["optimizer"])), n_micro=nm, device=dev)
-    with hooked(model.engine, "gather_layer",
-                lambda o: annotated(torch, o, rng["gathers"])), \
-            hooked(attn_mod, "self_attention",
-                   lambda o: annotated(torch, o, rng["attention"])), \
-            hooked(moe_mod, "moe_layer",
-                   lambda o: annotated(torch, o, rng["dispatch/combine"])), \
-            hooked(L, "vocab_parallel_xent",
-                   lambda o: annotated(torch, o, rng["logits/xent"])):
-        prof = profile_train_step(
-            torch, lambda st: step_p(st, batches[i + 1], key(i + 1)), state, log,
-            tag="moetrain by part", breakdown=lambda ev: step_breakdown(ev, cfg.n_experts))
-    parts = dict(prof["parts"] or {})
-    matched, other = parts.pop("_matched", None), parts.pop("_other", [])
-    log("moetrain: profiled step by part (device ms, kernels): "
-        + ", ".join(f"{p} {ms:.1f} in {n}" for p, (ms, n) in
-                    sorted(parts.items(), key=lambda kv: -kv[1][0]))
-        + f"; backward nodes placed by their forward op's range {matched}; most of other: "
-        + "; ".join(f"{ms:.1f} ms {name[:60]}" for name, ms in other))
-    del state, step, step_p
+    profile_by_part(torch, log, "moetrain", model, opt, nm, state, batches[i], key(i), "MLP",
+                    dev)
+    del state, step
     if dev == "cuda":
         torch.cuda.empty_cache()
 
     # Theorem 2 in the quantized domain, one step: the wire-code state's step
-    # equals the QDQ master's (8-bit moments shared: they are re-encoded, not
-    # updated in place)
-    qs0 = quantize_train_state(init_train_state(model, opt, TRAIN["seed"], dev), model,
-                               prng.PRNGKey(TRAIN["seed"] + 2))
+    # equals the QDQ master's, each from the initial moments (the update
+    # re-encodes them in place, so the second step's are made anew)
+    qs0 = quantize_train_state(init(), model, prng.PRNGKey(TRAIN["seed"] + 2))
     # the step updates the fp leaves (norms, router) in place: keep them
     fp0 = {k: v.clone() for k, v in qs0.params.items() if not isinstance(v, QuantizedParam)}
     step_q = build_train_step(model, opt, n_micro=nm, quantized_state=True, device=dev)
@@ -3249,25 +3408,29 @@ def moetrain_phase(torch, log, dev="cuda"):
               if isinstance(v, QuantizedParam) else v.cpu()) for k, v in qs1.params.items()}
     m1 = {k: (qs1.opt.mu[k].wire.cpu(), qs1.opt.nu[k].wire.cpu()) for k in q1}
     del qs1, step_q
-    fs0 = TrainState(params={k: fp0[k] if k in fp0 else qparam_decode(v)
-                             for k, v in qs0.params.items()}, opt=qs0.opt)
+    p0 = {k: fp0[k] if k in fp0 else qparam_decode(v) for k, v in qs0.params.items()}
     del qs0, fp0
+    fs0 = TrainState(params=p0, opt=opt.init(p0))
+    del p0
     step_f = build_train_step(model, opt, n_micro=nm, quantize_master=True, device=dev)
     fs1, mf = step_f(fs0, batches[0], key(0))
+    del fs0
     lf, gf = float(mf["loss"]), float(mf["grad_norm"])
     check(lq == lf and gq == gf and math.isfinite(lq),
           f"moetrain: quantized_state loss {lq} / norm {gq} != quantize_master {lf} / {gf}")
     for k, v in fs1.params.items():
-        q = q1[k]
+        q = q1.pop(k)
         got = (qparam_decode(QuantizedParam(q.wire.to(dev), q.cell_shape, q.cfg))
                if isinstance(q, QuantizedParam) else q.to(dev))
         check(torch.equal(got, v), f"moetrain: quantized_state {k} != quantize_master's")
-        check(torch.equal(fs1.opt.mu[k].wire.cpu(), m1[k][0])
-              and torch.equal(fs1.opt.nu[k].wire.cpu(), m1[k][1]),
+        del got
+        mu, nu = m1.pop(k)
+        check(equal_to_host(torch, fs1.opt.mu[k].wire, mu)
+              and equal_to_host(torch, fs1.opt.nu[k].wire, nu),
               f"moetrain: quantized_state moments of {k} != quantize_master's")
     log(f"moetrain: quantized_state == quantize_master (8-bit moments, {cfg.n_layers} "
         f"layers): loss {lq}, grad norm {gq}, every parameter and moment equal after one step")
-    del fs0, fs1, step_f, q1, m1
+    del fs1, step_f
     peak_all = torch.cuda.max_memory_allocated() / 2**30 if dev == "cuda" else float("nan")
     if dev == "cuda":
         torch.cuda.empty_cache()
@@ -3280,17 +3443,20 @@ def moetrain_phase(torch, log, dev="cuda"):
 # phase 8c: SSM and hybrid training
 # ---------------------------------------------------------------------------
 
-# mamba2-370m trains at full depth; zamba2-7b at full width cut to 39 of 81
-# layers (3.36 G parameters: 6 groups of 6 Mamba2 layers, each followed by
-# the shared block, and a 3-layer tail, so the tail path runs): at olmoe's
-# 18.7 bytes a parameter (moetrain's peak) 81 layers would need ~124 GB
-SSM_TRAIN_LAYERS = {"mamba2-370m": None, "zamba2-7b": 39}
+# zamba2-7b trains at full width and depth: its 81 layers (6.63 G
+# parameters: 13 groups of 6 Mamba2 layers, each followed by the shared
+# block, and a 3-layer tail) hold 61.8 GiB of state: the f32 master, one set
+# of gradients and the 8-bit moment codes.  mamba2-370m trains at its full
+# 48 layers too (a host-bound step of ~61,000 kernels); its cell runs 24, to
+# make room in the run's time
+SSM_TRAIN_LAYERS = {"mamba2-370m": 24, "zamba2-7b": None}
 # Adam moments as 8-bit codes where the master and the gradients alone fill
 # most of the card
 SSM_TRAIN_MOMENT_BITS = {"mamba2-370m": None, "zamba2-7b": 8}
-# the second profiled step, by part: zamba2-7b's only.  mamba2-370m's (a
-# host-bound step of ~53,000 kernels) was the first cut of the time budget
-# the vlmaudio phase needed (ROADMAP, chip_smoke budget)
+# the profiled step by part (the one profiled step): zamba2-7b's only.
+# mamba2-370m's (a host-bound step of ~53,000 kernels) was the first cut of
+# the time budget the vlmaudio phase needed (ROADMAP, chip_smoke budget);
+# its step is profiled as it is
 SSM_TRAIN_BY_PART = {"mamba2-370m": False, "zamba2-7b": True}
 
 
@@ -3395,7 +3561,7 @@ def train_cell(torch, log, tag, arch, layers, moment_bits, profile, dev="cuda", 
     model = Model(cfg, MeshSpec(("data", "model"), (1, 1)), QSDPConfig())
     sched = cosine_schedule(TRAIN["lr"], TRAIN["warmup"], TRAIN["total"])
     opt = make_adamw(AdamWConfig(lr=TRAIN["lr"], schedule=sched, moment_bits=moment_bits))
-    batches = train_batches(torch, cfg, 1 + TRAIN_TIMED + 2, dev, TRAIN["seq"], TRAIN["batch"],
+    batches = train_batches(torch, cfg, 1 + TRAIN_TIMED + 1, dev, TRAIN["seq"], TRAIN["batch"],
                             TRAIN["seed"], image)
     nm = TRAIN["n_micro"]
 
@@ -3403,8 +3569,8 @@ def train_cell(torch, log, tag, arch, layers, moment_bits, profile, dev="cuda", 
         return prng.fold_in(prng.PRNGKey(TRAIN["seed"] + 1), i)
 
     n_params = sum(math.prod(s.shape) * (s.stack or 1) for s in model.specs.values())
-    state = init_train_state(model, opt, TRAIN["seed"], dev)
-    step = build_train_step(model, opt, n_micro=nm, device=dev)
+    spans = []
+    step = build_train_step(model, update_timer(torch, opt, spans, dev), n_micro=nm, device=dev)
 
     # the SSM families: each step's largest chunk exponent sum |dt a| of the
     # SSD decay mask (exp overflows past 88.7), read from device scalars
@@ -3427,7 +3593,9 @@ def train_cell(torch, log, tag, arch, layers, moment_bits, profile, dev="cuda", 
         return out
 
     with hooked(mamba_mod, "segsum_decay", record):
-        state, loss0, gnorm0 = step0_twice(torch, log, tag, lambda st: sync_step(0, st), state)
+        state, loss0, gnorm0 = step0_twice(
+            torch, log, tag, lambda st: sync_step(0, st),
+            lambda: init_train_state(model, opt, TRAIN["seed"], dev))
 
         # timed steps from step 1 on (step 0 above was the warm-up)
         torch.cuda.reset_peak_memory_stats()
@@ -3439,7 +3607,7 @@ def train_cell(torch, log, tag, arch, layers, moment_bits, profile, dev="cuda", 
             gnorms.append(gnorm)
             times.append(dt)
         counts = dict(ops.LAUNCHES)
-        peak = torch.cuda.max_memory_allocated()
+        mem = memory_line(torch, dev)
     want = expected_train_launches(model, nm, moments=moment_bits is not None)
     check_train_launches(counts, want, tag)
     check(all(map(math.isfinite, losses + gnorms)), f"{tag}: losses {losses}, norms {gnorms}")
@@ -3461,8 +3629,7 @@ def train_cell(torch, log, tag, arch, layers, moment_bits, profile, dev="cuda", 
         f"{TRAIN['batch']} x seq {TRAIN['seq']}, n_micro {nm}, "
         f"{'8-bit' if moment_bits else 'f32'} moments: {TRAIN_TIMED} timed steps median "
         f"{med * 1e3:.1f} ms (min {min(times) * 1e3:.1f}, max {max(times) * 1e3:.1f}), "
-        f"{tok / med:.1f} tokens/s; peak memory {peak / 2**30:.2f} GiB of "
-        f"{torch.cuda.get_device_properties(0).total_memory / 2**30:.2f}"
+        f"{tok / med:.1f} tokens/s; {mem}; {update_share(spans, times, TRAIN_TIMED)}"
         if dev == "cuda" else f"{tag}: {cfg.name} ({shape}) on {dev}")
     log(f"{tag}: losses {[round(x, 4) for x in losses]}, grad norms "
         f"{[round(x, 4) for x in gnorms]}; first loss {losses[0]:.4f} (ln {cfg.vocab_size} = "
@@ -3474,15 +3641,16 @@ def train_cell(torch, log, tag, arch, layers, moment_bits, profile, dev="cuda", 
             f"port's masks inside the exponent")
     log(f"{tag}: launches in {TRAIN_TIMED} steps {counts}; per step K1 "
         f"{want['quantize_pack']} = {nm} microbatches x (forward, replay, gradient) tensors "
-        f"{want['per_micro']} + {want['moment_codes']} moment encodes, K2 "
-        f"{want['unpack_dequantize']} = {nm} x buffers {want['k2_per_micro']} + "
-        f"{want['moment_codes']} moment decodes")
+        f"{want['per_micro']} + 2 x {want['moment_chunks']} moment encodes (a moment of an "
+        f"update chunk each), K2 {want['unpack_dequantize']} = {nm} x buffers "
+        f"{want['k2_per_micro']} + {want['moment_chunks']} moment decodes (both moments of a "
+        f"chunk in one launch)")
 
     # one more step under torch.profiler (busy share, K1/K2, no threefry
-    # int64 kernel), then one with its parts in named ranges (host time
-    # added: its busy share is not the step's)
+    # int64 kernel): as it is ("step"), or with its parts in named ranges
+    # ("by part": host time added, so its busy share is not the step's)
     i = 1 + TRAIN_TIMED
-    if profile is not None:
+    if profile == "step":
         prof = profile_train_step(torch, lambda st: step(st, batches[i], key(i)), state, log,
                                   tag=tag)
         check(prof["threefry_int64"] == 0,
@@ -3493,8 +3661,8 @@ def train_cell(torch, log, tag, arch, layers, moment_bits, profile, dev="cuda", 
             f"{prof.get('kernels', 0)} kernels; K1 {prof['k1_ms']:.1f} ms in {prof['k1_n']} "
             f"launches, K2 {prof['k2_ms']:.1f} ms in {prof['k2_n']}; int64 bitwise/shift "
             f"kernels {prof['threefry_int64']}")
-    if profile == "by part":
-        profile_by_part(torch, log, tag, model, opt, nm, state, batches[i + 1], key(i + 1),
+    elif profile == "by part":
+        profile_by_part(torch, log, tag, model, opt, nm, state, batches[i], key(i),
                         "shared MLP" if cfg.arch_type == "hybrid" else "MLP", dev)
     del state, step
     if dev == "cuda":
@@ -3506,16 +3674,20 @@ def train_cell(torch, log, tag, arch, layers, moment_bits, profile, dev="cuda", 
 def profile_by_part(torch, log, tag, model, opt, nm, state, batch, key, mlp, dev):
     """One train step of `model` (`nm` microbatches of `batch` under `key`)
     under torch.profiler with its parts in named ranges (RANGES: gathers,
-    attention, cross-attention, the MLP as `mlp`, the Mamba2 mixer, SSD scan
-    and conv, logits/xent, optimizer); logs the device ms and kernels of
-    each part (``step_breakdown``)."""
+    attention, cross-attention, the MoE layer's dispatch/combine, the MLP as
+    `mlp`, the Mamba2 mixer, SSD scan and conv, logits/xent, optimizer);
+    logs the device busy share (the ranges add host time), K1/K2 and the
+    device ms and kernels of each part (``step_breakdown``; a MoE model's
+    expert products apart) and gates on no int64 threefry kernel."""
     import dataclasses as dc
     import repro_torch.models.attention as attn_mod
     import repro_torch.models.layers as L
     import repro_torch.models.mamba as mamba_mod
+    import repro_torch.models.moe as moe_mod
     from repro_torch.train.step import build_train_step
 
     rng = {v: k for k, v in RANGES.items()}
+    n_experts = model.cfg.n_experts if model.cfg.is_moe else None
     step_p = build_train_step(model, dc.replace(opt, update=annotated(
         torch, opt.update, rng["optimizer"])), n_micro=nm, device=dev)
     with hooked(model.engine, "gather_layer",
@@ -3524,6 +3696,8 @@ def profile_by_part(torch, log, tag, model, opt, nm, state, batch, key, mlp, dev
                    lambda o: annotated(torch, o, rng["attention"])), \
             hooked(attn_mod, "cross_attention",
                    lambda o: annotated(torch, o, rng["cross-attention"])), \
+            hooked(moe_mod, "moe_layer",
+                   lambda o: annotated(torch, o, rng["dispatch/combine"])), \
             hooked(L, "swiglu_mlp", lambda o: annotated(torch, o, rng[mlp])), \
             hooked(mamba_mod, "mamba2_block",
                    lambda o: annotated(torch, o, rng["mixer elementwise"])), \
@@ -3531,8 +3705,19 @@ def profile_by_part(torch, log, tag, model, opt, nm, state, batch, key, mlp, dev
             hooked(mamba_mod, "_causal_conv", lambda o: annotated(torch, o, rng["conv"])), \
             hooked(L, "vocab_parallel_xent",
                    lambda o: annotated(torch, o, rng["logits/xent"])):
+        # the ops' input types only where the breakdown reads them (a MoE
+        # model's expert products): they double the trace's parse time
         prof = profile_train_step(torch, lambda st: step_p(st, batch, key), state, log,
-                                  tag=f"{tag} by part", breakdown=step_breakdown)
+                                  tag=f"{tag} by part",
+                                  breakdown=lambda ev: step_breakdown(ev, n_experts),
+                                  record_shapes=n_experts is not None)
+    check(prof["threefry_int64"] == 0,
+          f"{tag}: {prof['threefry_int64']} int64 bitwise/shift kernels in the profiled step")
+    log(f"{tag}: profiled step: busy {prof['busy_ms']:.1f} ms of {prof['wall_ms']:.1f} ms "
+        f"wall ({100 * prof['busy_ms'] / max(prof['wall_ms'], 1e-9):.1f}%, ranges on) in "
+        f"{prof.get('kernels', 0)} kernels; K1 {prof['k1_ms']:.1f} ms in {prof['k1_n']} "
+        f"launches, K2 {prof['k2_ms']:.1f} ms in {prof['k2_n']}; int64 bitwise/shift "
+        f"kernels {prof['threefry_int64']}")
     parts = dict(prof["parts"] or {})
     matched, other = parts.pop("_matched", None), parts.pop("_other", [])
     log(f"{tag}: profiled step by part (device ms, kernels): "
@@ -3540,6 +3725,7 @@ def profile_by_part(torch, log, tag, model, opt, nm, state, batch, key, mlp, dev
                     sorted(parts.items(), key=lambda kv: -kv[1][0]))
         + f"; backward nodes placed by their forward op's range {matched}; most of other: "
         + "; ".join(f"{ms:.1f} ms {name[:60]}" for name, ms in other))
+    return prof
 
 
 def ssmtrain_phase(torch, log, dev="cuda", archs=SSM_ARCHS):
@@ -3624,8 +3810,9 @@ def mmtrain_phase(torch, log, dev="cuda", archs=MM_ARCHS):
 # (full width and depth), batch 8 x seq 512: a cut of the paper's
 # pretraining to full_steps steps.  Cuts, were the phase too long for a
 # call, in this order: full_steps (100 -> 50 to make room for the mmtrain
-# phase), then theory_seeds 8 -> 4, then the bench model's steps; no gate's
-# band changes.
+# phase), then theory_seeds 8 -> 4 (its runs batch the seeds as a row of
+# keys: 4 seeds took 59.1 s, 8 took 44.8 s on another machine, so it saves
+# little), then the bench model's steps; no gate's band changes.
 EXP = dict(table1=240, table2=160, table3=160, fig78=160, theory_seeds=8,
            full_steps=50, full_batch=8, full_seq=512)
 EXP_RESULTS = "results/torch_bench"
@@ -3826,19 +4013,21 @@ def busy_share(events):
     return busy, kernels
 
 
-def profile_train_step(torch, run_step, state, log, tag="train", breakdown=None):
+def profile_train_step(torch, run_step, state, log, tag="train", breakdown=None,
+                       record_shapes=False):
     """torch.profiler over one step (`tag`: train, or continuous /
     speculative for a scheduler step): device busy share and kernel time by
     name (the trace is read from a temporary file and not kept: a train step
     holds ~10^4-10^5 kernels).  Returns K1's, K2's and K3's device time and
     launches, random_bits' launches and the int64 elementwise kernels of the
-    step; with `breakdown` (a function of the trace's events, recorded with
-    the ops' input types) also what it returns, under "parts"."""
+    step; with `breakdown` (a function of the trace's events) also what it
+    returns, under "parts"; `record_shapes` records the ops' input types
+    and dims for it."""
     import tempfile
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 record_shapes=breakdown is not None) as prof:
+                 record_shapes=record_shapes) as prof:
         t = time.perf_counter()
         run_step(state)
         torch.cuda.synchronize()

@@ -353,3 +353,54 @@ def qparam_split_stack(qp: QuantizedParam) -> QuantizedParam:
     zero = qp.wire[..., cb + sb:cb + 2 * sb].reshape(*lead, stack, mb_s)
     wire = torch.cat([codes, scale, zero], dim=-1)
     return QuantizedParam(torch.movedim(wire, -2, 0).contiguous(), (n_local,), cfg)
+
+
+def _one_cell(qp: QuantizedParam) -> None:
+    if math.prod(qp.wire.shape[:-1]) != 1:
+        raise ValueError(f"a range of a QuantizedParam needs one cell, got wire "
+                         f"{tuple(qp.wire.shape)}")
+
+
+def qparam_range(qp: QuantizedParam, a: int, b: int) -> ops.WireCodes:
+    """K2's table entry for values [a, b) of a one-cell QuantizedParam's cell
+    (flattened in (stack, n_local) order, `a` on a bucket boundary): the
+    buckets that hold them, their codes, scale and zero read in place inside
+    the cell's wire segment.  A layer slice of a stacked leaf whose n_local
+    is a multiple of the bucket owns whole buckets, so its entry decodes
+    exactly those rows of :func:`qparam_decode`."""
+    _one_cell(qp)
+    cfg = qp.cfg
+    if a % cfg.bucket_size or not 0 <= a < b <= qp.n:
+        raise ValueError(f"range [{a}, {b}) of {qp.n} values does not start on a bucket "
+                         f"of {cfg.bucket_size}")
+    w = wire_codes(0, qp.n, cfg)
+    b0 = a // cfg.bucket_size
+    mb = cfg.meta_bytes
+    return ops.WireCodes(b0 * ref.bucket_bytes(cfg.bucket_size, cfg.bits), w.scale + b0 * mb,
+                         w.zero + b0 * mb, -(-(b - a) // cfg.bucket_size), cfg.bucket_size,
+                         cfg.bits, cfg.meta_torch_dtype)
+
+
+def qparam_encode_range(qp: QuantizedParam, a: int, x: torch.Tensor) -> None:
+    """Re-encode in place the buckets of a one-cell QuantizedParam that start
+    at value `a` (a bucket boundary) from `x`, their (nb, bucket) f32 values
+    (a range that ends inside a bucket zero-padded, as :func:`quantize`
+    pads): K1 (nearest) writes the codes, scale and zero straight into the
+    wire where :func:`qparam_range` reads them.  Buckets are quantized
+    independently, so the bytes are those :func:`qparam_encode` of the
+    whole cell writes there."""
+    _one_cell(qp)
+    cfg = qp.cfg
+    if cfg.mode != "nearest" or cfg.meta_dtype != "float32":
+        raise ValueError(f"in-place range encodes take nearest rounding and f32 scale/zero, "
+                         f"got {cfg}")
+    w = qparam_range(qp, a, min(a + x.numel(), qp.n))
+    if x.shape != (w.nb, cfg.bucket_size):
+        raise ValueError(f"range buckets {tuple(x.shape)}, expected {(w.nb, cfg.bucket_size)}")
+    flat = qp.wire.view(-1)
+    mb = w.nb * cfg.meta_bytes
+    out = (flat[w.codes:w.codes + w.nb * ref.bucket_bytes(cfg.bucket_size, cfg.bits)]
+           .view(w.nb, -1),
+           flat[w.scale:w.scale + mb].view(torch.float32).view(w.nb, 1),
+           flat[w.zero:w.zero + mb].view(torch.float32).view(w.nb, 1))
+    ops.quantize_pack(x, None, cfg.levels, cfg.bits, "nearest", cfg.rand_bits, out=out)

@@ -68,13 +68,21 @@ def _raise_on(rc: int, kernel: str) -> None:
 
 
 def quantize_pack(x: torch.Tensor, key, levels: int, bits: int,
-                  mode: str = "nearest", rand_bits: int = 32):
+                  mode: str = "nearest", rand_bits: int = 32, out=None):
     """K1: fused bucketed quantize + bit-pack of (nb, bucket) f32 rows,
     drawing its rounding randomness from the PRNG `key` (a pair of u32
     words; None for "nearest") as ``ref.draw_rand`` does.  Returns (codes u8
-    (nb, bucket*bits/8 or bucket), scale (nb, 1), zero (nb, 1))."""
-    if _on_cpu(x):
-        return ref.quantize_pack_key_ref(x, key, levels, bits, mode, rand_bits)
+    (nb, bucket*bits/8 or bucket), scale (nb, 1), zero (nb, 1)): new
+    tensors, or `out`, three such tensors it writes into (views into a wire
+    buffer; codes, scale and zero 4-byte aligned)."""
+    if _on_cpu(x, *(out or ())):
+        res = ref.quantize_pack_key_ref(x, key, levels, bits, mode, rand_bits)
+        if out is None:
+            return res
+        for o, r in zip(out, res, strict=True):
+            _check("out", o, r.dtype, r.shape)
+            o.copy_(r)
+        return out
     nb, bucket = x.shape
     k = ref.codes_per_byte(bits)
     if mode not in _MODE_IDS or bucket % k or not 1 <= bits <= 8 or rand_bits not in (16, 32):
@@ -86,9 +94,17 @@ def quantize_pack(x: torch.Tensor, key, levels: int, bits: int,
         raise ValueError("more than 2**32 draws per key are not supported")
     _check("x", x, torch.float32, (nb, bucket))
     k0, k1 = key if key is not None else (0, 0)
-    codes = torch.empty((nb, bucket // k), dtype=torch.uint8, device=x.device)
-    scale = torch.empty((nb, 1), dtype=torch.float32, device=x.device)
-    zero = torch.empty((nb, 1), dtype=torch.float32, device=x.device)
+    if out is None:
+        codes = torch.empty((nb, bucket // k), dtype=torch.uint8, device=x.device)
+        scale = torch.empty((nb, 1), dtype=torch.float32, device=x.device)
+        zero = torch.empty((nb, 1), dtype=torch.float32, device=x.device)
+    else:
+        codes, scale, zero = out
+        _check("codes", codes, torch.uint8, (nb, bucket // k))
+        _check("scale", scale, torch.float32, (nb, 1))
+        _check("zero", zero, torch.float32, (nb, 1))
+        if any(t.data_ptr() % 4 for t in out):
+            raise ValueError("quantize_pack: out codes, scale and zero must be 4-byte aligned")
     rc = build.load("quantize").qsdp_quantize_pack(
         x.data_ptr(), k0, k1, rand_bits, codes.data_ptr(), scale.data_ptr(),
         zero.data_ptr(), nb, bucket, bits, levels, 1.0 / levels, _MODE_IDS[mode], _stream())

@@ -334,12 +334,14 @@ class Model:
 
     def _unbind_stack(self, params, prefix):
         """(sorted tensor names, per layer the tuple of its slices) of a
-        stacked group.  One UnbindBackward per stack: a layer's gradient
-        lands in its own slice instead of a zero-padded copy of the whole
-        stack."""
+        stacked group.  A leaf given as a sequence of per-layer tensors (the
+        train step's: each slice its own autograd leaf, so a layer's
+        gradient lands in that slice's ``.grad`` and no copy of the whole
+        stack is ever made) is taken as it is; a tensor is unbound."""
         grp = self._group(params, prefix)
         names = sorted(grp)
-        return names, list(zip(*(grp[n].unbind(0) for n in names)))
+        return names, list(zip(*(grp[n] if isinstance(grp[n], (tuple, list))
+                                 else grp[n].unbind(0) for n in names)))
 
     def _checkpoint(self, fn, *args):
         """``fn(*args)`` with its activations rematerialized in the backward

@@ -22,6 +22,14 @@ The reference wraps the step in ``shard_map`` + ``jit``
 (``make_jitted_train_step``); at one rank the per-device step is the step.
 The update runs in place on the state's f32 tensors (the reference donates
 them).
+
+The memory schedule holds one copy of the state and one set of gradients,
+and no second copy of any leaf: every layer slice of a stacked leaf is its
+own autograd leaf, a view of the master's storage, whose ``.grad`` the
+backward of each microbatch sums into in place (microbatch 0, then 1, the
+order of the reference's sum) as soon as that layer's reduce-scatter
+returns; the global norm and the optimizer walk the gradients chunk by
+chunk (``optim.chunk_ranges``) and release each chunk once consumed.
 """
 from __future__ import annotations
 
@@ -35,6 +43,7 @@ from ..core.quant import (QuantConfig, QuantizedParam, qparam_decode, qparam_enc
 from ..device import resolve_device
 from ..models.transformer import Model
 from ..optim import Optimizer, OptState
+from ..optim.optimizers import chunk_ranges
 
 
 class TrainState(NamedTuple):
@@ -109,6 +118,38 @@ def _split(name: str, x: torch.Tensor, n_micro: int) -> torch.Tensor:
     return x.reshape(n_micro, b // n_micro, *x.shape[1:]).movedim(1, ax + 1)
 
 
+def _leaf(model: Model, name: str, p: torch.Tensor):
+    """The autograd leaf (or, for a stacked leaf, the tuple of per-layer
+    leaves, views of its slices) the loss reads `p` through."""
+    if model.specs[name].stack is None:
+        return p.detach().requires_grad_()
+    return tuple(p[i].detach().requires_grad_() for i in range(p.shape[0]))
+
+
+def _take_grad(name: str, leaf, n_micro: int):
+    """The microbatch mean of a leaf's summed gradient (a list of layer
+    slices for a stacked leaf), divided in place."""
+    def g(t):
+        if t.grad is None:
+            raise RuntimeError(f"no gradient reached {name}")
+        return t.grad.div_(n_micro)
+    return [g(t) for t in leaf] if isinstance(leaf, tuple) else g(leaf)
+
+
+def global_norm(grads: dict) -> torch.Tensor:
+    """sqrt of the sum of squares of every gradient value: a stacked leaf's
+    sum by layer slice, an unstacked one's by ``chunk_ranges``, so no
+    temporary is larger than a chunk (the summation order is not the
+    reference's; the value agrees within f32 rounding)."""
+    parts = []
+    for k in sorted(grads):
+        g = grads[k]
+        chunks = (g if isinstance(g, list)
+                  else [g.reshape(-1)[a:b] for a, b in chunk_ranges(tuple(g.shape))])
+        parts += [torch.dot(c.reshape(-1), c.reshape(-1)) for c in chunks]
+    return torch.sqrt(torch.stack(parts).sum())
+
+
 def build_train_step(model: Model, optimizer: Optimizer, n_micro: int = 1,
                      grad_clip: float = 1.0, quantize_master: bool = False,
                      master_bits: int = 8, quantized_state: bool = False, device=None):
@@ -125,26 +166,21 @@ def build_train_step(model: Model, optimizer: Optimizer, n_micro: int = 1,
     def step(state: TrainState, batch: dict, key: prng.Key):
         params = _decode_leaves(state.params) if quantized_state else state.params
         names = sorted(params)
-        leaves = {k: v.detach().requires_grad_() for k, v in params.items()}
+        leaves = {k: _leaf(model, k, v) for k, v in params.items()}
         micro = {k: _split(k, x.to(device), n_micro) for k, x in batch.items()}
-        acc, losses = None, []
+        losses = []
         for i in range(n_micro):
             loss = model.loss_fn(leaves, {k: v[i] for k, v in micro.items()},
                                  prng.fold_in(key, i))
-            gs = torch.autograd.grad(loss, [leaves[k] for k in names])
-            # summed in place: one set of gradients beside the microbatch's
-            if acc is None:
-                acc = list(gs)
-            else:
-                for a, g in zip(acc, gs):
-                    a.add_(g)
+            # each leaf's .grad sums in place: one set of gradients, no more
+            loss.backward()
             losses.append(loss.detach())
-            del loss, gs
-        grads = {k: g.div_(n_micro) for k, g in zip(names, acc)}
-        del acc, leaves
+            del loss
+        grads = {k: _take_grad(k, leaves[k], n_micro) for k in names}
+        del leaves
 
         # global-norm clip (every element lives on exactly one rank)
-        gnorm = torch.sqrt(sum(torch.sum(torch.square(grads[k])) for k in names))
+        gnorm = global_norm(grads)
         scale = (torch.clamp(grad_clip / torch.clamp(gnorm, min=1e-12), max=1.0)
                  if grad_clip else torch.ones((), device=device))
         with torch.no_grad():

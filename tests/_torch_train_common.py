@@ -117,36 +117,44 @@ def to_torch(batch):
     return {k: conv(v) for k, v in batch.items()}
 
 
-def run_both(jm, tm, n_steps, seed=0):
-    """n_steps of the JAX and the port step from the same state.  Returns
-    per step (jax loss, port loss, jax gnorm, port gnorm), and (JAX params,
-    port params, lr) after step 1, params as numpy."""
+def run_both(jm, tm, n_steps, seed=0, moment_bits=None, synced=False):
+    """n_steps of the JAX and the port step from the same state (AdamW, its
+    moments kept as `moment_bits` codes where given).  Returns per step
+    (jax loss, port loss, jax gnorm, port gnorm), and (JAX params, port
+    params, lr) after step 1, params as numpy.  `synced`: the port starts
+    every step from the JAX state (each step a one-step comparison), and
+    the second result holds that tuple for every step."""
     sched = jcosine(LR, 2, STEPS)
-    jopt = jmake_adamw(JAdamWConfig(lr=LR, schedule=sched))
-    topt = make_adamw(AdamWConfig(lr=LR, schedule=cosine_schedule(LR, 2, STEPS)))
+    jopt = jmake_adamw(JAdamWConfig(lr=LR, schedule=sched, moment_bits=moment_bits))
+    topt = make_adamw(AdamWConfig(lr=LR, schedule=cosine_schedule(LR, 2, STEPS),
+                                  moment_bits=moment_bits))
     js = jinit(jm, jopt, jax.random.PRNGKey(seed))
     ts = train_state_from_jax(*jflatten(js), device="cpu", model=tm)
     mesh = jax.make_mesh((1, 1), ("data", "model"))
     # placed as the step places its output, so that step 2 reuses step 1's
     # compilation
-    js = jax.device_put(js, jax.tree.map(lambda p: NamedSharding(mesh, p), state_pspecs(jm),
-                                         is_leaf=lambda x: isinstance(x, P)))
+    js = jax.device_put(js, jax.tree.map(
+        lambda p: NamedSharding(mesh, p),
+        state_pspecs(jm, quantized_moments=moment_bits is not None),
+        is_leaf=lambda x: isinstance(x, P)))
     data = batches(n_steps, jm.cfg)
     jstep = make_jitted_train_step(jm, jopt, mesh, n_micro=N_MICRO, donate=False,
                                    batch_pspec={k: P() for k in data[0]})
     tstep = build_train_step(tm, topt, n_micro=N_MICRO, device="cpu")
-    rows, first = [], None
+    rows, after = [], []
     for i, batch in enumerate(data):
+        if synced and i:
+            ts = train_state_from_jax(*jflatten(js), device="cpu", model=tm)
         with mesh:
             js, jmet = jstep(js, to_jax(batch), jax.random.fold_in(jax.random.PRNGKey(1), i))
         ts, tmet = tstep(ts, to_torch(batch), prng.fold_in(prng.PRNGKey(1), i))
         rows.append((float(jmet["loss"]), float(tmet["loss"]),
                      float(jmet["grad_norm"]), float(tmet["grad_norm"])))
-        if i == 0:
-            first = ({k: np.array(v) for k, v in js.params.items()},
-                     {k: v.numpy().copy() for k, v in ts.params.items()},
-                     float(sched(jnp.asarray(1))))
-    return rows, first
+        if i == 0 or synced:
+            after.append(({k: np.array(v) for k, v in js.params.items()},
+                          {k: v.numpy().copy() for k, v in ts.params.items()},
+                          float(sched(jnp.asarray(i + 1)))))
+    return rows, after if synced else after[0]
 
 
 def assert_step_close(rows, first):

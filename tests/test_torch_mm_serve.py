@@ -230,14 +230,16 @@ def test_serve_launcher_mm(arch, flags, capsys):
 
 def test_expected_mm_launches_at_the_full_configs():
     """``chip_smoke.py``'s vlmaudio launch formula at the configs it serves
-    (qwen2-vl-72b cut to 16 layers, seamless-m4t-large-v2 whole) equals its
-    hand count: rowquant takes qwen2-vl's w_down only (w_gate/w_up's 29,568
-    columns are 28.875 buckets) and all of seamless's decoder MLP."""
+    (qwen2-vl-72b cut to 8 layers, seamless-m4t-large-v2 to 12 decoder and
+    12 encoder layers) equals its hand count: rowquant takes qwen2-vl's
+    w_down only (w_gate/w_up's 29,568 columns are 28.875 buckets) and all of
+    seamless's decoder MLP."""
     from test_torch_continuous import _chip_smoke
     cs = _chip_smoke()
     for arch in cs.MM_ARCHS:
         cfg = cs.mm_config(arch)
-        assert cfg.n_layers == (16 if arch == "qwen2-vl-72b" else 24)
+        assert cfg.n_layers == (8 if arch == "qwen2-vl-72b" else 12)
+        assert cfg.arch_type != "audio" or cfg.n_enc_layers == 12
         model = Model(cfg, MeshSpec(("data", "model"), (1, 1)), QSDPConfig())
         for rowquant in (False, True):
             got = cs.expected_mm_launches(model, rowquant)

@@ -41,7 +41,7 @@ def test_chip_smoke_moetrain_phase_rehearsal(cs, monkeypatch):
     monkeypatch.setitem(cs.TRAIN, "seq", 32)
     profiled = []
 
-    def profile(torch_, run, state, log, tag="train", breakdown=None):
+    def profile(torch_, run, state, log, tag="train", breakdown=None, record_shapes=False):
         profiled.append((tag, run(state)))
         return dict(busy_ms=0.0, wall_ms=1.0, threefry_int64=0, k1_ms=0.0, k1_n=0, k2_ms=0.0,
                     k2_n=0, parts={"_matched": (0, 0, 0), "_other": []})
@@ -63,13 +63,14 @@ def test_chip_smoke_moetrain_phase_rehearsal(cs, monkeypatch):
     # stacks); the router and the norms ride as fp segments
     assert want["per_micro"] == (15, 14, 15)
     assert want["k2_per_micro"] == (3, 2, 3)
-    # embed, final_norm and 10 layer stacks, each with two 8-bit moments
-    n_leaves = len(model.specs)
-    assert want["moment_codes"] == 2 * n_leaves == 24
-    assert counts["quantize_pack"] == cs.TRAIN_TIMED * want["quantize_pack"] == 3 * (88 + 24)
+    # update chunks: embed, final_norm, 8 layer stacks x 2 slices and the 2
+    # norm stacks (256 values a slice, within one bucket) whole; two 8-bit
+    # moment encodes and one decode a chunk
+    assert want["moment_chunks"] == 1 + 1 + 8 * 2 + 2 == 20
+    assert counts["quantize_pack"] == cs.TRAIN_TIMED * want["quantize_pack"] == 3 * (88 + 40)
     assert counts["unpack_dequantize"] == cs.TRAIN_TIMED * want["unpack_dequantize"] \
-        == 3 * (16 + 24)
-    assert [t for t, _ in profiled] == ["moetrain", "moetrain by part"]
+        == 3 * (16 + 20)
+    assert [t for t, _ in profiled] == ["moetrain by part"]
     text = "\n".join(lines)
     for needle in ("step 0 run twice from the same state and key",
                    "load-balance term per layer", "dropped by capacity per layer",

@@ -45,7 +45,7 @@ def rehearse(cs, monkeypatch, arch):
     monkeypatch.setitem(cs.TRAIN, "seq", 32)
     profiled = []
 
-    def profile(torch_, run, state, log, tag="train", breakdown=None):
+    def profile(torch_, run, state, log, tag="train", breakdown=None, record_shapes=False):
         profiled.append((tag, run(state)))
         return dict(busy_ms=0.0, wall_ms=1.0, threefry_int64=0, k1_ms=0.0, k1_n=0, k2_ms=0.0,
                     k2_n=0, parts={"_matched": (0, 0, 0), "_other": []})
@@ -79,7 +79,7 @@ def test_chip_smoke_ssmtrain_phase_rehearsal(cs, monkeypatch):
     # the convs, A, dt bias, D and the norms ride as fp segments; f32 moments
     assert want["per_micro"] == (11, 10, 11)
     assert want["k2_per_micro"] == (3, 2, 3)
-    assert want["moment_codes"] == 0
+    assert want["moment_chunks"] == 0
     assert counts["quantize_pack"] == 3 * 2 * 32
     assert counts["unpack_dequantize"] == 3 * 2 * 8
     # the by-part step is zamba2's only (the time budget's first cut)
@@ -88,14 +88,20 @@ def test_chip_smoke_ssmtrain_phase_rehearsal(cs, monkeypatch):
 
 
 @pytest.mark.parametrize("arch,layers,want", [
-    # embed + 48 x 5; K2: embed + 48 layer buffers
-    ("mamba2-370m", None, ((241, 240, 241), (49, 48, 49))),
+    # embed + 48 x 5; K2: embed + 48 layer buffers.  Update chunks: embed
+    # (51.5 M values) in 2 ranges of 2^25, final_norm, 9 stacks x 48 slices,
+    # a_log/dt_bias/d_skip (32 values a slice, sharing buckets) whole
+    ("mamba2-370m", None, ((241, 240, 241), (49, 48, 49), 2 + 1 + 9 * 48 + 3)),
     # embed + 39 x 5 + 6 invocations x 7 shared (wq/wk/wv/wo, w_gate/w_up/
-    # w_down); K2: embed + 39 layer buffers + 6 shared buffers
-    ("zamba2-7b", 39, ((238, 237, 238), (46, 45, 46))),
-    ("zamba2-7b", None, ((497, 496, 497), (95, 94, 95))),
-    # smoke: 3 layers, one group of 2 and a 1-layer tail
-    ("zamba2-smoke", None, ((23, 22, 23), (5, 4, 5))),
+    # w_down); K2: embed + 39 layer buffers + 6 shared buffers.  Update
+    # chunks: embed (114.7 M) 4 ranges, final_norm, the shared block's 9
+    # leaves (w_gate/w_up/w_down, 51.4 M each, in 2 ranges), 7 stacks by
+    # slice, a_log/dt_bias/d_skip/conv_bc/pre_norm (slices of 112, 112, 112,
+    # 512 and 3,584 values) whole
+    ("zamba2-7b", 39, ((238, 237, 238), (46, 45, 46), 4 + 1 + 12 + 7 * 39 + 5)),
+    ("zamba2-7b", None, ((497, 496, 497), (95, 94, 95), 4 + 1 + 12 + 7 * 81 + 5)),
+    # smoke: 3 layers, one group of 2 and a 1-layer tail; 6 stacks by slice
+    ("zamba2-smoke", None, ((23, 22, 23), (5, 4, 5), 1 + 1 + 9 + 6 * 3 + 6)),
 ])
 def test_expected_train_launches_by_hand(cs, arch, layers, want):
     import dataclasses
@@ -105,10 +111,9 @@ def test_expected_train_launches_by_hand(cs, arch, layers, want):
         cfg = dataclasses.replace(cfg, n_layers=layers)
     model = Model(cfg, MS, QSDPConfig())
     got = cs.expected_train_launches(model, 2, moments=True)
-    assert (got["per_micro"], got["k2_per_micro"]) == want
-    n_leaves = len(model.specs)
-    assert got["quantize_pack"] == 2 * sum(want[0]) + 2 * n_leaves
-    assert got["unpack_dequantize"] == 2 * sum(want[1]) + 2 * n_leaves
+    assert (got["per_micro"], got["k2_per_micro"], got["moment_chunks"]) == want
+    assert got["quantize_pack"] == 2 * sum(want[0]) + 2 * want[2]
+    assert got["unpack_dequantize"] == 2 * sum(want[1]) + want[2]
     if cfg.arch_type == "hybrid":  # the shared block's count needs its invocations
         with pytest.raises(ValueError, match="invocation"):
             cs.k2_buffers(model.engine, model.engine._is_quantized)

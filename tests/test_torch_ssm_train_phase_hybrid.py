@@ -10,9 +10,11 @@ def test_chip_smoke_ssmtrain_phase_rehearsal_hybrid(cs, monkeypatch):  # noqa: F
     counts, want, tags, text = rehearse(cs, monkeypatch, "zamba2-7b")
     assert want["per_micro"] == (23, 22, 23)
     assert want["k2_per_micro"] == (5, 4, 5)
-    # embed, final_norm, 12 layer stacks and 9 shared leaves, two moments each
-    assert want["moment_codes"] == 2 * 23 == 46
-    assert counts["quantize_pack"] == 3 * (2 * 68 + 46)
-    assert counts["unpack_dequantize"] == 3 * (2 * 14 + 46)
-    assert tags == ["ssmtrain zamba2-7b", "ssmtrain zamba2-7b by part"]
+    # update chunks: embed, final_norm, 9 shared leaves, 6 layer stacks x 3
+    # slices and 6 stacks whose slices share buckets, whole; per chunk two
+    # moment encodes and one decode
+    assert want["moment_chunks"] == 1 + 1 + 9 + 6 * 3 + 6 == 35
+    assert counts["quantize_pack"] == 3 * (2 * 68 + 2 * 35)
+    assert counts["unpack_dequantize"] == 3 * (2 * 14 + 35)
+    assert tags == ["ssmtrain zamba2-7b by part"]
     assert "8-bit moments bit-equal" in text and "1 shared-block invocations" in text

@@ -98,7 +98,10 @@ def test_optimizer_updates_match_jax(kind):
     """Three updates of the port's optimizers against the JAX package's on
     the same rest-layout params and grads (cosine schedule, clip scale):
     f32 elementwise math, within 1e-6 relative (the frameworks may round
-    the schedule's cos/pow and a contracted multiply-add differently)."""
+    the schedule's cos/pow and a contracted multiply-add differently).
+    Leaf "c" is a stacked leaf of two buckets a slice whose gradient the
+    port takes as its layer slices, as the train step hands it over: the
+    update walks it slice by slice."""
     import jax.numpy as jnp
     import numpy as np
     from repro.core.quant import QuantizedParam as JQP, qparam_decode as jdecode
@@ -109,7 +112,8 @@ def test_optimizer_updates_match_jax(kind):
 
     rng = np.random.default_rng(0)
     params = {"a": rng.standard_normal((1, 1, 3000)).astype(np.float32),
-              "b": rng.standard_normal((2, 1, 1, 1024)).astype(np.float32)}
+              "b": rng.standard_normal((2, 1, 1, 1024)).astype(np.float32),
+              "c": rng.standard_normal((3, 1, 1, 2048)).astype(np.float32)}
     grads = [{k: rng.standard_normal(v.shape).astype(np.float32) for k, v in params.items()}
              for _ in range(3)]
     kw = dict(adamw=dict(), adamw_wd=dict(weight_decay=0.1), adamw_m8=dict(moment_bits=8))
@@ -126,8 +130,9 @@ def test_optimizer_updates_match_jax(kind):
     js, ts = jopt.init(jp), topt.init(tp)
     for g in grads:
         jp, js = jopt.update(jp, {k: jnp.asarray(v) for k, v in g.items()}, js, grad_scale=0.5)
-        tp, ts = topt.update(tp, {k: torch.from_numpy(v) for k, v in g.items()}, ts,
-                             grad_scale=torch.tensor(0.5))
+        tg = {k: torch.from_numpy(v) for k, v in g.items()}
+        tg["c"] = list(tg["c"].unbind(0))
+        tp, ts = topt.update(tp, tg, ts, grad_scale=torch.tensor(0.5))
     assert ts.step == int(js.step) == 3
     for k in params:
         np.testing.assert_allclose(tp[k].numpy(), np.asarray(jp[k]), rtol=1e-6, atol=1e-7)
