@@ -207,6 +207,27 @@ Phases, each of which makes the script exit non-zero when it fails:
               finite and falling and its W8G8 within 8 % of the baseline,
               and K1/K2 launches equal to the structure's per train step;
               one profiled W8G8 step of each model.
+10. tune   -- the deployment-plan autotuner (``repro_torch.tune``), both
+              launchers' ``--plan`` and the examples' one-rank twins: the
+              ``h100`` cost preset's t_launch and ser_bw fitted on one
+              gpt-1.3b layer (forward + backward of ``gather_layer``, per
+              tensor and coalesced timed in turns, median of 20) through
+              the cost model's own equations at wire 0, and the committed
+              preset's coalesce decision for that layer group held to the
+              faster measured form (either within 5 %); ``tune.autotune`` at gpt-125m's full
+              width and depth (batch 8 x seq 1024, the h100 preset, the
+              shortlist measured by the port's train step: K1/K2 launches a
+              step equal the structure's for each candidate's policy; the
+              plan's layer policies equal the engine its qsdp section
+              builds; predicted vs measured ms printed); ``launch/train.py
+              --plan`` losses bit-equal to the equivalent flags' and
+              ``launch/serve.py --plan`` tokens equal to ``--wbits``' (batch
+              4 x prompt 128 x gen 16), launches by the structure; then
+              ``examples/learned_levels`` (yi-6b smoke: learned beats
+              uniform on every tensor, card within 1e-4 of the CPU),
+              ``quickstart`` and ``train_gpt_qsdp --full-width --steps 20``
+              (the last logged loss below the first).  Prints the phase's
+              seconds.
 
 Prints the kernel table as one JSON line, the card's name and power limit,
 and, last, ``{"ok": true, "device": {...}}``.
@@ -1077,10 +1098,10 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
                     default="build,kernels,small,serve,continuous,speculative,moe,ssm,vlmaudio,"
-                            "train,moetrain,ssmtrain,mmtrain,experiments",
+                            "train,moetrain,ssmtrain,mmtrain,experiments,tune",
                     help="comma-separated subset of build,kernels,small,serve,continuous,"
                          "speculative,moe,ssm,vlmaudio,train,moetrain,ssmtrain,mmtrain,"
-                         "experiments")
+                         "experiments,tune")
     ap.add_argument("--profile", action="store_true",
                     help="serve phase: also profile one decode step of each run "
                          "(chrome traces kept)")
@@ -1147,6 +1168,8 @@ def main(argv=None) -> int:
             paths.append(mmtrain_phase(torch, log))
         if "experiments" in phases:
             paths.append(experiments_phase(torch, log)[0])
+        if "tune" in phases:
+            paths.append(tune_phase(torch, log))
         launches = {k: sum(p.get(k, 0) for p in paths) for k in KERNEL_META}
         if rows is not None:
             print(json.dumps(kernel_line(rows, launches)))
@@ -1337,18 +1360,24 @@ def k2_buffers(eng, quantized, skip=(), invocations=None) -> tuple[int, int]:
     buffer (one rank: one row per buffer): (top-level tensors, each
     gathered alone; the buffers of the grouped tensors not named in `skip`:
     one per layer of a stack, and one per each of the `invocations` of an
-    un-stacked block, the hybrid's shared block)."""
+    un-stacked block, the hybrid's shared block).  A group that the
+    engine's ``coalesce_max_bytes`` policy gathers per tensor decodes each
+    quantized tensor in a launch of its own."""
     from repro_torch.kernels import ops
     alone = sum(1 for n, s in eng.specs.items() if "/" not in n and quantized(s))
-    groups = {}
+    groups, members = {}, {}
     for n, s in eng.specs.items():
+        if "/" in n:
+            members.setdefault(n.rsplit("/", 1)[0], []).append(n)
         if "/" in n and n.split("/")[-1] not in skip and quantized(s):
             g = n.rsplit("/", 1)[0]
             times = s.stack if s.stack is not None else invocations
             if times is None:
                 raise ValueError(f"{g}/ is gathered once per invocation: pass `invocations`")
             groups[g] = (groups.get(g, (0, times))[0] + 1, times)
-    return alone, sum(-(-n_q // ops.WIRE_MAX_SEGS) * times for n_q, times in groups.values())
+    return alone, sum((-(-n_q // ops.WIRE_MAX_SEGS)
+                       if eng.layer_coalesced(tuple(sorted(members[g]))) else n_q) * times
+                      for g, (n_q, times) in groups.items())
 
 
 def expected_launches(model, gen: int, rowquant: bool) -> dict:
@@ -3975,6 +4004,362 @@ def experiments_phase(torch, log, dev="cuda", enforce=True):
         + (f"; FAILED: {failed}" if failed else ""))
     check(not (enforce and failed), f"experiments: gates failed: {failed}")
     return counts, gates
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the deployment-plan autotuner, both launchers' --plan, the examples
+# ---------------------------------------------------------------------------
+
+# the h100 preset's fit: one gpt-1.3b layer at full width, gathered and
+# reduce-scattered (forward + backward of QSDPEngine.gather_layer) per
+# tensor and coalesced; median of TUNE_FIT_REPS after TUNE_FIT_WARM
+TUNE_FIT_ARCH = "gpt-1.3b"
+TUNE_FIT_REPS = 20
+TUNE_FIT_WARM = 3
+# the preset's coalesce decision may go either way when the two measured
+# times are this close (relative to the faster)
+TUNE_TIE = 0.05
+# the autotuner at gpt-125m, full width and depth (its default arch)
+TUNE = dict(arch="gpt-125m", batch=8, seq=1024, measure_top=3, steps=3)
+# train --plan vs the equivalent flags; serve --plan vs the equivalent flags
+TUNE_TRAIN = dict(steps=3, batch=8, seq=1024)
+TUNE_SERVE = dict(batch=4, prompt_len=128, gen=16)
+TUNE_OUT = "results/torch_tune"
+# examples/train_gpt_qsdp at full width: its steps
+EXAMPLE_TRAIN_STEPS = 20
+# learned_levels' errors on the card vs the CPU (a few f32 sums in
+# another order)
+LEVELS_RTOL = 1e-4
+
+
+def layer_gather_seconds(torch, engs, prefix, names, dev, reps=TUNE_FIT_REPS,
+                         warm=TUNE_FIT_WARM) -> dict:
+    """Median seconds of one layer's gather and gradient reduce-scatter
+    under each engine of `engs` ({policy: engine}): forward and backward of
+    ``gather_layer`` on the same random shards, between two
+    synchronizations, the policies timed in turns (A B, then B A) so that
+    the host's drift falls on each alike."""
+    from repro_torch.core import prng
+    gen = torch.Generator(device=dev).manual_seed(11)
+    first = next(iter(engs.values()))
+    leaves = {n[len(prefix):]: (torch.randn(first.specs[n].rest_shape(first.ms)[1:],
+                                            generator=gen, device=dev) * 0.02).requires_grad_()
+              for n in names}
+    key = prng.PRNGKey(3)
+    outs = first.gather_layer(prefix, leaves, key)
+    cts = {k: torch.randn(v.shape, generator=gen, device=dev).to(v.dtype)
+           for k, v in outs.items()}
+    del outs
+    times = {k: [] for k in engs}
+    for i in range(warm + reps):
+        for k in (list(engs) if i % 2 == 0 else list(engs)[::-1]):
+            for leaf in leaves.values():
+                leaf.grad = None
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            t = time.perf_counter()
+            outs = engs[k].gather_layer(prefix, leaves, prng.fold_in(key, i))
+            torch.autograd.backward([outs[n] for n in sorted(outs)],
+                                    [cts[n] for n in sorted(outs)])
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            if i >= warm:
+                times[k].append(time.perf_counter() - t)
+            del outs
+    return {k: statistics.median(v) for k, v in times.items()}
+
+
+def fit_cost_params(torch, log, dev="cuda", arch=TUNE_FIT_ARCH, reps=TUNE_FIT_REPS):
+    """Fit the cost model's t_launch and ser_bw on one layer of `arch`
+    through the model's own equations at wire 0 (one rank):
+        t_pt = L_pt * t_launch,   t_co = L_co * t_launch + buf / ser_bw
+    with L and buf those of ``layer_gather_cost`` + ``layer_rs_cost`` (the
+    gather and its reduce-scatter).  Gate: the committed ``h100`` preset's
+    ``plan_layer_policies`` coalesces the layer group iff the coalesced form
+    measured faster (either, within TUNE_TIE)."""
+    from repro_torch import configs
+    from repro_torch.core.qsdp import MeshSpec, QSDPConfig
+    from repro_torch.models.transformer import Model
+    from repro_torch.tune.cost_model import (HW_PRESETS, layer_gather_cost, layer_groups,
+                                             layer_rs_cost, plan_layer_policies)
+    cfg = configs.get_config(arch)
+    ms = MeshSpec(("data", "model"), (1, 1))
+    eng = {co: Model(cfg, ms, QSDPConfig(coalesce=co)).engine for co in (False, True)}
+    group, names, _ = next(g for g in layer_groups(eng[True]) if g[2] > 1)
+    t = layer_gather_seconds(torch, eng, f"{group}/", names, dev, reps=reps)
+    pt = [f(eng[True], names, False) for f in (layer_gather_cost, layer_rs_cost)]
+    co = [f(eng[True], names, True) for f in (layer_gather_cost, layer_rs_cost)]
+    check(all(c.wire_bytes == 0 for c in pt + co), "tune: wire bytes at one rank must be 0")
+    l_pt, l_co = sum(c.launches for c in pt), sum(c.launches for c in co)
+    buf = sum(c.ser_bytes for c in co)
+    t_launch = t[False] / l_pt
+    check(t[True] > l_co * t_launch, f"tune: the coalesced layer ({t[True] * 1e3:.3f} ms) took "
+          f"no longer than its {l_co} launches at the per-tensor fit's t_launch "
+          f"({t_launch * 1e6:.2f} us): ser_bw has no finite fit")
+    ser_bw = buf / (t[True] - l_co * t_launch)
+    preset = HW_PRESETS["h100"]
+    policies, thresh = plan_layer_policies(eng[True], preset)
+    planned = next(p.coalesce for p in policies if p.group == group)
+    faster = t[True] < t[False]
+    tie = abs(t[True] - t[False]) <= TUNE_TIE * min(t.values())
+    log(f"tune: {cfg.name} '{group}' layer (gather + gradient reduce-scatter, median of {reps}): "
+        f"per-tensor t_pt {t[False] * 1e3:.4f} ms in L_pt {l_pt} launches, coalesced t_co "
+        f"{t[True] * 1e3:.4f} ms in L_co {l_co} over buf {buf} B (gather "
+        f"{co[0].ser_bytes} + reduce-scatter {co[1].ser_bytes})")
+    log(f"tune: fitted t_launch_s={t_launch:.6e} ser_bw={ser_bw:.6e} B/s; the h100 preset "
+        f"t_launch_s={preset.t_launch_s:.6e} ser_bw={preset.ser_bw:.6e} B/s: plan coalesces "
+        f"'{group}' {planned} (coalesce_max_bytes={thresh}), measured "
+        f"{'coalesced' if faster else 'per-tensor'} faster by "
+        f"{abs(t[True] - t[False]) / min(t.values()) * 100:.2f} %")
+    check(planned == faster or tie,
+          f"tune: the h100 preset {'coalesces' if planned else 'does not coalesce'} "
+          f"{cfg.name}'s '{group}' group, but the {'coalesced' if faster else 'per-tensor'} "
+          f"form measured faster ({t[True] * 1e3:.4f} vs {t[False] * 1e3:.4f} ms)")
+
+
+def tune_autotune(torch, log, dev, out, arch=TUNE["arch"], smoke=False, batch=TUNE["batch"],
+                  seq=TUNE["seq"], measure_top=TUNE["measure_top"], steps=TUNE["steps"],
+                  hw="h100"):
+    """``tune.autotune.main`` on the card; each measured candidate's K1/K2
+    launches per step against ``expected_train_launches`` for its policy,
+    and the plan's layer policies against the engine its qsdp section
+    builds.  Returns (the plan, the launches)."""
+    from repro_torch import configs
+    from repro_torch.core.qsdp import MeshSpec
+    from repro_torch.kernels import ops
+    from repro_torch.models.transformer import Model
+    from repro_torch.tune import autotune
+    from repro_torch.tune.cost_model import layer_groups
+    from repro_torch.tune.plan import DeploymentPlan
+
+    runs, counts = [], {k: 0 for k in ops.KERNELS}
+
+    def wrap(orig):
+        def f(mcfg, ms, qcfg, batch, **kw):
+            ops.reset_launches()
+            r = orig(mcfg, ms, qcfg, batch, **kw)
+            runs.append((mcfg, ms, qcfg, kw, dict(ops.LAUNCHES), r))
+            return r
+        return f
+
+    argv = ["--arch", arch, "--data-par", "1", "--model-par", "1", "--hw", hw, "--batch",
+            str(batch), "--seq", str(seq), "--measure-top", str(measure_top), "--steps",
+            str(steps), "--out", out, "--device", dev] + (["--smoke"] if smoke else [])
+    t = time.perf_counter()
+    with hooked(autotune, "measure_train_step", wrap):
+        rc = autotune.main(argv)
+    check(rc == 0, f"tune: autotune exited {rc}")
+    check(len(runs) >= min(measure_top, 2), f"tune: {len(runs)} candidates measured")
+    for mcfg, ms, qcfg, kw, got, r in runs:
+        n = 2 + kw["steps"]  # two untimed steps, then the timed ones
+        want = expected_train_launches(Model(mcfg, ms, qcfg), kw["n_micro"])
+        for k in ops.KERNELS:
+            check(got[k] == n * want.get(k, 0),
+                  f"tune: candidate coalesce={qcfg.coalesce} coalesce_max_bytes="
+                  f"{qcfg.coalesce_max_bytes}: {k} launched {got[k]} times in {n} steps, the "
+                  f"structure predicts {n * want.get(k, 0)}")
+        check(math.isfinite(r["loss_final"]), f"tune: a measured loss is {r['loss_final']}")
+        for k in counts:
+            counts[k] += got[k]
+    plan = DeploymentPlan.load(out)
+    cfg = configs.get_smoke(arch) if smoke else configs.get_config(arch)
+    check(plan.arch == cfg.name and plan.mesh_shape == (1, 1) and plan.hw == hw,
+          f"tune: plan for {plan.arch} {plan.mesh_shape} {plan.hw}")
+    eng = Model(cfg, MeshSpec(("data", "model"), (1, 1)), plan.to_qsdp_config()).engine
+    groups = {g: ns for g, ns, _ in layer_groups(eng)}
+    for lp in plan.layers:
+        ns = tuple(groups[lp.group])
+        check(eng.layer_coalesced(ns) == lp.coalesce
+              and eng.layer_wire_bytes(ns) == lp.wire_buffer_bytes,
+              f"tune: the plan's policy for '{lp.group}' ({lp}) is not what its qsdp section "
+              f"builds (coalesced {eng.layer_coalesced(ns)}, buffer "
+              f"{eng.layer_wire_bytes(ns)} B)")
+    log(f"tune: autotune {cfg.name} (batch {batch} x seq {seq}, {hw}) in "
+        f"{time.perf_counter() - t:.1f} s: {plan.predicted['candidates_evaluated']} "
+        f"candidates, crossover {plan.predicted['crossover_buffer_bytes']} B; plan qsdp "
+        f"coalesce_max_bytes={plan.qsdp['coalesce_max_bytes']}, layers "
+        f"{[(lp.group, lp.coalesce) for lp in plan.layers]}")
+    for label, m in plan.measured.items():
+        log(f"tune: {label:32s} predicted {m['predicted_ms']:10.4f} ms, measured "
+            f"{m['step_ms_median']:10.4f} ms (steps {m['step_ms_all']}, first step "
+            f"{m['compile_s']:.3f} s)")
+    for mcfg, ms, qcfg, kw, got, r in runs:
+        per = {k: got[k] // (2 + kw["steps"]) for k in ("quantize_pack", "unpack_dequantize")}
+        log(f"tune: coalesce={qcfg.coalesce} coalesce_max_bytes={qcfg.coalesce_max_bytes}: "
+            f"K1 {per['quantize_pack']}, K2 {per['unpack_dequantize']} launches a step "
+            "(= the structure's)")
+    return plan, counts
+
+
+def tune_launchers(torch, log, dev, plan_path, plan, arch=TUNE["arch"], smoke=False,
+                   train=TUNE_TRAIN, serve=TUNE_SERVE):
+    """``launch/train.py --plan`` bit-equal to the equivalent flags (losses
+    and config), ``launch/serve.py --plan`` tokens equal to the equivalent
+    flags; launches of each run against the structure's.  Returns the
+    launches."""
+    from repro_torch import configs
+    from repro_torch.core.qsdp import MeshSpec, QSDPConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as lserve
+    from repro_torch.launch import train as ltrain
+    from repro_torch.models.transformer import Model
+    from repro_torch.serve import engine as seng
+
+    cfg = configs.get_smoke(arch) if smoke else configs.get_config(arch)
+    ms = MeshSpec(("data", "model"), (1, 1))
+    q = plan.qsdp
+    counts = {k: 0 for k in ops.KERNELS}
+    out_dir = REPO / TUNE_OUT
+    out_dir.mkdir(parents=True, exist_ok=True)
+    base = ["--arch", arch, "--device", dev] + (["--smoke"] if smoke else [])
+    equiv = (["--wbits", str(q["weight_bits"]), "--gbits", str(q["grad_bits"]), "--bucket",
+              str(q["bucket_size"]), "--min-quant-size", str(q["min_quant_size"])]
+             + ([] if q["coalesce"] else ["--no-coalesce"])
+             + ([] if q["coalesce_max_bytes"] is None
+                else ["--coalesce-max-bytes", str(q["coalesce_max_bytes"])]))
+    targs = base + ["--steps", str(train["steps"]), "--batch", str(train["batch"]), "--seq",
+                    str(train["seq"]), "--log-every", "1"]
+    qsdp_plan = ltrain.build_qsdp(ltrain.parse_args(targs + ["--plan", plan_path]))
+    qsdp_flags = ltrain.build_qsdp(ltrain.parse_args(targs + equiv))
+    check(qsdp_plan == qsdp_flags, f"tune: train --plan builds {qsdp_plan}, the equivalent "
+          f"flags {equiv} build {qsdp_flags}")
+    logs = {}
+    for tag, extra in (("plan", ["--plan", plan_path]), ("flags", equiv)):
+        path = out_dir / f"train_{tag}.json"
+        ops.reset_launches()
+        check(ltrain.main(targs + extra + ["--out-json", str(path)]) == 0,
+              f"tune: train --{tag} failed")
+        got = dict(ops.LAUNCHES)
+        want = expected_train_launches(Model(cfg, ms, qsdp_plan), 1)
+        for k in ops.KERNELS:
+            check(got[k] == train["steps"] * want.get(k, 0),
+                  f"tune: train ({tag}) {k} launched {got[k]} times, the structure predicts "
+                  f"{train['steps'] * want.get(k, 0)}")
+        for k in counts:
+            counts[k] += got[k]
+        logs[tag] = [e["loss"] for e in json.loads(path.read_text())["log"]]
+    check(logs["plan"] == logs["flags"] and all(map(math.isfinite, logs["plan"])),
+          f"tune: train --plan losses {logs['plan']} != equivalent flags' {logs['flags']}")
+    log(f"tune: launch/train.py --plan == {' '.join(equiv)}: {cfg.name} losses "
+        f"{logs['plan']} over {train['steps']} steps (batch {train['batch']} x seq "
+        f"{train['seq']}), bit-equal")
+
+    toks = {}
+    sargs = base + ["--batch", str(serve["batch"]), "--prompt-len", str(serve["prompt_len"]),
+                    "--gen", str(serve["gen"])]
+    # the serve launcher's only policy flag is --wbits: the plan's policy
+    # differs from the flags' in the per-layer coalesce threshold alone,
+    # which moves launches, never values
+    wb = ["--wbits", str(q["weight_bits"])]
+    serve_qsdp = {"plan": plan.to_qsdp_config(), "flags": QSDPConfig(weight_bits=q["weight_bits"])}
+    check(dataclasses.replace(serve_qsdp["plan"], coalesce_max_bytes=None, coalesce=True)
+          == serve_qsdp["flags"], f"tune: the plan's policy {serve_qsdp['plan']} differs from "
+          f"{' '.join(wb)}'s in more than the coalesce threshold")
+    for tag, extra in (("plan", ["--plan", plan_path]), ("flags", wb)):
+        outs = []
+
+        def wrap(orig):
+            def f(self, *a, **k):
+                o = orig(self, *a, **k)
+                outs.append(o.cpu())
+                return o
+            return f
+
+        ops.reset_launches()
+        with hooked(seng.ServeEngine, "generate", wrap):
+            check(lserve.main(sargs + extra) == 0, f"tune: serve --{tag} failed")
+        got = dict(ops.LAUNCHES)
+        want = expected_launches(Model(cfg, ms, serve_qsdp[tag]), serve["gen"], rowquant=False)
+        for k in ops.KERNELS:
+            check(got[k] == want.get(k, 0), f"tune: serve ({tag}) {k} launched {got[k]} times, "
+                  f"the structure predicts {want.get(k, 0)}")
+        for k in counts:
+            counts[k] += got[k]
+        check(len(outs) == 1, f"tune: serve ({tag}) called generate {len(outs)} times")
+        toks[tag] = outs[0]
+    check(toks["plan"].shape == (serve["batch"], serve["gen"])
+          and torch.equal(toks["plan"], toks["flags"]),
+          f"tune: serve --plan tokens differ from {' '.join(wb)}'s")
+    log(f"tune: launch/serve.py --plan == {' '.join(wb)}: {cfg.name} batch {serve['batch']} x "
+        f"prompt {serve['prompt_len']} x gen {serve['gen']}, tokens equal (first row "
+        f"{toks['plan'][0].tolist()})")
+    return counts
+
+
+def tune_examples(torch, log, dev, train_steps=EXAMPLE_TRAIN_STEPS, full_width=True):
+    """The examples' one-rank twins on the card: learned_levels (yi-6b's
+    smoke config; every tensor's learned levels beat the uniform grid, and
+    its errors agree with the CPU's on the same weights), quickstart
+    (gpt-125m smoke: finite losses, tokens of the vocabulary) and
+    train_gpt_qsdp (`full_width`: gpt-125m at full width and depth; the
+    last logged loss below the first).  Returns the launches."""
+    from repro_torch.examples import learned_levels, quickstart, train_gpt_qsdp
+    from repro_torch.kernels import ops
+    from repro_torch import configs
+    from repro_torch.core.qsdp import MeshSpec, QSDPConfig
+    from repro_torch.models.transformer import Model
+
+    counts = {k: 0 for k in ops.KERNELS}
+    dv = ["--device", dev]
+    t = time.perf_counter()
+    ops.reset_launches()
+    rows = learned_levels.main(dv)
+    model = Model(configs.get_smoke("yi-6b"), MeshSpec(("data", "model"), (1, 1)), QSDPConfig())
+    cpu_rows = learned_levels.level_errors(
+        {k: v.cpu() for k, v in model.init_params(0, dev).items()})
+    check(rows and [r["name"] for r in rows] == [r["name"] for r in cpu_rows],
+          "tune: learned_levels rows")
+    rel = max(abs(r[k] - c[k]) / c[k] for r, c in zip(rows, cpu_rows)
+              for k in ("uniform", "learned"))
+    check(all(r["learned"] < r["uniform"] for r in rows) and rel <= LEVELS_RTOL,
+          f"tune: learned_levels: learned {[r['learned'] for r in rows]} vs uniform "
+          f"{[r['uniform'] for r in rows]}, card vs CPU {rel:.2e} (tol {LEVELS_RTOL})")
+    log(f"tune: examples/learned_levels (yi-6b smoke, {len(rows)} tensors): learned "
+        f"{min(r['learned'] for r in rows):.4f}-{max(r['learned'] for r in rows):.4f} < "
+        f"uniform {min(r['uniform'] for r in rows):.4f}-{max(r['uniform'] for r in rows):.4f}; "
+        f"card vs CPU within {rel:.2e} relative")
+    losses, out = quickstart.main(dv)
+    vocab = configs.get_smoke("gpt-125m").vocab_size
+    check(all(map(math.isfinite, losses)) and tuple(out.shape) == (8, 8)
+          and 0 <= int(out.min()) and int(out.max()) < vocab,
+          f"tune: quickstart losses {losses}, tokens {tuple(out.shape)}")
+    log(f"tune: examples/quickstart: losses {[round(x, 4) for x in losses]}, generated "
+        f"{out[0].tolist()}")
+    log_ = train_gpt_qsdp.main(["--steps", str(train_steps)] + (["--full-width"] if full_width
+                                                               else []) + dv)
+    check(len(log_) >= 2 and all(math.isfinite(e["loss"]) for e in log_)
+          and log_[-1]["loss"] < log_[0]["loss"],
+          f"tune: train_gpt_qsdp losses {[e['loss'] for e in log_]}")
+    log(f"tune: examples/train_gpt_qsdp{' --full-width' if full_width else ''} "
+        f"--steps {train_steps}: loss {log_[0]['loss']:.4f} -> {log_[-1]['loss']:.4f} "
+        f"({log_[-1]['t']:.1f} s)")
+    got = dict(ops.LAUNCHES)
+    check(got["quantize_pack"] > 0 and got["unpack_dequantize"] > 0,
+          f"tune: examples launched {got}")
+    for k in counts:
+        counts[k] += got[k]
+    log(f"tune: examples in {time.perf_counter() - t:.1f} s, launches {got}")
+    return counts
+
+
+def tune_phase(torch, log, dev="cuda"):
+    """The autotuner on one card: fit the h100 preset's constants and gate
+    its coalesce decision, autotune gpt-125m at full width and depth
+    (measured shortlist), drive both launchers with the plan, run the
+    examples.  Returns the launches of the autotuner's measured steps, the
+    launchers' and the examples' runs."""
+    t = time.perf_counter()
+    fit_cost_params(torch, log, dev)
+    out_dir = REPO / TUNE_OUT
+    out_dir.mkdir(parents=True, exist_ok=True)
+    plan_path = str(out_dir / "plan_gpt125m_h100.json")
+    plan, counts = tune_autotune(torch, log, dev, plan_path)
+    for part in (tune_launchers(torch, log, dev, plan_path, plan),
+                 tune_examples(torch, log, dev)):
+        for k in counts:
+            counts[k] += part[k]
+    log(f"tune: phase {time.perf_counter() - t:.1f} s; launches {counts}")
+    return counts
 
 
 def profile_experiment_step(torch, log, cfg, qsdp, batch, seq, dev):

@@ -27,8 +27,8 @@ import torch
 from ..kernels import ops
 from . import prng
 from .quant import (QuantConfig, Quantized, dequantize, fp_pack, fp_segment_bytes,
-                    fp_unpack, kernel_dtype, quantize, wire_codes, wire_pack,
-                    wire_segment_bytes)
+                    fp_unpack, kernel_dtype, quantize, quantized_shapes, wire_codes,
+                    wire_pack, wire_segment_bytes)
 
 
 def group_size(group) -> int:
@@ -235,3 +235,30 @@ def reduce_scatter_coalesced(gs: Sequence[torch.Tensor], layout: WireLayout,
     rbuf = _all_to_all_rows(torch.cat(rows, dim=1), group)
     return [vals[0] if p == 1 else torch.stack(vals).sum(0)
             for vals in _decode_segments(rbuf, layout, [torch.float32] * len(gs))]
+
+
+# ---------------------------------------------------------------------------
+# Wire-byte accounting (the analytic communication model)
+# ---------------------------------------------------------------------------
+
+
+def gather_wire_bytes(n_local: int, p: int, cfg: Optional[QuantConfig],
+                      fp_bytes: int = 4) -> int:
+    """Per-device bytes moved by one all-gather of an n_local-element shard
+    (ring: receive P - 1 shards).  The same for the per-tensor and the
+    coalesced wire format: coalescing changes launches, not bytes."""
+    if cfg is None:
+        return (p - 1) * n_local * fp_bytes
+    s = quantized_shapes(n_local, cfg)
+    per_shard = s["codes"][0] * s["codes"][1] + 2 * cfg.meta_bytes * s["scale"][0]
+    return (p - 1) * per_shard
+
+
+def reduce_scatter_wire_bytes(n: int, p: int, cfg: Optional[QuantConfig],
+                              fp_bytes: int = 4) -> int:
+    """Per-device bytes moved by one reduce-scatter of an n-element tensor."""
+    if cfg is None:
+        return (p - 1) * (n // p) * fp_bytes
+    s = quantized_shapes(n // p, cfg)
+    per_chunk = s["codes"][0] * s["codes"][1] + 2 * cfg.meta_bytes * s["scale"][0]
+    return (p - 1) * per_chunk

@@ -441,3 +441,41 @@ class QSDPEngine:
         gen = torch.Generator(device=device).manual_seed(seed)
         return {name: init_param(gen, spec, self.ms, device)
                 for name, spec in sorted(self.specs.items())}
+
+
+# ---------------------------------------------------------------------------
+# Communication accounting (per step, analytic; the reference's Fig-4 model)
+# ---------------------------------------------------------------------------
+
+
+def step_comm_bytes(engine: QSDPEngine, gathers_per_param: int = 2,
+                    reduces_per_param: int = 1) -> dict[str, int]:
+    """Per-device wire bytes of one optimizer step under the engine's policy
+    (2 weight all-gathers + 1 gradient reduce-scatter per param by default,
+    the FSDP schedule).  On the (1, 1) mesh every term is 0, as in the
+    reference: a gather of one shard receives nothing."""
+    ms, cfg = engine.ms, engine.cfg
+    p = ms.fsdp_size
+    wbytes = rbytes = 0
+    for spec in engine.specs.values():
+        reps = spec.stack or 1
+        n_local_shard = spec.n_local(ms)
+        n_full = n_local_shard * p
+        wq = cfg.wcfg() if engine._is_quantized(spec) else None
+        gq = cfg.gcfg() if engine._is_grad_quantized(spec) else None
+        wfp = 4 if cfg.weight_wire_dtype == "float32" else 2
+        gfp = 4 if cfg.grad_wire_dtype == "float32" else 2
+        wbytes += reps * gathers_per_param * coll.gather_wire_bytes(n_local_shard, p, wq, wfp)
+        rbytes += reps * reduces_per_param * coll.reduce_scatter_wire_bytes(n_full, p, gq, gfp)
+    return dict(weight_gather=wbytes, grad_reduce=rbytes, total=wbytes + rbytes)
+
+
+def layer_gather_launches(engine: QSDPEngine, names) -> int:
+    """Analytic collective-launch count of ONE gather of the given params:
+    3 per quantized tensor (codes, scale, zero) + 1 per full-precision
+    tensor when per-tensor, 1 in all when coalesced (the engine's
+    ``coalesce_max_bytes`` policy decides).  The port has no two-level
+    (hierarchical) gathers (ROADMAP A3b), so one level."""
+    if engine.layer_coalesced(tuple(names)):
+        return 1
+    return sum(3 if engine._is_quantized(engine.specs[n]) else 1 for n in names)

@@ -27,7 +27,9 @@ prefill, paged pool or speculation, as in the reference; the VLM and audio
 prompts carry the reference's modality stubs, and qwen2-vl-72b's 286 GB of
 f32 weights do not fit one card at full depth); ``--smoke`` serves its
 2-layer smoke config; ``--device cpu`` runs the plain versions of the
-kernels on the CPU.
+kernels on the CPU.  ``--plan PLAN.json`` (from
+``repro_torch.tune.autotune``) pins the QSDP comm policy and gives the
+serve knobs' defaults; flags typed on the command line still win.
 """
 from __future__ import annotations
 
@@ -45,6 +47,10 @@ from ..serve import Request, build_serve_setup, make_prompt_batch, make_schedule
 
 def _build_parser():
     ap = argparse.ArgumentParser()
+    ap.add_argument("--plan", type=str, default=None,
+                    help="DeploymentPlan JSON from repro_torch.tune.autotune: supplies "
+                         "the QSDP comm policy and the serve knobs' defaults (flags "
+                         "typed still win)")
     ap.add_argument("--arch", default="gpt-125m")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--batch", type=int, default=8,
@@ -93,6 +99,17 @@ def _build_parser():
     return ap
 
 
+# plan serve-section field -> launcher flag dest
+_PLAN_SERVE_DESTS = {
+    "slots": "batch", "prefill_chunk": "prefill_chunk",
+    "prefill_buckets": "prefill_buckets",
+    "prefill_interleave": "prefill_interleave",
+    "kv_block_size": "kv_block_size", "kv_pool_blocks": "kv_pool_blocks",
+    "kv_quant_bits": "kv_quant_bits", "kv_quant_horizon": "kv_quant_horizon",
+    "draft_bits": "draft_bits", "draft_depth": "draft_depth",
+}
+
+
 def validate_args(ap, args) -> None:
     """Reject inconsistent flags at parse time, with a one-line reason."""
     if not 2 <= args.wbits <= 8:
@@ -123,11 +140,30 @@ def validate_args(ap, args) -> None:
                  "scheduler's draft/verify phases)")
     if args.requests < 1:
         ap.error(f"--requests must be >= 1 (got {args.requests})")
+    if args.plan and args.baseline:
+        ap.error("--plan pins the QSDP comm policy; don't combine it with --baseline")
 
 
 def parse_args(argv=None):
     ap = _build_parser()
     args = ap.parse_args(argv)
+    plan_qsdp = None
+    if args.plan:
+        from ..tune.plan import DeploymentPlan
+        try:
+            plan = DeploymentPlan.load(args.plan)
+            # the port serves on the (1, 1) mesh
+            plan.validate_mesh(("data", "model"), (1, 1))
+            plan_qsdp = plan.to_qsdp_config(QSDPConfig())
+            knobs = plan.serve_knobs()
+        except (OSError, ValueError, NotImplementedError) as e:
+            ap.error(f"--plan {args.plan}: {e}")
+        # the plan's serve section provides the DEFAULTS; flags the user
+        # typed still win (argparse re-parse with updated defaults)
+        ap.set_defaults(**{_PLAN_SERVE_DESTS[k]: v for k, v in knobs.items()
+                           if k in _PLAN_SERVE_DESTS})
+        args = ap.parse_args(argv)
+    args.plan_qsdp = plan_qsdp
     validate_args(ap, args)
     return args
 
@@ -207,7 +243,10 @@ def run_batch(setup, args) -> int:
 
 def main(argv=None):
     args = parse_args(argv)
-    qsdp = QSDPConfig.baseline() if args.baseline else QSDPConfig(weight_bits=args.wbits)
+    if args.plan_qsdp is not None:
+        qsdp = args.plan_qsdp
+    else:
+        qsdp = QSDPConfig.baseline() if args.baseline else QSDPConfig(weight_bits=args.wbits)
     setup = build_serve_setup(
         args.arch, smoke=args.smoke, qsdp=qsdp, batch=args.batch,
         prompt_len=args.prompt_len, gen=args.gen, seed=args.seed,

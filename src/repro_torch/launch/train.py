@@ -6,7 +6,9 @@ hybrid families on one card, with flag parity to the JAX package's
       --steps 10 --batch 4 --seq 2048 --n-micro 2
 
 ``--smoke`` trains the 2-layer smoke config; ``--device cpu`` runs the
-plain versions of the kernels on the CPU.  Uses the deterministic synthetic
+plain versions of the kernels on the CPU.  ``--plan PLAN.json`` (from
+``repro_torch.tune.autotune``) pins the comm policy instead of the
+individual flags.  Uses the deterministic synthetic
 Markov corpus, so loss curves are reproducible.  Flags of the JAX launcher
 that need more than one rank, and the comm-policy knobs that come with
 them, exit with an error naming the ROADMAP item that brings them.  The
@@ -33,13 +35,15 @@ from ..train.checkpoint import save_checkpoint
 from ..train.step import build_train_step, init_train_state, quantize_train_state
 
 # flags of the JAX launcher this port does not run yet: (flag, ROADMAP item)
-_NOT_PORTED = (("--hierarchical", "A3b"), ("--prefetch", "A4b"), ("--plan", "A12"))
+_NOT_PORTED = (("--hierarchical", "A3b"), ("--prefetch", "A4b"))
 # families whose train batch carries inputs beside the tokens and labels
 _MODALITY_INPUTS = {"vlm": "vision_embeds, vision_mask and M-RoPE positions",
                     "audio": "audio_embeds"}
 
 
 def build_qsdp(args) -> QSDPConfig:
+    if args.plan:
+        return args.plan_qsdp
     if args.baseline:
         return QSDPConfig.baseline()
     return QSDPConfig(weight_bits=args.wbits, grad_bits=args.gbits,
@@ -78,6 +82,19 @@ def validate_args(ap: argparse.ArgumentParser, args) -> None:
     if args.quantize_master and args.quantized_state:
         ap.error("--quantize-master (QDQ f32 state) and --quantized-state "
                  "(wire-code state) are mutually exclusive")
+    args.plan_qsdp = None
+    if args.plan:
+        if any([args.baseline, args.coalesce_max_bytes is not None, not args.coalesce]):
+            ap.error("--plan pins the comm policy; don't combine it with "
+                     "--baseline/--hierarchical/--coalesce-max-bytes/--prefetch/"
+                     "--no-coalesce")
+        from ..tune.plan import DeploymentPlan
+        try:
+            plan = DeploymentPlan.load(args.plan)
+            plan.validate_mesh(("data", "model"), (args.data_par, args.model_par))
+            args.plan_qsdp = plan.to_qsdp_config(QSDPConfig())
+        except (OSError, ValueError, NotImplementedError) as e:
+            ap.error(f"--plan {args.plan}: {e}")
 
 
 def parse_args(argv=None):
@@ -105,7 +122,9 @@ def parse_args(argv=None):
                     help="per-layer byte threshold: gathers whose coalesced wire buffer "
                          "exceeds this fall back to per-tensor launches (None = always "
                          "coalesce)")
-    ap.add_argument("--plan", type=str, default=None)
+    ap.add_argument("--plan", type=str, default=None,
+                    help="DeploymentPlan JSON from repro_torch.tune.autotune: pins the "
+                         "whole comm policy instead of the individual flags above")
     ap.add_argument("--quantize-master", action="store_true",
                     help="f32 state, QDQ-round-tripped through Q^w each step")
     ap.add_argument("--quantized-state", action="store_true",
@@ -143,7 +162,10 @@ def main(argv=None):
                             quantize_master=args.quantize_master,
                             master_bits=args.master_bits,
                             quantized_state=args.quantized_state, device=device)
-    tag = "baseline-FSDP" if args.baseline else f"QSDP W{args.wbits}G{args.gbits}"
+    if args.plan:
+        tag = f"QSDP plan W{qsdp.weight_bits}G{qsdp.grad_bits}"
+    else:
+        tag = "baseline-FSDP" if args.baseline else f"QSDP W{args.wbits}G{args.gbits}"
     if qsdp.coalesce_max_bytes is not None:
         tag += f" coalesce<={qsdp.coalesce_max_bytes}B"
     if args.quantized_state:

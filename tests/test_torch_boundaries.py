@@ -34,6 +34,8 @@ def _imported_roots(path: Path) -> set[str]:
 def test_port_imports_no_jax_and_no_repro():
     files = _port_files()
     assert len(files) > 20
+    scanned = {p.parent.name for p in files}
+    assert {"tune", "roofline", "examples"} <= scanned, scanned
     bad = {str(p.relative_to(ROOT)): sorted(_imported_roots(p) & FORBIDDEN)
            for p in files if _imported_roots(p) & FORBIDDEN}
     assert not bad, bad
@@ -92,11 +94,17 @@ def test_train_entry_points_raise_without_cuda(monkeypatch):
 
 @pytest.mark.parametrize("flags,item", [
     (["--data-par", "2"], "A3b"), (["--model-par", "2"], "A3b"),
-    (["--hierarchical"], "A3b"), (["--prefetch"], "A4b"), (["--plan", "plan.json"], "A12")])
-def test_train_launcher_names_roadmap_for_unported_flags(flags, item, capsys):
+    (["--hierarchical"], "A3b"), (["--prefetch"], "A4b"), (["--plan", "{prefetch}"], "A4b")])
+def test_train_launcher_names_roadmap_for_unported_flags(flags, item, capsys, tmp_path):
+    """``--plan`` is ported; a plan that asks for layer prefetch is not."""
     from repro_torch.launch import train as launch_train
+    from repro_torch.tune.plan import PLAN_VERSION, DeploymentPlan
+    plan = str(tmp_path / "prefetch_plan.json")
+    DeploymentPlan(version=PLAN_VERSION, arch="gpt-125m", mesh_axes=("data", "model"),
+                   mesh_shape=(1, 1), hw="h100", qsdp={"coalesce": True, "prefetch": True},
+                   serve={}).save(plan)
     with pytest.raises(SystemExit):
-        launch_train.parse_args(flags)
+        launch_train.parse_args([f.format(prefetch=plan) for f in flags])
     assert f"ROADMAP {item}" in capsys.readouterr().err
 
 
