@@ -72,11 +72,12 @@ Phases, each of which makes the script exit non-zero when it fails:
               on the CPU (gathered wire bytes equal, expert stacks
               included; top-k experts equal where the CPU router margin is
               clear; logits within tolerance); then olmoe-1b-7b at full
-              width and depth (16 layers, 64 experts top-8, 6.81 G
-              parameters, random weights from seed 0, default QSDPConfig):
-              batch serving (the serve phase's shape, run twice: equal
-              tokens, K1 113 / K2 17 launches per decode step as the
-              structure derives them), the continuous phase's cell and
+              width (64 experts top-8) cut to MOE_SERVE_LAYERS = 4 of its
+              16 layers for the run's time (1.78 G parameters, random
+              weights from seed 0, default QSDPConfig): batch serving (the
+              serve phase's shape, run twice: equal tokens, K1 29 / K2 5
+              launches per decode step as the structure derives them), the
+              continuous phase's cell and
               gates and the speculative phase's (4-bit draft, depth 4;
               the draft's 3-D expert stacks go through K2, never K3), and
               the fixed-shape route's row gate at the MoE launch shapes.
@@ -85,10 +86,10 @@ Phases, each of which makes the script exit non-zero when it fails:
               smoke configs on the card and on the CPU (gathered wire bytes
               equal, logits within tolerance, tokens equal), zamba2's smoke
               rowquant decode (shared MLP through K3) equal to its dense
-              one; then mamba2-370m (48 layers, 367.6 M parameters) and
-              zamba2-7b (81 layers and 13 invocations of the shared
-              attention+MLP block, 6.63 G parameters) at full width and
-              depth, random weights from seed 0, default QSDPConfig: batch
+              one; then mamba2-370m (SSM_SERVE_LAYERS: 12 of its 48 layers)
+              and zamba2-7b (27 of 81 layers, 4 invocations of the shared
+              attention+MLP block) at full width (both serve at full depth
+              too), random weights from seed 0, default QSDPConfig: batch
               serving (the serve phase's shape, run twice: equal tokens,
               K1/K2 launches per step as the structure and the hand count
               derive them; zamba2 also rowquant, K3 on the shared
@@ -228,6 +229,22 @@ Phases, each of which makes the script exit non-zero when it fails:
               ``quickstart`` and ``train_gpt_qsdp --full-width --steps 20``
               (the last logged loss below the first).  Prints the phase's
               seconds.
+11. roofline -- the train phase's profiled gpt-1.3b step and the tune
+              phase's first measured gpt-125m step (its untimed second
+              step, profiled) counted again on the meta device by the dry
+              run's counter (``roofline.counter``: no new card step) and
+              held against their runs on the card: the counted K1/K2
+              launches equal the structure's and the step's, the counted
+              product FLOPs (mm/addmm/bmm) the profiler's own
+              (``with_flops``) within 1 %, the device's busy time at least
+              the larger of the dtype-aware compute floor (bf16 products at
+              989 TFLOP/s, f32 at 67) and t_memory_min, the counted peak of
+              live bytes within 10 % of ``max_memory_allocated``.  Prints
+              the counts, the three terms at the published peaks and the
+              measured step, busy time and their ratio to the larger floor;
+              then runs the dry run's gpt-1.3b x decode_32k pair on this
+              host's torch (``launch/dryrun.py``).  Prints the phase's
+              seconds.
 
 Prints the kernel table as one JSON line, the card's name and power limit,
 and, last, ``{"ok": true, "device": {...}}``.
@@ -253,10 +270,6 @@ F32_FLOP_PER_S = 67e12      # H100 SXM f32 outside the tensor cores
 # paper) x 132 SMs x 1.98 GHz, the clock at which the data sheet's f32 rate
 # (128 lanes x 2 flop) is 67 TFLOP/s
 INT32_OP_PER_S = 16.7e12
-# 32-bit integer operations K1 spends per value on its stochastic draw: the
-# threefry-2x32 block (20 rounds of add, rotate, xor; 5 key injections of 2
-# adds) plus the counter, the final xor and the mantissa fill
-K1_DRAW_INT_OPS = 75
 
 K3_TOL = {"float32": 2e-4, "bfloat16": 2e-2}   # tests/test_kernels.py:61-96
 # dense vs rowquant first decode step, max |diff| / max |logit|: the dense
@@ -333,12 +346,14 @@ def kernel_ms(torch, fn, reps=10, flush=None, keep=lambda name: not _not_ours(na
     raise PhaseError("torch.profiler did not record every kernel of the timed calls")
 
 
-def bound(nbytes, flops=0.0, flop_rate=F32_FLOP_PER_S, int_ops=0.0):
-    """(least ms, what bounds it): the larger of the bytes over the memory
-    rate and the operations over their peak rates (f32 and INT32 run on
-    separate lanes, so the larger of those two counts)."""
-    t_b = nbytes / HBM_BYTES_PER_S * 1e3
-    t_o = max(flops / flop_rate, int_ops / INT32_OP_PER_S) * 1e3
+def bound(work):
+    """(least ms, what bounds it) of a kernel's `work`
+    (``kernels.cost.KernelCost``, the formulas the meta path reports): the
+    larger of its bytes over the memory rate and its operations over their
+    peak rates (f32 and INT32 run on separate lanes, so the larger of those
+    two counts)."""
+    t_b = work.nbytes / HBM_BYTES_PER_S * 1e3
+    t_o = max(work.flops / F32_FLOP_PER_S, work.int_ops / INT32_OP_PER_S) * 1e3
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
 
@@ -441,7 +456,7 @@ def layer_decode_rows(torch, log, gen, decode_row, addcmul_ms, dev="cuda", arch=
     from repro_torch import configs
     from repro_torch.core import collectives as coll
     from repro_torch.core.qsdp import MeshSpec, QSDPConfig
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import cost, ops, ref
     from repro_torch.models.transformer import Model
 
     eng = Model(configs.get_config(arch), MeshSpec(("data", "model"), (1, 1)),
@@ -452,7 +467,7 @@ def layer_decode_rows(torch, log, gen, decode_row, addcmul_ms, dev="cuda", arch=
     out = []
     for dt in (getattr(torch, d) for d in dtypes):
         table, dts = coll.wire_table(layout, 1, [dt] * len(layout.segments))
-        nb, n = sum(t.nb for t in table), sum(t.nb * t.bucket for t in table)
+        nb = sum(t.nb for t in table)
         want = ref.unpack_dequantize_wire_ref(buf, table, dts)
         # the library's operands: the layer's codes as one (nb, 1024) tensor
         # and its f32 scale/zero as (nb, 1)
@@ -468,7 +483,7 @@ def layer_decode_rows(torch, log, gen, decode_row, addcmul_ms, dev="cuda", arch=
             lambda: ops.unpack_dequantize_wire(buf, table, dts),
             lambda: ref.unpack_dequantize_wire_ref(buf, table, dts),
             addcmul_ms(*lib, torch.cat(want)),
-            sum(t.zero + 4 * t.nb - t.codes for t in table) + dt.itemsize * n, n))
+            cost.unpack_dequantize_wire(table, [d.itemsize for d in dts])))
         del want, meta, lib
     return out
 
@@ -504,7 +519,7 @@ def unaligned_decode_check(torch, log, gen, dev="cuda"):
 
 def kernel_phase(torch, log, dev="cuda"):
     from repro_torch.core import prng
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import cost, ops, ref
 
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -531,7 +546,7 @@ def kernel_phase(torch, log, dev="cuda"):
                     library_kernel_ms=kernel_ms(torch, call, flush=flush,
                                                 keep=lambda name: "fill" not in name.lower()))
 
-    def decode_row(what, nb, call, plain, library, nbytes, n):
+    def decode_row(what, nb, call, plain, library, work):
         """A K2/K5 row: `call` (the kernel, a tensor or a list of them)
         byte-equal to `plain`, then timed by events and by the profiler
         beside the plain version and the library call (`library`: its
@@ -546,7 +561,7 @@ def kernel_phase(torch, log, dev="cuda"):
                     kernel_ms=kernel_ms(torch, call, flush=flush),
                     plain_ms=cuda_ms(torch, plain, reps=3, flush=flush),
                     **(library or dict(library_ms=None, library_kernel_ms=None)),
-                    bound=bound(nbytes, flops=2 * n),
+                    bound=bound(work),
                     max_abs_err=max((g.float() - w.float()).abs().max().item()
                                     for g, w in zip(got, want)))
 
@@ -556,7 +571,7 @@ def kernel_phase(torch, log, dev="cuda"):
         With `chunk` (stochastic mode), the plain version runs `chunk`
         buckets at a time at their own counters (``ref.k1_counters``: bucket
         b's value j at b * bucket + j), the same draws and arithmetic."""
-        nb, n = x.shape[0], x.numel()
+        nb = x.shape[0]
         levels = (1 << bits) - 1
 
         def call():
@@ -582,8 +597,7 @@ def kernel_phase(torch, log, dev="cuda"):
             shape=what, nb=nb, mode=mode,
             ms=cuda_ms(torch, call, flush=flush), kernel_ms=kernel_ms(torch, call, flush=flush),
             plain_ms=cuda_ms(torch, plain, reps=3, flush=flush),
-            bound=bound(4 * n + q[0].numel() + 8 * nb, flops=5 * n,
-                        int_ops=K1_DRAW_INT_OPS * n if mode == "stochastic" else 0),
+            bound=bound(cost.quantize_pack(nb, x.shape[1], bits, mode)),
             max_abs_err=max((a.float() - b.float()).abs().max().item() for a, b in zip(q, qr)))
 
     # K1 (key form) + K2 correctness: bits x modes x rand_bits at the MLP
@@ -617,13 +631,12 @@ def kernel_phase(torch, log, dev="cuda"):
         x = torch.randn((nb, 1024), generator=gen, device=dev) * 0.02
         q, row = k1_row(what, x, prng.PRNGKey(nb), "shift")
         k1.append(row)
-        n = nb * 1024
         for dt in (torch.bfloat16, torch.float32):
             k2.append(decode_row(
                 f"{what}, {dt_name(dt)} out", nb, lambda: ops.unpack_dequantize(*q, 8, dt),
                 lambda: ref.unpack_dequantize_ref(*q, 8, dt),
                 addcmul_ms(*q, ref.unpack_dequantize_ref(*q, 8, dt)),
-                n + 8 * nb + dt.itemsize * n, n))
+                cost.unpack_dequantize(nb, 1024, 8, dt.itemsize)))
         del x, q
     # buckets past 1 KB of codes (``launch/train.py --bucket 4096``): the
     # 16-byte path walks them in 1 KB chunks; timed at the MLP's value count
@@ -638,7 +651,7 @@ def kernel_phase(torch, log, dev="cuda"):
                 lambda: ops.unpack_dequantize(*q, bits, dt),
                 lambda: ref.unpack_dequantize_ref(*q, bits, dt),
                 addcmul_ms(*q, ref.unpack_dequantize_ref(*q, bits, dt)) if bits == 8 else None,
-                n * bits // 8 + 8 * (n // 4096) + dt.itemsize * n, n))
+                cost.unpack_dequantize(n // 4096, 4096, bits, dt.itemsize)))
         del q
     del x
     # the gradient path's mode at the embedding shape: K1 stochastic, one
@@ -721,12 +734,11 @@ def kernel_phase(torch, log, dev="cuda"):
         q, row = k1_row(what, x, key, mode, bits=bits)
         k1.append(row)
         want = ref.unpack_dequantize_ref(*q, bits, torch.bfloat16)
-        n = nb * bucket
         k2.append(decode_row(
             f"{what}, bf16 out", nb, lambda: ops.unpack_dequantize(*q, bits, torch.bfloat16),
             lambda: ref.unpack_dequantize_ref(*q, bits, torch.bfloat16),
             addcmul_ms(ref.unpack_codes(q[0], bits), q[1], q[2], want),
-            q[0].numel() + 8 * nb + 2 * n, n))
+            cost.unpack_dequantize(nb, bucket, bits, 2)))
         del x, q, want
     for r in k1:
         b_ms, b_by = r["bound"]
@@ -742,7 +754,7 @@ def kernel_phase(torch, log, dev="cuda"):
     # the cold tier's codec at its gpt-1.3b block shape (continuous phase):
     # K1 nearest at 4 bits, bucket 128; K2 decoding it into bf16
     x = torch.randn((COLD_NB, COLD_BUCKET), generator=gen, device=dev)
-    levels, n = (1 << COLD_BITS) - 1, COLD_NB * COLD_BUCKET
+    levels = (1 << COLD_BITS) - 1
     q = ops.quantize_pack(x, None, levels, COLD_BITS, "nearest")
     qr = ref.quantize_pack_key_ref(x, None, levels, COLD_BITS, "nearest")
     for g, w, part in zip(q, qr, ("codes", "scale", "zero")):
@@ -756,7 +768,7 @@ def kernel_phase(torch, log, dev="cuda"):
         plain_ms=cuda_ms(torch, lambda: ref.quantize_pack_key_ref(x, None, levels, COLD_BITS,
                                                                   "nearest"),
                          reps=3, flush=flush),
-        bound=bound(4 * n + n * COLD_BITS // 8 + 8 * COLD_NB, flops=5 * n),
+        bound=bound(cost.quantize_pack(COLD_NB, COLD_BUCKET, COLD_BITS, "nearest")),
         max_abs_err=max((a.float() - b.float()).abs().max().item() for a, b in zip(q, qr))))
     r = k1[-1]
     log(f"K1 {r['shape']} nb={COLD_NB}: byte-equal to plain; {r['ms']:.4f} ms, kernel "
@@ -766,7 +778,7 @@ def kernel_phase(torch, log, dev="cuda"):
         "cold KV block, W4 bucket 128, bf16 out", COLD_NB,
         lambda: ops.unpack_dequantize(*q, COLD_BITS, torch.bfloat16),
         lambda: ref.unpack_dequantize_ref(*q, COLD_BITS, torch.bfloat16), None,
-        n * COLD_BITS // 8 + 8 * COLD_NB + 2 * n, n))
+        cost.unpack_dequantize(COLD_NB, COLD_BUCKET, COLD_BITS, 2)))
     log_decode_row("K2", k2[-1], log)
     del x, q, qr
 
@@ -790,7 +802,7 @@ def kernel_phase(torch, log, dev="cuda"):
         addcmul_ms(torch.cat([ref.unpack_codes(q.codes, DRAFT_BITS) for q in qs]),
                    torch.cat([q.scale for q in qs])[:, None],
                    torch.cat([q.zero for q in qs])[:, None], torch.cat(want)),
-        sum(b.numel() for b in bufs) + 2 * 4 * n1, 4 * n1))
+        cost.unpack_dequantize_wire(table, [2] * 4)))
     log_decode_row("K2", k2[-1], log)
     del qs, bufs, want
     # the olmoe draft's expert stack: one 4-bit wire buffer of 134 M values,
@@ -805,7 +817,7 @@ def kernel_phase(torch, log, dev="cuda"):
         lambda: ref.unpack_dequantize_wire_ref(bufs, table, dts[:1]),
         addcmul_ms(ref.unpack_codes(q.codes, DRAFT_BITS), q.scale[:, None], q.zero[:, None],
                    want[0]),
-        bufs[0].numel() + 2 * OLMOE_EXPERT, OLMOE_EXPERT))
+        cost.unpack_dequantize_wire(table, [2])))
     log_decode_row("K2", k2[-1], log)
     del q, bufs, want
 
@@ -824,7 +836,7 @@ def kernel_phase(torch, log, dev="cuda"):
         kernel_ms=kernel_ms(torch, lambda: ops.random_bits(keys_d, vocab), flush=flush),
         plain_ms=cuda_ms(torch, lambda: ref.random_bits_ref(keys_d, vocab), reps=3,
                          flush=flush),
-        bound=bound(4 * rows_n * vocab + 8 * rows_n, int_ops=K1_DRAW_INT_OPS * rows_n * vocab),
+        bound=bound(cost.random_bits(rows_n, vocab)),
         max_abs_err=0.0)]
     r = rows["random_bits"][0]
     log(f"random_bits {r['shape']}: byte-equal to plain (jax.random.bits); {r['ms']:.4f} ms, "
@@ -850,7 +862,6 @@ def kernel_phase(torch, log, dev="cuda"):
     log("K4 quantize_buckets: byte-equal to plain, levels {3,15,63,255} x {nearest,stochastic}, "
         f"nb={nb} x 1024; K5 dequantize_buckets byte-equal (tolerance 0), f32 and bf16 out")
     nb = GPT13_NB["embed"]
-    n = nb * 1024
     x = torch.randn((nb, 1024), generator=gen, device=dev) * 1e-3
     rand = key_uniform(nb, 1024, 0.0, 1.0, 14)
     q = ops.quantize_buckets(x, rand, 255, True)
@@ -863,13 +874,13 @@ def kernel_phase(torch, log, dev="cuda"):
                             flush=flush),
         plain_ms=cuda_ms(torch, lambda: ref.quantize_buckets_ref(x, rand, 255, True), reps=3,
                          flush=flush),
-        bound=bound(4 * n + 4 * n + n + 8 * nb, flops=6 * n),
+        bound=bound(cost.quantize_buckets(nb, 1024, True)),
         max_abs_err=max((a.float() - b.float()).abs().max().item() for a, b in zip(q, qr)))]
     rows["dequantize_buckets"] = [
         decode_row(f"embed, {dt_name(dt)} out", nb, lambda: ops.dequantize_buckets(*q, dt),
                    lambda: ref.dequantize_buckets_ref(*q, dt),
                    addcmul_ms(*q, ref.dequantize_buckets_ref(*q, dt)),
-                   n + 8 * nb + dt.itemsize * n, n)
+                   cost.dequantize_buckets(nb, 1024, dt.itemsize))
         for dt in (torch.float32, torch.bfloat16)]
     r = rows["quantize_buckets"][0]
     log(f"quantize_buckets {r['shape']} nb={nb}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, "
@@ -906,7 +917,6 @@ def kernel_phase(torch, log, dev="cuda"):
                                        z.reshape(nb, 1), 8).reshape(k, n).to(torch.bfloat16)
         err = (ops.rowquant_matmul(xb, codes, s, z).float()
                - ref.rowquant_matmul_ref(xb, codes, s, z).float()).abs().max().item()
-        nbytes = 2 * m * k + k * n + 8 * k * n_seg + 2 * m * n
         k3.append(dict(
             shape=what, m=m, k=k, n=n, n_seg=n_seg,
             ms=cuda_ms(torch, lambda: ops.rowquant_matmul(xb, codes, s, z), flush=flush),
@@ -915,7 +925,7 @@ def kernel_phase(torch, log, dev="cuda"):
             library_ms=cuda_ms(torch, lambda: torch.matmul(xb, wd), flush=flush),
             kernel_ms=kernel_ms(torch, lambda: ops.rowquant_matmul(xb, codes, s, z), flush=flush),
             library_kernel_ms=kernel_ms(torch, lambda: torch.matmul(xb, wd), flush=flush),
-            bound=bound(nbytes, flops=2 * m * k * n + 4 * m * k * n_seg),
+            bound=bound(cost.rowquant_matmul(m, k, n, n_seg, xb.dtype.itemsize)),
             max_abs_err=err, main_path=what in K3_SHAPES))
         del w, codes, s, z, wd
     for r in k3:
@@ -1098,10 +1108,11 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
                     default="build,kernels,small,serve,continuous,speculative,moe,ssm,vlmaudio,"
-                            "train,moetrain,ssmtrain,mmtrain,experiments,tune",
+                            "train,moetrain,ssmtrain,mmtrain,experiments,tune,roofline",
                     help="comma-separated subset of build,kernels,small,serve,continuous,"
                          "speculative,moe,ssm,vlmaudio,train,moetrain,ssmtrain,mmtrain,"
-                         "experiments,tune")
+                         "experiments,tune,roofline (roofline reads the steps the train and "
+                         "tune phases profile)")
     ap.add_argument("--profile", action="store_true",
                     help="serve phase: also profile one decode step of each run "
                          "(chrome traces kept)")
@@ -1139,6 +1150,7 @@ def main(argv=None) -> int:
                         log(f"nvcc {name}: {line.strip()}")
             log(f"build: {time.time() - tb:.1f} s")
         rows, paths = None, []
+        measured = {} if "roofline" in phases else None
         if "kernels" in phases:
             rows = kernel_phase(torch, log)
             paths.append(buckets_path(torch, log))
@@ -1159,7 +1171,7 @@ def main(argv=None) -> int:
         if "vlmaudio" in phases:
             paths.append(vlmaudio_phase(torch, log))
         if "train" in phases:
-            paths.append(train_phase(torch, log))
+            paths.append(train_phase(torch, log, measured=measured))
         if "moetrain" in phases:
             paths.append(moetrain_phase(torch, log))
         if "ssmtrain" in phases:
@@ -1169,7 +1181,9 @@ def main(argv=None) -> int:
         if "experiments" in phases:
             paths.append(experiments_phase(torch, log)[0])
         if "tune" in phases:
-            paths.append(tune_phase(torch, log))
+            paths.append(tune_phase(torch, log, measured=measured))
+        if "roofline" in phases:
+            roofline_phase(torch, log, measured, card)
         launches = {k: sum(p.get(k, 0) for p in paths) for k in KERNEL_META}
         if rows is not None:
             print(json.dumps(kernel_line(rows, launches)))
@@ -2209,9 +2223,10 @@ def profile_speculative_step(torch, log, sched, reqs, k3=True):
 
 MOE_ARCH = "olmoe-1b-7b"
 # layers served: olmoe-1b-7b serves at full depth (16 layers) on one card;
-# its serving cells run 8 to make room in the run's time for the train
-# cells at full depth (host-bound steps, whose time scales with the layers)
-MOE_SERVE_LAYERS = 8
+# its serving cells run 4 to make room in the run's time for the train
+# cells at full depth and the roofline phase (host-bound steps, whose time
+# scales with the layers)
+MOE_SERVE_LAYERS = 4
 
 
 def moe_batch(torch, log, dev="cuda"):
@@ -2315,12 +2330,13 @@ def moe_phase(torch, log, dev="cuda"):
 
 SSM_ARCHS = ("mamba2-370m", "zamba2-7b")
 # layers served: both models serve at full depth (48 and 81 layers) on one
-# card; the serving cells are cut to half of mamba2-370m's depth and a
-# third of zamba2-7b's (4 groups of 6
+# card; the serving cells are cut to a quarter of mamba2-370m's depth and
+# a third of zamba2-7b's (4 groups of 6
 # Mamba2 layers, each followed by the shared block, and the 3-layer tail)
-# to make room in the run's time for the train cells at full depth.  The
-# steps are host-bound: their time scales with the layers
-SSM_SERVE_LAYERS = {"mamba2-370m": 24, "zamba2-7b": 27}
+# to make room in the run's time for the train cells at full depth and the
+# roofline phase.  The steps are host-bound: their time scales with the
+# layers
+SSM_SERVE_LAYERS = {"mamba2-370m": 12, "zamba2-7b": 27}
 # the reference's rowquant test config for the hybrid family
 # (tests/test_kernel_dispatch.py:206): buckets of 128 tile the smoke shared
 # MLP's rows, so its decode runs K3
@@ -2328,7 +2344,7 @@ SSM_RQ_QSDP = dict(min_quant_size=256, bucket_size=128)
 # K1/K2/K3 launches of a whole-prompt prefill and of one decode step of the
 # models served at full width (the ssm and vlmaudio phases, at the depths
 # they serve), counted by hand from the configs, by (name, rowquant).
-# mamba2-370m at 24 layers / zamba2-7b at 27: the embedding (K1 + K2), 5
+# mamba2-370m at 12 layers / zamba2-7b at 27: the embedding (K1 + K2), 5
 # quantized Mamba2 weights in one buffer per layer, and for zamba2-7b 4
 # shared-block invocations of 7 quantized weights in one buffer; under
 # rowquant the decode step's shared w_gate/w_up go through K3
@@ -2342,7 +2358,7 @@ SSM_RQ_QSDP = dict(min_quant_size=256, bucket_size=128)
 # weights; a decoder layer
 # holds 11 (self- and cross-attention, MLP), one buffer each; under rowquant
 # its MLP goes through K3
-_MAMBA2 = (1 + 5 * 24, 1 + 24, 0)
+_MAMBA2 = (1 + 5 * 12, 1 + 12, 0)
 _ZAMBA2 = (1 + 5 * 27 + 7 * 4, 1 + 27 + 4, 0)
 _QWEN2VL = (1 + 7 * 8, 1 + 8, 0)
 _SEAMLESS = (2 + 7 * 12 + 11 * 12, 2 + 12 + 12, 0)
@@ -2630,7 +2646,7 @@ def small_rowquant(torch, log, dev="cuda", arch="zamba2-7b"):
 def ssm_phase(torch, log, dev="cuda", archs=SSM_ARCHS):
     """The SSM and hybrid families on the card: both smoke configs card vs
     CPU (``small_phase``) and zamba2's rowquant smoke decode equal to its
-    dense one; then mamba2-370m (24 of 48 layers) and zamba2-7b (27 of 81
+    dense one; then mamba2-370m (12 of 48 layers) and zamba2-7b (27 of 81
     layers: 4 groups of 6 Mamba2 layers, each followed by the shared
     attention+MLP block, and a tail of 3) at full width (SSM_SERVE_LAYERS),
     random weights from seed 0, default QSDPConfig: batch serving (dense, and for zamba2 also
@@ -3005,7 +3021,10 @@ def check_train_launches(counts, want, what):
               f"{TRAIN_TIMED} steps, the code's structure predicts {n_want}")
 
 
-def train_phase(torch, log, dev="cuda"):
+def train_phase(torch, log, dev="cuda", measured=None):
+    """gpt-1.3b's train cell (module docstring, phase 8); with `measured`
+    (a dict), its profiled step also takes the roofline phase's
+    measurement, kept there under "gpt-1.3b train"."""
     from repro_torch import configs
     from repro_torch.core import prng
     from repro_torch.core.qsdp import MeshSpec, QSDPConfig
@@ -3055,7 +3074,12 @@ def train_phase(torch, log, dev="cuda"):
     # the int64 elementwise kernels left (the threefry draws of core/prng.py
     # ran as such kernels; K1 now draws in its own threads)
     i = 1 + TRAIN_TIMED
-    prof = profile_train_step(torch, lambda st: step(st, batches[i], key(i)), state, log)
+    prof = profile_train_step(torch, lambda st: step(st, batches[i], key(i)), state, log,
+                              **({} if measured is None else {"flops": True}))
+    if measured is not None:
+        measured["gpt-1.3b train"] = dict(
+            model=model, opt=opt, n_micro=TRAIN["n_micro"], batch=batches[i], step_ms=med * 1e3,
+            launches={k: counts[k] // TRAIN_TIMED for k in counts}, prof=prof)
     check(prof["threefry_int64"] == 0,
           f"train: {prof['threefry_int64']} int64 bitwise/shift kernels in the profiled step "
           "(a threefry draw outside K1)")
@@ -4119,26 +4143,39 @@ def fit_cost_params(torch, log, dev="cuda", arch=TUNE_FIT_ARCH, reps=TUNE_FIT_RE
 
 def tune_autotune(torch, log, dev, out, arch=TUNE["arch"], smoke=False, batch=TUNE["batch"],
                   seq=TUNE["seq"], measure_top=TUNE["measure_top"], steps=TUNE["steps"],
-                  hw="h100"):
+                  hw="h100", measured=None):
     """``tune.autotune.main`` on the card; each measured candidate's K1/K2
     launches per step against ``expected_train_launches`` for its policy,
     and the plan's layer policies against the engine its qsdp section
-    builds.  Returns (the plan, the launches)."""
+    builds.  Returns (the plan, the launches).  With `measured` (a dict)
+    the first candidate's second step (untimed) is profiled for the
+    roofline phase and kept there under "<arch> tune"."""
     from repro_torch import configs
     from repro_torch.core.qsdp import MeshSpec
     from repro_torch.kernels import ops
     from repro_torch.models.transformer import Model
     from repro_torch.tune import autotune
+    from repro_torch.tune import measure as measure_mod
     from repro_torch.tune.cost_model import layer_groups
     from repro_torch.tune.plan import DeploymentPlan
 
     runs, counts = [], {k: 0 for k in ops.KERNELS}
+    cell = {}
 
     def wrap(orig):
         def f(mcfg, ms, qcfg, batch, **kw):
             ops.reset_launches()
-            r = orig(mcfg, ms, qcfg, batch, **kw)
+            profile = measured is not None and not runs
+            with (hooked(measure_mod, "build_train_step",
+                         lambda build: profiled_second_step(torch, log, build, cell))
+                  if profile else contextlib.nullcontext()):
+                r = orig(mcfg, ms, qcfg, batch, **kw)
             runs.append((mcfg, ms, qcfg, kw, dict(ops.LAUNCHES), r))
+            if profile:
+                n = 2 + kw["steps"]
+                measured[f"{arch} tune"] = dict(
+                    cell, step_ms=r["step_ms_median"],
+                    launches={k: v // n for k, v in runs[-1][4].items()})
             return r
         return f
 
@@ -4342,24 +4379,152 @@ def tune_examples(torch, log, dev, train_steps=EXAMPLE_TRAIN_STEPS, full_width=T
     return counts
 
 
-def tune_phase(torch, log, dev="cuda"):
+def tune_phase(torch, log, dev="cuda", measured=None):
     """The autotuner on one card: fit the h100 preset's constants and gate
     its coalesce decision, autotune gpt-125m at full width and depth
     (measured shortlist), drive both launchers with the plan, run the
     examples.  Returns the launches of the autotuner's measured steps, the
-    launchers' and the examples' runs."""
+    launchers' and the examples' runs.  `measured`: as for
+    ``tune_autotune``."""
     t = time.perf_counter()
     fit_cost_params(torch, log, dev)
     out_dir = REPO / TUNE_OUT
     out_dir.mkdir(parents=True, exist_ok=True)
     plan_path = str(out_dir / "plan_gpt125m_h100.json")
-    plan, counts = tune_autotune(torch, log, dev, plan_path)
+    plan, counts = tune_autotune(torch, log, dev, plan_path, measured=measured)
     for part in (tune_launchers(torch, log, dev, plan_path, plan),
                  tune_examples(torch, log, dev)):
         for k in counts:
             counts[k] += part[k]
     log(f"tune: phase {time.perf_counter() - t:.1f} s; launches {counts}")
     return counts
+
+
+def profiled_second_step(torch, log, build, store):
+    """A ``build_train_step`` whose step profiles its second call (the
+    measurement's untimed warm step) for the roofline phase: the model, the
+    optimizer, the microbatches, the batch and ``profile_train_step``'s
+    numbers (with `flops`) go into `store`."""
+    def build_profiled(model, opt, **kw):
+        step = build(model, opt, **kw)
+        calls = []
+
+        def run(state, batch, key):
+            calls.append(1)
+            if len(calls) != 2:
+                return step(state, batch, key)
+            out = []
+            prof = profile_train_step(torch, lambda st: out.append(step(st, batch, key)), state,
+                                      log, tag=f"roofline {model.cfg.name}", flops=True)
+            store.update(model=model, opt=opt, n_micro=kw.get("n_micro", 1), batch=batch,
+                         prof=prof)
+            return out[0]
+        return run
+    return build_profiled
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the roofline of the profiled train steps, counted on meta
+# ---------------------------------------------------------------------------
+
+# the dry run's pair run on the card's host, so that its torch's meta path is
+# exercised
+ROOFLINE_PAIR = ("gpt-1.3b", "decode_32k")
+ROOFLINE_FLOPS_RTOL = 0.01  # counted vs the profiler's own product FLOPs
+ROOFLINE_PEAK_RTOL = 0.10   # counted vs measured peak device memory
+# the products the counter counts as the profiler names them
+PROFILER_PRODUCTS = ("aten::mm", "aten::addmm", "aten::bmm", "aten::baddbmm")
+
+
+def count_cell(torch, m):
+    """A measured train cell's step counted on the meta device: the same
+    model, optimizer, microbatches and batch shapes (``launch.dryrun``'s
+    counter, the step run once at its microbatches)."""
+    from repro_torch.launch import dryrun
+    batch = {k: torch.empty_like(v, device="meta") for k, v in m["batch"].items()}
+    step = dryrun.train_step(m["model"], m["opt"], batch, m["n_micro"])
+    c = dryrun.count(step, m["n_micro"])
+    c["collectives"] = dryrun.collectives(m["model"], "train", c)
+    return c
+
+
+def roofline_phase(torch, log, measured, card, dev="cuda"):
+    """Each measured train step (``measured``: the train phase's gpt-1.3b
+    cell, the tune phase's gpt-125m step) counted on meta and held against
+    its profiled run: the counted K1/K2 launches equal the structure's and
+    the real step's, the counted product FLOPs the profiler's within 1 %,
+    the device's busy time at least the larger of the dtype-aware compute
+    floor and the optimistic memory term, the counted peak of live bytes
+    within 10 % of the measured peak.  Then the dry run's ROOFLINE_PAIR on
+    this host.  Returns the records."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+    from repro_torch.roofline import HW_H100, compute_floor, roofline
+    t = time.perf_counter()
+    check(measured, "roofline: no profiled train step to hold the counts against (the train "
+          "and tune phases take them)")
+    out = {}
+    for tag, m in measured.items():
+        tc = time.perf_counter()
+        c = count_cell(torch, m)
+        tc = time.perf_counter() - tc
+        model, prof = m["model"], m["prof"]
+        cfg = model.cfg
+        tokens = sum(v.shape[0] * v.shape[1] for k, v in m["batch"].items() if k == "tokens")
+        rep = roofline(cfg.name, tag, dryrun.MESH, c, dryrun.N_CHIPS,
+                       6.0 * cfg.n_active_params() * tokens, HW_H100)
+        floor = compute_floor(c["flops_by_dtype"])
+        larger = max(floor, rep.t_memory_min)
+        want = expected_train_launches(model, m["n_micro"])
+        for k in ("quantize_pack", "unpack_dequantize"):
+            check(c["launches"].get(k, 0) == want[k] == m["launches"][k],
+                  f"roofline {tag}: {k} counted {c['launches'].get(k, 0)} launches on meta, the "
+                  f"structure predicts {want[k]}, the card's step launched {m['launches'][k]}")
+        check(all(c["launches"].get(k, 0) == m["launches"].get(k, 0) for k in ops.KERNELS),
+              f"roofline {tag}: counted launches {c['launches']}, the card's {m['launches']}")
+        counted_mm = sum(v for k, v in c["flops_by_op"].items()
+                         if "aten::" + k in PROFILER_PRODUCTS)
+        err = abs(counted_mm - prof["mm_flops"]) / max(prof["mm_flops"], 1)
+        check(err <= ROOFLINE_FLOPS_RTOL,
+              f"roofline {tag}: counted product FLOPs {counted_mm:.6e}, the profiler's "
+              f"{prof['mm_flops']:.6e} ({100 * err:.3f} % apart)")
+        busy = prof["busy_ms"] / 1e3
+        check(busy >= larger, f"roofline {tag}: the card was busy {busy * 1e3:.3f} ms, below the "
+              f"counted floor {larger * 1e3:.3f} ms (a counting fault)")
+        want_peak = prof["mem_before"] + c["peak_live_bytes"] - c["base_bytes"]
+        perr = abs(want_peak - prof["mem_peak"]) / prof["mem_peak"]
+        check(perr <= ROOFLINE_PEAK_RTOL,
+              f"roofline {tag}: counted peak {want_peak / 2**30:.3f} GiB (the {prof['mem_before'] / 2**30:.3f} "
+              f"GiB allocated before the step + {(c['peak_live_bytes'] - c['base_bytes']) / 2**30:.3f} "
+              f"counted), measured {prof['mem_peak'] / 2**30:.3f} GiB ({100 * perr:.2f} % apart)")
+        log(f"roofline {tag} ({card}): counted on meta in {tc:.1f} s: flops {c['flops']:.6e} "
+            f"{c['flops_by_dtype']}, traffic {c['traffic_bytes']:.6e} B, traffic_min "
+            f"{c['traffic_min_bytes']:.6e} B, peak_live {c['peak_live_bytes'] / 2**30:.3f} GiB "
+            f"(state and batch {c['base_bytes'] / 2**30:.3f}), launches {c['launches']}")
+        log(f"roofline {tag}: at the published peaks (bf16 {HW_H100.peak_flops / 1e12:.0f} "
+            f"TFLOP/s, HBM {HW_H100.hbm_bw / 1e12:.2f} TB/s): t_compute "
+            f"{rep.t_compute * 1e3:.3f} ms, t_memory {rep.t_memory * 1e3:.3f} ms, t_memory_min "
+            f"{rep.t_memory_min * 1e3:.3f} ms, t_collective {rep.t_collective * 1e3:.3f} ms -> "
+            f"{rep.bottleneck}, useful {rep.useful_flops_ratio:.4f}; dtype-aware compute floor "
+            f"{floor * 1e3:.3f} ms (f32 products at 67 TFLOP/s)")
+        log(f"roofline {tag}: measured step {m['step_ms']:.1f} ms, profiled step busy "
+            f"{prof['busy_ms']:.1f} ms of {prof['wall_ms']:.1f} wall: busy / larger floor "
+            f"{busy / larger:.3f}; product FLOPs counted {counted_mm:.6e}, profiler "
+            f"{prof['mm_flops']:.6e} ({100 * err:.3f} % apart; it also recorded "
+            f"{prof['mm_unlaunched']:.6e} in product ops that launched no kernel); peak counted "
+            f"{want_peak / 2**30:.3f} GiB, measured {prof['mem_peak'] / 2**30:.3f} GiB "
+            f"({100 * perr:.2f} % apart); launches {m['launches']}")
+        out[tag] = dict(rep.to_dict(), floor_s=floor, busy_s=busy, step_ms=m["step_ms"])
+    tp = time.perf_counter()
+    r = dryrun.run_one(*ROOFLINE_PAIR, verbose=False)
+    check(r.get("ok"), f"roofline: the dry run's {ROOFLINE_PAIR} pair failed")
+    log(f"roofline: dry run {ROOFLINE_PAIR[0]} x {ROOFLINE_PAIR[1]} on this host's torch "
+        f"{torch.__version__}: ok in {time.perf_counter() - tp:.1f} s, t_compute "
+        f"{r['t_compute'] * 1e3:.3f} ms, t_memory_min {r['t_memory_min'] * 1e3:.3f} ms -> "
+        f"{r['bottleneck']}, launches {r['launches']}, state {r['memory']['args'] / 2**30:.2f} GiB")
+    log(f"roofline: phase {time.perf_counter() - t:.1f} s")
+    out[ROOFLINE_PAIR] = r
+    return out
 
 
 def profile_experiment_step(torch, log, cfg, qsdp, batch, seq, dev):
@@ -4399,7 +4564,7 @@ def busy_share(events):
 
 
 def profile_train_step(torch, run_step, state, log, tag="train", breakdown=None,
-                       record_shapes=False):
+                       record_shapes=False, flops=False):
     """torch.profiler over one step (`tag`: train, or continuous /
     speculative for a scheduler step): device busy share and kernel time by
     name (the trace is read from a temporary file and not kept: a train step
@@ -4407,21 +4572,52 @@ def profile_train_step(torch, run_step, state, log, tag="train", breakdown=None,
     launches, random_bits' launches and the int64 elementwise kernels of the
     step; with `breakdown` (a function of the trace's events) also what it
     returns, under "parts"; `record_shapes` records the ops' input types
-    and dims for it."""
+    and dims for it.  With `flops` (the roofline phase's measurement) the
+    profiler also sums its own FLOPs of the matrix products (``with_flops``,
+    under "mm_flops"), and the step's device memory is read: allocated
+    before it ("mem_before") and its peak after a reset ("mem_peak")."""
     import tempfile
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
+    mem_before = torch.cuda.memory_allocated()
+    if flops:
+        torch.cuda.reset_peak_memory_stats()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 record_shapes=record_shapes) as prof:
+                 record_shapes=record_shapes or flops, with_flops=flops) as prof:
         t = time.perf_counter()
         run_step(state)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
-    with tempfile.TemporaryDirectory() as d:
-        path = Path(d) / "trace.json"
-        prof.export_chrome_trace(str(path))
-        trace = json.loads(path.read_text())
-    events = trace["traceEvents"] if isinstance(trace, dict) else trace
+    mem_peak = torch.cuda.max_memory_allocated() if flops else None
+    mm_flops = mm_unlaunched = None
+    t_read = time.perf_counter()
+    if flops:
+        # the profiler's raw events, not a trace file or its parsed events:
+        # with input shapes both take ~10x as long (33.5 s for the gpt-1.3b
+        # step).  A kernel names the op that launched it by its correlation
+        # id; a product op that launched none is one the checkpoint's early
+        # stop abandoned in its replay (the profiler records the op, and its
+        # FLOPs, before it runs)
+        cuda = torch.autograd.DeviceType.CUDA
+        events, launched, products = [], set(), []
+        for e in prof.profiler.kineto_results.events():
+            if e.device_type() == cuda:
+                launched.add(e.linked_correlation_id())
+                name = e.name()
+                if not name.startswith(("Memcpy", "Memset")):
+                    events.append(dict(cat="kernel", name=name, ts=e.start_ns() / 1e3,
+                                       dur=e.duration_ns() / 1e3))
+            elif e.name() in PROFILER_PRODUCTS:
+                products.append((e.correlation_id(), e.flops()))
+        mm_flops = sum(f for c, f in products if c in launched)
+        mm_unlaunched = sum(f for c, f in products if c not in launched)
+    else:
+        with tempfile.TemporaryDirectory() as d:
+            path = Path(d) / "trace.json"
+            prof.export_chrome_trace(str(path))
+            trace = json.loads(path.read_text())
+        events = trace["traceEvents"] if isinstance(trace, dict) else trace
+    t_read = time.perf_counter() - t_read
     busy, kernels = busy_share(events)
     check(kernels, f"profile {tag}: the trace holds no kernel events")
     by_name = {}
@@ -4430,7 +4626,8 @@ def profile_train_step(torch, run_step, state, log, tag="train", breakdown=None,
         d[0] += e["dur"]
         d[1] += 1
     log(f"profile {tag} (one step, profiler on): wall {wall_ms:.1f} ms, {len(kernels)} "
-        f"kernels, device busy {busy / 1e3:.1f} ms ({100 * busy / 1e3 / wall_ms:.1f}% of wall)")
+        f"kernels, device busy {busy / 1e3:.1f} ms ({100 * busy / 1e3 / wall_ms:.1f}% of wall)"
+        + (f"; events read in {t_read:.1f} s" if flops else ""))
     for name, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]:
         log(f"profile {tag}:   {us / 1e3:9.3f} ms  x{n:6d}  {name[:80]}")
 
@@ -4454,7 +4651,9 @@ def profile_train_step(torch, run_step, state, log, tag="train", breakdown=None,
                 k1_n=k1_n, k2_ms=k2_ms, k2_n=k2_n, k3_ms=k3_ms, k3_n=k3_n,
                 int64_ms=int64_ms, int64_n=int64_n,
                 threefry_int64=threefry, rb_n=total(lambda k: "random_bits" in k)[1],
-                parts=breakdown(events) if breakdown is not None else None)
+                parts=breakdown(events) if breakdown is not None else None,
+                mm_flops=mm_flops, mm_unlaunched=mm_unlaunched, mem_before=mem_before,
+                mem_peak=mem_peak)
 
 
 # record_function ranges the moetrain, ssmtrain and mmtrain phases put

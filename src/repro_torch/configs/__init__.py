@@ -6,11 +6,16 @@ from __future__ import annotations
 
 import importlib
 
-from ..models.config import ModelConfig
+from ..models.config import SHAPES, ModelConfig, ShapeConfig  # noqa: F401
 
 ARCHS = ["qwen2_5_3b", "yi_6b", "qwen1_5_32b", "olmoe_1b_7b", "yi_34b",
          "qwen3_moe_235b_a22b", "mamba2_370m", "zamba2_7b", "qwen2_vl_72b",
          "seamless_m4t_large_v2", "gpt_125m", "gpt_350m", "gpt_1_3b"]
+
+# the ten assigned architectures, in the JAX package's order
+# (``configs/__init__.py:13-30`` there): the dry run's --all sweep
+ASSIGNED = ["qwen2_5_3b", "yi_6b", "seamless_m4t_large_v2", "qwen1_5_32b", "olmoe_1b_7b",
+            "yi_34b", "zamba2_7b", "qwen2_vl_72b", "qwen3_moe_235b_a22b", "mamba2_370m"]
 
 _ALIAS = {a.replace("_", "-"): a for a in ARCHS}
 _ALIAS.update({"qwen2.5-3b": "qwen2_5_3b", "qwen1.5-32b": "qwen1_5_32b",

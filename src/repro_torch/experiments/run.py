@@ -10,8 +10,10 @@
 | table3_learned_levels        | Tables 3/6 (learned levels)  |
 | fig78_compression_error      | Figures 7/8                  |
 
-The reference's suite also runs ``fig4_bandwidth_model`` and
-``roofline_report``; they are not ported yet (ROADMAP A4b, A12).
+The reference's suite also runs ``fig4_bandwidth_model`` (not ported:
+its parts need more than one rank, ROADMAP A4b) and ``roofline_report``,
+whose twin ``experiments.roofline_report`` reports the dry run's sweeps
+(``launch.dryrun --all``) and runs on its own.
 Runs on the card unless given ``--device cpu``.
 """
 from __future__ import annotations

@@ -5,6 +5,13 @@ on the card launches the kernel (built from ``csrc/`` at first use) on
 ``torch.cuda.current_stream()``, or raises.  There is no fallback: a CUDA
 tensor never takes the plain path.
 
+A tensor on the meta device (the dry run's, ``launch/dryrun.py``) takes a
+third path: the wrapper checks its arguments as on the card, returns empty
+meta outputs of the kernel's shapes and dtypes, counts the launch and
+reports the kernel's work (``kernels.cost``: bytes read and written,
+operations) to every active dispatch mode that takes it (the roofline's
+counter, ``roofline.counter.Counter.kernel``).  Nothing computes there.
+
 ``LAUNCHES[name]`` counts kernel launches and nothing else, so a run can
 show which kernels its main path went through (``reset_launches()`` zeroes
 the counts).  Beside K1-K5, ``random_bits`` draws the serving sampler's
@@ -22,8 +29,9 @@ from collections import Counter
 from typing import NamedTuple, Sequence
 
 import torch
+from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
 
-from . import build, ref
+from . import build, cost, ref
 from .ref import WireCodes
 
 KERNELS = ("quantize_pack", "unpack_dequantize", "rowquant_matmul", "quantize_buckets",
@@ -40,13 +48,28 @@ def reset_launches() -> None:
 
 
 def _on_cpu(*ts: torch.Tensor) -> bool:
+    """True for CPU tensors (the plain versions), False for tensors on one
+    CUDA device or all on the meta device; any mix raises."""
     devs = {t.device.type for t in ts}
     if devs == {"cpu"}:
         return True
-    if devs == {"cuda"} and len({t.device for t in ts}) == 1:
+    if devs in ({"cuda"}, {"meta"}) and len({t.device for t in ts}) == 1:
         return False
-    raise ValueError(f"tensors must all be on the CPU or on one CUDA device, "
-                     f"got {[str(t.device) for t in ts]}")
+    raise ValueError(f"tensors must all be on the CPU or on one CUDA device (or all on the "
+                     f"meta device), got {[str(t.device) for t in ts]}")
+
+
+def _launch(name: str, dev: torch.device, work: cost.KernelCost, run) -> None:
+    """Launch kernel `name` (``run()`` returns its CUDA error code) on a
+    CUDA device; on the meta device report its work to the active modes
+    instead.  Counts the launch either way."""
+    if dev.type == "meta":
+        for mode in _get_current_dispatch_mode_stack():
+            if hasattr(mode, "kernel"):
+                mode.kernel(name, work)
+    else:
+        _raise_on(run(), name)
+    LAUNCHES[name] += 1
 
 
 def _check(name: str, t: torch.Tensor, dtype, shape: tuple) -> None:
@@ -105,11 +128,11 @@ def quantize_pack(x: torch.Tensor, key, levels: int, bits: int,
         _check("zero", zero, torch.float32, (nb, 1))
         if any(t.data_ptr() % 4 for t in out):
             raise ValueError("quantize_pack: out codes, scale and zero must be 4-byte aligned")
-    rc = build.load("quantize").qsdp_quantize_pack(
-        x.data_ptr(), k0, k1, rand_bits, codes.data_ptr(), scale.data_ptr(),
-        zero.data_ptr(), nb, bucket, bits, levels, 1.0 / levels, _MODE_IDS[mode], _stream())
-    _raise_on(rc, "quantize_pack")
-    LAUNCHES["quantize_pack"] += 1
+    _launch("quantize_pack", x.device, cost.quantize_pack(nb, bucket, bits, mode),
+            lambda: build.load("quantize").qsdp_quantize_pack(
+                x.data_ptr(), k0, k1, rand_bits, codes.data_ptr(), scale.data_ptr(),
+                zero.data_ptr(), nb, bucket, bits, levels, 1.0 / levels, _MODE_IDS[mode],
+                _stream()))
     return codes, scale, zero
 
 
@@ -128,11 +151,11 @@ def unpack_dequantize(codes: torch.Tensor, scale: torch.Tensor,
     _check("scale", scale, torch.float32, (nb, 1))
     _check("zero", zero, torch.float32, (nb, 1))
     out = torch.empty((nb, bucket), dtype=dtype, device=codes.device)
-    rc = build.load("quantize").qsdp_unpack_dequantize(
-        codes.data_ptr(), scale.data_ptr(), zero.data_ptr(), out.data_ptr(),
-        int(dtype == torch.bfloat16), nb, bucket, bits, _stream())
-    _raise_on(rc, "unpack_dequantize")
-    LAUNCHES["unpack_dequantize"] += 1
+    _launch("unpack_dequantize", codes.device,
+            cost.unpack_dequantize(nb, bucket, bits, dtype.itemsize),
+            lambda: build.load("quantize").qsdp_unpack_dequantize(
+                codes.data_ptr(), scale.data_ptr(), zero.data_ptr(), out.data_ptr(),
+                int(dtype == torch.bfloat16), nb, bucket, bits, _stream()))
     return out
 
 
@@ -175,15 +198,16 @@ def unpack_dequantize_wire(buf, segments: Sequence[WireCodes],
         outs.append(out)
         if seg.nb:
             flags = int(seg.meta_dtype == torch.bfloat16) | 2 * int(dt == torch.bfloat16)
-            rows.append((base + seg.codes, base + seg.scale, base + seg.zero, out.data_ptr(),
-                         seg.nb, seg.bucket, seg.bits, flags))
-    lib = build.load("quantize") if rows else None
+            rows.append(((base + seg.codes, base + seg.scale, base + seg.zero, out.data_ptr(),
+                          seg.nb, seg.bucket, seg.bits, flags), seg, dt.itemsize))
+    lib = build.load("quantize") if rows and bufs[0].device.type == "cuda" else None
     for i in range(0, len(rows), WIRE_MAX_SEGS):
         part = rows[i:i + WIRE_MAX_SEGS]
-        desc = (ctypes.c_longlong * (8 * len(part)))(*itertools.chain.from_iterable(part))
-        _raise_on(lib.qsdp_unpack_dequantize_wire(desc, len(part), _stream()),
-                  "unpack_dequantize_wire")
-        LAUNCHES["unpack_dequantize"] += 1
+        desc = (ctypes.c_longlong * (8 * len(part)))(*itertools.chain.from_iterable(
+            r[0] for r in part))
+        _launch("unpack_dequantize", bufs[0].device,
+                cost.unpack_dequantize_wire([r[1] for r in part], [r[2] for r in part]),
+                lambda: lib.qsdp_unpack_dequantize_wire(desc, len(part), _stream()))
     return outs
 
 
@@ -203,11 +227,10 @@ def quantize_buckets(x: torch.Tensor, rand: torch.Tensor, levels: int = 255,
     codes = torch.empty((nb, bucket), dtype=torch.uint8, device=x.device)
     scale = torch.empty((nb, 1), dtype=torch.float32, device=x.device)
     zero = torch.empty((nb, 1), dtype=torch.float32, device=x.device)
-    rc = build.load("quantize").qsdp_quantize_buckets(
-        x.data_ptr(), rand.data_ptr(), codes.data_ptr(), scale.data_ptr(),
-        zero.data_ptr(), nb, bucket, levels, 1.0 / levels, int(stochastic), _stream())
-    _raise_on(rc, "quantize_buckets")
-    LAUNCHES["quantize_buckets"] += 1
+    _launch("quantize_buckets", x.device, cost.quantize_buckets(nb, bucket, stochastic),
+            lambda: build.load("quantize").qsdp_quantize_buckets(
+                x.data_ptr(), rand.data_ptr(), codes.data_ptr(), scale.data_ptr(),
+                zero.data_ptr(), nb, bucket, levels, 1.0 / levels, int(stochastic), _stream()))
     return codes, scale, zero
 
 
@@ -224,11 +247,11 @@ def dequantize_buckets(codes: torch.Tensor, scale: torch.Tensor, zero: torch.Ten
     _check("scale", scale, torch.float32, (nb, 1))
     _check("zero", zero, torch.float32, (nb, 1))
     out = torch.empty((nb, bucket), dtype=dtype, device=codes.device)
-    rc = build.load("quantize").qsdp_dequantize_buckets(
-        codes.data_ptr(), scale.data_ptr(), zero.data_ptr(), out.data_ptr(),
-        int(dtype == torch.bfloat16), nb, bucket, _stream())
-    _raise_on(rc, "dequantize_buckets")
-    LAUNCHES["dequantize_buckets"] += 1
+    _launch("dequantize_buckets", codes.device,
+            cost.dequantize_buckets(nb, bucket, dtype.itemsize),
+            lambda: build.load("quantize").qsdp_dequantize_buckets(
+                codes.data_ptr(), scale.data_ptr(), zero.data_ptr(), out.data_ptr(),
+                int(dtype == torch.bfloat16), nb, bucket, _stream()))
     return out
 
 
@@ -244,10 +267,9 @@ def random_bits(keys: torch.Tensor, n: int) -> torch.Tensor:
         raise ValueError(f"random_bits: {tuple(keys.shape)} keys, n={n}")
     _check("keys", keys, torch.int32, (r, 2))
     out = torch.empty((r, n), dtype=torch.int32, device=keys.device)
-    rc = build.load("quantize").qsdp_random_bits(keys.data_ptr(), r, n, out.data_ptr(),
-                                                 _stream())
-    _raise_on(rc, "random_bits")
-    LAUNCHES["random_bits"] += 1
+    _launch("random_bits", keys.device, cost.random_bits(r, n),
+            lambda: build.load("quantize").qsdp_random_bits(keys.data_ptr(), r, n,
+                                                            out.data_ptr(), _stream()))
     return out
 
 
@@ -302,14 +324,16 @@ def rowquant_matmul(x: torch.Tensor, codes: torch.Tensor, scale: torch.Tensor,
     _check("codes", codes, torch.uint8, (k, n))
     _check("scale", scale, torch.float32, (k, n_seg))
     _check("zero", zero, torch.float32, (k, n_seg))
+    work = cost.rowquant_matmul(m, k, n, n_seg, x.dtype.itemsize)
+    y = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    if x.device.type == "meta":
+        _launch("rowquant_matmul", x.device, work, None)
+        return y
     lib = build.load("dequant_matmul")
     n_tickets, n_partial = _rowquant_workspace(lib, m, k, n, n_seg, codes.data_ptr() % 16 == 0)
     partial = torch.empty(n_partial, dtype=torch.float32, device=x.device)
-    y = torch.empty((m, n), dtype=x.dtype, device=x.device)
-    rc = lib.qsdp_rowquant_matmul(
+    _launch("rowquant_matmul", x.device, work, lambda: lib.qsdp_rowquant_matmul(
         x.data_ptr(), int(x.dtype == torch.bfloat16), codes.data_ptr(), scale.data_ptr(),
         zero.data_ptr(), n_seg, partial.data_ptr(), _tickets(x.device, n_tickets).data_ptr(),
-        y.data_ptr(), m, k, n, _stream())
-    _raise_on(rc, "rowquant_matmul")
-    LAUNCHES["rowquant_matmul"] += 1
+        y.data_ptr(), m, k, n, _stream()))
     return y

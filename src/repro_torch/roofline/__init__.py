@@ -1,4 +1,6 @@
-"""Hardware constants of the port's cost models (the JAX package's
-``roofline/``).  Only the ``Hardware`` record and the H100 preset are
-ported; a roofline read from ``torch.profiler`` is ROADMAP A12b."""
-from .analysis import HW_H100, Hardware  # noqa: F401
+"""The port's roofline: hardware constants (the autotuner's cost model
+reads ``HW_H100``), the op counter that stands in for the JAX package's HLO
+analyzer, and the three-term report the dry run fills."""
+from .analysis import (HW_H100, Hardware, RooflineReport, compute_floor,  # noqa: F401
+                       roofline)
+from .counter import Counter, marginal, scaled  # noqa: F401
