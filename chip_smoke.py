@@ -72,10 +72,10 @@ Phases, each of which makes the script exit non-zero when it fails:
               on the CPU (gathered wire bytes equal, expert stacks
               included; top-k experts equal where the CPU router margin is
               clear; logits within tolerance); then olmoe-1b-7b at full
-              width (64 experts top-8) cut to MOE_SERVE_LAYERS = 4 of its
-              16 layers for the run's time (1.78 G parameters, random
-              weights from seed 0, default QSDPConfig): batch serving (the
-              serve phase's shape, run twice: equal tokens, K1 29 / K2 5
+              width (64 experts top-8) cut to MOE_SERVE_LAYERS = 2 of its
+              16 layers for the run's time (random weights from seed 0,
+              default QSDPConfig): batch serving (the
+              serve phase's shape, run twice: equal tokens, K1 15 / K2 3
               launches per decode step as the structure derives them), the
               continuous phase's cell and
               gates and the speculative phase's (4-bit draft, depth 4;
@@ -86,9 +86,10 @@ Phases, each of which makes the script exit non-zero when it fails:
               smoke configs on the card and on the CPU (gathered wire bytes
               equal, logits within tolerance, tokens equal), zamba2's smoke
               rowquant decode (shared MLP through K3) equal to its dense
-              one; then mamba2-370m (SSM_SERVE_LAYERS: 12 of its 48 layers)
-              and zamba2-7b (27 of 81 layers, 4 invocations of the shared
-              attention+MLP block) at full width (both serve at full depth
+              one; then mamba2-370m (SSM_SERVE_LAYERS: 6 of its 48 layers)
+              and zamba2-7b (15 of 81 layers: two invocations of the shared
+              attention+MLP block, each with its own KV ring, and the
+              tail) at full width (both serve at full depth
               too), random weights from seed 0, default QSDPConfig: batch
               serving (the serve phase's shape, run twice: equal tokens,
               K1/K2 launches per step as the structure and the hand count
@@ -107,10 +108,10 @@ Phases, each of which makes the script exit non-zero when it fails:
               tokens equal; qwen2-vl's on a prompt with an image block),
               seamless's smoke rowquant decode (decoder MLP through
               K3) equal to its dense one; then qwen2-vl-72b at full width
-              cut to 16 of 80 layers (15.29 G parameters: 80 layers hold
-              286 GB of f32 rest weights) and seamless-m4t-large-v2 (24
-              encoder and 24 decoder layers, 2.04 G parameters) at full
-              width and depth, random weights from seed 0, default
+              cut to MM_LAYERS = 2 of 80 layers (80 layers hold 286 GB of
+              f32 rest weights, 16 fit one card) and seamless-m4t-large-v2
+              at full width cut to 3 of its 24 encoder and 24 decoder
+              layers (both for the run's time), random weights from seed 0, default
               QSDPConfig: batch serving dense and rowquant (the serve
               phase's shape; qwen2-vl's prompts carry an 8 x 8 image block
               at positions 16-79 with Qwen2-VL's M-RoPE positions,
@@ -197,11 +198,13 @@ Phases, each of which makes the script exit non-zero when it fails:
               uniforms), the f64 lattice quantizers and one ``run_qsgd``
               trajectory on the card against the CPU twin; then the
               paper's experiments through ``repro_torch.experiments``
-              at the JAX package's suite sizes (its ``benchmarks/run.py``):
+              at the JAX package's suite sizes (its ``benchmarks/run.py``)
+              but for the training runs' steps, halved for the run's time:
               the Theorem 2 / Corollary 3 table (3 kappas x 5 variants x 8
-              seeds), Table 1 (240 steps), Table 2 (2x2 grid, 160), Tables
-              3/6 (compression at 3/4/5 bits, W4 training, 160) and Figures
-              7/8 (160), on the 2-layer bench GPT at batch 8 x seq 128;
+              seeds), Table 1 (120 steps of the suite's 240), Table 2 (2x2
+              grid, 80 of 160), Tables 3/6 (compression at 3/4/5 bits, W4
+              training, 80 of 160) and Figures 7/8 (80 of 160), on the
+              2-layer bench GPT at batch 8 x seq 128;
               then Table 1 at gpt-125m's full width and depth (baseline vs
               W8G8, batch 8 x seq 512, 50 steps).  Every experiment's
               PASS/FAIL gates at the reference's bands, gpt-125m's losses
@@ -246,6 +249,21 @@ Phases, each of which makes the script exit non-zero when it fails:
               host's torch (``launch/dryrun.py``).  Prints the phase's
               seconds.
 
+12. analysis -- qlint's trace audit (``repro_torch.analysis.trace_audit``,
+              the reference's jaxpr audit) on the card: the speculative
+              phase traces one decode step, one chunked-prefill launch
+              and one verify launch of gpt-1.3b on its engine (paged pool,
+              sampling, 4-bit draft), the train phase one more f32 step
+              and its last quantized_state step, each under the audit's
+              dispatch mode over real launches (the trace's launches equal
+              to the wrappers' counts); this phase traces the same five
+              programs on the meta device at the same configurations.
+              Gates: per program the findings (QJ101-103) on the card
+              equal those on meta, and so do the kernel launches; no
+              finding is new against ``src/repro_torch/analysis/
+              qlint_baseline.json``.  Prints the findings, the launches and
+              the seconds of the card traces and of the meta twin.
+
 Prints the kernel table as one JSON line, the card's name and power limit,
 and, last, ``{"ok": true, "device": {...}}``.
 """
@@ -254,6 +272,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import functools
 import hashlib
 import json
 import math
@@ -1108,11 +1127,12 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
                     default="build,kernels,small,serve,continuous,speculative,moe,ssm,vlmaudio,"
-                            "train,moetrain,ssmtrain,mmtrain,experiments,tune,roofline",
+                            "train,moetrain,ssmtrain,mmtrain,experiments,tune,roofline,analysis",
                     help="comma-separated subset of build,kernels,small,serve,continuous,"
                          "speculative,moe,ssm,vlmaudio,train,moetrain,ssmtrain,mmtrain,"
-                         "experiments,tune,roofline (roofline reads the steps the train and "
-                         "tune phases profile)")
+                         "experiments,tune,roofline,analysis (roofline reads the steps the "
+                         "train and tune phases profile; analysis the programs the "
+                         "speculative and train phases trace)")
     ap.add_argument("--profile", action="store_true",
                     help="serve phase: also profile one decode step of each run "
                          "(chrome traces kept)")
@@ -1151,6 +1171,7 @@ def main(argv=None) -> int:
             log(f"build: {time.time() - tb:.1f} s")
         rows, paths = None, []
         measured = {} if "roofline" in phases else None
+        built = {} if "analysis" in phases else None
         if "kernels" in phases:
             rows = kernel_phase(torch, log)
             paths.append(buckets_path(torch, log))
@@ -1163,7 +1184,7 @@ def main(argv=None) -> int:
         if "continuous" in phases:
             paths.append(continuous_phase(torch, log))
         if "speculative" in phases:
-            paths.append(speculative_phase(torch, log))
+            paths.append(speculative_phase(torch, log, built=built))
         if "moe" in phases:
             paths.append(moe_phase(torch, log))
         if "ssm" in phases:
@@ -1171,7 +1192,7 @@ def main(argv=None) -> int:
         if "vlmaudio" in phases:
             paths.append(vlmaudio_phase(torch, log))
         if "train" in phases:
-            paths.append(train_phase(torch, log, measured=measured))
+            paths.append(train_phase(torch, log, measured=measured, built=built))
         if "moetrain" in phases:
             paths.append(moetrain_phase(torch, log))
         if "ssmtrain" in phases:
@@ -1184,6 +1205,8 @@ def main(argv=None) -> int:
             paths.append(tune_phase(torch, log, measured=measured))
         if "roofline" in phases:
             roofline_phase(torch, log, measured, card)
+        if "analysis" in phases:
+            analysis_phase(torch, log, built)
         launches = {k: sum(p.get(k, 0) for p in paths) for k in KERNEL_META}
         if rows is not None:
             print(json.dumps(kernel_line(rows, launches)))
@@ -1368,30 +1391,30 @@ SERVE_REPS = 3  # timed generate() runs per path
 
 
 def k2_buffers(eng, quantized, skip=(), invocations=None) -> tuple[int, int]:
-    """K2 launches that decode the gathered (or reduce-scattered) wire
-    buffers of one pass over the parameters, one launch per
-    ``ops.WIRE_MAX_SEGS`` tensors that `quantized` says are quantized in a
-    buffer (one rank: one row per buffer): (top-level tensors, each
-    gathered alone; the buffers of the grouped tensors not named in `skip`:
-    one per layer of a stack, and one per each of the `invocations` of an
-    un-stacked block, the hybrid's shared block).  A group that the
-    engine's ``coalesce_max_bytes`` policy gathers per tensor decodes each
-    quantized tensor in a launch of its own."""
-    from repro_torch.kernels import ops
-    alone = sum(1 for n, s in eng.specs.items() if "/" not in n and quantized(s))
-    groups, members = {}, {}
-    for n, s in eng.specs.items():
-        if "/" in n:
-            members.setdefault(n.rsplit("/", 1)[0], []).append(n)
-        if "/" in n and n.split("/")[-1] not in skip and quantized(s):
-            g = n.rsplit("/", 1)[0]
-            times = s.stack if s.stack is not None else invocations
-            if times is None:
-                raise ValueError(f"{g}/ is gathered once per invocation: pass `invocations`")
-            groups[g] = (groups.get(g, (0, times))[0] + 1, times)
-    return alone, sum((-(-n_q // ops.WIRE_MAX_SEGS)
-                       if eng.layer_coalesced(tuple(sorted(members[g]))) else n_q) * times
-                      for g, (n_q, times) in groups.items())
+    """K2 launches that decode the gathered (or, with `quantized` the
+    engine's ``_is_grad_quantized``, reduce-scattered) wire buffers of one
+    pass over the parameters, as ``core.qsdp.layer_kernel_launches`` counts
+    them (one rank: one row per buffer): (top-level tensors, each gathered
+    alone; the buffers of the grouped tensors not named in `skip`: one per
+    layer of a stack, and one per each of the `invocations` of an
+    un-stacked block, the hybrid's shared block)."""
+    from repro_torch.core.qsdp import layer_kernel_launches
+    part = "reduce" if quantized == eng._is_grad_quantized else "gather"
+    alone, layers = 0, 0
+    groups = {}
+    for n in eng.specs:
+        groups.setdefault(n.rsplit("/", 1)[0] if "/" in n else n, []).append(n)
+    for g, names in groups.items():
+        k2 = layer_kernel_launches(eng, sorted(names), skip)[part][1]
+        s = eng.specs[names[0]]
+        if "/" not in names[0]:
+            alone += k2
+            continue
+        times = s.stack if s.stack is not None else invocations
+        if times is None and k2:
+            raise ValueError(f"{g}/ is gathered once per invocation: pass `invocations`")
+        layers += k2 * (times or 0)
+    return alone, layers
 
 
 def expected_launches(model, gen: int, rowquant: bool) -> dict:
@@ -2089,7 +2112,7 @@ def continuous_setup(torch, dev, arch, **kw):
 SPEC = dict(draft_bits=4, draft_depth=4)
 
 
-def speculative_phase(torch, log, dev="cuda", arch=None):
+def speculative_phase(torch, log, dev="cuda", arch=None, built=None):
     """`arch` (gpt-1.3b unless given) at full width and depth through
     ``make_scheduler`` with
     ``DecodeSpec(draft_bits=4, draft_depth=4)``: CONT's configuration and
@@ -2100,7 +2123,9 @@ def speculative_phase(torch, log, dev="cuda", arch=None):
     just before the run, read just after) are those the code's structure
     derives from the run's statistics; the pool's invariants hold and no
     block is left in use.  Prints tokens/s, TTFT, the draft and verify
-    launches' times, the acceptance rate and the draft overhead."""
+    launches' times, the acceptance rate and the draft overhead.  With
+    `built` (a dict), its engine's decode, chunked-prefill and verify
+    programs are then traced for the analysis phase (:func:`card_traces`)."""
     import numpy as np
     from repro_torch.core import prng
     from repro_torch.kernels import ops
@@ -2186,6 +2211,12 @@ def speculative_phase(torch, log, dev="cuda", arch=None):
     log(f"speculative: launches {counts} = structure {want}")
     if dev == "cuda":
         profile_speculative_step(torch, log, sched, reqs, k3=want["rowquant_matmul"] > 0)
+    if built is not None:  # the analysis phase's serving programs, traced on the card
+        from repro_torch.analysis import trace_audit
+        with torch.inference_mode():
+            card_traces(torch, trace_audit.serve_programs(sched.engine, sched.params,
+                                                          sched.cache, key, CONT["chunk"]),
+                        built)
     del setup, sched
     if dev == "cuda":
         torch.cuda.empty_cache()
@@ -2223,10 +2254,10 @@ def profile_speculative_step(torch, log, sched, reqs, k3=True):
 
 MOE_ARCH = "olmoe-1b-7b"
 # layers served: olmoe-1b-7b serves at full depth (16 layers) on one card;
-# its serving cells run 4 to make room in the run's time for the train
-# cells at full depth and the roofline phase (host-bound steps, whose time
-# scales with the layers)
-MOE_SERVE_LAYERS = 4
+# its serving cells run 2 (8, then 4, before) to make room in the
+# run's time for the train cells at full depth and the roofline and
+# analysis phases (host-bound steps, whose time scales with the layers)
+MOE_SERVE_LAYERS = 2
 
 
 def moe_batch(torch, log, dev="cuda"):
@@ -2330,13 +2361,14 @@ def moe_phase(torch, log, dev="cuda"):
 
 SSM_ARCHS = ("mamba2-370m", "zamba2-7b")
 # layers served: both models serve at full depth (48 and 81 layers) on one
-# card; the serving cells are cut to a quarter of mamba2-370m's depth and
-# a third of zamba2-7b's (4 groups of 6
-# Mamba2 layers, each followed by the shared block, and the 3-layer tail)
+# card; the serving cells are cut to 6 of mamba2-370m's 48 layers (24,
+# then 12, before) and 15 of zamba2-7b's 81 (two groups of 6 Mamba2
+# layers, each followed by the shared block, so its decode keeps two KV
+# rings, and the 3-layer tail; 27 before)
 # to make room in the run's time for the train cells at full depth and the
 # roofline phase.  The steps are host-bound: their time scales with the
 # layers
-SSM_SERVE_LAYERS = {"mamba2-370m": 12, "zamba2-7b": 27}
+SSM_SERVE_LAYERS = {"mamba2-370m": 6, "zamba2-7b": 15}
 # the reference's rowquant test config for the hybrid family
 # (tests/test_kernel_dispatch.py:206): buckets of 128 tile the smoke shared
 # MLP's rows, so its decode runs K3
@@ -2344,34 +2376,34 @@ SSM_RQ_QSDP = dict(min_quant_size=256, bucket_size=128)
 # K1/K2/K3 launches of a whole-prompt prefill and of one decode step of the
 # models served at full width (the ssm and vlmaudio phases, at the depths
 # they serve), counted by hand from the configs, by (name, rowquant).
-# mamba2-370m at 12 layers / zamba2-7b at 27: the embedding (K1 + K2), 5
-# quantized Mamba2 weights in one buffer per layer, and for zamba2-7b 4
-# shared-block invocations of 7 quantized weights in one buffer; under
+# mamba2-370m at 6 layers / zamba2-7b at 15: the embedding (K1 + K2), 5
+# quantized Mamba2 weights in one buffer per layer, and for zamba2-7b 2
+# shared-block invocations of 7 quantized weights in one buffer each; under
 # rowquant the decode step's shared w_gate/w_up go through K3
 # and w_down (3,584 columns: 3.5 buckets of 1,024) is gathered alone through
-# K2.  qwen2-vl-72b at 8 layers: the embedding and 7 quantized weights a
+# K2.  qwen2-vl-72b at 2 layers: the embedding and 7 quantized weights a
 # layer (its 3 biases and 2 norms ride the layer's buffer unquantized), one
 # buffer a layer; under rowquant w_down goes through K3 and w_gate/w_up
 # (29,568 columns: 28.875 buckets of 1,024) are gathered alone through K2.
-# seamless-m4t-large-v2 at 12 + 12 layers: the embedding and the untied
-# lm_head; prefill also gathers the encoder's 12 layers of 7 quantized
+# seamless-m4t-large-v2 at 3 + 3 layers: the embedding and the untied
+# lm_head; prefill also gathers the encoder's 3 layers of 7 quantized
 # weights; a decoder layer
 # holds 11 (self- and cross-attention, MLP), one buffer each; under rowquant
 # its MLP goes through K3
-_MAMBA2 = (1 + 5 * 12, 1 + 12, 0)
-_ZAMBA2 = (1 + 5 * 27 + 7 * 4, 1 + 27 + 4, 0)
-_QWEN2VL = (1 + 7 * 8, 1 + 8, 0)
-_SEAMLESS = (2 + 7 * 12 + 11 * 12, 2 + 12 + 12, 0)
+_MAMBA2 = (1 + 5 * 6, 1 + 6, 0)
+_ZAMBA2 = (1 + 5 * 15 + 7 * 2, 1 + 15 + 2, 0)
+_QWEN2VL = (1 + 7 * 2, 1 + 2, 0)
+_SEAMLESS = (2 + 7 * 3 + 11 * 3, 2 + 3 + 3, 0)
 SERVE_PER_STEP = {
     ("mamba2-370m", False): {"prefill": _MAMBA2, "step": _MAMBA2},
     ("zamba2-7b", False): {"prefill": _ZAMBA2, "step": _ZAMBA2},
-    ("zamba2-7b", True): {"prefill": _ZAMBA2, "step": (1 + 5 * 27 + 7 * 4, 1 + 27 + 4 * 2,
-                                                       4 * 2)},
+    ("zamba2-7b", True): {"prefill": _ZAMBA2, "step": (1 + 5 * 15 + 7 * 2, 1 + 15 + 2 * 2,
+                                                       2 * 2)},
     ("qwen2-vl-72b", False): {"prefill": _QWEN2VL, "step": _QWEN2VL},
-    ("qwen2-vl-72b", True): {"prefill": _QWEN2VL, "step": (1 + 7 * 8, 1 + 8 * 3, 8)},
-    ("seamless-m4t-large-v2", False): {"prefill": _SEAMLESS, "step": (2 + 11 * 12, 2 + 12, 0)},
+    ("qwen2-vl-72b", True): {"prefill": _QWEN2VL, "step": (1 + 7 * 2, 1 + 2 * 3, 2)},
+    ("seamless-m4t-large-v2", False): {"prefill": _SEAMLESS, "step": (2 + 11 * 3, 2 + 3, 0)},
     ("seamless-m4t-large-v2", True): {"prefill": _SEAMLESS,
-                                      "step": (2 + 11 * 12, 2 + 12, 3 * 12)}}
+                                      "step": (2 + 11 * 3, 2 + 3, 3 * 3)}}
 
 
 def serve_family(cfg) -> str:
@@ -2646,8 +2678,8 @@ def small_rowquant(torch, log, dev="cuda", arch="zamba2-7b"):
 def ssm_phase(torch, log, dev="cuda", archs=SSM_ARCHS):
     """The SSM and hybrid families on the card: both smoke configs card vs
     CPU (``small_phase``) and zamba2's rowquant smoke decode equal to its
-    dense one; then mamba2-370m (12 of 48 layers) and zamba2-7b (27 of 81
-    layers: 4 groups of 6 Mamba2 layers, each followed by the shared
+    dense one; then mamba2-370m (6 of 48 layers) and zamba2-7b (15 of 81
+    layers: two groups of 6 Mamba2 layers, each followed by the shared
     attention+MLP block, and a tail of 3) at full width (SSM_SERVE_LAYERS),
     random weights from seed 0, default QSDPConfig: batch serving (dense, and for zamba2 also
     rowquant), the continuous cell with blocking admission, and the
@@ -2701,10 +2733,10 @@ MM_ARCHS = ("qwen2-vl-72b", "seamless-m4t-large-v2")
 # layers served: qwen2-vl-72b's 80 layers hold 286 GB of f32 rest weights,
 # 16 of them 61.2 GB (15.29 G parameters with the embedding), which one
 # card serves, as it serves seamless-m4t-large-v2 (2.04 G) at full depth;
-# the cells run qwen2-vl at 8 layers and seamless at 12 decoder and 12
-# encoder layers, to make room in the run's time for the train cells at
-# full depth
-MM_LAYERS = {"qwen2-vl-72b": 8, "seamless-m4t-large-v2": 12}
+# the cells run qwen2-vl at 2 layers and seamless at 3 decoder and 3
+# encoder layers (8 and 12 + 12 before), to make room in the run's
+# time for the train cells at full depth
+MM_LAYERS = {"qwen2-vl-72b": 2, "seamless-m4t-large-v2": 3}
 # the image block of the VLM batch cell's prompts: an 8 x 8 grid of patch
 # embeddings (random bf16, scale 0.02) at prompt positions 16-79, with
 # Qwen2-VL's (t, h, w) positions (t = 16, h = 16 + row, w = 16 + col); the
@@ -2809,7 +2841,7 @@ def vlmaudio_phase(torch, log, dev="cuda", archs=MM_ARCHS):
     CPU (``small_phase``; qwen2-vl's on a prompt with an image block) and
     seamless's rowquant smoke decode equal to its dense one; then
     qwen2-vl-72b and seamless-m4t-large-v2 at full width cut to MM_LAYERS
-    (8 of 80 layers; 12 of 24 decoder and encoder layers), random weights from seed
+    (2 of 80 layers; 3 of 24 decoder and encoder layers), random weights from seed
     0, default QSDPConfig: batch serving dense and rowquant (qwen2-vl's
     prompts carry MM_IMAGE's image block; seamless's the reference's audio
     stub of prompt // 2 = 64 frames), their first decode steps' logits
@@ -2956,19 +2988,26 @@ def expected_train_launches(model, n_micro: int, moments: bool = False) -> dict:
     walks every leaf in chunks (``optim.chunk_ranges``: a stacked leaf by
     layer slice, a large unstacked one by range) and, per chunk, decodes
     both moments in one K2 launch and re-encodes each with K1."""
+    from repro_torch.core.qsdp import layer_kernel_launches
     eng = model.engine
     inv = shared_invocations(model.cfg)
-
-    def uses(quantized, replay=False):
-        # a stack's layers each, a block's invocations, a top-level tensor once
-        return sum(s.stack if s.stack is not None else inv if "/" in n else int(not replay)
-                   for n, s in eng.specs.items() if quantized(s))
-
-    fwd, replay = uses(eng._is_quantized), uses(eng._is_quantized, replay=True)
-    grads = uses(eng._is_grad_quantized)
-    alone, layers = k2_buffers(eng, eng._is_quantized, invocations=inv)
-    k2 = (alone + layers, layers,
-          sum(k2_buffers(eng, eng._is_grad_quantized, invocations=inv)))
+    groups = {}
+    for n in eng.specs:
+        groups.setdefault(n.rsplit("/", 1)[0] if "/" in n else n, []).append(n)
+    k1, k2 = [0, 0, 0], [0, 0, 0]
+    for names in groups.values():
+        s = eng.specs[names[0]]
+        # a stack's layers each, a block's invocations, a top-level tensor
+        # once and outside every checkpoint (no replay)
+        times = s.stack if s.stack is not None else inv if "/" in names[0] else 1
+        replays = times if "/" in names[0] else 0
+        c = layer_kernel_launches(eng, sorted(names))
+        for i, per in enumerate((c["gather"], c["gather"], c["reduce"])):
+            n = replays if i == 1 else times
+            k1[i] += n * per[0]
+            k2[i] += n * per[1]
+    fwd, replay, grads = k1
+    k2 = tuple(k2)
     from repro_torch.optim.optimizers import chunk_ranges
     chunks = (sum(len(chunk_ranges(s.rest_shape(model.ms))) for s in eng.specs.values())
               if moments else 0)
@@ -3021,10 +3060,12 @@ def check_train_launches(counts, want, what):
               f"{TRAIN_TIMED} steps, the code's structure predicts {n_want}")
 
 
-def train_phase(torch, log, dev="cuda", measured=None):
+def train_phase(torch, log, dev="cuda", measured=None, built=None):
     """gpt-1.3b's train cell (module docstring, phase 8); with `measured`
     (a dict), its profiled step also takes the roofline phase's
-    measurement, kept there under "gpt-1.3b train"."""
+    measurement, kept there under "gpt-1.3b train"; with `built` (a dict),
+    one more f32 step and the last quantized_state step are traced for the
+    analysis phase (:func:`card_traces`)."""
     from repro_torch import configs
     from repro_torch.core import prng
     from repro_torch.core.qsdp import MeshSpec, QSDPConfig
@@ -3087,6 +3128,8 @@ def train_phase(torch, log, dev="cuda", measured=None):
         f"{prof['k2_ms']:.1f} ms in {prof['k2_n']}; int64 elementwise kernels "
         f"{prof['int64_n']} ({prof['int64_ms']:.1f} ms), of which int64 bitwise/shift "
         f"(threefry) {prof['threefry_int64']}")
+    if built is not None:
+        card_traces(torch, {"train-step[f32]": lambda: step(state, batches[i], key(i))}, built)
     del state, step
     torch.cuda.empty_cache()
 
@@ -3126,7 +3169,11 @@ def train_phase(torch, log, dev="cuda", measured=None):
                               device=dev)
     lq, lf = [], []
     for i in range(QSTATE_STEPS):
-        qs, mq = step_q(qs, batches[i], key(i))
+        run_q = functools.partial(step_q, qs, batches[i], key(i))
+        if built is not None and i == QSTATE_STEPS - 1:  # traced for the analysis phase
+            qs, mq = card_traces(torch, {"train-step[qstate]": run_q}, built)["train-step[qstate]"]
+        else:
+            qs, mq = run_q()
         lq.append(float(mq["loss"]))
         fs, mf = step_f(fs, batches[i], key(i))
         lf.append(float(mf["loss"]))
@@ -3858,15 +3905,20 @@ def mmtrain_phase(torch, log, dev="cuda", archs=MM_ARCHS):
 # phase 9: the paper's experiments
 # ---------------------------------------------------------------------------
 
-# the JAX package's suite defaults (benchmarks/run.py): steps per training
-# run of each table, and the theory table's seeds; then Table 1 at gpt-125m
-# (full width and depth), batch 8 x seq 512: a cut of the paper's
-# pretraining to full_steps steps.  Cuts, were the phase too long for a
-# call, in this order: full_steps (100 -> 50 to make room for the mmtrain
-# phase), then theory_seeds 8 -> 4 (its runs batch the seeds as a row of
-# keys: 4 seeds took 59.1 s, 8 took 44.8 s on another machine, so it saves
-# little), then the bench model's steps; no gate's band changes.
-EXP = dict(table1=240, table2=160, table3=160, fig78=160, theory_seeds=8,
+# steps per training run of each table (half the JAX package's suite
+# defaults, benchmarks/run.py: 240, 160, 160, 160) and the theory table's
+# seeds; then Table 1 at gpt-125m (full width and depth), batch 8 x seq
+# 512: a cut of the paper's pretraining to full_steps steps.  Cuts made for
+# the run's time: full_steps 100 -> 50 (the mmtrain phase; at 30 the loss
+# of the last 5 steps still stands above step 0's, ~11.10 / 11.06 against
+# 10.98, as the warm-up's rising learning rate first lifts it) and the
+# bench model's steps halved (the analysis phase); theory_seeds 8 -> 4
+# would save little (its runs batch the seeds as a row of keys: 4 seeds
+# took 59.1 s, 8 took 44.8 s on another machine).  No gate's band changes:
+# at the halved steps every gate passed on the CPU with margin (Table 2's
+# rows 0.23 apart, Table 3's adaptive 0.055 below uniform, 3/3 Figure 7/8
+# checkpoints).
+EXP = dict(table1=120, table2=80, table3=80, fig78=80, theory_seeds=8,
            full_steps=50, full_batch=8, full_seq=512)
 EXP_RESULTS = "results/torch_bench"
 
@@ -4525,6 +4577,107 @@ def roofline_phase(torch, log, measured, card, dev="cuda"):
     log(f"roofline: phase {time.perf_counter() - t:.1f} s")
     out[ROOFLINE_PAIR] = r
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 12: qlint's trace audit on the card (the reference's jaxpr audit)
+# ---------------------------------------------------------------------------
+
+# the programs the speculative and train phases trace on the card, and the
+# analysis phase traces again on meta at the same configurations
+ANALYSIS_TAGS = ("train-step[f32]", "train-step[qstate]", "decode_fn", "prefill_chunk_fn",
+                 "verify_fn")
+ANALYSIS_BASELINE = "src/repro_torch/analysis/qlint_baseline.json"
+
+
+def card_traces(torch, programs: dict, built: dict, dev="cuda") -> dict:
+    """Run each of `programs` ({tag: run}) once on the card under the trace
+    audit's dispatch mode (``analysis.trace_audit.trace``): the kernel
+    launches the trace recorded must equal the wrappers' count
+    (``kernels.ops.LAUNCHES``) over the run.  Keeps each program's findings
+    and launches in ``built["card"]`` and their seconds in
+    ``built["seconds"]``; returns {tag: the program's result}."""
+    from repro_torch.analysis import trace_audit
+    from repro_torch.kernels import ops
+
+    out = {}
+    for tag, fn in programs.items():
+        before = dict(ops.LAUNCHES)
+        t = time.perf_counter()
+        traced = trace_audit.trace(fn, tag, bit_identity=tag in trace_audit.SERVE_TAGS)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        built["seconds"] = built.get("seconds", 0.0) + time.perf_counter() - t
+        delta = {k: ops.LAUNCHES[k] - before[k] for k in ops.KERNELS
+                 if ops.LAUNCHES[k] != before[k]}
+        check(traced.launches == delta, f"analysis {tag}: the trace recorded launches "
+              f"{traced.launches}, the wrappers counted {delta}")
+        out[tag] = traced.result
+        built.setdefault("card", {})[tag] = dataclasses.replace(traced, result=None)
+    return out
+
+
+def analysis_meta_programs() -> dict:
+    """The card's traced programs on meta at the card's configurations:
+    gpt-1.3b at full width and depth served as the speculative phase serves
+    it (CONT with SPEC's draft: paged pool, sampling, chunk bucket 64, the
+    fixed-shape route) and trained as the train phase trains it (TRAIN's
+    batch, sequence and microbatches; AdamW with f32 moments, and with 8-bit
+    moments for the quantized-domain step)."""
+    from repro_torch import configs
+    from repro_torch.analysis import trace_audit
+    from repro_torch.core.qsdp import QSDPConfig
+    from repro_torch.optim import AdamWConfig, cosine_schedule, make_adamw
+
+    gen_max = max(g for *_, g in CONT_PLAN)
+    progs = trace_audit.meta_serve_programs(
+        configs.get_config(CONT_ARCH), bucket=CONT["chunk"], batch=CONT["slots"],
+        prompt_len=CONT["ring"] - gen_max, gen=gen_max, seed=CONT["seed"], sampling=True,
+        kv_block_size=CONT["block"], kv_pool_blocks=CONT["pool_blocks"], **SPEC)
+    sched = cosine_schedule(TRAIN["lr"], TRAIN["warmup"], TRAIN["total"])
+    for tag, bits in (("train-step[f32]", None), ("train-step[qstate]", 8)):
+        opt = make_adamw(AdamWConfig(lr=TRAIN["lr"], schedule=sched, moment_bits=bits))
+        progs[tag] = trace_audit.meta_train_program(
+            configs.get_config("gpt-1.3b"), QSDPConfig(), opt, TRAIN["n_micro"], TRAIN["batch"],
+            TRAIN["seq"], quantized_state=bits is not None)
+    return progs
+
+
+def analysis_phase(torch, log, built: dict) -> None:
+    """qlint's trace audit (``repro_torch.analysis.trace_audit``) on the
+    card and on meta: the speculative and train phases traced gpt-1.3b's
+    decode step, chunked-prefill launch, verify launch, f32 train step and
+    quantized-domain train step on the card over real launches
+    (:func:`card_traces`, the traces' launches equal to the wrappers'
+    counts); this phase traces the same programs on the meta device at the
+    same configurations.  Gates: per program the findings on the card equal
+    those on meta and so do the kernel launches; no finding is new against
+    the port's qlint baseline."""
+    from repro_torch.analysis import trace_audit
+    from repro_torch.analysis.findings import load_baseline, partition_findings
+
+    t = time.perf_counter()
+    card = built.get("card", {})
+    check(set(card) == set(ANALYSIS_TAGS), f"analysis: the card traced {sorted(card)}, not "
+          f"{list(ANALYSIS_TAGS)} (the phase reads the speculative and train phases' traces)")
+    meta = trace_audit.trace_programs(analysis_meta_programs())
+    t_meta = time.perf_counter() - t
+    for tag in ANALYSIS_TAGS:
+        got = sorted(f.ident() for f in card[tag].findings)
+        want = sorted(f.ident() for f in meta[tag].findings)
+        check(got == want, f"analysis {tag}: findings on the card {got} != on meta {want}")
+        check(card[tag].launches == meta[tag].launches,
+              f"analysis {tag}: launches on the card {card[tag].launches} != on meta "
+              f"{meta[tag].launches}")
+        log(f"analysis {tag}: card == meta: findings {[s for _, s in got] or 'none'}; "
+            f"launches {card[tag].launches}")
+    findings = [f for tag in ANALYSIS_TAGS for f in card[tag].findings]
+    new, suppressed, _ = partition_findings(findings, load_baseline(str(REPO / ANALYSIS_BASELINE)))
+    check(not new, f"analysis: findings new against {ANALYSIS_BASELINE}: {[str(f) for f in new]}")
+    log(f"analysis: {len(findings)} finding(s) on the card, all in the baseline "
+        f"({[f.ident() for f in suppressed]}); card traces {built.get('seconds', 0.0):.1f} s "
+        f"(in the speculative and train phases), meta twin {t_meta:.1f} s; phase "
+        f"{time.perf_counter() - t:.1f} s")
 
 
 def profile_experiment_step(torch, log, cfg, qsdp, batch, seq, dev):

@@ -20,6 +20,7 @@ more than one rank raises ``NotImplementedError`` (ROADMAP A3b).
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional, Sequence
 
 import torch
@@ -38,6 +39,20 @@ def group_size(group) -> int:
     return dist.get_world_size(group)
 
 
+def _collective(fn):
+    """Report each call of a collective entry point, with its arguments, to
+    the active dispatch modes that take collectives (``collective``: the
+    trace audit's graph, ``analysis/trace_audit.py``).  At one rank these
+    entry points move nothing, so no op of theirs shows a collective."""
+    @functools.wraps(fn)
+    def call(*args, **kwargs):
+        for mode in ops.active_modes():
+            if hasattr(mode, "collective"):
+                mode.collective(fn.__name__, args)
+        return fn(*args, **kwargs)
+    return call
+
+
 def require_one_rank(group) -> None:
     if group_size(group) > 1:
         raise NotImplementedError(
@@ -50,6 +65,7 @@ def require_one_rank(group) -> None:
 # ---------------------------------------------------------------------------
 
 
+@_collective
 def all_gather_fp(x: torch.Tensor, group=None,
                   dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """Plain all-gather, optionally through a narrower wire dtype."""
@@ -59,6 +75,7 @@ def all_gather_fp(x: torch.Tensor, group=None,
     return x
 
 
+@_collective
 def all_gather_quantized(x: torch.Tensor, cfg: QuantConfig, key: prng.Key,
                          group=None, out_dtype=None) -> torch.Tensor:
     """Gather a flat (n_local,) shard into the full flat tensor, shipping
@@ -72,6 +89,7 @@ def all_gather_quantized(x: torch.Tensor, cfg: QuantConfig, key: prng.Key,
     return dequantize(wire, out_dtype or x.dtype)
 
 
+@_collective
 def reduce_scatter_fp(x: torch.Tensor, group=None,
                       dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """Plain reduce-scatter (sum), optionally through a narrower wire dtype."""
@@ -81,12 +99,14 @@ def reduce_scatter_fp(x: torch.Tensor, group=None,
     return x
 
 
+@_collective
 def _all_to_all_rows(rows: torch.Tensor, group=None) -> torch.Tensor:
     """Row i of (P, ...) goes to rank i; returns the P rows received."""
     require_one_rank(group)
     return rows
 
 
+@_collective
 def reduce_scatter_quantized(g: torch.Tensor, cfg: QuantConfig, key: prng.Key,
                              group=None) -> torch.Tensor:
     """Sum the flat (n,) `g` over the group, leaving this rank its (n/P,)
@@ -161,6 +181,7 @@ def encode_wire(xs: Sequence[torch.Tensor], layout: WireLayout,
     return torch.cat(parts)
 
 
+@_collective
 def gather_wire(buf: torch.Tensor, group=None) -> torch.Tensor:
     """All-gather a coalesced buffer: (B,) u8 -> (P*B,) u8 in shard order."""
     require_one_rank(group)
@@ -206,6 +227,7 @@ def decode_gathered_wire(gbuf: torch.Tensor, layout: WireLayout, p: int,
             for vals, dt in zip(_decode_segments(rows, layout, out_dtypes), out_dtypes)]
 
 
+@_collective
 def all_gather_coalesced(xs: Sequence[torch.Tensor], layout: WireLayout,
                          keys: Sequence[Optional[prng.Key]], out_dtypes: Sequence,
                          group=None) -> list[torch.Tensor]:
@@ -214,6 +236,7 @@ def all_gather_coalesced(xs: Sequence[torch.Tensor], layout: WireLayout,
     return decode_gathered_wire(gbuf, layout, group_size(group), out_dtypes)
 
 
+@_collective
 def reduce_scatter_coalesced(gs: Sequence[torch.Tensor], layout: WireLayout,
                              keys: Sequence[Optional[prng.Key]],
                              group=None) -> list[torch.Tensor]:

@@ -35,6 +35,7 @@ from __future__ import annotations
 import math
 from typing import Sequence
 
+import numpy as np
 import torch
 
 Key = tuple[int, int]
@@ -59,7 +60,18 @@ def _rotl(x, r: int):
 def _threefry2x32(k1, k2, x0, x1):
     """The 20-round Threefry-2x32 block function.  Works elementwise on
     Python ints and on int64 tensors holding uint32 values alike (keys may
-    be scalars or tensors broadcasting against the counts)."""
+    be scalars or tensors broadcasting against the counts).  CPU tensors
+    hash in numpy's wrapping uint32 arithmetic (:func:`_threefry2x32_u32`,
+    the same words several times faster than int64 tensor ops)."""
+    ts = [v for v in (k1, k2, x0, x1) if isinstance(v, torch.Tensor)]
+    if ts and all(t.device.type == "cpu" for t in ts):
+        return _threefry2x32_u32(k1, k2, x0, x1, max(t.dim() for t in ts))
+    return _threefry2x32_i64(k1, k2, x0, x1)
+
+
+def _threefry2x32_i64(k1, k2, x0, x1):
+    """:func:`_threefry2x32` in masked int64 (or Python int) arithmetic,
+    on any device."""
     ks = (k1, k2, k1 ^ k2 ^ 0x1BD11BDA)
     x0 = (x0 + ks[0]) & _M32
     x1 = (x1 + ks[1]) & _M32
@@ -70,6 +82,30 @@ def _threefry2x32(k1, k2, x0, x1):
         x0 = (x0 + ks[(i + 1) % 3]) & _M32
         x1 = (x1 + ks[(i + 2) % 3] + i + 1) & _M32
     return x0, x1
+
+
+def _threefry2x32_u32(k1, k2, x0, x1, ndim: int):
+    """:func:`_threefry2x32` of CPU tensors (and ints) in numpy uint32,
+    where every sum wraps mod 2**32 as the masked int64 sums do; returns
+    int64 tensors of the u32 words."""
+    def u32(v):
+        if isinstance(v, torch.Tensor):
+            return v.numpy().astype(np.uint32)
+        return np.full((1,) * ndim, v & _M32, dtype=np.uint32)
+
+    k1, k2, x0, x1 = (u32(v) for v in (k1, k2, x0, x1))
+    ks = (k1, k2, k1 ^ k2 ^ np.uint32(0x1BD11BDA))
+    with np.errstate(over="ignore"):
+        x0 = x0 + ks[0]
+        x1 = x1 + ks[1]
+        for i in range(5):
+            for r in _ROT[i % 2]:
+                x0 = x0 + x1
+                x1 = ((x1 << np.uint32(r)) | (x1 >> np.uint32(32 - r))) ^ x0
+            x0 += ks[(i + 1) % 3]
+            x1 += ks[(i + 2) % 3] + np.uint32(i + 1)
+    return (torch.from_numpy(np.asarray(x0, dtype=np.int64)),
+            torch.from_numpy(np.asarray(x1, dtype=np.int64)))
 
 
 def PRNGKey(seed: int) -> Key:

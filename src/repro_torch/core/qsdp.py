@@ -479,3 +479,25 @@ def layer_gather_launches(engine: QSDPEngine, names) -> int:
     if engine.layer_coalesced(tuple(names)):
         return 1
     return sum(3 if engine._is_quantized(engine.specs[n]) else 1 for n in names)
+
+
+def layer_kernel_launches(engine: QSDPEngine, names, skip=()) -> dict[str, tuple[int, int]]:
+    """K1 and K2 launches at one rank of ONE gather of the params `names`
+    (a layer of a stack, one invocation of a block, or a top-level tensor)
+    and of ONE reduce-scatter of their gradients: ``{"gather": (K1, K2),
+    "reduce": (K1, K2)}``.  K1 encodes each quantized tensor (each
+    gradient-quantized one for the reduce-scatter); K2 decodes each wire
+    buffer that holds one, ``ops.WIRE_MAX_SEGS`` tensors a launch: under
+    coalescing (``layer_gather_launches`` == 1) the params' one buffer, per
+    tensor a buffer each.  The gather's K2 leaves out the tensors whose last
+    name is in `skip` (a rowquant decode reads their codes through K3)."""
+    names = tuple(names)
+    q = [n for n in names if engine._is_quantized(engine.specs[n])]
+    g = sum(engine._is_grad_quantized(engine.specs[n]) for n in names)
+    decoded = sum(n.split("/")[-1] not in skip for n in q)
+    coalesced = engine.layer_coalesced(names)
+
+    def k2(n_q: int) -> int:
+        return -(-n_q // ops.WIRE_MAX_SEGS) if coalesced else n_q
+
+    return {"gather": (len(q), k2(decoded)), "reduce": (g, k2(g))}

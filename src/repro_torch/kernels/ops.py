@@ -29,6 +29,7 @@ from collections import Counter
 from typing import NamedTuple, Sequence
 
 import torch
+from torch._C import _len_torch_dispatch_stack
 from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
 
 from . import build, cost, ref
@@ -59,16 +60,29 @@ def _on_cpu(*ts: torch.Tensor) -> bool:
                      f"meta device), got {[str(t.device) for t in ts]}")
 
 
-def _launch(name: str, dev: torch.device, work: cost.KernelCost, run) -> None:
+def active_modes():
+    """The active dispatch modes, innermost last; an empty tuple, without
+    building the stack's list, when none is active (every launch asks)."""
+    return _get_current_dispatch_mode_stack() if _len_torch_dispatch_stack() else ()
+
+
+def _launch(name: str, dev: torch.device, work: cost.KernelCost, run, ins=(),
+            outs=()) -> None:
     """Launch kernel `name` (``run()`` returns its CUDA error code) on a
     CUDA device; on the meta device report its work to the active modes
-    instead.  Counts the launch either way."""
+    that take it instead (``kernel``).  On either, hand its operand and
+    result tensors (`ins`, `outs`) to the active modes that take them
+    (``launched``: the trace audit's graph).  Counts the launch."""
+    modes = active_modes()
     if dev.type == "meta":
-        for mode in _get_current_dispatch_mode_stack():
+        for mode in modes:
             if hasattr(mode, "kernel"):
                 mode.kernel(name, work)
     else:
         _raise_on(run(), name)
+    for mode in modes:
+        if hasattr(mode, "launched"):
+            mode.launched(name, ins, outs)
     LAUNCHES[name] += 1
 
 
@@ -132,7 +146,7 @@ def quantize_pack(x: torch.Tensor, key, levels: int, bits: int,
             lambda: build.load("quantize").qsdp_quantize_pack(
                 x.data_ptr(), k0, k1, rand_bits, codes.data_ptr(), scale.data_ptr(),
                 zero.data_ptr(), nb, bucket, bits, levels, 1.0 / levels, _MODE_IDS[mode],
-                _stream()))
+                _stream()), (x,), (codes, scale, zero))
     return codes, scale, zero
 
 
@@ -155,7 +169,8 @@ def unpack_dequantize(codes: torch.Tensor, scale: torch.Tensor,
             cost.unpack_dequantize(nb, bucket, bits, dtype.itemsize),
             lambda: build.load("quantize").qsdp_unpack_dequantize(
                 codes.data_ptr(), scale.data_ptr(), zero.data_ptr(), out.data_ptr(),
-                int(dtype == torch.bfloat16), nb, bucket, bits, _stream()))
+                int(dtype == torch.bfloat16), nb, bucket, bits, _stream()),
+            (codes, scale, zero), (out,))
     return out
 
 
@@ -199,7 +214,7 @@ def unpack_dequantize_wire(buf, segments: Sequence[WireCodes],
         if seg.nb:
             flags = int(seg.meta_dtype == torch.bfloat16) | 2 * int(dt == torch.bfloat16)
             rows.append(((base + seg.codes, base + seg.scale, base + seg.zero, out.data_ptr(),
-                          seg.nb, seg.bucket, seg.bits, flags), seg, dt.itemsize))
+                          seg.nb, seg.bucket, seg.bits, flags), seg, dt.itemsize, buf, out))
     lib = build.load("quantize") if rows and bufs[0].device.type == "cuda" else None
     for i in range(0, len(rows), WIRE_MAX_SEGS):
         part = rows[i:i + WIRE_MAX_SEGS]
@@ -207,7 +222,8 @@ def unpack_dequantize_wire(buf, segments: Sequence[WireCodes],
             r[0] for r in part))
         _launch("unpack_dequantize", bufs[0].device,
                 cost.unpack_dequantize_wire([r[1] for r in part], [r[2] for r in part]),
-                lambda: lib.qsdp_unpack_dequantize_wire(desc, len(part), _stream()))
+                lambda: lib.qsdp_unpack_dequantize_wire(desc, len(part), _stream()),
+                [r[3] for r in part], [r[4] for r in part])
     return outs
 
 
@@ -230,7 +246,8 @@ def quantize_buckets(x: torch.Tensor, rand: torch.Tensor, levels: int = 255,
     _launch("quantize_buckets", x.device, cost.quantize_buckets(nb, bucket, stochastic),
             lambda: build.load("quantize").qsdp_quantize_buckets(
                 x.data_ptr(), rand.data_ptr(), codes.data_ptr(), scale.data_ptr(),
-                zero.data_ptr(), nb, bucket, levels, 1.0 / levels, int(stochastic), _stream()))
+                zero.data_ptr(), nb, bucket, levels, 1.0 / levels, int(stochastic), _stream()),
+            (x, rand), (codes, scale, zero))
     return codes, scale, zero
 
 
@@ -251,7 +268,8 @@ def dequantize_buckets(codes: torch.Tensor, scale: torch.Tensor, zero: torch.Ten
             cost.dequantize_buckets(nb, bucket, dtype.itemsize),
             lambda: build.load("quantize").qsdp_dequantize_buckets(
                 codes.data_ptr(), scale.data_ptr(), zero.data_ptr(), out.data_ptr(),
-                int(dtype == torch.bfloat16), nb, bucket, _stream()))
+                int(dtype == torch.bfloat16), nb, bucket, _stream()),
+            (codes, scale, zero), (out,))
     return out
 
 
@@ -269,7 +287,8 @@ def random_bits(keys: torch.Tensor, n: int) -> torch.Tensor:
     out = torch.empty((r, n), dtype=torch.int32, device=keys.device)
     _launch("random_bits", keys.device, cost.random_bits(r, n),
             lambda: build.load("quantize").qsdp_random_bits(keys.data_ptr(), r, n,
-                                                            out.data_ptr(), _stream()))
+                                                            out.data_ptr(), _stream()),
+            (keys,), (out,))
     return out
 
 
@@ -327,7 +346,7 @@ def rowquant_matmul(x: torch.Tensor, codes: torch.Tensor, scale: torch.Tensor,
     work = cost.rowquant_matmul(m, k, n, n_seg, x.dtype.itemsize)
     y = torch.empty((m, n), dtype=x.dtype, device=x.device)
     if x.device.type == "meta":
-        _launch("rowquant_matmul", x.device, work, None)
+        _launch("rowquant_matmul", x.device, work, None, (x, codes, scale, zero), (y,))
         return y
     lib = build.load("dequant_matmul")
     n_tickets, n_partial = _rowquant_workspace(lib, m, k, n, n_seg, codes.data_ptr() % 16 == 0)
@@ -335,5 +354,5 @@ def rowquant_matmul(x: torch.Tensor, codes: torch.Tensor, scale: torch.Tensor,
     _launch("rowquant_matmul", x.device, work, lambda: lib.qsdp_rowquant_matmul(
         x.data_ptr(), int(x.dtype == torch.bfloat16), codes.data_ptr(), scale.data_ptr(),
         zero.data_ptr(), n_seg, partial.data_ptr(), _tickets(x.device, n_tickets).data_ptr(),
-        y.data_ptr(), m, k, n, _stream()))
+        y.data_ptr(), m, k, n, _stream()), (x, codes, scale, zero), (y,))
     return y

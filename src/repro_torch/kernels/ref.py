@@ -34,20 +34,29 @@ def codes_per_byte(bits: int) -> int:
 def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     """round_f32(a*b + c) with ONE rounding, as ``fmaf`` computes it.
 
-    a*b of two f32 values is exact in f64; the f64 sum is made exact by
-    TwoSum and rounded to odd, after which the rounding to f32 is correct
-    (53 >= 2*24 + 2 bits, so round-to-odd is innocuous)."""
+    a*b of two f32 values is exact in f64, and so is every midpoint of two
+    f32 neighbours (where rounding to f32 turns), so the f64 sum s rounds
+    to the f32 of the exact sum unless s is itself such a midpoint or lies
+    below the normal f32 range.  Only those values take the exact sum: made
+    exact by TwoSum and rounded to odd, after which the rounding to f32 is
+    correct (53 >= 2*24 + 2 bits, so round-to-odd is innocuous)."""
     p = a.double() * b.double()
     c = c.double()
     s = p + c
+    slow = ((s.view(torch.int64) & 0x1FFFFFFF) == 0x10000000) | (s.abs() < 2.0 ** -125)
+    out = s.float()
+    if not slow.any():
+        return out
+    i = slow.nonzero(as_tuple=True)
+    p, c, s = p.expand_as(s)[i], c.expand_as(s)[i], s[i]
     bb = s - p
     err = (p - (s - bb)) + (c - bb)
     bits = s.view(torch.int64)
     # inexact with an even last bit: step one ulp toward the exact value
     step = torch.where((err > 0) == (s > 0), 1, -1)
     fix = (err != 0) & ((bits & 1) == 0)
-    s = torch.where(fix, bits + step, bits).view(torch.float64)
-    return s.float()
+    out[i] = torch.where(fix, bits + step, bits).view(torch.float64).float()
+    return out
 
 
 def fma_f64(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
@@ -177,8 +186,17 @@ def unpack_dequantize_ref(codes: torch.Tensor, scale: torch.Tensor,
                           zero: torch.Tensor, bits: int,
                           dtype=torch.float32) -> torch.Tensor:
     """K2: (nb, bucket*bits/8) packed u8 + (nb, 1) affine -> (nb, bucket)."""
-    c = unpack_codes(codes, bits).to(torch.float32)
-    return fma_f32(c, scale, zero).to(dtype)
+    c = unpack_codes(codes, bits)
+    # the values a code can take: `bits` wide when packed, any byte when one
+    # code fills a byte (the kernel decodes the byte as it finds it)
+    n_values = 1 << bits if codes_per_byte(bits) > 1 else 256
+    if n_values < c.shape[-1]:
+        # fewer values than codes a row: decode each row's values once and
+        # look the codes up (the same fma for every value)
+        table = fma_f32(torch.arange(n_values, dtype=torch.float32, device=c.device), scale,
+                        zero)
+        return torch.gather(table, -1, c.long()).to(dtype)
+    return fma_f32(c.to(torch.float32), scale, zero).to(dtype)
 
 
 def bucket_bytes(bucket: int, bits: int) -> int:

@@ -92,7 +92,7 @@ from . import attention as attn_mod
 from . import layers as L
 from . import mamba as mamba_mod
 from . import moe as moe_mod
-from .transformer import Model
+from .transformer import GROUP_OFFSET, TAIL_OFFSET, Model
 
 Params = dict[str, torch.Tensor]
 Cache = dict[str, torch.Tensor]
@@ -111,6 +111,9 @@ SHARED_NAMES = ("attn_norm", "wq", "wk", "wv", "wo", "bq", "bk", "bv", "mlp_norm
 # lanes per launch of the decode path on the card (the continuous cell's
 # slot count): every GEMM and attention product runs at this many lanes
 LANE_BLOCK = 4
+# the hybrid decode gathers group g's shared block under SAMPLE_OFFSET + g
+# (the reference's models/decode.py)
+SAMPLE_OFFSET = 5000
 
 
 @dataclasses.dataclass(frozen=True)
@@ -592,10 +595,10 @@ class DecodeModel:
         n_groups, rem = divmod(cfg.n_layers, every)
         plan = []
         for g in range(n_groups):
-            gkey = prng.fold_in(key, 1000 + g)
+            gkey = prng.fold_in(key, GROUP_OFFSET + g)
             plan += [("mamba", g * every + i, prng.fold_in(gkey, i)) for i in range(every)]
-            plan.append(("shared", g, prng.fold_in(key, 5000 + g)))
-        tkey = prng.fold_in(key, 2000)
+            plan.append(("shared", g, prng.fold_in(key, SAMPLE_OFFSET + g)))
+        tkey = prng.fold_in(key, TAIL_OFFSET)
         return plan + [("mamba", n_groups * every + j, prng.fold_in(tkey, j))
                        for j in range(rem)]
 

@@ -70,6 +70,11 @@ from .moe import MoEConfig
 
 Params = dict[str, torch.Tensor]
 
+# key folds of the stacks that share a parent key (the reference's
+# models/transformer.py): hybrid group g gathers under GROUP_OFFSET + g, the
+# hybrid tail under TAIL_OFFSET, the audio encoder under ENC_OFFSET
+GROUP_OFFSET, TAIL_OFFSET, ENC_OFFSET = 1000, 2000, 3000
+
 
 def _attn_specs(d: int, a: AttnConfig, stack: Optional[int], bias: bool,
                 out_scale: float) -> dict[str, ParamSpec]:
@@ -300,8 +305,8 @@ class Model:
         pe = torch.arange(audio.shape[1], device=audio.device)
         cos, sin = L.rope_cos_sin(pe, cfg.head_dim, cfg.rope_theta)
         names, lws = self._unbind_stack(params, "enc") if layers is None else layers
-        mem = self._scan_layers("enc", names, lws, audio, prng.fold_in(key, 3000), cos, sin, pe,
-                                self._enc_layer, gather=gather)
+        mem = self._scan_layers("enc", names, lws, audio, prng.fold_in(key, ENC_OFFSET), cos,
+                                sin, pe, self._enc_layer, gather=gather)
         efn = self.engine.gather("enc_final_norm", params["enc_final_norm"], key)
         return L.rms_norm(mem, efn, cfg.norm_eps)
 
@@ -394,13 +399,13 @@ class Model:
             return self._dense_layer(x, w, cos, sin, positions)
 
         for g in range(n_groups):
-            gkey = prng.fold_in(key, 1000 + g)
+            gkey = prng.fold_in(key, GROUP_OFFSET + g)
             x = self._scan_layers("layers", names, layers[g * every:(g + 1) * every], x, gkey,
                                   cos, sin, positions, self._mamba_layer)
             x = self._checkpoint(shared_block, x, gkey, *(shared[n] for n in snames))
         if rem:
             x = self._scan_layers("layers", names, layers[n_groups * every:], x,
-                                  prng.fold_in(key, 2000), cos, sin, positions,
+                                  prng.fold_in(key, TAIL_OFFSET), cos, sin, positions,
                                   self._mamba_layer)
         return x
 

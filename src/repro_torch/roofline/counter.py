@@ -143,9 +143,12 @@ def empty_collectives() -> dict:
 
 def _device_tensors(tree, device: str) -> list:
     """The tensors on `device` in an op's arguments or output (a tensor, or
-    tuples, lists and dicts of them and of other values)."""
+    tuples, lists and dicts of them and of other values; a Python scalar,
+    as ``_local_scalar_dense`` returns, holds none)."""
     if isinstance(tree, torch.Tensor):
         return [tree] if tree.device.type == device else []
+    if not isinstance(tree, (list, tuple, dict)):
+        return []
     out = []
     for x in tree.values() if isinstance(tree, dict) else tree:
         if isinstance(x, torch.Tensor):
@@ -167,6 +170,37 @@ def _scan(x, device: str, found: list):
     if isinstance(x, (list, tuple)):
         return tuple(_scan(v, device, found) for v in x)
     return x
+
+
+def run_memo(memo: dict, func, args, kwargs, key):
+    """``func(*args, **kwargs)`` of a functional op (one that neither writes
+    nor aliases its inputs) on the meta device, where its outputs are a
+    function of `key` (its arguments' metadata, :func:`_scan`): computed
+    once per key and kept in `memo`, later made as fresh empty tensors of
+    the same shapes and strides (PyTorch's meta kernels take ~10^2 us an
+    op).  Outputs off the meta device are not kept."""
+    try:
+        hit = memo.get(key)
+    except TypeError:  # an unhashable argument
+        return func(*args, **kwargs)
+    if hit is not None:
+        made = [torch.empty_strided(size, stride, dtype=dt, device="meta")
+                for size, stride, dt in hit[1]]
+        return made[0] if hit[0] else tuple(made)
+    out = func(*args, **kwargs)
+    single = isinstance(out, torch.Tensor)
+    outs = [out] if single else out
+    if (isinstance(outs, (tuple, list))
+            and all(isinstance(t, torch.Tensor) and t.device.type == "meta" for t in outs)):
+        memo[key] = (single, [(t.shape, t.stride(), t.dtype) for t in outs])
+    return out
+
+
+def meta_key(func, args, kwargs, found: list) -> tuple:
+    """The memo key of an op on meta tensors (:func:`run_memo`), the meta
+    tensors of its arguments appended to `found`."""
+    return (func, _scan(args, "meta", found),
+            tuple((k, _scan(v, "meta", found)) for k, v in kwargs.items()))
 
 
 class Counter(TorchDispatchMode):
@@ -231,21 +265,7 @@ class Counter(TorchDispatchMode):
         (`key`: the arguments' metadata)."""
         if self.device != "meta":
             return func(*args, **kwargs)
-        try:
-            hit = self._memo.get(key)
-        except TypeError:  # an unhashable argument
-            return func(*args, **kwargs)
-        if hit is not None:
-            made = [torch.empty_strided(size, stride, dtype=dt, device="meta")
-                    for size, stride, dt in hit[1]]
-            return made[0] if hit[0] else tuple(made)
-        out = func(*args, **kwargs)
-        single = isinstance(out, torch.Tensor)
-        outs = [out] if single else out
-        if (isinstance(outs, (tuple, list))
-                and all(isinstance(t, torch.Tensor) and t.device.type == "meta" for t in outs)):
-            self._memo[key] = (single, [(t.shape, t.stride(), t.dtype) for t in outs])
-        return out
+        return run_memo(self._memo, func, args, kwargs, key)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}

@@ -28,6 +28,7 @@ from repro_torch.core import prng
 from repro_torch.core.qsdp import QSDPConfig
 from repro_torch.serve import build_serve_setup, make_prompt_batch
 from repro_torch.weights import params_from_jax
+import _torch_jax_cache  # noqa: F401  (each JAX program compiles once a run)
 
 # thousands of small tensor ops a run: one intra-op thread keeps them fast
 # when the test workers share the cores (see tests/_torch_train_common.py)

@@ -27,6 +27,7 @@ from repro_torch.models.decode import DecodeSpec
 from repro_torch.models.transformer import Model
 from repro_torch.serve import ContinuousScheduler, Request
 from repro_torch.weights import params_from_jax
+import _torch_jax_cache  # noqa: F401  (each JAX program compiles once a run)
 
 # thousands of small tensor ops per run: one intra-op thread runs them as
 # fast as eight on an idle machine, and keeps them fast when the test

@@ -34,6 +34,7 @@ from repro_torch.models.transformer import Model
 from repro_torch.optim import AdamWConfig, cosine_schedule, make_adamw
 from repro_torch.train.step import build_train_step
 from repro_torch.weights import train_state_from_jax
+import _torch_jax_cache  # noqa: F401  (each JAX program compiles once a run)
 
 # The port's CPU steps are thousands of small tensor ops: one intra-op
 # thread runs them as fast as eight on an idle machine, and keeps them fast

@@ -35,10 +35,13 @@ def test_port_imports_no_jax_and_no_repro():
     files = _port_files()
     assert len(files) > 20
     scanned = {p.parent.name for p in files}
-    assert {"tune", "roofline", "examples"} <= scanned, scanned
+    assert {"tune", "roofline", "examples", "analysis"} <= scanned, scanned
     rel = {p.relative_to(ROOT / "src" / "repro_torch").as_posix() for p in files[:-1]}
     assert {"launch/dryrun.py", "configs/inputs.py", "roofline/counter.py",
-            "experiments/roofline_report.py"} <= rel, rel
+            "experiments/roofline_report.py", "analysis/findings.py",
+            "analysis/source_lint.py", "analysis/key_audit.py",
+            "analysis/collective_audit.py", "analysis/trace_audit.py",
+            "analysis/qlint.py"} <= rel, rel
     bad = {str(p.relative_to(ROOT)): sorted(_imported_roots(p) & FORBIDDEN)
            for p in files if _imported_roots(p) & FORBIDDEN}
     assert not bad, bad

@@ -138,20 +138,30 @@ def _requests(seed):
             for i, (sampled, n, g) in enumerate(PLAN)]
 
 
-def _sched_setups(arch, **kw):
-    common = dict(smoke=True, batch=SLOTS, prompt_len=PROMPT, gen=6, sampling=True,
-                  batch_sharded=False, **kw)
-    js = jbuild(arch, qsdp=JQSDPConfig(compute_dtype="float32"), **common)
-    ts = build_serve_setup(arch, qsdp=QSDPConfig(compute_dtype="float32"), device="cpu",
-                           **common)
-    ts.params = params_from_jax({k: np.asarray(v) for k, v in js.params.items()}, "cpu",
-                                ts.model)
-    return js, ts
+@pytest.fixture(scope="module")
+def sched_setups():
+    """arch -> (JAX setup, port setup on the JAX setup's weights), built once
+    a module: the scheduler test and the solo-run test serve the same
+    weights (neither writes a setup; each makes its own schedulers)."""
+    made = {}
+
+    def get(arch):
+        if arch not in made:
+            common = dict(smoke=True, batch=SLOTS, prompt_len=PROMPT, gen=6, sampling=True,
+                          batch_sharded=False)
+            js = jbuild(arch, qsdp=JQSDPConfig(compute_dtype="float32"), **common)
+            ts = build_serve_setup(arch, qsdp=QSDPConfig(compute_dtype="float32"),
+                                   device="cpu", **common)
+            ts.params = params_from_jax({k: np.asarray(v) for k, v in js.params.items()},
+                                        "cpu", ts.model)
+            made[arch] = js, ts
+        return made[arch]
+    return get
 
 
 @pytest.mark.parametrize("arch", ARCHS)
-def test_mm_scheduler_matches_jax(arch):
-    js, ts = _sched_setups(arch)
+def test_mm_scheduler_matches_jax(arch, sched_setups):
+    js, ts = sched_setups(arch)
     jsched = jmake_scheduler(js, gather_key=jax.random.PRNGKey(GATHER_SEED))
     tsched = make_scheduler(ts, gather_key=prng.PRNGKey(GATHER_SEED))
     reqs = _requests(5)
@@ -173,11 +183,11 @@ def test_mm_scheduler_matches_jax(arch):
 
 
 @pytest.mark.parametrize("arch", ARCHS)
-def test_mm_requests_equal_solo_runs(arch):
+def test_mm_requests_equal_solo_runs(arch, sched_setups):
     """On the fixed-shape route (4 lanes a launch, as on the card) every
     greedy request's stream equals its batch-of-1 solo run, whose prompt
     batch is the scheduler's (modality stubs included)."""
-    _, ts = _sched_setups(arch)
+    _, ts = sched_setups(arch)
     spec = dataclasses.replace(ts.spec, lane_block=4)
     ts = dataclasses.replace(ts, spec=spec, engine=ServeEngine(ts.model, spec, "cpu"))
     key = prng.PRNGKey(GATHER_SEED)
@@ -198,8 +208,8 @@ def test_mm_requests_equal_solo_runs(arch):
 
 
 @pytest.mark.parametrize("arch", ARCHS)
-def test_mm_refusals_follow_the_reference(arch):
-    js, ts = _sched_setups(arch)
+def test_mm_refusals_follow_the_reference(arch, sched_setups):
+    js, ts = sched_setups(arch)
     for make, setup in ((jmake_scheduler, js), (make_scheduler, ts)):
         with pytest.raises(ValueError, match="prefill_chunk requires"):
             make(setup, prefill_chunk=4)
@@ -230,16 +240,16 @@ def test_serve_launcher_mm(arch, flags, capsys):
 
 def test_expected_mm_launches_at_the_full_configs():
     """``chip_smoke.py``'s vlmaudio launch formula at the configs it serves
-    (qwen2-vl-72b cut to 8 layers, seamless-m4t-large-v2 to 12 decoder and
-    12 encoder layers) equals its hand count: rowquant takes qwen2-vl's
+    (qwen2-vl-72b cut to 2 layers, seamless-m4t-large-v2 to 3 decoder and
+    3 encoder layers) equals its hand count: rowquant takes qwen2-vl's
     w_down only (w_gate/w_up's 29,568 columns are 28.875 buckets) and all of
     seamless's decoder MLP."""
     from test_torch_continuous import _chip_smoke
     cs = _chip_smoke()
     for arch in cs.MM_ARCHS:
         cfg = cs.mm_config(arch)
-        assert cfg.n_layers == (8 if arch == "qwen2-vl-72b" else 12)
-        assert cfg.arch_type != "audio" or cfg.n_enc_layers == 12
+        assert cfg.n_layers == (2 if arch == "qwen2-vl-72b" else 3)
+        assert cfg.arch_type != "audio" or cfg.n_enc_layers == 3
         model = Model(cfg, MeshSpec(("data", "model"), (1, 1)), QSDPConfig())
         for rowquant in (False, True):
             got = cs.expected_mm_launches(model, rowquant)

@@ -101,3 +101,42 @@ def test_synthetic_lm_tokens():
         tt, tl = SyntheticLM(vocab, seq, b, seed=seed).sample(step)
         assert (np.asarray(jt) == tt.numpy()).all()
         assert (np.asarray(jl) == tl.numpy()).all()
+
+
+@pytest.mark.parametrize("case", ["tensors", "int_keys", "broadcast", "int32_keys", "scalar"])
+def test_threefry_u32_path_equals_int64_path(case):
+    """CPU tensors hash through numpy uint32 (``_threefry2x32_u32``); the
+    masked int64 path (``_threefry2x32_i64``, the one other devices take)
+    gives the same words on random words: elementwise tensors, Python-int
+    keys, a column of keys broadcast against a row of counts, int32 keys
+    holding words >= 2^31 (negative int32), and 0-d tensors.  Python ints
+    alone take the int64 path in both."""
+    rng = np.random.default_rng(["tensors", "int_keys", "broadcast", "int32_keys",
+                                 "scalar"].index(case))
+
+    def words(*shape):
+        return torch.from_numpy(rng.integers(0, 2 ** 32, shape, dtype=np.int64))
+
+    if case == "tensors":
+        args = [words(257) for _ in range(4)]
+    elif case == "int_keys":
+        args = [int(w) for w in words(2)] + [words(3, 5), words(3, 5)]
+    elif case == "broadcast":
+        args = [words(6, 1), words(6, 1), torch.zeros(1, 9, dtype=torch.int64), words(1, 9)]
+    elif case == "int32_keys":
+        k = words(64, 2) | (1 << 31)
+        args = [k[:, 0].to(torch.int32), k[:, 1].to(torch.int32), words(64), words(64)]
+        assert (args[0] < 0).all()
+    else:
+        args = [words(), words(), words(), words()]
+    got = prng._threefry2x32(*args)
+    want = prng._threefry2x32_i64(*args)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.int64 and g.shape == w.shape
+        assert torch.equal(g, w)
+        assert 0 <= int(g.min()) and int(g.max()) < 2 ** 32
+    # one element through Python ints (int64 path) as a third check
+    flat = [a.reshape(-1)[0].item() & 0xFFFFFFFF if isinstance(a, torch.Tensor) else a
+            for a in args]
+    x0, x1 = prng._threefry2x32(*flat)
+    assert (x0, x1) == (int(got[0].reshape(-1)[0]), int(got[1].reshape(-1)[0]))

@@ -154,6 +154,69 @@ def test_fma_f32_is_single_rounding():
     assert fma_f32(a, a, c).item() == 1 + 2.0**-11 + 2.0**-23
 
 
+def _round_f32(x):
+    """The f32 nearest the exact rational `x`, ties to even, subnormals and
+    overflow included: one rounding, as ``fmaf`` makes it."""
+    from fractions import Fraction
+    if x == 0:
+        return np.float32(0.0)
+    m = abs(x)
+    e = m.numerator.bit_length() - m.denominator.bit_length()
+    if Fraction(2) ** e > m:
+        e -= 1  # 2^e <= m < 2^(e+1)
+    q = Fraction(2) ** (max(e, -126) - 23)  # the f32 spacing at m
+    v = float(round(m / q) * q)  # Fraction's round: half to even; exact in f64
+    v = np.inf if v >= 2.0 ** 128 else v
+    return np.float32(v if x > 0 else -v)
+
+
+def test_fma_f32_exact_at_midpoints_ties_and_subnormals():
+    """fma_f32 against the exact a*b + c rounded once, on seeded triples
+    whose f64 sum lands on an f32 midpoint (exact ties, and sums a few f64
+    ulps off a midpoint, which rounding through f64 first would round to
+    even), on sums below 2^-125 (subnormal results and subnormal ties), and
+    on random normal triples: the same f32 bits."""
+    from fractions import Fraction
+    rng = np.random.default_rng(7)
+    n = 600
+    sign = rng.choice([-1.0, 1.0], n)
+    big = (sign * rng.uniform(1, 2, n) * np.exp2(rng.integers(-100, 100, n))).astype(np.float32)
+    half_ulp = np.spacing(np.abs(big)).astype(np.float64) / 2
+    # a*b = +-half an ulp of c times (1 + k1 2^-23)(1 + k2 2^-23): k1 = k2 =
+    # 0 an exact tie; k2 = -k1 (three in four) a product 2^-46 k1^2 below a
+    # tie, under f64's resolution at c; other k2 a product off the tie
+    k1 = rng.integers(-8, 9, n)
+    k2 = np.where(rng.random(n) < 0.75, -k1, rng.integers(-8, 9, n))
+    tie_a = (rng.choice([-1.0, 1.0], n) * half_ulp * (1 + k1 * 2.0 ** -23)).astype(np.float32)
+    tie_b = (1 + k2 * 2.0 ** -23).astype(np.float32)
+    # subnormal results: products near 2^-135 and c a subnormal; ties at
+    # half the subnormal spacing 2^-149 with the same (1 + k 2^-23) offsets
+    sub_a = (rng.standard_normal(n) * 2.0 ** -70).astype(np.float32)
+    sub_b = (rng.standard_normal(n) * 2.0 ** -65).astype(np.float32)
+    sub_c = (rng.integers(-2 ** 23, 2 ** 23, n) * 2.0 ** -149).astype(np.float32)
+    st_a = (rng.choice([-1.0, 1.0], n) * 2.0 ** -75 * (1 + k1 * 2.0 ** -23)).astype(np.float32)
+    st_b = (2.0 ** -75 * (1 + k2 * 2.0 ** -23)).astype(np.float32)
+    st_c = (rng.integers(1, 2 ** 20, n) * 2.0 ** -149).astype(np.float32)
+    # random normal triples over a wide range of exponents
+    rn = [(rng.standard_normal(n) * np.exp2(rng.integers(-40, 40, n))).astype(np.float32)
+          for _ in range(3)]
+    a = np.concatenate([tie_a, sub_a, st_a, rn[0]])
+    b = np.concatenate([tie_b, sub_b, st_b, rn[1]])
+    c = np.concatenate([big, sub_c, st_c, rn[2]])
+    s = a.astype(np.float64) * b + c
+    on_mid = (s.view(np.int64) & 0x1FFFFFFF) == 0x10000000
+    # both branches are exercised: f64 sums on a midpoint, and below 2^-125
+    assert on_mid[:n].sum() >= n // 2 and (np.abs(s[n:3 * n]) < 2.0 ** -125).all()
+    got = fma_f32(*(torch.from_numpy(v) for v in (a, b, c))).numpy()
+    want = np.array([_round_f32(Fraction(float(x)) * Fraction(float(y)) + Fraction(float(z)))
+                     for x, y, z in zip(a, b, c)], dtype=np.float32)
+    bad = np.flatnonzero(got.view(np.uint32) != want.view(np.uint32))
+    assert bad.size == 0, [(i, a[i], b[i], c[i], got[i], want[i]) for i in bad[:5]]
+    # rounding the f64 sum once more differs from the exact rounding on
+    # some of the near-midpoint triples (so they test what they claim)
+    assert (s[:n].astype(np.float32).view(np.uint32) != want[:n].view(np.uint32)).any()
+
+
 def test_quantize_needs_key_and_validates_config():
     with pytest.raises(ValueError):
         tq.quantize(torch.zeros(10), tq.QuantConfig(mode="shift"))

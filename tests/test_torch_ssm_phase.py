@@ -51,7 +51,7 @@ def test_chip_smoke_ssm_phase_rehearsal(monkeypatch):
 
 def test_expected_ssm_launches_at_the_full_configs():
     """The structure's per-step counts at mamba2-370m and zamba2-7b, full
-    width at the depths the phase serves (12 and 27 layers), equal the hand
+    width at the depths the phase serves (6 and 15 layers), equal the hand
     count the phase holds them to (K3 on zamba2's w_gate/w_up, its w_down
     through K2); the prefill gathers the shared MLP densely."""
     cs = _chip_smoke()
@@ -59,7 +59,7 @@ def test_expected_ssm_launches_at_the_full_configs():
     from repro_torch.models.transformer import Model
     for arch in cs.SSM_ARCHS:
         cfg = cs.cut_config(arch, cs.SSM_SERVE_LAYERS[arch])
-        assert cfg.n_layers == {"mamba2-370m": 12, "zamba2-7b": 27}[arch]
+        assert cfg.n_layers == {"mamba2-370m": 6, "zamba2-7b": 15}[arch]
         model = Model(cfg, MeshSpec(("data", "model"), (1, 1)), QSDPConfig())
         for rowquant in (False, True):
             got = cs.expected_ssm_launches(model, rowquant)

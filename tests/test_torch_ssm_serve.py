@@ -67,17 +67,25 @@ def _prompt():
     return np.random.default_rng(SEED).integers(0, 1024, size=(B, S)).astype(np.int64)
 
 
-def _jax_run(arch, qcfg, monkeypatch, rowquant=False, np_params=None):
+def _jax_run(arch, qcfg, monkeypatch, rowquant=False, np_params=None, tokens_only=False):
     """JAX generate with hooks, then a prefill: (tokens, logits per step,
-    {name: sorted digests of gathered weights}, prefill cache, params)."""
+    {name: sorted digests of gathered weights}, prefill cache, params).
+    With `tokens_only` the generate alone, unhooked: (tokens, params)."""
     cfg = jconfigs.get_smoke(arch)
     mesh = jax.make_mesh((1, 1), ("data", "model"))
     model = JModel(cfg, JMeshSpec(("data", "model"), (1, 1)), qcfg)
-    params = model.init_params(jax.random.PRNGKey(SEED))
-    if np_params is not None:
+    if np_params is None:
+        params = model.init_params(jax.random.PRNGKey(SEED))
+    else:
         params = {k: jnp.asarray(v) for k, v in np_params.items()}
     spec = JDecodeSpec(cache_len=0 if cfg.arch_type == "ssm" else S + GEN, batch_global=B,
                        batch_sharded=False, rowquant_mlp=rowquant)
+    batch, pspecs = {"tokens": jnp.asarray(_prompt(), jnp.int32)}, {"tokens": P()}
+    if tokens_only:
+        with mesh:
+            out = JServeEngine(model, mesh, spec).generate(params, batch, pspecs, n_tokens=GEN,
+                                                           key=jax.random.PRNGKey(KEY))
+            return np.asarray(jax.device_get(out)), {k: np.asarray(v) for k, v in params.items()}
     logits, fulls = [], {}
     orig_logits, orig_full = jlayers.vocab_parallel_logits, model.engine._reshape_full
 
@@ -95,7 +103,6 @@ def _jax_run(arch, qcfg, monkeypatch, rowquant=False, np_params=None):
     monkeypatch.setattr(jlayers, "vocab_parallel_logits", hook_logits)
     monkeypatch.setattr(model.engine, "_reshape_full", hook_full)
     engine = JServeEngine(model, mesh, spec)
-    batch, pspecs = {"tokens": jnp.asarray(_prompt(), jnp.int32)}, {"tokens": P()}
     with mesh:
         out = engine.generate(params, batch, pspecs, n_tokens=GEN,
                               key=jax.random.PRNGKey(KEY))
@@ -107,13 +114,16 @@ def _jax_run(arch, qcfg, monkeypatch, rowquant=False, np_params=None):
         {k: np.asarray(v) for k, v in params.items()}
 
 
-def _port_run(arch, qcfg, np_params, monkeypatch, rowquant=False):
+def _port_run(arch, qcfg, np_params, monkeypatch, rowquant=False, tokens_only=False):
     """The port's build_serve_setup + generate with the same hooks, then a
     prefill: (tokens, logits per step, gathered weight digests, prefill
-    cache)."""
+    cache).  With `tokens_only` the generate alone, unhooked: the tokens."""
     setup = build_serve_setup(arch, smoke=True, qsdp=qcfg, batch=B, prompt_len=S, gen=GEN,
                               rowquant_mlp=rowquant, device="cpu")
     setup.params = params_from_jax(np_params, "cpu", setup.model)
+    if tokens_only:
+        return setup.engine.generate(setup.params, {"tokens": torch.from_numpy(_prompt())},
+                                     n_tokens=GEN, key=prng.PRNGKey(KEY)).numpy()
     model = setup.model
     logits, fulls = [], {}
     orig_logits, orig_full = tlayers.vocab_parallel_logits, model.engine._reshape_full
@@ -195,11 +205,12 @@ def test_zamba2_rowquant_tokens_equal_dense(monkeypatch):
     """The reference's ``test_serve_rowquant_decode_audio_hybrid`` for the
     port, held to the JAX engine's tokens too: at min_quant 256 / bucket 128
     the shared MLP is rowquant-eligible, and its decode goes through K3."""
-    jt, _, _, _, np_params = _jax_run("zamba2_7b", JQSDPConfig(**RQ_QSDP), monkeypatch)
+    jt, np_params = _jax_run("zamba2_7b", JQSDPConfig(**RQ_QSDP), monkeypatch, tokens_only=True)
     jrq = _jax_run("zamba2_7b", JQSDPConfig(**RQ_QSDP), monkeypatch, rowquant=True,
-                   np_params=np_params)[0]
+                   np_params=np_params, tokens_only=True)[0]
     np.testing.assert_array_equal(jrq, jt)
-    tt = _port_run("zamba2_7b", QSDPConfig(**RQ_QSDP), np_params, monkeypatch)[0]
+    tt = _port_run("zamba2_7b", QSDPConfig(**RQ_QSDP), np_params, monkeypatch,
+                   tokens_only=True)
     calls = []
     orig = ops.rowquant_matmul
 
@@ -209,7 +220,7 @@ def test_zamba2_rowquant_tokens_equal_dense(monkeypatch):
 
     monkeypatch.setattr(tlayers, "rowquant_matmul", count)
     trq = _port_run("zamba2_7b", QSDPConfig(**RQ_QSDP), np_params, monkeypatch,
-                    rowquant=True)[0]
+                    rowquant=True, tokens_only=True)
     np.testing.assert_array_equal(tt, jt)
     np.testing.assert_array_equal(trq, tt)
     # one shared invocation per decode step, three MLP weights each

@@ -16,7 +16,9 @@ Tolerance 0 throughout: every comparison is byte for byte.
       derives from the code's structure (one per decoded buffer), dense and
       rowquant, with and without K3-tiling MLP rows;
   (e) a buffer of more (row, segment) entries than one launch's table
-      holds, and ``qparam_decode`` of several cells in one K2 call.
+      holds, and ``qparam_decode`` of several cells in one K2 call;
+  (f) the plain decode's per-row table of code values equal to the fma of
+      each code, random bytes at every width.
 """
 import importlib.util
 from pathlib import Path
@@ -113,6 +115,25 @@ def test_decode_gathered_wire_matches_jax(meta, p):
         for r in range(p):
             assert tv[r].dtype == torch.float32
             assert _bits(tv[r])[1] == _bits(np.asarray(jv)[r])[1]
+
+
+@pytest.mark.parametrize("bits", range(1, 9))
+def test_plain_decode_table_equals_the_fma_of_every_code(bits):
+    """The plain K2 decodes a row through a table of its code values once a
+    row holds more codes than values; any byte is a value when one code
+    fills a byte (3-bit segments keep the high bits, as the kernel reads
+    them).  Byte-equal to the fma of each code, both out dtypes."""
+    from repro_torch.kernels import ref
+    g = torch.Generator().manual_seed(bits)
+    k = ref.codes_per_byte(bits)
+    for bucket in (64, 1024):
+        codes = torch.randint(0, 256, (9, bucket // k), generator=g, dtype=torch.uint8)
+        scale = torch.rand((9, 1), generator=g) * 1e-2
+        zero = torch.randn((9, 1), generator=g)
+        want = ref.fma_f32(ref.unpack_codes(codes, bits).to(torch.float32), scale, zero)
+        for dt in (torch.float32, torch.bfloat16):
+            got = ref.unpack_dequantize_ref(codes, scale, zero, bits, dt)
+            assert torch.equal(got.view(torch.int16), want.to(dt).view(torch.int16)), (bucket, dt)
 
 
 @pytest.mark.parametrize("meta", ["float32", "bfloat16"])
