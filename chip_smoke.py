@@ -263,6 +263,29 @@ Phases, each of which makes the script exit non-zero when it fails:
               finding is new against ``src/repro_torch/analysis/
               qlint_baseline.json``.  Prints the findings, the launches and
               the seconds of the card traces and of the meta twin.
+13. dist   -- data-parallel QSDP over torch.distributed, on one card:
+              (b) the train launcher at gpt-125m under ``torch.distributed.run
+              --standalone --nproc_per_node 1 ... --data-par 1`` and without
+              torchrun, side by side in processes of their own: losses
+              bit-equal; (a) meanwhile, a one-rank NCCL group formed through
+              a FileStore, and one gpt-1.3b train step at full width and
+              depth (TRAIN's batch) through it under the profiler: torch's
+              records of the NCCL collectives as many as the port's counter
+              of calls (``collectives.COMM``), which equals the structure's
+              formula (``expected_train_comm``); then, once (b) is done, the
+              step from the seed's state in place (``group=None``) and
+              through the group: loss, grad norm and the device digests of
+              every parameter and moment bit-equal, K1/K2 launches equal to
+              the structure's.  (c) the wire work of P = 2, 4 and 8 ranks for
+              one gpt-1.3b layer and its gradient, emulated in one process
+              (each rank's K1 encodes under the shared key; the gathered
+              buffer decoded by one K2 launch over a table of 7 P entries;
+              each destination's P gradient rows dequant-summed), byte-equal
+              to the same functions on K1/K2's plain versions; it runs in
+              the kernel phase, which times the P-row decode against its
+              bound (rows "gpt-1.3b gathered layer, P = ..."), and in this
+              phase only without that one.  Prints that NCCL at P > 1 has
+              not run on a card.
 
 Prints the kernel table as one JSON line, the card's name and power limit,
 and, last, ``{"ok": true, "device": {...}}``.
@@ -679,6 +702,9 @@ def kernel_phase(torch, log, dev="cuda"):
     k1.append(k1_row("embed grad", x, prng.fold_in(prng.PRNGKey(12), 0x5D), "stochastic")[1])
     del x
     k2 += layer_decode_rows(torch, log, gen, decode_row, addcmul_ms, dev)
+    # the dist phase's P-rank wire work, K2 over a gathered layer of P rows
+    # timed (off the one-rank main path)
+    k2 += dist_wire(torch, log, dev, decode_row=decode_row)
     unaligned_decode_check(torch, log, gen, dev)
     # olmoe-1b-7b (moe phase): K1 W8 shift on one expert stack, as every
     # decode step gathers it; K2 over a whole layer's buffer into bf16
@@ -1127,10 +1153,11 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
                     default="build,kernels,small,serve,continuous,speculative,moe,ssm,vlmaudio,"
-                            "train,moetrain,ssmtrain,mmtrain,experiments,tune,roofline,analysis",
+                            "train,moetrain,ssmtrain,mmtrain,experiments,tune,roofline,analysis,"
+                            "dist",
                     help="comma-separated subset of build,kernels,small,serve,continuous,"
                          "speculative,moe,ssm,vlmaudio,train,moetrain,ssmtrain,mmtrain,"
-                         "experiments,tune,roofline,analysis (roofline reads the steps the "
+                         "experiments,tune,roofline,analysis,dist (roofline reads the steps the "
                          "train and tune phases profile; analysis the programs the "
                          "speculative and train phases trace)")
     ap.add_argument("--profile", action="store_true",
@@ -1207,6 +1234,8 @@ def main(argv=None) -> int:
             roofline_phase(torch, log, measured, card)
         if "analysis" in phases:
             analysis_phase(torch, log, built)
+        if "dist" in phases:
+            paths.append(dist_phase(torch, log, wire="kernels" not in phases)[0])
         launches = {k: sum(p.get(k, 0) for p in paths) for k in KERNEL_META}
         if rows is not None:
             print(json.dumps(kernel_line(rows, launches)))
@@ -2973,6 +3002,47 @@ def shared_invocations(cfg) -> int:
     return cfg.n_layers // cfg.hybrid_attn_every if cfg.arch_type == "hybrid" else 0
 
 
+def gather_groups(model) -> list[tuple[tuple[str, ...], int, int]]:
+    """Each group of params one gather takes (a stack's layer, a block's
+    invocation, a top-level tensor), with the times a forward pass gathers
+    it and the times the backward replays that gather: a stack's layers
+    each, a block's invocations, a top-level tensor once and outside every
+    checkpoint (no replay)."""
+    eng = model.engine
+    inv = shared_invocations(model.cfg)
+    groups = {}
+    for n in eng.specs:
+        groups.setdefault(n.rsplit("/", 1)[0] if "/" in n else n, []).append(n)
+    out = []
+    for names in groups.values():
+        s = eng.specs[names[0]]
+        times = s.stack if s.stack is not None else inv if "/" in names[0] else 1
+        out.append((tuple(sorted(names)), times, times if "/" in names[0] else 0))
+    return out
+
+
+def expected_train_comm(model, n_micro: int) -> dict:
+    """Calls into torch.distributed of one train step over a group, by op,
+    by the code's structure: per microbatch one all-gather per coalesced
+    gather, forward and replay (per tensor: three for a quantized tensor,
+    one for an fp one: ``layer_gather_launches``), and for each group's
+    gradients one all-to-all when coalesced, else three per quantized
+    tensor and one fp reduce-scatter per fp tensor; then one all-reduce
+    each for the grad norm and the loss."""
+    from repro_torch.core.qsdp import layer_gather_launches
+    eng = model.engine
+    calls = dict(all_gather=0, all_to_all=0, reduce_scatter=0)
+    for names, times, replays in gather_groups(model):
+        calls["all_gather"] += (times + replays) * layer_gather_launches(eng, names)
+        if eng.layer_coalesced(names):
+            calls["all_to_all"] += times
+            continue
+        for n in names:
+            q = eng._is_grad_quantized(eng.specs[n])
+            calls["all_to_all" if q else "reduce_scatter"] += times * (3 if q else 1)
+    return {**{k: n_micro * v for k, v in calls.items()}, "all_reduce": 2}
+
+
 def expected_train_launches(model, n_micro: int, moments: bool = False) -> dict:
     """K1/K2 launches of one train step by the code's structure.  Per
     microbatch: the forward gathers every quantized tensor once per use
@@ -2990,18 +3060,9 @@ def expected_train_launches(model, n_micro: int, moments: bool = False) -> dict:
     both moments in one K2 launch and re-encodes each with K1."""
     from repro_torch.core.qsdp import layer_kernel_launches
     eng = model.engine
-    inv = shared_invocations(model.cfg)
-    groups = {}
-    for n in eng.specs:
-        groups.setdefault(n.rsplit("/", 1)[0] if "/" in n else n, []).append(n)
     k1, k2 = [0, 0, 0], [0, 0, 0]
-    for names in groups.values():
-        s = eng.specs[names[0]]
-        # a stack's layers each, a block's invocations, a top-level tensor
-        # once and outside every checkpoint (no replay)
-        times = s.stack if s.stack is not None else inv if "/" in names[0] else 1
-        replays = times if "/" in names[0] else 0
-        c = layer_kernel_launches(eng, sorted(names))
+    for names, times, replays in gather_groups(model):
+        c = layer_kernel_launches(eng, names)
         for i, per in enumerate((c["gather"], c["gather"], c["reduce"])):
             n = replays if i == 1 else times
             k1[i] += n * per[0]
@@ -4678,6 +4739,363 @@ def analysis_phase(torch, log, built: dict) -> None:
         f"({[f.ident() for f in suppressed]}); card traces {built.get('seconds', 0.0):.1f} s "
         f"(in the speculative and train phases), meta twin {t_meta:.1f} s; phase "
         f"{time.perf_counter() - t:.1f} s")
+
+
+# ---------------------------------------------------------------------------
+# phase 13: data-parallel QSDP over torch.distributed
+# ---------------------------------------------------------------------------
+
+DIST_ARCH = "gpt-1.3b"
+# the P-rank wire work, emulated in one process: a gpt-1.3b layer's table
+# holds 7 P entries, inside one K2 launch's 64 up to P = 9
+DIST_PS = (2, 4, 8)
+# the entry point under torchrun: gpt-125m, 3 steps of the launcher's
+# default batch (16 x 256)
+DIST_LAUNCH = ["--arch", "gpt-125m", "--steps", "3", "--log-every", "1"]
+DIST_NOTE = "NCCL at P > 1 has not run on a card; it waits for a four-chip cell."
+# torch.distributed's ops by the counter's names, as an event name of the
+# profiler may spell them
+DIST_OP_TOKENS = {"all_gather": ("all_gather", "allgather"),
+                  "all_to_all": ("all_to_all", "alltoall"),
+                  "reduce_scatter": ("reduce_scatter", "reducescatter"),
+                  "all_reduce": ("all_reduce", "allreduce")}
+
+
+def dist_events(prof) -> dict:
+    """{(device, event name): count} of the profiled events whose name
+    names NCCL or gloo (torch's records of the collectives and the NCCL
+    kernels)."""
+    out = {}
+    for e in prof.profiler.kineto_results.events():
+        name = e.name()
+        if "nccl" in name.lower() or "gloo" in name.lower():
+            key = (str(e.device_type()).split(".")[-1], name)
+            out[key] = out.get(key, 0) + 1
+    return out
+
+
+def device_digest(torch, t, chunk=1 << 26) -> tuple[int, int]:
+    """Two position-weighted sums (mod 2^64) of a tensor's 32-bit words (its
+    bytes where its size is not a multiple of 4), computed on its device a
+    chunk at a time: any one changed word changes both (the weights are
+    odd), so two runs' states compare without a host copy."""
+    w = t.detach().reshape(-1).view(torch.uint8)
+    w = w.view(torch.int32) if w.numel() % 4 == 0 else w
+    s1 = s2 = 0
+    for a in range(0, w.numel(), chunk):
+        x = w[a:a + chunk].to(torch.int64)
+        i = torch.arange(a, a + x.numel(), device=x.device, dtype=torch.int64)
+        s1 += int((x * (i * 2654435761 + 1)).sum())
+        s2 += int((x * (i * 40503 + 2246822519) + i).sum())
+    return s1 % 2**64, s2 % 2**64
+
+
+def dist_setup(dev):
+    """The dist phase's gpt-1.3b train set-up: (config, mesh, optimizer,
+    batch, key), TRAIN's batch, sequence and schedule."""
+    from repro_torch import configs
+    from repro_torch.core import prng
+    from repro_torch.core.qsdp import MeshSpec
+    from repro_torch.data import SyntheticLM, make_batch
+    from repro_torch.optim import AdamWConfig, cosine_schedule, make_adamw
+    cfg = configs.get_config(DIST_ARCH)
+    opt = make_adamw(AdamWConfig(lr=TRAIN["lr"], schedule=cosine_schedule(
+        TRAIN["lr"], TRAIN["warmup"], TRAIN["total"])))
+    data = SyntheticLM(cfg.vocab_size, TRAIN["seq"], TRAIN["batch"], seed=TRAIN["seed"])
+    return (cfg, MeshSpec(("data", "model"), (1, 1)), opt, make_batch(data, 0, dev),
+            prng.fold_in(prng.PRNGKey(TRAIN["seed"] + 1), 0))
+
+
+def dist_step(torch, group, dev, profile=False):
+    """One gpt-1.3b train step from the state made anew from the seed,
+    through `group` (None: in place), its launches and calls into
+    torch.distributed counted from zero; with `profile`, under the profiler
+    (host activity: torch's records of the collectives).  Returns the
+    state, the run's record and the model."""
+    from repro_torch.core import collectives as coll
+    from repro_torch.core.qsdp import QSDPConfig
+    from repro_torch.kernels import ops
+    from repro_torch.models.transformer import Model
+    from repro_torch.train.step import build_train_step, init_train_state
+    cfg, ms, opt, batch, key = dist_setup(dev)
+    model = Model(cfg, ms, QSDPConfig(), group)
+    step = build_train_step(model, opt, n_micro=TRAIN["n_micro"], device=dev)
+    state = init_train_state(model, opt, TRAIN["seed"], dev)
+    ops.reset_launches()
+    coll.reset_comm()
+    events = None
+    if profile:
+        from torch.profiler import ProfilerActivity, profile as tprofile
+        with tprofile(activities=[ProfilerActivity.CPU]) as prof:
+            state, loss, gnorm, dt = timed_step(torch, step, state, batch, key)
+        events = dist_events(prof)
+    else:
+        state, loss, gnorm, dt = timed_step(torch, step, state, batch, key)
+    return state, dict(loss=loss, gnorm=gnorm, dt=dt, launches=dict(ops.LAUNCHES),
+                       comm=dict(coll.COMM), comm_bytes=dict(coll.COMM_BYTES),
+                       events=events), model
+
+
+def dist_nccl_step(torch, log, dev="cuda", profile=True, during=None):
+    """(a): one train step of gpt-1.3b at full width and depth through a
+    process group of one rank (NCCL on the card, gloo on the CPU), formed
+    through a FileStore in a temporary directory, and the same step with
+    ``group=None``, each from the state made anew from the seed: loss, grad
+    norm, every updated parameter and moment bit-equal (device digests);
+    K1/K2 launches equal to the structure's in both; the calls into
+    torch.distributed by op equal to ``expected_train_comm`` (and none
+    without the group).  With `profile`, a first step through the group
+    runs under the profiler (`during()` runs after it, e.g. waiting for the
+    launcher runs started beside it): torch's records of the collectives
+    as many as the counter's calls; the timed steps follow it.  Returns the
+    group step's launches (the main path's)."""
+    import os
+    import tempfile
+
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import init_distributed
+    from repro_torch.kernels import ops
+
+    cfg, ms, _, _, _ = dist_setup(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        group, _, gdev = init_distributed(dev, ms, store=dist.FileStore(
+            os.path.join(tmp, "store"), 1), rank=0, world_size=1)
+        backend = dist.get_backend()
+        try:
+            prof = None
+            if profile:
+                st, prof, _ = dist_step(torch, group, gdev, profile=True)
+                del st
+            if during is not None:
+                during()
+            st, n, model = dist_step(torch, None, gdev)
+            want_dig = {k: device_digest(torch, v) for k, v in state_tensors(st).items()}
+            del st
+            st, g, _ = dist_step(torch, group, gdev)
+            got_dig = {k: device_digest(torch, v) for k, v in state_tensors(st).items()}
+            n_leaves = len(st.params)
+            del st
+        finally:
+            dist.destroy_process_group()
+    check(g["loss"] == n["loss"] and g["gnorm"] == n["gnorm"],
+          f"dist: {backend} step loss {g['loss']} / norm {g['gnorm']}, group=None "
+          f"{n['loss']} / {n['gnorm']}")
+    bad = sorted(k for k in want_dig if got_dig[k] != want_dig[k])
+    check(not bad and set(got_dig) == set(want_dig),
+          f"dist: {bad} differ between the one-rank {backend} group's step and group=None's")
+    want = expected_train_launches(model, TRAIN["n_micro"])
+    for r in (g, n) + ((prof,) if prof else ()):
+        for k in ops.KERNELS:
+            check(r["launches"][k] == want.get(k, 0),
+                  f"dist: {k} launched {r['launches'][k]} times, the structure predicts "
+                  f"{want.get(k, 0)}")
+    want_comm = expected_train_comm(model, TRAIN["n_micro"])
+    for r in (g,) + ((prof,) if prof else ()):
+        check(r["comm"] == want_comm and not any(r["comm_bytes"].values()),
+              f"dist: calls into torch.distributed {r['comm']} (bytes {r['comm_bytes']}), the "
+              f"structure predicts {want_comm} (and no byte from another rank)")
+    check(not any(n["comm"].values()), f"dist: group=None called torch.distributed {n['comm']}")
+    log(f"dist: {DIST_ARCH} at full width and depth, batch {TRAIN['batch']} x seq "
+        f"{TRAIN['seq']}, n_micro {TRAIN['n_micro']}: one step through a one-rank {backend} "
+        f"group bit-equal to group=None (loss {g['loss']}, grad norm {g['gnorm']}, the "
+        f"digests of all {n_leaves} parameters and both moments); {g['dt'] * 1e3:.1f} ms "
+        f"through the group, {n['dt'] * 1e3:.1f} ms in place (each a first step from the "
+        f"seed's state); launches {g['launches']}; calls into torch.distributed "
+        f"{g['comm']} == the structure's")
+    if prof:
+        for (devtype, name), c in sorted(prof["events"].items()):
+            log(f"dist: profiler event {devtype} {name!r} x {c}")
+        for op, c in want_comm.items():
+            toks = DIST_OP_TOKENS[op]
+            seen = {k: v for k, v in prof["events"].items()
+                    if any(t in k[1].lower() for t in toks)}
+            check(c == 0 and not seen or c in seen.values(),
+                  f"dist: the profiler's {op} records {seen}, the counter's calls {c}")
+    return g["launches"]
+
+
+def dist_launch_start(torch, dev="cuda", extra=()):
+    """(b), started: the train launcher ``--data-par 1`` under
+    ``torch.distributed.run --standalone --nproc_per_node 1`` and without
+    it, side by side in processes of their own (the same environment, one
+    intra-op thread), each logging to a JSON file.  Returns [(process, json
+    path, stderr path)] for torchrun and for the plain launcher."""
+    import os
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dist_")
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"), OMP_NUM_THREADS="1")
+    flags = [*DIST_LAUNCH, *extra, "--data-par", "1"] + (["--device", dev] if dev != "cuda"
+                                                         else [])
+    out = []
+    for tag, head in (("torchrun", ["-m", "torch.distributed.run", "--standalone",
+                                    "--nproc_per_node", "1"]), ("plain", [])):
+        js, err = os.path.join(tmp, f"{tag}.json"), os.path.join(tmp, f"{tag}.err")
+        with open(err, "w") as f:
+            out.append((subprocess.Popen(
+                [sys.executable, *head, "-m", "repro_torch.launch.train", *flags,
+                 "--out-json", js], stdout=subprocess.DEVNULL, stderr=f, env=env, cwd=REPO),
+                js, err))
+    return out
+
+
+def dist_launch_check(torch, log, started):
+    """(b): the torchrun run's losses bit-equal to the plain launcher's."""
+    import os
+    t = time.perf_counter()
+    losses = []
+    for proc, js, err in started:
+        try:
+            rc = proc.wait(timeout=600)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        check(rc == 0, f"dist: {proc.args[1:5]} exited {rc}: {Path(err).read_text()[-2000:]}")
+        losses.append([e["loss"] for e in json.loads(Path(js).read_text())["log"]])
+        os.remove(js)
+        os.remove(err)
+    os.rmdir(os.path.dirname(started[0][1]))
+    lt, lp = losses
+    check(lt == lp and len(lt) == 3, f"dist: torchrun losses {lt}, the plain launcher's {lp}")
+    log(f"dist: torchrun --nproc_per_node 1 -m repro_torch.launch.train {' '.join(DIST_LAUNCH)} "
+        f"--data-par 1: losses {lt} bit-equal to the launcher's without torchrun (both "
+        f"processes done {time.perf_counter() - t:.1f} s after the phase's first wait)")
+
+
+def dist_layout(eng, names, p, grad=False):
+    """The wire layout of one gather (or, `grad`, one reduce-scatter) of
+    `names` at the (P, 1) mesh under `eng`'s policy: the engine's segments
+    with the shard size of P ranks."""
+    from repro_torch.core import collectives as coll
+    from repro_torch.core.qsdp import MeshSpec
+    ms = MeshSpec(("data", "model"), (p, 1))
+    c = eng.cfg
+    return coll.WireLayout(tuple(
+        coll.WireSegment(eng.specs[n].n_local(ms),
+                         (c.gcfg() if eng._is_grad_quantized(eng.specs[n]) else None) if grad
+                         else (c.wcfg() if eng._is_quantized(eng.specs[n]) else None),
+                         c.grad_wire_dtype if grad else c.weight_wire_dtype)
+        for n in names))
+
+
+@contextlib.contextmanager
+def plain_kernels(ops, ref):
+    """K1 and K2's wrappers swapped for their plain versions (on any
+    device) while the block runs."""
+    def k1(orig):
+        def f(x, key, levels, bits, mode="nearest", rand_bits=32, out=None):
+            check(out is None, "plain K1 swap: out= is not taken")
+            return ref.quantize_pack_key_ref(x, key, levels, bits, mode, rand_bits)
+        return f
+    with hooked(ops, "quantize_pack", k1), \
+            hooked(ops, "unpack_dequantize_wire",
+                   lambda orig: lambda bufs, table, dts: ref.unpack_dequantize_wire_ref(
+                       bufs, table, dts)):
+        yield
+
+
+def dist_wire(torch, log, dev="cuda", decode_row=None):
+    """(c): the wire work of P ranks for one gpt-1.3b layer and its
+    gradient, the ranks emulated in this process, at each P of DIST_PS.
+    Each rank encodes its own shard of every weight under the shared key
+    (K1, W8 shift); the gathered buffer is the ranks' buffers end to end
+    (what ``all_gather_into_tensor`` delivers), decoded by one K2 launch over
+    the P-row table (``decode_gathered_wire``).  Each rank builds its P
+    destination rows of the gradient (K1, G8 stochastic, ``split(key,
+    P)``), and each destination dequant-sums the P rows it receives
+    (``decode_rs_rows``).  Gate: the buffers, the decoded weights and the
+    summed chunks byte-equal to the same functions with K1 and K2's plain
+    versions.  With `decode_row` (the kernel phase's), the gathered layer's
+    K2 decode is timed against its bound: the rows returned (off the
+    one-rank main path)."""
+    from repro_torch import configs
+    from repro_torch.core import collectives as coll
+    from repro_torch.core import prng
+    from repro_torch.core.qsdp import MeshSpec, QSDPConfig
+    from repro_torch.kernels import cost, ops, ref
+    from repro_torch.models.transformer import Model
+
+    eng = Model(configs.get_config(DIST_ARCH), MeshSpec(("data", "model"), (1, 1)),
+                QSDPConfig()).engine
+    names = tuple(sorted(n for n in eng.specs if n.startswith("layers/")))
+    rows = []
+    for p in DIST_PS:
+        lay, rs_lay = dist_layout(eng, names, p), dist_layout(eng, names, p, grad=True)
+        keys = [prng.fold_in(prng.PRNGKey(31), i) if s.cfg is not None else None
+                for i, s in enumerate(lay.segments)]
+        rkeys = [prng.fold_in(prng.PRNGKey(32), i) if s.cfg is not None else None
+                 for i, s in enumerate(rs_lay.segments)]
+        out_dts = [eng.compute_dtype if s.cfg is not None else torch.float32
+                   for s in lay.segments]
+        gen = torch.Generator(device=dev).manual_seed(100 + p)
+        xs = [[torch.randn(s.n, generator=gen, device=dev) * 0.02 for s in lay.segments]
+              for _ in range(p)]
+        gs = [[torch.randn(p * s.n, generator=gen, device=dev) * 1e-3 for s in rs_lay.segments]
+              for _ in range(p)]
+
+        def work():
+            gbuf = torch.cat([coll.encode_wire(x, lay, keys) for x in xs])
+            dec = coll.decode_gathered_wire(gbuf, lay, p, out_dts)
+            sent = [coll.encode_rs_rows(g, rs_lay, rkeys, p) for g in gs]
+            summed = [coll.decode_rs_rows(torch.stack([r[d] for r in sent]), rs_lay)
+                      for d in range(p)]
+            return gbuf, dec, summed
+
+        got = work()
+        with plain_kernels(ops, ref):
+            want = work()
+        check(torch.equal(got[0], want[0]), f"dist P={p}: gathered buffers differ")
+        for a, b in zip(got[1] + sum(got[2], []), want[1] + sum(want[2], []), strict=True):
+            check(a.dtype == b.dtype and torch.equal(a.view(torch.uint8), b.view(torch.uint8)),
+                  f"dist P={p}: decoded values differ from the plain versions'")
+        gbuf = got[0]
+        del xs, gs, got, want
+        table, dts = coll.wire_table(lay, p, out_dts)
+        n_launch = -(-len(table) // ops.WIRE_MAX_SEGS)
+        what = f"{DIST_ARCH} gathered layer, P = {p} ({len(table)} entries), bf16 out"
+        line = (f"dist: P = {p}: {p} ranks' encodes of a {DIST_ARCH} layer ({len(names)} "
+                f"tensors, {gbuf.numel()} gathered bytes), its decode in {n_launch} K2 "
+                f"launch(es) over a table of {len(table)} entries (of {ops.WIRE_MAX_SEGS} a "
+                f"launch), and the gradient's {p} x {p} destination rows dequant-summed: "
+                "byte-equal to the plain versions")
+        if decode_row is not None:
+            row = decode_row(what, sum(t.nb for t in table),
+                             lambda: ops.unpack_dequantize_wire(gbuf, table, dts),
+                             lambda: ref.unpack_dequantize_wire_ref(gbuf, table, dts), None,
+                             cost.unpack_dequantize_wire(table, [d.itemsize for d in dts]))
+            rows.append(dict(row, p=p, table=len(table), launches=n_launch, main_path=False))
+            b_ms, b_by = row["bound"]
+            line += (f"; K2 {row['ms']:.4f} ms (kernel alone {row['kernel_ms']:.4f}, "
+                     f"{100 * b_ms / row['kernel_ms']:.0f}% of its bound {b_ms:.4f} ms by "
+                     f"{b_by}; plain {row['plain_ms']:.4f})")
+        else:
+            rows.append(dict(p=p, table=len(table), launches=n_launch, main_path=False))
+        log(line)
+        del gbuf
+    return rows
+
+
+def dist_phase(torch, log, dev="cuda", profile=True, wire=True, launch_extra=()):
+    """Phase 13 (module docstring): (b) started first; (a)'s profiled step
+    runs beside it, its timed steps after (b) is done; then, with `wire`
+    (when the kernel phase did not run it, timed), (c).  Returns (the main
+    path's launches, the P-rank rows)."""
+    t = time.perf_counter()
+    started = dist_launch_start(torch, dev, launch_extra)
+    try:
+        launches = dist_nccl_step(torch, log, dev, profile=profile,
+                                  during=lambda: dist_launch_check(torch, log, started))
+    finally:
+        for proc, _, _ in started:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    rows = dist_wire(torch, log, dev) if wire else []
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    print(DIST_NOTE, flush=True)
+    log(f"dist: phase {time.perf_counter() - t:.1f} s")
+    return launches, rows
 
 
 def profile_experiment_step(torch, log, cfg, qsdp, batch, seq, dev):

@@ -12,15 +12,27 @@
   gathered (or all-to-all'd) with one collective; :class:`WireLayout`
   describes the buffer.
 
-The port runs on one rank: the gather and the all-to-all of a buffer are
-the buffer itself, as on the JAX package's (1, 1) mesh, while encode and
-decode still run the quantize and dequantize kernels.  A process group of
-more than one rank raises ``NotImplementedError`` (ROADMAP A3b).
+Every exchange takes a ``torch.distributed`` process group over the FSDP
+(data) axis.  ``group=None`` is the one-rank path: the gather and the
+all-to-all of a buffer are the buffer itself, as on the JAX package's
+(1, 1) mesh, while encode and decode still run the quantize and dequantize
+kernels.  A group of any size, one rank included, exchanges through
+``torch.distributed`` (NCCL on the card, gloo on the CPU); a failed
+exchange raises, with no fallback.  The receiving rank dequant-sums its P
+rows in rank order, ``((r0 + r1) + r2) + ...``, the order of XLA's CPU
+``jnp.sum(axis=0)``.  The hierarchical (two-level) forms are not ported
+(ROADMAP A3b).
+
+``COMM[op]`` counts the calls into ``torch.distributed`` by op and
+``COMM_BYTES[op]`` the bytes each call brought in from the other ranks (the
+analytic model's per-device bytes, :func:`gather_wire_bytes`);
+``reset_comm()`` zeroes both.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
+from collections import Counter
 from typing import Optional, Sequence
 
 import torch
@@ -32,18 +44,42 @@ from .quant import (QuantConfig, Quantized, dequantize, fp_pack, fp_segment_byte
                     wire_pack, wire_segment_bytes)
 
 
-def group_size(group) -> int:
-    if group is None:
-        return 1
+COMM_OPS = ("all_gather", "all_to_all", "reduce_scatter", "all_reduce")
+COMM: Counter = Counter({k: 0 for k in COMM_OPS})
+COMM_BYTES: Counter = Counter({k: 0 for k in COMM_OPS})
+
+
+def reset_comm() -> None:
+    for k in COMM_OPS:
+        COMM[k] = COMM_BYTES[k] = 0
+
+
+def _dist():
     import torch.distributed as dist
-    return dist.get_world_size(group)
+    return dist
+
+
+def _op(new: str, old: str):
+    """`new` where this torch has it, else `old`: the same collective under
+    the name newer releases give it (``all_gather_single`` for
+    ``all_gather_into_tensor``, ``reduce_scatter_single`` for
+    ``reduce_scatter_tensor``)."""
+    dist = _dist()
+    return getattr(dist, new, None) or getattr(dist, old)
+
+
+def group_size(group) -> int:
+    return 1 if group is None else _dist().get_world_size(group)
+
+
+def group_rank(group) -> int:
+    return 0 if group is None else _dist().get_rank(group)
 
 
 def _collective(fn):
     """Report each call of a collective entry point, with its arguments, to
     the active dispatch modes that take collectives (``collective``: the
-    trace audit's graph, ``analysis/trace_audit.py``).  At one rank these
-    entry points move nothing, so no op of theirs shows a collective."""
+    trace audit's graph, ``analysis/trace_audit.py``)."""
     @functools.wraps(fn)
     def call(*args, **kwargs):
         for mode in ops.active_modes():
@@ -53,11 +89,49 @@ def _collective(fn):
     return call
 
 
-def require_one_rank(group) -> None:
+def _count(op: str, nbytes: int) -> None:
+    COMM[op] += 1
+    COMM_BYTES[op] += nbytes
+
+
+def _gather(x: torch.Tensor, group) -> torch.Tensor:
+    """all_gather_into_tensor: (n, ...) on each rank -> (P * n, ...), rank
+    r's block at rows r * n onwards."""
+    p = group_size(group)
+    x = x.contiguous()
+    out = x.new_empty((p * x.shape[0], *x.shape[1:]))
+    _op("all_gather_single", "all_gather_into_tensor")(out, x, group=group)
+    _count("all_gather", (p - 1) * x.numel() * x.element_size())
+    return out
+
+
+@_collective
+def gather_axis(x: torch.Tensor, group, axis: int) -> torch.Tensor:
+    """Every rank's `x` laid end to end along `axis` (the checkpoint's
+    gather of rest-layout blocks, axis -2)."""
+    return _gather(x.movedim(axis, 0), group).movedim(0, axis)
+
+
+@_collective
+def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of `x` over the group, on every rank (a new tensor)."""
+    y = x.clone()
+    _dist().all_reduce(y, group=group)
+    _count("all_reduce", (group_size(group) - 1) * y.numel() * y.element_size())
+    return y
+
+
+def _sum_rows(vals: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The P received rows summed in rank order, one rounding per add."""
+    return functools.reduce(torch.add, vals)
+
+
+def require_one_rank(group, item: str = "A10e") -> None:
+    """Refuse a group of more than one rank on a path that runs at one rank
+    only; `item` names the ROADMAP item that brings it."""
     if group_size(group) > 1:
         raise NotImplementedError(
-            "multi-rank QSDP collectives are not ported yet (ROADMAP A3b): "
-            "the port runs on one rank")
+            f"this path runs on one rank: more than one is not ported yet (ROADMAP {item})")
 
 
 # ---------------------------------------------------------------------------
@@ -69,10 +143,10 @@ def require_one_rank(group) -> None:
 def all_gather_fp(x: torch.Tensor, group=None,
                   dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """Plain all-gather, optionally through a narrower wire dtype."""
-    require_one_rank(group)
-    if dtype is not None and x.dtype != dtype:
-        return x.to(dtype).to(x.dtype)
-    return x
+    wire = x if dtype is None or x.dtype == dtype else x.to(dtype)
+    if group is not None:
+        wire = _gather(wire, group)
+    return wire.to(x.dtype)
 
 
 @_collective
@@ -80,30 +154,49 @@ def all_gather_quantized(x: torch.Tensor, cfg: QuantConfig, key: prng.Key,
                          group=None, out_dtype=None) -> torch.Tensor:
     """Gather a flat (n_local,) shard into the full flat tensor, shipping
     quantized codes (3 collectives: codes, scale, zero) rounded under
-    `key`."""
+    `key`; each rank's shard is decoded with its own bucket padding."""
     q = quantize(x, cfg, key)
-    require_one_rank(group)
     md = cfg.meta_torch_dtype
-    wire = Quantized(q.codes, q.scale.to(md).to(torch.float32),
-                     q.zero.to(md).to(torch.float32), (x.shape[0],), x.shape[0], cfg)
-    return dequantize(wire, out_dtype or x.dtype)
+    n = x.shape[0]
+    codes, scale, zero = q.codes, q.scale.to(md), q.zero.to(md)
+    if group is not None:
+        codes, scale, zero = _gather(codes, group), _gather(scale, group), _gather(zero, group)
+    nb = q.codes.shape[0]
+    vals = [dequantize(Quantized(codes[r * nb:(r + 1) * nb], scale[r * nb:(r + 1) * nb].float(),
+                                 zero[r * nb:(r + 1) * nb].float(), (n,), n, cfg),
+                       out_dtype or x.dtype)
+            for r in range(codes.shape[0] // nb)]
+    return vals[0] if len(vals) == 1 else torch.cat(vals)
 
 
 @_collective
 def reduce_scatter_fp(x: torch.Tensor, group=None,
                       dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """Plain reduce-scatter (sum), optionally through a narrower wire dtype."""
-    require_one_rank(group)
-    if dtype is not None and x.dtype != dtype:
-        return x.to(dtype).to(x.dtype)
-    return x
+    """Plain reduce-scatter (sum), optionally through a narrower wire dtype:
+    the sum runs in the wire dtype, in the order the backend chooses (the
+    reference's ``psum_scatter``)."""
+    wire = x if dtype is None or x.dtype == dtype else x.to(dtype)
+    if group is not None:
+        p = group_size(group)
+        out = wire.new_empty((wire.shape[0] // p, *wire.shape[1:]))
+        _op("reduce_scatter_single", "reduce_scatter_tensor")(out, wire.contiguous(),
+                                                              group=group)
+        _count("reduce_scatter", (p - 1) * out.numel() * out.element_size())
+        wire = out
+    return wire.to(x.dtype)
 
 
 @_collective
 def _all_to_all_rows(rows: torch.Tensor, group=None) -> torch.Tensor:
-    """Row i of (P, ...) goes to rank i; returns the P rows received."""
-    require_one_rank(group)
-    return rows
+    """Row i of (P, ...) goes to rank i; returns the P rows received, row j
+    from rank j."""
+    if group is None:
+        return rows
+    rows = rows.contiguous()
+    out = torch.empty_like(rows)
+    _dist().all_to_all_single(out, rows, group=group)
+    _count("all_to_all", (rows.shape[0] - 1) * rows[0].numel() * rows.element_size())
+    return out
 
 
 @_collective
@@ -123,7 +216,7 @@ def reduce_scatter_quantized(g: torch.Tensor, cfg: QuantConfig, key: prng.Key,
     zero = _all_to_all_rows(torch.stack([q.zero.to(md) for q in qs]), group)
     deq = [dequantize(Quantized(c, s.float(), z.float(), (n,), n, cfg))
            for c, s, z in zip(codes, scale, zero)]
-    return deq[0] if p == 1 else torch.stack(deq).sum(0)
+    return _sum_rows(deq)
 
 
 # ---------------------------------------------------------------------------
@@ -184,8 +277,7 @@ def encode_wire(xs: Sequence[torch.Tensor], layout: WireLayout,
 @_collective
 def gather_wire(buf: torch.Tensor, group=None) -> torch.Tensor:
     """All-gather a coalesced buffer: (B,) u8 -> (P*B,) u8 in shard order."""
-    require_one_rank(group)
-    return buf
+    return buf if group is None else _gather(buf, group)
 
 
 def wire_table(layout: WireLayout, p: int,
@@ -236,17 +328,12 @@ def all_gather_coalesced(xs: Sequence[torch.Tensor], layout: WireLayout,
     return decode_gathered_wire(gbuf, layout, group_size(group), out_dtypes)
 
 
-@_collective
-def reduce_scatter_coalesced(gs: Sequence[torch.Tensor], layout: WireLayout,
-                             keys: Sequence[Optional[prng.Key]],
-                             group=None) -> list[torch.Tensor]:
-    """One-launch layer reduce-scatter (sum): each tensor's P destination
-    chunks are quantized (chunk i with ``split(key, P)[i]``) or bitcast to
-    the fp segment's wire dtype, all tensors' rows ride ONE (P,
-    layout.nbytes) u8 all-to-all, and each rank dequant-sums its P rows in
-    f32.  layout.segments[i].n == gs[i].numel() // P; keys[i] is None for
-    an fp segment."""
-    p = group_size(group)
+def encode_rs_rows(gs: Sequence[torch.Tensor], layout: WireLayout,
+                   keys: Sequence[Optional[prng.Key]], p: int) -> torch.Tensor:
+    """The (P, layout.nbytes) u8 rows a rank sends in a coalesced
+    reduce-scatter: row i holds every tensor's destination chunk i,
+    quantized with ``split(key, P)[i]`` or bitcast to the fp segment's wire
+    dtype."""
     rows = []
     for g, seg, key in zip(gs, layout.segments, keys):
         chunks = g.reshape(p, seg.n)
@@ -255,9 +342,28 @@ def reduce_scatter_coalesced(gs: Sequence[torch.Tensor], layout: WireLayout,
         else:
             rows.append(torch.stack([wire_pack(quantize(c, seg.cfg, k))
                                      for c, k in zip(chunks, prng.split(key, p))]))
-    rbuf = _all_to_all_rows(torch.cat(rows, dim=1), group)
-    return [vals[0] if p == 1 else torch.stack(vals).sum(0)
-            for vals in _decode_segments(rbuf, layout, [torch.float32] * len(gs))]
+    return torch.cat(rows, dim=1)
+
+
+def decode_rs_rows(rbuf: torch.Tensor, layout: WireLayout) -> list[torch.Tensor]:
+    """The P rows a rank received (row j from rank j) -> each tensor's
+    chunk, the rows decoded in f32 (one K2 launch for the quantized
+    segments) and summed in rank order."""
+    return [_sum_rows(vals)
+            for vals in _decode_segments(rbuf, layout, [torch.float32] * len(layout.segments))]
+
+
+@_collective
+def reduce_scatter_coalesced(gs: Sequence[torch.Tensor], layout: WireLayout,
+                             keys: Sequence[Optional[prng.Key]],
+                             group=None) -> list[torch.Tensor]:
+    """One-launch layer reduce-scatter (sum): every tensor's P destination
+    chunks ride ONE (P, layout.nbytes) u8 all-to-all
+    (:func:`encode_rs_rows`), and each rank dequant-sums its P rows in f32
+    (:func:`decode_rs_rows`).  layout.segments[i].n == gs[i].numel() // P;
+    keys[i] is None for an fp segment."""
+    rows = encode_rs_rows(gs, layout, keys, group_size(group))
+    return decode_rs_rows(_all_to_all_rows(rows, group), layout)
 
 
 # ---------------------------------------------------------------------------

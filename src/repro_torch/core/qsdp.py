@@ -21,8 +21,14 @@ Per-tensor keys are ``fold_in(key, stable_hash(name))`` and the backward's
 randomness is the reference's.  Under ``torch.utils.checkpoint`` the
 backward re-gathers each layer from the same key (byte-identical weights),
 and each gather's backward runs once: the paper's 2x AllGather + 1x
-ReduceScatter per layer per step.  This port runs on the (1, 1) mesh
-(ROADMAP A3b/A4b bring more ranks).
+ReduceScatter per layer per step.
+
+The engine runs on a (P, 1) mesh: P ranks of a ``torch.distributed`` group
+on the FSDP (data) axis, model axis 1.  Each rank holds its block ``(stack?,
+1, 1, n_local)`` of every rest-layout leaf, the block ``shard_map`` gives
+each device of the reference.  ``group=None`` is the one-rank path of the
+(1, 1) mesh.  The model axis above 1 (ROADMAP A4b), the two-level gathers
+of a "pod" axis (A3b) and serving over ranks (A10e) are refused.
 """
 from __future__ import annotations
 
@@ -95,6 +101,10 @@ class ParamSpec:
         base = (ms.model_size, ms.fsdp_size, self.n_local(ms))
         return (self.stack, *base) if self.stack is not None else base
 
+    def local_shape(self, ms: MeshSpec) -> tuple[int, ...]:
+        """One rank's block of :meth:`rest_shape`: FSDP axis 1."""
+        return (*self.rest_shape(ms)[:-2], 1, self.n_local(ms))
+
 
 def to_rest(full: torch.Tensor, spec: ParamSpec, ms: MeshSpec) -> torch.Tensor:
     """Logical layout -> rest layout (stack?, MODEL, FSDP, n_local)."""
@@ -131,6 +141,16 @@ def from_rest(rest: torch.Tensor, spec: ParamSpec, ms: MeshSpec) -> torch.Tensor
     x = torch.movedim(x, lead, ax)
     s = list(x.shape)
     return x.reshape(*s[:ax], s[ax] * s[ax + 1], *s[ax + 2:])
+
+
+def rank_block(rest, rank: int, p: int):
+    """Rank `rank`'s block of a rest-layout leaf of a (P, 1) mesh (a tensor
+    or an array): axis -2, the FSDP axis, sliced to ``[rank:rank + 1]``; the
+    leaf itself at one rank."""
+    if p == 1:
+        return rest
+    block = rest[..., rank:rank + 1, :]
+    return block.clone() if isinstance(block, torch.Tensor) else block.copy()
 
 
 def init_param(gen: torch.Generator, spec: ParamSpec, ms: MeshSpec,
@@ -271,19 +291,34 @@ class _GatherOne(torch.autograd.Function):
         return None, None, None, g / eng.ms.fsdp_size
 
 
+def check_mesh(ms: MeshSpec) -> None:
+    """Refuse a mesh the port does not run: a model axis above 1 (ROADMAP
+    A4b) or a "pod" axis, whose FSDP exchanges are two-level (A3b)."""
+    if ms.model_size > 1:
+        raise NotImplementedError(
+            f"mesh {dict(zip(ms.axes, ms.shape))}: tensor parallelism (model axis > 1) is "
+            "not ported yet (ROADMAP A4b)")
+    if "pod" in ms.axes:
+        raise NotImplementedError(
+            f"mesh {dict(zip(ms.axes, ms.shape))}: the two-level gathers of a 'pod' axis "
+            "are not ported yet (ROADMAP A3b)")
+
+
 class QSDPEngine:
     """Binds a MeshSpec + QSDPConfig + parameter specs into gather calls."""
 
     def __init__(self, ms: MeshSpec, cfg: QSDPConfig, specs: dict[str, ParamSpec],
                  group=None):
-        if ms.fsdp_size * ms.model_size > 1:
-            raise NotImplementedError(
-                f"mesh {dict(zip(ms.axes, ms.shape))}: multi-rank QSDP is not "
-                "ported yet (ROADMAP A3b/A4b); the port runs on the (1, 1) mesh")
+        check_mesh(ms)
+        if ms.fsdp_size != coll.group_size(group):
+            raise ValueError(
+                f"mesh {dict(zip(ms.axes, ms.shape))} has {ms.fsdp_size} FSDP ranks but the "
+                f"process group has {coll.group_size(group)} (group=None is one rank)")
         self.ms = ms
         self.cfg = cfg
         self.specs = specs
         self.group = group
+        self.rank = coll.group_rank(group)
         self.compute_dtype = _DTYPES[cfg.compute_dtype]
 
     # -- static policy --------------------------------------------------------
@@ -372,7 +407,8 @@ class QSDPEngine:
 
     def _assemble_rowquant(self, spec: ParamSpec, cfg: QuantConfig, q) -> RowQuantWeight:
         """Gather a shard's (codes, scale, zero) and reshape into the
-        (K, N) / (K, N / bucket) RowQuantWeight layout."""
+        (K, N) / (K, N / bucket) RowQuantWeight layout.  Serving runs on one
+        rank (ROADMAP A10e)."""
         coll.require_one_rank(self.group)
         codes = q.codes
         if cfg.codes_per_byte > 1:
@@ -438,8 +474,11 @@ class QSDPEngine:
     # -- host-side helpers ----------------------------------------------------------
 
     def init_params(self, seed: int, device) -> dict[str, torch.Tensor]:
+        """Every leaf drawn whole, as at one rank, and this rank's block kept:
+        P ranks hold exactly the one-rank state's values."""
         gen = torch.Generator(device=device).manual_seed(seed)
-        return {name: init_param(gen, spec, self.ms, device)
+        return {name: rank_block(init_param(gen, spec, self.ms, device), self.rank,
+                                 self.ms.fsdp_size)
                 for name, spec in sorted(self.specs.items())}
 
 

@@ -16,10 +16,10 @@ from .collectives import require_one_rank
 
 
 def tp_copy(x: torch.Tensor, group=None) -> torch.Tensor:
-    require_one_rank(group)
+    require_one_rank(group, "A4b")
     return x
 
 
 def tp_reduce(x: torch.Tensor, group=None) -> torch.Tensor:
-    require_one_rank(group)
+    require_one_rank(group, "A4b")
     return x

@@ -1,17 +1,28 @@
 """Training launcher of the port: QSDP training of the dense, MoE, SSM and
-hybrid families on one card, with flag parity to the JAX package's
-``launch/train.py``.
+hybrid families on one card, and of the dense family over P data-parallel
+ranks, with flag parity to the JAX package's ``launch/train.py``.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch gpt-1.3b \\
       --steps 10 --batch 4 --seq 2048 --n-micro 2
+
+Over P data-parallel ranks (the (P, 1) mesh), one process a rank:
+
+  torchrun --nproc_per_node P -m repro_torch.launch.train --data-par P ...
+
+Under torchrun (``WORLD_SIZE`` set) the launcher forms the group
+(``launch.mesh.init_distributed``: NCCL on the card, gloo with ``--device
+cpu``), at ``--data-par 1`` too; ``--data-par`` must equal the world size.
+Each rank steps its own rows of every global batch; rank 0 alone prints
+and writes the checkpoint and the JSON log.
 
 ``--smoke`` trains the 2-layer smoke config; ``--device cpu`` runs the
 plain versions of the kernels on the CPU.  ``--plan PLAN.json`` (from
 ``repro_torch.tune.autotune``) pins the comm policy instead of the
 individual flags.  Uses the deterministic synthetic
-Markov corpus, so loss curves are reproducible.  Flags of the JAX launcher
-that need more than one rank, and the comm-policy knobs that come with
-them, exit with an error naming the ROADMAP item that brings them.  The
+Markov corpus, so loss curves are reproducible.  What the port does not
+run yet exits with an error naming the ROADMAP item that brings it: a model
+axis above 1 (``--model-par``, A4b), ``--hierarchical`` (A3b),
+``--prefetch`` (A4b), the other families over ranks (A11h).  The
 VLM and audio families exit with an error too: their batches carry
 modality inputs that the corpus does not give (the JAX launcher feeds the
 same corpus and fails in ``loss_fn``); they train through
@@ -22,6 +33,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import os
 import time
 
 from .. import configs
@@ -32,7 +44,9 @@ from ..device import resolve_device
 from ..models.transformer import Model
 from ..optim import AdamWConfig, cosine_schedule, make_adamw
 from ..train.checkpoint import save_checkpoint
-from ..train.step import build_train_step, init_train_state, quantize_train_state
+from ..train.step import (build_train_step, init_train_state, local_batch,
+                          quantize_train_state)
+from .mesh import init_distributed
 
 # flags of the JAX launcher this port does not run yet: (flag, ROADMAP item)
 _NOT_PORTED = (("--hierarchical", "A3b"), ("--prefetch", "A4b"))
@@ -61,9 +75,21 @@ def validate_args(ap: argparse.ArgumentParser, args) -> None:
     for flag, item in _NOT_PORTED:
         if getattr(args, flag[2:].replace("-", "_")) not in (None, False):
             ap.error(f"{flag} is not ported yet (ROADMAP {item})")
-    if args.data_par != 1 or args.model_par != 1:
-        ap.error("--data-par/--model-par > 1: multi-rank training is not ported yet "
-                 "(ROADMAP A3b/A4b)")
+    if args.data_par < 1 or args.model_par < 1:
+        ap.error("--data-par/--model-par must be >= 1")
+    if args.model_par != 1:
+        ap.error("--model-par > 1: tensor parallelism is not ported yet (ROADMAP A4b)")
+    world = int(os.environ.get("WORLD_SIZE", 1))
+    if args.data_par != world:
+        ap.error(f"--data-par {args.data_par} trains over as many ranks, one process "
+                 f"each: launch it with torchrun --nproc_per_node {args.data_par} (the "
+                 f"world has {world})")
+    if args.data_par > 1 and family != "dense":
+        ap.error(f"--arch {args.arch}: the {family} family over ranks is not ported yet "
+                 "(ROADMAP A11h)")
+    if args.batch % (args.data_par * args.n_micro):
+        ap.error(f"--batch {args.batch} does not split into --data-par {args.data_par} x "
+                 f"--n-micro {args.n_micro}")
     for flag, v in (("--wbits", args.wbits), ("--gbits", args.gbits),
                     ("--master-bits", args.master_bits)):
         if not 2 <= v <= 8:
@@ -77,8 +103,6 @@ def validate_args(ap: argparse.ArgumentParser, args) -> None:
         ap.error(f"--bucket must be positive (got {args.bucket})")
     if min(args.steps, args.batch, args.seq, args.n_micro) < 1:
         ap.error("--steps, --batch, --seq and --n-micro must be >= 1")
-    if args.batch % args.n_micro:
-        ap.error(f"--batch {args.batch} does not split into --n-micro {args.n_micro}")
     if args.quantize_master and args.quantized_state:
         ap.error("--quantize-master (QDQ f32 state) and --quantized-state "
                  "(wire-code state) are mutually exclusive")
@@ -145,10 +169,15 @@ def parse_args(argv=None):
 
 def main(argv=None):
     args = parse_args(argv)
-    device = resolve_device(args.device)
+    ms = MeshSpec(axes=("data", "model"), shape=(args.data_par, 1))
+    group, rank = None, 0
+    if "WORLD_SIZE" in os.environ:
+        group, rank, device = init_distributed(args.device, ms)
+    else:
+        device = resolve_device(args.device)
     cfg = configs.get_smoke(args.arch) if args.smoke else configs.get_config(args.arch)
     qsdp = build_qsdp(args)
-    model = Model(cfg, MeshSpec(axes=("data", "model"), shape=(1, 1)), qsdp)
+    model = Model(cfg, ms, qsdp, group)
     opt = make_adamw(AdamWConfig(lr=args.lr,
                                  schedule=cosine_schedule(args.lr, args.warmup, args.steps),
                                  moment_bits=args.moment_bits))
@@ -171,24 +200,30 @@ def main(argv=None):
     if args.quantized_state:
         tag += f" qstate{args.master_bits}" + (f"m{args.moment_bits}" if args.moment_bits else "")
     n_params = sum(math.prod(s.shape) * (s.stack or 1) for s in model.specs.values())
-    print(f"# {cfg.name} [{tag}] on {device}: batch={args.batch} seq={args.seq} "
-          f"params~{n_params / 1e6:.1f}M bigram-floor={data.bigram_entropy():.3f} nats")
+    say = print if rank == 0 else (lambda *a, **k: None)
+    say(f"# {cfg.name} [{tag}] mesh=({args.data_par},1) on {device}: batch={args.batch} "
+        f"seq={args.seq} params~{n_params / 1e6:.1f}M "
+        f"bigram-floor={data.bigram_entropy():.3f} nats")
     log = []
     t0 = time.time()
     for i in range(args.steps):
-        batch = make_batch(data, i, device)
+        batch = local_batch(make_batch(data, i, device), rank, args.data_par)
         state, m = step(state, batch, prng.fold_in(prng.PRNGKey(args.seed + 1), i))
         if i % args.log_every == 0 or i == args.steps - 1:
             log.append(dict(step=i, loss=float(m["loss"]), gnorm=float(m["grad_norm"]),
                             t=time.time() - t0))
-            print(f"step {i:5d} loss {log[-1]['loss']:7.4f} gnorm {log[-1]['gnorm']:8.3f} "
-                  f"({log[-1]['t']:6.1f}s)")
+            say(f"step {i:5d} loss {log[-1]['loss']:7.4f} gnorm {log[-1]['gnorm']:8.3f} "
+                f"({log[-1]['t']:6.1f}s)")
     if args.ckpt:
-        save_checkpoint(args.ckpt, state, meta=dict(arch=cfg.name, steps=args.steps))
-        print(f"checkpoint -> {args.ckpt}")
-    if args.out_json:
+        save_checkpoint(args.ckpt, state, meta=dict(arch=cfg.name, steps=args.steps),
+                        group=group)
+        say(f"checkpoint -> {args.ckpt}")
+    if args.out_json and rank == 0:
         with open(args.out_json, "w") as f:
             json.dump(dict(arch=cfg.name, tag=tag, device=str(device), log=log), f, indent=1)
+    if group is not None:
+        import torch.distributed as dist
+        dist.destroy_process_group()
     return 0
 
 

@@ -202,7 +202,7 @@ def moe_layer(x: torch.Tensor, w: dict, cfg: MoEConfig, no_drop: bool = False,
     assignment is ever dropped and a token's output does not depend on the
     other tokens of the call (the serving paths' slot isolation); the
     capacity path drops what the stable sort puts past the capacity."""
-    require_one_rank(group)
+    require_one_rank(group, "A4b")
     if cfg.tp != 1:
         raise NotImplementedError(f"expert parallelism over tp = {cfg.tp} ranks is not "
                                   "ported yet (ROADMAP A4b); the port runs at tp = 1")

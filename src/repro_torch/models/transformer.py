@@ -4,8 +4,8 @@ engine and the training forward of every family (the JAX package's
 which shares the embedding (the VLM's vision splice and rotary tables
 included) and the audio encoder with the training forward.
 
-Parameters live in the engine's rest layout, ``(stack?, 1, 1, n_local)`` on
-the one-rank mesh, and are gathered per layer — quantized — inside every
+Parameters live in the engine's rest layout, each rank holding its block
+``(stack?, 1, 1, n_local)``, and are gathered per layer — quantized — inside every
 train, prefill and decode step.  Training checkpoints each layer with its
 gather inside (``torch.utils.checkpoint``): the backward re-gathers the
 layer from the same key, then reduce-scatters its gradient once — FSDP's
@@ -158,7 +158,14 @@ class Model:
     """Binds ModelConfig + MeshSpec + QSDPConfig into the parameter layout
     and the QSDP engine that gathers it."""
 
-    def __init__(self, cfg: ModelConfig, ms: MeshSpec, qcfg: QSDPConfig):
+    def __init__(self, cfg: ModelConfig, ms: MeshSpec, qcfg: QSDPConfig, group=None):
+        """`group`: the ``torch.distributed`` group of the mesh's FSDP ranks
+        (None: one rank).  Above one rank only the dense family runs; the
+        others are held to the JAX package at one rank only (ROADMAP A11h)."""
+        if ms.fsdp_size > 1 and cfg.arch_type != "dense":
+            raise NotImplementedError(
+                f"{cfg.name}: the {cfg.arch_type} family over {ms.fsdp_size} ranks is not "
+                "ported yet (ROADMAP A11h); the dense family runs over ranks")
         self.cfg = cfg
         self.ms = ms
         self.qcfg = qcfg
@@ -181,7 +188,7 @@ class Model:
                                   aux_coef=cfg.moe_aux_coef)
         self.vp = cfg.padded_vocab(ms.model_size)
         self.specs = self._build_specs()
-        self.engine = QSDPEngine(ms, qcfg, self.specs)
+        self.engine = QSDPEngine(ms, qcfg, self.specs, group)
         self.compute_dtype = self.engine.compute_dtype
 
     def _build_specs(self) -> dict[str, ParamSpec]:

@@ -8,8 +8,11 @@ byte.  The manifest's ``format`` and every leaf's shape and dtype are
 validated on load (``qsdp-ckpt-v1``, dense leaves only, loads too).  Both
 packages read each other's checkpoints.
 
-This port saves and loads on the mesh layout it was saved on; resharding
-to another (model, fsdp) layout waits for ROADMAP A3b.
+On a (P, 1) mesh every rank holds its block of each leaf: the save
+gathers the blocks over the group and rank 0 writes the whole state, the
+file the JAX package writes from its (P, 1) mesh; the load gives each rank
+its block.  A checkpoint loads on the mesh layout it was saved on;
+resharding to another (model, fsdp) layout waits for ROADMAP A3b.
 """
 from __future__ import annotations
 
@@ -20,6 +23,8 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from ..core import collectives as coll
+from ..core.qsdp import rank_block
 from ..core.quant import QuantConfig, QuantizedParam
 from ..device import resolve_device
 from ..optim import OptState
@@ -85,8 +90,35 @@ def _mesh_sizes(flat: dict) -> tuple[int, int]:
     raise ValueError("empty state")
 
 
-def save_checkpoint(path: str, state: TrainState, meta: Optional[dict[str, Any]] = None) -> None:
-    """Write `state` as a ``qsdp-ckpt-v2`` checkpoint under directory `path`."""
+def _gather_state(state: TrainState, group) -> TrainState:
+    """Every rank's blocks laid end to end on the FSDP axis (-2) of each
+    rest-layout leaf (dense or wire codes), the step as it is."""
+    def whole(v):
+        if isinstance(v, QuantizedParam):
+            return QuantizedParam(coll.gather_axis(v.wire, group, -2), v.cell_shape, v.cfg)
+        return coll.gather_axis(v.detach(), group, -2)
+
+    def tree(t):
+        return t if t == () else {k: whole(v) for k, v in t.items()}
+
+    return TrainState(params=tree(state.params),
+                      opt=OptState(step=state.opt.step, mu=tree(state.opt.mu),
+                                   nu=tree(state.opt.nu)))
+
+
+def save_checkpoint(path: str, state: TrainState, meta: Optional[dict[str, Any]] = None,
+                    group=None) -> None:
+    """Write `state` as a ``qsdp-ckpt-v2`` checkpoint under directory `path`.
+    Over a group (every rank calls it) the blocks are gathered and rank 0
+    writes; every rank returns once the files are written."""
+    if group is not None:
+        whole = _gather_state(state, group)
+        if coll.group_rank(group) == 0:
+            save_checkpoint(path, whole, meta)
+        del whole
+        import torch.distributed as dist
+        dist.barrier(group=group)
+        return
     os.makedirs(path, exist_ok=True)
     flat, leaves = state_to_flat(state)
     model_size, fsdp_size = _mesh_sizes(flat)
@@ -98,10 +130,12 @@ def save_checkpoint(path: str, state: TrainState, meta: Optional[dict[str, Any]]
         json.dump(manifest, f, indent=1)
 
 
-def load_checkpoint(path: str, device=None, mesh_sizes: tuple[int, int] = (1, 1)) -> TrainState:
+def load_checkpoint(path: str, device=None, mesh_sizes: tuple[int, int] = (1, 1),
+                    rank: int = 0) -> TrainState:
     """Load a v1 or v2 checkpoint saved on the (model, fsdp) layout
-    `mesh_sizes` onto `device` (the card unless given); raises on an unknown format, a manifest that
-    does not match the payload, or another layout."""
+    `mesh_sizes` onto `device` (the card unless given), rank `rank`'s block
+    of every leaf; raises on an unknown format, a manifest that does not
+    match the payload, or another layout."""
     mpath = os.path.join(path, "manifest.json")
     if not os.path.exists(mpath):
         raise FileNotFoundError(f"checkpoint manifest missing: {mpath}")
@@ -127,4 +161,6 @@ def load_checkpoint(path: str, device=None, mesh_sizes: tuple[int, int] = (1, 1)
             raise NotImplementedError(
                 f"checkpoint was saved on (model, fsdp) = {saved}, not {tuple(mesh_sizes)}: "
                 "resharding is not ported yet (ROADMAP A3b)")
-    return state_from_flat(flat, leaves, device)
+    p = mesh_sizes[1]
+    return state_from_flat({k: rank_block(a, rank, p) if a.ndim >= 3 else a
+                            for k, a in flat.items()}, leaves, device)

@@ -19,8 +19,13 @@ entry and re-encoded at exit under the same keys (``fold_in(key,
 0x3A57E9)``, then ``_h(name)``), so the two are bit-exact.
 
 The reference wraps the step in ``shard_map`` + ``jit``
-(``make_jitted_train_step``); at one rank the per-device step is the step.
-The update runs in place on the state's f32 tensors (the reference donates
+(``make_jitted_train_step``); the port's step is the per-device step.  Over
+P data-parallel ranks (the model's engine holds their group) each rank
+steps its own block of the state on its own rows of the batch
+(:func:`local_batch`); the gathers and reduce-scatters exchange over the
+group, the gradient norm's sum of squares is summed over it (the
+reference's ``psum``) and the loss averaged (``pmean``).  The update runs
+in place on the state's f32 tensors (the reference donates
 them).
 
 The memory schedule holds one copy of the state and one set of gradients,
@@ -37,6 +42,7 @@ from typing import Any, NamedTuple
 
 import torch
 
+from ..core import collectives as coll
 from ..core import prng
 from ..core.quant import (QuantConfig, QuantizedParam, qparam_decode, qparam_encode,
                           quantize_dequantize)
@@ -118,6 +124,20 @@ def _split(name: str, x: torch.Tensor, n_micro: int) -> torch.Tensor:
     return x.reshape(n_micro, b // n_micro, *x.shape[1:]).movedim(1, ax + 1)
 
 
+def local_batch(batch: dict, rank: int, p: int) -> dict:
+    """Rank `rank`'s rows of a global batch over `p` ranks: each leaf's batch
+    axis (axis 0, but 1 for M-RoPE's "positions") cut into `p` blocks, the
+    rank's kept, as the reference's ``batch_pspec P(fsdp_axes)`` shards it."""
+    out = {}
+    for name, x in batch.items():
+        ax = 1 if name == "positions" else 0
+        b = x.shape[ax]
+        if b % p:
+            raise ValueError(f"batch {name} of {b} rows does not split over {p} ranks")
+        out[name] = x.narrow(ax, rank * (b // p), b // p)
+    return out
+
+
 def _leaf(model: Model, name: str, p: torch.Tensor):
     """The autograd leaf (or, for a stacked leaf, the tuple of per-layer
     leaves, views of its slices) the loss reads `p` through."""
@@ -136,18 +156,21 @@ def _take_grad(name: str, leaf, n_micro: int):
     return [g(t) for t in leaf] if isinstance(leaf, tuple) else g(leaf)
 
 
-def global_norm(grads: dict) -> torch.Tensor:
+def global_norm(grads: dict, group=None) -> torch.Tensor:
     """sqrt of the sum of squares of every gradient value: a stacked leaf's
     sum by layer slice, an unstacked one's by ``chunk_ranges``, so no
     temporary is larger than a chunk (the summation order is not the
-    reference's; the value agrees within f32 rounding)."""
+    reference's; the value agrees within f32 rounding).  Over a group each
+    rank's sum is summed over the ranks before the root (every value lives
+    on exactly one rank)."""
     parts = []
     for k in sorted(grads):
         g = grads[k]
         chunks = (g if isinstance(g, list)
                   else [g.reshape(-1)[a:b] for a, b in chunk_ranges(tuple(g.shape))])
         parts += [torch.dot(c.reshape(-1), c.reshape(-1)) for c in chunks]
-    return torch.sqrt(torch.stack(parts).sum())
+    sq = torch.stack(parts).sum()
+    return torch.sqrt(sq if group is None else coll.all_reduce_sum(sq, group))
 
 
 def build_train_step(model: Model, optimizer: Optimizer, n_micro: int = 1,
@@ -157,9 +180,12 @@ def build_train_step(model: Model, optimizer: Optimizer, n_micro: int = 1,
     card unless `device` says otherwise (raises when there is no card and
     none was asked for); `batch` ({"tokens", "labels"} (B, S), and the
     family's modality inputs, see ``Model.loss_fn``) is moved there and
-    split into `n_micro` microbatches on each leaf's batch axis.  metrics:
-    loss (microbatch mean), grad_norm (before clipping), step."""
+    split into `n_micro` microbatches on each leaf's batch axis.  Over the
+    model's group `batch` is this rank's rows (:func:`local_batch`).
+    metrics: loss (microbatch mean, averaged over the group), grad_norm
+    (before clipping, over the whole model), step."""
     device = resolve_device(device)
+    group = model.engine.group
     if quantize_master and quantized_state:
         raise ValueError("quantize_master and quantized_state are mutually exclusive")
 
@@ -180,7 +206,7 @@ def build_train_step(model: Model, optimizer: Optimizer, n_micro: int = 1,
         del leaves
 
         # global-norm clip (every element lives on exactly one rank)
-        gnorm = global_norm(grads)
+        gnorm = global_norm(grads, group)
         scale = (torch.clamp(grad_clip / torch.clamp(gnorm, min=1e-12), max=1.0)
                  if grad_clip else torch.ones((), device=device))
         with torch.no_grad():
@@ -197,8 +223,10 @@ def build_train_step(model: Model, optimizer: Optimizer, n_micro: int = 1,
                     p = new_params[name]
                     new_params[name] = (qparam_encode(p, qc, pkey) if quantized_state
                                         else quantize_dequantize(p, qc, pkey))
-        metrics = {"loss": torch.stack(losses).mean(), "grad_norm": gnorm,
-                   "step": new_opt.step}
+        loss = torch.stack(losses).mean()
+        if group is not None:
+            loss = coll.all_reduce_sum(loss, group) / coll.group_size(group)
+        metrics = {"loss": loss, "grad_norm": gnorm, "step": new_opt.step}
         return TrainState(params=new_params, opt=new_opt), metrics
 
     return step

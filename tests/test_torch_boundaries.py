@@ -41,7 +41,7 @@ def test_port_imports_no_jax_and_no_repro():
             "experiments/roofline_report.py", "analysis/findings.py",
             "analysis/source_lint.py", "analysis/key_audit.py",
             "analysis/collective_audit.py", "analysis/trace_audit.py",
-            "analysis/qlint.py"} <= rel, rel
+            "analysis/qlint.py", "launch/mesh.py"} <= rel, rel
     bad = {str(p.relative_to(ROOT)): sorted(_imported_roots(p) & FORBIDDEN)
            for p in files if _imported_roots(p) & FORBIDDEN}
     assert not bad, bad
@@ -61,12 +61,15 @@ def test_cpu_setup_when_asked():
 
 
 def test_multi_rank_mesh_names_roadmap(capsys):
-    """A mesh of more than one rank names its ROADMAP item; the train
+    """A mesh the port does not run (a model axis above 1) names its ROADMAP
+    item, and a (P, 1) mesh needs a process group of P ranks; the train
     launcher refuses the VLM and audio families, whose batches carry inputs
     the synthetic corpus does not give (they train through
     ``build_train_step``), before it touches a device."""
     from repro_torch.launch import train as launch_train
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A4b"):
+        QSDPEngine(MeshSpec(("data", "model"), (1, 2)), QSDPConfig(), {})
+    with pytest.raises(ValueError, match="process group has 1"):
         QSDPEngine(MeshSpec(("data", "model"), (2, 1)), QSDPConfig(), {})
     for arch, inputs in (("qwen2-vl-72b", "vision_embeds"), ("seamless-m4t-large-v2",
                                                               "audio_embeds")):
@@ -99,10 +102,11 @@ def test_train_entry_points_raise_without_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--data-par", "2"], "A3b"), (["--model-par", "2"], "A3b"),
-    (["--hierarchical"], "A3b"), (["--prefetch"], "A4b"), (["--plan", "{prefetch}"], "A4b")])
+    (["--model-par", "2"], "A4b"), (["--hierarchical"], "A3b"), (["--prefetch"], "A4b"),
+    (["--plan", "{prefetch}"], "A4b")])
 def test_train_launcher_names_roadmap_for_unported_flags(flags, item, capsys, tmp_path):
-    """``--plan`` is ported; a plan that asks for layer prefetch is not."""
+    """``--plan`` is ported; a plan that asks for layer prefetch is not, nor
+    is a model axis above 1."""
     from repro_torch.launch import train as launch_train
     from repro_torch.tune.plan import PLAN_VERSION, DeploymentPlan
     plan = str(tmp_path / "prefetch_plan.json")
@@ -112,6 +116,21 @@ def test_train_launcher_names_roadmap_for_unported_flags(flags, item, capsys, tm
     with pytest.raises(SystemExit):
         launch_train.parse_args([f.format(prefetch=plan) for f in flags])
     assert f"ROADMAP {item}" in capsys.readouterr().err
+
+
+def test_train_launcher_data_par_needs_torchrun(capsys, monkeypatch):
+    """``--data-par P`` trains over P processes that torchrun starts: it must
+    equal the world size (1 outside torchrun)."""
+    from repro_torch.launch import train as launch_train
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    with pytest.raises(SystemExit):
+        launch_train.parse_args(["--data-par", "2"])
+    assert "torchrun --nproc_per_node 2" in capsys.readouterr().err
+    monkeypatch.setenv("WORLD_SIZE", "4")
+    with pytest.raises(SystemExit):
+        launch_train.parse_args(["--data-par", "2"])
+    assert "the world has 4" in capsys.readouterr().err
+    assert launch_train.parse_args(["--data-par", "4"]).data_par == 4
 
 
 def test_unported_training_options_raise():
