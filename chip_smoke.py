@@ -263,13 +263,14 @@ Phases, each of which makes the script exit non-zero when it fails:
               finding is new against ``src/repro_torch/analysis/
               qlint_baseline.json``.  Prints the findings, the launches and
               the seconds of the card traces and of the meta twin.
-13. dist   -- data-parallel QSDP over torch.distributed, on one card:
-              (b) the train launcher at gpt-125m under ``torch.distributed.run
-              --standalone --nproc_per_node 1 ... --data-par 1`` and without
-              torchrun, side by side in processes of their own: losses
-              bit-equal; (a) meanwhile, a one-rank NCCL group formed through
-              a FileStore, and one gpt-1.3b train step at full width and
-              depth (TRAIN's batch) through it under the profiler: torch's
+13. dist   -- QSDP over torch.distributed on the (data, model) grid, on one
+              card: (b) the train launcher at gpt-125m under
+              ``torch.distributed.run --standalone --nproc_per_node 1 ...
+              --data-par 1 --model-par 1`` and without torchrun, side by side
+              in processes of their own: losses bit-equal; (a) meanwhile, the
+              one-rank grid's NCCL groups (data and model) formed through a
+              FileStore, and one gpt-1.3b train step at full width and
+              depth (TRAIN's batch) through them under the profiler: torch's
               records of the NCCL collectives as many as the port's counter
               of calls (``collectives.COMM``), which equals the structure's
               formula (``expected_train_comm``); then, once (b) is done, the
@@ -284,8 +285,22 @@ Phases, each of which makes the script exit non-zero when it fails:
               to the same functions on K1/K2's plain versions; it runs in
               the kernel phase, which times the P-row decode against its
               bound (rows "gpt-1.3b gathered layer, P = ..."), and in this
-              phase only without that one.  Prints that NCCL at P > 1 has
-              not run on a card.
+              phase only without that one.  (d) tensor parallelism's blocks
+              rank by rank: gpt-1.3b's attention and MLP blocks at full
+              width (forward) at M = 2 and 4, and qwen2.5-3b's attention
+              at M = 4 (its 2 KV heads replicated): each model rank's share
+              computed from its tp-local weights, gathered through K1/K2 as
+              the engine gathers them, the M shares summed in rank order,
+              within TP_BLOCK_TOL of the one-rank block on the whole
+              weights assembled from the same decoded shards, in bf16 and
+              f32.  (e) the tp-local wire work of gpt-1.3b's layer at (P,
+              M) = (1, 2), (1, 4), (1, 8) and (2, 2): each rank's K1
+              encodes of its tp-local shards and K2's one decode of the P
+              gathered rows, byte-equal to the plain versions; timed in the
+              kernel phase (K1 on a rank's MLP shard, K2 beside
+              ``torch.addcmul``: rows "... tp-local ..."), checked here only
+              without it.  Prints that NCCL at more than one rank has not
+              run on a card.
 
 Prints the kernel table as one JSON line, the card's name and power limit,
 and, last, ``{"ok": true, "device": {...}}``.
@@ -510,24 +525,28 @@ def layer_decode_rows(torch, log, gen, decode_row, addcmul_ms, dev="cuda", arch=
     for dt in (getattr(torch, d) for d in dtypes):
         table, dts = coll.wire_table(layout, 1, [dt] * len(layout.segments))
         nb = sum(t.nb for t in table)
-        want = ref.unpack_dequantize_wire_ref(buf, table, dts)
-        # the library's operands: the layer's codes as one (nb, 1024) tensor
-        # and its f32 scale/zero as (nb, 1)
-        check(all(t.meta_dtype == torch.float32 and t.bits == 8 for t in table),
-              "layer codes are not W8 with f32 scale/zero")
-        meta = [buf[t.scale:t.zero + 4 * t.nb].clone().view(torch.float32).view(2, t.nb, 1)
-                for t in table]
-        lib = (torch.cat([buf[t.codes:t.scale].view(t.nb, t.bucket) for t in table]),
-               torch.cat([m[0] for m in meta]), torch.cat([m[1] for m in meta]))
         out.append(decode_row(
             f"{arch} layer{' grad' if grad else ''} ({len(table)} tensors), {dt_name(dt)} out",
             nb,
             lambda: ops.unpack_dequantize_wire(buf, table, dts),
             lambda: ref.unpack_dequantize_wire_ref(buf, table, dts),
-            addcmul_ms(*lib, torch.cat(want)),
+            wire_addcmul(torch, addcmul_ms, buf, table, dts),
             cost.unpack_dequantize_wire(table, [d.itemsize for d in dts])))
-        del want, meta, lib
     return out
+
+
+def wire_addcmul(torch, addcmul_ms, buf, table, dts):
+    """``torch.addcmul``'s time over the codes of a K2 table (W8, f32
+    scale/zero): the codes gathered into one (nb, bucket) tensor and the
+    scale/zero into (nb, 1), against the plain decode."""
+    from repro_torch.kernels import ref
+    check(all(t.meta_dtype == torch.float32 and t.bits == 8 for t in table),
+          "layer codes are not W8 with f32 scale/zero")
+    want = torch.cat(ref.unpack_dequantize_wire_ref(buf, table, dts))
+    meta = [buf[t.scale:t.zero + 4 * t.nb].clone().view(torch.float32).view(2, t.nb, 1)
+            for t in table]
+    return addcmul_ms(torch.cat([buf[t.codes:t.scale].view(t.nb, t.bucket) for t in table]),
+                      torch.cat([m[0] for m in meta]), torch.cat([m[1] for m in meta]), want)
 
 
 def unaligned_decode_check(torch, log, gen, dev="cuda"):
@@ -703,8 +722,11 @@ def kernel_phase(torch, log, dev="cuda"):
     del x
     k2 += layer_decode_rows(torch, log, gen, decode_row, addcmul_ms, dev)
     # the dist phase's P-rank wire work, K2 over a gathered layer of P rows
-    # timed (off the one-rank main path)
-    k2 += dist_wire(torch, log, dev, decode_row=decode_row)
+    # timed (off the one-rank main path), and the tp-local layer's
+    k2 += dist_wire(torch, log, dev, decode_row=decode_row, addcmul_ms=addcmul_ms)
+    tp_k1, tp_k2 = tp_wire(torch, log, dev, timing=(k1_row, decode_row, addcmul_ms))
+    k1 += tp_k1
+    k2 += tp_k2
     unaligned_decode_check(torch, log, gen, dev)
     # olmoe-1b-7b (moe phase): K1 W8 shift on one expert stack, as every
     # decode step gathers it; K2 over a whole layer's buffer into bf16
@@ -4752,7 +4774,8 @@ DIST_PS = (2, 4, 8)
 # the entry point under torchrun: gpt-125m, 3 steps of the launcher's
 # default batch (16 x 256)
 DIST_LAUNCH = ["--arch", "gpt-125m", "--steps", "3", "--log-every", "1"]
-DIST_NOTE = "NCCL at P > 1 has not run on a card; it waits for a four-chip cell."
+DIST_NOTE = ("NCCL at more than one rank (P > 1 or M > 1) has not run on a card; it waits "
+             "for a four-chip cell.")
 # torch.distributed's ops by the counter's names, as an event name of the
 # profiler may spell them
 DIST_OP_TOKENS = {"all_gather": ("all_gather", "allgather"),
@@ -4806,19 +4829,19 @@ def dist_setup(dev):
             prng.fold_in(prng.PRNGKey(TRAIN["seed"] + 1), 0))
 
 
-def dist_step(torch, group, dev, profile=False):
+def dist_step(torch, groups, dev, profile=False):
     """One gpt-1.3b train step from the state made anew from the seed,
-    through `group` (None: in place), its launches and calls into
-    torch.distributed counted from zero; with `profile`, under the profiler
-    (host activity: torch's records of the collectives).  Returns the
-    state, the run's record and the model."""
+    through `groups` (the data and model groups; (None, None): in place),
+    its launches and calls into torch.distributed counted from zero; with
+    `profile`, under the profiler (host activity: torch's records of the
+    collectives).  Returns the state, the run's record and the model."""
     from repro_torch.core import collectives as coll
     from repro_torch.core.qsdp import QSDPConfig
     from repro_torch.kernels import ops
     from repro_torch.models.transformer import Model
     from repro_torch.train.step import build_train_step, init_train_state
     cfg, ms, opt, batch, key = dist_setup(dev)
-    model = Model(cfg, ms, QSDPConfig(), group)
+    model = Model(cfg, ms, QSDPConfig(), *groups)
     step = build_train_step(model, opt, n_micro=TRAIN["n_micro"], device=dev)
     state = init_train_state(model, opt, TRAIN["seed"], dev)
     ops.reset_launches()
@@ -4837,10 +4860,11 @@ def dist_step(torch, group, dev, profile=False):
 
 
 def dist_nccl_step(torch, log, dev="cuda", profile=True, during=None):
-    """(a): one train step of gpt-1.3b at full width and depth through a
-    process group of one rank (NCCL on the card, gloo on the CPU), formed
-    through a FileStore in a temporary directory, and the same step with
-    ``group=None``, each from the state made anew from the seed: loss, grad
+    """(a): one train step of gpt-1.3b at full width and depth through the
+    groups of the one-rank (data, model) grid (``init_distributed``: NCCL on
+    the card, gloo on the CPU), formed through a FileStore in a temporary
+    directory, and the same step with no group, each from the state made
+    anew from the seed: loss, grad
     norm, every updated parameter and moment bit-equal (device digests);
     K1/K2 launches equal to the structure's in both; the calls into
     torch.distributed by op equal to ``expected_train_comm`` (and none
@@ -4858,20 +4882,22 @@ def dist_nccl_step(torch, log, dev="cuda", profile=True, during=None):
 
     cfg, ms, _, _, _ = dist_setup(dev)
     with tempfile.TemporaryDirectory() as tmp:
-        group, _, gdev = init_distributed(dev, ms, store=dist.FileStore(
+        group, model_group, coords, gdev = init_distributed(dev, ms, store=dist.FileStore(
             os.path.join(tmp, "store"), 1), rank=0, world_size=1)
+        check(coords == (0, 0), f"dist: the one-rank grid put rank 0 at {coords}")
+        groups = (group, model_group)
         backend = dist.get_backend()
         try:
             prof = None
             if profile:
-                st, prof, _ = dist_step(torch, group, gdev, profile=True)
+                st, prof, _ = dist_step(torch, groups, gdev, profile=True)
                 del st
             if during is not None:
                 during()
-            st, n, model = dist_step(torch, None, gdev)
+            st, n, model = dist_step(torch, (None, None), gdev)
             want_dig = {k: device_digest(torch, v) for k, v in state_tensors(st).items()}
             del st
-            st, g, _ = dist_step(torch, group, gdev)
+            st, g, _ = dist_step(torch, groups, gdev)
             got_dig = {k: device_digest(torch, v) for k, v in state_tensors(st).items()}
             n_leaves = len(st.params)
             del st
@@ -4896,8 +4922,9 @@ def dist_nccl_step(torch, log, dev="cuda", profile=True, during=None):
               f"structure predicts {want_comm} (and no byte from another rank)")
     check(not any(n["comm"].values()), f"dist: group=None called torch.distributed {n['comm']}")
     log(f"dist: {DIST_ARCH} at full width and depth, batch {TRAIN['batch']} x seq "
-        f"{TRAIN['seq']}, n_micro {TRAIN['n_micro']}: one step through a one-rank {backend} "
-        f"group bit-equal to group=None (loss {g['loss']}, grad norm {g['gnorm']}, the "
+        f"{TRAIN['seq']}, n_micro {TRAIN['n_micro']}: one step through the one-rank (data, "
+        f"model) grid of {backend} groups bit-equal to group=None (loss {g['loss']}, grad "
+        f"norm {g['gnorm']}, the "
         f"digests of all {n_leaves} parameters and both moments); {g['dt'] * 1e3:.1f} ms "
         f"through the group, {n['dt'] * 1e3:.1f} ms in place (each a first step from the "
         f"seed's state); launches {g['launches']}; calls into torch.distributed "
@@ -4915,7 +4942,7 @@ def dist_nccl_step(torch, log, dev="cuda", profile=True, during=None):
 
 
 def dist_launch_start(torch, dev="cuda", extra=()):
-    """(b), started: the train launcher ``--data-par 1`` under
+    """(b), started: the train launcher ``--data-par 1 --model-par 1`` under
     ``torch.distributed.run --standalone --nproc_per_node 1`` and without
     it, side by side in processes of their own (the same environment, one
     intra-op thread), each logging to a JSON file.  Returns [(process, json
@@ -4924,8 +4951,8 @@ def dist_launch_start(torch, dev="cuda", extra=()):
     import tempfile
     tmp = tempfile.mkdtemp(prefix="chip_smoke_dist_")
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"), OMP_NUM_THREADS="1")
-    flags = [*DIST_LAUNCH, *extra, "--data-par", "1"] + (["--device", dev] if dev != "cuda"
-                                                         else [])
+    flags = [*DIST_LAUNCH, *extra, "--data-par", "1", "--model-par", "1"] + (
+        ["--device", dev] if dev != "cuda" else [])
     out = []
     for tag, head in (("torchrun", ["-m", "torch.distributed.run", "--standalone",
                                     "--nproc_per_node", "1"]), ("plain", [])):
@@ -4958,17 +4985,18 @@ def dist_launch_check(torch, log, started):
     lt, lp = losses
     check(lt == lp and len(lt) == 3, f"dist: torchrun losses {lt}, the plain launcher's {lp}")
     log(f"dist: torchrun --nproc_per_node 1 -m repro_torch.launch.train {' '.join(DIST_LAUNCH)} "
-        f"--data-par 1: losses {lt} bit-equal to the launcher's without torchrun (both "
+        f"--data-par 1 --model-par 1: losses {lt} bit-equal to the launcher's without "
+        f"torchrun (both "
         f"processes done {time.perf_counter() - t:.1f} s after the phase's first wait)")
 
 
 def dist_layout(eng, names, p, grad=False):
     """The wire layout of one gather (or, `grad`, one reduce-scatter) of
-    `names` at the (P, 1) mesh under `eng`'s policy: the engine's segments
-    with the shard size of P ranks."""
+    `names` at the (P, M) mesh under `eng`'s policy, M the engine's model
+    axis: the engine's segments with the tp-local shard size of P ranks."""
     from repro_torch.core import collectives as coll
     from repro_torch.core.qsdp import MeshSpec
-    ms = MeshSpec(("data", "model"), (p, 1))
+    ms = MeshSpec(("data", "model"), (p, eng.ms.model_size))
     c = eng.cfg
     return coll.WireLayout(tuple(
         coll.WireSegment(eng.specs[n].n_local(ms),
@@ -4994,7 +5022,7 @@ def plain_kernels(ops, ref):
         yield
 
 
-def dist_wire(torch, log, dev="cuda", decode_row=None):
+def dist_wire(torch, log, dev="cuda", decode_row=None, addcmul_ms=None):
     """(c): the wire work of P ranks for one gpt-1.3b layer and its
     gradient, the ranks emulated in this process, at each P of DIST_PS.
     Each rank encodes its own shard of every weight under the shared key
@@ -5005,9 +5033,9 @@ def dist_wire(torch, log, dev="cuda", decode_row=None):
     P)``), and each destination dequant-sums the P rows it receives
     (``decode_rs_rows``).  Gate: the buffers, the decoded weights and the
     summed chunks byte-equal to the same functions with K1 and K2's plain
-    versions.  With `decode_row` (the kernel phase's), the gathered layer's
-    K2 decode is timed against its bound: the rows returned (off the
-    one-rank main path)."""
+    versions.  With `decode_row` and `addcmul_ms` (the kernel phase's), the
+    gathered layer's K2 decode is timed against its bound and beside
+    ``torch.addcmul``: the rows returned (off the one-rank main path)."""
     from repro_torch import configs
     from repro_torch.core import collectives as coll
     from repro_torch.core import prng
@@ -5061,13 +5089,15 @@ def dist_wire(torch, log, dev="cuda", decode_row=None):
         if decode_row is not None:
             row = decode_row(what, sum(t.nb for t in table),
                              lambda: ops.unpack_dequantize_wire(gbuf, table, dts),
-                             lambda: ref.unpack_dequantize_wire_ref(gbuf, table, dts), None,
+                             lambda: ref.unpack_dequantize_wire_ref(gbuf, table, dts),
+                             wire_addcmul(torch, addcmul_ms, gbuf, table, dts),
                              cost.unpack_dequantize_wire(table, [d.itemsize for d in dts]))
             rows.append(dict(row, p=p, table=len(table), launches=n_launch, main_path=False))
             b_ms, b_by = row["bound"]
             line += (f"; K2 {row['ms']:.4f} ms (kernel alone {row['kernel_ms']:.4f}, "
                      f"{100 * b_ms / row['kernel_ms']:.0f}% of its bound {b_ms:.4f} ms by "
-                     f"{b_by}; plain {row['plain_ms']:.4f})")
+                     f"{b_by}; plain {row['plain_ms']:.4f}; torch.addcmul "
+                     f"{row['library_ms']:.4f}, kernel {row['library_kernel_ms']:.4f})")
         else:
             rows.append(dict(p=p, table=len(table), launches=n_launch, main_path=False))
         log(line)
@@ -5077,25 +5107,219 @@ def dist_wire(torch, log, dev="cuda", decode_row=None):
 
 def dist_phase(torch, log, dev="cuda", profile=True, wire=True, launch_extra=()):
     """Phase 13 (module docstring): (b) started first; (a)'s profiled step
-    runs beside it, its timed steps after (b) is done; then, with `wire`
-    (when the kernel phase did not run it, timed), (c).  Returns (the main
-    path's launches, the P-rank rows)."""
+    runs beside it, then (d) while (b) finishes, (a)'s timed steps after (b)
+    is done; then, with `wire` (when the kernel phase did not run them,
+    timed), (c) and (e).  Returns (the main path's launches, the P-rank
+    rows, the blocks' rows)."""
     t = time.perf_counter()
     started = dist_launch_start(torch, dev, launch_extra)
+    blocks = []
+
+    def during():
+        blocks.extend(tp_blocks(torch, log, dev))
+        dist_launch_check(torch, log, started)
+
     try:
-        launches = dist_nccl_step(torch, log, dev, profile=profile,
-                                  during=lambda: dist_launch_check(torch, log, started))
+        launches = dist_nccl_step(torch, log, dev, profile=profile, during=during)
     finally:
         for proc, _, _ in started:
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
     rows = dist_wire(torch, log, dev) if wire else []
+    if wire:
+        tp_wire(torch, log, dev)
     if dev == "cuda":
         torch.cuda.empty_cache()
     print(DIST_NOTE, flush=True)
     log(f"dist: phase {time.perf_counter() - t:.1f} s")
-    return launches, rows
+    return launches, rows, blocks
+
+
+# (e) the tp-local wire work: gpt-1.3b's layer at these (P, M)
+TP_MESHES = ((1, 2), (1, 4), (1, 8), (2, 2))
+# (d) the blocks rank by rank: (arch, M, blocks), the blocks' input (B, S),
+# and the largest |sum of the M shares - the whole block| over the whole
+# block's largest |value|: in bf16 each of the M shares rounds to bf16 and
+# so does each of the M - 1 adds of the sum, each by at most 2^-9 of its
+# value (the whole block rounds once): at M = 4 at most 7 * 2^-9 < 2^-6; in
+# f32 the products add in another order
+TP_BLOCKS = (("gpt-1.3b", 2, ("attention", "mlp")), ("gpt-1.3b", 4, ("attention", "mlp")),
+             ("qwen2.5-3b", 4, ("attention",)))
+TP_BLOCK_BS = (1, 512)
+TP_BLOCK_TOL = {"bfloat16": 2.0 ** -6, "float32": 1e-5}
+TP_BLOCK_NAMES = {"attention": ("wq", "wk", "wv", "wo", "bq", "bk", "bv"),
+                  "mlp": ("w_gate", "w_up", "w_down")}
+
+
+def tp_wire(torch, log, dev="cuda", timing=None):
+    """(e): the tp-local wire work of one gpt-1.3b layer at each (P, M) of
+    TP_MESHES, one model rank's view emulated in this process: each of the P
+    data ranks encodes its tp-local shard of every tensor (K1, W8 shift,
+    under the engine's per-tensor keys) and the P buffers laid end to end
+    are decoded by one K2 launch (bf16), byte-equal to the same functions on
+    K1/K2's plain versions.  With `timing` (the kernel phase's ``(k1_row,
+    decode_row, addcmul_ms)``), K1 on one rank's MLP shard and the K2 decode
+    are timed against their bounds, K2 beside ``torch.addcmul``.  Returns
+    (K1 rows, K2 rows), off the one-rank main path."""
+    from repro_torch import configs
+    from repro_torch.core import collectives as coll
+    from repro_torch.core import prng
+    from repro_torch.core.qsdp import MeshSpec, QSDPConfig
+    from repro_torch.kernels import cost, ops, ref
+    from repro_torch.models.transformer import Model
+
+    k1_rows, k2_rows = [], []
+    for p, m in TP_MESHES:
+        eng = Model(configs.get_config(DIST_ARCH), MeshSpec(("data", "model"), (1, m)),
+                    QSDPConfig(), model_rank=0).engine
+        names = tuple(sorted(n for n in eng.specs if n.startswith("layers/")))
+        lay = dist_layout(eng, names, p)
+        keys = [prng.fold_in(prng.PRNGKey(33), i) if s.cfg is not None else None
+                for i, s in enumerate(lay.segments)]
+        out_dts = [eng.compute_dtype if s.cfg is not None else torch.float32
+                   for s in lay.segments]
+        gen = torch.Generator(device=dev).manual_seed(200 + 10 * p + m)
+        xs = [[torch.randn(s.n, generator=gen, device=dev) * 0.02 for s in lay.segments]
+              for _ in range(p)]
+
+        def work():
+            gbuf = torch.cat([coll.encode_wire(x, lay, keys) for x in xs])
+            return gbuf, coll.decode_gathered_wire(gbuf, lay, p, out_dts)
+
+        got = work()
+        with plain_kernels(ops, ref):
+            want = work()
+        check(torch.equal(got[0], want[0]), f"tp (P, M) = ({p}, {m}): gathered buffers differ")
+        for a, b in zip(got[1], want[1], strict=True):
+            check(a.dtype == b.dtype and torch.equal(a.view(torch.uint8), b.view(torch.uint8)),
+                  f"tp (P, M) = ({p}, {m}): decoded values differ from the plain versions'")
+        gbuf = got[0]
+        table, dts = coll.wire_table(lay, p, out_dts)
+        n_launch = -(-len(table) // ops.WIRE_MAX_SEGS)
+        mlp = lay.segments[names.index("layers/w_gate")].n
+        line = (f"tp: (P, M) = ({p}, {m}): {DIST_ARCH} layer, tp-local shards of {mlp} "
+                f"values (MLP weight) a rank, {gbuf.numel()} gathered bytes decoded in "
+                f"{n_launch} K2 launch(es) over {len(table)} entries: byte-equal to the plain "
+                "versions")
+        if timing is not None:
+            k1_row, decode_row, addcmul_ms = timing
+            x = xs[0][names.index("layers/w_gate")].reshape(-1, 1024)
+            _, r1 = k1_row(f"{DIST_ARCH} MLP weight tp-local shard, (P, M) = ({p}, {m})", x,
+                           keys[names.index("layers/w_gate")], "shift")
+            k1_rows.append(dict(r1, p=p, m=m, main_path=False))
+            r2 = decode_row(f"{DIST_ARCH} gathered tp-local layer, (P, M) = ({p}, {m}) "
+                            f"({len(table)} entries), bf16 out", sum(t.nb for t in table),
+                            lambda: ops.unpack_dequantize_wire(gbuf, table, dts),
+                            lambda: ref.unpack_dequantize_wire_ref(gbuf, table, dts),
+                            wire_addcmul(torch, addcmul_ms, gbuf, table, dts),
+                            cost.unpack_dequantize_wire(table, [d.itemsize for d in dts]))
+            k2_rows.append(dict(r2, p=p, m=m, table=len(table), launches=n_launch,
+                                main_path=False))
+            for what, r in (("K1", r1), ("K2", r2)):
+                b_ms, b_by = r["bound"]
+                line += (f"; {what} {r['ms']:.4f} ms (kernel alone {r['kernel_ms']:.4f}, "
+                         f"{100 * b_ms / r['kernel_ms']:.0f}% of its bound {b_ms:.4f} ms by "
+                         f"{b_by}; plain {r['plain_ms']:.4f}")
+                line += (f"; torch.addcmul {r['library_ms']:.4f}, kernel "
+                         f"{r['library_kernel_ms']:.4f})" if what == "K2" else ")")
+        else:
+            k2_rows.append(dict(p=p, m=m, table=len(table), launches=n_launch,
+                                main_path=False))
+        log(line)
+        del xs, got, want, gbuf
+    return k1_rows, k2_rows
+
+
+def tp_blocks(torch, log, dev="cuda"):
+    """(d): tensor parallelism's blocks rank by rank (module docstring).
+    The whole weights are drawn at their logical shapes; model rank r holds
+    its rest-layout block at (1, M) and gathers it through the engine of a
+    (1, M) model computing rank r alone (``model_rank=r``: every model-axis
+    sum the identity), so its share is its heads' (or columns') part of the
+    block's output; the M shares are summed in rank order, as the model
+    group's sum adds them.  The one-rank block runs on the whole weights
+    assembled (``from_rest``) from the same decoded shards.  Returns one
+    row a (dtype, arch, M, block): the error over the block's largest
+    value and the tolerance."""
+    import dataclasses as dc_
+
+    from repro_torch import configs
+    from repro_torch.core import prng
+    from repro_torch.core.qsdp import MeshSpec, QSDPConfig, from_rest, rank_block, to_rest
+    from repro_torch.kernels import ops
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import layers as L
+    from repro_torch.models.transformer import Model
+
+    t0 = time.perf_counter()
+    rows = []
+    b, sq = TP_BLOCK_BS
+    ops.reset_launches()
+    with torch.no_grad():
+        for dtype in ("bfloat16", "float32"):
+            for arch, m, blocks in TP_BLOCKS:
+                cfg = configs.get_config(arch)
+                qc = QSDPConfig(compute_dtype=dtype)
+                ms = MeshSpec(("data", "model"), (1, m))
+                ranks = [Model(cfg, ms, qc, model_rank=r) for r in range(m)]
+                whole = Model(cfg, MeshSpec(("data", "model"), (1, 1)), qc)
+                dt = ranks[0].compute_dtype
+                gen = torch.Generator(device=dev).manual_seed(300 + m)
+                x = torch.randn((b, sq, cfg.d_model), generator=gen, device=dev).to(dt)
+                pos = torch.arange(sq, device=dev)
+                cos, sin = L.rope_cos_sin(pos, cfg.head_dim, cfg.rope_theta)
+                for block in blocks:
+                    names = [n for n in TP_BLOCK_NAMES[block] if f"layers/{n}" in whole.specs]
+                    specs = {n: dc_.replace(ranks[0].specs[f"layers/{n}"], stack=None)
+                             for n in names}
+                    full = {n: torch.randn(sp.shape, generator=gen, device=dev)
+                            / math.sqrt(sp.shape[0]) for n, sp in specs.items()}
+                    key = prng.fold_in(prng.PRNGKey(34), m)
+                    shares, decoded = [], []
+                    for r, mdl in enumerate(ranks):
+                        w = mdl.engine.gather_layer("layers/", {
+                            n: rank_block(to_rest(full[n], specs[n], ms), 0, 1, r, m)
+                            for n in names}, key)
+                        decoded.append(w)
+                        if block == "attention":
+                            shares.append(attn_mod.self_attention(x, w, mdl.acfg, cos, sin, pos,
+                                                                  rank=r)[0])
+                        else:
+                            shares.append(L.swiglu_mlp(x, w["w_gate"], w["w_up"], w["w_down"]))
+                    got = functools.reduce(torch.add, shares)
+                    wfull = {}
+                    for n, sp in specs.items():
+                        n_loc = sp.n_local(ms)
+                        rest = torch.stack([torch.nn.functional.pad(
+                            d[n].reshape(-1), (0, n_loc - d[n].numel())) for d in decoded])
+                        wfull[n] = from_rest(rest[:, None], sp, ms)
+                    if block == "attention":
+                        want = attn_mod.self_attention(x, wfull, whole.acfg, cos, sin, pos)[0]
+                    else:
+                        want = L.swiglu_mlp(x, wfull["w_gate"], wfull["w_up"], wfull["w_down"])
+                    err = ((got.float() - want.float()).abs().max()
+                           / want.float().abs().max()).item()
+                    tol = TP_BLOCK_TOL[dtype]
+                    kv = (f", KV {ranks[0].acfg.kv_mode}" if block == "attention" else "")
+                    check(got.dtype == want.dtype == dt and math.isfinite(err) and err <= tol,
+                          f"tp blocks: {arch} {block} at M = {m} ({dtype}{kv}): the ranks' "
+                          f"sum is {err:.3e} of the whole block's largest value from it "
+                          f"(tolerance {tol:.3e})")
+                    rows.append(dict(arch=arch, m=m, block=block, dtype=dtype, err=err,
+                                     tol=tol))
+                    log(f"tp blocks: {arch} {block} at full width (d_model {cfg.d_model}), M = "
+                        f"{m}{kv}, {dtype}, B x S = {b} x {sq}: the {m} model ranks' shares "
+                        f"summed in rank order are {err:.3e} of the whole block's largest "
+                        f"value from it (tolerance {tol:.3e})")
+                    del shares, decoded, got, want, wfull, full
+    if dev == "cuda":
+        torch.cuda.synchronize()
+    counts = dict(ops.LAUNCHES)
+    check(counts["quantize_pack"] > 0 and counts["unpack_dequantize"] > 0,
+          f"tp blocks: the gathers launched {counts}")
+    log(f"tp blocks: {time.perf_counter() - t0:.1f} s; the ranks' gathers launched {counts}")
+    return rows
 
 
 def profile_experiment_step(torch, log, cfg, qsdp, batch, seq, dev):

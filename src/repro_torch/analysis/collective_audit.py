@@ -21,8 +21,8 @@ names the kernel.  With a DeploymentPlan the engine
 is built from the plan's qsdp section and the plan's recorded per-group
 policies are cross-checked against that engine (drift = a stale plan).
 
-More than one rank (``--mesh`` other than 1,1) needs the multi-rank engine
-(ROADMAP A4b) and its two-level gathers (A3b): :func:`audit` refuses it.
+More than one rank (``--mesh`` other than 1,1) needs a count of every
+rank's step and its collectives (ROADMAP A12e): :func:`audit` refuses it.
 
 The count/byte differs are pure functions of the counts, so seeded
 regression tests drive them with hand-written numbers.
@@ -144,8 +144,8 @@ def audit(arch: str = "gpt-125m", mesh_shape=(1, 1),
 
     if tuple(mesh_shape) != MS11.shape:
         raise NotImplementedError(
-            f"mesh {tuple(mesh_shape)}: the collective audit counts one rank; more ranks need "
-            "the multi-rank engine (ROADMAP A4b) and its two-level gathers (A3b)")
+            f"mesh {tuple(mesh_shape)}: the collective audit counts one rank; an audit over "
+            "more ranks is not ported yet (ROADMAP A12e)")
     ms = MS11
     mcfg = configs.get_smoke(arch) if smoke else configs.get_config(arch)
     tag = f"{mcfg.name}@{ms.shape[0]}x{ms.shape[1]}"

@@ -9,7 +9,7 @@ and exit codes).
 
 Exit codes: 0 = no non-baselined findings, 1 = new findings (printed and
 written to the JSON report), 2 = a pass crashed (or ``--mesh`` names more
-than one rank: the port audits one, ROADMAP A4b/A3b).
+than one rank: the port audits one, ROADMAP A12e).
 ``--update-baseline`` rewrites the baseline from the current findings (new
 entries get a TODO justification to hand-edit — suppressions are
 code-reviewed, not generated).  The pass ``jaxpr`` keeps the reference's
@@ -68,9 +68,8 @@ def main(argv=None) -> int:
 
     mesh_shape = tuple(int(x) for x in args.mesh.split(","))
     if mesh_shape != (1, 1):
-        print(f"--mesh {args.mesh}: the port audits one rank (1,1); more ranks need the "
-              "multi-rank engine (ROADMAP A4b) and its two-level gathers (A3b)",
-              file=sys.stderr)
+        print(f"--mesh {args.mesh}: the port audits one rank (1,1); an audit over more "
+              "ranks is not ported yet (ROADMAP A12e)", file=sys.stderr)
         return 2
 
     from .findings import (load_baseline, make_report, partition_findings,

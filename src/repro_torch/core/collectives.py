@@ -12,8 +12,9 @@
   gathered (or all-to-all'd) with one collective; :class:`WireLayout`
   describes the buffer.
 
-Every exchange takes a ``torch.distributed`` process group over the FSDP
-(data) axis.  ``group=None`` is the one-rank path: the gather and the
+Every exchange takes a ``torch.distributed`` process group: the FSDP
+exchanges the rank's data group, the sums and maxima of ``core/tp.py`` its
+model group.  ``group=None`` is the one-rank path: the gather and the
 all-to-all of a buffer are the buffer itself, as on the JAX package's
 (1, 1) mesh, while encode and decode still run the quantize and dequantize
 kernels.  A group of any size, one rank included, exchanges through
@@ -115,8 +116,29 @@ def gather_axis(x: torch.Tensor, group, axis: int) -> torch.Tensor:
 @_collective
 def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
     """The sum of `x` over the group, on every rank (a new tensor)."""
-    y = x.clone()
-    _dist().all_reduce(y, group=group)
+    return _all_reduce(x, group, "SUM")
+
+
+@_collective
+def all_reduce_max(x: torch.Tensor, group) -> torch.Tensor:
+    """The elementwise max of `x` over the group, on every rank (a new
+    tensor): the reference's ``pmax``."""
+    return _all_reduce(x, group, "MAX")
+
+
+@_collective
+def ordered_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of `x` over the group, on every rank (a new tensor), added in
+    rank order ``((r0 + r1) + r2) + ...``, the order of the reference's psum
+    on XLA's CPU, so every rank holds the same bits as the reference: one
+    all-gather and P - 1 adds (a ring all-reduce adds in another order)."""
+    return _sum_rows(list(_gather(x.detach()[None], group)))
+
+
+def _all_reduce(x: torch.Tensor, group, op: str) -> torch.Tensor:
+    dist = _dist()
+    y = x.detach().clone()
+    dist.all_reduce(y, op=getattr(dist.ReduceOp, op), group=group)
     _count("all_reduce", (group_size(group) - 1) * y.numel() * y.element_size())
     return y
 

@@ -23,12 +23,17 @@ backward re-gathers each layer from the same key (byte-identical weights),
 and each gather's backward runs once: the paper's 2x AllGather + 1x
 ReduceScatter per layer per step.
 
-The engine runs on a (P, 1) mesh: P ranks of a ``torch.distributed`` group
-on the FSDP (data) axis, model axis 1.  Each rank holds its block ``(stack?,
-1, 1, n_local)`` of every rest-layout leaf, the block ``shard_map`` gives
-each device of the reference.  ``group=None`` is the one-rank path of the
-(1, 1) mesh.  The model axis above 1 (ROADMAP A4b), the two-level gathers
-of a "pod" axis (A3b) and serving over ranks (A10e) are refused.
+The engine runs on a (P, M) ("data", "model") mesh of P·M ranks: each
+rank, at (data rank d, model rank m), holds its block ``(stack?, 1, 1,
+n_local)`` of every rest-layout leaf, row m and column d of the leaf, the
+block ``shard_map`` gives device ``d·M + m`` of the reference.  The gathers
+and reduce-scatters exchange over the rank's data group (the P ranks of
+its m) at the TP-local sizes; a model-replicated parameter consumed
+rank-specifically (``ParamSpec.grad_sync_model``: replicated KV) has its
+reduce-scattered gradient summed over the model group (the M ranks of its
+d).  ``group=None`` and ``model_group=None`` are the one-rank axes.  The
+two-level gathers of a "pod" axis (ROADMAP A3b) and serving over ranks
+(A10e) are refused.
 """
 from __future__ import annotations
 
@@ -44,6 +49,7 @@ from . import prng
 from ..kernels import ops
 from .quant import (QuantConfig, QuantizedParam, kernel_dtype, quantize, unpack_codes,
                     wire_codes, wire_unpack)
+from .tp import model_sum
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -77,8 +83,8 @@ class ParamSpec:
     init: str = "normal"              # normal | scaled_normal | zeros | ones | constant
     init_scale: float = 0.02
     quantize: bool = True             # False: always full-precision comm
-    # model-replicated but consumed rank-specifically (the reference psums its
-    # gradient over the model axis); the identity at tp = 1
+    # model-replicated but consumed rank-specifically: its gradient is summed
+    # over the model group after the reduce-scatter (the reference's psum)
     grad_sync_model: bool = False
 
     def tp_local_shape(self, model_size: int) -> tuple[int, ...]:
@@ -102,8 +108,8 @@ class ParamSpec:
         return (self.stack, *base) if self.stack is not None else base
 
     def local_shape(self, ms: MeshSpec) -> tuple[int, ...]:
-        """One rank's block of :meth:`rest_shape`: FSDP axis 1."""
-        return (*self.rest_shape(ms)[:-2], 1, self.n_local(ms))
+        """One rank's block of :meth:`rest_shape`: model and FSDP axes 1."""
+        return (*self.rest_shape(ms)[:-3], 1, 1, self.n_local(ms))
 
 
 def to_rest(full: torch.Tensor, spec: ParamSpec, ms: MeshSpec) -> torch.Tensor:
@@ -143,13 +149,15 @@ def from_rest(rest: torch.Tensor, spec: ParamSpec, ms: MeshSpec) -> torch.Tensor
     return x.reshape(*s[:ax], s[ax] * s[ax + 1], *s[ax + 2:])
 
 
-def rank_block(rest, rank: int, p: int):
-    """Rank `rank`'s block of a rest-layout leaf of a (P, 1) mesh (a tensor
-    or an array): axis -2, the FSDP axis, sliced to ``[rank:rank + 1]``; the
-    leaf itself at one rank."""
-    if p == 1:
+def rank_block(rest, rank: int, p: int, model_rank: int = 0, model_size: int = 1):
+    """The block of a rest-layout leaf (a tensor or an array) that the rank
+    at (data rank `rank`, model rank `model_rank`) of a (P, M) mesh holds:
+    axis -3, the model axis, sliced to ``[model_rank:model_rank + 1]`` and
+    axis -2, the FSDP axis, to ``[rank:rank + 1]``; the leaf itself at one
+    rank."""
+    if p == 1 and model_size == 1:
         return rest
-    block = rest[..., rank:rank + 1, :]
+    block = rest[..., model_rank:model_rank + 1, rank:rank + 1, :]
     return block.clone() if isinstance(block, torch.Tensor) else block.copy()
 
 
@@ -264,7 +272,7 @@ class _GatherLayer(torch.autograd.Function):
         keys = [prng.fold_in(_tensor_key(ctx.key, n), _GRAD_SALT)
                 if s.cfg is not None else None for n, s in zip(ctx.names, layout.segments)]
         gs = coll.reduce_scatter_coalesced([c.float() for c in cts], layout, keys, eng.group)
-        return (None, None, None, *(g / p for g in gs))
+        return (None, None, None, *(eng._sync_model(n, g / p) for n, g in zip(ctx.names, gs)))
 
 
 class _GatherOne(torch.autograd.Function):
@@ -288,16 +296,12 @@ class _GatherOne(torch.autograd.Function):
             g = coll.reduce_scatter_quantized(ct, eng.cfg.gcfg(), bkey, eng.group)
         else:
             g = coll.reduce_scatter_fp(ct, eng.group, _DTYPES[eng.cfg.grad_wire_dtype])
-        return None, None, None, g / eng.ms.fsdp_size
+        return None, None, None, eng._sync_model(name, g / eng.ms.fsdp_size)
 
 
 def check_mesh(ms: MeshSpec) -> None:
-    """Refuse a mesh the port does not run: a model axis above 1 (ROADMAP
-    A4b) or a "pod" axis, whose FSDP exchanges are two-level (A3b)."""
-    if ms.model_size > 1:
-        raise NotImplementedError(
-            f"mesh {dict(zip(ms.axes, ms.shape))}: tensor parallelism (model axis > 1) is "
-            "not ported yet (ROADMAP A4b)")
+    """Refuse a mesh the port does not run: a "pod" axis, whose FSDP
+    exchanges are two-level (ROADMAP A3b)."""
     if "pod" in ms.axes:
         raise NotImplementedError(
             f"mesh {dict(zip(ms.axes, ms.shape))}: the two-level gathers of a 'pod' axis "
@@ -308,18 +312,41 @@ class QSDPEngine:
     """Binds a MeshSpec + QSDPConfig + parameter specs into gather calls."""
 
     def __init__(self, ms: MeshSpec, cfg: QSDPConfig, specs: dict[str, ParamSpec],
-                 group=None):
+                 group=None, model_group=None, model_rank: Optional[int] = None):
+        """`group`: the rank's data group (its FSDP exchanges); `model_group`:
+        its model group (None: one rank each).  Without a model group on a
+        model axis above 1, `model_rank` names the one model rank whose
+        share this process computes alone (every model-axis sum the
+        identity): the rank-by-rank emulation of the tp-local work in one
+        process."""
         check_mesh(ms)
+        mesh = dict(zip(ms.axes, ms.shape))
         if ms.fsdp_size != coll.group_size(group):
-            raise ValueError(
-                f"mesh {dict(zip(ms.axes, ms.shape))} has {ms.fsdp_size} FSDP ranks but the "
-                f"process group has {coll.group_size(group)} (group=None is one rank)")
+            raise ValueError(f"mesh {mesh} has {ms.fsdp_size} FSDP ranks but the process "
+                             f"group has {coll.group_size(group)} (group=None is one rank)")
+        if model_group is not None or model_rank is None:
+            if ms.model_size != coll.group_size(model_group):
+                raise ValueError(
+                    f"mesh {mesh} has {ms.model_size} model ranks but the model group has "
+                    f"{coll.group_size(model_group)} (None is one rank, unless model_rank "
+                    "names the rank computed alone)")
+            model_rank = coll.group_rank(model_group)
+        elif not 0 <= model_rank < ms.model_size:
+            raise ValueError(f"model_rank {model_rank} is not on the mesh {mesh}")
         self.ms = ms
         self.cfg = cfg
         self.specs = specs
         self.group = group
+        self.model_group = model_group
         self.rank = coll.group_rank(group)
+        self.model_rank = model_rank
         self.compute_dtype = _DTYPES[cfg.compute_dtype]
+
+    def _sync_model(self, name: str, g: torch.Tensor) -> torch.Tensor:
+        """A reduce-scattered gradient, summed over the model group where
+        the parameter is ``grad_sync_model`` (reference ``qsdp.py:379-380,
+        507-510``)."""
+        return model_sum(g, self.model_group) if self.specs[name].grad_sync_model else g
 
     # -- static policy --------------------------------------------------------
 
@@ -410,6 +437,7 @@ class QSDPEngine:
         (K, N) / (K, N / bucket) RowQuantWeight layout.  Serving runs on one
         rank (ROADMAP A10e)."""
         coll.require_one_rank(self.group)
+        coll.require_one_rank(self.model_group)
         codes = q.codes
         if cfg.codes_per_byte > 1:
             codes = unpack_codes(codes, cfg.bits)
@@ -463,6 +491,7 @@ class QSDPEngine:
         if not qps:
             return {}
         coll.require_one_rank(self.group)
+        coll.require_one_rank(self.model_group)
         names = sorted(qps)
         bufs = [qps[n].wire.reshape(-1) for n in names]
         table = [wire_codes(0, qps[n].n, qps[n].cfg) for n in names]
@@ -475,10 +504,10 @@ class QSDPEngine:
 
     def init_params(self, seed: int, device) -> dict[str, torch.Tensor]:
         """Every leaf drawn whole, as at one rank, and this rank's block kept:
-        P ranks hold exactly the one-rank state's values."""
+        the P·M ranks hold exactly the whole state's values."""
         gen = torch.Generator(device=device).manual_seed(seed)
         return {name: rank_block(init_param(gen, spec, self.ms, device), self.rank,
-                                 self.ms.fsdp_size)
+                                 self.ms.fsdp_size, self.model_rank, self.ms.model_size)
                 for name, spec in sorted(self.specs.items())}
 
 

@@ -30,7 +30,8 @@ def main(argv=None):
     device = resolve_device(args.device)
 
     # 1. mesh ("data", "model"): FSDP over data, tensor-parallel over model;
-    #    the port runs one rank (ROADMAP A3b/A4b bring more)
+    #    this example runs one rank (launch/train.py --data-par/--model-par
+    #    runs more)
     ms = MeshSpec(axes=("data", "model"), shape=(1, 1))
 
     # 2. the paper's technique, as config: quantize everything FSDP transmits

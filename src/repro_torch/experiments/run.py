@@ -11,7 +11,7 @@
 | fig78_compression_error      | Figures 7/8                  |
 
 The reference's suite also runs ``fig4_bandwidth_model`` (not ported:
-its parts need more than one rank, ROADMAP A4b) and ``roofline_report``,
+its parts need the tooling over ranks, ROADMAP A12e) and ``roofline_report``,
 whose twin ``experiments.roofline_report`` reports the dry run's sweeps
 (``launch.dryrun --all``) and runs on its own.
 Runs on the card unless given ``--device cpu``.

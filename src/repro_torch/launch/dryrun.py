@@ -18,8 +18,8 @@ Per pair this prints the roofline summary and the counting time, the
 state's bytes and the peak of live bytes above them; ``--out`` writes one
 JSON record per pair per line (the format ``experiments.roofline_report``
 reads).  The mesh is ``1x1`` (one chip): the reference's production meshes
-(``--multi-pod``, ``--both-meshes``) wait for the multi-rank engine
-(ROADMAP A4b), its two-level gathers (``--hierarchical``) for A3b.
+(``--multi-pod``, ``--both-meshes``) wait for a dry run over ranks (ROADMAP
+A12e), its two-level gathers (``--hierarchical``) for A3b.
 
 A train step runs ``global_batch`` one-row microbatches at one rank (the
 reference's ``n_micro = global_batch // fsdp_size``).  The dry run counts
@@ -270,8 +270,8 @@ def main(argv=None):
 
     for flag, item in ((args.multi_pod, "--multi-pod"), (args.both_meshes, "--both-meshes")):
         if flag:
-            sys.exit(f"{item}: the production meshes need the multi-rank engine (ROADMAP A4b); "
-                     f"the port's dry run counts the {MESH} mesh")
+            sys.exit(f"{item}: the production meshes need a dry run over ranks (ROADMAP "
+                     f"A12e); the port's dry run counts the {MESH} mesh")
     if args.hierarchical:
         sys.exit("--hierarchical: two-level gathers are not ported yet (ROADMAP A3b)")
     if not args.all and args.arch is None:

@@ -27,8 +27,8 @@ prefill, paged pool or speculation, as in the reference; the VLM and audio
 prompts carry the reference's modality stubs, and qwen2-vl-72b's 286 GB of
 f32 weights do not fit one card at full depth); ``--smoke`` serves its
 2-layer smoke config; ``--device cpu`` runs the plain versions of the
-kernels on the CPU.  Serving runs on one rank: ``--data-par`` above 1
-waits for ROADMAP A10e, ``--model-par`` above 1 for A4b.  ``--plan PLAN.json`` (from
+kernels on the CPU.  Serving runs on one rank: ``--data-par`` or
+``--model-par`` above 1 waits for ROADMAP A10e.  ``--plan PLAN.json`` (from
 ``repro_torch.tune.autotune``) pins the QSDP comm policy and gives the
 serve knobs' defaults; flags typed on the command line still win.
 """
@@ -63,7 +63,7 @@ def _build_parser():
     ap.add_argument("--data-par", type=int, default=1,
                     help="FSDP ranks; serving runs on one (ROADMAP A10e)")
     ap.add_argument("--model-par", type=int, default=1,
-                    help="tensor-parallel ranks; 1 (ROADMAP A4b)")
+                    help="tensor-parallel ranks; serving runs on one (ROADMAP A10e)")
     ap.add_argument("--wbits", type=int, default=8)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
@@ -121,8 +121,8 @@ def validate_args(ap, args) -> None:
         ap.error(f"--data-par {args.data_par}: serving over more than one rank is not "
                  "ported yet (ROADMAP A10e)")
     if args.model_par != 1:
-        ap.error(f"--model-par {args.model_par}: tensor parallelism is not ported yet "
-                 "(ROADMAP A4b)")
+        ap.error(f"--model-par {args.model_par}: serving over more than one rank is not "
+                 "ported yet (ROADMAP A10e)")
     if not 2 <= args.wbits <= 8:
         ap.error(f"--wbits must be in 2..8 (got {args.wbits})")
     if min(args.batch, args.prompt_len, args.gen) < 1:

@@ -1,18 +1,21 @@
 """Training launcher of the port: QSDP training of the dense, MoE, SSM and
-hybrid families on one card, and of the dense family over P data-parallel
-ranks, with flag parity to the JAX package's ``launch/train.py``.
+hybrid families on one card, and of the dense family over a (P, M) mesh of
+P data-parallel by M tensor-parallel ranks, with flag parity to the JAX
+package's ``launch/train.py``.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch gpt-1.3b \\
       --steps 10 --batch 4 --seq 2048 --n-micro 2
 
-Over P data-parallel ranks (the (P, 1) mesh), one process a rank:
+Over the (P, M) mesh, one process a rank:
 
-  torchrun --nproc_per_node P -m repro_torch.launch.train --data-par P ...
+  torchrun --nproc_per_node P·M -m repro_torch.launch.train \\
+      --data-par P --model-par M ...
 
-Under torchrun (``WORLD_SIZE`` set) the launcher forms the group
+Under torchrun (``WORLD_SIZE`` set) the launcher forms the groups
 (``launch.mesh.init_distributed``: NCCL on the card, gloo with ``--device
-cpu``), at ``--data-par 1`` too; ``--data-par`` must equal the world size.
-Each rank steps its own rows of every global batch; rank 0 alone prints
+cpu``), at one rank too; P·M must equal the world size.  Each data rank
+steps its own rows of every global batch (``--batch`` splits over P only;
+the M ranks of a data rank take the same rows); global rank 0 alone prints
 and writes the checkpoint and the JSON log.
 
 ``--smoke`` trains the 2-layer smoke config; ``--device cpu`` runs the
@@ -20,9 +23,9 @@ plain versions of the kernels on the CPU.  ``--plan PLAN.json`` (from
 ``repro_torch.tune.autotune``) pins the comm policy instead of the
 individual flags.  Uses the deterministic synthetic
 Markov corpus, so loss curves are reproducible.  What the port does not
-run yet exits with an error naming the ROADMAP item that brings it: a model
-axis above 1 (``--model-par``, A4b), ``--hierarchical`` (A3b),
-``--prefetch`` (A4b), the other families over ranks (A11h).  The
+run yet exits with an error naming the ROADMAP item that brings it:
+``--hierarchical`` (A3b), ``--prefetch`` (A4b), the other families over
+ranks, either axis (A11h).  The
 VLM and audio families exit with an error too: their batches carry
 modality inputs that the corpus does not give (the JAX launcher feeds the
 same corpus and fails in ``loss_fn``); they train through
@@ -77,16 +80,15 @@ def validate_args(ap: argparse.ArgumentParser, args) -> None:
             ap.error(f"{flag} is not ported yet (ROADMAP {item})")
     if args.data_par < 1 or args.model_par < 1:
         ap.error("--data-par/--model-par must be >= 1")
-    if args.model_par != 1:
-        ap.error("--model-par > 1: tensor parallelism is not ported yet (ROADMAP A4b)")
-    world = int(os.environ.get("WORLD_SIZE", 1))
-    if args.data_par != world:
-        ap.error(f"--data-par {args.data_par} trains over as many ranks, one process "
-                 f"each: launch it with torchrun --nproc_per_node {args.data_par} (the "
-                 f"world has {world})")
-    if args.data_par > 1 and family != "dense":
+    n_ranks = args.data_par * args.model_par
+    if n_ranks > 1 and family != "dense":
         ap.error(f"--arch {args.arch}: the {family} family over ranks is not ported yet "
                  "(ROADMAP A11h)")
+    world = int(os.environ.get("WORLD_SIZE", 1))
+    if n_ranks != world:
+        ap.error(f"--data-par {args.data_par} x --model-par {args.model_par} trains over "
+                 f"{n_ranks} ranks, one process each: launch it with torchrun "
+                 f"--nproc_per_node {n_ranks} (the world has {world})")
     if args.batch % (args.data_par * args.n_micro):
         ap.error(f"--batch {args.batch} does not split into --data-par {args.data_par} x "
                  f"--n-micro {args.n_micro}")
@@ -169,15 +171,16 @@ def parse_args(argv=None):
 
 def main(argv=None):
     args = parse_args(argv)
-    ms = MeshSpec(axes=("data", "model"), shape=(args.data_par, 1))
-    group, rank = None, 0
+    ms = MeshSpec(axes=("data", "model"), shape=(args.data_par, args.model_par))
+    group = model_group = None
+    d = m = 0
     if "WORLD_SIZE" in os.environ:
-        group, rank, device = init_distributed(args.device, ms)
+        group, model_group, (d, m), device = init_distributed(args.device, ms)
     else:
         device = resolve_device(args.device)
     cfg = configs.get_smoke(args.arch) if args.smoke else configs.get_config(args.arch)
     qsdp = build_qsdp(args)
-    model = Model(cfg, ms, qsdp, group)
+    model = Model(cfg, ms, qsdp, group, model_group)
     opt = make_adamw(AdamWConfig(lr=args.lr,
                                  schedule=cosine_schedule(args.lr, args.warmup, args.steps),
                                  moment_bits=args.moment_bits))
@@ -200,14 +203,16 @@ def main(argv=None):
     if args.quantized_state:
         tag += f" qstate{args.master_bits}" + (f"m{args.moment_bits}" if args.moment_bits else "")
     n_params = sum(math.prod(s.shape) * (s.stack or 1) for s in model.specs.values())
-    say = print if rank == 0 else (lambda *a, **k: None)
-    say(f"# {cfg.name} [{tag}] mesh=({args.data_par},1) on {device}: batch={args.batch} "
+    rank0 = d == m == 0
+    say = print if rank0 else (lambda *a, **k: None)
+    say(f"# {cfg.name} [{tag}] mesh=({args.data_par},{args.model_par}) on {device}: "
+        f"batch={args.batch} "
         f"seq={args.seq} params~{n_params / 1e6:.1f}M "
         f"bigram-floor={data.bigram_entropy():.3f} nats")
     log = []
     t0 = time.time()
     for i in range(args.steps):
-        batch = local_batch(make_batch(data, i, device), rank, args.data_par)
+        batch = local_batch(make_batch(data, i, device), d, args.data_par)
         state, m = step(state, batch, prng.fold_in(prng.PRNGKey(args.seed + 1), i))
         if i % args.log_every == 0 or i == args.steps - 1:
             log.append(dict(step=i, loss=float(m["loss"]), gnorm=float(m["grad_norm"]),
@@ -216,9 +221,9 @@ def main(argv=None):
                 f"({log[-1]['t']:6.1f}s)")
     if args.ckpt:
         save_checkpoint(args.ckpt, state, meta=dict(arch=cfg.name, steps=args.steps),
-                        group=group)
+                        group=group, model_group=model_group)
         say(f"checkpoint -> {args.ckpt}")
-    if args.out_json and rank == 0:
+    if args.out_json and rank0:
         with open(args.out_json, "w") as f:
             json.dump(dict(arch=cfg.name, tag=tag, device=str(device), log=log), f, indent=1)
     if group is not None:

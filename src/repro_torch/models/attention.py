@@ -7,7 +7,8 @@ cached encoder KV (``models/attention.py`` of the JAX package).
 These are plain PyTorch tensor ops: the JAX package has no Pallas
 attention kernel.  Query heads are padded to a multiple of the model-axis
 size and padded heads are masked; the KV ring is sequence-sharded over the
-model axis.  ``rank`` is the model-axis index (0 on the one-rank mesh).
+model axis.  ``rank`` is the model-axis index and ``group`` the model group
+of the training path (serving runs on one model rank, ROADMAP A10e).
 """
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ import math
 
 import torch
 
+from ..core.collectives import require_one_rank
 from ..core.tp import tp_copy, tp_reduce
 from .layers import apply_rope
 
@@ -122,21 +124,26 @@ def _proj(x, w: dict, name: str):
 
 
 def self_attention(x, w: dict, cfg: AttnConfig, cos, sin, positions,
-                   cache_slice: bool = False):
-    """Training / prefill self-attention.  Returns (out (B, S, d), (k_full,
-    v_full) if cache_slice else None), k/v (B, S, n_kv, hd) rope-applied."""
+                   cache_slice: bool = False, rank: int = 0, group=None):
+    """Training / prefill self-attention of model rank `rank`'s heads
+    (reference ``attention.py:195-228``), its output summed over the model
+    group `group`.  Returns (out (B, S, d), (k_full, v_full) if cache_slice
+    else None), k/v (B, S, n_kv, hd) rope-applied; the prefill's KV runs on
+    one model rank (serving over ranks is ROADMAP A10e)."""
+    if cache_slice:
+        require_one_rank(group, "A10e")
     b, s, _ = x.shape
     hd = cfg.head_dim
-    xi = tp_copy(x)
+    xi = tp_copy(x, group)
     q, k, v = (_proj(xi, w, n) for n in "qkv")
     q = apply_rope(q.reshape(b, s, cfg.heads_local, hd), cos, sin)
     k = apply_rope(k.reshape(b, s, cfg.kv_local, hd), cos, sin)
     v = v.reshape(b, s, cfg.kv_local, hd)
-    o = flash_attention(q, _expand_kv_local(k, cfg), _expand_kv_local(v, cfg),
+    o = flash_attention(q, _expand_kv_local(k, cfg, rank), _expand_kv_local(v, cfg, rank),
                         positions, positions, cfg.causal, cfg.sliding_window,
                         cfg.q_chunk, cfg.kv_chunk, cfg.mxu_bf16)
-    o = o * _local_head_mask(cfg, x.device)[None, None, :, None].to(o.dtype)
-    out = tp_reduce(o.reshape(b, s, cfg.heads_local * hd) @ w["wo"])
+    o = o * _local_head_mask(cfg, x.device, rank)[None, None, :, None].to(o.dtype)
+    out = tp_reduce(o.reshape(b, s, cfg.heads_local * hd) @ w["wo"], group)
     if not cache_slice:
         return out, None
     return out, (k, v)  # one model rank: the local KV heads are all heads

@@ -4,7 +4,8 @@ package's ``models/layers.py``).
 Conventions (see ``core/tp.py``): activations entering TP-sharded compute
 pass through ``tp_copy``, row-parallel outputs through ``tp_reduce``; all
 weights are gathered TP-local tensors.  ``rank`` is this process's index on
-the model axis (0 on the one-rank mesh of this slice).
+the model axis and ``group`` its model group (None: the sums are the
+identity, so a caller can compute one rank's share alone).
 """
 from __future__ import annotations
 
@@ -12,7 +13,7 @@ import torch
 import torch.nn.functional as F
 
 from ..core import prng
-from ..core.tp import tp_copy, tp_reduce
+from ..core.tp import model_max, model_sum, tp_copy, tp_reduce
 from ..kernels import ops
 from ..kernels.ops import RowQuantWeight, rowquant_matmul
 
@@ -63,35 +64,39 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
 
 
 def embed_vocab_parallel(tokens: torch.Tensor, emb_local: torch.Tensor,
-                         rank: int = 0) -> torch.Tensor:
+                         rank: int = 0, group=None) -> torch.Tensor:
     """tokens (B, S) int; emb_local (V_local, d), this rank's vocab shard.
-    Out-of-shard ids contribute zero; tp_reduce combines the shards."""
+    Out-of-shard ids contribute zero; tp_reduce combines the shards over
+    the model group (reference ``layers.py:95-108``)."""
     v_local = emb_local.shape[0]
     ids = tokens.long() - rank * v_local
     in_range = (ids >= 0) & (ids < v_local)
     out = emb_local[ids.clamp(0, v_local - 1)]
     out = torch.where(in_range[..., None], out, torch.zeros((), dtype=out.dtype,
                                                              device=out.device))
-    return tp_reduce(out)
+    return tp_reduce(out, group)
 
 
 class _VocabParallelXent(torch.autograd.Function):
     """Mean token cross-entropy over f32 logits of the (T, V_local) vocab
     shard, with the reference's own backward (``layers.py:112-176``): the
-    backward recomputes the logits instead of keeping them.  On one model
-    rank the reference's pmax/psum over the model axis are the identity."""
+    backward recomputes the logits instead of keeping them.  Over the model
+    group the row max is the ranks' max (``pmax``) and the exp-sums and the
+    picked targets are the ranks' sums; h is replicated, so its cotangent
+    sums every rank's ``dlogits @ w``."""
 
     @staticmethod
-    def forward(ctx, h, w_local, labels):
+    def forward(ctx, h, w_local, labels, rank, group):
         logits = vocab_parallel_logits(h, w_local)
-        m = torch.amax(logits, dim=-1)
-        se = torch.sum(torch.exp(logits - m[:, None]), dim=-1)
-        ids, in_range, mask = _label_parts(w_local, labels)
+        m = model_max(torch.amax(logits, dim=-1), group)
+        se = model_sum(torch.sum(torch.exp(logits - m[:, None]), dim=-1), group)
+        ids, in_range, mask = _label_parts(w_local, labels, rank)
         n = torch.clamp(mask.sum(), min=1.0)
-        tgt = torch.where(in_range, logits.gather(1, ids[:, None])[:, 0],
-                          logits.new_zeros(()))
+        tgt = model_sum(torch.where(in_range, logits.gather(1, ids[:, None])[:, 0],
+                                    logits.new_zeros(())), group)
         loss = torch.sum((torch.log(se) + m - tgt) * mask) / n
         ctx.save_for_backward(h, w_local, labels, m, se, n)
+        ctx.rank, ctx.group = rank, group
         return loss
 
     @staticmethod
@@ -99,12 +104,12 @@ class _VocabParallelXent(torch.autograd.Function):
         h, w_local, labels, m, se, n = ctx.saved_tensors
         hf, wf = h.float(), w_local.float()
         p = torch.exp(hf @ wf.T - m[:, None]) / se[:, None]  # logits recomputed
-        ids, in_range, mask = _label_parts(w_local, labels)
+        ids, in_range, mask = _label_parts(w_local, labels, ctx.rank)
         onehot = torch.zeros_like(p).scatter_(1, ids[:, None], in_range[:, None].float())
         dlogits = (p - onehot) * (mask * ct / n)[:, None]
-        dh = (dlogits @ wf).to(h.dtype)
+        dh = model_sum(dlogits @ wf, ctx.group).to(h.dtype)
         dw = (dlogits.T @ hf).to(w_local.dtype)
-        return dh, dw, None
+        return dh, dw, None, None, None
 
 
 def _label_parts(w_local, labels, rank: int = 0):
@@ -116,12 +121,13 @@ def _label_parts(w_local, labels, rank: int = 0):
     return ids.clamp(0, v_local - 1), in_range, (labels >= 0).float()
 
 
-def vocab_parallel_xent(h: torch.Tensor, w_local: torch.Tensor,
-                        labels: torch.Tensor) -> torch.Tensor:
+def vocab_parallel_xent(h: torch.Tensor, w_local: torch.Tensor, labels: torch.Tensor,
+                        rank: int = 0, group=None) -> torch.Tensor:
     """Mean token cross-entropy with vocab-parallel logits.  h (T, d),
-    w_local (V_local, d), labels (T,) global ids (negative = masked).
-    Logits are f32 at full f32 matmul precision."""
-    return _VocabParallelXent.apply(h, w_local, labels)
+    w_local (V_local, d), model rank `rank`'s vocab shard, labels (T,)
+    global ids (negative = masked).  Logits are f32 at full f32 matmul
+    precision."""
+    return _VocabParallelXent.apply(h, w_local, labels, rank, group)
 
 
 def vocab_parallel_logits(h: torch.Tensor, w_local: torch.Tensor) -> torch.Tensor:
@@ -176,10 +182,10 @@ def qmatmul(x: torch.Tensor, w) -> torch.Tensor:
     return x @ w
 
 
-def swiglu_mlp(x: torch.Tensor, w_gate, w_up, w_down) -> torch.Tensor:
-    """Column-parallel gate/up, row-parallel down; weights dense or
-    RowQuantWeights."""
-    xi = tp_copy(x)
+def swiglu_mlp(x: torch.Tensor, w_gate, w_up, w_down, group=None) -> torch.Tensor:
+    """Column-parallel gate/up, row-parallel down over the model group;
+    weights dense or RowQuantWeights."""
+    xi = tp_copy(x, group)
     g = qmatmul(xi, w_gate)
     u = qmatmul(xi, w_up)
-    return tp_reduce(qmatmul(F.silu(g) * u, w_down))
+    return tp_reduce(qmatmul(F.silu(g) * u, w_down), group)

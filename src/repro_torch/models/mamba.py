@@ -20,7 +20,7 @@ dtype, the x-branch conv in the compute dtype and the B/C conv in f32, the
 scan and the state in f32.  The f32 products are plain PyTorch ops (the JAX
 package computes them outside any Pallas kernel).  The inner dimension is
 TP-sharded in the reference; the port runs at tp = 1, where ``tp_copy`` and
-``tp_reduce`` are the identity, and refuses more ranks (ROADMAP A4b).
+``tp_reduce`` are the identity, and refuses more ranks (ROADMAP A11h).
 """
 from __future__ import annotations
 
@@ -46,7 +46,7 @@ class MambaConfig:
     def __post_init__(self):
         if self.tp != 1:
             raise NotImplementedError(f"the Mamba2 mixer over tp = {self.tp} ranks is not "
-                                      "ported yet (ROADMAP A4b); the port runs at tp = 1")
+                                      "ported yet (ROADMAP A11h); the port runs at tp = 1")
 
     @property
     def d_inner(self) -> int:

@@ -28,7 +28,7 @@ it); assignment -> token (``_Reduce``) is the combine above.
 
 Expert weights are TP-sharded on the expert axis in the reference and
 exchanged with all-to-alls over the model axis; the port runs at tp = 1,
-where the exchange is the identity, and refuses more ranks (ROADMAP A4b).
+where the exchange is the identity, and refuses more ranks (ROADMAP A11h).
 """
 from __future__ import annotations
 
@@ -202,10 +202,10 @@ def moe_layer(x: torch.Tensor, w: dict, cfg: MoEConfig, no_drop: bool = False,
     assignment is ever dropped and a token's output does not depend on the
     other tokens of the call (the serving paths' slot isolation); the
     capacity path drops what the stable sort puts past the capacity."""
-    require_one_rank(group, "A4b")
+    require_one_rank(group, "A11h")
     if cfg.tp != 1:
         raise NotImplementedError(f"expert parallelism over tp = {cfg.tp} ranks is not "
-                                  "ported yet (ROADMAP A4b); the port runs at tp = 1")
+                                  "ported yet (ROADMAP A11h); the port runs at tp = 1")
     t, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
     c = dispatch_capacity(cfg, t, no_drop)

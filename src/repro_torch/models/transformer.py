@@ -84,18 +84,18 @@ def _attn_specs(d: int, a: AttnConfig, stack: Optional[int], bias: bool,
     s = {
         "wq": ParamSpec((d, hp), tp_axis=1, stack=stack, init="scaled_normal", init_scale=1.0),
         "wk": ParamSpec((d, kvd), tp_axis=1 if kv_tp else None, stack=stack,
-                        init="scaled_normal", init_scale=1.0),
+                        init="scaled_normal", init_scale=1.0, grad_sync_model=not kv_tp),
         "wv": ParamSpec((d, kvd), tp_axis=1 if kv_tp else None, stack=stack,
-                        init="scaled_normal", init_scale=1.0),
+                        init="scaled_normal", init_scale=1.0, grad_sync_model=not kv_tp),
         "wo": ParamSpec((hp, d), tp_axis=0, stack=stack, init="scaled_normal",
                         init_scale=out_scale),
     }
     if bias:
         s["bq"] = ParamSpec((hp,), tp_axis=0, stack=stack, init="zeros", quantize=False)
         s["bk"] = ParamSpec((kvd,), tp_axis=0 if kv_tp else None, stack=stack,
-                            init="zeros", quantize=False)
+                            init="zeros", quantize=False, grad_sync_model=not kv_tp)
         s["bv"] = ParamSpec((kvd,), tp_axis=0 if kv_tp else None, stack=stack,
-                            init="zeros", quantize=False)
+                            init="zeros", quantize=False, grad_sync_model=not kv_tp)
     return s
 
 
@@ -158,14 +158,18 @@ class Model:
     """Binds ModelConfig + MeshSpec + QSDPConfig into the parameter layout
     and the QSDP engine that gathers it."""
 
-    def __init__(self, cfg: ModelConfig, ms: MeshSpec, qcfg: QSDPConfig, group=None):
-        """`group`: the ``torch.distributed`` group of the mesh's FSDP ranks
-        (None: one rank).  Above one rank only the dense family runs; the
+    def __init__(self, cfg: ModelConfig, ms: MeshSpec, qcfg: QSDPConfig, group=None,
+                 model_group=None, model_rank: Optional[int] = None):
+        """`group` and `model_group`: the ``torch.distributed`` groups of this
+        rank's data (FSDP) and model axes (None: one rank each; `model_rank`:
+        see ``QSDPEngine``).  Above one rank only the dense family runs; the
         others are held to the JAX package at one rank only (ROADMAP A11h)."""
-        if ms.fsdp_size > 1 and cfg.arch_type != "dense":
+        n_ranks = ms.fsdp_size * ms.model_size
+        if n_ranks > 1 and cfg.arch_type != "dense":
             raise NotImplementedError(
-                f"{cfg.name}: the {cfg.arch_type} family over {ms.fsdp_size} ranks is not "
-                "ported yet (ROADMAP A11h); the dense family runs over ranks")
+                f"{cfg.name}: the {cfg.arch_type} family over {ms.fsdp_size} x "
+                f"{ms.model_size} (data x model) ranks is not ported yet (ROADMAP A11h); the "
+                "dense family runs over ranks")
         self.cfg = cfg
         self.ms = ms
         self.qcfg = qcfg
@@ -188,7 +192,7 @@ class Model:
                                   aux_coef=cfg.moe_aux_coef)
         self.vp = cfg.padded_vocab(ms.model_size)
         self.specs = self._build_specs()
-        self.engine = QSDPEngine(ms, qcfg, self.specs, group)
+        self.engine = QSDPEngine(ms, qcfg, self.specs, group, model_group, model_rank)
         self.compute_dtype = self.engine.compute_dtype
 
     def _build_specs(self) -> dict[str, ParamSpec]:
@@ -271,7 +275,8 @@ class Model:
         the prefill start here."""
         tokens = batch["tokens"]
         emb = self.engine.gather("embed", params["embed"], key)
-        x = L.embed_vocab_parallel(tokens, emb)
+        eng = self.engine
+        x = L.embed_vocab_parallel(tokens, emb, eng.model_rank, eng.model_group)
         if self.cfg.arch_type == "vlm":
             x = torch.where(batch["vision_mask"][..., None],
                             batch["vision_embeds"].to(x.dtype), x)
@@ -284,7 +289,8 @@ class Model:
         cfg, eng = self.cfg, self.engine
         x = L.rms_norm(x, eng.gather("final_norm", params["final_norm"], key), cfg.norm_eps)
         head = emb if cfg.tie_embeddings else eng.gather("lm_head", params["lm_head"], key)
-        return L.vocab_parallel_xent(x.reshape(-1, x.shape[-1]), head, labels.reshape(-1))
+        return L.vocab_parallel_xent(x.reshape(-1, x.shape[-1]), head, labels.reshape(-1),
+                                     eng.model_rank, eng.model_group)
 
     def _loss_encdec(self, params: Params, batch: dict, key: prng.Key) -> torch.Tensor:
         """The audio family's loss (reference ``_loss_encdec``,
@@ -417,12 +423,15 @@ class Model:
         return x
 
     def _dense_layer(self, x, w, cos, sin, positions):
-        cfg = self.cfg
+        """One dense layer at this rank's model rank: its heads and its
+        columns of the MLP, the partial outputs summed over the model group."""
+        cfg, eng = self.cfg, self.engine
         h = L.rms_norm(x, w["attn_norm"], cfg.norm_eps)
-        a, _ = attn_mod.self_attention(h, w, self.acfg, cos, sin, positions)
+        a, _ = attn_mod.self_attention(h, w, self.acfg, cos, sin, positions,
+                                       rank=eng.model_rank, group=eng.model_group)
         x = x + a
         h = L.rms_norm(x, w["mlp_norm"], cfg.norm_eps)
-        return x + L.swiglu_mlp(h, w["w_gate"], w["w_up"], w["w_down"])
+        return x + L.swiglu_mlp(h, w["w_gate"], w["w_up"], w["w_down"], eng.model_group)
 
     def _enc_layer(self, x, w, cos, sin, positions):
         """One audio encoder layer: non-causal self-attention, then the MLP."""

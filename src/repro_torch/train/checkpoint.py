@@ -8,11 +8,13 @@ byte.  The manifest's ``format`` and every leaf's shape and dtype are
 validated on load (``qsdp-ckpt-v1``, dense leaves only, loads too).  Both
 packages read each other's checkpoints.
 
-On a (P, 1) mesh every rank holds its block of each leaf: the save
-gathers the blocks over the group and rank 0 writes the whole state, the
-file the JAX package writes from its (P, 1) mesh; the load gives each rank
-its block.  A checkpoint loads on the mesh layout it was saved on;
-resharding to another (model, fsdp) layout waits for ROADMAP A3b.
+On a (P, M) mesh every rank holds its block of each leaf: the save
+gathers the blocks over the data group (axis -2) and then the model group
+(axis -3), and global rank 0 writes the whole state, the file the JAX
+package writes from its (P, M) mesh (manifest ``mesh`` {model_size: M,
+fsdp_size: P}); the load gives each rank its block.  A checkpoint loads on
+the mesh layout it was saved on; resharding to another (model, fsdp)
+layout waits for ROADMAP A3b.
 """
 from __future__ import annotations
 
@@ -90,13 +92,13 @@ def _mesh_sizes(flat: dict) -> tuple[int, int]:
     raise ValueError("empty state")
 
 
-def _gather_state(state: TrainState, group) -> TrainState:
-    """Every rank's blocks laid end to end on the FSDP axis (-2) of each
-    rest-layout leaf (dense or wire codes), the step as it is."""
+def _gather_state(state: TrainState, group, axis: int) -> TrainState:
+    """The group's blocks laid end to end on `axis` of each rest-layout leaf
+    (dense or wire codes), the step as it is."""
     def whole(v):
         if isinstance(v, QuantizedParam):
-            return QuantizedParam(coll.gather_axis(v.wire, group, -2), v.cell_shape, v.cfg)
-        return coll.gather_axis(v.detach(), group, -2)
+            return QuantizedParam(coll.gather_axis(v.wire, group, axis), v.cell_shape, v.cfg)
+        return coll.gather_axis(v.detach(), group, axis)
 
     def tree(t):
         return t if t == () else {k: whole(v) for k, v in t.items()}
@@ -107,17 +109,26 @@ def _gather_state(state: TrainState, group) -> TrainState:
 
 
 def save_checkpoint(path: str, state: TrainState, meta: Optional[dict[str, Any]] = None,
-                    group=None) -> None:
+                    group=None, model_group=None) -> None:
     """Write `state` as a ``qsdp-ckpt-v2`` checkpoint under directory `path`.
-    Over a group (every rank calls it) the blocks are gathered and rank 0
-    writes; every rank returns once the files are written."""
-    if group is not None:
-        whole = _gather_state(state, group)
-        if coll.group_rank(group) == 0:
+    Over the groups (every rank calls it) the blocks are gathered over the
+    data group and then the model group, and the rank at (0, 0) writes;
+    every rank returns once the files are written."""
+    if group is not None or model_group is not None:
+        import torch.distributed as dist
+        whole = state
+        for grp, axis in ((group, -2), (model_group, -3)):
+            if grp is not None:
+                whole = _gather_state(whole, grp, axis)
+        if coll.group_rank(group) == coll.group_rank(model_group) == 0:
             save_checkpoint(path, whole, meta)
         del whole
-        import torch.distributed as dist
-        dist.barrier(group=group)
+        # (0, 0) writes before its data group's barrier; every other rank
+        # passes its model group's barrier only after its data rank's
+        # model-rank-0 rank passed that one
+        for grp in (group, model_group):
+            if grp is not None:
+                dist.barrier(group=grp)
         return
     os.makedirs(path, exist_ok=True)
     flat, leaves = state_to_flat(state)
@@ -131,11 +142,12 @@ def save_checkpoint(path: str, state: TrainState, meta: Optional[dict[str, Any]]
 
 
 def load_checkpoint(path: str, device=None, mesh_sizes: tuple[int, int] = (1, 1),
-                    rank: int = 0) -> TrainState:
+                    rank: int = 0, model_rank: int = 0) -> TrainState:
     """Load a v1 or v2 checkpoint saved on the (model, fsdp) layout
-    `mesh_sizes` onto `device` (the card unless given), rank `rank`'s block
-    of every leaf; raises on an unknown format, a manifest that does not
-    match the payload, or another layout."""
+    `mesh_sizes` onto `device` (the card unless given), the block of every
+    leaf at data rank `rank` and model rank `model_rank`; raises on an
+    unknown format, a manifest that does not match the payload, or another
+    layout."""
     mpath = os.path.join(path, "manifest.json")
     if not os.path.exists(mpath):
         raise FileNotFoundError(f"checkpoint manifest missing: {mpath}")
@@ -161,6 +173,6 @@ def load_checkpoint(path: str, device=None, mesh_sizes: tuple[int, int] = (1, 1)
             raise NotImplementedError(
                 f"checkpoint was saved on (model, fsdp) = {saved}, not {tuple(mesh_sizes)}: "
                 "resharding is not ported yet (ROADMAP A3b)")
-    p = mesh_sizes[1]
-    return state_from_flat({k: rank_block(a, rank, p) if a.ndim >= 3 else a
+    m, p = mesh_sizes
+    return state_from_flat({k: rank_block(a, rank, p, model_rank, m) if a.ndim >= 3 else a
                             for k, a in flat.items()}, leaves, device)

@@ -20,13 +20,18 @@ entry and re-encoded at exit under the same keys (``fold_in(key,
 
 The reference wraps the step in ``shard_map`` + ``jit``
 (``make_jitted_train_step``); the port's step is the per-device step.  Over
-P data-parallel ranks (the model's engine holds their group) each rank
-steps its own block of the state on its own rows of the batch
-(:func:`local_batch`); the gathers and reduce-scatters exchange over the
-group, the gradient norm's sum of squares is summed over it (the
-reference's ``psum``) and the loss averaged (``pmean``).  The update runs
-in place on the state's f32 tensors (the reference donates
-them).
+a (P, M) mesh (the model's engine holds the rank's data and model groups)
+each rank steps its own block of the state on its data rank's rows of the
+batch (:func:`local_batch`; the rows are replicated over the model axis,
+the reference's ``batch_pspec P("data")``); the gathers and
+reduce-scatters exchange over the data group, tensor parallelism sums over
+the model group, the gradient norm's sum of squares is summed over all P·M
+ranks (the reference's ``psum`` over every axis) and the loss averaged over
+them (``pmean``).  As in the reference, a model-replicated leaf (a norm,
+replicated KV) holds its whole gradient on each of the M model ranks, so
+the norm counts it M times (ROADMAP C10: the clip threshold's meaning
+depends on M).  The update runs in place on the state's f32 tensors (the
+reference donates them).
 
 The memory schedule holds one copy of the state and one set of gradients,
 and no second copy of any leaf: every layer slice of a stacked leaf is its
@@ -44,6 +49,7 @@ import torch
 
 from ..core import collectives as coll
 from ..core import prng
+from ..core.tp import model_sum
 from ..core.quant import (QuantConfig, QuantizedParam, qparam_decode, qparam_encode,
                           quantize_dequantize)
 from ..device import resolve_device
@@ -125,9 +131,10 @@ def _split(name: str, x: torch.Tensor, n_micro: int) -> torch.Tensor:
 
 
 def local_batch(batch: dict, rank: int, p: int) -> dict:
-    """Rank `rank`'s rows of a global batch over `p` ranks: each leaf's batch
-    axis (axis 0, but 1 for M-RoPE's "positions") cut into `p` blocks, the
-    rank's kept, as the reference's ``batch_pspec P(fsdp_axes)`` shards it."""
+    """Data rank `rank`'s rows of a global batch over `p` data ranks: each
+    leaf's batch axis (axis 0, but 1 for M-RoPE's "positions") cut into `p`
+    blocks, the rank's kept, as the reference's ``batch_pspec P(fsdp_axes)``
+    shards it (every model rank of a data rank takes the same rows)."""
     out = {}
     for name, x in batch.items():
         ax = 1 if name == "positions" else 0
@@ -156,13 +163,14 @@ def _take_grad(name: str, leaf, n_micro: int):
     return [g(t) for t in leaf] if isinstance(leaf, tuple) else g(leaf)
 
 
-def global_norm(grads: dict, group=None) -> torch.Tensor:
+def global_norm(grads: dict, group=None, model_group=None) -> torch.Tensor:
     """sqrt of the sum of squares of every gradient value: a stacked leaf's
     sum by layer slice, an unstacked one's by ``chunk_ranges``, so no
     temporary is larger than a chunk (the summation order is not the
-    reference's; the value agrees within f32 rounding).  Over a group each
-    rank's sum is summed over the ranks before the root (every value lives
-    on exactly one rank)."""
+    reference's; the value agrees within f32 rounding).  Over the groups
+    each rank's sum is summed over the data group and then the model group
+    before the root: the reference's psum over every axis, which counts a
+    model-replicated leaf once per model rank."""
     parts = []
     for k in sorted(grads):
         g = grads[k]
@@ -170,7 +178,9 @@ def global_norm(grads: dict, group=None) -> torch.Tensor:
                   else [g.reshape(-1)[a:b] for a, b in chunk_ranges(tuple(g.shape))])
         parts += [torch.dot(c.reshape(-1), c.reshape(-1)) for c in chunks]
     sq = torch.stack(parts).sum()
-    return torch.sqrt(sq if group is None else coll.all_reduce_sum(sq, group))
+    if group is not None:
+        sq = coll.all_reduce_sum(sq, group)
+    return torch.sqrt(model_sum(sq, model_group))
 
 
 def build_train_step(model: Model, optimizer: Optimizer, n_micro: int = 1,
@@ -181,11 +191,12 @@ def build_train_step(model: Model, optimizer: Optimizer, n_micro: int = 1,
     none was asked for); `batch` ({"tokens", "labels"} (B, S), and the
     family's modality inputs, see ``Model.loss_fn``) is moved there and
     split into `n_micro` microbatches on each leaf's batch axis.  Over the
-    model's group `batch` is this rank's rows (:func:`local_batch`).
-    metrics: loss (microbatch mean, averaged over the group), grad_norm
-    (before clipping, over the whole model), step."""
+    model's groups `batch` is this rank's data rank's rows
+    (:func:`local_batch`).  metrics: loss (microbatch mean, averaged over
+    all ranks), grad_norm (before clipping, over the whole mesh), step."""
     device = resolve_device(device)
-    group = model.engine.group
+    group, model_group = model.engine.group, model.engine.model_group
+    n_ranks = coll.group_size(group) * coll.group_size(model_group)
     if quantize_master and quantized_state:
         raise ValueError("quantize_master and quantized_state are mutually exclusive")
 
@@ -205,8 +216,8 @@ def build_train_step(model: Model, optimizer: Optimizer, n_micro: int = 1,
         grads = {k: _take_grad(k, leaves[k], n_micro) for k in names}
         del leaves
 
-        # global-norm clip (every element lives on exactly one rank)
-        gnorm = global_norm(grads, group)
+        # global-norm clip over every rank of the mesh
+        gnorm = global_norm(grads, group, model_group)
         scale = (torch.clamp(grad_clip / torch.clamp(gnorm, min=1e-12), max=1.0)
                  if grad_clip else torch.ones((), device=device))
         with torch.no_grad():
@@ -225,7 +236,9 @@ def build_train_step(model: Model, optimizer: Optimizer, n_micro: int = 1,
                                         else quantize_dequantize(p, qc, pkey))
         loss = torch.stack(losses).mean()
         if group is not None:
-            loss = coll.all_reduce_sum(loss, group) / coll.group_size(group)
+            loss = coll.all_reduce_sum(loss, group)
+        if n_ranks > 1:
+            loss = model_sum(loss, model_group) / n_ranks
         metrics = {"loss": loss, "grad_norm": gnorm, "step": new_opt.step}
         return TrainState(params=new_params, opt=new_opt), metrics
 

@@ -17,7 +17,8 @@ Pipeline:
      and ``launch/serve.py --plan``.
 
 Runs on the (1, 1) mesh (``--data-par``/``--model-par`` above 1 exit
-naming ROADMAP A3b/A4b), on the card unless given ``--device cpu``.  With
+naming ROADMAP A12e: the tooling over ranks), on the card unless given
+``--device cpu``.  With
 ``--measure-top 0`` and ``--hw cpu-smoke`` the plan file is the JAX
 package's, byte for byte.  ``--assert-choice per-tensor`` fails unless the
 planner picks per-tensor gathers for the stacked layer group.
@@ -80,7 +81,7 @@ def parse_args(argv=None):
         ap.error("--data-par/--model-par must be >= 1")
     if args.data_par * args.model_par > 1:
         ap.error(f"mesh ({args.data_par},{args.model_par}): the port tunes the (1, 1) "
-                 "mesh only; multi-rank QSDP is not ported yet (ROADMAP A3b/A4b)")
+                 "mesh only; tuning over ranks is not ported yet (ROADMAP A12e)")
     return args
 
 

@@ -1,15 +1,17 @@
-"""The JAX package's side of the port's data-parallel tests
-(``tests/test_torch_dist_*.py``), run as a script in a process of its own
-so that XLA's host device count is set before JAX is imported:
+"""The JAX package's side of the port's multi-rank tests
+(``tests/test_torch_dist_*.py``, ``tests/test_torch_tp_*.py``), run as a
+script in a process of its own so that XLA's host device count is set
+before JAX is imported:
 
     XLA_FLAGS=--xla_force_host_platform_device_count=4 \\
         python tests/_torch_dist_jax.py {collectives|train} WORKDIR P [P ...]
+    ... python tests/_torch_dist_jax.py {tp_blocks|tp_train} WORKDIR PxM [PxM ...]
 
 It reads ``WORKDIR/inputs.npz`` (made with numpy by the test) and writes
 ``WORKDIR/reference.npz``: per case an array whose row r is what device r of
-the (P,) or (P, 1) mesh returned.  Every output is converted with
-``np.asarray`` before it is indexed (JAX 0.9 refuses to index a sharded
-array eagerly).
+the (P,), (P, 1) or (P, M) mesh returned (device ``d·M + m`` at data rank d
+and model rank m).  Every output is converted with ``np.asarray`` before it
+is indexed (JAX 0.9 refuses to index a sharded array eagerly).
 """
 import json
 import os
@@ -222,6 +224,183 @@ def train(workdir, ps):
     np.savez(os.path.join(workdir, "reference.npz"), **out)
 
 
+# ---------------------------------------------------------------------------
+# the (P, M) mode: tensor parallelism on the model axis
+# ---------------------------------------------------------------------------
+
+
+def _grid(p, m):
+    return Mesh(np.array(jax.devices()[:p * m]).reshape(p, m), ("data", "model"))
+
+
+def _per_device(p, m, fn, in_specs, n_out):
+    """jit(shard_map(fn)) over the (P, M) mesh whose `n_out` outputs are
+    each device's own value: fn's outputs get a leading axis of 1, laid
+    out by device (row d·M + m)."""
+    def body(*a):
+        return tuple(o[None] for o in fn(*a))
+    return jax.jit(shard_map(body, mesh=_grid(p, m), in_specs=in_specs,
+                             out_specs=(P(("data", "model")),) * n_out, check_vma=False))
+
+
+def tp_blocks(workdir, meshes):
+    """Per (1, M) mesh: (a) tp_copy and tp_reduce forward and backward; (b)
+    embed_vocab_parallel with its vjp, and vocab_parallel_xent's loss, dh
+    and dw; (c) one dense layer of each arch's smoke config, its output and
+    its vjp (dx and every TP-local weight's gradient), f32 compute.  Each
+    model rank's inputs are row m of a (M, ...) array (sharded P("model"))
+    or replicated."""
+    from repro import configs
+    from repro.core.qsdp import MeshSpec, QSDPConfig
+    from repro.core.tp import tp_copy, tp_reduce
+    from repro.models import layers as L
+    from repro.models.transformer import Model
+
+    z = dict(np.load(os.path.join(workdir, "inputs.npz")))
+    meta = json.loads(str(z["meta"]))
+    out = {}
+    rep, sh = P(), P("model")
+    for p, m in meshes:
+        pre = f"{p}x{m}/"
+        g = {k[len(pre):]: jnp.asarray(v) for k, v in z.items() if k.startswith(pre)}
+
+        def ops_(xl, xr, ctc, ctr):
+            y_r, f_r = jax.vjp(tp_reduce, xl[0])
+            y_c, f_c = jax.vjp(tp_copy, xr)
+            return y_r, f_r(ctr)[0], y_c, f_c(ctc[0])[0]
+        f = _per_device(p, m, ops_, (sh, rep, sh, rep), 4)
+        for k, v in zip(("reduce", "reduce_dx", "copy", "copy_dx"),
+                        f(g["tp/xl"], g["tp/xr"], g["tp/ctc"], g["tp/ctr"])):
+            out[f"{pre}tp/{k}"] = np.asarray(v)
+
+        def xent(tokens, emb, cte, h, w, labels):
+            e, f_e = jax.vjp(lambda a: L.embed_vocab_parallel(tokens, a), emb[0])
+            loss, f_x = jax.vjp(lambda a, b: L.vocab_parallel_xent(a, b, labels), h, w[0])
+            dh, dw = f_x(jnp.ones((), jnp.float32))
+            return e, f_e(cte)[0], loss, dh, dw
+        f = _per_device(p, m, xent, (rep, sh, rep, rep, sh, rep), 5)
+        for k, v in zip(("embed", "embed_dw", "loss", "dh", "dw"),
+                        f(*(g[f"xent/{k}"] for k in ("tokens", "emb", "cte", "h", "w",
+                                                     "labels")))):
+            out[f"{pre}xent/{k}"] = np.asarray(v)
+
+        for arch in meta["archs"]:
+            model = Model(configs.get_smoke(arch), MeshSpec(("data", "model"), (p, m)),
+                          QSDPConfig(compute_dtype="float32"))
+            names = sorted(k[len(f"layer/{arch}/w/"):] for k in g
+                           if k.startswith(f"layer/{arch}/w/"))
+            cfg = model.cfg
+
+            def layer(x, ct, *ws, model=model, names=names, cfg=cfg):
+                s_ = x.shape[1]
+                pos = jnp.arange(s_)
+                cos, sin = L.rope_cos_sin(pos, cfg.head_dim, cfg.rope_theta)
+                y, f_l = jax.vjp(lambda x_, *w_: model._dense_layer(
+                    x_, dict(zip(names, w_)), cos, sin, pos), x, *(w[0] for w in ws))
+                return (y, *f_l(ct))
+            f = _per_device(p, m, layer, (rep, rep) + (sh,) * len(names), 2 + len(names))
+            res = f(g[f"layer/{arch}/x"], g[f"layer/{arch}/ct"],
+                    *(g[f"layer/{arch}/w/{n}"] for n in names))
+            for k, v in zip(("y", "dx", *(f"dw/{n}" for n in names)), res):
+                out[f"{pre}layer/{arch}/{k}"] = np.asarray(v)
+    np.savez(os.path.join(workdir, "reference.npz"), **out)
+
+
+def tp_train(workdir, meshes):
+    """Per (P, M) mesh and arch of ``meta["runs"]``: the smoke config's step
+    on the (P, M) mesh with ``batch_pspec P("data")`` from the test's whole
+    states, as ``train`` runs it on the (P, 1) mesh: runs A (the initial
+    state, batch 0), B (a later state, batch 1), Q (quantized_state, 8-bit
+    moments) and U (Q's update alone: its start state decoded to f32, 8-bit
+    moments, no re-encoding); run A's first gathered buffer by device; at
+    the (2, 2) mesh the states after A and Q of ``meta["ckpt_arch"]`` saved
+    as v2 checkpoints."""
+    from repro import configs
+    from repro.core.qsdp import MeshSpec, QSDPConfig, _stable_hash
+    from repro.models.transformer import Model
+    from repro.optim import AdamWConfig, OptState, cosine_schedule, make_adamw
+    from repro.train.checkpoint import _flatten, save_checkpoint
+    from repro.train.step import (TrainState, dequantize_train_state, make_jitted_train_step,
+                                  quantize_train_state, state_pspecs)
+
+    z = dict(np.load(os.path.join(workdir, "inputs.npz")))
+    meta = json.loads(str(z["meta"]))
+    out = {}
+    for arch, runs in meta["runs"].items():
+        for p, m in meshes:
+            if [p, m] not in meta["meshes"][arch]:
+                continue
+            pre = f"{arch}/{p}x{m}/"
+            mesh = _grid(p, m)
+            model = Model(configs.get_smoke(arch), MeshSpec(("data", "model"), (p, m)),
+                          QSDPConfig(compute_dtype=meta["compute_dtype"]))
+            sched = cosine_schedule(meta["lr"], 2, meta["steps"])
+            opt = make_adamw(AdamWConfig(lr=meta["lr"], schedule=sched))
+            opt8 = make_adamw(AdamWConfig(lr=meta["lr"], schedule=sched, moment_bits=8))
+            names = sorted(model.specs)
+
+            def state(tag, o, pre=pre, names=names):
+                params = {n: jnp.asarray(z[f"{pre}{tag}/params/{n}"]) for n in names}
+                if tag == "S0":
+                    return TrainState(params=params, opt=o.init(params))
+                mom = {k: {n: jnp.asarray(z[f"{pre}{tag}/{k}/{n}"]) for n in names}
+                       for k in ("mu", "nu")}
+                return TrainState(params=params, opt=OptState(
+                    step=jnp.asarray(int(z[f"{pre}{tag}/step"]), jnp.int32), **mom))
+
+            def place(st, qstate, o, mesh=mesh, model=model):
+                specs = state_pspecs(model, quantized_state=qstate,
+                                     quantized_moments=getattr(o, "quantized_moments", False))
+                return jax.device_put(st, jax.tree.map(lambda s: NamedSharding(mesh, s), specs,
+                                                       is_leaf=lambda x: isinstance(x, P)))
+
+            batch = {i: {k: jnp.asarray(z[f"{pre}batch{i}/{k}"]) for k in ("tokens", "labels")}
+                     for i in (0, 1)}
+            bspec = {k: P("data") for k in ("tokens", "labels")}
+            steps = {}
+            for tag in runs:
+                src, i, qstate, o = {"A": ("S0", 0, False, opt), "B": ("S1", 1, False, opt),
+                                     "Q": ("S0", 0, True, opt8), "U": ("S0", 0, False, opt8)}[tag]
+                st = state(src, o)
+                if tag in ("Q", "U"):
+                    st = quantize_train_state(st, model, jax.random.PRNGKey(2))
+                if tag == "U":
+                    st = TrainState(params=dequantize_train_state(st).params, opt=st.opt)
+                if (qstate, o is opt8) not in steps:
+                    steps[qstate, o is opt8] = make_jitted_train_step(
+                        model, o, mesh, n_micro=meta["n_micro"][str(p)], batch_pspec=bspec,
+                        donate=False, quantized_state=qstate)
+                with mesh:
+                    new, mt = steps[qstate, o is opt8](
+                        place(st, qstate, o), batch[i],
+                        jax.random.fold_in(jax.random.PRNGKey(1), i))
+                out[f"{pre}{tag}/loss"] = np.asarray(mt["loss"])
+                out[f"{pre}{tag}/grad_norm"] = np.asarray(mt["grad_norm"])
+                flat, leaves = _flatten(new)
+                for k, v in flat.items():
+                    out[f"{pre}{tag}/flat/{k}"] = np.asarray(v)
+                out[f"{pre}{tag}/leaves"] = np.array(json.dumps(leaves))
+                if qstate:
+                    for k, v in _flatten(st)[0].items():
+                        out[f"{pre}{tag}/start/{k}"] = np.asarray(v)
+                if tag == "A":  # the first gathered buffer, each device's
+                    lay = model.engine._layer_static(("embed",)).gather_layout()
+                    ekey = jax.random.fold_in(jax.random.fold_in(
+                        jax.random.fold_in(jax.random.PRNGKey(1), 0), 0), _stable_hash("embed"))
+                    f = _per_device(p, m, lambda e, lay=lay, ekey=ekey: (coll.gather_wire(
+                        coll.encode_wire([e.reshape(-1)], lay, [ekey]), ("data",)),),
+                        (P("model", "data", None),), 1)
+                    out[f"{pre}A/first_gbuf"] = np.asarray(f(st.params["embed"])[0])
+                if (p, m) == (2, 2) and arch == meta["ckpt_arch"] and tag in ("A", "Q"):
+                    save_checkpoint(os.path.join(workdir, f"ref_ckpt_{tag}"), new,
+                                    meta=dict(arch=f"{arch}-smoke", steps=1))
+    np.savez(os.path.join(workdir, "reference.npz"), **out)
+
+
 if __name__ == "__main__":
     what, workdir, *ps = sys.argv[1:]
-    {"collectives": collectives, "train": train}[what](workdir, [int(p) for p in ps])
+    if what.startswith("tp_"):
+        {"tp_blocks": tp_blocks, "tp_train": tp_train}[what](
+            workdir, [tuple(int(a) for a in pm.split("x")) for pm in ps])
+    else:
+        {"collectives": collectives, "train": train}[what](workdir, [int(p) for p in ps])

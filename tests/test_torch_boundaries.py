@@ -61,14 +61,20 @@ def test_cpu_setup_when_asked():
 
 
 def test_multi_rank_mesh_names_roadmap(capsys):
-    """A mesh the port does not run (a model axis above 1) names its ROADMAP
-    item, and a (P, 1) mesh needs a process group of P ranks; the train
-    launcher refuses the VLM and audio families, whose batches carry inputs
-    the synthetic corpus does not give (they train through
+    """A (1, 2) mesh is accepted: without a model group the engine computes
+    the model rank it is given alone, and without either it refuses; a
+    mesh the port does not run (a "pod" axis) names its ROADMAP item, and a
+    (P, 1) mesh needs a process group of P ranks; the train launcher
+    refuses the VLM and audio families, whose batches carry inputs the
+    synthetic corpus does not give (they train through
     ``build_train_step``), before it touches a device."""
     from repro_torch.launch import train as launch_train
-    with pytest.raises(NotImplementedError, match="ROADMAP A4b"):
+    eng = QSDPEngine(MeshSpec(("data", "model"), (1, 2)), QSDPConfig(), {}, model_rank=1)
+    assert (eng.rank, eng.model_rank, eng.group, eng.model_group) == (0, 1, None, None)
+    with pytest.raises(ValueError, match="model group has 1"):
         QSDPEngine(MeshSpec(("data", "model"), (1, 2)), QSDPConfig(), {})
+    with pytest.raises(NotImplementedError, match="ROADMAP A3b"):
+        QSDPEngine(MeshSpec(("pod", "data", "model"), (2, 1, 1)), QSDPConfig(), {})
     with pytest.raises(ValueError, match="process group has 1"):
         QSDPEngine(MeshSpec(("data", "model"), (2, 1)), QSDPConfig(), {})
     for arch, inputs in (("qwen2-vl-72b", "vision_embeds"), ("seamless-m4t-large-v2",
@@ -102,11 +108,11 @@ def test_train_entry_points_raise_without_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--model-par", "2"], "A4b"), (["--hierarchical"], "A3b"), (["--prefetch"], "A4b"),
-    (["--plan", "{prefetch}"], "A4b")])
+    (["--arch", "olmoe-1b-7b", "--smoke", "--model-par", "2"], "A11h"),
+    (["--hierarchical"], "A3b"), (["--prefetch"], "A4b"), (["--plan", "{prefetch}"], "A4b")])
 def test_train_launcher_names_roadmap_for_unported_flags(flags, item, capsys, tmp_path):
     """``--plan`` is ported; a plan that asks for layer prefetch is not, nor
-    is a model axis above 1."""
+    is a model axis above 1 for a family other than the dense one."""
     from repro_torch.launch import train as launch_train
     from repro_torch.tune.plan import PLAN_VERSION, DeploymentPlan
     plan = str(tmp_path / "prefetch_plan.json")
@@ -131,6 +137,22 @@ def test_train_launcher_data_par_needs_torchrun(capsys, monkeypatch):
         launch_train.parse_args(["--data-par", "2"])
     assert "the world has 4" in capsys.readouterr().err
     assert launch_train.parse_args(["--data-par", "4"]).data_par == 4
+
+
+def test_train_launcher_accepts_model_par(capsys, monkeypatch):
+    """``--model-par M`` trains the dense family over P·M processes: the
+    (1, 2) and (2, 2) grids parse under a world of their size, ``--batch``
+    splits over P alone, and P·M must equal the world size."""
+    from repro_torch.launch import train as launch_train
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    args = launch_train.parse_args(["--model-par", "2", "--batch", "1"])
+    assert (args.data_par, args.model_par) == (1, 2)
+    monkeypatch.setenv("WORLD_SIZE", "4")
+    args = launch_train.parse_args(["--data-par", "2", "--model-par", "2", "--batch", "2"])
+    assert (args.data_par, args.model_par) == (2, 2)
+    with pytest.raises(SystemExit):
+        launch_train.parse_args(["--model-par", "2"])
+    assert "trains over 2 ranks" in capsys.readouterr().err
 
 
 def test_unported_training_options_raise():

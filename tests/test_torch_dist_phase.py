@@ -1,12 +1,16 @@
-"""``chip_smoke.py``'s dist phase rehearsed on the CPU at gpt-1.3b's smoke
-config: (a) one step through a gloo group of one rank bit-equal to
+"""``chip_smoke.py``'s dist phase rehearsed on the CPU at the smoke configs
+(gpt-1.3b's, and qwen2.5-3b's for the replicated-KV block): (a) one step
+through the gloo groups of the one-rank (data, model) grid bit-equal to
 ``group=None``, its K1/K2 launches and its calls into torch.distributed
 by op equal to the structure's formulas (``expected_train_launches``,
 ``expected_train_comm``); (b) the train launcher under torchrun at
-``--data-par 1`` against the launcher without it; (c) the wire work of
-P = 2, 4 and 8 emulated ranks byte-equal with K1 and K2 swapped for their
-plain versions (on the CPU both sides take them: the rehearsal runs the
-phase's control flow and gates).  The wrappers count only kernel launches,
+``--data-par 1 --model-par 1`` against the launcher without it; (c) the
+wire work of P = 2, 4 and 8 emulated ranks and (e) the tp-local wire work
+at (P, M) = (1, 2), (1, 4), (1, 8) and (2, 2), byte-equal with K1 and K2
+swapped for their plain versions (on the CPU both sides take them: the
+rehearsal runs the phase's control flow and gates); (d) the attention
+and MLP blocks' M model-rank shares summed within TP_BLOCK_TOL of the
+one-rank block, bf16 and f32.  The wrappers count only kernel launches,
 so the rehearsal counts their calls.  ``expected_train_comm`` is held to
 the counter of steps over two and four gloo ranks in
 ``test_torch_dist_train.py``."""
@@ -41,7 +45,7 @@ def cs(monkeypatch):
 
 def test_chip_smoke_dist_phase_rehearsal(cs, capsys):
     lines = []
-    launches, rows = cs.dist_phase(torch, lines.append, dev="cpu", profile=False,
+    launches, rows, blocks = cs.dist_phase(torch, lines.append, dev="cpu", profile=False,
                                    launch_extra=("--smoke", "--batch", "4", "--seq", "32",
                                                  "--device", "cpu"))
     model = Model(configs.get_smoke("gpt-1.3b"), MeshSpec(("data", "model"), (1, 1)),
@@ -54,10 +58,16 @@ def test_chip_smoke_dist_phase_rehearsal(cs, capsys):
     assert cs.expected_train_comm(model, 2) == {"all_gather": 2 * (2 + 4), "all_to_all": 2 * 4,
                                                 "reduce_scatter": 0, "all_reduce": 2}
     text = "\n".join(lines)
-    assert "one-rank gloo group bit-equal to group=None" in text
+    assert "one-rank (data, model) grid of gloo groups bit-equal to group=None" in text
     assert "bit-equal to the launcher's without torchrun" in text
     # a smoke layer: 7 quantized tensors a row, one K2 launch up to P = 9
     assert [(r["p"], r["table"], r["launches"]) for r in rows] == [(2, 14, 1), (4, 28, 1),
                                                                   (8, 56, 1)]
     assert all(not r["main_path"] for r in rows)
+    assert sum(line.startswith("tp: (P, M) = ") for line in lines) == len(cs.TP_MESHES) == 4
+    assert [(b["arch"], b["m"], b["block"]) for b in blocks if b["dtype"] == "float32"] == [
+        ("gpt-1.3b", 2, "attention"), ("gpt-1.3b", 2, "mlp"), ("gpt-1.3b", 4, "attention"),
+        ("gpt-1.3b", 4, "mlp"), ("qwen2.5-3b", 4, "attention")]
+    assert len(blocks) == 10 and all(b["err"] <= b["tol"] for b in blocks)
+    assert "KV replicated" in text and "KV tp" in text
     assert cs.DIST_NOTE in capsys.readouterr().out

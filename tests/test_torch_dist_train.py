@@ -22,9 +22,11 @@ block) on the same batches (each rank its rows):
     of ``state.npz`` byte-equal, in the same order (the zip container's
     member timestamps are the time of writing); loaded back rank by rank;
   * a gloo group of one rank bit-equal to ``group=None``;
-  * the refusals: model axis > 1 (A4b), a "pod" axis and
-    ``--hierarchical`` (A3b), a load on another layout (A3b), serving over
-    ranks (A10e), the other families over ranks (A11h).
+  * a model axis above 1 accepted by the engine and the mesh (the (P, M)
+    grid's tests are ``test_torch_tp_*.py``); the refusals: a "pod" axis
+    and ``--hierarchical`` (A3b), a load on another layout (A3b), serving
+    over ranks, either axis (A10e), the other families over ranks, either
+    axis (A11h).
 """
 import json
 import zipfile
@@ -169,22 +171,25 @@ def test_refusals_name_their_items(tmp_path, capsys, monkeypatch):
     from repro_torch.train.checkpoint import load_checkpoint, save_checkpoint
     from repro_torch.train.step import init_train_state
 
-    with pytest.raises(NotImplementedError, match="ROADMAP A4b"):
-        QSDPEngine(MeshSpec(("data", "model"), (1, 2)), QSDPConfig(), {})
+    assert QSDPEngine(MeshSpec(("data", "model"), (1, 2)), QSDPConfig(), {},
+                      model_rank=0).model_rank == 0
     with pytest.raises(NotImplementedError, match="ROADMAP A3b"):
         QSDPEngine(MeshSpec(("pod", "data", "model"), (1, 1, 1)), QSDPConfig(), {})
     with pytest.raises(ValueError, match="process group has 1"):
         QSDPEngine(MeshSpec(("data", "model"), (2, 1)), QSDPConfig(), {})
-    for mesh, item in ((tmesh.make_small_spec(2, 4), "A4b"),
-                       (tmesh.make_mesh_spec(multi_pod=True), "A4b"),
+    # the model axis passes the mesh check; the grid must fill the world
+    with pytest.raises(ValueError, match="has 8 ranks, the world 4"):
+        tmesh.init_distributed("cpu", tmesh.make_small_spec(2, 4), rank=0, world_size=4)
+    for mesh, item in ((tmesh.make_mesh_spec(multi_pod=True), "A3b"),
                        (MeshSpec(("pod", "data", "model"), (2, 2, 1)), "A3b")):
         with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
             tmesh.init_distributed("cpu", mesh, rank=0, world_size=4)
     for arch, family in (("olmoe-1b-7b", "moe"), ("zamba2-7b", "hybrid")):
-        with pytest.raises(NotImplementedError, match="ROADMAP A11h"):
-            Model(configs.get_smoke(arch), MeshSpec(("data", "model"), (2, 1)), QSDPConfig())
-    for argv, item in ((["--model-par", "2"], "A4b"), (["--hierarchical"], "A3b"),
-                       (["--prefetch"], "A4b")):
+        for shape in ((2, 1), (1, 2)):
+            with pytest.raises(NotImplementedError, match="ROADMAP A11h"):
+                Model(configs.get_smoke(arch), MeshSpec(("data", "model"), shape), QSDPConfig())
+    for argv, item in ((["--arch", "olmoe-1b-7b", "--smoke", "--model-par", "2"], "A11h"),
+                       (["--hierarchical"], "A3b"), (["--prefetch"], "A4b")):
         with pytest.raises(SystemExit):
             launch_train.parse_args(argv)
         assert f"ROADMAP {item}" in capsys.readouterr().err
@@ -196,7 +201,7 @@ def test_refusals_name_their_items(tmp_path, capsys, monkeypatch):
     with pytest.raises(SystemExit):
         launch_train.parse_args(["--data-par", "2"])
     assert "torchrun --nproc_per_node 2" in capsys.readouterr().err
-    for argv, item in ((["--data-par", "2"], "A10e"), (["--model-par", "2"], "A4b")):
+    for argv, item in ((["--data-par", "2"], "A10e"), (["--model-par", "2"], "A10e")):
         with pytest.raises(SystemExit):
             launch_serve.parse_args(argv)
         assert f"ROADMAP {item}" in capsys.readouterr().err

@@ -252,8 +252,8 @@ def test_eight_bit_moments_and_quantized_state_on_meta(cs):
 
 def test_cli_and_refusals(tmp_path, monkeypatch, capsys):
     """``main`` writes one JSON record a line, which the report twin
-    reads; the production meshes name A4b and two-level gathers A3b."""
-    for flags, item in ((["--multi-pod"], "A4b"), (["--both-meshes"], "A4b"),
+    reads; the production meshes name A12e and two-level gathers A3b."""
+    for flags, item in ((["--multi-pod"], "A12e"), (["--both-meshes"], "A12e"),
                         (["--hierarchical"], "A3b")):
         with pytest.raises(SystemExit, match=item):
             dryrun.main(["--arch", "gpt-1.3b"] + flags)

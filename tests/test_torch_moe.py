@@ -160,7 +160,7 @@ def test_moe_layer_refuses_expert_parallelism():
     cfg = moe.MoEConfig(n_experts=4, top_k=2, d_model=8, d_ff=8, tp=2)
     w = {"router": torch.zeros(8, 4), "w_gate": torch.zeros(2, 8, 8),
          "w_up": torch.zeros(2, 8, 8), "w_down": torch.zeros(2, 8, 8)}
-    with pytest.raises(NotImplementedError, match="ROADMAP A4b"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A11h"):
         moe.moe_layer(torch.zeros(4, 8), w, cfg)
 
 

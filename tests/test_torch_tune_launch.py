@@ -76,7 +76,7 @@ def test_assert_choice_per_tensor_passes_and_coalesced_fails(tmp_path, capsys):
 def test_autotune_refuses_multi_rank_mesh(flags, capsys):
     with pytest.raises(SystemExit):
         autotune.parse_args(flags)
-    assert "ROADMAP A3b/A4b" in capsys.readouterr().err
+    assert "ROADMAP A12e" in capsys.readouterr().err
 
 
 def test_reference_plan_drives_train_launcher(tmp_path, capsys):
