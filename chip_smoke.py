@@ -133,7 +133,14 @@ Phases, each of which makes the script exit non-zero when it fails:
               counts checked against the code's structure), one step under
               torch.profiler (K1's device time, no threefry int64 kernels
               left); the same steps under remat "dots" (losses bit-equal to
-              "full", launches equal; time and peak beside "full"); then
+              "full", launches equal; time and peak beside "full"); the
+              same steps under ``QSDPConfig(prefetch=True)`` (losses and
+              grad norms bit-equal to "full", K1/K2 launches equal to the
+              prefetch form of the structure's: the layers' replays decode
+              their carried wire buffers and encode nothing; time and peaks
+              beside "full"; one profiled step: the layers' encodes on the
+              side stream, as many as the pipeline starts, and the share
+              of their time that compute-stream kernels overlap); then
               quantized_state vs quantize_master (8-bit moments) for 2
               steps, losses equal.
 8b. moetrain -- olmoe-1b-7b's training: first its smoke config one f32
@@ -165,10 +172,9 @@ Phases, each of which makes the script exit non-zero when it fails:
               from one state bit-equal, 3 timed steps (K1/K2 launches equal
               the structure's, the shared block's gathers and reduce-scatters
               once per invocation), the first loss within 0.5 of ln(vocab),
-              one profiled step (busy share; no int64 threefry kernel) and,
-              for zamba2-7b, one by part (SSD scan, projections, conv, mixer
-              elementwise, gathers, K1, K2, attention, shared MLP,
-              logits/xent, optimizer).  Prints step times, tokens/s, peak memory and the
+              for mamba2-370m one profiled step (busy share; no int64
+              threefry kernel; zamba2-7b's by-part profile was cut for the
+              run's time in PR 31).  Prints step times, tokens/s, peak memory and the
               phase's seconds.  The kernel phase adds K1 G8 stochastic on
               zamba2's w_z gradient and K2 into f32 over a whole zamba2
               Mamba2 layer's gradient buffer.
@@ -299,8 +305,14 @@ Phases, each of which makes the script exit non-zero when it fails:
               gathered rows, byte-equal to the plain versions; timed in the
               kernel phase (K1 on a rank's MLP shard, K2 beside
               ``torch.addcmul``: rows "... tp-local ..."), checked here only
-              without it.  Prints that NCCL at more than one rank has not
-              run on a card.
+              without it.  (f) checkpoint resharding: gpt-125m's state at
+              full width and depth, quantized (8-bit wire codes), saved at
+              (1, 1) and loaded block by block at (P, M) = (2, 2), (1, 2)
+              and (2, 1) with ``dequantize=True`` on the card (K2) and on
+              the CPU (its plain version): every block byte-equal, each
+              layout's blocks laid end to end the whole decoded state.
+              Prints that NCCL at more than one rank has not run on a
+              card.
 
 Prints the kernel table as one JSON line, the card's name and power limit,
 and, last, ``{"ok": true, "device": {...}}``.
@@ -308,6 +320,8 @@ and, last, ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import bisect
+import collections
 import contextlib
 import dataclasses
 import functools
@@ -3024,11 +3038,14 @@ def shared_invocations(cfg) -> int:
     return cfg.n_layers // cfg.hybrid_attn_every if cfg.arch_type == "hybrid" else 0
 
 
-def gather_groups(model) -> list[tuple[tuple[str, ...], int, int]]:
+def gather_groups(model) -> list[tuple[tuple[str, ...], int, int, int]]:
     """Each group of params one gather takes (a stack's layer, a block's
     invocation, a top-level tensor), with the times a forward pass gathers
-    it and the times the backward replays that gather: a stack's layers
-    each, a block's invocations, a top-level tensor once and outside every
+    it, the times the backward replays that gather and the times the
+    backward only decodes a wire buffer the forward gathered: a stack's
+    layers each, in a loop that runs the prefetch pipeline
+    (``Model.pipelined``) decoded and otherwise replayed, a block's
+    invocations replayed, a top-level tensor once and outside every
     checkpoint (no replay)."""
     eng = model.engine
     inv = shared_invocations(model.cfg)
@@ -3036,10 +3053,15 @@ def gather_groups(model) -> list[tuple[tuple[str, ...], int, int]]:
     for n in eng.specs:
         groups.setdefault(n.rsplit("/", 1)[0] if "/" in n else n, []).append(n)
     out = []
-    for names in groups.values():
+    for prefix, names in groups.items():
         s = eng.specs[names[0]]
-        times = s.stack if s.stack is not None else inv if "/" in names[0] else 1
-        out.append((tuple(sorted(names)), times, times if "/" in names[0] else 0))
+        if s.stack is not None:
+            loops = model.stack_traversals(prefix)
+            decodes = sum(n for n in loops if model.pipelined(prefix, n))
+            out.append((tuple(sorted(names)), s.stack, s.stack - decodes, decodes))
+            continue
+        times = inv if "/" in names[0] else 1
+        out.append((tuple(sorted(names)), times, times if "/" in names[0] else 0, 0))
     return out
 
 
@@ -3047,14 +3069,15 @@ def expected_train_comm(model, n_micro: int) -> dict:
     """Calls into torch.distributed of one train step over a group, by op,
     by the code's structure: per microbatch one all-gather per coalesced
     gather, forward and replay (per tensor: three for a quantized tensor,
-    one for an fp one: ``layer_gather_launches``), and for each group's
+    one for an fp one: ``layer_gather_launches``; a prefetched layer's
+    backward decodes the buffer its forward gathered), and for each group's
     gradients one all-to-all when coalesced, else three per quantized
     tensor and one fp reduce-scatter per fp tensor; then one all-reduce
     each for the grad norm and the loss."""
     from repro_torch.core.qsdp import layer_gather_launches
     eng = model.engine
     calls = dict(all_gather=0, all_to_all=0, reduce_scatter=0)
-    for names, times, replays in gather_groups(model):
+    for names, times, replays, _ in gather_groups(model):
         calls["all_gather"] += (times + replays) * layer_gather_launches(eng, names)
         if eng.layer_coalesced(names):
             calls["all_to_all"] += times
@@ -3071,24 +3094,30 @@ def expected_train_launches(model, n_micro: int, moments: bool = False) -> dict:
     (embed at the top, each layer inside its checkpoint, the hybrid's shared
     block inside its own checkpoint at each of its invocations), the
     backward re-gathers every checkpointed buffer once more (the checkpoint
-    replays the gather, under remat "dots" too), and every gather's
+    replays the gather, under remat "dots" too) but for a prefetched
+    layer's, which it only decodes again (K2, no K1: the wire buffer is an
+    input of the layer's checkpoint), and every gather's
     gradient-quantized tensors are reduce-scattered once (the shared block's
     once per invocation, the reduce-scatters summed).  K1 encodes each
     quantized tensor of a gather or reduce-scatter; K2 decodes each buffer
     that holds one, in one launch (the final norm's buffers hold fp payloads
-    only).  With `moments` (Adam moments kept as 8-bit codes) the update
-    walks every leaf in chunks (``optim.chunk_ranges``: a stacked leaf by
-    layer slice, a large unstacked one by range) and, per chunk, decodes
-    both moments in one K2 launch and re-encodes each with K1."""
+    only).  The prefetch pipeline issues no wrapped-around gather (ROADMAP
+    C5), so it adds no launch.  With `moments` (Adam moments kept as 8-bit
+    codes) the update walks every leaf in chunks (``optim.chunk_ranges``: a
+    stacked leaf by layer slice, a large unstacked one by range) and, per
+    chunk, decodes both moments in one K2 launch and re-encodes each with
+    K1."""
     from repro_torch.core.qsdp import layer_kernel_launches
     eng = model.engine
     k1, k2 = [0, 0, 0], [0, 0, 0]
-    for names, times, replays in gather_groups(model):
+    for names, times, replays, decodes in gather_groups(model):
         c = layer_kernel_launches(eng, names)
-        for i, per in enumerate((c["gather"], c["gather"], c["reduce"])):
-            n = replays if i == 1 else times
-            k1[i] += n * per[0]
-            k2[i] += n * per[1]
+        k1[0] += times * c["gather"][0]
+        k1[1] += replays * c["gather"][0]
+        k1[2] += times * c["reduce"][0]
+        k2[0] += times * c["gather"][1]
+        k2[1] += (replays + decodes) * c["gather"][1]
+        k2[2] += times * c["reduce"][1]
     fwd, replay, grads = k1
     k2 = tuple(k2)
     from repro_torch.optim.optimizers import chunk_ranges
@@ -3174,6 +3203,7 @@ def train_phase(torch, log, dev="cuda", measured=None, built=None):
     step = build_train_step(model, opt, n_micro=TRAIN["n_micro"], device=dev)
     state, losses, gnorms, times, t_warm, counts, peak = timed_train_steps(
         torch, step, state, batches, key, dev)
+    reserved = torch.cuda.max_memory_reserved() if dev == "cuda" else 0
     want = expected_train_launches(model, TRAIN["n_micro"])
     check_train_launches(counts, want, "train")
     check(all(map(math.isfinite, losses + gnorms)), f"train: losses {losses}, norms {gnorms}")
@@ -3185,7 +3215,7 @@ def train_phase(torch, log, dev="cuda", measured=None, built=None):
         f"{TRAIN['seq']}, n_micro {TRAIN['n_micro']}: warm-up step {t_warm * 1e3:.1f} ms; "
         f"{TRAIN_TIMED} timed steps median {med * 1e3:.1f} ms (min {min(times) * 1e3:.1f}, "
         f"max {max(times) * 1e3:.1f}), {tok / med:.1f} tokens/s; peak memory "
-        f"{peak / 2**30:.2f} GiB")
+        f"{peak / 2**30:.2f} GiB allocated, {reserved / 2**30:.2f} GiB reserved")
     log(f"train: losses {[round(x, 4) for x in losses]}, grad norms "
         f"{[round(x, 4) for x in gnorms]} (first loss vs ln {cfg.vocab_size} = "
         f"{math.log(cfg.vocab_size):.4f})")
@@ -3241,6 +3271,10 @@ def train_phase(torch, log, dev="cuda", measured=None, built=None):
     del state_d, step_d
     torch.cuda.empty_cache()
 
+    train_prefetch(torch, log, cfg, opt, batches, key, dict(
+        losses=losses, gnorms=gnorms, med=med, peak=peak, reserved=reserved, counts=counts),
+        dev)
+
     # quantized-domain state vs the QDQ master, 8-bit moments (Theorem 2)
     opt8 = make_adamw(AdamWConfig(lr=TRAIN["lr"], schedule=sched, moment_bits=8))
     qs = quantize_train_state(init_train_state(model, opt8, TRAIN["seed"], dev), model,
@@ -3267,6 +3301,103 @@ def train_phase(torch, log, dev="cuda", measured=None, built=None):
     del qs, fs, step_q, step_f
     torch.cuda.empty_cache()
     return counts
+
+
+def stream_overlap(events, k1_name="quantize_pack"):
+    """K1's kernels in a chrome trace by CUDA stream, and how much of the
+    K1 time on streams other than the compute stream (the stream with the
+    most kernels) overlaps kernels running on the compute stream: K1's
+    launches, those off the compute stream, their µs, the µs of it that
+    some compute-stream kernel overlaps, and the trace's streams."""
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+
+    def stream(e):
+        return e.get("args", {}).get("stream", e.get("tid"))
+
+    compute = collections.Counter(map(stream, kernels)).most_common(1)[0][0]
+    busy = []   # the compute stream's busy intervals, merged
+    for t0, t1 in sorted((e["ts"], e["ts"] + e["dur"]) for e in kernels
+                         if stream(e) == compute):
+        if busy and t0 <= busy[-1][1]:
+            busy[-1][1] = max(busy[-1][1], t1)
+        else:
+            busy.append([t0, t1])
+    starts = [b[0] for b in busy]
+    k1 = [e for e in kernels if k1_name in e["name"]]
+    side = [e for e in k1 if stream(e) != compute]
+    side_us = over_us = 0.0
+    for e in side:
+        t0, t1 = e["ts"], e["ts"] + e["dur"]
+        side_us += t1 - t0
+        i = max(bisect.bisect_right(starts, t0) - 1, 0)
+        while i < len(busy) and busy[i][0] < t1:
+            over_us += max(0.0, min(t1, busy[i][1]) - max(t0, busy[i][0]))
+            i += 1
+    return dict(k1_n=len(k1), k1_side=len(side), side_us=side_us, overlap_us=over_us,
+                streams=len({stream(e) for e in kernels}))
+
+
+def train_prefetch(torch, log, cfg, opt, batches, key, full, dev="cuda"):
+    """gpt-1.3b's train cell under ``QSDPConfig(prefetch=True)``: the first
+    DOTS_TIMED + 1 steps from the same initial state and batches as "full"
+    (`full`: its losses, norms, median step, peaks and launches), losses
+    and grad norms bit-equal to "full"'s, K1/K2 launches a step equal to the
+    prefetch form of the structure's (each pipelined layer's replay decodes
+    its carried wire buffer, no K1), the median step and the peaks beside
+    "full"'s; then one profiled step: the forward's layer encodes on a
+    stream other than the compute stream, as many as the pipeline starts,
+    and the share of their time that compute kernels overlap."""
+    from repro_torch.core.qsdp import MeshSpec, QSDPConfig
+    from repro_torch.kernels import ops
+    from repro_torch.models.transformer import Model
+    from repro_torch.train.step import build_train_step, init_train_state
+
+    t0 = time.perf_counter()
+    model = Model(cfg, MeshSpec(("data", "model"), (1, 1)), QSDPConfig(prefetch=True))
+    check(model.pipelined("layers", cfg.n_layers), "train prefetch: the stack is not pipelined")
+    step = build_train_step(model, opt, n_micro=TRAIN["n_micro"], device=dev)
+    state, losses, gnorms, times, _, counts, peak = timed_train_steps(
+        torch, step, init_train_state(model, opt, TRAIN["seed"], dev), batches, key, dev,
+        timed=DOTS_TIMED)
+    reserved = torch.cuda.max_memory_reserved() if dev == "cuda" else 0
+    n = 1 + DOTS_TIMED
+    check(losses == full["losses"][:n] and gnorms == full["gnorms"][:n],
+          f"train prefetch: losses {losses} / norms {gnorms} differ from 'full' "
+          f"{full['losses'][:n]} / {full['gnorms'][:n]}")
+    want = expected_train_launches(model, TRAIN["n_micro"])
+    for k in ops.KERNELS:
+        check(counts[k] == DOTS_TIMED * want.get(k, 0),
+              f"train prefetch: {k} launched {counts[k]} times in {DOTS_TIMED} steps, the "
+              f"structure predicts {DOTS_TIMED * want.get(k, 0)}")
+    eng = model.engine
+    starts_q = sum(eng._is_quantized(s) * s.stack for s in eng.specs.values() if s.stack)
+    med = statistics.median(times)
+    log(f"train prefetch: losses and grad norms bit-equal to 'full' over {n} steps; launches "
+        f"a step K1 {want['quantize_pack']} (forward, replay, gradient {want['per_micro']} a "
+        f"microbatch; 'full' {full['counts']['quantize_pack'] // TRAIN_TIMED}), K2 "
+        f"{want['unpack_dequantize']} ({want['k2_per_micro']}; 'full' "
+        f"{full['counts']['unpack_dequantize'] // TRAIN_TIMED}); {DOTS_TIMED} timed step(s) "
+        f"median {med * 1e3:.1f} ms (min {min(times) * 1e3:.1f}, max {max(times) * 1e3:.1f}), "
+        f"'full' {full['med'] * 1e3:.1f} ms; peak {peak / 2**30:.2f} GiB allocated, "
+        f"{reserved / 2**30:.2f} GiB reserved ('full' {full['peak'] / 2**30:.2f}, "
+        f"{full['reserved'] / 2**30:.2f})")
+    if dev != "cuda":   # streams exist on the card only: one stream here, nothing to profile
+        return
+    i = 1 + TRAIN_TIMED
+    prof = profile_train_step(torch, lambda st: step(st, batches[i], key(i)), state, log,
+                              tag="train prefetch", breakdown=stream_overlap)
+    ov = prof["parts"]
+    share = ov["overlap_us"] / max(ov["side_us"], 1e-9)
+    check(ov["k1_side"] == TRAIN["n_micro"] * starts_q,
+          f"train prefetch: {ov['k1_side']} of {ov['k1_n']} K1 kernels ran off the compute "
+          f"stream; the pipeline starts {TRAIN['n_micro'] * starts_q} encodes a step")
+    log(f"train prefetch: profiled step: {ov['k1_side']} of {ov['k1_n']} K1 launches on the "
+        f"side stream ({ov['streams']} streams), {ov['side_us'] / 1e3:.3f} ms of K1 there, "
+        f"{ov['overlap_us'] / 1e3:.3f} ms of it under compute-stream kernels "
+        f"({100 * share:.1f} %); busy {prof['busy_ms']:.1f} of {prof['wall_ms']:.1f} ms wall; "
+        f"run {time.perf_counter() - t0:.1f} s")
+    del state, step
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -3636,11 +3767,13 @@ SSM_TRAIN_LAYERS = {"mamba2-370m": 24, "zamba2-7b": None}
 # Adam moments as 8-bit codes where the master and the gradients alone fill
 # most of the card
 SSM_TRAIN_MOMENT_BITS = {"mamba2-370m": None, "zamba2-7b": 8}
-# the profiled step by part (the one profiled step): zamba2-7b's only.
-# mamba2-370m's (a host-bound step of ~53,000 kernels) was the first cut of
-# the time budget the vlmaudio phase needed (ROADMAP, chip_smoke budget);
-# its step is profiled as it is
-SSM_TRAIN_BY_PART = {"mamba2-370m": False, "zamba2-7b": True}
+# the profiled step: mamba2-370m's as it is ("step"; its by-part profile,
+# a host-bound step of ~53,000 kernels, was the first cut of the time
+# budget the vlmaudio phase needed); zamba2-7b's none since PR 31 (its by
+# part profile, ~25-34 s of the cell, made room for the train phase's
+# prefetch run and the dist phase's reshard check; its last breakdown is
+# in PERF.md)
+SSM_TRAIN_PROFILE = {"mamba2-370m": "step", "zamba2-7b": None}
 
 
 def train_batches(torch, cfg, n, dev, seq, batch, seed, image=None):
@@ -3922,9 +4055,9 @@ def ssmtrain_phase(torch, log, dev="cuda", archs=SSM_ARCHS):
             small_train_step(torch, log, "ssmtrain", arch)
     counts = {}
     for arch in archs:
-        profile = "by part" if SSM_TRAIN_BY_PART[arch] else "step"
         for k, v in train_cell(torch, log, "ssmtrain", arch, SSM_TRAIN_LAYERS[arch],
-                               SSM_TRAIN_MOMENT_BITS[arch], profile, dev).items():
+                               SSM_TRAIN_MOMENT_BITS[arch], SSM_TRAIN_PROFILE[arch],
+                               dev).items():
             counts[k] = counts.get(k, 0) + v
     log(f"ssmtrain: phase {time.perf_counter() - t0:.1f} s")
     return counts
@@ -4387,6 +4520,7 @@ def tune_launchers(torch, log, dev, plan_path, plan, arch=TUNE["arch"], smoke=Fa
     equiv = (["--wbits", str(q["weight_bits"]), "--gbits", str(q["grad_bits"]), "--bucket",
               str(q["bucket_size"]), "--min-quant-size", str(q["min_quant_size"])]
              + ([] if q["coalesce"] else ["--no-coalesce"])
+             + (["--prefetch"] if q.get("prefetch") else [])
              + ([] if q["coalesce_max_bytes"] is None
                 else ["--coalesce-max-bytes", str(q["coalesce_max_bytes"])]))
     targs = base + ["--steps", str(train["steps"]), "--batch", str(train["batch"]), "--seq",
@@ -4420,13 +4554,15 @@ def tune_launchers(torch, log, dev, plan_path, plan, arch=TUNE["arch"], smoke=Fa
     sargs = base + ["--batch", str(serve["batch"]), "--prompt-len", str(serve["prompt_len"]),
                     "--gen", str(serve["gen"])]
     # the serve launcher's only policy flag is --wbits: the plan's policy
-    # differs from the flags' in the per-layer coalesce threshold alone,
-    # which moves launches, never values
+    # differs from the flags' in the per-layer coalesce threshold and
+    # prefetch alone, which move launches, never values (no serving path
+    # runs the prefetch pipeline)
     wb = ["--wbits", str(q["weight_bits"])]
     serve_qsdp = {"plan": plan.to_qsdp_config(), "flags": QSDPConfig(weight_bits=q["weight_bits"])}
-    check(dataclasses.replace(serve_qsdp["plan"], coalesce_max_bytes=None, coalesce=True)
+    check(dataclasses.replace(serve_qsdp["plan"], coalesce_max_bytes=None, coalesce=True,
+                              prefetch=False)
           == serve_qsdp["flags"], f"tune: the plan's policy {serve_qsdp['plan']} differs from "
-          f"{' '.join(wb)}'s in more than the coalesce threshold")
+          f"{' '.join(wb)}'s in more than the coalesce threshold and prefetch")
     for tag, extra in (("plan", ["--plan", plan_path]), ("flags", wb)):
         outs = []
 
@@ -5105,12 +5241,81 @@ def dist_wire(torch, log, dev="cuda", decode_row=None, addcmul_ms=None):
     return rows
 
 
+# (f) checkpoint resharding: a quantized gpt-125m state saved at (1, 1),
+# loaded at each of these (P, M) layouts block by block
+RESHARD_ARCH = "gpt-125m"
+RESHARD_LAYOUTS = ((2, 2), (1, 2), (2, 1))
+
+
+def dist_reshard(torch, log, dev="cuda"):
+    """(f): gpt-125m at full width and depth, its state quantized
+    (``quantize_train_state``: 8-bit wire codes for every master-eligible
+    parameter, the norms f32) and saved at (1, 1); then every (d, m) block
+    of each layout of RESHARD_LAYOUTS loaded with ``dequantize=True`` on the
+    card (K2 decodes) and on the CPU (K2's plain version): each block
+    byte-equal to the CPU's; the blocks of a layout laid end to end, read
+    back through ``from_rest``, equal to the whole state decoded on the card
+    at (1, 1).  Returns the seconds."""
+    import tempfile
+    from repro_torch import configs
+    from repro_torch.core import prng
+    from repro_torch.core.qsdp import MeshSpec, QSDPConfig, from_rest
+    from repro_torch.models.transformer import Model
+    from repro_torch.optim import AdamWConfig, make_adamw
+    from repro_torch.optim.optimizers import OptState
+    from repro_torch.train.checkpoint import load_checkpoint, save_checkpoint
+    from repro_torch.train.step import TrainState, init_train_state, quantize_train_state
+
+    t0 = time.perf_counter()
+    cfg = configs.get_config(RESHARD_ARCH)
+    one = MeshSpec(("data", "model"), (1, 1))
+    model = Model(cfg, one, QSDPConfig())
+    st = init_train_state(model, make_adamw(AdamWConfig()), TRAIN["seed"], dev)
+    st = quantize_train_state(TrainState(params=st.params, opt=OptState(step=0, mu=(), nu=())),
+                              model, prng.PRNGKey(TRAIN["seed"] + 2))
+    n_q = sum(hasattr(v, "wire") for v in st.params.values())
+    with tempfile.TemporaryDirectory() as d:
+        save_checkpoint(d, st, meta=dict(arch=cfg.name))
+        del st
+        whole = load_checkpoint(d, dev, dequantize=True).params
+        logical = {k: from_rest(v, model.specs[k], one) for k, v in whole.items()}
+        n_blocks = 0
+        for p, m in RESHARD_LAYOUTS:
+            tgt = Model(cfg, MeshSpec(("data", "model"), (1, m)), QSDPConfig(), model_rank=0)
+            ms = MeshSpec(("data", "model"), (p, m))
+            blocks = {}
+            for di in range(p):
+                for mi in range(m):
+                    kw = dict(mesh_sizes=(m, p), rank=di, model_rank=mi, model=tgt,
+                              dequantize=True)
+                    card = load_checkpoint(d, dev, **kw).params
+                    host = load_checkpoint(d, "cpu", **kw).params
+                    for k, v in card.items():
+                        check(torch.equal(v.cpu(), host[k]),
+                              f"dist reshard: {k} block ({di}, {mi}) of ({p}, {m}) differs "
+                              "between the card and the CPU")
+                        blocks.setdefault(k, {})[di, mi] = v
+                    n_blocks += 1
+            for k, b in blocks.items():
+                rest = torch.cat([torch.cat([b[di, mi] for di in range(p)], dim=-2)
+                                  for mi in range(m)], dim=-3)
+                check(torch.equal(from_rest(rest, tgt.specs[k], ms), logical[k]),
+                      f"dist reshard: {k}'s ({p}, {m}) blocks do not lay out the whole state")
+            del blocks
+    secs = time.perf_counter() - t0
+    log(f"dist reshard: {cfg.name} quantized state ({n_q} leaves as 8-bit codes) saved at "
+        f"(1, 1), loaded at (P, M) = {', '.join(map(str, RESHARD_LAYOUTS))} with "
+        f"dequantize=True: {n_blocks} blocks byte-equal card vs CPU, each layout's blocks the "
+        f"whole decoded state; {secs:.1f} s")
+    return secs
+
+
 def dist_phase(torch, log, dev="cuda", profile=True, wire=True, launch_extra=()):
     """Phase 13 (module docstring): (b) started first; (a)'s profiled step
     runs beside it, then (d) while (b) finishes, (a)'s timed steps after (b)
-    is done; then, with `wire` (when the kernel phase did not run them,
-    timed), (c) and (e).  Returns (the main path's launches, the P-rank
-    rows, the blocks' rows)."""
+    is done; then (f), and with `wire` (when the kernel phase did not run
+    them, timed), (c) and (e).  Returns (the main path's launches, the
+    P-rank rows, the blocks' rows)."""
     t = time.perf_counter()
     started = dist_launch_start(torch, dev, launch_extra)
     blocks = []
@@ -5126,6 +5331,7 @@ def dist_phase(torch, log, dev="cuda", profile=True, wire=True, launch_extra=())
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
+    dist_reshard(torch, log, dev)
     rows = dist_wire(torch, log, dev) if wire else []
     if wire:
         tp_wire(torch, log, dev)

@@ -115,12 +115,15 @@ def train_layer_launches(engine, names, n_micro: int = 1) -> dict[str, int]:
     """K1/K2 launches one stacked layer of `names` adds to a train step of
     `n_micro` microbatches at one rank: per microbatch its forward gather,
     the checkpoint's replay of it and the gradient's reduce-scatter, each as
-    ``core.qsdp.layer_kernel_launches`` counts it."""
+    ``core.qsdp.layer_kernel_launches`` counts it.  Under the prefetch
+    pipeline (a coalesced stack of two layers or more) the replay decodes
+    the buffer the forward gathered: its K2 again, no K1."""
     from ..core.qsdp import layer_kernel_launches
 
     c = layer_kernel_launches(engine, names)
-    return {k: n_micro * (2 * c["gather"][i] + c["reduce"][i])
-            for i, k in enumerate(("quantize_pack", "unpack_dequantize"))}
+    encodes = 1 if engine.cfg.prefetch and engine.layer_coalesced(tuple(names)) else 2
+    return {"quantize_pack": n_micro * (encodes * c["gather"][0] + c["reduce"][0]),
+            "unpack_dequantize": n_micro * (2 * c["gather"][1] + c["reduce"][1])}
 
 
 def _step_counts(mcfg, qcfg, n_layers: int) -> dict:

@@ -341,12 +341,21 @@ def decode_gathered_wire(gbuf: torch.Tensor, layout: WireLayout, p: int,
             for vals, dt in zip(_decode_segments(rows, layout, out_dtypes), out_dtypes)]
 
 
+def start_gather_coalesced(xs: Sequence[torch.Tensor], layout: WireLayout,
+                           keys: Sequence[Optional[prng.Key]], group=None) -> torch.Tensor:
+    """The start half of :func:`all_gather_coalesced`: encode -> 1
+    all-gather, the gathered (P * layout.nbytes,) u8 buffer; its finish is
+    :func:`decode_gathered_wire` (the prefetch pipeline runs the two a
+    layer apart)."""
+    return gather_wire(encode_wire(xs, layout, keys), group)
+
+
 @_collective
 def all_gather_coalesced(xs: Sequence[torch.Tensor], layout: WireLayout,
                          keys: Sequence[Optional[prng.Key]], out_dtypes: Sequence,
                          group=None) -> list[torch.Tensor]:
     """One-launch layer gather: encode -> 1 all-gather -> decode."""
-    gbuf = gather_wire(encode_wire(xs, layout, keys), group)
+    gbuf = start_gather_coalesced(xs, layout, keys, group)
     return decode_gathered_wire(gbuf, layout, group_size(group), out_dtypes)
 
 

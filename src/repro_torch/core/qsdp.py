@@ -23,6 +23,16 @@ backward re-gathers each layer from the same key (byte-identical weights),
 and each gather's backward runs once: the paper's 2x AllGather + 1x
 ReduceScatter per layer per step.
 
+Under ``QSDPConfig(prefetch=True)`` a coalesced layer gather is split in
+two (the reference's ``qsdp_gather_layer_start``/``_finish``):
+:meth:`QSDPEngine.gather_layer_start` encodes and all-gathers (no autograd
+node; on the card on a side CUDA stream) and
+:meth:`QSDPEngine.gather_layer_finish` decodes the carried wire buffer and
+owns the whole backward, the same reduce-scatter under the same keys.  The
+layer loop runs the start a layer ahead, outside the layer's checkpoint,
+and hands the wire to the checkpointed body: the backward's replay decodes
+the layer again (K2) but encodes nothing.
+
 The engine runs on a (P, M) ("data", "model") mesh of P·M ranks: each
 rank, at (data rank d, model rank m), holds its block ``(stack?, 1, 1,
 n_local)`` of every rest-layout leaf, row m and column d of the leaf, the
@@ -213,6 +223,12 @@ class QSDPConfig:
     rand_bits: int = 32
     coalesce: bool = True
     coalesce_max_bytes: Optional[int] = None
+    # double-buffered layer prefetch: a stack's layer loop starts layer
+    # i+1's coalesced gather (K1 and the all-gather, on a side CUDA stream
+    # on the card) before it computes layer i, and decodes layer i's wire
+    # buffer inside the layer's checkpoint (``models/transformer.py``).
+    # Only where the stack's layers are coalesced; changes no value.
+    prefetch: bool = False
     meta_wire_dtype: str = "float32"
 
     def __post_init__(self):
@@ -244,6 +260,32 @@ def _tensor_key(key: prng.Key, name: str) -> prng.Key:
     return prng.fold_in(key, prng.stable_hash(name))
 
 
+def _layer_grad_rs(eng, names, key, cts) -> tuple:
+    """The coalesced quantized reduce-scatter of one layer gather's
+    cotangents, divided by the FSDP size and summed over the model group
+    where ``grad_sync_model``: the backward of both :class:`_GatherLayer`
+    and :class:`_GatherLayerFinish` (reference ``_layer_grad_rs``)."""
+    layout = eng.rs_layout(names)
+    keys = [prng.fold_in(_tensor_key(key, n), _GRAD_SALT)
+            if s.cfg is not None else None for n, s in zip(names, layout.segments)]
+    gs = coll.reduce_scatter_coalesced([c.float() for c in cts], layout, keys, eng.group)
+    return tuple(eng._sync_model(n, g / eng.ms.fsdp_size) for n, g in zip(names, gs))
+
+
+def _gather_keys(layout: coll.WireLayout, names, key) -> list:
+    return [_tensor_key(key, n) if s.cfg is not None else None
+            for n, s in zip(names, layout.segments)]
+
+
+def _out_dtypes(eng, layout: coll.WireLayout) -> list:
+    # K2 decodes each quantized weight straight into the compute dtype that
+    # _reshape_full casts to: the bytes of the f32 decode's cast (the JAX
+    # package's dequant_to_compute gives them too), without the cast kernel.
+    # The cotangent then arrives in that dtype; the backward sums in f32.
+    return [eng.compute_dtype if s.cfg is not None else torch.float32
+            for s in layout.segments]
+
+
 class _GatherLayer(torch.autograd.Function):
     """Coalesced layer gather (forward) / coalesced quantized reduce-scatter
     of the cotangents (backward): the reference's ``qsdp_gather_layer``."""
@@ -252,27 +294,30 @@ class _GatherLayer(torch.autograd.Function):
     def forward(ctx, eng, names, key, *shards):
         ctx.eng, ctx.names, ctx.key = eng, names, key
         layout = eng.layout(names)
-        # K2 decodes each quantized weight straight into the compute dtype
-        # that _reshape_full casts to: the bytes of the f32 decode's cast
-        # (the JAX package's dequant_to_compute gives them too), without the
-        # cast kernel.
-        # The cotangent then arrives in that dtype; the backward sums in f32.
-        return tuple(coll.all_gather_coalesced(
-            shards, layout,
-            [_tensor_key(key, n) if s.cfg is not None else None
-             for n, s in zip(names, layout.segments)],
-            [eng.compute_dtype if s.cfg is not None else torch.float32
-             for s in layout.segments],
-            eng.group))
+        return tuple(coll.all_gather_coalesced(shards, layout, _gather_keys(layout, names, key),
+                                               _out_dtypes(eng, layout), eng.group))
 
     @staticmethod
     def backward(ctx, *cts):
-        eng, p = ctx.eng, ctx.eng.ms.fsdp_size
-        layout = eng.rs_layout(ctx.names)
-        keys = [prng.fold_in(_tensor_key(ctx.key, n), _GRAD_SALT)
-                if s.cfg is not None else None for n, s in zip(ctx.names, layout.segments)]
-        gs = coll.reduce_scatter_coalesced([c.float() for c in cts], layout, keys, eng.group)
-        return (None, None, None, *(eng._sync_model(n, g / p) for n, g in zip(ctx.names, gs)))
+        return (None, None, None, *_layer_grad_rs(ctx.eng, ctx.names, ctx.key, cts))
+
+
+class _GatherLayerFinish(torch.autograd.Function):
+    """Decode a wire buffer that :meth:`QSDPEngine.gather_layer_start`
+    gathered (forward; the shards are not read, their bytes are in the
+    wire) / the same reduce-scatter as :class:`_GatherLayer` (backward):
+    the reference's ``qsdp_gather_layer_finish``."""
+
+    @staticmethod
+    def forward(ctx, eng, names, key, wire, *shards):
+        ctx.eng, ctx.names, ctx.key = eng, names, key
+        layout = eng.layout(names)
+        return tuple(coll.decode_gathered_wire(wire, layout, eng.ms.fsdp_size,
+                                               _out_dtypes(eng, layout)))
+
+    @staticmethod
+    def backward(ctx, *cts):
+        return (None, None, None, None, *_layer_grad_rs(ctx.eng, ctx.names, ctx.key, cts))
 
 
 class _GatherOne(torch.autograd.Function):
@@ -341,6 +386,7 @@ class QSDPEngine:
         self.rank = coll.group_rank(group)
         self.model_rank = model_rank
         self.compute_dtype = _DTYPES[cfg.compute_dtype]
+        self._streams: dict = {}
 
     def _sync_model(self, name: str, g: torch.Tensor) -> torch.Tensor:
         """A reduce-scattered gradient, summed over the model group where
@@ -416,6 +462,64 @@ class QSDPEngine:
                     for k, n in zip(names, full_names)}
         fulls = _GatherLayer.apply(self, full_names, key,
                                    *[leaves[k].reshape(-1) for k in names])
+        return {k: self._reshape_full(n, f) for k, n, f in zip(names, full_names, fulls)}
+
+    # -- the prefetch pipeline's two halves (reference ``qsdp.py:697-711``) -----
+
+    def _side_stream(self, device: torch.device):
+        """The engine's side CUDA stream on `device` (made at first use),
+        None off the card: on the CPU and the meta device the start runs in
+        order on the one stream."""
+        if device.type != "cuda":
+            return None
+        if device not in self._streams:
+            self._streams[device] = torch.cuda.Stream(device=device)
+        return self._streams[device]
+
+    def gather_layer_start(self, prefix: str, leaves: dict[str, torch.Tensor],
+                           key: prng.Key) -> torch.Tensor:
+        """Prefetch, step 1: encode a coalesced layer (K1, each tensor under
+        the key :meth:`gather_layer` gives it) and all-gather it; returns the
+        gathered u8 wire buffer, which autograd does not track.  On the card
+        it runs on the engine's side stream, after the work queued so far on
+        the compute stream (the previous step's in-place update included),
+        so that it can run beside the compute queued next; the wire is allocated
+        on the side stream and marked as used on the compute stream, and
+        carries the event :meth:`gather_layer_finish` waits for."""
+        names = tuple(sorted(leaves))
+        full_names = tuple(f"{prefix}{k}" for k in names)
+        layout = self.layout(full_names)
+        keys = _gather_keys(layout, full_names, key)
+        with torch.no_grad():
+            shards = [leaves[k].reshape(-1) for k in names]
+            side = self._side_stream(shards[0].device)
+            if side is None:
+                return coll.start_gather_coalesced(shards, layout, keys, self.group)
+            compute = torch.cuda.current_stream(side.device)
+            side.wait_stream(compute)
+            with torch.cuda.stream(side):
+                wire = coll.start_gather_coalesced(shards, layout, keys, self.group)
+                ready = torch.cuda.Event()
+                ready.record(side)
+            for x in shards:
+                x.record_stream(side)
+            wire.record_stream(compute)
+        wire._qsdp_ready = ready
+        return wire
+
+    def gather_layer_finish(self, prefix: str, leaves: dict[str, torch.Tensor],
+                            wire: torch.Tensor, key: prng.Key) -> dict[str, torch.Tensor]:
+        """Prefetch, step 2: decode a wire buffer from
+        :meth:`gather_layer_start` (K2, after its event on the card) into the
+        layer's TP-local tensors; the backward reduce-scatters their
+        gradients to `leaves` under `key`, as :meth:`gather_layer`'s does."""
+        names = tuple(sorted(leaves))
+        full_names = tuple(f"{prefix}{k}" for k in names)
+        ready = getattr(wire, "_qsdp_ready", None)
+        if ready is not None:
+            torch.cuda.current_stream(wire.device).wait_event(ready)
+        fulls = _GatherLayerFinish.apply(self, full_names, key, wire,
+                                         *[leaves[k].reshape(-1) for k in names])
         return {k: self._reshape_full(n, f) for k, n, f in zip(names, full_names, fulls)}
 
     # -- code-form gather (serve/decode) -----------------------------------------

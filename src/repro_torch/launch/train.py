@@ -24,8 +24,11 @@ plain versions of the kernels on the CPU.  ``--plan PLAN.json`` (from
 individual flags.  Uses the deterministic synthetic
 Markov corpus, so loss curves are reproducible.  What the port does not
 run yet exits with an error naming the ROADMAP item that brings it:
-``--hierarchical`` (A3b), ``--prefetch`` (A4b), the other families over
-ranks, either axis (A11h).  The
+``--hierarchical`` (A3b), the other families over ranks, either axis
+(A11h).  ``--prefetch`` pipelines each stack's layer gathers (the next
+layer's encode and all-gather run while this layer computes, on a side
+CUDA stream on the card); it requires coalescing, as the JAX launcher's
+does.  The
 VLM and audio families exit with an error too: their batches carry
 modality inputs that the corpus does not give (the JAX launcher feeds the
 same corpus and fails in ``loss_fn``); they train through
@@ -52,7 +55,7 @@ from ..train.step import (build_train_step, init_train_state, local_batch,
 from .mesh import init_distributed
 
 # flags of the JAX launcher this port does not run yet: (flag, ROADMAP item)
-_NOT_PORTED = (("--hierarchical", "A3b"), ("--prefetch", "A4b"))
+_NOT_PORTED = (("--hierarchical", "A3b"),)
 # families whose train batch carries inputs beside the tokens and labels
 _MODALITY_INPUTS = {"vlm": "vision_embeds, vision_mask and M-RoPE positions",
                     "audio": "audio_embeds"}
@@ -65,7 +68,8 @@ def build_qsdp(args) -> QSDPConfig:
         return QSDPConfig.baseline()
     return QSDPConfig(weight_bits=args.wbits, grad_bits=args.gbits,
                       bucket_size=args.bucket, min_quant_size=args.min_quant_size,
-                      coalesce=args.coalesce, coalesce_max_bytes=args.coalesce_max_bytes)
+                      coalesce=args.coalesce, prefetch=args.prefetch,
+                      coalesce_max_bytes=args.coalesce_max_bytes)
 
 
 def validate_args(ap: argparse.ArgumentParser, args) -> None:
@@ -75,6 +79,10 @@ def validate_args(ap: argparse.ArgumentParser, args) -> None:
                  f"{_MODALITY_INPUTS[family]}, which the synthetic corpus does not give "
                  "(nor does the JAX package's launcher); train it through "
                  "train.step.build_train_step with such a batch")
+    if args.prefetch and not args.coalesce:
+        ap.error("--prefetch requires coalescing (the prefetch pipeline "
+                 "carries the coalesced u8 wire buffer through the scan); "
+                 "drop --no-coalesce")
     for flag, item in _NOT_PORTED:
         if getattr(args, flag[2:].replace("-", "_")) not in (None, False):
             ap.error(f"{flag} is not ported yet (ROADMAP {item})")
@@ -110,7 +118,8 @@ def validate_args(ap: argparse.ArgumentParser, args) -> None:
                  "(wire-code state) are mutually exclusive")
     args.plan_qsdp = None
     if args.plan:
-        if any([args.baseline, args.coalesce_max_bytes is not None, not args.coalesce]):
+        if any([args.baseline, args.coalesce_max_bytes is not None, args.prefetch,
+                not args.coalesce]):
             ap.error("--plan pins the comm policy; don't combine it with "
                      "--baseline/--hierarchical/--coalesce-max-bytes/--prefetch/"
                      "--no-coalesce")
@@ -143,7 +152,8 @@ def parse_args(argv=None):
     ap.add_argument("--hierarchical", action="store_true")
     ap.add_argument("--coalesce", action=argparse.BooleanOptionalAction, default=True,
                     help="coalesced wire format (one u8 collective per layer gather)")
-    ap.add_argument("--prefetch", action="store_true")
+    ap.add_argument("--prefetch", action="store_true",
+                    help="double-buffered layer prefetch (requires coalescing)")
     ap.add_argument("--coalesce-max-bytes", type=int, default=None,
                     help="per-layer byte threshold: gathers whose coalesced wire buffer "
                          "exceeds this fall back to per-tensor launches (None = always "

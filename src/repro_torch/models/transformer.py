@@ -27,6 +27,10 @@ checkpointed with its gather inside.  The reference also remats each group
 as a whole around them; the port does not nest that checkpoint (the values
 are the same, since a gather under a fixed key is deterministic; nesting
 would gather every layer of a group three times a step instead of twice).
+Under ``QSDPConfig(prefetch=True)`` every layer loop that gathers through
+the engine pipelines its gathers (:meth:`Model._scan_layers`): the dense,
+MoE, VLM and SSM stacks, the hybrid's groups and tail, the audio encoder
+and decoder.
 The shared block's gradient is the sum of one quantized reduce-scatter per
 invocation, accumulated by autograd from the last invocation to the first,
 as the reference's scan transpose does.
@@ -373,29 +377,74 @@ class Model:
                                                  _save_dots)
         return checkpoint(fn, *args, **kw)
 
+    def stack_traversals(self, prefix: str) -> list[int]:
+        """The lengths of the layer loops one forward pass runs over the
+        stacked group `prefix`: the whole stack, but for the hybrid's
+        groups of ``hybrid_attn_every`` layers and its tail."""
+        cfg = self.cfg
+        n = self.specs[next(k for k in self.specs if k.startswith(prefix + "/"))].stack
+        if cfg.arch_type == "hybrid" and prefix == "layers":
+            n_groups, rem = divmod(n, cfg.hybrid_attn_every)
+            return [cfg.hybrid_attn_every] * n_groups + ([rem] if rem else [])
+        return [n]
+
+    def pipelined(self, prefix: str, n_layers: int) -> bool:
+        """Does a loop over `n_layers` layers of the group `prefix` (through
+        the engine's own gather) run the prefetch pipeline?  Where
+        ``prefetch`` is set, the loop holds more than one layer and the
+        group's layer gather is coalesced (``coalesce_max_bytes`` may veto
+        it): the reference's condition (``transformer.py:307-309``)."""
+        names = tuple(sorted(k for k in self.specs if k.startswith(prefix + "/")))
+        return (self.qcfg.prefetch and n_layers > 1
+                and self.engine.layer_coalesced(names))
+
     def _scan_layers(self, prefix, names, layers, x, key, cos, sin, positions, layer_fn,
                      carry_aux=False, memory=None, gather=None):
         """Run the layers `layers` (each a tuple of slices of `names`),
         gathering layer i's weights under ``fold_in(key, i)`` inside its
-        checkpointed body (the reference's rematerialized scan, non-prefetch
-        branch), by ``gather(prefix, {name: slice}, key)`` (the engine's
-        coalesced ``gather_layer`` unless given).  With `carry_aux` the body
-        carries (x, aux), aux starting at an f32 zero; with `memory` (the
-        audio encoder's output) every body takes it as an explicit input and
-        hands it to ``layer_fn`` after `positions`.  Returns the carry."""
+        checkpointed body (the reference's rematerialized scan), by
+        ``gather(prefix, {name: slice}, key)`` (the engine's coalesced
+        ``gather_layer`` unless given).  With `carry_aux` the body carries
+        (x, aux), aux starting at an f32 zero; with `memory` (the audio
+        encoder's output) every body takes it as an explicit input and hands
+        it to ``layer_fn`` after `positions`.  Returns the carry.
+
+        Where :meth:`pipelined` holds (and no `gather` is given) the loop is
+        the reference's double-buffered pipeline: layer 0's gather starts
+        before the loop (``engine.gather_layer_start``), and before layer i
+        computes, layer i + 1's starts, outside layer i's checkpoint (on the
+        card on the engine's side stream, so its K1 and all-gather can run
+        beside layer i's compute).  The checkpointed body takes layer i's wire
+        buffer as an input and decodes it (``engine.gather_layer_finish``),
+        so the backward's replay decodes each layer again but encodes none.
+        The reference's wrapped-around gather of layer 0 on the last layer,
+        whose result it discards, is not issued (ROADMAP C5)."""
+        eng = self.engine
+        pipe = gather is None and self.pipelined(prefix, len(layers))
         if gather is None:
             def gather(pfx, w, lkey):
-                return self.engine.gather_layer(f"{pfx}/", w, lkey)
+                return eng.gather_layer(f"{pfx}/", w, lkey)
 
-        def body(x, aux, mem, idx, *lw):
-            w = gather(prefix, dict(zip(names, lw)), prng.fold_in(key, idx))
+        def body(x, aux, mem, idx, wire, *lw):
+            w, lkey = dict(zip(names, lw)), prng.fold_in(key, idx)
+            w = (gather(prefix, w, lkey) if wire is None
+                 else eng.gather_layer_finish(f"{prefix}/", w, wire, lkey))
             extra = () if mem is None else (mem,)
             return layer_fn((x, aux) if carry_aux else x, w, cos, sin, positions, *extra)
 
+        def start(i):
+            if not pipe or i == len(layers):
+                return None
+            return eng.gather_layer_start(f"{prefix}/", dict(zip(names, layers[i])),
+                                          prng.fold_in(key, i))
+
         carry = (x, torch.zeros((), dtype=torch.float32, device=x.device)) if carry_aux else x
+        wire = start(0)
         for idx, lw in enumerate(layers):
+            nxt = start(idx + 1)
             args = carry if carry_aux else (carry, None)
-            carry = self._checkpoint(body, *args, memory, idx, *lw)
+            carry = self._checkpoint(body, *args, memory, idx, wire, *lw)
+            wire = nxt
         return carry
 
     def _hybrid_stack(self, params, x, key, cos, sin, positions):

@@ -12,9 +12,17 @@ On a (P, M) mesh every rank holds its block of each leaf: the save
 gathers the blocks over the data group (axis -2) and then the model group
 (axis -3), and global rank 0 writes the whole state, the file the JAX
 package writes from its (P, M) mesh (manifest ``mesh`` {model_size: M,
-fsdp_size: P}); the load gives each rank its block.  A checkpoint loads on
-the mesh layout it was saved on; resharding to another (model, fsdp)
-layout waits for ROADMAP A3b.
+fsdp_size: P}); the load gives each rank its block.
+
+A v2 checkpoint saved on another (model, fsdp) layout is resharded through
+the logical parameter form, as the JAX package's ``load_checkpoint`` does:
+each leaf goes through ``from_rest`` at the saved layout and ``to_rest`` at
+the target one (the parameter's ``ParamSpec`` from the `model` argument),
+and the rank takes its block.  Dense leaves come out bit-identical.  A
+quantized leaf's buckets depend on the layout, so across layouts it is
+refused unless the load is asked to decode (``dequantize=True``); it is
+then decoded to its exact f32 values on the target device (by K2 on the
+card) before the reshard.  A same-layout load keeps every byte.
 """
 from __future__ import annotations
 
@@ -26,8 +34,8 @@ import numpy as np
 import torch
 
 from ..core import collectives as coll
-from ..core.qsdp import rank_block
-from ..core.quant import QuantConfig, QuantizedParam
+from ..core.qsdp import MeshSpec, from_rest, rank_block, to_rest
+from ..core.quant import QuantConfig, QuantizedParam, qparam_decode
 from ..device import resolve_device
 from ..optim import OptState
 from .step import TrainState
@@ -58,6 +66,22 @@ def state_to_flat(state: TrainState) -> tuple[dict[str, np.ndarray], dict[str, d
     return flat, leaves
 
 
+def _qparam(t: torch.Tensor, e: dict) -> QuantizedParam:
+    cfg = QuantConfig(bits=e["bits"], bucket_size=e["bucket_size"], mode=e["mode"],
+                      meta_dtype=e.get("meta_dtype", "float32"))
+    return QuantizedParam(t, tuple(e["cell_shape"]), cfg)
+
+
+def _build_state(keys, step: int, leaf) -> TrainState:
+    """The TrainState of the npz keys `keys`, ``leaf(key)`` each leaf."""
+    def tree(prefix):
+        ks = [k for k in keys if k.startswith(prefix)]
+        return {k[len(prefix):]: leaf(k) for k in ks} if ks else ()
+
+    return TrainState(params=tree("params/"),
+                      opt=OptState(step=step, mu=tree("opt/mu/"), nu=tree("opt/nu/")))
+
+
 def state_from_flat(flat: dict[str, np.ndarray], leaves: dict[str, dict],
                     device=None) -> TrainState:
     """Inverse of :func:`state_to_flat`: tensors on `device` (the card
@@ -66,21 +90,18 @@ def state_from_flat(flat: dict[str, np.ndarray], leaves: dict[str, dict],
     device = resolve_device(device)
 
     def leaf(key):
-        e, arr = leaves.get(key, {"kind": "dense"}), np.asarray(flat[key])
-        t = torch.from_numpy(np.array(arr)).to(device)
-        if e.get("kind") != "quantized":
-            return t
-        cfg = QuantConfig(bits=e["bits"], bucket_size=e["bucket_size"], mode=e["mode"],
-                          meta_dtype=e.get("meta_dtype", "float32"))
-        return QuantizedParam(t, tuple(e["cell_shape"]), cfg)
+        e = leaves.get(key, {"kind": "dense"})
+        t = torch.from_numpy(np.array(np.asarray(flat[key]))).to(device)
+        return _qparam(t, e) if e.get("kind") == "quantized" else t
 
-    def tree(prefix):
-        keys = [k for k in flat if k.startswith(prefix)]
-        return {k[len(prefix):]: leaf(k) for k in keys} if keys else ()
+    return _build_state([k for k in flat if k != "opt/step"], int(flat["opt/step"]), leaf)
 
-    return TrainState(params=tree("params/"),
-                      opt=OptState(step=int(flat["opt/step"]), mu=tree("opt/mu/"),
-                                   nu=tree("opt/nu/")))
+
+def _param_name(key: str) -> Optional[str]:
+    for pre in ("params/", "opt/mu/", "opt/nu/"):
+        if key.startswith(pre):
+            return key[len(pre):]
+    return None
 
 
 def _mesh_sizes(flat: dict) -> tuple[int, int]:
@@ -142,12 +163,16 @@ def save_checkpoint(path: str, state: TrainState, meta: Optional[dict[str, Any]]
 
 
 def load_checkpoint(path: str, device=None, mesh_sizes: tuple[int, int] = (1, 1),
-                    rank: int = 0, model_rank: int = 0) -> TrainState:
-    """Load a v1 or v2 checkpoint saved on the (model, fsdp) layout
-    `mesh_sizes` onto `device` (the card unless given), the block of every
-    leaf at data rank `rank` and model rank `model_rank`; raises on an
-    unknown format, a manifest that does not match the payload, or another
-    layout."""
+                    rank: int = 0, model_rank: int = 0, model=None,
+                    dequantize: bool = False) -> TrainState:
+    """Load a v1 or v2 checkpoint onto `device` (the card unless given) for
+    the (model, fsdp) layout `mesh_sizes`: the block of every leaf at data
+    rank `rank` and model rank `model_rank`.  A v2 file saved on another
+    layout is resharded, which needs `model` (its ``specs``); a quantized
+    leaf then needs ``dequantize=True``, which decodes quantized leaves to
+    f32 on any load.  Raises ValueError on an unknown format, a manifest
+    that does not match the payload, a reshard without `model` or of a
+    quantized leaf in wire form."""
     mpath = os.path.join(path, "manifest.json")
     if not os.path.exists(mpath):
         raise FileNotFoundError(f"checkpoint manifest missing: {mpath}")
@@ -167,12 +192,36 @@ def load_checkpoint(path: str, device=None, mesh_sizes: tuple[int, int] = (1, 1)
             raise ValueError(f"corrupted checkpoint manifest in {path}: leaf {k!r} is "
                              f"{flat[k].shape}/{flat[k].dtype} on disk but "
                              f"{tuple(e['shape'])}/{e['dtype']} in the manifest")
-    if fmt == FORMAT_V2:
-        saved = (manifest["mesh"]["model_size"], manifest["mesh"]["fsdp_size"])
-        if saved != tuple(mesh_sizes):
-            raise NotImplementedError(
-                f"checkpoint was saved on (model, fsdp) = {saved}, not {tuple(mesh_sizes)}: "
-                "resharding is not ported yet (ROADMAP A3b)")
     m, p = mesh_sizes
-    return state_from_flat({k: rank_block(a, rank, p, model_rank, m) if a.ndim >= 3 else a
-                            for k, a in flat.items()}, leaves, device)
+    saved = ((manifest["mesh"]["model_size"], manifest["mesh"]["fsdp_size"])
+             if fmt == FORMAT_V2 else None)
+    same = saved is None or saved == (m, p)
+    if not same and model is None:
+        raise ValueError(
+            f"checkpoint was saved on (model={saved[0]}, fsdp={saved[1]}) but the target "
+            f"mesh is (model={m}, fsdp={p}); resharding needs the `model` argument")
+    if same and not dequantize:
+        return state_from_flat({k: rank_block(a, rank, p, model_rank, m) if a.ndim >= 3
+                                else a for k, a in flat.items()}, leaves, device)
+    device = resolve_device(device)
+    ms_src = None if same else MeshSpec(("data", "model"), (saved[1], saved[0]))
+    ms_tgt = MeshSpec(("data", "model"), (p, m))
+
+    def leaf(key):
+        e = leaves.get(key, {"kind": "dense"})
+        t = torch.from_numpy(np.array(flat[key]))
+        if e.get("kind") == "quantized":
+            if not dequantize:
+                raise ValueError(
+                    f"quantized leaf {key!r} cannot be resharded in wire form (bucket "
+                    "boundaries are layout-dependent); load with dequantize=True — the "
+                    "decoded values are bit-exact — and re-enter wire form with "
+                    "quantize_train_state if desired")
+            t = qparam_decode(_qparam(t.to(device), e))
+        name = _param_name(key)
+        if not same and name is not None:
+            spec = model.specs[name]
+            t = to_rest(from_rest(t, spec, ms_src), spec, ms_tgt)
+        return (rank_block(t, rank, p, model_rank, m) if t.ndim >= 3 else t).to(device)
+
+    return _build_state([k for k in flat if k != "opt/step"], int(flat["opt/step"]), leaf)

@@ -12,6 +12,15 @@ Schedule per optimizer step (paper Figure 5 + Appendix A):
   AdamW update of the f32 master shards
   [optional] Q^w re-quantization of the master (Theorem 2)
 
+Under ``QSDPConfig(prefetch=True)`` each stack's forward gathers layer i+1
+while layer i computes (``Model._scan_layers``), and the backward
+recomputes each layer from the wire buffer its forward gathered: the
+replay's AllGather(w) above becomes a decode of that buffer, with no
+encode.  On the card the starts run on the engine's side CUDA stream; each
+start waits for everything queued on the compute stream before it, so the
+first gather of a step reads the master after the previous step's
+in-place update.  The step itself is unchanged.
+
 ``quantize_master=True`` round-trips the f32 master through Q^w each step;
 ``quantized_state=True`` keeps every master-eligible parameter AS its wire
 codes (:class:`~repro_torch.core.quant.QuantizedParam`), decoded at step

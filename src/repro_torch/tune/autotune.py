@@ -9,9 +9,7 @@ Pipeline:
      launch counts + wire bytes + serialization terms -> predicted step
      time), including the coalesce byte-threshold cut point the model's
      crossover suggests;
-  2. measure the shortlist with the port's real train step (a prefetch
-     candidate keeps its predicted cost in the ranking but is not measured:
-     ROADMAP A4b; the next distinct cost takes its place);
+  2. measure the shortlist with the port's real train step;
   3. derive the per-layer coalesce policy;
   4. emit a versioned DeploymentPlan JSON for ``launch/train.py --plan``
      and ``launch/serve.py --plan``.
@@ -89,13 +87,6 @@ def _engine_for(mcfg, ms: MeshSpec, qcfg: QSDPConfig):
     return Model(mcfg, ms, qcfg).engine
 
 
-def _priced_qsdp(cand: Candidate, base: QSDPConfig) -> QSDPConfig:
-    """The engine that prices `cand`: the port's config has no prefetch
-    field, and prefetch changes no term of the model but the epilogue
-    gather that cost_fn adds."""
-    return dataclasses.replace(cand, prefetch=False).to_qsdp(base)
-
-
 def main(argv=None):
     args = parse_args(argv)
     device = resolve_device(args.device)
@@ -122,7 +113,7 @@ def main(argv=None):
                                  base=base_cand))
 
     def cost_fn(cand: Candidate) -> float:
-        eng = _engine_for(mcfg, ms, _priced_qsdp(cand, base_qsdp))
+        eng = _engine_for(mcfg, ms, cand.to_qsdp(base_qsdp))
         t = predict_step_time(eng, cp, n_micro=args.n_micro)
         if cand.prefetch:
             # the pipeline's wrapped-around epilogue gather is pure overhead
@@ -158,10 +149,6 @@ def main(argv=None):
         # the induced policy); measure each program once
         shortlist, seen = [], set()
         for t, c in ranked:
-            if c.prefetch:
-                print(f"# not measured (layer prefetch is not ported yet, ROADMAP "
-                      f"A4b): predicted {t * 1e3:9.3f} ms  {c.label()}")
-                continue
             if t not in seen:
                 shortlist.append((t, c))
                 seen.add(t)
@@ -180,7 +167,7 @@ def main(argv=None):
 
     # -- 3. per-layer coalesce policy for the winner ------------------------
     policy_eng = _engine_for(mcfg, ms, dataclasses.replace(
-        _priced_qsdp(winner, base_qsdp), coalesce=True, coalesce_max_bytes=None))
+        winner.to_qsdp(base_qsdp), coalesce=True, coalesce_max_bytes=None))
     policies, model_thresh = plan_layer_policies(policy_eng, cp)
     if not winner.coalesce:
         # measurement vetoed coalescing outright: the thresholded policy
@@ -190,12 +177,10 @@ def main(argv=None):
             policies = [dataclasses.replace(p, coalesce=False)
                         for p in policies]
     final_qsdp = dataclasses.replace(
-        _priced_qsdp(winner, base_qsdp), coalesce=True,
-        coalesce_max_bytes=model_thresh)
-    # recorded as the reference records it; a plan with prefetch true is
-    # refused by the launchers (ROADMAP A4b)
-    final_prefetch = winner.prefetch and any(
-        p.coalesce for p in policies if p.group == main_group)
+        winner.to_qsdp(base_qsdp), coalesce=True,
+        coalesce_max_bytes=model_thresh,
+        prefetch=winner.prefetch and any(
+            p.coalesce for p in policies if p.group == main_group))
     final_eng = _engine_for(mcfg, ms, final_qsdp)
 
     # -- 4. emit ------------------------------------------------------------
@@ -217,7 +202,7 @@ def main(argv=None):
             "meta_wire_dtype": final_qsdp.meta_wire_dtype,
             "hierarchical": False,
             "coalesce": final_qsdp.coalesce,
-            "prefetch": final_prefetch,
+            "prefetch": final_qsdp.prefetch,
             "coalesce_max_bytes": final_qsdp.coalesce_max_bytes,
         },
         serve={
@@ -242,7 +227,7 @@ def main(argv=None):
     print(f"# plan: {choice} gathers for group '{main_group}' "
           f"(buffer {final_eng.layer_wire_bytes(tuple(main_names))} B, "
           f"coalesce_max_bytes={final_qsdp.coalesce_max_bytes}), "
-          f"prefetch={final_prefetch} -> {args.out}")
+          f"prefetch={final_qsdp.prefetch} -> {args.out}")
     if args.assert_choice != "any" and choice != args.assert_choice:
         raise SystemExit(
             f"--assert-choice {args.assert_choice} failed: planner chose "

@@ -9,9 +9,9 @@ per-layer-group decisions that justify it, and the cost-model and
 measurement evidence.  ``launch/train.py --plan`` and ``launch/serve.py
 --plan`` consume it instead of a dozen flags.
 
-The port's ``QSDPConfig`` has no ``hierarchical`` or ``prefetch`` field: a
-plan that sets either true is refused (ROADMAP A3b, A4b), a plan that sets
-it false drives the port as it is.
+The port's ``QSDPConfig`` has no ``hierarchical`` field: a plan that sets
+it true is refused (ROADMAP A3b), a plan that sets it false drives the
+port as it is.  ``prefetch`` is the port's field as the reference's.
 """
 from __future__ import annotations
 
@@ -34,8 +34,7 @@ _QSDP_FIELDS = (
 )
 # fields of the reference's QSDPConfig that the port's lacks: a plan may
 # set them false, and true is refused with the ROADMAP item that ports them
-_NOT_PORTED = {"hierarchical": ("two-level (pod) gathers", "A3b"),
-               "prefetch": ("layer prefetch", "A4b")}
+_NOT_PORTED = {"hierarchical": ("two-level (pod) gathers", "A3b")}
 
 _SERVE_FIELDS = (
     "slots", "prefill_chunk", "prefill_buckets", "prefill_interleave",

@@ -14,9 +14,6 @@ Two tiers:
   * quality-affecting (--full-space): bits / bucket / meta dtype -- these
     change the quantization error, so they enter the search only when asked
     for (and the plan records them).
-
-The port's ``QSDPConfig`` has no ``prefetch`` field: a prefetch candidate
-is priced by the cost model but cannot build an engine (ROADMAP A4b).
 """
 from __future__ import annotations
 
@@ -67,12 +64,9 @@ class Candidate:
         )
 
     def to_qsdp(self, base: QSDPConfig) -> QSDPConfig:
-        if self.prefetch:
-            raise NotImplementedError(
-                f"candidate {self.label()!r}: layer prefetch is not ported yet "
-                "(ROADMAP A4b)")
         return dataclasses.replace(
-            base, coalesce=self.coalesce, coalesce_max_bytes=self.coalesce_max_bytes,
+            base, coalesce=self.coalesce, prefetch=self.prefetch,
+            coalesce_max_bytes=self.coalesce_max_bytes,
             weight_bits=self.weight_bits, grad_bits=self.grad_bits,
             bucket_size=self.bucket_size, weight_mode=self.weight_mode,
             grad_mode=self.grad_mode, meta_wire_dtype=self.meta_wire_dtype)

@@ -241,13 +241,13 @@ def collectives_rank(group, rank, p, workdir):
     return out
 
 
-def train_models(p, group=None):
+def train_models(p, group=None, prefetch=False):
     from repro_torch import configs
     from repro_torch.core.qsdp import MeshSpec, QSDPConfig
     from repro_torch.models.transformer import Model
     from repro_torch.optim import AdamWConfig, cosine_schedule, make_adamw
     model = Model(configs.get_smoke(ARCH), MeshSpec(("data", "model"), (p, 1)),
-                  QSDPConfig(compute_dtype=COMPUTE_DTYPE), group)
+                  QSDPConfig(compute_dtype=COMPUTE_DTYPE, prefetch=prefetch), group)
     opts = [make_adamw(AdamWConfig(lr=LR, schedule=cosine_schedule(LR, 2, STEPS),
                                    moment_bits=mb)) for mb in (None, 8)]
     return model, opts
@@ -261,10 +261,11 @@ def _flat_out(prefix, state):
 
 
 def train_rank(group, rank, p, workdir):
-    """The three steps of ``_torch_dist_jax.train`` on this rank's block of
+    """The four steps of ``_torch_dist_jax.train`` on this rank's block of
     the states and its rows of the batches: A and B f32 state, Q
-    quantized_state; the wire traffic of A by op, and A's first gathered
-    buffer (the embedding's)."""
+    quantized_state, P step A under ``QSDPConfig(prefetch=True)``; the
+    wire traffic of A and of P by op, and A's first gathered buffer (the
+    embedding's)."""
     import torch
     from repro_torch.core import collectives as coll
     from repro_torch.core import prng
@@ -274,6 +275,7 @@ def train_rank(group, rank, p, workdir):
 
     z = np.load(Path(workdir) / "inputs.npz")
     model, (opt, opt8) = train_models(p, group)
+    model_pf, _ = train_models(p, group, prefetch=True)
     names = sorted(model.specs)
     s0 = {n: z[f"P{p}/S0/params/{n}"] for n in names}
 
@@ -301,13 +303,14 @@ def train_rank(group, rank, p, workdir):
         return res
 
     for tag, (src, i, qstate, o) in {"A": ("S0", 0, False, opt), "B": ("S1", 1, False, opt),
-                                     "Q": ("S0", 0, True, opt8)}.items():
+                                     "Q": ("S0", 0, True, opt8),
+                                     "P": ("S0", 0, False, opt)}.items():
         st = start(src, o)
         if qstate:
             st = quantize_train_state(st, model, prng.PRNGKey(2))
             out.update(_flat_out(f"{tag}/start", st))
-        step = build_train_step(model, o, n_micro=N_MICRO[p], quantized_state=qstate,
-                                device="cpu")
+        step = build_train_step(model_pf if tag == "P" else model, o, n_micro=N_MICRO[p],
+                                quantized_state=qstate, device="cpu")
         coll.reset_comm()
         coll.gather_wire = capture if tag == "A" else orig
         try:
@@ -317,8 +320,9 @@ def train_rank(group, rank, p, workdir):
         if tag == "A":
             out["A/first_gbuf"] = first[0]
             out.update(_step_accounting(model, group))
+        if tag in ("A", "P"):
             for op in coll.COMM_OPS:
-                out[f"A/comm/{op}"] = np.array([coll.COMM[op], coll.COMM_BYTES[op]])
+                out[f"{tag}/comm/{op}"] = np.array([coll.COMM[op], coll.COMM_BYTES[op]])
         out[f"{tag}/loss"] = _np(m["loss"])
         out[f"{tag}/grad_norm"] = _np(m["grad_norm"])
         out.update(_flat_out(f"{tag}/flat", st))
@@ -426,7 +430,8 @@ XENT_V, XENT_D, XENT_BS = 256, 32, (2, 12)
 LAYER_BS = (2, 16)
 
 
-def tp_model(arch, p, m, group=None, model_group=None, model_rank=None, compute_dtype=None):
+def tp_model(arch, p, m, group=None, model_group=None, model_rank=None, compute_dtype=None,
+             prefetch=False):
     """`arch`'s smoke config on the (P, M) mesh; without a model group the
     engine computes `model_rank`'s share (0 unless given)."""
     from repro_torch import configs
@@ -435,8 +440,8 @@ def tp_model(arch, p, m, group=None, model_group=None, model_rank=None, compute_
     if model_group is None and model_rank is None:
         model_rank = 0
     return Model(configs.get_smoke(arch), MeshSpec(("data", "model"), (p, m)),
-                 QSDPConfig(compute_dtype=compute_dtype or COMPUTE_DTYPE), group, model_group,
-                 model_rank)
+                 QSDPConfig(compute_dtype=compute_dtype or COMPUTE_DTYPE, prefetch=prefetch),
+                 group, model_group, model_rank)
 
 
 def tp_local(full: np.ndarray, spec, m: int) -> np.ndarray:
@@ -584,6 +589,8 @@ def tp_launch_rank(groups, coords, shape, workdir):
 TP_TRAIN = {"gpt-1.3b": (((1, 2), (2, 2), (1, 4)), ("A", "B", "Q", "U")),
             "qwen2.5-3b": (((1, 4), (2, 2)), ("A",))}
 TP_CKPT_ARCH = "gpt-1.3b"   # the (2, 2) checkpoint: its states after A and Q
+# run P (step A under QSDPConfig(prefetch=True)) of TP_CKPT_ARCH at these meshes
+TP_PREFETCH = ((1, 2),)
 
 
 def tp_train_inputs(archs=tuple(TP_TRAIN), seed=0) -> dict:
@@ -597,7 +604,7 @@ def tp_train_inputs(archs=tuple(TP_TRAIN), seed=0) -> dict:
     out = {"meta": np.array(json.dumps(dict(
         lr=LR, steps=STEPS, n_micro=N_MICRO, compute_dtype=COMPUTE_DTYPE,
         runs={a: TP_TRAIN[a][1] for a in archs}, meshes={a: TP_TRAIN[a][0] for a in archs},
-        ckpt_arch=TP_CKPT_ARCH)))}
+        ckpt_arch=TP_CKPT_ARCH, prefetch=TP_PREFETCH)))}
     for arch in archs:
         for p, m in TP_TRAIN[arch][0]:
             pre = f"{arch}/{p}x{m}/"
@@ -628,7 +635,8 @@ def tp_train_rank(groups, coords, shape, workdir):
     batches; run A's first gathered buffer, its wire traffic by op, and
     per leaf the sum of squares of its gradient (the step's
     ``global_norm`` input) with the leaf's model-replication; run U's new
-    state encoded as Q's step encodes its master (``U/encoded``)."""
+    state encoded as Q's step encodes its master (``U/encoded``); at the
+    meshes of ``meta["prefetch"]`` run P, step A of the prefetch model."""
     import torch
     from repro_torch.core import collectives as coll
     from repro_torch.core import prng
@@ -650,6 +658,10 @@ def tp_train_rank(groups, coords, shape, workdir):
             continue
         pre = f"{arch}/{p}x{n_m}/"
         model = tp_model(arch, p, n_m, group, model_group)
+        model_pf = tp_model(arch, p, n_m, group, model_group, prefetch=True)
+        tags = runs
+        if arch == meta["ckpt_arch"] and [p, n_m] in meta["prefetch"]:
+            tags = [*runs, "P"]
         sched = cosine_schedule(LR, 2, STEPS)
         opt = make_adamw(AdamWConfig(lr=LR, schedule=sched))
         opt8 = make_adamw(AdamWConfig(lr=LR, schedule=sched, moment_bits=8))
@@ -681,9 +693,10 @@ def tp_train_rank(groups, coords, shape, workdir):
                             (g if isinstance(g, list) else [g]))
             return orig_norm(grads, *a)
 
-        for tag in runs:
+        for tag in tags:
             src, i, qstate, o = {"A": ("S0", 0, False, opt), "B": ("S1", 1, False, opt),
-                                 "Q": ("S0", 0, True, opt8), "U": ("S0", 0, False, opt8)}[tag]
+                                 "Q": ("S0", 0, True, opt8), "U": ("S0", 0, False, opt8),
+                                 "P": ("S0", 0, False, opt)}[tag]
             st = start(src, o)
             if tag in ("Q", "U"):
                 st = quantize_train_state(st, model, prng.PRNGKey(2))
@@ -691,8 +704,8 @@ def tp_train_rank(groups, coords, shape, workdir):
                 out.update(_flat_out(f"{arch}/{tag}/start", st))
             if tag == "U":
                 st = TrainState(params=dequantize_train_state(st).params, opt=st.opt)
-            step = build_train_step(model, o, n_micro=N_MICRO[p], quantized_state=qstate,
-                                    device="cpu")
+            step = build_train_step(model_pf if tag == "P" else model, o, n_micro=N_MICRO[p],
+                                    quantized_state=qstate, device="cpu")
             b = {k: torch.from_numpy(z[f"{pre}batch{i}/{k}"]).long()
                  for k in ("tokens", "labels")}
             coll.reset_comm()

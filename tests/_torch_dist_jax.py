@@ -5,7 +5,7 @@ before JAX is imported:
 
     XLA_FLAGS=--xla_force_host_platform_device_count=4 \\
         python tests/_torch_dist_jax.py {collectives|train} WORKDIR P [P ...]
-    ... python tests/_torch_dist_jax.py {tp_blocks|tp_train} WORKDIR PxM [PxM ...]
+    ... python tests/_torch_dist_jax.py {tp_blocks|tp_train|reshard} WORKDIR PxM [PxM ...]
 
 It reads ``WORKDIR/inputs.npz`` (made with numpy by the test) and writes
 ``WORKDIR/reference.npz``: per case an array whose row r is what device r of
@@ -144,8 +144,9 @@ def collectives(workdir, ps):
 def train(workdir, ps):
     """Per P: the gpt-1.3b smoke config's step on the (P, 1) mesh with
     ``batch_pspec P("data")`` from the test's states: A (the initial state,
-    batch 0, key index 0), B (a later state, batch 1, key index 1) and Q
-    (the initial state quantized, quantized_state, batch 0); at P = 2 the
+    batch 0, key index 0), B (a later state, batch 1, key index 1), Q
+    (the initial state quantized, quantized_state, batch 0) and P (step A
+    under ``QSDPConfig(prefetch=True)``); at P = 2 the
     states after A and after Q are saved as v2 checkpoints and kept in
     their flat form."""
     from repro import configs
@@ -163,6 +164,8 @@ def train(workdir, ps):
         mesh = _mesh(p, ("data", "model"))
         model = Model(configs.get_smoke("gpt-1.3b"), MeshSpec(("data", "model"), (p, 1)),
                       QSDPConfig(compute_dtype=meta["compute_dtype"]))
+        model_pf = Model(configs.get_smoke("gpt-1.3b"), MeshSpec(("data", "model"), (p, 1)),
+                         QSDPConfig(compute_dtype=meta["compute_dtype"], prefetch=True))
         sched = cosine_schedule(meta["lr"], 2, meta["steps"])
         opt = make_adamw(AdamWConfig(lr=meta["lr"], schedule=sched))
         opt8 = make_adamw(AdamWConfig(lr=meta["lr"], schedule=sched, moment_bits=8))
@@ -187,12 +190,13 @@ def train(workdir, ps):
                  for i in (0, 1)}
         bspec = {k: P("data") for k in ("tokens", "labels")}
         runs = {"A": ("S0", 0, False, opt), "B": ("S1", 1, False, opt),
-                "Q": ("S0", 0, True, opt8)}
+                "Q": ("S0", 0, True, opt8), "P": ("S0", 0, False, opt)}
         for tag, (src, i, qstate, o) in runs.items():
             st = state(src, o)
             if qstate:
                 st = quantize_train_state(st, model, jax.random.PRNGKey(2))
-            step = make_jitted_train_step(model, o, mesh, n_micro=meta["n_micro"][str(p)],
+            step = make_jitted_train_step(model_pf if tag == "P" else model, o, mesh,
+                                          n_micro=meta["n_micro"][str(p)],
                                           batch_pspec=bspec, donate=False,
                                           quantized_state=qstate)
             with mesh:
@@ -312,7 +316,9 @@ def tp_train(workdir, meshes):
     states, as ``train`` runs it on the (P, 1) mesh: runs A (the initial
     state, batch 0), B (a later state, batch 1), Q (quantized_state, 8-bit
     moments) and U (Q's update alone: its start state decoded to f32, 8-bit
-    moments, no re-encoding); run A's first gathered buffer by device; at
+    moments, no re-encoding) and, at the meshes of ``meta["prefetch"]``,
+    P (run A under ``QSDPConfig(prefetch=True)``); run A's first gathered
+    buffer by device; at
     the (2, 2) mesh the states after A and Q of ``meta["ckpt_arch"]`` saved
     as v2 checkpoints."""
     from repro import configs
@@ -334,6 +340,11 @@ def tp_train(workdir, meshes):
             mesh = _grid(p, m)
             model = Model(configs.get_smoke(arch), MeshSpec(("data", "model"), (p, m)),
                           QSDPConfig(compute_dtype=meta["compute_dtype"]))
+            model_pf = Model(configs.get_smoke(arch), MeshSpec(("data", "model"), (p, m)),
+                             QSDPConfig(compute_dtype=meta["compute_dtype"], prefetch=True))
+            tags = runs
+            if arch == meta["ckpt_arch"] and [p, m] in meta["prefetch"]:
+                tags = [*runs, "P"]
             sched = cosine_schedule(meta["lr"], 2, meta["steps"])
             opt = make_adamw(AdamWConfig(lr=meta["lr"], schedule=sched))
             opt8 = make_adamw(AdamWConfig(lr=meta["lr"], schedule=sched, moment_bits=8))
@@ -358,20 +369,23 @@ def tp_train(workdir, meshes):
                      for i in (0, 1)}
             bspec = {k: P("data") for k in ("tokens", "labels")}
             steps = {}
-            for tag in runs:
+            for tag in tags:
                 src, i, qstate, o = {"A": ("S0", 0, False, opt), "B": ("S1", 1, False, opt),
-                                     "Q": ("S0", 0, True, opt8), "U": ("S0", 0, False, opt8)}[tag]
+                                     "Q": ("S0", 0, True, opt8), "U": ("S0", 0, False, opt8),
+                                     "P": ("S0", 0, False, opt)}[tag]
                 st = state(src, o)
                 if tag in ("Q", "U"):
                     st = quantize_train_state(st, model, jax.random.PRNGKey(2))
                 if tag == "U":
                     st = TrainState(params=dequantize_train_state(st).params, opt=st.opt)
-                if (qstate, o is opt8) not in steps:
-                    steps[qstate, o is opt8] = make_jitted_train_step(
-                        model, o, mesh, n_micro=meta["n_micro"][str(p)], batch_pspec=bspec,
-                        donate=False, quantized_state=qstate)
+                sk = (qstate, o is opt8, tag == "P")
+                if sk not in steps:
+                    steps[sk] = make_jitted_train_step(
+                        model_pf if tag == "P" else model, o, mesh,
+                        n_micro=meta["n_micro"][str(p)], batch_pspec=bspec, donate=False,
+                        quantized_state=qstate)
                 with mesh:
-                    new, mt = steps[qstate, o is opt8](
+                    new, mt = steps[sk](
                         place(st, qstate, o), batch[i],
                         jax.random.fold_in(jax.random.PRNGKey(1), i))
                 out[f"{pre}{tag}/loss"] = np.asarray(mt["loss"])
@@ -397,10 +411,65 @@ def tp_train(workdir, meshes):
     np.savez(os.path.join(workdir, "reference.npz"), **out)
 
 
+def reshard(workdir, meshes):
+    """Checkpoint resharding: per (P, M) layout of `meshes`, the smoke
+    config's state saved at that layout as ``ckpt_{P}x{M}_{kind}`` (kind
+    "f32": f32 params and moments; "q8": quantized_state params and 8-bit
+    moments), the params and moments drawn from the seeds in
+    ``inputs.npz``; then every file loaded at every other layout of
+    `meshes` by the reference's ``load_checkpoint`` (``model=`` the target
+    model, ``dequantize=True`` for "q8"): each loaded leaf as a whole
+    rest-layout array, ``{src}/{tgt}/{kind}/{key}``."""
+    from repro import configs
+    from repro.core.qsdp import MeshSpec, QSDPConfig, to_rest
+    from repro.core.quant import QuantConfig as JQC, qparam_encode
+    from repro.models.transformer import Model
+    from repro.optim import OptState
+    from repro.train.checkpoint import _flatten, load_checkpoint, save_checkpoint
+    from repro.train.step import TrainState, quantize_train_state, state_pspecs
+
+    z = dict(np.load(os.path.join(workdir, "inputs.npz")))
+    meta = json.loads(str(z["meta"]))
+    mq = JQC(bits=8, bucket_size=meta["moment_bucket"], mode="nearest")
+
+    def model(p, m):
+        return Model(configs.get_smoke(meta["arch"]), MeshSpec(("data", "model"), (p, m)),
+                     QSDPConfig())
+
+    out = {}
+    for p, m in meshes:
+        mdl = model(p, m)
+        names = sorted(mdl.specs)
+
+        def rest(kind, n, mdl=mdl):
+            return to_rest(jnp.asarray(z[f"{kind}/{n}"]), mdl.specs[n], mdl.ms)
+
+        params = {n: rest("params", n) for n in names}
+        mom = {k: {n: rest(k, n) for n in names} for k in ("mu", "nu")}
+        st = TrainState(params=params, opt=OptState(step=jnp.asarray(3, jnp.int32), **mom))
+        save_checkpoint(os.path.join(workdir, f"ckpt_{p}x{m}_f32"), st)
+        qmom = {k: {n: qparam_encode(v, mq) for n, v in d.items()} for k, d in mom.items()}
+        qst = quantize_train_state(TrainState(params=params, opt=OptState(
+            step=st.opt.step, **qmom)), mdl, jax.random.PRNGKey(2))
+        save_checkpoint(os.path.join(workdir, f"ckpt_{p}x{m}_q8"), qst)
+    for sp, sm in meshes:
+        for tp_, tm in meshes:
+            if (sp, sm) == (tp_, tm):
+                continue
+            tgt = model(tp_, tm)
+            for kind in ("f32", "q8"):
+                got = load_checkpoint(os.path.join(workdir, f"ckpt_{sp}x{sm}_{kind}"),
+                                      _grid(tp_, tm), state_pspecs(tgt), model=tgt,
+                                      dequantize=kind == "q8")
+                for k, v in _flatten(got)[0].items():
+                    out[f"{sp}x{sm}/{tp_}x{tm}/{kind}/{k}"] = np.asarray(v)
+    np.savez(os.path.join(workdir, "reference.npz"), **out)
+
+
 if __name__ == "__main__":
     what, workdir, *ps = sys.argv[1:]
-    if what.startswith("tp_"):
-        {"tp_blocks": tp_blocks, "tp_train": tp_train}[what](
+    if what.startswith("tp_") or what == "reshard":
+        {"tp_blocks": tp_blocks, "tp_train": tp_train, "reshard": reshard}[what](
             workdir, [tuple(int(a) for a in pm.split("x")) for pm in ps])
     else:
         {"collectives": collectives, "train": train}[what](workdir, [int(p) for p in ps])

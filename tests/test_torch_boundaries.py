@@ -107,21 +107,29 @@ def test_train_entry_points_raise_without_cuda(monkeypatch):
         launch_train.main(["--arch", "gpt-1.3b", "--smoke", "--steps", "1"])
 
 
-@pytest.mark.parametrize("flags,item", [
-    (["--arch", "olmoe-1b-7b", "--smoke", "--model-par", "2"], "A11h"),
-    (["--hierarchical"], "A3b"), (["--prefetch"], "A4b"), (["--plan", "{prefetch}"], "A4b")])
-def test_train_launcher_names_roadmap_for_unported_flags(flags, item, capsys, tmp_path):
-    """``--plan`` is ported; a plan that asks for layer prefetch is not, nor
-    is a model axis above 1 for a family other than the dense one."""
+@pytest.mark.parametrize("flags,refusal", [
+    (["--arch", "olmoe-1b-7b", "--smoke", "--model-par", "2"], "ROADMAP A11h"),
+    (["--hierarchical"], "ROADMAP A3b"), (["--prefetch"], None), (["--plan", "{prefetch}"], None),
+    (["--prefetch", "--no-coalesce"], "--prefetch requires coalescing")])
+def test_train_launcher_names_roadmap_for_unported_flags(flags, refusal, capsys, tmp_path):
+    """``--plan`` and layer prefetch are ported: ``--prefetch`` and a plan
+    that asks for it set ``QSDPConfig.prefetch``, and ``--prefetch`` without
+    coalescing is refused as the JAX launcher refuses it; a model axis
+    above 1 for a family other than the dense one and the two-level
+    gathers name their ROADMAP items."""
     from repro_torch.launch import train as launch_train
     from repro_torch.tune.plan import PLAN_VERSION, DeploymentPlan
     plan = str(tmp_path / "prefetch_plan.json")
     DeploymentPlan(version=PLAN_VERSION, arch="gpt-125m", mesh_axes=("data", "model"),
                    mesh_shape=(1, 1), hw="h100", qsdp={"coalesce": True, "prefetch": True},
                    serve={}).save(plan)
+    argv = [f.format(prefetch=plan) for f in flags]
+    if refusal is None:
+        assert launch_train.build_qsdp(launch_train.parse_args(argv)).prefetch
+        return
     with pytest.raises(SystemExit):
-        launch_train.parse_args([f.format(prefetch=plan) for f in flags])
-    assert f"ROADMAP {item}" in capsys.readouterr().err
+        launch_train.parse_args(argv)
+    assert refusal in capsys.readouterr().err
 
 
 def test_train_launcher_data_par_needs_torchrun(capsys, monkeypatch):

@@ -70,4 +70,6 @@ def test_chip_smoke_dist_phase_rehearsal(cs, capsys):
         ("gpt-1.3b", 4, "mlp"), ("qwen2.5-3b", 4, "attention")]
     assert len(blocks) == 10 and all(b["err"] <= b["tol"] for b in blocks)
     assert "KV replicated" in text and "KV tp" in text
+    # (f): gpt-125m's smoke state resharded to (2, 2), (1, 2), (2, 1): 8 blocks
+    assert "dist reshard: gpt-125m" in text and ": 8 blocks byte-equal card vs CPU" in text
     assert cs.DIST_NOTE in capsys.readouterr().out

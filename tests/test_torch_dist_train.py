@@ -8,7 +8,9 @@ Both packages step the same states (made with numpy by the test, whole
 block) on the same batches (each rank its rows):
 
   * steps A (the initial state) and B (a later one: moved params, random
-    moments, step 1) with f32 state, and Q (quantized_state, 8-bit
+    moments, step 1) with f32 state, P (step A under ``QSDPConfig(
+    prefetch=True)``; also bit-equal to A in both packages, its calls and
+    bytes those of each layer gathered once), and Q (quantized_state, 8-bit
     moments): loss and grad norm, and each rank's block of the updated
     params, within ``assert_step_close``'s tolerances
     (``tests/_torch_train_common.py``); Q's quantized start state
@@ -24,7 +26,8 @@ block) on the same batches (each rank its rows):
   * a gloo group of one rank bit-equal to ``group=None``;
   * a model axis above 1 accepted by the engine and the mesh (the (P, M)
     grid's tests are ``test_torch_tp_*.py``); the refusals: a "pod" axis
-    and ``--hierarchical`` (A3b), a load on another layout (A3b), serving
+    and ``--hierarchical`` (A3b), a load on another layout without the
+    model (the reference's ValueError; with it, resharded), serving
     over ranks, either axis (A10e), the other families over ranks, either
     axis (A11h).
 """
@@ -33,6 +36,7 @@ import zipfile
 
 import numpy as np
 import pytest
+import torch
 
 import _torch_dist_common as dc
 from _torch_train_common import assert_step_close
@@ -63,7 +67,7 @@ def _port(got, tag, kind="params"):
 
 
 @pytest.mark.parametrize("p", PS)
-@pytest.mark.parametrize("tag", ("A", "B"))
+@pytest.mark.parametrize("tag", ("A", "B", "P"))
 def test_f32_step_matches_reference(results, p, tag):
     _, ref, ranks = results
     for r, got in enumerate(ranks[p]):
@@ -136,6 +140,33 @@ def test_wire_bytes_equal_step_comm_bytes(results, p):
             "all_reduce": 2 * 4 * (p - 1)}
 
 
+@pytest.mark.parametrize("p", PS)
+def test_prefetch_step_bit_equal_to_unpipelined(results, p):
+    """Step P (step A under ``QSDPConfig(prefetch=True)``): on every rank its
+    loss, grad norm and new state byte-equal to step A's, as the
+    reference's P to its A; its calls into torch.distributed those of
+    ``expected_train_comm`` for the prefetch model (each layer gathered once
+    a microbatch: the backward decodes the buffer its forward gathered),
+    its gathered bytes the layers' once and the top-level tensors'."""
+    from test_torch_continuous import _chip_smoke
+    _, ref, ranks = results
+    for tag_ref in ("loss", "grad_norm"):
+        assert ref[f"P{p}/P/{tag_ref}"].tobytes() == ref[f"P{p}/A/{tag_ref}"].tobytes()
+    for k in (k for k in ref if k.startswith(f"P{p}/A/flat/")):
+        assert ref[k].tobytes() == ref[k.replace("/A/", "/P/", 1)].tobytes(), k
+    model, _ = dc.train_models(1, prefetch=True)
+    want_calls = _chip_smoke().expected_train_comm(model, dc.N_MICRO[p])
+    for got in ranks[p]:
+        for k in [k for k in got if k.startswith("A/flat/")] + ["A/loss", "A/grad_norm"]:
+            assert got[k].tobytes() == got["P/" + k[2:]].tobytes(), k
+        calls = {op: got[f"P/comm/{op}"].tolist() for op in ("all_gather", "all_to_all",
+                                                            "reduce_scatter", "all_reduce")}
+        assert {op: c for op, (c, _) in calls.items()} == want_calls
+        w_layers, w_top, _, _ = got["A/want_bytes"].tolist()
+        assert calls["all_gather"][1] == dc.N_MICRO[p] * (w_layers // 2 + w_top)
+        assert calls["all_to_all"][1] == got["A/comm/all_to_all"][1]
+
+
 def test_checkpoint_byte_equal_to_reference(results):
     work, ref, ranks = results
     for tag in ("A", "Q"):
@@ -188,11 +219,13 @@ def test_refusals_name_their_items(tmp_path, capsys, monkeypatch):
         for shape in ((2, 1), (1, 2)):
             with pytest.raises(NotImplementedError, match="ROADMAP A11h"):
                 Model(configs.get_smoke(arch), MeshSpec(("data", "model"), shape), QSDPConfig())
-    for argv, item in ((["--arch", "olmoe-1b-7b", "--smoke", "--model-par", "2"], "A11h"),
-                       (["--hierarchical"], "A3b"), (["--prefetch"], "A4b")):
+    for argv, item in ((["--arch", "olmoe-1b-7b", "--smoke", "--model-par", "2"], "ROADMAP A11h"),
+                       (["--hierarchical"], "ROADMAP A3b"),
+                       (["--prefetch", "--no-coalesce"], "--prefetch requires coalescing")):
         with pytest.raises(SystemExit):
             launch_train.parse_args(argv)
-        assert f"ROADMAP {item}" in capsys.readouterr().err
+        assert item in capsys.readouterr().err
+    assert launch_train.parse_args(["--prefetch"]).prefetch
     monkeypatch.setenv("WORLD_SIZE", "2")
     with pytest.raises(SystemExit):
         launch_train.parse_args(["--arch", "olmoe-1b-7b", "--smoke", "--data-par", "2"])
@@ -207,5 +240,14 @@ def test_refusals_name_their_items(tmp_path, capsys, monkeypatch):
         assert f"ROADMAP {item}" in capsys.readouterr().err
     m, (opt, _) = dc.train_models(1)
     save_checkpoint(str(tmp_path), init_train_state(m, opt, 0, "cpu"))
-    with pytest.raises(NotImplementedError, match="ROADMAP A3b"):
+    with pytest.raises(ValueError, match="resharding needs the `model` argument"):
         load_checkpoint(str(tmp_path), "cpu", mesh_sizes=(1, 2), rank=1)
+    # with the model, the two ranks of the (2, 1) layout take their halves
+    # of each leaf's flat values
+    whole = load_checkpoint(str(tmp_path), "cpu")
+    halves = [load_checkpoint(str(tmp_path), "cpu", mesh_sizes=(1, 2), rank=r, model=m)
+              for r in (0, 1)]
+    for k, v in whole.params.items():
+        n = v.shape[-1]
+        both = torch.cat([h.params[k] for h in halves], dim=-1)[..., :n]
+        assert torch.equal(both, v), k

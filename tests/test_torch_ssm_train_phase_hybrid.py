@@ -16,5 +16,7 @@ def test_chip_smoke_ssmtrain_phase_rehearsal_hybrid(cs, monkeypatch):  # noqa: F
     assert want["moment_chunks"] == 1 + 1 + 9 + 6 * 3 + 6 == 35
     assert counts["quantize_pack"] == 3 * (2 * 68 + 2 * 35)
     assert counts["unpack_dequantize"] == 3 * (2 * 14 + 35)
-    assert tags == ["ssmtrain zamba2-7b by part"]
+    # zamba2's cell profiles no step (its by-part profile cut for the
+    # run's time; moetrain and mmtrain still run profile_by_part)
+    assert tags == [] and cs.SSM_TRAIN_PROFILE["zamba2-7b"] is None
     assert "8-bit moments bit-equal" in text and "1 shared-block invocations" in text

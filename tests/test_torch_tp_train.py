@@ -23,6 +23,9 @@ its (P, M) ("data", "model") mesh with ``batch_pspec P("data")`` (set-up in
   * the (2, 2) checkpoint of the reference's states after A and Q saved
     over both groups: ``manifest.json`` and every ``state.npz`` member
     byte-equal to the reference's ``save_checkpoint``; loaded back by block;
+  * at (1, 2), run P (step A under ``QSDPConfig(prefetch=True)``) within
+    those tolerances of the reference's P, and byte-equal to run A in both
+    packages;
   * the gradient norm counts a model-replicated leaf once per model rank,
     as the reference's ``psum`` over every axis does (ROADMAP C10).
 """
@@ -37,7 +40,8 @@ from _torch_train_common import GNORM_RTOL, assert_step_close
 
 CASES = [(arch, pm) for arch, (meshes, _) in dc.TP_TRAIN.items() for pm in meshes]
 RUNS = [(arch, pm, tag) for arch, (meshes, runs) in dc.TP_TRAIN.items() for pm in meshes
-        for tag in runs if tag in ("A", "B")]
+        for tag in runs if tag in ("A", "B")] + [(dc.TP_CKPT_ARCH, pm, "P")
+                                                 for pm in dc.TP_PREFETCH]
 
 
 @pytest.fixture(scope="module")
@@ -151,6 +155,24 @@ def test_wire_bytes_at_tp_local_sizes(results, arch, pm):
             "all_to_all": [n_micro * (layers + 2), n_micro * (g_layers + g_top)],
             "reduce_scatter": [0, 0],
             "all_reduce": [n_micro + 2, 4 * (n_micro * (m - 1) * t + 2 * (p - 1))]}
+
+
+@pytest.mark.parametrize("pm", dc.TP_PREFETCH)
+def test_prefetch_step_bit_equal_to_unpipelined(results, pm):
+    """Run P (run A of the prefetch model): on every rank its loss, grad
+    norm and new state byte-equal to run A's, as the reference's P to its
+    A at the same mesh."""
+    _, ref, ranks = results
+    arch, pre = dc.TP_CKPT_ARCH, f"{dc.TP_CKPT_ARCH}/{pm[0]}x{pm[1]}"
+    keys = [k for k in ref if k.startswith(f"{pre}/A/flat/")]
+    assert keys
+    for k in keys + [f"{pre}/A/loss", f"{pre}/A/grad_norm"]:
+        assert ref[k].tobytes() == ref[k.replace("/A/", "/P/", 1)].tobytes(), k
+    for got in ranks[pm]:
+        keys = [k for k in got if k.startswith(f"{arch}/A/flat/")]
+        assert keys
+        for k in keys + [f"{arch}/A/loss", f"{arch}/A/grad_norm"]:
+            assert got[k].tobytes() == got[k.replace("/A/", "/P/", 1)].tobytes(), k
 
 
 def test_checkpoint_byte_equal_to_reference(results):

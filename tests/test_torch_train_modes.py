@@ -90,6 +90,8 @@ def test_chip_smoke_train_phase_rehearsal(monkeypatch):
     assert want["k2_per_micro"] == (3, 2, 3)
     assert counts["unpack_dequantize"] == cs.TRAIN_TIMED * want["unpack_dequantize"] == 3 * 2 * 8
     assert any("quantized_state == quantize_master" in x for x in lines)
+    # the prefetch run: bit-equal to "full", launches by the prefetch formula
+    assert any("train prefetch: losses and grad norms bit-equal" in x for x in lines)
     assert len(profiled) == 1
 
 

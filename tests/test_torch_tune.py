@@ -50,14 +50,20 @@ def test_enumerate_space_matches_reference(full_space, thresholds):
 
 
 def test_candidate_validity_and_prefetch_refusal():
+    """The validity rule (prefetch needs coalescing) as the reference's; a
+    prefetch candidate builds the port's config, every field the
+    reference's ``to_qsdp`` sets equal."""
+    from repro.core.qsdp import QSDPConfig as JQSDPConfig
     for kw in (dict(prefetch=True, coalesce=False), dict(weight_bits=1), dict(grad_bits=9),
                dict(bucket_size=0), dict(draft_bits=4, draft_depth=1), dict(draft_bits=9,
                                                                               draft_depth=4)):
         assert space.Candidate(**kw).valid() == jspace.Candidate(**kw).valid() is False
     q = space.Candidate(coalesce_max_bytes=4096, weight_bits=4).to_qsdp(qsdp.QSDPConfig())
     assert (q.coalesce, q.coalesce_max_bytes, q.weight_bits) == (True, 4096, 4)
-    with pytest.raises(NotImplementedError, match="ROADMAP A4b"):
-        space.Candidate(prefetch=True).to_qsdp(qsdp.QSDPConfig())
+    q = space.Candidate(prefetch=True).to_qsdp(qsdp.QSDPConfig())
+    jq = jspace.Candidate(prefetch=True).to_qsdp(JQSDPConfig())
+    assert q.prefetch and dataclasses.asdict(q) == {
+        k: v for k, v in dataclasses.asdict(jq).items() if k in dataclasses.asdict(q)}
 
 
 def _toy(c):
@@ -202,18 +208,24 @@ def test_plan_to_qsdp_config_matches_reference_fields():
     ported = {f.name for f in dataclasses.fields(q)}
     assert {k: v for k, v in dataclasses.asdict(jq).items() if k in ported} == \
         dataclasses.asdict(q)
-    assert set(dataclasses.asdict(jq)) - ported >= {"hierarchical", "prefetch"}
+    assert set(dataclasses.asdict(jq)) - ported >= {"hierarchical"}
+    assert "prefetch" in ported
     assert plan.serve_knobs() == jp.serve_knobs()
 
 
 @pytest.mark.parametrize("field,value,err,match", [
     ("hierarchical", True, NotImplementedError, "ROADMAP A3b"),
-    ("prefetch", True, NotImplementedError, "ROADMAP A4b"),
+    ("prefetch", True, None, None),
     ("bogus_knob", 1, ValueError, "unknown fields"),
 ])
 def test_plan_refusals(field, value, err, match):
+    """A plan that sets the two-level gathers or an unknown field is
+    refused; one that sets prefetch drives the port's prefetch."""
     plan, _ = _plans()
     bad = dataclasses.replace(plan, qsdp={**plan.qsdp, field: value})
+    if err is None:
+        assert getattr(bad.to_qsdp_config(), field) == value
+        return
     with pytest.raises(err, match=match):
         bad.to_qsdp_config()
 

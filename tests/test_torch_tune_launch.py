@@ -72,6 +72,39 @@ def test_assert_choice_per_tensor_passes_and_coalesced_fails(tmp_path, capsys):
         autotune.main(SMOKE + ["--out", out, "--device", "cpu", "--assert-choice", "coalesced"])
 
 
+def test_measured_prefetch_candidate_wins_plan_byte_equal(tmp_path, monkeypatch):
+    """Both autotuners measure the whole shortlist, prefetch candidates
+    included, with the step times of a stub that makes prefetch the
+    fastest (a real measurement's winner is the noise's at this size):
+    the same candidates measured in the same order, a prefetch candidate
+    the winner, and the port's plan byte-equal to the reference's.  Under
+    ``cpu-smoke`` the model's per-layer policy gathers the stacked group
+    per tensor, so both plans record ``prefetch`` false (the reference
+    keeps it only where that group coalesces)."""
+    seen = {"port": [], "ref": []}
+
+    def stub(tag):
+        def measure(mcfg, ms, qcfg, batch, **kw):
+            seen[tag].append((qcfg.coalesce, qcfg.prefetch, qcfg.coalesce_max_bytes))
+            t = 1.0 if qcfg.prefetch else 2.0
+            return {"step_ms_median": t, "step_ms_all": [t, t]}
+        return measure
+
+    monkeypatch.setattr(autotune, "measure_train_step", stub("port"))
+    monkeypatch.setattr(jautotune, "measure_train_step", stub("ref"))
+    flags = [f for f in SMOKE if f not in ("--measure-top", "0")] + ["--measure-top", "5"]
+    mine, ref = str(tmp_path / "mine.json"), str(tmp_path / "ref.json")
+    assert autotune.main(flags + ["--out", mine, "--device", "cpu"]) == 0
+    assert jautotune.main(flags + ["--out", ref]) == 0
+    assert seen["port"] == seen["ref"] and any(pf for _, pf, _ in seen["port"])
+    assert Path(mine).read_bytes() == Path(ref).read_bytes()
+    plan = DeploymentPlan.load(mine)
+    best = min(plan.measured, key=lambda label: plan.measured[label]["step_ms_median"])
+    assert best.endswith("+prefetch")
+    assert not any(lp.coalesce for lp in plan.layers if lp.group == "layers")
+    assert plan.qsdp["prefetch"] is False
+
+
 @pytest.mark.parametrize("flags", [["--data-par", "2"], ["--model-par", "4"]])
 def test_autotune_refuses_multi_rank_mesh(flags, capsys):
     with pytest.raises(SystemExit):
@@ -119,12 +152,19 @@ def _plan_with(tmp_path, **qsdp_over):
 
 
 @pytest.mark.parametrize("edit,match", [
-    (dict(prefetch=True), "ROADMAP A4b"),
+    (dict(prefetch=True), None),
     (dict(hierarchical=True), "ROADMAP A3b"),
     ("mesh", "tuned for mesh"),
     ("version", "regenerate with repro_torch.tune.autotune"),
 ])
 def test_launchers_refuse_plans(edit, match, tmp_path, capsys):
+    """Both launchers refuse a plan for the two-level gathers, for another
+    mesh or of another version; a plan with prefetch (ported) sets it."""
+    if match is None:
+        path = _plan_with(tmp_path, **edit)
+        for launcher in (launch_train, launch_serve):
+            assert launcher.parse_args(["--plan", path, "--smoke"]).plan_qsdp.prefetch
+        return
     if isinstance(edit, dict):
         path = _plan_with(tmp_path, **edit)
     else:
@@ -212,12 +252,14 @@ def test_chip_smoke_tune_rehearsal(monkeypatch, tmp_path):
     path = str(tmp_path / "plan.json")
     plan, counts = cs.tune_autotune(torch, lines.append, "cpu", path, smoke=True, batch=2,
                                     seq=16, measure_top=3, steps=1, hw="cpu-smoke")
-    # per-tensor (threshold 440 B) and coalesced measured; 3 steps each:
-    # K1 44 a step either way, K2 44 per tensor, 8 coalesced (3 + 2 + 3)
-    assert counts["quantize_pack"] == 3 * 44 * 2
-    assert counts["unpack_dequantize"] == 3 * 44 + 3 * 8
+    # per-tensor (threshold 440 B), coalesced and coalesced+prefetch
+    # measured; 3 steps each: K1 44 a step per tensor and coalesced, 30
+    # prefetched (the 2 layers' replays encode none of their 7 weights), K2
+    # 44 per tensor, 8 coalesced (3 + 2 + 3) with or without prefetch
+    assert counts["quantize_pack"] == 3 * 44 * 2 + 3 * 30
+    assert counts["unpack_dequantize"] == 3 * 44 + 3 * 8 * 2
     assert plan.qsdp["coalesce_max_bytes"] == 0
-    assert sum("launches a step (= the structure's)" in x for x in lines) == 2
+    assert sum("launches a step (= the structure's)" in x for x in lines) == 3
     c2 = cs.tune_launchers(torch, lines.append, "cpu", path, plan, smoke=True,
                            train=dict(steps=1, batch=2, seq=16),
                            serve=dict(batch=2, prompt_len=8, gen=2))
