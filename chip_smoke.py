@@ -153,9 +153,9 @@ Phases, each of which makes the script exit non-zero when it fails:
               one state bit-equal, 3 timed steps (K1/K2 launches equal the
               structure's, moment codes included), the first loss less the
               load-balance term within 0.5 of ln 50,304, per-layer aux and
-              capacity drops, one profiled step (busy share; K1, K2, expert
-              products, dispatch/combine, attention; no int64 threefry
-              kernel), then one quantized_state step equal to the
+              capacity drops, one profiled step (busy share; K1, K2; no
+              int64 threefry kernel; no breakdown by part, for the run's
+              time), then one quantized_state step equal to the
               quantize_master step.  The kernel phase adds K1 G8 stochastic
               on one expert-stack gradient and K2 into f32 over a whole
               olmoe layer's gradient buffer.
@@ -269,7 +269,8 @@ Phases, each of which makes the script exit non-zero when it fails:
               finding is new against ``src/repro_torch/analysis/
               qlint_baseline.json``.  Prints the findings, the launches and
               the seconds of the card traces and of the meta twin.
-13. dist   -- QSDP over torch.distributed on the (data, model) grid, on one
+13. dist   -- QSDP over torch.distributed on the (data, model) and (pod,
+              data, model) grids, on one
               card: (b) the train launcher at gpt-125m under
               ``torch.distributed.run --standalone --nproc_per_node 1 ...
               --data-par 1 --model-par 1`` and without torchrun, side by side
@@ -311,8 +312,26 @@ Phases, each of which makes the script exit non-zero when it fails:
               and (2, 1) with ``dequantize=True`` on the card (K2) and on
               the CPU (its plain version): every block byte-equal, each
               layout's blocks laid end to end the whole decoded state.
-              Prints that NCCL at more than one rank has not run on a
-              card.
+              (g) the pod axis: the gpt-1.3b step under
+              ``QSDPConfig(hierarchical=True)`` through the four groups of
+              the one-rank (pod, data, model) = (1, 1, 1) grid (flat FSDP,
+              model, pod, inner), under the profiler, and in place: loss,
+              grad norm and digests bit-equal, K1/K2 launches equal to the
+              two-level formula (the reduce-scatter's twice the flat
+              step's: the pod level still quantizes and decodes), the calls
+              by op and torch's records equal to ``expected_train_comm``;
+              step times, K1/K2 device time and grad norms beside (a)'s
+              flat step.  (h) the two-level wire work of a (Q, D) grid for
+              one gpt-1.3b layer at (2, 2), (2, 4) and (4, 2), emulated in
+              one process: the pod-then-data gathered buffer equal to the
+              flat data-major one and decoded by one K2 over the Q·D-row
+              table, the inner rows, inner sums, pod rows and pod sums,
+              byte-equal to the plain versions; timed in the kernel phase
+              per level (rows "... pod grid ..."), checked here only
+              without it; the bytes a rank sends across the pod boundary
+              against the flat form's.  (a)'s profile also records the
+              card's kernels (K1/K2 device time for (g)).  Prints that
+              NCCL at more than one rank has not run on a card.
 
 Prints the kernel table as one JSON line, the card's name and power limit,
 and, last, ``{"ok": true, "device": {...}}``.
@@ -741,6 +760,10 @@ def kernel_phase(torch, log, dev="cuda"):
     tp_k1, tp_k2 = tp_wire(torch, log, dev, timing=(k1_row, decode_row, addcmul_ms))
     k1 += tp_k1
     k2 += tp_k2
+    # the (Q, D) grids' two-level wire work, each level timed (off the path)
+    pod_k1, pod_k2 = pod_wire(torch, log, dev, timing=(k1_row, decode_row, addcmul_ms))
+    k1 += pod_k1
+    k2 += [r for r in pod_k2 if "ms" in r]
     unaligned_decode_check(torch, log, gen, dev)
     # olmoe-1b-7b (moe phase): K1 W8 shift on one expert stack, as every
     # decode step gathers it; K2 over a whole layer's buffer into bf16
@@ -3072,19 +3095,21 @@ def expected_train_comm(model, n_micro: int) -> dict:
     one for an fp one: ``layer_gather_launches``; a prefetched layer's
     backward decodes the buffer its forward gathered), and for each group's
     gradients one all-to-all when coalesced, else three per quantized
-    tensor and one fp reduce-scatter per fp tensor; then one all-reduce
-    each for the grad norm and the loss."""
+    tensor and one fp reduce-scatter per fp tensor, the all-to-alls once a
+    level under two levels (``hierarchical`` on a pod mesh); then one
+    all-reduce each for the grad norm and the loss."""
     from repro_torch.core.qsdp import layer_gather_launches
     eng = model.engine
+    levels = 2 if eng.two_level else 1
     calls = dict(all_gather=0, all_to_all=0, reduce_scatter=0)
     for names, times, replays, _ in gather_groups(model):
         calls["all_gather"] += (times + replays) * layer_gather_launches(eng, names)
         if eng.layer_coalesced(names):
-            calls["all_to_all"] += times
+            calls["all_to_all"] += times * levels
             continue
         for n in names:
             q = eng._is_grad_quantized(eng.specs[n])
-            calls["all_to_all" if q else "reduce_scatter"] += times * (3 if q else 1)
+            calls["all_to_all" if q else "reduce_scatter"] += times * (3 * levels if q else 1)
     return {**{k: n_micro * v for k, v in calls.items()}, "all_reduce": 2}
 
 
@@ -3700,11 +3725,10 @@ def moetrain_phase(torch, log, dev="cuda"):
         f"{want['k2_per_micro']} + {want['moment_chunks']} moment decodes (both moments of a "
         f"chunk in one launch)")
 
-    # one more step under torch.profiler with its parts in named ranges (busy
-    # share, K1/K2, no threefry int64 kernel; the ranges add host time)
+    # one more step under torch.profiler (busy share, K1/K2, no threefry
+    # int64 kernel)
     i = 1 + TRAIN_TIMED
-    profile_by_part(torch, log, "moetrain", model, opt, nm, state, batches[i], key(i), "MLP",
-                    dev)
+    gated_step_profile(torch, log, "moetrain", lambda st: step(st, batches[i], key(i)), state)
     del state, step
     if dev == "cuda":
         torch.cuda.empty_cache()
@@ -3967,16 +3991,7 @@ def train_cell(torch, log, tag, arch, layers, moment_bits, profile, dev="cuda", 
     # ("by part": host time added, so its busy share is not the step's)
     i = 1 + TRAIN_TIMED
     if profile == "step":
-        prof = profile_train_step(torch, lambda st: step(st, batches[i], key(i)), state, log,
-                                  tag=tag)
-        check(prof["threefry_int64"] == 0,
-              f"{tag}: {prof['threefry_int64']} int64 bitwise/shift kernels in the profiled "
-              "step")
-        log(f"{tag}: profiled step: busy {prof['busy_ms']:.1f} ms of {prof['wall_ms']:.1f} ms "
-            f"wall ({100 * prof['busy_ms'] / max(prof['wall_ms'], 1e-9):.1f}%) in "
-            f"{prof.get('kernels', 0)} kernels; K1 {prof['k1_ms']:.1f} ms in {prof['k1_n']} "
-            f"launches, K2 {prof['k2_ms']:.1f} ms in {prof['k2_n']}; int64 bitwise/shift "
-            f"kernels {prof['threefry_int64']}")
+        gated_step_profile(torch, log, tag, lambda st: step(st, batches[i], key(i)), state)
     elif profile == "by part":
         profile_by_part(torch, log, tag, model, opt, nm, state, batches[i], key(i),
                         "shared MLP" if cfg.arch_type == "hybrid" else "MLP", dev)
@@ -3985,6 +4000,21 @@ def train_cell(torch, log, tag, arch, layers, moment_bits, profile, dev="cuda", 
         torch.cuda.empty_cache()
     log(f"{tag}: cell {time.perf_counter() - t0:.1f} s")
     return counts
+
+
+def gated_step_profile(torch, log, tag, run_step, state):
+    """One train step (``run_step(state)``) under torch.profiler as it is:
+    logs the device busy share and K1/K2, and gates on no int64 threefry
+    kernel."""
+    prof = profile_train_step(torch, run_step, state, log, tag=tag)
+    check(prof["threefry_int64"] == 0,
+          f"{tag}: {prof['threefry_int64']} int64 bitwise/shift kernels in the profiled step")
+    log(f"{tag}: profiled step: busy {prof['busy_ms']:.1f} ms of {prof['wall_ms']:.1f} ms "
+        f"wall ({100 * prof['busy_ms'] / max(prof['wall_ms'], 1e-9):.1f}%) in "
+        f"{prof.get('kernels', 0)} kernels; K1 {prof['k1_ms']:.1f} ms in {prof['k1_n']} "
+        f"launches, K2 {prof['k2_ms']:.1f} ms in {prof['k2_n']}; int64 bitwise/shift "
+        f"kernels {prof['threefry_int64']}")
+    return prof
 
 
 def profile_by_part(torch, log, tag, model, opt, nm, state, batch, key, mlp, dev):
@@ -4910,8 +4940,8 @@ DIST_PS = (2, 4, 8)
 # the entry point under torchrun: gpt-125m, 3 steps of the launcher's
 # default batch (16 x 256)
 DIST_LAUNCH = ["--arch", "gpt-125m", "--steps", "3", "--log-every", "1"]
-DIST_NOTE = ("NCCL at more than one rank (P > 1 or M > 1) has not run on a card; it waits "
-             "for a four-chip cell.")
+DIST_NOTE = ("NCCL at more than one rank (P > 1, M > 1 or a pod axis above 1) has not run on a "
+             "card; it waits for a four-chip cell.")
 # torch.distributed's ops by the counter's names, as an event name of the
 # profiler may spell them
 DIST_OP_TOKENS = {"all_gather": ("all_gather", "allgather"),
@@ -4965,34 +4995,66 @@ def dist_setup(dev):
             prng.fold_in(prng.PRNGKey(TRAIN["seed"] + 1), 0))
 
 
-def dist_step(torch, groups, dev, profile=False):
+def dist_step(torch, groups, dev, profile=False, ms=None, qcfg=None):
     """One gpt-1.3b train step from the state made anew from the seed,
-    through `groups` (the data and model groups; (None, None): in place),
-    its launches and calls into torch.distributed counted from zero; with
+    through `groups` (the Model's group arguments after its config: the
+    data and model groups, on a pod mesh then None, the pod and the inner
+    group; (None, None): in place) on the mesh `ms` (the dist set-up's
+    (1, 1) unless given) under `qcfg` (``QSDPConfig()`` unless given), its
+    launches and calls into torch.distributed counted from zero; with
     `profile`, under the profiler (host activity: torch's records of the
-    collectives).  Returns the state, the run's record and the model."""
+    collectives; on the card also the kernels: K1's and K2's device time
+    and kernels, ``kernel_totals``).  Returns the state, the run's record
+    and the model."""
     from repro_torch.core import collectives as coll
     from repro_torch.core.qsdp import QSDPConfig
     from repro_torch.kernels import ops
     from repro_torch.models.transformer import Model
     from repro_torch.train.step import build_train_step, init_train_state
-    cfg, ms, opt, batch, key = dist_setup(dev)
-    model = Model(cfg, ms, QSDPConfig(), *groups)
+    cfg, ms0, opt, batch, key = dist_setup(dev)
+    model = Model(cfg, ms or ms0, qcfg or QSDPConfig(), *groups)
     step = build_train_step(model, opt, n_micro=TRAIN["n_micro"], device=dev)
     state = init_train_state(model, opt, TRAIN["seed"], dev)
     ops.reset_launches()
     coll.reset_comm()
-    events = None
+    events = kernels = None
     if profile:
         from torch.profiler import ProfilerActivity, profile as tprofile
-        with tprofile(activities=[ProfilerActivity.CPU]) as prof:
+        acts = [ProfilerActivity.CPU] + (
+            [ProfilerActivity.CUDA] if torch.device(dev).type == "cuda" else [])
+        with tprofile(activities=acts) as prof:
             state, loss, gnorm, dt = timed_step(torch, step, state, batch, key)
-        events = dist_events(prof)
+        events, kernels = dist_events(prof), kernel_totals(torch, prof)
     else:
         state, loss, gnorm, dt = timed_step(torch, step, state, batch, key)
     return state, dict(loss=loss, gnorm=gnorm, dt=dt, launches=dict(ops.LAUNCHES),
                        comm=dict(coll.COMM), comm_bytes=dict(coll.COMM_BYTES),
-                       events=events), model
+                       events=events, kernels=kernels), model
+
+
+def kernel_totals(torch, prof) -> dict:
+    """{K1, K2: [device ms, kernels]} of a profile's kernel events (none
+    where it recorded no device activity)."""
+    out = {"quantize_pack": [0.0, 0], "unpack_dequantize": [0.0, 0]}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            for k, v in out.items():
+                if k in e.name():
+                    v[0] += e.duration_ns() / 1e6
+                    v[1] += 1
+    return out
+
+
+def check_profiler_calls(events, want_comm, what, log):
+    """torch's profiler records of the collectives (``dist_events``) as many
+    as the counter's calls, by op."""
+    for (devtype, name), c in sorted(events.items()):
+        log(f"{what}: profiler event {devtype} {name!r} x {c}")
+    for op, c in want_comm.items():
+        toks = DIST_OP_TOKENS[op]
+        seen = {k: v for k, v in events.items() if any(t in k[1].lower() for t in toks)}
+        check(c == 0 and not seen or c in seen.values(),
+              f"{what}: the profiler's {op} records {seen}, the counter's calls {c}")
 
 
 def dist_nccl_step(torch, log, dev="cuda", profile=True, during=None):
@@ -5008,7 +5070,8 @@ def dist_nccl_step(torch, log, dev="cuda", profile=True, during=None):
     runs under the profiler (`during()` runs after it, e.g. waiting for the
     launcher runs started beside it): torch's records of the collectives
     as many as the counter's calls; the timed steps follow it.  Returns the
-    group step's launches (the main path's)."""
+    group step's launches (the main path's) and the three runs' records
+    (the profiled one None without `profile`)."""
     import os
     import tempfile
 
@@ -5066,15 +5129,102 @@ def dist_nccl_step(torch, log, dev="cuda", profile=True, during=None):
         f"seed's state); launches {g['launches']}; calls into torch.distributed "
         f"{g['comm']} == the structure's")
     if prof:
-        for (devtype, name), c in sorted(prof["events"].items()):
-            log(f"dist: profiler event {devtype} {name!r} x {c}")
-        for op, c in want_comm.items():
-            toks = DIST_OP_TOKENS[op]
-            seen = {k: v for k, v in prof["events"].items()
-                    if any(t in k[1].lower() for t in toks)}
-            check(c == 0 and not seen or c in seen.values(),
-                  f"dist: the profiler's {op} records {seen}, the counter's calls {c}")
-    return g["launches"]
+        check_profiler_calls(prof["events"], want_comm, "dist", log)
+    return g["launches"], dict(prof=prof, group=g, none=n)
+
+
+# (g) the pod axis on one card: the (pod, data, model) grid of one rank
+POD_GRID = (1, 1, 1)
+
+
+def dist_pod_step(torch, log, flat, dev="cuda", profile=True):
+    """(g): one gpt-1.3b train step at full width and depth under
+    ``QSDPConfig(hierarchical=True)`` through the four groups of the
+    one-rank (pod, data, model) grid (``init_distributed``: the flat FSDP,
+    model, pod and inner groups, NCCL on the card, gloo on the CPU), under
+    the profiler with `profile`, and the same step in place (groups None),
+    each from the seed's state: loss, grad norm and the device digests of
+    every parameter and moment bit-equal; K1/K2 launches equal to the
+    two-level formula (``expected_train_launches``: at one rank the pod
+    level still quantizes and decodes, so the reduce-scatter's K1 and K2
+    are twice the flat step's); the calls into torch.distributed by op
+    equal to ``expected_train_comm`` (one all-gather and one all-to-all a
+    level), and with `profile` torch's records as many.  Prints the step
+    times and K1's and K2's device time beside the flat step's (`flat`:
+    (a)'s records), and the two grad norms: the pod level rounds the
+    gradients a second time, so they differ.  Returns the group step's
+    launches."""
+    import os
+    import tempfile
+
+    import torch.distributed as dist
+    from repro_torch.core.qsdp import MeshSpec, QSDPConfig
+    from repro_torch.launch.mesh import init_distributed
+    from repro_torch.kernels import ops
+    from repro_torch.models.transformer import Model
+
+    ms, qcfg = MeshSpec(("pod", "data", "model"), POD_GRID), QSDPConfig(hierarchical=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        group, model_group, coords, gdev, pod_group, inner_group = init_distributed(
+            dev, ms, store=dist.FileStore(os.path.join(tmp, "store"), 1), rank=0,
+            world_size=1)
+        check(coords == (0, 0, 0), f"dist pod: the one-rank grid put rank 0 at {coords}")
+        backend = dist.get_backend()
+        try:
+            st, h, model = dist_step(torch, (group, model_group, None, pod_group, inner_group),
+                                     gdev, profile=profile, ms=ms, qcfg=qcfg)
+            got_dig = {k: device_digest(torch, v) for k, v in state_tensors(st).items()}
+            del st
+            st, n, _ = dist_step(torch, (None, None), gdev, ms=ms, qcfg=qcfg)
+            want_dig = {k: device_digest(torch, v) for k, v in state_tensors(st).items()}
+            del st
+        finally:
+            dist.destroy_process_group()
+    check(model.engine.two_level, "dist pod: the model's engine runs one level")
+    check(h["loss"] == n["loss"] and h["gnorm"] == n["gnorm"],
+          f"dist pod: {backend} step loss {h['loss']} / norm {h['gnorm']}, in place "
+          f"{n['loss']} / {n['gnorm']}")
+    bad = sorted(k for k in want_dig if got_dig[k] != want_dig[k])
+    check(not bad and set(got_dig) == set(want_dig),
+          f"dist pod: {bad} differ between the (1, 1, 1) grid's step and in place")
+    want = expected_train_launches(model, TRAIN["n_micro"])
+    flat_want = expected_train_launches(
+        Model(model.cfg, MeshSpec(("data", "model"), (1, 1)), QSDPConfig()), TRAIN["n_micro"])
+    check(want["per_micro"][2] == 2 * flat_want["per_micro"][2]
+          and want["k2_per_micro"][2] == 2 * flat_want["k2_per_micro"][2]
+          and want["per_micro"][:2] == flat_want["per_micro"][:2],
+          f"dist pod: the two-level formula {want} against the flat one's {flat_want}")
+    for r in (h, n):
+        for k in ops.KERNELS:
+            check(r["launches"][k] == want.get(k, 0),
+                  f"dist pod: {k} launched {r['launches'][k]} times, the two-level formula "
+                  f"predicts {want.get(k, 0)}")
+    want_comm = expected_train_comm(model, TRAIN["n_micro"])
+    check(h["comm"] == want_comm and not any(h["comm_bytes"].values()),
+          f"dist pod: calls into torch.distributed {h['comm']} (bytes {h['comm_bytes']}), the "
+          f"two-level structure predicts {want_comm}")
+    check(not any(n["comm"].values()), f"dist pod: in place called torch.distributed "
+          f"{n['comm']}")
+    if profile:
+        check_profiler_calls(h["events"], want_comm, "dist pod", log)
+    line = (f"dist pod: {DIST_ARCH} at full width and depth, one step under hierarchical=True "
+            f"through the one-rank (pod, data, model) grid's four {backend} groups bit-equal to "
+            f"in place (loss {h['loss']}, grad norm {h['gnorm']}; flat's {flat['group']['loss']}"
+            f" / {flat['group']['gnorm']}); K1 {want['quantize_pack']}, K2 "
+            f"{want['unpack_dequantize']} a step (flat {flat_want['quantize_pack']}, "
+            f"{flat_want['unpack_dequantize']}) == the two-level formula; calls {h['comm']} "
+            f"(flat {flat['group']['comm']}); in place {n['dt'] * 1e3:.1f} ms (flat "
+            f"{flat['none']['dt'] * 1e3:.1f})")
+    if profile:
+        fp = flat["prof"]
+        line += (f"; under the profiler {h['dt'] * 1e3:.1f} ms (flat {fp['dt'] * 1e3:.1f})")
+        if h["kernels"]["quantize_pack"][1]:
+            (k1, n1), (k2, n2) = h["kernels"]["quantize_pack"], h["kernels"]["unpack_dequantize"]
+            (f1, m1), (f2, m2) = fp["kernels"]["quantize_pack"], fp["kernels"]["unpack_dequantize"]
+            line += (f"; K1 {k1:.3f} ms over {n1} kernels (flat {f1:.3f} over {m1}), K2 "
+                     f"{k2:.3f} ms over {n2} (flat {f2:.3f} over {m2})")
+    log(line)
+    return h["launches"]
 
 
 def dist_launch_start(torch, dev="cuda", extra=()):
@@ -5313,9 +5463,10 @@ def dist_reshard(torch, log, dev="cuda"):
 def dist_phase(torch, log, dev="cuda", profile=True, wire=True, launch_extra=()):
     """Phase 13 (module docstring): (b) started first; (a)'s profiled step
     runs beside it, then (d) while (b) finishes, (a)'s timed steps after (b)
-    is done; then (f), and with `wire` (when the kernel phase did not run
-    them, timed), (c) and (e).  Returns (the main path's launches, the
-    P-rank rows, the blocks' rows)."""
+    is done; then (g), (f), and with `wire` (when the kernel phase did not
+    run them, timed), (c), (e) and (h).  Returns (the main path's launches:
+    (a)'s and (g)'s, the P-rank rows, the blocks' rows, the (Q, D) grids'
+    rows)."""
     t = time.perf_counter()
     started = dist_launch_start(torch, dev, launch_extra)
     blocks = []
@@ -5325,21 +5476,25 @@ def dist_phase(torch, log, dev="cuda", profile=True, wire=True, launch_extra=())
         dist_launch_check(torch, log, started)
 
     try:
-        launches = dist_nccl_step(torch, log, dev, profile=profile, during=during)
+        launches, flat = dist_nccl_step(torch, log, dev, profile=profile, during=during)
     finally:
         for proc, _, _ in started:
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
+    pod = dist_pod_step(torch, log, flat, dev, profile=profile)
+    launches = {k: launches.get(k, 0) + pod.get(k, 0) for k in set(launches) | set(pod)}
     dist_reshard(torch, log, dev)
     rows = dist_wire(torch, log, dev) if wire else []
+    pod_rows = []
     if wire:
         tp_wire(torch, log, dev)
+        pod_rows = pod_wire(torch, log, dev)[1]
     if dev == "cuda":
         torch.cuda.empty_cache()
     print(DIST_NOTE, flush=True)
     log(f"dist: phase {time.perf_counter() - t:.1f} s")
-    return launches, rows, blocks
+    return launches, rows, blocks, pod_rows
 
 
 # (e) the tp-local wire work: gpt-1.3b's layer at these (P, M)
@@ -5434,6 +5589,145 @@ def tp_wire(torch, log, dev="cuda", timing=None):
                                 main_path=False))
         log(line)
         del xs, got, want, gbuf
+    return k1_rows, k2_rows
+
+
+# (h) the two-level wire work of a (Q, D) grid: gpt-1.3b's layer at these
+# (Q, D) (model axis 1)
+POD_GRIDS = ((2, 2), (2, 4), (4, 2))
+
+
+def pod_wire(torch, log, dev="cuda", timing=None):
+    """(h): the two-level wire work of one gpt-1.3b layer and its gradient
+    on each (Q, D) of POD_GRIDS, the Q·D ranks emulated in this process, the
+    rank at (q, d) at FSDP index i = d·Q + q.  Each rank encodes its shard
+    of every weight (K1, W8 shift, under the shared key); the pod level's
+    gather lays the Q buffers of a d end to end and the data level the D
+    pod blocks, which must be the flat data-major buffer, decoded by one K2
+    launch over the Q·D-row table.  Each rank splits each gradient's key
+    (``prng.split``) and encodes D destination rows of n/D under the first
+    half (K1, G8 stochastic; the inner layout, ``n_local·Q`` a chunk); rank
+    (q, d) dequant-sums the D rows row d of its pod's ranks (the inner sum,
+    K2), encodes it in Q rows of n/(Q·D) under the second half, and
+    dequant-sums the Q rows row q of the ranks of its d.  Gate: every
+    buffer, row and sum byte-equal to the same functions on K1/K2's plain
+    versions.  With `timing` (the kernel phase's ``(k1_row, decode_row,
+    addcmul_ms)``), per level K1 on a rank's MLP gradient chunk and the K2
+    dequant-sum of a rank's rows (f32), and K2 over the Q·D-row table
+    (bf16), each shape once, against their bounds (K2 beside
+    ``torch.addcmul``).  Logs per level the bytes a rank sends across the
+    pod boundary against the flat form's.  Returns (K1 rows, K2 rows), off
+    the one-rank main path."""
+    from repro_torch import configs
+    from repro_torch.core import collectives as coll
+    from repro_torch.core import prng
+    from repro_torch.core.qsdp import MeshSpec, QSDPConfig
+    from repro_torch.kernels import cost, ops, ref
+    from repro_torch.models.transformer import Model
+
+    eng = Model(configs.get_config(DIST_ARCH), MeshSpec(("data", "model"), (1, 1)),
+                QSDPConfig()).engine
+    names = tuple(sorted(n for n in eng.specs if n.startswith("layers/")))
+    mlp = names.index("layers/w_gate")
+    k1_rows, k2_rows, timed = [], [], set()
+    for q, d in POD_GRIDS:
+        p = q * d
+        lay, rs = dist_layout(eng, names, p), dist_layout(eng, names, p, grad=True)
+        rs_in = coll.WireLayout(tuple(dataclasses.replace(s, n=s.n * q) for s in rs.segments))
+        keys = [prng.fold_in(prng.PRNGKey(34), i) if s.cfg is not None else None
+                for i, s in enumerate(lay.segments)]
+        halves = [prng.split(prng.fold_in(prng.PRNGKey(35), i)) if s.cfg is not None else None
+                  for i, s in enumerate(rs.segments)]
+        k1s, k2s = [h and h[0] for h in halves], [h and h[1] for h in halves]
+        out_dts = [eng.compute_dtype if s.cfg is not None else torch.float32
+                   for s in lay.segments]
+        gen = torch.Generator(device=dev).manual_seed(300 + 10 * q + d)
+        # by FSDP index i = d·Q + q
+        xs = [[torch.randn(s.n, generator=gen, device=dev) * 0.02 for s in lay.segments]
+              for _ in range(p)]
+        gs = [[torch.randn(p * s.n, generator=gen, device=dev) * 1e-3 for s in rs.segments]
+              for _ in range(p)]
+
+        def work():
+            bufs = [coll.encode_wire(x, lay, keys) for x in xs]
+            # pod level: the Q buffers of each d; data level: the D blocks
+            gbuf = torch.cat([torch.cat([bufs[dd * q + qq] for qq in range(q)])
+                              for dd in range(d)])
+            dec = coll.decode_gathered_wire(gbuf, lay, p, out_dts)
+            sent = [coll.encode_rs_rows(g, rs_in, k1s, d) for g in gs]
+            inner = [torch.stack([sent[dd * q + i % q][i // q] for dd in range(d)])
+                     for i in range(p)]
+            sums = [coll.decode_rs_rows(r, rs_in) for r in inner]
+            pod_sent = [coll.encode_rs_rows(v, rs, k2s, q) for v in sums]
+            pod = [torch.stack([pod_sent[(i // q) * q + qq][i % q] for qq in range(q)])
+                   for i in range(p)]
+            final = [coll.decode_rs_rows(r, rs) for r in pod]
+            return (gbuf, torch.cat(bufs), dec, inner, sum(sums, []), pod,
+                    sum(final, []))
+
+        got = work()
+        with plain_kernels(ops, ref):
+            want = work()
+        check(torch.equal(got[0], got[1]),
+              f"pod (Q, D) = ({q}, {d}): the pod-then-data buffer is not the flat data-major one")
+        check(torch.equal(got[0], want[0]), f"pod (Q, D) = ({q}, {d}): gathered buffers differ")
+        for a, b in zip([*got[2], *got[3], *got[4], *got[5], *got[6]],
+                        [*want[2], *want[3], *want[4], *want[5], *want[6]], strict=True):
+            check(a.dtype == b.dtype and torch.equal(a.view(torch.uint8), b.view(torch.uint8)),
+                  f"pod (Q, D) = ({q}, {d}): a decode, row or sum differs from the plain "
+                  "versions'")
+        gbuf, inner, pod = got[0], got[3][0], got[5][0]
+        del xs, gs, got, want
+        table, dts = coll.wire_table(lay, p, out_dts)
+        n_launch = -(-len(table) // ops.WIRE_MAX_SEGS)
+        line = (f"pod: (Q, D) = ({q}, {d}): {DIST_ARCH} layer, {gbuf.numel()} bytes gathered "
+                f"pod first, then data (the flat data-major buffer), decoded in {n_launch} K2 "
+                f"launch(es) over {len(table)} entries; the gradient's {d} inner rows of "
+                f"{rs_in.nbytes} bytes, their sum, its {q} pod rows of {rs.nbytes} bytes and "
+                "their sum: byte-equal to the plain versions; a rank sends "
+                f"{(q - 1) * lay.nbytes} gathered and {(q - 1) * rs.nbytes} reduce-scattered "
+                f"bytes across the pod boundary, the flat form {(q - 1) * d * lay.nbytes} and "
+                f"{(q - 1) * d * rs.nbytes}")
+        k2_rows.append(dict(q=q, d=d, table=len(table), launches=n_launch, main_path=False))
+        if timing is not None:
+            k1_row, decode_row, addcmul_ms = timing
+            f32 = [torch.float32] * len(rs.segments)
+            parts = [("gather", None, gbuf, table, dts, lay.segments[mlp].n),
+                     ("inner", "stochastic", inner, *coll.wire_table(rs_in, d, f32),
+                      rs_in.segments[mlp].n),
+                     ("pod", "stochastic", pod, *coll.wire_table(rs, q, f32),
+                      rs.segments[mlp].n)]
+            for level, mode, buf, tab, tdts, chunk in parts:
+                what = f"{level} level, {len(tab)} entries of {sum(t.nb for t in tab)} buckets"
+                if mode is not None and ("K1", chunk) not in timed:
+                    timed.add(("K1", chunk))
+                    x = torch.randn((chunk // 1024, 1024), generator=gen, device=dev) * 1e-3
+                    _, r1 = k1_row(f"{DIST_ARCH} MLP gradient chunk of {chunk} values, "
+                                   f"{level} level", x, k1s[mlp], mode)
+                    k1_rows.append(dict(r1, q=q, d=d, level=level, main_path=False))
+                    line += (f"; {level} K1 on an MLP chunk of {chunk} values {r1['ms']:.4f} ms "
+                             f"(kernel alone {r1['kernel_ms']:.4f}, bound {r1['bound'][0]:.4f} "
+                             f"ms by {r1['bound'][1]})")
+                    del x
+                if (level, what) in timed:
+                    continue
+                timed.add((level, what))
+                r2 = decode_row(f"{DIST_ARCH} layer, pod grid, {what}", sum(t.nb for t in tab),
+                                lambda buf=buf, tab=tab, tdts=tdts:
+                                    ops.unpack_dequantize_wire(buf.reshape(-1), tab, tdts),
+                                lambda buf=buf, tab=tab, tdts=tdts:
+                                    ref.unpack_dequantize_wire_ref(buf.reshape(-1), tab, tdts),
+                                wire_addcmul(torch, addcmul_ms, buf.reshape(-1), tab, tdts),
+                                cost.unpack_dequantize_wire(tab, [t.itemsize for t in tdts]))
+                k2_rows.append(dict(r2, q=q, d=d, level=level, table=len(tab),
+                                    launches=-(-len(tab) // ops.WIRE_MAX_SEGS),
+                                    main_path=False))
+                line += (f"; {level} K2 ({len(tab)} entries, {dt_name(tdts[0])} out) "
+                         f"{r2['ms']:.4f} ms (kernel alone {r2['kernel_ms']:.4f}, bound "
+                         f"{r2['bound'][0]:.4f} ms by {r2['bound'][1]}; torch.addcmul "
+                         f"{r2['library_ms']:.4f})")
+        log(line)
+        del gbuf, inner, pod
     return k1_rows, k2_rows
 
 

@@ -21,8 +21,21 @@ kernels.  A group of any size, one rank included, exchanges through
 ``torch.distributed`` (NCCL on the card, gloo on the CPU); a failed
 exchange raises, with no fallback.  The receiving rank dequant-sums its P
 rows in rank order, ``((r0 + r1) + r2) + ...``, the order of XLA's CPU
-``jnp.sum(axis=0)``.  The hierarchical (two-level) forms are not ported
-(ROADMAP A3b).
+``jnp.sum(axis=0)``.
+
+On a ("pod", "data", "model") mesh the FSDP axes are ("data", "pod"),
+data-major: the rank at pod rank q and data rank d is FSDP index ``d·Q +
+q``.  ``torch.distributed.new_group`` sorts its ranks and the global ranks
+are pod-major (``launch/mesh.py``), so the flat FSDP group's own ranks run
+``q·D + d``; :class:`OrderedGroup` is such a group with the group rank
+that holds each FSDP index, and every exchange over it puts the rows in
+FSDP order: the rows a gather delivers, the rows an all-to-all sends and
+receives, the chunks a reduce-scatter hands out.  The hierarchical
+(two-level) forms take the rank's pod group (its Q ranks of one (d, m))
+and its inner group (the D ranks of one (q, m)) and exchange over the pod
+first and the data axis second for a gather, the other way round for a
+reduce-scatter, so only ``1/D`` of a gradient's bytes crosses the pod
+boundary; their rows arrive in FSDP order as they are.
 
 ``COMM[op]`` counts the calls into ``torch.distributed`` by op and
 ``COMM_BYTES[op]`` the bytes each call brought in from the other ranks (the
@@ -70,11 +83,67 @@ def _op(new: str, old: str):
 
 
 def group_size(group) -> int:
-    return 1 if group is None else _dist().get_world_size(group)
+    return 1 if group is None else _dist().get_world_size(process_group(group))
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class OrderedGroup:
+    """A process group whose FSDP order is not its group ranks' order: FSDP
+    index i is group rank ``order[i]`` (the flat (data, pod) group of a pod
+    mesh, formed by ``launch/mesh.py``).  Every function here that takes a
+    group takes one, and exchanges over it in FSDP order."""
+    pg: object
+    order: tuple
+
+    def __post_init__(self):
+        n = _dist().get_world_size(self.pg)
+        if sorted(self.order) != list(range(n)):
+            raise ValueError(f"{self.order} is not an order of the group's {n} ranks")
+
+
+def ordered_group(pg, order: Sequence[int]):
+    """`pg` with FSDP order `order` (group rank ``order[i]`` holds FSDP index
+    i): the group itself where the order is its own."""
+    order = tuple(int(r) for r in order)
+    return pg if order == tuple(range(len(order))) else OrderedGroup(pg, order)
+
+
+def process_group(group):
+    """The ``torch.distributed`` process group of `group`."""
+    return group.pg if isinstance(group, OrderedGroup) else group
+
+
+def _order(group) -> Optional[tuple]:
+    return group.order if isinstance(group, OrderedGroup) else None
+
+
+def fsdp_index(group) -> int:
+    """This rank's FSDP index in `group` (its group rank, unless `group` is
+    an :class:`OrderedGroup`)."""
+    order, r = _order(group), group_rank(group)
+    return r if order is None else order.index(r)
+
+
+def _rows_to_fsdp(rows: torch.Tensor, group) -> torch.Tensor:
+    """Rows (or chunks on axis 0) by group rank -> by FSDP index."""
+    order = _order(group)
+    if order is None:
+        return rows
+    return rows.reshape(len(order), -1)[list(order)].reshape(rows.shape)
+
+
+def _rows_to_group(rows: torch.Tensor, group) -> torch.Tensor:
+    """Rows by FSDP index -> by group rank (the inverse of
+    :func:`_rows_to_fsdp`)."""
+    order = _order(group)
+    if order is None:
+        return rows
+    inv = [order.index(r) for r in range(len(order))]
+    return rows.reshape(len(order), -1)[inv].reshape(rows.shape)
 
 
 def group_rank(group) -> int:
-    return 0 if group is None else _dist().get_rank(group)
+    return 0 if group is None else _dist().get_rank(process_group(group))
 
 
 def _collective(fn):
@@ -96,14 +165,15 @@ def _count(op: str, nbytes: int) -> None:
 
 
 def _gather(x: torch.Tensor, group) -> torch.Tensor:
-    """all_gather_into_tensor: (n, ...) on each rank -> (P * n, ...), rank
-    r's block at rows r * n onwards."""
+    """all_gather_into_tensor: (n, ...) on each rank -> (P * n, ...), FSDP
+    index i's block at rows i * n onwards (the group rank's, unless the
+    group has an FSDP order)."""
     p = group_size(group)
     x = x.contiguous()
     out = x.new_empty((p * x.shape[0], *x.shape[1:]))
-    _op("all_gather_single", "all_gather_into_tensor")(out, x, group=group)
+    _op("all_gather_single", "all_gather_into_tensor")(out, x, group=process_group(group))
     _count("all_gather", (p - 1) * x.numel() * x.element_size())
-    return out
+    return _rows_to_fsdp(out, group)
 
 
 @_collective
@@ -138,7 +208,7 @@ def ordered_sum(x: torch.Tensor, group) -> torch.Tensor:
 def _all_reduce(x: torch.Tensor, group, op: str) -> torch.Tensor:
     dist = _dist()
     y = x.detach().clone()
-    dist.all_reduce(y, op=getattr(dist.ReduceOp, op), group=group)
+    dist.all_reduce(y, op=getattr(dist.ReduceOp, op), group=process_group(group))
     _count("all_reduce", (group_size(group) - 1) * y.numel() * y.element_size())
     return y
 
@@ -177,12 +247,30 @@ def all_gather_quantized(x: torch.Tensor, cfg: QuantConfig, key: prng.Key,
     """Gather a flat (n_local,) shard into the full flat tensor, shipping
     quantized codes (3 collectives: codes, scale, zero) rounded under
     `key`; each rank's shard is decoded with its own bucket padding."""
+    return _gather_levels(x, cfg, key, (group,), out_dtype)
+
+
+@_collective
+def all_gather_hierarchical(x: torch.Tensor, cfg: QuantConfig, key: prng.Key,
+                            pod_group=None, inner_group=None,
+                            out_dtype=None) -> torch.Tensor:
+    """The two-level quantized gather (reference ``all_gather_hierarchical``):
+    one quantize; codes, scale and zero gathered over the pod group, then
+    over the inner group (6 collectives), which lays the Q·D shards out in
+    FSDP order ``d·Q + q``; each shard decoded with its own padding."""
+    return _gather_levels(x, cfg, key, (pod_group, inner_group), out_dtype)
+
+
+def _gather_levels(x, cfg, key, groups, out_dtype):
+    """Quantize `x`, gather codes, scale and zero over each of `groups` in
+    turn (None: one rank) and decode every shard."""
     q = quantize(x, cfg, key)
     md = cfg.meta_torch_dtype
     n = x.shape[0]
     codes, scale, zero = q.codes, q.scale.to(md), q.zero.to(md)
-    if group is not None:
-        codes, scale, zero = _gather(codes, group), _gather(scale, group), _gather(zero, group)
+    for group in groups:
+        if group is not None:
+            codes, scale, zero = _gather(codes, group), _gather(scale, group), _gather(zero, group)
     nb = q.codes.shape[0]
     vals = [dequantize(Quantized(codes[r * nb:(r + 1) * nb], scale[r * nb:(r + 1) * nb].float(),
                                  zero[r * nb:(r + 1) * nb].float(), (n,), n, cfg),
@@ -201,8 +289,8 @@ def reduce_scatter_fp(x: torch.Tensor, group=None,
     if group is not None:
         p = group_size(group)
         out = wire.new_empty((wire.shape[0] // p, *wire.shape[1:]))
-        _op("reduce_scatter_single", "reduce_scatter_tensor")(out, wire.contiguous(),
-                                                              group=group)
+        _op("reduce_scatter_single", "reduce_scatter_tensor")(
+            out, _rows_to_group(wire, group).contiguous(), group=process_group(group))
         _count("reduce_scatter", (p - 1) * out.numel() * out.element_size())
         wire = out
     return wire.to(x.dtype)
@@ -210,15 +298,15 @@ def reduce_scatter_fp(x: torch.Tensor, group=None,
 
 @_collective
 def _all_to_all_rows(rows: torch.Tensor, group=None) -> torch.Tensor:
-    """Row i of (P, ...) goes to rank i; returns the P rows received, row j
-    from rank j."""
+    """Row i of (P, ...) goes to FSDP index i; returns the P rows received,
+    row j from FSDP index j."""
     if group is None:
         return rows
-    rows = rows.contiguous()
+    rows = _rows_to_group(rows, group).contiguous()
     out = torch.empty_like(rows)
-    _dist().all_to_all_single(out, rows, group=group)
+    _dist().all_to_all_single(out, rows, group=process_group(group))
     _count("all_to_all", (rows.shape[0] - 1) * rows[0].numel() * rows.element_size())
-    return out
+    return _rows_to_fsdp(out, group)
 
 
 @_collective
@@ -239,6 +327,19 @@ def reduce_scatter_quantized(g: torch.Tensor, cfg: QuantConfig, key: prng.Key,
     deq = [dequantize(Quantized(c, s.float(), z.float(), (n,), n, cfg))
            for c, s, z in zip(codes, scale, zero)]
     return _sum_rows(deq)
+
+
+@_collective
+def reduce_scatter_hierarchical(g: torch.Tensor, cfg: QuantConfig, key: prng.Key,
+                                pod_group=None, inner_group=None) -> torch.Tensor:
+    """The two-level quantized reduce-scatter (reference
+    ``reduce_scatter_hierarchical``): with ``k1, k2 = split(key)``, the full
+    (n,) tensor reduce-scattered over the inner group under k1, then its
+    (n/D,) partial sum over the pod group under k2; this rank keeps chunk
+    ``d·Q + q`` of n/(Q·D) values.  Only the partial crosses the pods."""
+    k1, k2 = prng.split(key)
+    return reduce_scatter_quantized(reduce_scatter_quantized(g, cfg, k1, inner_group),
+                                    cfg, k2, pod_group)
 
 
 # ---------------------------------------------------------------------------
@@ -297,9 +398,15 @@ def encode_wire(xs: Sequence[torch.Tensor], layout: WireLayout,
 
 
 @_collective
-def gather_wire(buf: torch.Tensor, group=None) -> torch.Tensor:
-    """All-gather a coalesced buffer: (B,) u8 -> (P*B,) u8 in shard order."""
-    return buf if group is None else _gather(buf, group)
+def gather_wire(buf: torch.Tensor, group=None, pod_group=None) -> torch.Tensor:
+    """All-gather a coalesced buffer: (B,) u8 -> (P*B,) u8 in FSDP order.
+    With `pod_group`, `group` is the rank's inner group and the buffer is
+    gathered over the pod group first, then over the inner group (the
+    two-level form: the same rows as the flat gather)."""
+    for grp in (pod_group, group):
+        if grp is not None:
+            buf = _gather(buf, grp)
+    return buf
 
 
 def wire_table(layout: WireLayout, p: int,
@@ -342,21 +449,24 @@ def decode_gathered_wire(gbuf: torch.Tensor, layout: WireLayout, p: int,
 
 
 def start_gather_coalesced(xs: Sequence[torch.Tensor], layout: WireLayout,
-                           keys: Sequence[Optional[prng.Key]], group=None) -> torch.Tensor:
+                           keys: Sequence[Optional[prng.Key]], group=None,
+                           pod_group=None) -> torch.Tensor:
     """The start half of :func:`all_gather_coalesced`: encode -> 1
-    all-gather, the gathered (P * layout.nbytes,) u8 buffer; its finish is
-    :func:`decode_gathered_wire` (the prefetch pipeline runs the two a
-    layer apart)."""
-    return gather_wire(encode_wire(xs, layout, keys), group)
+    all-gather (one a level with `pod_group`), the gathered (P *
+    layout.nbytes,) u8 buffer; its finish is :func:`decode_gathered_wire`
+    (the prefetch pipeline runs the two a layer apart)."""
+    return gather_wire(encode_wire(xs, layout, keys), group, pod_group)
 
 
 @_collective
 def all_gather_coalesced(xs: Sequence[torch.Tensor], layout: WireLayout,
                          keys: Sequence[Optional[prng.Key]], out_dtypes: Sequence,
-                         group=None) -> list[torch.Tensor]:
-    """One-launch layer gather: encode -> 1 all-gather -> decode."""
-    gbuf = start_gather_coalesced(xs, layout, keys, group)
-    return decode_gathered_wire(gbuf, layout, group_size(group), out_dtypes)
+                         group=None, pod_group=None) -> list[torch.Tensor]:
+    """One-launch layer gather: encode -> 1 all-gather (one a level with
+    `pod_group`, `group` then the inner group) -> decode."""
+    gbuf = start_gather_coalesced(xs, layout, keys, group, pod_group)
+    return decode_gathered_wire(gbuf, layout, group_size(group) * group_size(pod_group),
+                                out_dtypes)
 
 
 def encode_rs_rows(gs: Sequence[torch.Tensor], layout: WireLayout,
@@ -395,6 +505,23 @@ def reduce_scatter_coalesced(gs: Sequence[torch.Tensor], layout: WireLayout,
     keys[i] is None for an fp segment."""
     rows = encode_rs_rows(gs, layout, keys, group_size(group))
     return decode_rs_rows(_all_to_all_rows(rows, group), layout)
+
+
+@_collective
+def reduce_scatter_coalesced_hierarchical(
+        gs: Sequence[torch.Tensor], inner_layout: WireLayout, pod_layout: WireLayout,
+        keys: Sequence[Optional[prng.Key]], pod_group=None,
+        inner_group=None) -> list[torch.Tensor]:
+    """The two-level coalesced reduce-scatter (reference
+    ``reduce_scatter_coalesced_hierarchical``): every tensor over the inner
+    group in one all-to-all (`inner_layout`: D chunks of n/D), then the
+    partial sums over the pod group in one more (`pod_layout`: Q chunks of
+    n/(Q·D)); each tensor's key split as :func:`reduce_scatter_hierarchical`
+    splits it.  An fp segment is packed to its wire dtype at both levels."""
+    halves = [None if k is None else prng.split(k) for k in keys]
+    part = reduce_scatter_coalesced(gs, inner_layout, [h and h[0] for h in halves],
+                                    inner_group)
+    return reduce_scatter_coalesced(part, pod_layout, [h and h[1] for h in halves], pod_group)
 
 
 # ---------------------------------------------------------------------------

@@ -41,9 +41,20 @@ and reduce-scatters exchange over the rank's data group (the P ranks of
 its m) at the TP-local sizes; a model-replicated parameter consumed
 rank-specifically (``ParamSpec.grad_sync_model``: replicated KV) has its
 reduce-scattered gradient summed over the model group (the M ranks of its
-d).  ``group=None`` and ``model_group=None`` are the one-rank axes.  The
-two-level gathers of a "pod" axis (ROADMAP A3b) and serving over ranks
-(A10e) are refused.
+d).  ``group=None`` and ``model_group=None`` are the one-rank axes.
+
+On a (Q, D, M) ("pod", "data", "model") mesh the FSDP axes are ("data",
+"pod"), data-major: the rank at (q, d, m) holds FSDP column ``d·Q + q``
+(``MeshSpec.fsdp_axes``), `group` is the flat FSDP group of its m (Q·D
+ranks, its exchanges in that order: a ``collectives.OrderedGroup``), and
+the engine also takes the rank's pod group (the Q ranks of its (d, m))
+and inner group (the D ranks of its (q, m)).  Under
+``QSDPConfig(hierarchical=True)`` a quantized tensor's gather and
+reduce-scatter, and a coalesced layer's whole buffer, take the two-level
+forms (``collectives.all_gather_hierarchical`` and the rest); a per-tensor
+fp tensor stays flat over `group`, as in the reference.  Without a pod
+axis ``hierarchical`` changes nothing.  Serving over ranks (ROADMAP A10e)
+is refused.
 """
 from __future__ import annotations
 
@@ -72,6 +83,24 @@ class MeshSpec:
 
     axes: tuple[str, ...]
     shape: tuple[int, ...]
+
+    @property
+    def multi_pod(self) -> bool:
+        return "pod" in self.axes
+
+    @property
+    def fsdp_axes(self) -> tuple[str, ...]:
+        """Data-major, so gathering over "pod" and then "data" lays the
+        shards out as the flat form does (FSDP index ``d·Q + q``)."""
+        return ("data", "pod") if self.multi_pod else ("data",)
+
+    @property
+    def pod_size(self) -> int:
+        return dict(zip(self.axes, self.shape)).get("pod", 1)
+
+    @property
+    def data_size(self) -> int:
+        return dict(zip(self.axes, self.shape))["data"]
 
     @property
     def fsdp_size(self) -> int:
@@ -161,9 +190,10 @@ def from_rest(rest: torch.Tensor, spec: ParamSpec, ms: MeshSpec) -> torch.Tensor
 
 def rank_block(rest, rank: int, p: int, model_rank: int = 0, model_size: int = 1):
     """The block of a rest-layout leaf (a tensor or an array) that the rank
-    at (data rank `rank`, model rank `model_rank`) of a (P, M) mesh holds:
-    axis -3, the model axis, sliced to ``[model_rank:model_rank + 1]`` and
-    axis -2, the FSDP axis, to ``[rank:rank + 1]``; the leaf itself at one
+    at (FSDP index `rank`, model rank `model_rank`) of a mesh of `p` FSDP
+    ranks holds (on a pod mesh the index is data-major, ``d·Q + q``): axis
+    -3, the model axis, sliced to ``[model_rank:model_rank + 1]`` and axis
+    -2, the FSDP axis, to ``[rank:rank + 1]``; the leaf itself at one
     rank."""
     if p == 1 and model_size == 1:
         return rest
@@ -215,6 +245,9 @@ class QSDPConfig:
     min_quant_size: int = 2048
     weight_wire_dtype: str = "float32"
     grad_wire_dtype: str = "bfloat16"
+    # two-level gathers and reduce-scatters over (pod, data); nothing
+    # changes on a mesh without a "pod" axis
+    hierarchical: bool = False
     compute_dtype: str = "bfloat16"
     # activation checkpointing of the layer loop: "full" recomputes each
     # layer in the backward, "dots" keeps its 2-D matmuls' outputs
@@ -264,11 +297,21 @@ def _layer_grad_rs(eng, names, key, cts) -> tuple:
     """The coalesced quantized reduce-scatter of one layer gather's
     cotangents, divided by the FSDP size and summed over the model group
     where ``grad_sync_model``: the backward of both :class:`_GatherLayer`
-    and :class:`_GatherLayerFinish` (reference ``_layer_grad_rs``)."""
+    and :class:`_GatherLayerFinish` (reference ``_layer_grad_rs``).  Two
+    levels under ``hierarchical`` on a pod mesh: the inner layout's chunks
+    ``n_local·P/D``, the pod layout's ``n_local``."""
     layout = eng.rs_layout(names)
     keys = [prng.fold_in(_tensor_key(key, n), _GRAD_SALT)
             if s.cfg is not None else None for n, s in zip(names, layout.segments)]
-    gs = coll.reduce_scatter_coalesced([c.float() for c in cts], layout, keys, eng.group)
+    # the f32 copies are a temporary argument, freed when the exchange
+    # returns: bound to a name here, they would stay alive through the
+    # divisions below (a whole layer's cotangents in f32)
+    if eng.two_level:
+        gs = coll.reduce_scatter_coalesced_hierarchical(
+            [c.float() for c in cts], eng.rs_layout(names, eng.ms.data_size), layout, keys,
+            eng.pod_group, eng.inner_group)
+    else:
+        gs = coll.reduce_scatter_coalesced([c.float() for c in cts], layout, keys, eng.group)
     return tuple(eng._sync_model(n, g / eng.ms.fsdp_size) for n, g in zip(names, gs))
 
 
@@ -295,7 +338,7 @@ class _GatherLayer(torch.autograd.Function):
         ctx.eng, ctx.names, ctx.key = eng, names, key
         layout = eng.layout(names)
         return tuple(coll.all_gather_coalesced(shards, layout, _gather_keys(layout, names, key),
-                                               _out_dtypes(eng, layout), eng.group))
+                                               _out_dtypes(eng, layout), *eng.gather_groups()))
 
     @staticmethod
     def backward(ctx, *cts):
@@ -322,14 +365,20 @@ class _GatherLayerFinish(torch.autograd.Function):
 
 class _GatherOne(torch.autograd.Function):
     """Per-tensor gather (3 collectives for a quantized tensor, 1 for an fp
-    payload) / per-tensor reduce-scatter: the reference's ``qsdp_gather``."""
+    payload) / per-tensor reduce-scatter: the reference's ``qsdp_gather``.
+    Under two levels a quantized tensor's exchanges are two-level (6 and 6
+    collectives); an fp tensor's stay flat."""
 
     @staticmethod
     def forward(ctx, eng, name, key, flat):
         ctx.eng, ctx.name, ctx.key = eng, name, key
         if eng._is_quantized(eng.specs[name]):
-            return coll.all_gather_quantized(flat, eng.cfg.wcfg(), _tensor_key(key, name),
-                                             eng.group, out_dtype=eng.compute_dtype)
+            wcfg, tkey = eng.cfg.wcfg(), _tensor_key(key, name)
+            if eng.two_level:
+                return coll.all_gather_hierarchical(flat, wcfg, tkey, eng.pod_group,
+                                                    eng.inner_group, out_dtype=eng.compute_dtype)
+            return coll.all_gather_quantized(flat, wcfg, tkey, eng.group,
+                                             out_dtype=eng.compute_dtype)
         return coll.all_gather_fp(flat, eng.group, _DTYPES[eng.cfg.weight_wire_dtype])
 
     @staticmethod
@@ -338,37 +387,59 @@ class _GatherOne(torch.autograd.Function):
         ct = ct.float()
         if eng._is_grad_quantized(eng.specs[name]):
             bkey = prng.fold_in(_tensor_key(ctx.key, name), _GRAD_SALT)
-            g = coll.reduce_scatter_quantized(ct, eng.cfg.gcfg(), bkey, eng.group)
+            if eng.two_level:
+                g = coll.reduce_scatter_hierarchical(ct, eng.cfg.gcfg(), bkey, eng.pod_group,
+                                                     eng.inner_group)
+            else:
+                g = coll.reduce_scatter_quantized(ct, eng.cfg.gcfg(), bkey, eng.group)
         else:
             g = coll.reduce_scatter_fp(ct, eng.group, _DTYPES[eng.cfg.grad_wire_dtype])
         return None, None, None, eng._sync_model(name, g / eng.ms.fsdp_size)
 
 
+MESH_AXES = (("data", "model"), ("pod", "data", "model"))
+
+
 def check_mesh(ms: MeshSpec) -> None:
-    """Refuse a mesh the port does not run: a "pod" axis, whose FSDP
-    exchanges are two-level (ROADMAP A3b)."""
-    if "pod" in ms.axes:
-        raise NotImplementedError(
-            f"mesh {dict(zip(ms.axes, ms.shape))}: the two-level gathers of a 'pod' axis "
-            "are not ported yet (ROADMAP A3b)")
+    """Refuse a mesh the port does not run: axes other than the reference's
+    ("data", "model") and ("pod", "data", "model"), or a size below 1."""
+    if tuple(ms.axes) not in MESH_AXES or len(ms.shape) != len(ms.axes) \
+            or min(ms.shape) < 1:
+        raise ValueError(f"mesh {tuple(ms.axes)} {tuple(ms.shape)}: the port runs meshes "
+                         f"with axes {MESH_AXES[0]} or {MESH_AXES[1]}, each of size >= 1")
 
 
 class QSDPEngine:
     """Binds a MeshSpec + QSDPConfig + parameter specs into gather calls."""
 
     def __init__(self, ms: MeshSpec, cfg: QSDPConfig, specs: dict[str, ParamSpec],
-                 group=None, model_group=None, model_rank: Optional[int] = None):
-        """`group`: the rank's data group (its FSDP exchanges); `model_group`:
-        its model group (None: one rank each).  Without a model group on a
-        model axis above 1, `model_rank` names the one model rank whose
-        share this process computes alone (every model-axis sum the
-        identity): the rank-by-rank emulation of the tp-local work in one
-        process."""
+                 group=None, model_group=None, model_rank: Optional[int] = None,
+                 pod_group=None, inner_group=None):
+        """`group`: the rank's data group (its FSDP exchanges; on a pod mesh
+        the flat FSDP group of its m); `model_group`: its model group (None:
+        one rank each).  Without a model group on a model axis above 1,
+        `model_rank` names the one model rank whose share this process
+        computes alone (every model-axis sum the identity): the rank-by-rank
+        emulation of the tp-local work in one process.  On a pod mesh
+        `pod_group` and `inner_group` are the rank's pod and inner (data)
+        groups, given with `group` or, at one rank, all three None."""
         check_mesh(ms)
         mesh = dict(zip(ms.axes, ms.shape))
         if ms.fsdp_size != coll.group_size(group):
             raise ValueError(f"mesh {mesh} has {ms.fsdp_size} FSDP ranks but the process "
                              f"group has {coll.group_size(group)} (group=None is one rank)")
+        levels = (pod_group, inner_group)
+        if not ms.multi_pod and levels != (None, None):
+            raise ValueError(f"mesh {mesh} has no 'pod' axis: pod_group and inner_group are "
+                             "for a ('pod', 'data', 'model') mesh")
+        if ms.multi_pod and (group is None) != (levels == (None, None)):
+            raise ValueError(f"mesh {mesh}: give the flat group with the pod and inner groups "
+                             "(None for all three at one rank)")
+        for grp, size, axis in ((pod_group, ms.pod_size, "pod"),
+                                (inner_group, ms.data_size, "data")):
+            if ms.multi_pod and coll.group_size(grp) != size:
+                raise ValueError(f"mesh {mesh} has {size} {axis} ranks but the {axis} group "
+                                 f"has {coll.group_size(grp)}")
         if model_group is not None or model_rank is None:
             if ms.model_size != coll.group_size(model_group):
                 raise ValueError(
@@ -383,7 +454,18 @@ class QSDPEngine:
         self.specs = specs
         self.group = group
         self.model_group = model_group
-        self.rank = coll.group_rank(group)
+        self.pod_group, self.inner_group = pod_group, inner_group
+        # the two-level exchanges: under `hierarchical` on a pod mesh (of any
+        # size: at one rank the pod level still quantizes and decodes)
+        self.two_level = cfg.hierarchical and ms.multi_pod
+        # the FSDP index: data-major on a pod mesh (d·Q + q), which the flat
+        # group's order must give
+        self.rank = (coll.group_rank(inner_group) * ms.pod_size + coll.group_rank(pod_group)
+                     if ms.multi_pod else coll.group_rank(group))
+        if coll.fsdp_index(group) != self.rank:
+            raise ValueError(f"mesh {mesh}: the flat group puts this rank at FSDP index "
+                             f"{coll.fsdp_index(group)}, its pod and inner groups at "
+                             f"{self.rank} (form the groups with launch.mesh.init_distributed)")
         self.model_rank = model_rank
         self.compute_dtype = _DTYPES[cfg.compute_dtype]
         self._streams: dict = {}
@@ -404,11 +486,21 @@ class QSDPEngine:
         return (spec.quantize and self.cfg.quantize_grads
                 and spec.n_logical_local(self.ms.model_size) >= self.cfg.min_quant_size)
 
-    def rs_layout(self, names: tuple[str, ...]) -> coll.WireLayout:
-        """Wire layout of the gradient reduce-scatter rows of `names`."""
+    def gather_groups(self) -> tuple:
+        """(group, pod_group) of a gather's ``collectives.gather_wire``: the
+        inner and pod groups under two levels, else the flat group alone."""
+        return (self.inner_group, self.pod_group) if self.two_level else (self.group, None)
+
+    def rs_layout(self, names: tuple[str, ...],
+                  chunks: Optional[int] = None) -> coll.WireLayout:
+        """Wire layout of the gradient reduce-scatter rows of `names`, each
+        tensor's full size split into `chunks` chunks (default the FSDP
+        size: ``n_local`` a chunk; the inner level of a two-level
+        reduce-scatter splits into D)."""
         gcfg = self.cfg.gcfg()
+        mult = self.ms.fsdp_size // (chunks or self.ms.fsdp_size)
         return coll.WireLayout(tuple(
-            coll.WireSegment(self.specs[n].n_local(self.ms),
+            coll.WireSegment(self.specs[n].n_local(self.ms) * mult,
                              gcfg if self._is_grad_quantized(self.specs[n]) else None,
                              self.cfg.grad_wire_dtype)
             for n in names))
@@ -494,11 +586,11 @@ class QSDPEngine:
             shards = [leaves[k].reshape(-1) for k in names]
             side = self._side_stream(shards[0].device)
             if side is None:
-                return coll.start_gather_coalesced(shards, layout, keys, self.group)
+                return coll.start_gather_coalesced(shards, layout, keys, *self.gather_groups())
             compute = torch.cuda.current_stream(side.device)
             side.wait_stream(compute)
             with torch.cuda.stream(side):
-                wire = coll.start_gather_coalesced(shards, layout, keys, self.group)
+                wire = coll.start_gather_coalesced(shards, layout, keys, *self.gather_groups())
                 ready = torch.cuda.Event()
                 ready.record(side)
             for x in shards:
@@ -526,11 +618,13 @@ class QSDPEngine:
 
     def _rowquant_tiling_ok(self, spec: ParamSpec, cfg: QuantConfig) -> bool:
         """Do `cfg`'s buckets tile this weight's rows exactly?  2-D shape, N
-        a multiple of the bucket and FSDP shards of whole buckets."""
+        a multiple of the bucket and FSDP shards of whole buckets; never
+        under ``hierarchical`` (as in the reference)."""
         shape = spec.tp_local_shape(self.ms.model_size)
         n = spec.n_logical_local(self.ms.model_size)
         p = self.ms.fsdp_size
         return (cfg.bucket_size % cfg.codes_per_byte == 0
+                and not self.cfg.hierarchical
                 and len(shape) == 2
                 and shape[1] % cfg.bucket_size == 0
                 and n % p == 0
@@ -646,30 +740,39 @@ def layer_gather_launches(engine: QSDPEngine, names) -> int:
     """Analytic collective-launch count of ONE gather of the given params:
     3 per quantized tensor (codes, scale, zero) + 1 per full-precision
     tensor when per-tensor, 1 in all when coalesced (the engine's
-    ``coalesce_max_bytes`` policy decides).  The port has no two-level
-    (hierarchical) gathers (ROADMAP A3b), so one level."""
+    ``coalesce_max_bytes`` policy decides).  The two-level exchanges
+    (``hierarchical`` on a pod mesh) double the quantized and coalesced
+    launches (pod, then data); an fp tensor's gather stays flat."""
+    levels = 2 if engine.two_level else 1
     if engine.layer_coalesced(tuple(names)):
-        return 1
-    return sum(3 if engine._is_quantized(engine.specs[n]) else 1 for n in names)
+        return levels
+    return sum(3 * levels if engine._is_quantized(engine.specs[n]) else 1 for n in names)
 
 
 def layer_kernel_launches(engine: QSDPEngine, names, skip=()) -> dict[str, tuple[int, int]]:
-    """K1 and K2 launches at one rank of ONE gather of the params `names`
-    (a layer of a stack, one invocation of a block, or a top-level tensor)
-    and of ONE reduce-scatter of their gradients: ``{"gather": (K1, K2),
-    "reduce": (K1, K2)}``.  K1 encodes each quantized tensor (each
-    gradient-quantized one for the reduce-scatter); K2 decodes each wire
-    buffer that holds one, ``ops.WIRE_MAX_SEGS`` tensors a launch: under
-    coalescing (``layer_gather_launches`` == 1) the params' one buffer, per
-    tensor a buffer each.  The gather's K2 leaves out the tensors whose last
-    name is in `skip` (a rowquant decode reads their codes through K3)."""
+    """K1 and K2 launches at a rank of the engine's mesh of ONE gather of
+    the params `names` (a layer of a stack, one invocation of a block, or a
+    top-level tensor) and of ONE reduce-scatter of their gradients:
+    ``{"gather": (K1, K2), "reduce": (K1, K2)}``.  K1 encodes each quantized
+    tensor once for the gather and, for the reduce-scatter, each
+    gradient-quantized one once a destination chunk (P chunks; under two
+    levels D chunks and then Q).  K2 decodes the P gathered rows of each
+    quantized tensor, and each level's received rows of the gradients:
+    coalesced (``layer_gather_launches`` == 1 a level) a buffer's rows in
+    launches of ``ops.WIRE_MAX_SEGS`` table entries, per tensor a launch
+    each row.  The gather's K2 leaves out the tensors whose last name is in
+    `skip` (a rowquant decode reads their codes through K3).  At (1, 1, 1)
+    under two levels the reduce-scatter counts twice the flat one's."""
     names = tuple(names)
     q = [n for n in names if engine._is_quantized(engine.specs[n])]
     g = sum(engine._is_grad_quantized(engine.specs[n]) for n in names)
     decoded = sum(n.split("/")[-1] not in skip for n in q)
     coalesced = engine.layer_coalesced(names)
+    ms = engine.ms
+    levels = (ms.data_size, ms.pod_size) if engine.two_level else (ms.fsdp_size,)
 
-    def k2(n_q: int) -> int:
-        return -(-n_q // ops.WIRE_MAX_SEGS) if coalesced else n_q
+    def k2(entries: int) -> int:
+        return -(-entries // ops.WIRE_MAX_SEGS) if coalesced else entries
 
-    return {"gather": (len(q), k2(decoded)), "reduce": (g, k2(g))}
+    return {"gather": (len(q), k2(decoded * ms.fsdp_size)),
+            "reduce": (g * sum(levels), sum(k2(g * r) for r in levels))}

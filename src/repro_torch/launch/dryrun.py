@@ -19,7 +19,10 @@ state's bytes and the peak of live bytes above them; ``--out`` writes one
 JSON record per pair per line (the format ``experiments.roofline_report``
 reads).  The mesh is ``1x1`` (one chip): the reference's production meshes
 (``--multi-pod``, ``--both-meshes``) wait for a dry run over ranks (ROADMAP
-A12e), its two-level gathers (``--hierarchical``) for A3b.
+A12e).  ``--hierarchical`` sets ``QSDPConfig.hierarchical`` and reports it,
+as the reference's does; on the ``1x1`` mesh, which has no "pod" axis, it
+changes no exchange (the rowquant decode's tiling is off under it, as
+there).
 
 A train step runs ``global_batch`` one-row microbatches at one rank (the
 reference's ``n_micro = global_batch // fsdp_size``).  The dry run counts
@@ -231,7 +234,7 @@ def run_one(arch: str, shape_name: str, qsdp: QSDPConfig | None = None,
         memory=dict(temp=temp, args=args_b, out=counts["out_bytes"]),
         qsdp=dict(w=qsdp.weight_bits if qsdp.quantize_weights else "fp32",
                   g=qsdp.grad_bits if qsdp.quantize_grads else "bf16",
-                  hierarchical=False),
+                  hierarchical=qsdp.hierarchical),
         flops_by_dtype=counts["flops_by_dtype"], launches=counts["launches"],
         peak_live_bytes=counts["peak_live_bytes"], n_micro=step.n_micro,
         host_tensor_bytes=counts["host_tensor_bytes"],
@@ -272,13 +275,12 @@ def main(argv=None):
         if flag:
             sys.exit(f"{item}: the production meshes need a dry run over ranks (ROADMAP "
                      f"A12e); the port's dry run counts the {MESH} mesh")
-    if args.hierarchical:
-        sys.exit("--hierarchical: two-level gathers are not ported yet (ROADMAP A3b)")
     if not args.all and args.arch is None:
         ap.error("give --arch (and --shape) or --all")
 
     qsdp = (QSDPConfig.baseline() if args.baseline_fsdp
-            else QSDPConfig(weight_bits=args.bits, grad_bits=args.bits))
+            else QSDPConfig(weight_bits=args.bits, grad_bits=args.bits,
+                            hierarchical=args.hierarchical))
     archs = configs.ASSIGNED if args.all else [args.arch]
     shapes = list(SHAPES) if args.all or args.shape is None else [args.shape]
 

@@ -167,7 +167,7 @@ def parse_args(argv=None):
             plan.validate_mesh(("data", "model"), (1, 1))
             plan_qsdp = plan.to_qsdp_config(QSDPConfig())
             knobs = plan.serve_knobs()
-        except (OSError, ValueError, NotImplementedError) as e:
+        except (OSError, ValueError) as e:
             ap.error(f"--plan {args.plan}: {e}")
         # the plan's serve section provides the DEFAULTS; flags the user
         # typed still win (argparse re-parse with updated defaults)

@@ -23,9 +23,12 @@ plain versions of the kernels on the CPU.  ``--plan PLAN.json`` (from
 ``repro_torch.tune.autotune``) pins the comm policy instead of the
 individual flags.  Uses the deterministic synthetic
 Markov corpus, so loss curves are reproducible.  What the port does not
-run yet exits with an error naming the ROADMAP item that brings it:
-``--hierarchical`` (A3b), the other families over ranks, either axis
-(A11h).  ``--prefetch`` pipelines each stack's layer gathers (the next
+run yet exits with an error naming the ROADMAP item that brings it: the
+other families over ranks, either axis (A11h).  ``--hierarchical`` sets
+``QSDPConfig.hierarchical``, as the JAX launcher's does: this launcher
+builds ("data", "model") meshes, as that one does, so no exchange changes
+(the two-level exchanges need a "pod" axis: ``launch.mesh.
+init_distributed`` and ``train.step.build_train_step``).  ``--prefetch`` pipelines each stack's layer gathers (the next
 layer's encode and all-gather run while this layer computes, on a side
 CUDA stream on the card); it requires coalescing, as the JAX launcher's
 does.  The
@@ -54,8 +57,6 @@ from ..train.step import (build_train_step, init_train_state, local_batch,
                           quantize_train_state)
 from .mesh import init_distributed
 
-# flags of the JAX launcher this port does not run yet: (flag, ROADMAP item)
-_NOT_PORTED = (("--hierarchical", "A3b"),)
 # families whose train batch carries inputs beside the tokens and labels
 _MODALITY_INPUTS = {"vlm": "vision_embeds, vision_mask and M-RoPE positions",
                     "audio": "audio_embeds"}
@@ -68,6 +69,7 @@ def build_qsdp(args) -> QSDPConfig:
         return QSDPConfig.baseline()
     return QSDPConfig(weight_bits=args.wbits, grad_bits=args.gbits,
                       bucket_size=args.bucket, min_quant_size=args.min_quant_size,
+                      hierarchical=args.hierarchical,
                       coalesce=args.coalesce, prefetch=args.prefetch,
                       coalesce_max_bytes=args.coalesce_max_bytes)
 
@@ -83,9 +85,6 @@ def validate_args(ap: argparse.ArgumentParser, args) -> None:
         ap.error("--prefetch requires coalescing (the prefetch pipeline "
                  "carries the coalesced u8 wire buffer through the scan); "
                  "drop --no-coalesce")
-    for flag, item in _NOT_PORTED:
-        if getattr(args, flag[2:].replace("-", "_")) not in (None, False):
-            ap.error(f"{flag} is not ported yet (ROADMAP {item})")
     if args.data_par < 1 or args.model_par < 1:
         ap.error("--data-par/--model-par must be >= 1")
     n_ranks = args.data_par * args.model_par
@@ -118,8 +117,8 @@ def validate_args(ap: argparse.ArgumentParser, args) -> None:
                  "(wire-code state) are mutually exclusive")
     args.plan_qsdp = None
     if args.plan:
-        if any([args.baseline, args.coalesce_max_bytes is not None, args.prefetch,
-                not args.coalesce]):
+        if any([args.baseline, args.hierarchical, args.coalesce_max_bytes is not None,
+                args.prefetch, not args.coalesce]):
             ap.error("--plan pins the comm policy; don't combine it with "
                      "--baseline/--hierarchical/--coalesce-max-bytes/--prefetch/"
                      "--no-coalesce")
@@ -128,7 +127,7 @@ def validate_args(ap: argparse.ArgumentParser, args) -> None:
             plan = DeploymentPlan.load(args.plan)
             plan.validate_mesh(("data", "model"), (args.data_par, args.model_par))
             args.plan_qsdp = plan.to_qsdp_config(QSDPConfig())
-        except (OSError, ValueError, NotImplementedError) as e:
+        except (OSError, ValueError) as e:
             ap.error(f"--plan {args.plan}: {e}")
 
 

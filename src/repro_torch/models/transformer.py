@@ -163,17 +163,20 @@ class Model:
     and the QSDP engine that gathers it."""
 
     def __init__(self, cfg: ModelConfig, ms: MeshSpec, qcfg: QSDPConfig, group=None,
-                 model_group=None, model_rank: Optional[int] = None):
+                 model_group=None, model_rank: Optional[int] = None, pod_group=None,
+                 inner_group=None):
         """`group` and `model_group`: the ``torch.distributed`` groups of this
         rank's data (FSDP) and model axes (None: one rank each; `model_rank`:
-        see ``QSDPEngine``).  Above one rank only the dense family runs; the
-        others are held to the JAX package at one rank only (ROADMAP A11h)."""
+        see ``QSDPEngine``); on a pod mesh `pod_group` and `inner_group` the
+        two-level exchanges' (``QSDPEngine``).  Above one rank only the dense
+        family runs; the others are held to the JAX package at one rank only
+        (ROADMAP A11h)."""
         n_ranks = ms.fsdp_size * ms.model_size
         if n_ranks > 1 and cfg.arch_type != "dense":
             raise NotImplementedError(
-                f"{cfg.name}: the {cfg.arch_type} family over {ms.fsdp_size} x "
-                f"{ms.model_size} (data x model) ranks is not ported yet (ROADMAP A11h); the "
-                "dense family runs over ranks")
+                f"{cfg.name}: the {cfg.arch_type} family over "
+                f"{' x '.join(map(str, ms.shape))} ({' x '.join(ms.axes)}) ranks is not ported "
+                "yet (ROADMAP A11h); the dense family runs over ranks")
         self.cfg = cfg
         self.ms = ms
         self.qcfg = qcfg
@@ -196,7 +199,8 @@ class Model:
                                   aux_coef=cfg.moe_aux_coef)
         self.vp = cfg.padded_vocab(ms.model_size)
         self.specs = self._build_specs()
-        self.engine = QSDPEngine(ms, qcfg, self.specs, group, model_group, model_rank)
+        self.engine = QSDPEngine(ms, qcfg, self.specs, group, model_group, model_rank,
+                                 pod_group, inner_group)
         self.compute_dtype = self.engine.compute_dtype
 
     def _build_specs(self) -> dict[str, ParamSpec]:

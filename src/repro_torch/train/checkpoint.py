@@ -12,7 +12,11 @@ On a (P, M) mesh every rank holds its block of each leaf: the save
 gathers the blocks over the data group (axis -2) and then the model group
 (axis -3), and global rank 0 writes the whole state, the file the JAX
 package writes from its (P, M) mesh (manifest ``mesh`` {model_size: M,
-fsdp_size: P}); the load gives each rank its block.
+fsdp_size: P}); the load gives each rank its block.  On a (Q, D, M) pod
+mesh the data group is the flat FSDP group, whose gather lays the blocks
+out in the data-major FSDP order ``d·Q + q`` (a ``collectives.
+OrderedGroup``), so the file is the reference's with fsdp_size Q·D; a
+load takes ``mesh_sizes=(M, Q·D)`` and the rank's FSDP index.
 
 A v2 checkpoint saved on another (model, fsdp) layout is resharded through
 the logical parameter form, as the JAX package's ``load_checkpoint`` does:
@@ -149,7 +153,7 @@ def save_checkpoint(path: str, state: TrainState, meta: Optional[dict[str, Any]]
         # model-rank-0 rank passed that one
         for grp in (group, model_group):
             if grp is not None:
-                dist.barrier(group=grp)
+                dist.barrier(group=coll.process_group(grp))
         return
     os.makedirs(path, exist_ok=True)
     flat, leaves = state_to_flat(state)

@@ -39,7 +39,11 @@ ranks (the reference's ``psum`` over every axis) and the loss averaged over
 them (``pmean``).  As in the reference, a model-replicated leaf (a norm,
 replicated KV) holds its whole gradient on each of the M model ranks, so
 the norm counts it M times (ROADMAP C10: the clip threshold's meaning
-depends on M).  The update runs in place on the state's f32 tensors (the
+depends on M).  On a (Q, D, M) ("pod", "data", "model") mesh the data
+rank is the data-major FSDP index ``d·Q + q`` (the reference's
+``batch_pspec P(("data", "pod"))``), the loss and norm sum over the flat
+FSDP group, and the engine's exchanges take two levels under
+``hierarchical``.  The update runs in place on the state's f32 tensors (the
 reference donates them).
 
 The memory schedule holds one copy of the state and one set of gradients,
@@ -143,7 +147,8 @@ def local_batch(batch: dict, rank: int, p: int) -> dict:
     """Data rank `rank`'s rows of a global batch over `p` data ranks: each
     leaf's batch axis (axis 0, but 1 for M-RoPE's "positions") cut into `p`
     blocks, the rank's kept, as the reference's ``batch_pspec P(fsdp_axes)``
-    shards it (every model rank of a data rank takes the same rows)."""
+    shards it (every model rank of a data rank takes the same rows).  On a
+    pod mesh `rank` is the FSDP index ``d·Q + q`` and `p` is Q·D."""
     out = {}
     for name, x in batch.items():
         ax = 1 if name == "positions" else 0

@@ -200,7 +200,7 @@ def main(argv=None):
             "grad_mode": final_qsdp.grad_mode,
             "min_quant_size": final_qsdp.min_quant_size,
             "meta_wire_dtype": final_qsdp.meta_wire_dtype,
-            "hierarchical": False,
+            "hierarchical": final_qsdp.hierarchical,
             "coalesce": final_qsdp.coalesce,
             "prefetch": final_qsdp.prefetch,
             "coalesce_max_bytes": final_qsdp.coalesce_max_bytes,

@@ -16,11 +16,12 @@ of ``buf = P * nbytes`` bytes.  Equating the two gives the crossover
 
     buf* = (L_pt - L_co) * t_launch * ser_bw
 
-below which coalescing wins.  At one rank (the only mesh the port runs)
-the wire term is 0 (a gather receives P - 1 = 0 shards), and the other two
-are what the card spends on a layer's gather: host dispatch per launch
-against passes over the coalesced buffer.  The port has no two-level
-(hierarchical) gathers, so one level.
+below which coalescing wins.  At one rank (the only mesh the autotuner
+tunes) the wire term is 0 (a gather receives P - 1 = 0 shards), and the
+other two are what the card spends on a layer's gather: host dispatch per
+launch against passes over the coalesced buffer.  The two-level exchanges
+(``hierarchical`` on a "pod" mesh) launch each level: L_co = 2 and 3 a
+level a quantized tensor.
 """
 from __future__ import annotations
 
@@ -95,7 +96,7 @@ class GatherCost:
 
 
 def _levels(engine: QSDPEngine) -> int:
-    return 1
+    return 2 if engine.cfg.hierarchical and engine.ms.multi_pod else 1
 
 
 def _per_tensor_launches(engine: QSDPEngine, names: list[str]) -> int:
@@ -162,18 +163,22 @@ def predict_hlo_gather_counts(engine: QSDPEngine, names: list[str],
     """All-gather launches a compiled step shows for ONE gather of `names`
     (the reference's conformance count against its HLO analyzer): only
     collectives over more than one rank count, so at one rank every
-    gather is invisible and this is 0.  `coalesced` forces the policy;
-    None uses ``engine.layer_coalesced``."""
+    gather is invisible and this is 0; under two levels each level of more
+    than one rank counts.  `coalesced` forces the policy; None uses
+    ``engine.layer_coalesced``."""
     ms = engine.ms
     if coalesced is None:
         coalesced = engine.layer_coalesced(tuple(names))
-    visible = [sz for sz in [ms.fsdp_size] if sz > 1]
+    hier = engine.cfg.hierarchical and ms.multi_pod
+    levels = [ms.pod_size, ms.data_size] if hier else [ms.fsdp_size]
+    visible = [sz for sz in levels if sz > 1]
     if coalesced:
         return len(visible)
     total = 0
     for n in names:
         if engine._is_quantized(engine.specs[n]):
-            total += 3 * (1 if ms.fsdp_size > 1 else 0)
+            # 3 per visible level hierarchically, else 3 over the joint axis
+            total += 3 * (len(visible) if hier else (1 if ms.fsdp_size > 1 else 0))
         else:
             # fp payloads ride ONE all-gather over the joint FSDP axes
             total += 1 if ms.fsdp_size > 1 else 0

@@ -9,9 +9,9 @@ per-layer-group decisions that justify it, and the cost-model and
 measurement evidence.  ``launch/train.py --plan`` and ``launch/serve.py
 --plan`` consume it instead of a dozen flags.
 
-The port's ``QSDPConfig`` has no ``hierarchical`` field: a plan that sets
-it true is refused (ROADMAP A3b), a plan that sets it false drives the
-port as it is.  ``prefetch`` is the port's field as the reference's.
+``hierarchical`` and ``prefetch`` are the port's fields as the
+reference's (a plan tuned at one rank sets ``hierarchical`` to change no
+exchange: it needs a "pod" axis).
 """
 from __future__ import annotations
 
@@ -32,9 +32,6 @@ _QSDP_FIELDS = (
     "meta_wire_dtype", "hierarchical", "coalesce", "prefetch",
     "coalesce_max_bytes",
 )
-# fields of the reference's QSDPConfig that the port's lacks: a plan may
-# set them false, and true is refused with the ROADMAP item that ports them
-_NOT_PORTED = {"hierarchical": ("two-level (pod) gathers", "A3b")}
 
 _SERVE_FIELDS = (
     "slots", "prefill_chunk", "prefill_buckets", "prefill_interleave",
@@ -89,13 +86,7 @@ class DeploymentPlan:
         bad = set(self.qsdp) - set(_QSDP_FIELDS)
         if bad:
             raise ValueError(f"plan qsdp section has unknown fields: {sorted(bad)}")
-        for field, (what, item) in _NOT_PORTED.items():
-            if self.qsdp.get(field):
-                raise NotImplementedError(
-                    f"plan qsdp section sets {field}: true, and {what} is not ported "
-                    f"yet (ROADMAP {item})")
-        return dataclasses.replace(base, **{k: v for k, v in self.qsdp.items()
-                                            if k not in _NOT_PORTED})
+        return dataclasses.replace(base, **self.qsdp)
 
     def serve_knobs(self) -> dict:
         bad = set(self.serve) - set(_SERVE_FIELDS)

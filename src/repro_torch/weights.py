@@ -7,7 +7,8 @@ A whole train state travels in the checkpoint's flat form (npz keys and
 manifest entries), so both packages can start a step from the same state.
 On a (P, M) mesh the JAX package's arrays are the whole ``(stack?, MODEL,
 FSDP, n_local)`` leaves, and each rank takes its block: row `model_rank` of
-the model axis (-3), column `rank` of the FSDP axis (-2).
+the model axis (-3), column `rank` of the FSDP axis (-2), `rank` the FSDP
+index (data-major on a pod mesh, ``d·Q + q``: the engine's ``rank``).
 """
 from __future__ import annotations
 

@@ -9,9 +9,12 @@ ranks that meet through a ``FileStore`` in the test's temporary directory
 below on one intra-op thread and writes what it returns to
 ``rank{r}.npz``.  A rank function of the (P, 1) mesh takes ``(group, rank,
 p, workdir)``; one whose name starts with ``tp_`` takes ``(groups, (d, m),
-(P, M), workdir)``, its data and model groups and its place on the mesh.
-Every wait has a deadline; a rank that fails or outlives it fails the test
-with the ranks' stderr.
+(P, M), workdir)``, its data and model groups and its place on the mesh;
+one whose name starts with ``pod_`` runs on a (Q, D, M) ("pod", "data",
+"model") mesh of Q·D·M ranks and takes ``((fsdp_group, model_group,
+pod_group, inner_group), (q, d, m), (Q, D, M), workdir)``.  Every wait has
+a deadline; a rank that fails or outlives it fails the test with the
+ranks' stderr.
 
 The JAX package's side runs in a process of its own as well
 (``_torch_dist_jax.py``, :func:`start_reference`), with XLA's host device
@@ -68,23 +71,27 @@ def _wait(procs, logs, deadline, what):
         raise AssertionError(f"{failed}\n{tails}")
 
 
-def run_ranks(fn: str, p: int, workdir, timeout: float = 240.0, m: int = 1) -> list[dict]:
+def run_ranks(fn: str, p: int, workdir, timeout: float = 240.0, m: int = 1,
+              q: int = None) -> list[dict]:
     """Run rank function `fn` of this module as ranks 0..P·M-1 of the gloo
     groups of a (P, M) mesh, each in its own interpreter; returns each
-    rank's results, by global rank ``d·M + m``."""
+    rank's results, by global rank ``d·M + m``.  With `q`, the Q·P·M ranks
+    of the (Q, P, M) pod mesh, by global rank ``q·P·M + d·M + m``."""
     workdir = Path(workdir)
-    tag = f"{fn}_P{p}" + (f"M{m}" if m > 1 else "")
+    tag = f"{fn}_Q{q}D{p}M{m}" if q else f"{fn}_P{p}" + (f"M{m}" if m > 1 else "")
     store = workdir / f"store_{tag}"
     procs, logs = [], []
-    for r in range(p * m):
+    world = p * m * (q or 1)
+    for r in range(world):
         log = workdir / f"{tag}_rank{r}.err"
         logs.append(log)
         with open(log, "w") as err:
             procs.append(subprocess.Popen(
                 [sys.executable, __file__, fn, str(r), str(p), str(m), str(workdir), tag,
-                 str(store)], stdout=subprocess.DEVNULL, stderr=err, env=_env()))
+                 str(store), *([str(q)] if q else [])],
+                stdout=subprocess.DEVNULL, stderr=err, env=_env()))
     _wait(procs, logs, time.time() + timeout, f"{tag} rank")
-    return [dict(np.load(workdir / f"{tag}_rank{r}.npz")) for r in range(p * m)]
+    return [dict(np.load(workdir / f"{tag}_rank{r}.npz")) for r in range(world)]
 
 
 def start_reference(what: str, workdir, ps, devices: int = 4):
@@ -296,8 +303,8 @@ def train_rank(group, rank, p, workdir):
     first = []
     orig = coll.gather_wire
 
-    def capture(buf, grp=None):
-        res = orig(buf, grp)
+    def capture(buf, *groups):
+        res = orig(buf, *groups)
         if not first:
             first.append(_np(res))
         return res
@@ -681,8 +688,8 @@ def tp_train_rank(groups, coords, shape, workdir):
         first, sq = [], {}
         orig_gw, orig_norm = coll.gather_wire, step_mod.global_norm
 
-        def capture(buf, grp=None):
-            res = orig_gw(buf, grp)
+        def capture(buf, *groups):
+            res = orig_gw(buf, *groups)
             if not first:
                 first.append(_np(res))
             return res
@@ -762,14 +769,330 @@ def tp_ckpt_rank(groups, coords, shape, workdir):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the (Q, D, M) mode: the pod axis and the two-level exchanges
+# ---------------------------------------------------------------------------
+
+POD_MESHES = ((2, 2, 1), (2, 2, 2))
+POD_X, POD_CHUNK = 3000, 2500   # a rank's shard; a gradient's chunk at Q·D ranks
+POD_KEY, POD_LAYER_KEY = 7, 5   # as the (P,) mode's KEY and LAYER_KEY
+# the train runs: mesh, hierarchical, prefetch (F flat, H two-level, HP
+# two-level under the prefetch pipeline); the checkpoint is H's state
+POD_TRAIN = {"F": ((2, 2, 1), False, False), "H": ((2, 2, 1), True, False),
+             "HP": ((2, 2, 2), True, True)}
+POD_CKPT = "H"
+
+
+def pod_key(shape) -> str:
+    return "x".join(map(str, shape))
+
+
+def pod_layouts(shape):
+    """One gpt-1.3b smoke layer on the (Q, D, M) mesh under the default
+    policy, from the tp-local specs of M model ranks: (names, the gather
+    layout, the flat reduce-scatter layout (n_local a chunk; the pod level's
+    too), the inner level's (D chunks: n_local·Q))."""
+    from repro_torch.core import collectives as coll
+    from repro_torch.core.qsdp import MeshSpec
+    q, d, m = shape
+    eng = tp_model(ARCH, 1, m).engine
+    names = tuple(sorted(n for n in eng.specs if n.startswith("layers/")))
+    ms = MeshSpec(("pod", "data", "model"), shape)
+    c = eng.cfg
+
+    def lay(grad, mult=1):
+        return coll.WireLayout(tuple(
+            coll.WireSegment(eng.specs[n].n_local(ms) * mult,
+                             (c.gcfg() if eng._is_grad_quantized(eng.specs[n]) else None)
+                             if grad else (c.wcfg() if eng._is_quantized(eng.specs[n])
+                                           else None),
+                             c.grad_wire_dtype if grad else c.weight_wire_dtype)
+            for n in names))
+    return names, lay(False), lay(True), lay(True, q)
+
+
+def pod_collective_inputs(meshes=POD_MESHES, seed=0) -> dict:
+    """Per (Q, D, M) mesh, row r global rank r's: x (N, POD_X) shards, g (N,
+    Q·D·POD_CHUNK) full gradients, and the smoke layer's shards and full
+    gradients (N = Q·D·M)."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for shape in meshes:
+        q, d, m = shape
+        n, pre = q * d * m, pod_key(shape) + "/"
+        out[pre + "x"] = (rng.standard_normal((n, POD_X)) * 0.02).astype(np.float32)
+        out[pre + "g"] = (rng.standard_normal((n, q * d * POD_CHUNK)) * 1e-3).astype(np.float32)
+        _, lay, rs, _ = pod_layouts(shape)
+        for i, (sw, sg) in enumerate(zip(lay.segments, rs.segments)):
+            out[f"{pre}layer_x{i}"] = (rng.standard_normal((n, sw.n)) * 0.02).astype(np.float32)
+            out[f"{pre}layer_g{i}"] = (rng.standard_normal((n, q * d * sg.n)) * 1e-3).astype(
+                np.float32)
+    return out
+
+
+def _capture(obj, attr, store):
+    """Wrap obj.attr so each call's result is appended to `store`;
+    returns the original, to set back."""
+    orig = getattr(obj, attr)
+
+    def f(*a, **k):
+        res = orig(*a, **k)
+        store.append(res)
+        return res
+    setattr(obj, attr, f)
+    return orig
+
+
+def _comm():
+    from repro_torch.core import collectives as coll
+    return {f"comm/{op}": np.array([coll.COMM[op], coll.COMM_BYTES[op]])
+            for op in coll.COMM_OPS}
+
+
+def pod_collectives_rank(groups, coords, shape, workdir):
+    """``_torch_dist_jax.pod_collectives`` on this rank's inputs: the flat
+    forms over the joint (data, pod) group; the per-tensor two-level gather
+    and reduce-scatter with what each level delivered; the smoke layer's
+    coalesced gathers and reduce-scatters, flat and two-level, the latter
+    also step by step (the inner rows, the inner sums, the pod rows); each
+    two-level call's wire traffic by op (``hier_*/comm/...``)."""
+    import torch
+    from repro_torch.core import collectives as coll
+    from repro_torch.core import prng
+    from repro_torch.core.quant import QuantConfig
+
+    group, _, pod_group, inner_group = groups
+    q, d, m = coords
+    n_q, n_d, n_m = shape
+    r = (q * n_d + d) * n_m + m
+    z = np.load(Path(workdir) / "inputs.npz")
+    pre = pod_key(shape) + "/"
+    x = torch.from_numpy(z[pre + "x"][r].copy())
+    g = torch.from_numpy(z[pre + "g"][r].copy())
+    key = prng.PRNGKey(POD_KEY)
+    w8, g8 = QuantConfig(bits=8, mode="shift"), QuantConfig(bits=8, mode="stochastic")
+    out = {"fsdp_index": np.array(coll.fsdp_index(group))}
+    out["flat/fp_gather"] = _np(coll.all_gather_fp(x, group))
+    out["flat/q_gather_w8"] = _np(coll.all_gather_quantized(x, w8, key, group, torch.float32))
+    out["flat/q_rs_g8"] = _np(coll.reduce_scatter_quantized(g, g8, key, group))
+    out["flat/fp_rs_bfloat16"] = _np(coll.reduce_scatter_fp(g, group, torch.bfloat16))
+
+    got = []
+    orig = _capture(coll, "_gather", got)
+    coll.reset_comm()
+    try:
+        out["hier/q_gather_w8"] = _np(coll.all_gather_hierarchical(
+            x, w8, key, pod_group, inner_group, torch.float32))
+    finally:
+        coll._gather = orig
+    out.update({f"hier_gather/{k}": v for k, v in _comm().items()})
+    for lvl, part, t in zip(("pod", "pod", "pod", "inner", "inner", "inner"),
+                            ("codes", "scale", "zero") * 2, got):
+        out[f"hier/gather_{lvl}_{part}"] = _np(t)
+    rows, sums = [], []
+    orig = _capture(coll, "_all_to_all_rows", rows)
+    orig_rs = _capture(coll, "reduce_scatter_quantized", sums)
+    coll.reset_comm()
+    try:
+        out["hier/q_rs_g8"] = _np(coll.reduce_scatter_hierarchical(g, g8, key, pod_group,
+                                                                   inner_group))
+    finally:
+        coll._all_to_all_rows, coll.reduce_scatter_quantized = orig, orig_rs
+    out.update({f"hier_rs/{k}": v for k, v in _comm().items()})
+    for lvl, part, t in zip(("inner", "inner", "inner", "pod", "pod", "pod"),
+                            ("codes", "scale", "zero") * 2, rows):
+        out[f"hier/rs_{lvl}_{part}"] = _np(t)
+    out["hier/rs_inner_sum"] = _np(sums[0])
+
+    names, lay, rs, rs_inner = pod_layouts(shape)
+    out["layer_segments"] = np.array([[s.n, s.cfg is not None] for s in lay.segments])
+    out["layer_rs_segments"] = np.array([[s.n, s.cfg is not None] for s in rs.segments])
+    keys = [None if s.cfg is None else prng.fold_in(prng.PRNGKey(POD_LAYER_KEY), i)
+            for i, s in enumerate(lay.segments)]
+    rkeys = [None if s.cfg is None else prng.fold_in(prng.PRNGKey(POD_LAYER_KEY), i)
+             for i, s in enumerate(rs.segments)]
+    xs = [torch.from_numpy(z[f"{pre}layer_x{i}"][r].copy()) for i in range(len(names))]
+    gs = [torch.from_numpy(z[f"{pre}layer_g{i}"][r].copy()) for i in range(len(names))]
+    out_dts = [torch.bfloat16 if s.cfg is not None else torch.float32 for s in lay.segments]
+    buf = coll.encode_wire(xs, lay, keys)
+    out["layer/flat_gbuf"] = _np(coll.gather_wire(buf, group))
+    out["layer/pod_gbuf"] = _np(coll.gather_wire(buf, pod_group))
+    coll.reset_comm()
+    out["layer/hier_gbuf"] = _np(coll.gather_wire(buf, inner_group, pod_group))
+    out.update({f"hier_layer_gather/{k}": v for k, v in _comm().items()})
+    for i, v in enumerate(coll.all_gather_coalesced(xs, lay, keys, out_dts, inner_group,
+                                                    pod_group)):
+        out[f"layer/hier_gather{i}"] = _np(v)
+    for i, v in enumerate(coll.reduce_scatter_coalesced(gs, rs, rkeys, group)):
+        out[f"layer/flat_rs{i}"] = _np(v)
+    coll.reset_comm()
+    for i, v in enumerate(coll.reduce_scatter_coalesced_hierarchical(
+            gs, rs_inner, rs, rkeys, pod_group, inner_group)):
+        out[f"layer/hier_rs{i}"] = _np(v)
+    out.update({f"hier_layer_rs/{k}": v for k, v in _comm().items()})
+    # the two levels step by step, as reduce_scatter_coalesced_hierarchical
+    # runs them
+    halves = [None if k is None else prng.split(k) for k in rkeys]
+    inner_rows = coll._all_to_all_rows(
+        coll.encode_rs_rows(gs, rs_inner, [h and h[0] for h in halves], n_d), inner_group)
+    part = coll.decode_rs_rows(inner_rows, rs_inner)
+    pod_rows = coll._all_to_all_rows(
+        coll.encode_rs_rows(part, rs, [h and h[1] for h in halves], n_q), pod_group)
+    out["layer/inner_rows"] = _np(inner_rows)
+    out["layer/pod_rows"] = _np(pod_rows)
+    for i, v in enumerate(part):
+        out[f"layer/inner_sum{i}"] = _np(v)
+    return out
+
+
+def pod_train_inputs(seed=0) -> dict:
+    """Per mesh of POD_TRAIN: the initial state S0 (the port's init, as whole
+    (stack?, M, Q·D, n_local) leaves, the specs of M model ranks) and a
+    global batch."""
+    import torch
+    from repro_torch.core.qsdp import MeshSpec, init_param
+    rng = np.random.default_rng(seed)
+    out = {"meta": np.array(json.dumps(dict(
+        lr=LR, steps=STEPS, n_micro=N_MICRO, compute_dtype=COMPUTE_DTYPE,
+        runs={t: [list(s), h, pf] for t, (s, h, pf) in POD_TRAIN.items()}, ckpt=POD_CKPT)))}
+    for shape in sorted({s for s, _, _ in POD_TRAIN.values()}):
+        pre = pod_key(shape) + "/"
+        ms = MeshSpec(("pod", "data", "model"), shape)
+        gen = torch.Generator().manual_seed(seed)
+        for n, spec in sorted(tp_model(ARCH, 1, shape[2]).specs.items()):
+            out[f"{pre}S0/params/{n}"] = init_param(gen, spec, ms, "cpu").numpy()
+        for k in ("tokens", "labels"):
+            out[f"{pre}batch/{k}"] = rng.integers(0, 1024, (B, S)).astype(np.int32)
+    return out
+
+
+def pod_model(shape, groups=(None, None, None, None), hierarchical=False, prefetch=False):
+    from repro_torch import configs
+    from repro_torch.core.qsdp import MeshSpec, QSDPConfig
+    from repro_torch.models.transformer import Model
+    group, model_group, pod_group, inner_group = groups
+    return Model(configs.get_smoke(ARCH), MeshSpec(("pod", "data", "model"), shape),
+                 QSDPConfig(compute_dtype=COMPUTE_DTYPE, hierarchical=hierarchical,
+                            prefetch=prefetch),
+                 group, model_group, None, pod_group, inner_group)
+
+
+def _chip_smoke():
+    import importlib
+    sys.path.insert(0, str(TESTS.parent))
+    return importlib.import_module("chip_smoke")
+
+
+def pod_train_rank(groups, coords, shape, workdir):
+    """The runs of POD_TRAIN at this mesh, step A of ``_torch_dist_jax.
+    pod_train`` (the initial state, the batch, key index 0) on this rank's
+    (FSDP index, model rank) block and its rows of the batch: loss, grad
+    norm, new state, the first gathered buffer, the K1/K2 calls (the plain
+    versions' calls: the wrappers count launches on a device only) and the
+    calls into torch.distributed by op, beside ``chip_smoke.py``'s
+    ``expected_train_launches`` and ``expected_train_comm`` for the rank's
+    model."""
+    import torch
+    from repro_torch.core import collectives as coll
+    from repro_torch.core import prng
+    from repro_torch.kernels import ops
+    from repro_torch.optim import AdamWConfig, cosine_schedule, make_adamw
+    from repro_torch.train.step import TrainState, build_train_step, local_batch
+    from repro_torch.weights import params_from_jax
+
+    z = np.load(Path(workdir) / "inputs.npz")
+    meta = json.loads(str(z["meta"]))
+    cs = _chip_smoke()
+    pre = pod_key(shape) + "/"
+    p = shape[0] * shape[1]
+    out = {}
+    for tag, (s, hier, pf) in meta["runs"].items():
+        if tuple(s) != tuple(shape):
+            continue
+        model = pod_model(shape, groups, hier, pf)
+        rank, m = model.engine.rank, model.engine.model_rank
+        out["fsdp_index"] = np.array(rank)
+        opt = make_adamw(AdamWConfig(lr=LR, schedule=cosine_schedule(LR, 2, STEPS)))
+        params = params_from_jax({n: z[f"{pre}S0/params/{n}"] for n in model.specs}, "cpu",
+                                 model, rank, m)
+        st = TrainState(params=params, opt=opt.init(params))
+        b = {k: torch.from_numpy(z[f"{pre}batch/{k}"]).long() for k in ("tokens", "labels")}
+        step = build_train_step(model, opt, n_micro=N_MICRO[p], device="cpu")
+        first, counts = [], {"quantize_pack": 0, "unpack_dequantize": 0}
+        saved = {"gather_wire": _capture(coll, "gather_wire", first)}
+        for name, kernel in (("quantize_pack", "quantize_pack"),
+                             ("unpack_dequantize_wire", "unpack_dequantize"),
+                             ("unpack_dequantize", "unpack_dequantize")):
+            def counted(*a, _orig=getattr(ops, name), _kernel=kernel, **k):
+                counts[_kernel] += 1
+                return _orig(*a, **k)
+            saved[name] = getattr(ops, name)
+            setattr(ops, name, counted)
+        coll.reset_comm()
+        try:
+            st, mt = step(st, local_batch(b, rank, p), prng.fold_in(prng.PRNGKey(1), 0))
+        finally:
+            coll.gather_wire = saved.pop("gather_wire")
+            for name, f in saved.items():
+                setattr(ops, name, f)
+        want = cs.expected_train_launches(model, N_MICRO[p])
+        out[f"{tag}/launches"] = np.array([counts["quantize_pack"], counts["unpack_dequantize"]])
+        out[f"{tag}/want_launches"] = np.array([want["quantize_pack"],
+                                                want["unpack_dequantize"]])
+        out[f"{tag}/comm"] = np.array([coll.COMM[op] for op in coll.COMM_OPS])
+        out[f"{tag}/want_comm"] = np.array(
+            [cs.expected_train_comm(model, N_MICRO[p])[op] for op in coll.COMM_OPS])
+        out[f"{tag}/first_gbuf"] = _np(first[0])
+        out[f"{tag}/loss"] = _np(mt["loss"])
+        out[f"{tag}/grad_norm"] = _np(mt["grad_norm"])
+        out.update(_flat_out(f"{tag}/flat", st))
+    return out
+
+
+def pod_ckpt_rank(groups, coords, shape, workdir):
+    """The reference's state after run POD_CKPT (from ``reference.npz``),
+    each rank taking its (FSDP index, model rank) block, saved over the
+    flat and the model groups (global rank 0 writes) and loaded back block
+    by block at (model, fsdp) = (M, Q·D)."""
+    from repro_torch.train.checkpoint import load_checkpoint, save_checkpoint, state_to_flat
+    from repro_torch.weights import train_state_from_jax
+
+    group, model_group, _, _ = groups
+    ref = np.load(Path(workdir) / "reference.npz")
+    model = pod_model(shape, groups, hierarchical=True)
+    rank, m = model.engine.rank, model.engine.model_rank
+    pre = f"{POD_CKPT}/flat/"
+    flat = {k[len(pre):]: ref[k] for k in ref.files if k.startswith(pre)}
+    leaves = json.loads(str(ref[f"{POD_CKPT}/leaves"]))
+    st = train_state_from_jax(flat, leaves, "cpu", model, rank, m)
+    path = str(Path(workdir) / "port_ckpt")
+    save_checkpoint(path, st, meta=dict(arch=f"{ARCH}-smoke", steps=1), group=group,
+                    model_group=model_group)
+    back = load_checkpoint(path, "cpu", mesh_sizes=(shape[2], shape[0] * shape[1]), rank=rank,
+                           model_rank=m)
+    a, b = state_to_flat(st)[0], state_to_flat(back)[0]
+    return {"reloaded_equal": np.array(
+        list(a) == list(b) and all(a[k].tobytes() == b[k].tobytes() for k in a))}
+
+
 if __name__ == "__main__":
-    fn, rank, p, m, workdir, tag, store_path = sys.argv[1:]
+    fn, rank, p, m, workdir, tag, store_path, *pod = sys.argv[1:]
     rank, p, m = int(rank), int(p), int(m)
     import torch
     import torch.distributed as dist
     torch.set_num_threads(1)
     from repro_torch.core.qsdp import MeshSpec
     from repro_torch.launch.mesh import init_distributed
+    if pod:
+        q = int(pod[0])
+        group, model_group, coords, _, pod_group, inner_group = init_distributed(
+            "cpu", MeshSpec(("pod", "data", "model"), (q, p, m)),
+            store=dist.FileStore(store_path, q * p * m), rank=rank, world_size=q * p * m)
+        res = globals()[fn]((group, model_group, pod_group, inner_group), coords, (q, p, m),
+                            workdir)
+        np.savez(Path(workdir) / f"{tag}_rank{rank}.npz", **res)
+        dist.destroy_process_group()
+        sys.exit(0)
     group, model_group, (d, mr), _ = init_distributed(
         "cpu", MeshSpec(("data", "model"), (p, m)), store=dist.FileStore(store_path, p * m),
         rank=rank, world_size=p * m)

@@ -6,11 +6,14 @@ before JAX is imported:
     XLA_FLAGS=--xla_force_host_platform_device_count=4 \\
         python tests/_torch_dist_jax.py {collectives|train} WORKDIR P [P ...]
     ... python tests/_torch_dist_jax.py {tp_blocks|tp_train|reshard} WORKDIR PxM [PxM ...]
+    XLA_FLAGS=--xla_force_host_platform_device_count=8 \\
+        python tests/_torch_dist_jax.py {pod_collectives|pod_train} WORKDIR QxDxM [...]
 
 It reads ``WORKDIR/inputs.npz`` (made with numpy by the test) and writes
 ``WORKDIR/reference.npz``: per case an array whose row r is what device r of
 the (P,), (P, 1) or (P, M) mesh returned (device ``d·M + m`` at data rank d
-and model rank m).  Every output is converted with ``np.asarray`` before it
+and model rank m; on a (Q, D, M) ("pod", "data", "model") mesh device
+``q·D·M + d·M + m``).  Every output is converted with ``np.asarray`` before it
 is indexed (JAX 0.9 refuses to index a sharded array eagerly).
 """
 import json
@@ -466,9 +469,222 @@ def reshard(workdir, meshes):
     np.savez(os.path.join(workdir, "reference.npz"), **out)
 
 
+# ---------------------------------------------------------------------------
+# the (Q, D, M) mode: the pod axis and the two-level exchanges
+# ---------------------------------------------------------------------------
+
+POD_AXES = ("pod", "data", "model")
+
+
+def _pod_mesh(shape):
+    q, d, m = shape
+    return Mesh(np.array(jax.devices()[:q * d * m]).reshape(q, d, m), POD_AXES)
+
+
+def _pod_per_device(shape, fn, n_in, in_specs=None):
+    """jit(shard_map(fn)) over the (Q, D, M) mesh whose inputs are per-device
+    rows (row r: device r = q·D·M + d·M + m; unless `in_specs`) and whose
+    outputs (a tuple or dict) are each device's own values, row r of each
+    result."""
+    every = P(POD_AXES)
+
+    def body(*a):
+        a = a if in_specs is not None else tuple(x[0] for x in a)
+        return jax.tree.map(lambda o: o[None], fn(*a))
+    return jax.jit(shard_map(body, mesh=_pod_mesh(shape), in_specs=in_specs or (every,) * n_in,
+                             out_specs=every, check_vma=False))
+
+
+def _pod_layouts(shape):
+    """The smoke layer's (names, gather layout, flat reduce-scatter layout
+    (the pod level's too), inner level's) on the pod mesh, as the engine's
+    ``_LayerStatic`` builds them (``rs_layout(chunk_div)`` asks shard_map
+    for the FSDP size, so they are built here from its fields)."""
+    from repro import configs
+    from repro.core.qsdp import MeshSpec, QSDPConfig
+    from repro.models.transformer import Model
+    q = shape[0]
+    eng = Model(configs.get_smoke("gpt-1.3b"), MeshSpec(POD_AXES, shape), QSDPConfig()).engine
+    names = tuple(sorted(n for n in eng.specs if n.startswith("layers/")))
+    st = eng._layer_static(names)
+
+    def rs(mult):
+        return coll.WireLayout(tuple(
+            coll.WireSegment(n * mult, st.gcfg if g else None, st.grad_wire_dtype)
+            for n, g in zip(st.n_locals, st.gquant)))
+    return names, st.gather_layout(), rs(1), rs(q)
+
+
+def _a2a_rows(gs, axes, layout, keys):
+    """The (p, layout.nbytes) rows a device receives in
+    ``reduce_scatter_coalesced`` over `axes` (its body up to the
+    all_to_all)."""
+    from repro.core.quant import fp_pack, wire_pack
+    p = coll._axis_size(axes)
+    rows = []
+    for g, seg, key in zip(gs, layout.segments, keys):
+        chunks = g.reshape(p, seg.n)
+        if seg.cfg is None:
+            rows.append(jax.vmap(lambda c, seg=seg: fp_pack(c, seg.fp_dtype))(chunks))
+        else:
+            qs = jax.vmap(lambda c, k, seg=seg: quantize(c, seg.cfg, k))(
+                chunks, jax.random.split(key, p))
+            rows.append(jax.vmap(wire_pack)(qs))
+    return jax.lax.all_to_all(jnp.concatenate(rows, axis=1), axes, 0, 0, tiled=True)
+
+
+def _q_rows(g, axes, cfg, key):
+    """What a device receives in ``reduce_scatter_quantized`` over `axes`:
+    the codes, scale and zero rows."""
+    p = coll._axis_size(axes)
+    q = jax.vmap(lambda c, k: quantize(c, cfg, k))(g.reshape(p, -1), jax.random.split(key, p))
+    return tuple(jax.lax.all_to_all(t, axes, 0, 0, tiled=True)
+                 for t in (q.codes, q.scale, q.zero))
+
+
+def pod_collectives(workdir, meshes):
+    """Per (Q, D, M) mesh, every device's row of the inputs, in one program:
+    the flat forms over ("data", "pod"); ``all_gather_hierarchical`` and
+    ``reduce_scatter_hierarchical`` with what each level delivered; the
+    smoke layer's coalesced gathers (flat, the pod level alone, two-level)
+    and reduce-scatters (flat, ``reduce_scatter_coalesced_hierarchical``,
+    and its two levels step by step)."""
+    z = dict(np.load(os.path.join(workdir, "inputs.npz")))
+    key = jax.random.PRNGKey(KEY)
+    w8, g8 = QuantConfig(bits=8, mode="shift"), QuantConfig(bits=8, mode="stochastic")
+    fsdp, inner = ("data", "pod"), ("data",)
+    out = {}
+    for shape in meshes:
+        pre = "x".join(map(str, shape)) + "/"
+        names, lay, rs, rs_inner = _pod_layouts(shape)
+        n = len(names)
+        keys = [None if s.cfg is None else jax.random.fold_in(jax.random.PRNGKey(LAYER_KEY), i)
+                for i, s in enumerate(lay.segments)]
+        rkeys = [None if s.cfg is None else jax.random.fold_in(jax.random.PRNGKey(LAYER_KEY), i)
+                 for i, s in enumerate(rs.segments)]
+        out_dts = [jnp.bfloat16 if s.cfg is not None else jnp.float32 for s in lay.segments]
+        out[pre + "layer_segments"] = np.array([[s.n, s.cfg is not None] for s in lay.segments])
+        out[pre + "layer_rs_segments"] = np.array([[s.n, s.cfg is not None]
+                                                   for s in rs.segments])
+        def prog(x, g, *layer):
+            xs, gs = layer[:n], layer[n:]
+            res = {}
+            res["flat/fp_gather"] = coll.all_gather_fp(x, fsdp)
+            res["flat/q_gather_w8"] = coll.all_gather_quantized(x, fsdp, w8, key,
+                                                                out_dtype=jnp.float32)
+            res["flat/q_rs_g8"] = coll.reduce_scatter_quantized(g, fsdp, g8, key)
+            res["flat/fp_rs_bfloat16"] = coll.reduce_scatter_fp(g, fsdp, jnp.bfloat16)
+            res["hier/q_gather_w8"] = coll.all_gather_hierarchical(
+                x, "pod", inner, w8, key, out_dtype=jnp.float32)
+            qx = quantize(x, w8, key)
+            parts = (qx.codes, qx.scale, qx.zero)
+            for lvl, axes in (("pod", "pod"), ("inner", inner)):
+                parts = tuple(jax.lax.all_gather(t, axes, tiled=True) for t in parts)
+                for part, t in zip(("codes", "scale", "zero"), parts):
+                    res[f"hier/gather_{lvl}_{part}"] = t
+            res["hier/q_rs_g8"] = coll.reduce_scatter_hierarchical(g, "pod", inner, g8, key)
+            k1, k2 = jax.random.split(key)
+            part_sum = coll.reduce_scatter_quantized(g, inner, g8, k1)
+            res["hier/rs_inner_sum"] = part_sum
+            for lvl, axes, v, k in (("inner", inner, g, k1), ("pod", ("pod",), part_sum, k2)):
+                for part, t in zip(("codes", "scale", "zero"), _q_rows(v, axes, g8, k)):
+                    res[f"hier/rs_{lvl}_{part}"] = t
+            buf = coll.encode_wire(xs, lay, keys)
+            res["layer/flat_gbuf"] = coll.gather_wire(buf, fsdp)
+            res["layer/pod_gbuf"] = coll.gather_wire(buf, ("pod",))
+            res["layer/hier_gbuf"] = coll.gather_wire(buf, fsdp, pod_axis="pod")
+            for i, v in enumerate(coll.all_gather_coalesced(xs, fsdp, lay, keys, out_dts,
+                                                            pod_axis="pod")):
+                res[f"layer/hier_gather{i}"] = v.astype(jnp.float32)
+            for i, v in enumerate(coll.reduce_scatter_coalesced(gs, fsdp, rs, rkeys)):
+                res[f"layer/flat_rs{i}"] = v
+            for i, v in enumerate(coll.reduce_scatter_coalesced_hierarchical(
+                    gs, "pod", inner, rs_inner, rs, rkeys)):
+                res[f"layer/hier_rs{i}"] = v
+            k1s = [None if k is None else jax.random.split(k)[0] for k in rkeys]
+            k2s = [None if k is None else jax.random.split(k)[1] for k in rkeys]
+            inner_rows = _a2a_rows(gs, inner, rs_inner, k1s)
+            sums = [jnp.sum(v, axis=0) for v in coll._decode_segments(inner_rows, rs_inner)]
+            res["layer/inner_rows"] = inner_rows
+            res["layer/pod_rows"] = _a2a_rows(sums, ("pod",), rs, k2s)
+            for i, v in enumerate(sums):
+                res[f"layer/inner_sum{i}"] = v
+            return res
+
+        args = [z[pre + "x"], z[pre + "g"]] + [z[f"{pre}layer_x{i}"] for i in range(n)] + \
+            [z[f"{pre}layer_g{i}"] for i in range(n)]
+        for k, v in _pod_per_device(shape, prog, len(args))(*args).items():
+            out[pre + k] = np.asarray(v)
+    np.savez(os.path.join(workdir, "reference.npz"), **out)
+
+
+def pod_train(workdir, meshes):
+    """The runs of ``meta["runs"]`` (tag: mesh, hierarchical, prefetch) at
+    the meshes given: the smoke config's step on the (Q, D, M) mesh with
+    ``batch_pspec P(("data", "pod"))`` from the test's initial state and
+    batch, key index 0; the first gathered buffer (the embedding's, two
+    levels under hierarchical) by device; the state after run
+    ``meta["ckpt"]`` saved as a v2 checkpoint and kept in its flat form."""
+    from repro import configs
+    from repro.core.qsdp import MeshSpec, QSDPConfig, _stable_hash
+    from repro.models.transformer import Model
+    from repro.optim import AdamWConfig, cosine_schedule, make_adamw
+    from repro.train.checkpoint import _flatten, save_checkpoint
+    from repro.train.step import TrainState, make_jitted_train_step, state_pspecs
+
+    z = dict(np.load(os.path.join(workdir, "inputs.npz")))
+    meta = json.loads(str(z["meta"]))
+    out = {}
+    for tag, (shape, hier, pf) in meta["runs"].items():
+        shape = tuple(shape)
+        if shape not in meshes:
+            continue
+        pre = "x".join(map(str, shape)) + "/"
+        mesh = _pod_mesh(shape)
+        model = Model(configs.get_smoke("gpt-1.3b"), MeshSpec(POD_AXES, shape),
+                      QSDPConfig(compute_dtype=meta["compute_dtype"], hierarchical=hier,
+                                 prefetch=pf))
+        opt = make_adamw(AdamWConfig(lr=meta["lr"],
+                                     schedule=cosine_schedule(meta["lr"], 2, meta["steps"])))
+        names = sorted(model.specs)
+        params = {n: jnp.asarray(z[f"{pre}S0/params/{n}"]) for n in names}
+        st = TrainState(params=params, opt=opt.init(params))
+        specs = state_pspecs(model)
+        st = jax.device_put(st, jax.tree.map(lambda s: NamedSharding(mesh, s), specs,
+                                             is_leaf=lambda x: isinstance(x, P)))
+        batch = {k: jnp.asarray(z[f"{pre}batch/{k}"]) for k in ("tokens", "labels")}
+        bspec = {k: P(("data", "pod")) for k in ("tokens", "labels")}
+        p = shape[0] * shape[1]
+        step = make_jitted_train_step(model, opt, mesh, n_micro=meta["n_micro"][str(p)],
+                                      batch_pspec=bspec, donate=False)
+        with mesh:
+            new, mt = step(st, batch, jax.random.fold_in(jax.random.PRNGKey(1), 0))
+        out[f"{tag}/loss"] = np.asarray(mt["loss"])
+        out[f"{tag}/grad_norm"] = np.asarray(mt["grad_norm"])
+        flat, leaves = _flatten(new)
+        for k, v in flat.items():
+            out[f"{tag}/flat/{k}"] = np.asarray(v)
+        out[f"{tag}/leaves"] = np.array(json.dumps(leaves))
+        lay = model.engine._layer_static(("embed",)).gather_layout()
+        ekey = jax.random.fold_in(jax.random.fold_in(
+            jax.random.fold_in(jax.random.PRNGKey(1), 0), 0), _stable_hash("embed"))
+        f = _pod_per_device(shape, lambda e, lay=lay, ekey=ekey, hier=hier: (coll.gather_wire(
+            coll.encode_wire([e.reshape(-1)], lay, [ekey]), ("data", "pod"),
+            pod_axis="pod" if hier else None),), 1,
+            in_specs=(P("model", ("data", "pod"), None),))
+        out[f"{tag}/first_gbuf"] = np.asarray(f(params["embed"])[0])
+        if tag == meta["ckpt"]:
+            save_checkpoint(os.path.join(workdir, "ref_ckpt"), new,
+                            meta=dict(arch="gpt-1.3b-smoke", steps=1))
+    np.savez(os.path.join(workdir, "reference.npz"), **out)
+
+
 if __name__ == "__main__":
     what, workdir, *ps = sys.argv[1:]
-    if what.startswith("tp_") or what == "reshard":
+    if what.startswith("pod_"):
+        {"pod_collectives": pod_collectives, "pod_train": pod_train}[what](
+            workdir, [tuple(int(a) for a in s.split("x")) for s in ps])
+    elif what.startswith("tp_") or what == "reshard":
         {"tp_blocks": tp_blocks, "tp_train": tp_train, "reshard": reshard}[what](
             workdir, [tuple(int(a) for a in pm.split("x")) for pm in ps])
     else:

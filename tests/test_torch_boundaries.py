@@ -63,8 +63,9 @@ def test_cpu_setup_when_asked():
 def test_multi_rank_mesh_names_roadmap(capsys):
     """A (1, 2) mesh is accepted: without a model group the engine computes
     the model rank it is given alone, and without either it refuses; a
-    mesh the port does not run (a "pod" axis) names its ROADMAP item, and a
-    (P, 1) mesh needs a process group of P ranks; the train launcher
+    mesh of other axes is refused, and a (P, 1) mesh, or a ("pod", "data",
+    "model") one of Q·D FSDP ranks, needs a process group of that many
+    ranks; the train launcher
     refuses the VLM and audio families, whose batches carry inputs the
     synthetic corpus does not give (they train through
     ``build_train_step``), before it touches a device."""
@@ -73,10 +74,11 @@ def test_multi_rank_mesh_names_roadmap(capsys):
     assert (eng.rank, eng.model_rank, eng.group, eng.model_group) == (0, 1, None, None)
     with pytest.raises(ValueError, match="model group has 1"):
         QSDPEngine(MeshSpec(("data", "model"), (1, 2)), QSDPConfig(), {})
-    with pytest.raises(NotImplementedError, match="ROADMAP A3b"):
-        QSDPEngine(MeshSpec(("pod", "data", "model"), (2, 1, 1)), QSDPConfig(), {})
-    with pytest.raises(ValueError, match="process group has 1"):
-        QSDPEngine(MeshSpec(("data", "model"), (2, 1)), QSDPConfig(), {})
+    with pytest.raises(ValueError, match="the port runs meshes with axes"):
+        QSDPEngine(MeshSpec(("pod", "model"), (2, 1)), QSDPConfig(), {})
+    for axes, shape in ((("pod", "data", "model"), (2, 1, 1)), (("data", "model"), (2, 1))):
+        with pytest.raises(ValueError, match="process group has 1"):
+            QSDPEngine(MeshSpec(axes, shape), QSDPConfig(), {})
     for arch, inputs in (("qwen2-vl-72b", "vision_embeds"), ("seamless-m4t-large-v2",
                                                               "audio_embeds")):
         with pytest.raises(SystemExit):
@@ -109,14 +111,16 @@ def test_train_entry_points_raise_without_cuda(monkeypatch):
 
 @pytest.mark.parametrize("flags,refusal", [
     (["--arch", "olmoe-1b-7b", "--smoke", "--model-par", "2"], "ROADMAP A11h"),
-    (["--hierarchical"], "ROADMAP A3b"), (["--prefetch"], None), (["--plan", "{prefetch}"], None),
+    (["--hierarchical"], None), (["--prefetch"], None), (["--plan", "{prefetch}"], None),
     (["--prefetch", "--no-coalesce"], "--prefetch requires coalescing")])
 def test_train_launcher_names_roadmap_for_unported_flags(flags, refusal, capsys, tmp_path):
-    """``--plan`` and layer prefetch are ported: ``--prefetch`` and a plan
-    that asks for it set ``QSDPConfig.prefetch``, and ``--prefetch`` without
-    coalescing is refused as the JAX launcher refuses it; a model axis
-    above 1 for a family other than the dense one and the two-level
-    gathers name their ROADMAP items."""
+    """``--plan``, layer prefetch and the two-level exchanges are ported:
+    ``--prefetch`` and a plan that asks for it set ``QSDPConfig.prefetch``,
+    ``--hierarchical`` sets ``QSDPConfig.hierarchical`` (as the JAX
+    launcher's, on a mesh without a "pod" axis it changes no exchange), and
+    ``--prefetch`` without coalescing is refused as the JAX launcher refuses
+    it; a model axis above 1 for a family other than the dense one names
+    its ROADMAP item."""
     from repro_torch.launch import train as launch_train
     from repro_torch.tune.plan import PLAN_VERSION, DeploymentPlan
     plan = str(tmp_path / "prefetch_plan.json")
@@ -125,7 +129,8 @@ def test_train_launcher_names_roadmap_for_unported_flags(flags, refusal, capsys,
                    serve={}).save(plan)
     argv = [f.format(prefetch=plan) for f in flags]
     if refusal is None:
-        assert launch_train.build_qsdp(launch_train.parse_args(argv)).prefetch
+        field = "hierarchical" if flags == ["--hierarchical"] else "prefetch"
+        assert getattr(launch_train.build_qsdp(launch_train.parse_args(argv)), field)
         return
     with pytest.raises(SystemExit):
         launch_train.parse_args(argv)

@@ -3,7 +3,11 @@
 through the gloo groups of the one-rank (data, model) grid bit-equal to
 ``group=None``, its K1/K2 launches and its calls into torch.distributed
 by op equal to the structure's formulas (``expected_train_launches``,
-``expected_train_comm``); (b) the train launcher under torchrun at
+``expected_train_comm``); (g) the same under ``hierarchical`` through the
+four gloo groups of the one-rank (pod, data, model) grid, bit-equal to in
+place, the reduce-scatter's K1/K2 twice the flat step's; (h) the
+two-level wire work of (Q, D) = (2, 2), (2, 4) and (4, 2) emulated ranks,
+byte-equal to the plain versions; (b) the train launcher under torchrun at
 ``--data-par 1 --model-par 1`` against the launcher without it; (c) the
 wire work of P = 2, 4 and 8 emulated ranks and (e) the tp-local wire work
 at (P, M) = (1, 2), (1, 4), (1, 8) and (2, 2), byte-equal with K1 and K2
@@ -45,20 +49,32 @@ def cs(monkeypatch):
 
 def test_chip_smoke_dist_phase_rehearsal(cs, capsys):
     lines = []
-    launches, rows, blocks = cs.dist_phase(torch, lines.append, dev="cpu", profile=False,
-                                   launch_extra=("--smoke", "--batch", "4", "--seq", "32",
-                                                 "--device", "cpu"))
+    launches, rows, blocks, pod_rows = cs.dist_phase(
+        torch, lines.append, dev="cpu", profile=False,
+        launch_extra=("--smoke", "--batch", "4", "--seq", "32", "--device", "cpu"))
     model = Model(configs.get_smoke("gpt-1.3b"), MeshSpec(("data", "model"), (1, 1)),
                   QSDPConfig())
     want = cs.expected_train_launches(model, 2)
-    assert launches["quantize_pack"] == want["quantize_pack"] == 2 * 44
-    assert launches["unpack_dequantize"] == want["unpack_dequantize"]
+    hier = cs.expected_train_launches(Model(
+        configs.get_smoke("gpt-1.3b"), MeshSpec(("pod", "data", "model"), (1, 1, 1)),
+        QSDPConfig(hierarchical=True)), 2)
+    # per microbatch the flat step's 44 K1 (forward 15, the checkpoints'
+    # replay 14, gradients 15); two levels encode the gradients twice
+    assert want["per_micro"] == (15, 14, 15) and hier["per_micro"] == (15, 14, 30)
+    assert launches["quantize_pack"] == want["quantize_pack"] + hier["quantize_pack"] == \
+        2 * 44 + 2 * 59
+    assert launches["unpack_dequantize"] == want["unpack_dequantize"] + \
+        hier["unpack_dequantize"]
     # per microbatch: embed and final norm gathered once, 2 layers twice;
     # their 4 reduce-scatters; then the loss and the norm
     assert cs.expected_train_comm(model, 2) == {"all_gather": 2 * (2 + 4), "all_to_all": 2 * 4,
                                                 "reduce_scatter": 0, "all_reduce": 2}
     text = "\n".join(lines)
     assert "one-rank (data, model) grid of gloo groups bit-equal to group=None" in text
+    assert "through the one-rank (pod, data, model) grid's four gloo groups bit-equal" in text
+    assert [(r["q"], r["d"], r["table"], r["launches"]) for r in pod_rows] == [
+        (2, 2, 28, 1), (2, 4, 56, 1), (4, 2, 56, 1)]
+    assert sum("(the flat data-major buffer)" in line for line in lines) == 3
     assert "bit-equal to the launcher's without torchrun" in text
     # a smoke layer: 7 quantized tensors a row, one K2 launch up to P = 9
     assert [(r["p"], r["table"], r["launches"]) for r in rows] == [(2, 14, 1), (4, 28, 1),

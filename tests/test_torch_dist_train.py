@@ -25,9 +25,11 @@ block) on the same batches (each rank its rows):
     member timestamps are the time of writing); loaded back rank by rank;
   * a gloo group of one rank bit-equal to ``group=None``;
   * a model axis above 1 accepted by the engine and the mesh (the (P, M)
-    grid's tests are ``test_torch_tp_*.py``); the refusals: a "pod" axis
-    and ``--hierarchical`` (A3b), a load on another layout without the
-    model (the reference's ValueError; with it, resharded), serving
+    grid's tests are ``test_torch_tp_*.py``) and a "pod" axis (its grids'
+    are ``test_torch_pod_*.py``), ``--hierarchical`` accepted; the
+    refusals: other mesh axes, a grid that does not fill the world, a load
+    on another layout without the model (the reference's ValueError; with
+    it, resharded), serving
     over ranks, either axis (A10e), the other families over ranks, either
     axis (A11h).
 """
@@ -204,28 +206,38 @@ def test_refusals_name_their_items(tmp_path, capsys, monkeypatch):
 
     assert QSDPEngine(MeshSpec(("data", "model"), (1, 2)), QSDPConfig(), {},
                       model_rank=0).model_rank == 0
-    with pytest.raises(NotImplementedError, match="ROADMAP A3b"):
-        QSDPEngine(MeshSpec(("pod", "data", "model"), (1, 1, 1)), QSDPConfig(), {})
+    # the pod axis runs (its grids: test_torch_pod_*.py); other axes do not
+    assert QSDPEngine(MeshSpec(("pod", "data", "model"), (1, 1, 1)),
+                      QSDPConfig(hierarchical=True), {}).two_level
+    for axes, shape in ((("data",), (2,)), (("data", "pod", "model"), (2, 2, 1)),
+                        (("pod", "data", "model"), (0, 1, 1))):
+        with pytest.raises(ValueError, match="the port runs meshes with axes"):
+            QSDPEngine(MeshSpec(axes, shape), QSDPConfig(), {})
     with pytest.raises(ValueError, match="process group has 1"):
         QSDPEngine(MeshSpec(("data", "model"), (2, 1)), QSDPConfig(), {})
     # the model axis passes the mesh check; the grid must fill the world
     with pytest.raises(ValueError, match="has 8 ranks, the world 4"):
         tmesh.init_distributed("cpu", tmesh.make_small_spec(2, 4), rank=0, world_size=4)
-    for mesh, item in ((tmesh.make_mesh_spec(multi_pod=True), "A3b"),
-                       (MeshSpec(("pod", "data", "model"), (2, 2, 1)), "A3b")):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+    for mesh, n in ((tmesh.make_mesh_spec(multi_pod=True), 512),
+                    (MeshSpec(("pod", "data", "model"), (2, 2, 2)), 8)):
+        with pytest.raises(ValueError, match=f"has {n} ranks, the world 4"):
             tmesh.init_distributed("cpu", mesh, rank=0, world_size=4)
     for arch, family in (("olmoe-1b-7b", "moe"), ("zamba2-7b", "hybrid")):
         for shape in ((2, 1), (1, 2)):
             with pytest.raises(NotImplementedError, match="ROADMAP A11h"):
                 Model(configs.get_smoke(arch), MeshSpec(("data", "model"), shape), QSDPConfig())
+        with pytest.raises(NotImplementedError, match=r"2 x 1 x 1 \(pod x data x model\)"):
+            Model(configs.get_smoke(arch), MeshSpec(("pod", "data", "model"), (2, 1, 1)),
+                  QSDPConfig(hierarchical=True))
     for argv, item in ((["--arch", "olmoe-1b-7b", "--smoke", "--model-par", "2"], "ROADMAP A11h"),
-                       (["--hierarchical"], "ROADMAP A3b"),
                        (["--prefetch", "--no-coalesce"], "--prefetch requires coalescing")):
         with pytest.raises(SystemExit):
             launch_train.parse_args(argv)
         assert item in capsys.readouterr().err
     assert launch_train.parse_args(["--prefetch"]).prefetch
+    # the reference's --hierarchical: QSDPConfig.hierarchical on the
+    # launcher's ("data", "model") mesh, where it changes no exchange
+    assert launch_train.build_qsdp(launch_train.parse_args(["--hierarchical"])).hierarchical
     monkeypatch.setenv("WORLD_SIZE", "2")
     with pytest.raises(SystemExit):
         launch_train.parse_args(["--arch", "olmoe-1b-7b", "--smoke", "--data-par", "2"])

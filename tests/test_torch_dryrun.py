@@ -252,12 +252,19 @@ def test_eight_bit_moments_and_quantized_state_on_meta(cs):
 
 def test_cli_and_refusals(tmp_path, monkeypatch, capsys):
     """``main`` writes one JSON record a line, which the report twin
-    reads; the production meshes name A12e and two-level gathers A3b."""
-    for flags, item in ((["--multi-pod"], "A12e"), (["--both-meshes"], "A12e"),
-                        (["--hierarchical"], "A3b")):
+    reads; the production meshes name A12e; ``--hierarchical`` is set and
+    reported, as the reference's (on the 1x1 mesh it changes no
+    exchange)."""
+    for flags, item in ((["--multi-pod"], "A12e"), (["--both-meshes"], "A12e")):
         with pytest.raises(SystemExit, match=item):
             dryrun.main(["--arch", "gpt-1.3b"] + flags)
     monkeypatch.setattr(configs, "get_config", configs.get_smoke)
+    hier = tmp_path / "h.jsonl"
+    assert dryrun.main(["--arch", "gpt-1.3b", "--shape", "long_500k", "--hierarchical",
+                        "--out", str(hier)]) == 0
+    (rec,) = [json.loads(line) for line in hier.read_text().splitlines()]
+    assert rec["ok"] and rec["qsdp"] == {"w": 8, "g": 8, "hierarchical": True}
+    capsys.readouterr()
     out = tmp_path / "q.jsonl"
     assert dryrun.main(["--arch", "gpt-1.3b", "--shape", "long_500k", "--baseline-fsdp",
                         "--out", str(out)]) == 0

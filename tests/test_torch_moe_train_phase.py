@@ -70,7 +70,9 @@ def test_chip_smoke_moetrain_phase_rehearsal(cs, monkeypatch):
     assert counts["quantize_pack"] == cs.TRAIN_TIMED * want["quantize_pack"] == 3 * (88 + 40)
     assert counts["unpack_dequantize"] == cs.TRAIN_TIMED * want["unpack_dequantize"] \
         == 3 * (16 + 20)
-    assert [t for t, _ in profiled] == ["moetrain by part"]
+    # one profiled step as it is (its breakdown by part was cut for the
+    # card run's time)
+    assert [t for t, _ in profiled] == ["moetrain"]
     text = "\n".join(lines)
     for needle in ("step 0 run twice from the same state and key",
                    "load-balance term per layer", "dropped by capacity per layer",

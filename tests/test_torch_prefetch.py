@@ -297,9 +297,9 @@ def test_meta_marginal_per_layer_under_prefetch(monkeypatch):
     cfg = tconfigs.get_smoke("gpt-125m")
     gathers = {"n": 0}
 
-    def gather_wire(buf, group=None, _orig=coll.gather_wire):
+    def gather_wire(buf, *groups, _orig=coll.gather_wire):
         gathers["n"] += 1
-        return _orig(buf, group)
+        return _orig(buf, *groups)
     monkeypatch.setattr(coll, "gather_wire", gather_wire)
     for pf, per_layer in ((False, 2), (True, 1)):
         qcfg = QSDPConfig(min_quant_size=256, prefetch=pf)

@@ -17,6 +17,6 @@ def test_chip_smoke_ssmtrain_phase_rehearsal_hybrid(cs, monkeypatch):  # noqa: F
     assert counts["quantize_pack"] == 3 * (2 * 68 + 2 * 35)
     assert counts["unpack_dequantize"] == 3 * (2 * 14 + 35)
     # zamba2's cell profiles no step (its by-part profile cut for the
-    # run's time; moetrain and mmtrain still run profile_by_part)
+    # run's time; mmtrain still runs profile_by_part)
     assert tags == [] and cs.SSM_TRAIN_PROFILE["zamba2-7b"] is None
     assert "8-bit moments bit-equal" in text and "1 shared-block invocations" in text

@@ -174,6 +174,53 @@ def test_presets():
     assert h.t_launch_s > 0 and h.ser_bw > 0
 
 
+
+POD_SHAPES = ((2, 2, 2), (2, 2, 1), (1, 2, 1), (2, 1, 1))
+
+
+def _pod_engines(shape, **kw):
+    """The two packages' engines of gpt-1.3b's smoke config on the (Q, D,
+    M) pod mesh.  The port's engine takes the rank's groups above one rank;
+    the cost model reads only its mesh, config and specs, so a one-rank
+    engine of the same model axis is pointed at the pod mesh."""
+    ms = qsdp.MeshSpec(("pod", "data", "model"), shape)
+    eng = Model(configs.get_smoke("gpt-1.3b"), qsdp.MeshSpec(("data", "model"), (1, shape[2])),
+                qsdp.QSDPConfig(**kw), model_rank=0).engine
+    eng.ms, eng.two_level = ms, eng.cfg.hierarchical and ms.multi_pod
+    jeng = JModel(jconfigs.get_smoke("gpt-1.3b"), jqsdp.MeshSpec(("pod", "data", "model"), shape),
+                  jqsdp.QSDPConfig(**kw)).engine
+    return eng, jeng
+
+
+@pytest.mark.parametrize("hierarchical", [False, True])
+@pytest.mark.parametrize("shape", POD_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_pod_mesh_launch_counts_equal_reference(shape, hierarchical):
+    """The launch counts on the pod mesh (the reference's closed forms at
+    (2, 2, 2): two levels coalesced 2, per tensor 3 a quantized tensor a
+    level and 1 an fp one, ``tests/test_tune.py``) and the per-layer costs,
+    each ``==`` the reference's."""
+    names = None
+    cp, jcp = cm.HW_PRESETS["cpu-smoke"], jcm.HW_PRESETS["cpu-smoke"]
+    for coalesce in (False, True):
+        eng, jeng = _pod_engines(shape, coalesce=coalesce, hierarchical=hierarchical)
+        names = names or sorted(n for n in eng.specs if n.startswith("layers/"))
+        assert cm._levels(eng) == jcm._levels(jeng) == (2 if hierarchical else 1)
+        assert qsdp.layer_gather_launches(eng, names) == jqsdp.layer_gather_launches(jeng, names)
+        assert cm.crossover_bytes(eng, names, cp) == jcm.crossover_bytes(jeng, names, jcp)
+        for co in (None, False, True):
+            assert cm.predict_hlo_gather_counts(eng, names, co) == \
+                jcm.predict_hlo_gather_counts(jeng, names, co)
+        for f, jf in ((cm.layer_gather_cost, jcm.layer_gather_cost),
+                      (cm.layer_rs_cost, jcm.layer_rs_cost)):
+            assert dataclasses.asdict(f(eng, names, coalesce)) == \
+                dataclasses.asdict(jf(jeng, names, coalesce))
+        if shape == (2, 2, 2) and hierarchical:
+            n_q = sum(eng._is_quantized(eng.specs[n]) for n in names)
+            assert (n_q, len(names)) == (7, 9)
+            assert cm.predict_hlo_gather_counts(eng, names, True) == 2
+            assert cm.predict_hlo_gather_counts(eng, names, False) == 3 * 7 * 2 + 2
+
+
 def _plans():
     kw = dict(
         version=1, arch="t", mesh_axes=("data", "model"), mesh_shape=(1, 1), hw="cpu-smoke",
@@ -208,19 +255,19 @@ def test_plan_to_qsdp_config_matches_reference_fields():
     ported = {f.name for f in dataclasses.fields(q)}
     assert {k: v for k, v in dataclasses.asdict(jq).items() if k in ported} == \
         dataclasses.asdict(q)
-    assert set(dataclasses.asdict(jq)) - ported >= {"hierarchical"}
-    assert "prefetch" in ported
+    assert set(dataclasses.asdict(jq)) - ported == {"dequant_to_compute"}
+    assert {"hierarchical", "prefetch"} <= ported
     assert plan.serve_knobs() == jp.serve_knobs()
 
 
 @pytest.mark.parametrize("field,value,err,match", [
-    ("hierarchical", True, NotImplementedError, "ROADMAP A3b"),
+    ("hierarchical", True, None, None),
     ("prefetch", True, None, None),
     ("bogus_knob", 1, ValueError, "unknown fields"),
 ])
 def test_plan_refusals(field, value, err, match):
-    """A plan that sets the two-level gathers or an unknown field is
-    refused; one that sets prefetch drives the port's prefetch."""
+    """A plan that sets an unknown field is refused; one that sets the
+    two-level exchanges or prefetch drives the port's."""
     plan, _ = _plans()
     bad = dataclasses.replace(plan, qsdp={**plan.qsdp, field: value})
     if err is None:

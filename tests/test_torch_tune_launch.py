@@ -153,17 +153,19 @@ def _plan_with(tmp_path, **qsdp_over):
 
 @pytest.mark.parametrize("edit,match", [
     (dict(prefetch=True), None),
-    (dict(hierarchical=True), "ROADMAP A3b"),
+    (dict(hierarchical=True), None),
     ("mesh", "tuned for mesh"),
     ("version", "regenerate with repro_torch.tune.autotune"),
 ])
 def test_launchers_refuse_plans(edit, match, tmp_path, capsys):
-    """Both launchers refuse a plan for the two-level gathers, for another
-    mesh or of another version; a plan with prefetch (ported) sets it."""
+    """Both launchers refuse a plan for another mesh or of another version;
+    a plan with prefetch or the two-level exchanges (both ported) sets
+    it."""
     if match is None:
         path = _plan_with(tmp_path, **edit)
         for launcher in (launch_train, launch_serve):
-            assert launcher.parse_args(["--plan", path, "--smoke"]).plan_qsdp.prefetch
+            got = launcher.parse_args(["--plan", path, "--smoke"]).plan_qsdp
+            assert all(getattr(got, k) == v for k, v in edit.items())
         return
     if isinstance(edit, dict):
         path = _plan_with(tmp_path, **edit)
